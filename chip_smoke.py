@@ -9,12 +9,14 @@ Phases (any failure exits non-zero and prints no result line):
 1. device: CUDA must be available; prints the card's name and power limit
    as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    gives them;
-2. build: compiles every kernel of the serving path from the sources in
-   this checkout (``gsc_tpu_torch/csrc/*.cu``, nvcc for sm_90a, into
-   ``gsc_tpu_torch/_build/``) and prints the build seconds;
-3. kernels against their plain versions on the card, f32, at the serving
-   shapes (B, N, F) = (1, 24, 22), (4, 24, 22), (8, 24, 22), the learn-burst
-   shape (100, 24, 22) and one N > 32 case (4, 64, 22), mean and sum
+2. build: compiles both kernels (the GATv2 attention kernel and the
+   substep megakernel) from the sources in this checkout
+   (``gsc_tpu_torch/csrc/*.cu``, one nvcc for each, started together, for
+   sm_90a, into ``gsc_tpu_torch/_build/``) and prints the build seconds;
+3. the attention kernel against its plain version on the card, f32, at
+   the serving shapes (B, N, F) = (1, 24, 22), (4, 24, 22), (8, 24, 22),
+   the training rollout's (64, 24, 22), the learn-burst shape (100, 24, 22)
+   and one N > 32 case (4, 64, 22), mean and sum
    aggregation, seeded inputs with padded nodes and rows without a
    neighbour (which must come out exactly 0); prints, for both
    aggregations, the error against the plain version and each side's
@@ -22,7 +24,8 @@ Phases (any failure exits non-zero and prints no result line):
    flagship's) the kernel's time, the plain version's and the bound;
 4. the slice: ``run_serve`` on Abilene at the flagship widths (GATv2 22
    features x 2 layers x 2 iterations, actor hidden 256, action dim 1728)
-   with ``gnn_impl="pallas"`` on the card, 8 pool steps and actor weights
+   with ``gnn_impl="pallas"`` on the card, a request pool of 8 env steps
+   (each one megakernel launch, checked) and actor weights
    drawn from seed 0, in three bursts: 64 requests at concurrency 4 (the
    reported requests/s and p50/p99), 8 at concurrency 1 (every dispatch in
    bucket 1) and 32 at concurrency 8 (bucket 8).  Each of buckets 1/4/8
@@ -32,13 +35,43 @@ Phases (any failure exits non-zero and prints no result line):
    kernel's launch count over the three bursts must be exactly 3 per
    dispatch and warm-up call (one encoder conv, the tied process conv
    twice);
-5. a JSON line of the kernels (name, route, source, the TPU kernel it
-   replaces, launches on the main path, max abs error, ms, plain ms, bound
-   ms and what bounds it, library ms);
-6. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+5. the substep megakernel against its plain version (the engine's plain
+   substep) on the card and on CPU copies of the same inputs, over the
+   battery of ``gsc_tpu_torch.sim.cases``: the six drop-taxonomy
+   scenarios, the WRR-collision triangle, the saturated-link line,
+   fractional data rates and Abilene with 64 replicas under a seeded
+   non-uniform schedule.  Every integer and boolean leaf of state and
+   metrics must be equal, floats within the tolerance below (each side's
+   distance is printed); two launches on the same inputs must be
+   bit-identical, and a single-substep launch must agree as well;
+6. the seeded Abilene golden trajectory on the kernel path: generated
+   800, processed 658, dropped 133, active 9, drop reasons [0, 0, 0,
+   133], average end-to-end delay 34.75 +- 0.1;
+7. the megakernel's time per interval at B = 1, 64 and 256 replicas
+   (CUDA events with the wrapper, profiler device time of the kernel),
+   the plain engine's time and the bound; at B = 64 also its device time
+   with 0 and 1 admission rounds and with 1 WRR rank level (the default
+   is 3 and 4), which says where an interval's time goes;
+8. the training slice: ``python -m gsc_tpu_torch.cli train --replicas 64
+   --chunk 50 --episodes 2`` through ``cli.run_train`` on Abilene at the
+   flagship widths (the first episode warm-up, the second acting through
+   the actor, each ending in a 200-step learn burst).  Every return, loss
+   and q must be finite, every actor and critic parameter must have moved,
+   every replay shard must hold min(400, mem_limit // 64) transitions, the
+   megakernel must launch once per env step, the attention kernel 3 times
+   per acting rollout step plus 15 times per gradient step (critic loss:
+   target actor, target critic, critic; actor loss: actor, critic; the
+   backward is the dense VJP and launches nothing), and on one sampled
+   batch the gradients of every actor and critic parameter through the
+   kernel's ``autograd.Function`` must equal the dense path's; prints the
+   rollout's env-steps/s and each learn burst's seconds;
+9. a JSON line of the kernels (name, route, source, the TPU kernel it
+   replaces, launches on the training path, max abs error, ms, plain ms,
+   bound ms and what bounds it, library ms);
+10. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
-Tolerances (stated here, used below): the kernel against its plain
-version rtol 1e-5 / atol 1e-5 (f32 in another summation order: the
+Tolerances (stated here, used below): the attention kernel against its
+plain version rtol 1e-5 / atol 1e-5 (f32 in another summation order: the
 unit-normal inputs give logits summed over 22 products, whose ~1e-6
 relative rounding differences exp and the weighted sum carry into up to
 ~1e-5 absolute on outputs of a few units); that this is rounding and not a
@@ -47,7 +80,20 @@ further from a float64 evaluation of the same inputs than F64_RATIO times
 the plain version's distance (floored at F64_FLOOR); served
 answers against unbatched and plain-actor answers rtol 1e-5 / atol 1e-6,
 except in destination rows where a pre-threshold value lies within 1e-4
-of the 0.1 threshold (a last-bit difference may flip that entry).
+of the 0.1 threshold (a last-bit difference may flip that entry).  The
+megakernel's float state rtol 1e-5 / atol 1e-5 against the plain version
+on the card (whose scatter-adds are float atomics and whose cumsum is a
+parallel scan, so it adds in another order) and on the CPU (whose
+whole-slot sums are vectorised in another order than the kernel's slot
+order); its integers exactly.  Training gradients through the kernel
+against the dense path: per parameter tensor, the largest difference
+within 1e-4 of the tensor's largest entry plus 1e-5.  The backward is the
+same dense VJP, evaluated at forward outputs that differ by f32 rounding;
+those differences reach every gradient entry through sums whose terms are
+of the size of the largest entries (actor gradients reach norms of 1e4
+after two episodes), so an entry's error scales with the tensor's scale,
+not with its own value (the first card run: 2.4e-4 on an entry far
+smaller than its tensor's largest, one f32 ulp at 2e3).
 """
 from __future__ import annotations
 
@@ -64,13 +110,27 @@ F64_RATIO, F64_FLOOR = 4.0, 1e-7
 # tensor cores, which is what this f32 CUDA-core kernel can use
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
-SHAPES = [(1, 24, 22), (4, 24, 22), (8, 24, 22), (100, 24, 22), (4, 64, 22)]
-# the largest bucket the main path dispatches: its timings go into the
-# JSON line
-MAIN_SHAPE = (8, 24, 22)
+SHAPES = [(1, 24, 22), (4, 24, 22), (8, 24, 22), (64, 24, 22),
+          (100, 24, 22), (4, 64, 22)]
+# the learn burst's batch, where the training path launches the attention
+# kernel most (15 of every 16 launches): its timings go into the JSON line
+MAIN_SHAPE = (100, 24, 22)
+SUB_RTOL, SUB_ATOL = 1e-5, 1e-5
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+# replicas of the megakernel's timings; the training path runs 64
+SUB_TIMING_BATCHES = (1, 64, 256)
+SUB_MAIN_BATCH = 64
+TRAIN_ARGS = ["--replicas", "64", "--chunk", "50", "--episodes", "2",
+              "--seed", "0"]
+# operations that every flow slot does in every substep, whatever its
+# phase (the phase test and the timer's advance): a lower count, since
+# what else a slot does depends on phases this script does not trace
+OPS_PER_SLOT_SUBSTEP = 2
 # (requests, concurrency) of the serving bursts: concurrency 4 is the
 # measured load; 1 and 8 make the batcher fill buckets 1 and 8
 BURSTS = [(64, 4), (8, 1), (32, 8)]
+# env steps that build each burst's request pool
+POOL_STEPS = 8
 BUCKETS = (1, 4, 8)
 
 
@@ -247,6 +307,312 @@ def check_answers(report, plain_actor, torch, dev):
     return worst, ambiguous
 
 
+def build_kernels(ops):
+    """Build every kernel library at once (one nvcc each, started
+    together); returns the seconds each took."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(op):
+        t0 = time.perf_counter()
+        op.library()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(ops)) as ex:
+        futs = {name: ex.submit(timed, op) for name, op in ops.items()}
+        return {name: f.result() for name, f in futs.items()}
+
+
+def single_substep_check(case, start, torch, dev):
+    """One substep (``substeps=1``) from the start of an interval: the
+    kernel against the plain substep on the card and on the CPU."""
+    from gsc_tpu_torch.ops.substep import substep_megakernel, substep_plain
+    from gsc_tpu_torch.sim import cases
+
+    eng = case.engine
+    b = case.batch
+    z = case.noise(0)
+
+    def inputs(where):
+        st = start.to(where)
+        traffic = case.traffic.to(where)
+        st, cap = eng.begin_interval(st, traffic, case.schedule.to(where),
+                                     case.placement.to(where))
+        noise = None if z is None else z[:, :1].to(where)
+        return st, case.topo.to(where).expand(b), traffic, cap, noise
+
+    got = substep_megakernel.launch(eng, *inputs(dev), substeps=1)
+    worst = 0.0
+    for where in (dev, torch.device("cpu")):
+        want = substep_plain(eng, *inputs(where), substeps=1)
+        worst = max(worst, cases.compare_states(
+            got, want, SUB_RTOL, SUB_ATOL,
+            f"{case.name} single substep vs plain on {where.type}: "))
+    return worst
+
+
+def substep_battery(torch, dev):
+    """Phase 5: the megakernel against its plain version on every case;
+    returns the largest float difference."""
+    from gsc_tpu_torch.sim import cases
+
+    worst = 0.0
+    for case in cases.all_cases(abilene_batch=64):
+        t0 = time.perf_counter()
+        got = cases.run_case(case, dev)
+        torch.cuda.synchronize()
+        on_card = cases.run_case(case, dev, plain=True)
+        on_cpu = cases.run_case(case, "cpu", plain=True)
+        e_card = e_cpu = e_plain = 0.0
+        for i in range(case.intervals):
+            what = f"{case.name} interval {i}"
+            e_card = max(e_card, cases.compare_states(
+                got[i], on_card[i], SUB_RTOL, SUB_ATOL,
+                f"{what}, kernel vs plain on card: "))
+            e_cpu = max(e_cpu, cases.compare_states(
+                got[i], on_cpu[i], SUB_RTOL, SUB_ATOL,
+                f"{what}, kernel vs plain on CPU: "))
+            e_plain = max(e_plain, cases.compare_states(
+                on_card[i], on_cpu[i], SUB_RTOL, SUB_ATOL,
+                f"{what}, plain on card vs CPU: "))
+        again = cases.run_case(case, dev)
+        check(all(cases.bit_equal(a, g) for a, g in zip(again, got)),
+              f"{case.name}: two launches on the same inputs differ")
+        start = got[-2] if case.intervals > 1 else case.engine.init(
+            case.batch, dev)
+        e_one = single_substep_check(case, start, torch, dev)
+        m = got[-1].metrics
+        worst = max(worst, e_card, e_cpu, e_one)
+        print(f"  {case.name:18s} B={case.batch:3d} x{case.intervals} "
+              f"intervals: max float diff kernel-plain(card) {e_card:.2e}, "
+              f"kernel-plain(CPU) {e_cpu:.2e}, plain card-CPU "
+              f"{e_plain:.2e}, single substep {e_one:.2e}; integers "
+              f"equal; bit-identical relaunch; generated "
+              f"{int(m.generated.sum())}, dropped {int(m.dropped.sum())} "
+              f"reasons {m.drop_reasons.sum(0).tolist()} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return worst
+
+
+def substep_bound(engine, before, after, batch):
+    """Least time for one interval of ``batch`` replicas, from the bytes it
+    must touch: every state leaf read once and every leaf the substep
+    writes written once, except the two release rings, of which only the
+    rows the interval releases (one per substep from the interval's first)
+    and the rows it adds holds into are read and written; the topology
+    (shared by the replicas), the interval's capacities, the traffic
+    records the interval admitted and one arrival time per substep (the
+    next record's, to see that it is not due) read once.  Against a lower
+    count of the slots' operations over the f32 rate."""
+    import torch
+
+    from gsc_tpu_torch.sim.cases import state_leaves
+
+    read_only = ("sf_startup", "placed", "schedule")
+    rings = ("rel_node", "rel_edge")
+    nbytes = 0
+    for name, t in state_leaves(before).items():
+        if name == "run_idx" or name in rings:
+            continue
+        n = t.numel() * t.element_size()
+        nbytes += n if name in read_only else 2 * n
+    h, k = engine.H, engine.substeps
+    g0 = torch.round(before.t / engine.dt).long() % h               # [B]
+    rows = torch.arange(h, device=g0.device)
+    released = (rows[None] - g0[:, None]) % h < k                    # [B, H]
+    ring_rows = 0
+    for name in rings:
+        a, z = getattr(before, name), getattr(after, name)
+        a = a.reshape(a.shape[0], h, -1)
+        z = z.reshape(z.shape[0], h, -1)
+        touched = int((released | (a != z).any(-1)).sum())
+        ring_rows += touched
+        nbytes += 2 * touched * a.shape[-1] * a.element_size()
+    n_nn, e = engine.N * engine.N, engine.E
+    nbytes += 3 * n_nn * 4 + 2 * e * 4 + batch * engine.N * 4
+    admitted = int((after.cursor - before.cursor).sum())
+    nbytes += admitted * 7 * 4 + k * batch * 4
+    ops = OPS_PER_SLOT_SUBSTEP * engine.M * k * batch
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, ring_rows
+
+
+def substep_timings(torch, dev, smi):
+    """Phase 7: per-interval times at the SUB_TIMING_BATCHES."""
+    from gsc_tpu_torch.config.schema import replace
+    from gsc_tpu_torch.ops.substep import substep_megakernel, substep_plain
+    from gsc_tpu_torch.sim import cases
+    from gsc_tpu_torch.sim.engine import SimEngine
+
+    out = {}
+    for b in SUB_TIMING_BATCHES:
+        case = cases.abilene_case(batch=b, intervals=2, seed=7)
+        states = cases.run_case(case, dev)
+        eng = case.engine
+        topo = case.topo.to(dev).expand(b)
+        traffic = case.traffic.to(dev)
+        st, cap = eng.begin_interval(states[-1], traffic,
+                                     case.schedule.to(dev),
+                                     case.placement.to(dev))
+        fn = lambda: substep_megakernel.launch(eng, st, topo, traffic, cap)
+        after = fn()
+        ms = cuda_time_ms(fn, torch, reps=20, warmup=3)
+        dev_ms = profile_device_ms(fn, torch, reps=10,
+                                   kernel="substep_megakernel_kernel")
+        plain_ms = cuda_time_ms(
+            lambda: substep_plain(eng, st, topo, traffic, cap), torch,
+            reps=2, warmup=1)
+        bound_ms, bound_by, nbytes, ring_rows = substep_bound(eng, st,
+                                                              after, b)
+        out[b] = (ms, dev_ms, plain_ms, bound_ms, bound_by)
+        fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+        print(f"  B={b:3d}: per interval (100 substeps) kernel {ms:.4f} ms "
+              f"(events, wrapper included), device time {fmt(dev_ms)}; "
+              f"plain engine {plain_ms:.2f} ms; bound {bound_ms:.6f} ms "
+              f"({bound_by}: {nbytes} bytes, {ring_rows} ring rows of "
+              f"{2 * b * eng.H}) on {smi}", flush=True)
+        if b == SUB_MAIN_BATCH:
+            # where the interval's time goes: the same inputs with fewer
+            # admission rounds and WRR rank levels (other results, the
+            # same chain of stages otherwise)
+            for kw in ({"admission_iters": 0}, {"admission_iters": 1},
+                       {"wrr_rank_levels": 1}):
+                var = SimEngine(eng.service, replace(eng.cfg, **kw),
+                                eng.limits)
+                t = profile_device_ms(
+                    lambda: substep_megakernel.launch(var, st, topo,
+                                                      traffic, cap),
+                    torch, reps=10, kernel="substep_megakernel_kernel")
+                print(f"    attribution at B={b}: {kw} device time "
+                      f"{fmt(t)} per interval", flush=True)
+    return out
+
+
+def train_slice(torch, dev, smi):
+    """Phase 8: two training episodes through the CLI; returns the launch
+    counts of both kernels in that run."""
+    import math
+    import tempfile
+    from types import SimpleNamespace
+
+    from gsc_tpu_torch import cli
+    from gsc_tpu_torch.models.nets import Actor, QNetwork
+    from gsc_tpu_torch.ops.gat_attention import gat_attention
+    from gsc_tpu_torch.ops.substep import substep_megakernel
+    from gsc_tpu_torch.parallel.dp import ParallelDDPG
+
+    spans = {"rollout": [], "learn_burst": []}
+
+    def synced(fn, key):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            spans[key].append(time.perf_counter() - t0)
+            return res
+        return run
+
+    saved = (ParallelDDPG.rollout_episodes, ParallelDDPG.learn_burst)
+    ParallelDDPG.rollout_episodes = synced(saved[0], "rollout")
+    ParallelDDPG.learn_burst = synced(saved[1], "learn_burst")
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            gat_attention.launches = 0
+            substep_megakernel.launches = 0
+            res = cli.run_train(TRAIN_ARGS + ["--result-dir", d])
+            launches = {"gat_attention": gat_attention.launches,
+                        "substep_megakernel": substep_megakernel.launches}
+            with open(f"{d}/rewards.csv") as f:
+                rewards = f.read().split()[1:]
+    finally:
+        ParallelDDPG.rollout_episodes, ParallelDDPG.learn_burst = saved
+    trainer, state, buffers = res["trainer"], res["state"], res["buffers"]
+    agent = trainer.agent_cfg
+    b = int(TRAIN_ARGS[TRAIN_ARGS.index("--replicas") + 1])
+    episodes = int(TRAIN_ARGS[TRAIN_ARGS.index("--episodes") + 1])
+    steps = episodes * agent.episode_steps
+    acting = sum(1 for g in range(steps) if g >= agent.nb_steps_warmup_critic)
+    grad_steps = episodes * (agent.learn_steps or agent.episode_steps)
+    check(len(rewards) == episodes, f"rewards.csv has {len(rewards)} rows")
+    for row in trainer.history:
+        for k in ("episodic_return", "critic_loss", "actor_loss",
+                  "q_values"):
+            check(math.isfinite(row[k]), f"episode {row['episode']}: {k} "
+                  f"is {row[k]}")
+    check(launches["substep_megakernel"] == steps,
+          f"{launches['substep_megakernel']} megakernel launches for "
+          f"{steps} env steps (want 1 per step)")
+    want_gat = 3 * acting + 15 * grad_steps
+    check(launches["gat_attention"] == want_gat,
+          f"{launches['gat_attention']} attention launches, want 3 x "
+          f"{acting} acting steps + 15 x {grad_steps} gradient steps = "
+          f"{want_gat}")
+    cap = max(agent.mem_limit // b, 1)
+    want_fill = min(steps, cap)
+    check(bool((buffers.size == want_fill).all()),
+          f"replay holds {buffers.size.tolist()[:4]}..., want {want_fill}")
+    # every parameter moved from its seeded initial value
+    fresh = ParallelDDPG(trainer.env, agent, b, device=dev).init(
+        torch.Generator().manual_seed(trainer.seed))
+    for net, init in (("actor", fresh.actor), ("critic", fresh.critic)):
+        final = dict(getattr(state, net).named_parameters())
+        for name, p0 in init.named_parameters():
+            check(not torch.equal(p0, final[name]),
+                  f"{net}.{name} did not move in training")
+    # gradients through the kernel's autograd.Function vs the dense path
+    pddpg = trainer.pddpg
+    batch = pddpg.sample_across(buffers)
+    dense = {}
+    for net in ("actor", "critic", "target_actor", "target_critic"):
+        src = getattr(state, net)
+        cls = Actor if "actor" in net else QNetwork
+        copy = cls(agent, src.action_dim, gnn_impl="dense").to(dev)
+        copy.load_state_dict(src.state_dict())
+        dense[net] = copy
+    dense = SimpleNamespace(**dense)
+    worst = 0.0
+    for kind in ("critic", "actor"):
+        grads = []
+        for st in (state, dense):
+            net = getattr(st, kind)
+            loss = (pddpg.ddpg.critic_loss(st, batch)[0] if kind == "critic"
+                    else pddpg.ddpg.actor_loss(st, batch))
+            grads.append(dict(zip(
+                [n for n, _ in net.named_parameters()],
+                torch.autograd.grad(loss, list(net.parameters())))))
+        for name, g in grads[0].items():
+            d = grads[1][name]
+            err = float((g - d).abs().max())
+            scale = float(d.abs().max())
+            worst = max(worst, err / max(scale, GRAD_ATOL))
+            check(err <= GRAD_RTOL * scale + GRAD_ATOL,
+                  f"{kind}.{name}: gradient through the kernel differs "
+                  f"from the dense path by {err} (largest entry {scale})")
+    roll_steps = steps * b
+    roll_s = sum(spans["rollout"])
+    print(f"train: {episodes} episodes x {agent.episode_steps} steps at "
+          f"B={b}: returns {[round(r['episodic_return'], 4) for r in trainer.history]}, "
+          f"final success {[round(r['final_succ_ratio'], 4) for r in trainer.history]}, "
+          f"critic loss {[r['critic_loss'] for r in trainer.history]}, "
+          f"actor loss {[r['actor_loss'] for r in trainer.history]}, "
+          f"q {[r['q_values'] for r in trainer.history]}; every actor and "
+          f"critic parameter moved; replay {want_fill} per replica", flush=True)
+    print(f"train launches: megakernel {launches['substep_megakernel']} "
+          f"(1 per env step), attention {launches['gat_attention']} (3 x "
+          f"{acting} acting steps + 15 x {grad_steps} gradient steps); "
+          f"GATv2/actor/critic gradients through the kernel vs dense: max "
+          f"abs diff / largest entry {worst:.2e}", flush=True)
+    print(f"train timing on {smi}: rollout {roll_steps} env steps in "
+          f"{roll_s:.2f} s = {roll_steps / roll_s:.1f} env-steps/s; learn "
+          f"bursts {[round(t, 3) for t in spans['learn_burst']]} s "
+          f"({grad_steps // episodes} gradient steps each); wall "
+          f"{res['summary']['wall_s']:.1f} s", flush=True)
+    print("train_summary: " + json.dumps(res["summary"]))
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -258,7 +624,10 @@ def main() -> int:
     from gsc_tpu_torch.models.nets import Actor
     from gsc_tpu_torch.ops.gat_attention import (SOURCE, attention_plain,
                                                  gat_attention)
+    from gsc_tpu_torch.ops.substep import SOURCE as SUB_SOURCE
+    from gsc_tpu_torch.ops.substep import substep_megakernel
     from gsc_tpu_torch.serve import run_serve
+    from gsc_tpu_torch.sim import cases
 
     dev = resolve_device()
     name = torch.cuda.get_device_name(0)
@@ -268,13 +637,14 @@ def main() -> int:
           f"CUDA {torch.version.cuda}", flush=True)
 
     # ---- 2. build ------------------------------------------------------
-    t0 = time.perf_counter()
-    gat_attention.library()
-    build_s = time.perf_counter() - t0
-    print(f"build: gat_attention {build_s:.2f} s", flush=True)
-    for line in gat_attention.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    built = build_kernels({"gat_attention": gat_attention,
+                           "substep_megakernel": substep_megakernel})
+    print("build: " + ", ".join(f"{k} {v:.2f} s" for k, v in built.items()),
+          flush=True)
+    for op in (gat_attention, substep_megakernel):
+        for line in op.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
 
     # ---- 3. kernel vs plain on the card ---------------------------------
     max_err = 0.0
@@ -333,15 +703,24 @@ def main() -> int:
 
     # ---- 4. the slice: run_serve on the card ----------------------------
     gat_attention.launches = 0
-    reports = [run_serve(device=dev, pool_steps=8, requests=r,
-                         concurrency=c, buckets=BUCKETS, seed=0)
-               for r, c in BURSTS]
+    substep_megakernel.launches = 0
+    reports, serve_wall = [], []
+    for r, c in BURSTS:
+        t0 = time.perf_counter()
+        reports.append(run_serve(device=dev, pool_steps=POOL_STEPS,
+                                 requests=r, concurrency=c, buckets=BUCKETS,
+                                 seed=0))
+        serve_wall.append(time.perf_counter() - t0)
     launches = gat_attention.launches
+    pool_launches = substep_megakernel.launches
     calls = sum(len(rep.flushes) + len(rep.startup["buckets"])
                 for rep in reports)
     check(launches == 3 * calls,
           f"{launches} kernel launches for {calls} dispatches and warm-up "
           "calls (want 3 per call)")
+    check(pool_launches == POOL_STEPS * len(BURSTS),
+          f"{pool_launches} megakernel launches for {len(BURSTS)} request "
+          f"pools of {POOL_STEPS} env steps (want 1 per step)")
     served = set()
     for (r, c), report in zip(BURSTS, reports):
         summ = report.summary()
@@ -365,7 +744,10 @@ def main() -> int:
     check(served == set(BUCKETS),
           f"buckets {sorted(set(BUCKETS) - served)} served no request")
     print(f"serve: {sum(r for r, _ in BURSTS)} requests through buckets "
-          f"{sorted(served)}, {launches} kernel launches", flush=True)
+          f"{sorted(served)}, {launches} attention kernel launches; "
+          f"{pool_launches} megakernel launches building the request pools; "
+          f"run_serve wall {[round(w, 3) for w in serve_wall]} s (pool, "
+          f"start-up and requests)", flush=True)
     report = reports[0]
     ddpg = report.ddpg
     # where a request's device call goes: the whole greedy policy against
@@ -378,19 +760,55 @@ def main() -> int:
         print(f"greedy_action B={b}: {fwd_ms:.4f} ms per call on the card "
               f"(3 attention launches: {3 * timings.get((b, 24, 22), (0,))[0]:.4f} ms)")
 
-    # ---- 5. kernels line ------------------------------------------------
+    # ---- 5. megakernel vs plain on the card ------------------------------
+    print(f"megakernel vs plain (rtol {SUB_RTOL}, atol {SUB_ATOL}; integers "
+          f"exact) on {smi}:", flush=True)
+    sub_err = substep_battery(torch, dev)
+
+    # ---- 6. golden trajectory on the kernel path -------------------------
+    before = substep_megakernel.launches
+    golden = cases.check_golden(cases.run_case(cases.golden_case(), dev)[-1])
+    check(substep_megakernel.launches - before == 20,
+          "the golden run did not launch the megakernel once per interval")
+    print(f"golden Abilene on the kernel path: {json.dumps(golden)}",
+          flush=True)
+
+    # ---- 7. megakernel timings ------------------------------------------
+    print("megakernel timings:", flush=True)
+    sub_times = substep_timings(torch, dev, smi)
+
+    # ---- 8. the training slice -------------------------------------------
+    train_launches = train_slice(torch, dev, smi)
+    for kernel, n in train_launches.items():
+        check(n > 0, f"{kernel} was not launched on the training path")
+
+    # ---- 9. kernels line ------------------------------------------------
     ms, plain_ms, bound_ms, bound_by = timings[MAIN_SHAPE]
+    s_ms, _, s_plain_ms, s_bound_ms, s_bound_by = sub_times[SUB_MAIN_BATCH]
+    rel = lambda src: str(src.relative_to(src.parents[2]))
     kernels = {"kernels": [{
         "name": "gat_attention",
         "route": "cuda",
-        "source": str(SOURCE.relative_to(SOURCE.parents[2])),
+        "source": rel(SOURCE),
         "replaces": "gsc_tpu/ops/pallas_gat.py:45",
-        "launches": launches,
+        "launches": train_launches["gat_attention"],
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "substep_megakernel",
+        "route": "cuda",
+        "source": rel(SUB_SOURCE),
+        "replaces": "gsc_tpu/ops/pallas_substep.py:530",
+        "launches": train_launches["substep_megakernel"],
+        "max_abs_err": sub_err,
+        "ms": s_ms,
+        "plain_ms": s_plain_ms,
+        "bound_ms": s_bound_ms,
+        "bound_by": s_bound_by,
         "library_ms": None,
     }]}
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,4 +1,5 @@
-"""Agents: the DDPG actor and its greedy policy."""
-from .ddpg import DDPG
+"""Agents: DDPG (actor, critic, learner state), the replay ring and the
+replica-parallel trainer."""
+from .ddpg import DDPG, DDPGState, Draws
 
-__all__ = ["DDPG"]
+__all__ = ["DDPG", "DDPGState", "Draws"]

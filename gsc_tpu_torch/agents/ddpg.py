@@ -1,14 +1,25 @@
-"""DDPG agent: the actor and the greedy inference policy.
+"""DDPG agent: actor, critic, Polyak targets and Adam.
 
-The port of the serving part of ``gsc_tpu.agents.ddpg.DDPG``: building and
-initialising the actor (from an explicit ``torch.Generator``) and
-``greedy_action`` (actor forward, clamp to [0, 1], then the env's
-threshold + renormalise post-processing).  The critic, replay and the
-learn burst are not ported yet.
+The port of ``gsc_tpu.agents.ddpg.DDPG``: building and initialising the
+networks (from an explicit ``torch.Generator``), the greedy inference
+policy, the exploring ``choose_action``, the critic and actor losses, one
+gradient step on a batch (critic step, then the actor step against the
+updated critic, then Polyak averaging of both targets with tau) and the
+learn burst.  ``optax.adam`` becomes ``torch.optim.Adam`` with the same
+learning rate, betas (0.9, 0.999) and eps 1e-8; neither side clips
+gradients.
+
+Random draws stay outside the networks: ``choose_action`` takes its
+warm-up uniforms and exploration normals from a ``Draws`` source, and the
+learn burst its batches from a caller's ``sample_fn``, so a test can feed
+this port and the JAX package the same numbers.  The learner state's
+modules and optimisers are updated in place.
 """
 from __future__ import annotations
 
-from typing import Optional
+import copy
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -16,7 +27,63 @@ from ..config.schema import AgentConfig
 from ..device import resolve_device
 from ..env.env import ServiceCoordEnv
 from ..env.observations import GraphObs
-from ..models.nets import Actor
+from ..models.nets import Actor, QNetwork, scale_action, unscale_action
+
+ADAM_BETAS = (0.9, 0.999)
+ADAM_EPS = 1e-8
+
+
+class Draws:
+    """Where the agent's random numbers come from: warm-up uniforms,
+    exploration normals, replay indices and the simulator's processing-
+    delay noise.  The default draws from a seeded ``torch.Generator`` on
+    the device; tests replace it to feed both frameworks the same
+    numbers."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def uniform(self, shape) -> torch.Tensor:
+        """Warm-up action uniforms in [0, 1)."""
+        return torch.rand(shape, generator=self.generator, device=self.device)
+
+    def normal(self, shape) -> torch.Tensor:
+        """Standard normals of the exploration noise."""
+        return torch.randn(shape, generator=self.generator,
+                           device=self.device)
+
+    def replay(self, batch: int, replicas: int, sizes: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(replica, slot) indices of one batch: the replica uniform over
+        ``replicas``, the slot uniform over that replica's filled slots
+        (at least one)."""
+        bidx = torch.randint(0, replicas, (batch,), generator=self.generator,
+                             device=self.device)
+        high = torch.clamp(sizes.to(self.device)[bidx], min=1)
+        u = torch.rand((batch,), generator=self.generator, device=self.device)
+        sidx = torch.minimum((u * high).long(), high.long() - 1)
+        return bidx, sidx
+
+    def sim_noise(self, engine, batch: int) -> Optional[torch.Tensor]:
+        """Processing-delay normals of one interval, or None."""
+        return engine.draw_noise(batch, self.generator, self.device)
+
+
+@dataclass
+class DDPGState:
+    """Learner state: networks, Polyak targets and both optimisers."""
+
+    actor: Actor
+    critic: QNetwork
+    target_actor: Actor
+    target_critic: QNetwork
+    actor_opt: torch.optim.Adam
+    critic_opt: torch.optim.Adam
+
+
+def global_norm(grads) -> torch.Tensor:
+    return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
 
 
 class DDPG:
@@ -26,8 +93,9 @@ class DDPG:
         self.agent = agent
         self.device = resolve_device(device)
         self.action_dim = env.limits.action_dim
-        self.actor = Actor(agent, self.action_dim,
-                           gnn_impl=gnn_impl or agent.gnn_impl)
+        impl = gnn_impl or agent.gnn_impl
+        self.actor = Actor(agent, self.action_dim, gnn_impl=impl)
+        self.critic = QNetwork(agent, self.action_dim, gnn_impl=impl)
 
     def init(self, generator: torch.Generator) -> Actor:
         """Draw the actor's parameters from ``generator`` (on the CPU, so a
@@ -37,9 +105,112 @@ class DDPG:
         self.actor.to(self.device)
         return self.actor
 
+    def init_state(self, generator: torch.Generator) -> DDPGState:
+        """The learner state: actor, then critic parameters drawn from
+        ``generator`` (on the CPU), targets as copies, fresh Adam states."""
+        actor = self.init(generator)
+        self.critic.reset_parameters(generator)
+        critic = self.critic.to(self.device)
+        adam = lambda m: torch.optim.Adam(
+            m.parameters(), lr=self.agent.learning_rate, betas=ADAM_BETAS,
+            eps=ADAM_EPS)
+        return DDPGState(
+            actor=actor, critic=critic,
+            target_actor=copy.deepcopy(actor).requires_grad_(False),
+            target_critic=copy.deepcopy(critic).requires_grad_(False),
+            actor_opt=adam(actor), critic_opt=adam(critic))
+
+    def example_transition(self, sample_obs: GraphObs) -> Dict:
+        """One replay transition's shapes and dtypes (no batch dim)."""
+        dev = sample_obs.nodes.device
+        return {"obs": sample_obs, "next_obs": sample_obs,
+                "action": torch.zeros(self.action_dim, device=dev),
+                "reward": torch.zeros((), device=dev),
+                "done": torch.zeros((), device=dev),
+                "topo_idx": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    # ------------------------------------------------------------- actions
     @torch.inference_mode()
     def greedy_action(self, obs: GraphObs) -> torch.Tensor:
         """The greedy policy: [..., A] actions for a (batched) observation."""
         a = self.actor(obs)
         a = torch.clamp(a, 0.0, 1.0)
         return self.env.process_action(a)
+
+    @torch.no_grad()
+    def choose_action(self, actor: Actor, obs: GraphObs, mask: torch.Tensor,
+                      global_step: int, draws: Draws) -> torch.Tensor:
+        """Warm-up (``global_step < nb_steps_warmup_critic``): uniform
+        random action times the mask; after it: the actor's action plus
+        N(rand_mu, rand_sigma) noise in scaled [-1, 1] space, unscaled and
+        clipped to [0, 1].  ``obs`` and ``mask`` carry a batch dim."""
+        shape = mask.shape[:-1] + (self.action_dim,)
+        if global_step < self.agent.nb_steps_warmup_critic:
+            return draws.uniform(shape) * mask
+        a = actor(obs)
+        noise = self.agent.rand_mu + self.agent.rand_sigma * draws.normal(shape)
+        return torch.clamp(unscale_action(scale_action(a) + noise), 0.0, 1.0)
+
+    # ------------------------------------------------------------ learning
+    def critic_loss(self, state: DDPGState, batch: Dict
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Mean squared TD error against r + gamma (1 - done) Q'(s',
+        clamp(pi'(s'), -1, 1)); returns (loss, q)."""
+        with torch.no_grad():
+            next_a = torch.clamp(state.target_actor(batch["next_obs"]),
+                                 -1.0, 1.0)
+            q_next = state.target_critic(batch["next_obs"], next_a)[..., 0]
+            target = batch["reward"] + (1.0 - batch["done"]) \
+                * self.agent.gamma * q_next
+        q = state.critic(batch["obs"], batch["action"])[..., 0]
+        td = q - target
+        return torch.mean(td ** 2), q
+
+    def actor_loss(self, state: DDPGState, batch: Dict) -> torch.Tensor:
+        """-Q(s, pi(s)).mean() under the (current) critic."""
+        a = state.actor(batch["obs"])
+        return -torch.mean(state.critic(batch["obs"], a))
+
+    def gradient_step_on_batch(self, state: DDPGState, batch: Dict
+                               ) -> Tuple[DDPGState, Dict[str, torch.Tensor]]:
+        """Critic Adam step, actor Adam step against the updated critic,
+        then Polyak averaging with tau = target_model_update.  Updates
+        ``state`` in place; the metrics stay on the device."""
+        c_params = list(state.critic.parameters())
+        a_params = list(state.actor.parameters())
+        critic_loss, q = self.critic_loss(state, batch)
+        cgrad = torch.autograd.grad(critic_loss, c_params)
+        for p, g in zip(c_params, cgrad):
+            p.grad = g
+        state.critic_opt.step()
+        actor_loss = self.actor_loss(state, batch)
+        agrad = torch.autograd.grad(actor_loss, a_params)
+        for p, g in zip(a_params, agrad):
+            p.grad = g
+        state.actor_opt.step()
+        tau = self.agent.target_model_update
+        with torch.no_grad():
+            for tgt, src in ((state.target_actor, state.actor),
+                             (state.target_critic, state.critic)):
+                for tp, p in zip(tgt.parameters(), src.parameters()):
+                    tp.copy_(tau * p + (1 - tau) * tp)
+        metrics = {"critic_loss": critic_loss.detach(),
+                   "actor_loss": actor_loss.detach(),
+                   "q_values": q.detach().mean(),
+                   "critic_grad_norm": global_norm(cgrad),
+                   "actor_grad_norm": global_norm(agrad)}
+        return state, metrics
+
+    def learn_burst(self, state: DDPGState, sample_fn: Callable[[], Dict],
+                    steps: Optional[int] = None
+                    ) -> Tuple[DDPGState, Dict[str, torch.Tensor]]:
+        """End-of-episode training: ``learn_steps`` (default
+        ``episode_steps``) gradient steps, each on ``sample_fn()``'s batch;
+        returns the last step's metrics."""
+        n = (steps if steps is not None else self.agent.learn_steps
+             if self.agent.learn_steps is not None
+             else self.agent.episode_steps)
+        metrics = {}
+        for _ in range(n):
+            state, metrics = self.gradient_step_on_batch(state, sample_fn())
+        return state, metrics

@@ -1,17 +1,25 @@
-"""Command line of the port: ``python -m gsc_tpu_torch.cli serve``.
+"""Command line of the port: ``python -m gsc_tpu_torch.cli serve`` and
+``python -m gsc_tpu_torch.cli train``.
 
 ``serve`` runs :func:`gsc_tpu_torch.serve.run_serve` and prints its
-summary (requests/s, p50/p99 latency per bucket) as one JSON line.  The
-agent, simulator and service configs load from the same YAML files as
-``gsc_tpu.cli`` writes with ``init-configs`` when given (``yaml`` must be
-importable then); without them the init-configs values are built in code.
-The network is a built-in topology (GraphML reading is not ported).
+summary (requests/s, p50/p99 latency per bucket) as one JSON line.
+``train`` runs replica-parallel DDPG training
+(:meth:`gsc_tpu_torch.agents.trainer.Trainer.train_parallel`): one JSON
+line per episode (return, mean and final success ratio, critic and actor
+loss, q, env-steps/s), ``rewards.csv`` in ``--result-dir`` and a final
+summary line.  The agent, simulator and service configs load from the same
+YAML files as ``gsc_tpu.cli`` writes with ``init-configs`` when given
+(``yaml`` must be importable then); without them the init-configs values
+are built in code, with the attention kernel (``gnn_impl="pallas"``); on
+the card every simulator interval runs the substep megakernel.  The
+network is a built-in topology (GraphML reading is not ported).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
+import time
 from typing import List, Optional
 
 _NETWORKS = ("abilene", "bteurope")
@@ -45,7 +53,58 @@ def _serve(args) -> int:
     return 1 if report.errors else 0
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def _train(args) -> dict:
+    from .agents.trainer import Trainer
+    from .config import abc_service, init_configs_agent, init_configs_sim
+    from .config.loader import load_agent, load_service, load_sim
+    from .config.schema import EnvLimits
+    from .device import resolve_device
+    from .env.driver import EpisodeDriver
+    from .env.env import ServiceCoordEnv
+    from .topology import synthetic
+    from .topology.compiler import compile_topology
+
+    dev = resolve_device(args.device)
+    agent = (load_agent(args.agent_config) if args.agent_config
+             else init_configs_agent(gnn_impl="pallas"))
+    sim_cfg = (load_sim(args.simulator_config) if args.simulator_config
+               else init_configs_sim())
+    service = load_service(args.service) if args.service else abc_service()
+    limits = EnvLimits.for_service(service, max_nodes=args.max_nodes,
+                                   max_edges=args.max_edges)
+    topo = compile_topology(getattr(synthetic, args.network)(),
+                            max_nodes=args.max_nodes,
+                            max_edges=args.max_edges)
+    env = ServiceCoordEnv(service, sim_cfg, agent, limits)
+    driver = EpisodeDriver(topo, sim_cfg, service, agent.episode_steps,
+                           base_seed=args.seed)
+    trainer = Trainer(env, driver, agent, seed=args.seed,
+                      result_dir=args.result_dir, device=dev)
+    t0 = time.perf_counter()
+    state, buffers = trainer.train_parallel(
+        args.episodes, args.replicas, chunk=args.chunk,
+        on_row=lambda row: print(json.dumps(row), flush=True))
+    summary = {"device": str(dev), "replicas": args.replicas,
+               "episodes": args.episodes,
+               "episode_steps": agent.episode_steps,
+               "wall_s": time.perf_counter() - t0,
+               "final_return": trainer.history[-1]["episodic_return"]
+               if trainer.history else None,
+               "sps": trainer.history[-1]["sps"] if trainer.history
+               else None}
+    print(json.dumps(summary), flush=True)
+    return {"summary": summary, "trainer": trainer, "state": state,
+            "buffers": buffers}
+
+
+def run_train(argv: List[str]) -> dict:
+    """``train`` with these arguments; returns the summary, the trainer,
+    the learner state and the replay shards."""
+    args = _parser().parse_args(["train", *argv])
+    return _train(args)
+
+
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m gsc_tpu_torch.cli")
     sub = p.add_subparsers(dest="command", required=True)
     s = sub.add_parser("serve", help="serve greedy-policy requests from a "
@@ -68,7 +127,33 @@ def main(argv: Optional[List[str]] = None) -> int:
     s.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain "
                    "versions)")
-    args = p.parse_args(argv)
+    t = sub.add_parser("train", help="replica-parallel DDPG training on a "
+                       "built-in network")
+    t.add_argument("--agent-config", help="agent yaml (default: the "
+                   "init-configs agent with gnn_impl 'pallas')")
+    t.add_argument("--simulator-config", help="simulator yaml (default: "
+                   "the init-configs simulator)")
+    t.add_argument("--service", help="service catalog yaml (default: abc)")
+    t.add_argument("--network", choices=_NETWORKS, default="abilene")
+    t.add_argument("--replicas", type=int, default=64)
+    t.add_argument("--chunk", type=int, default=50)
+    t.add_argument("--episodes", type=int, default=2)
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--result-dir", default=None,
+                   help="directory for rewards.csv (none: not written)")
+    t.add_argument("--max-nodes", type=int, default=24)
+    t.add_argument("--max-edges", type=int, default=37)
+    t.add_argument("--device", default=None,
+                   help="torch device (default: cuda; 'cpu' runs the plain "
+                   "versions)")
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = _parser().parse_args(argv)
+    if args.command == "train":
+        _train(args)
+        return 0
     return _serve(args)
 
 

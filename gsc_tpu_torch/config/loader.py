@@ -1,7 +1,7 @@
 """YAML loaders for the agent, simulator and service configs.
 
-The port of the subset of ``gsc_tpu.config.loader`` the serving slice
-reads; the same files (``init-configs`` output) load here.  ``yaml`` is
+The port of the subset of ``gsc_tpu.config.loader`` that serving and
+replica-parallel training read; the same files (``init-configs`` output) load here.  ``yaml`` is
 imported only when a file is read, so the package imports without it.
 """
 from __future__ import annotations
@@ -65,12 +65,13 @@ def load_sim(path: str, **overrides) -> SimConfig:
                 "force_node_cap"):
         if cfg.get(key):
             raise ValueError(f"simulator option {key!r} is not ported")
-    if cfg.get("substep_impl", "xla") != "xla" or \
-            cfg.get("controller", "duration") != "duration" or \
-            cfg.get("controller_class", "DurationController") != \
-            "DurationController":
-        raise ValueError("the port runs the duration controller's plain "
-                         "substep only (substep_impl 'xla')")
+    controller = _CONTROLLERS.get(
+        cfg.get("controller_class", cfg.get("controller", "duration")))
+    if controller is None:
+        raise ValueError("unknown controller "
+                         f"{cfg.get('controller_class', cfg.get('controller'))!r}")
+    kw["controller"] = controller
+    kw["substep_impl"] = str(cfg.get("substep_impl", "xla"))
     for key in ("max_flows", "release_horizon", "admission_iters",
                 "wrr_rank_levels"):
         if key in cfg:
@@ -78,6 +79,9 @@ def load_sim(path: str, **overrides) -> SimConfig:
     kw.update(overrides)
     return SimConfig(**kw)
 
+
+_CONTROLLERS = {"duration": "duration", "DurationController": "duration",
+                "per_flow": "per_flow", "FlowController": "per_flow"}
 
 _AGENT_KEYMAP = {
     "GNN_features": "gnn_features",
@@ -89,8 +93,7 @@ _AGENT_KEYMAP = {
 
 def load_agent(path: str, **overrides) -> AgentConfig:
     """Parse an agent config yaml (reference key spellings accepted; keys
-    the serving slice does not use, such as the critic's and the
-    optimiser's, are skipped)."""
+    the port does not carry are skipped)."""
     cfg = _load_yaml(path)
     kw: Dict[str, Any] = {}
     fields = AgentConfig.__dataclass_fields__

@@ -1,7 +1,7 @@
-"""Typed configuration for the serving slice of the PyTorch port.
+"""Typed configuration of the PyTorch port.
 
 A copy of the subset of ``gsc_tpu.config.schema`` that the port's serving
-path needs: ``SimConfig``, ``AgentConfig``, ``EnvLimits``,
+and training paths need: ``SimConfig``, ``AgentConfig``, ``EnvLimits``,
 ``ServiceConfig``/``ServiceFunction`` and the f32 ``PrecisionPolicy``,
 with the same field names, defaults and validation.  Every namespace is a
 frozen dataclass of plain Python scalars and tuples, so a config is
@@ -123,10 +123,13 @@ class ServiceConfig:
 @dataclass(frozen=True)
 class SimConfig:
     """Simulator and traffic configuration.  The port's engine runs the
-    duration controller's substep as plain PyTorch (the JAX package's
-    ``substep_impl="xla"``) with deterministic or Poisson arrivals; the
-    MMPP, trace, capacity-override and per-flow options of the JAX package
-    are not carried."""
+    duration controller's substep through the substep megakernel (the
+    CUDA kernel of ``ops.substep`` on the card, the plain substep on the
+    CPU) with deterministic or Poisson arrivals.  ``substep_impl`` is the
+    JAX package's key, validated as there so that its yaml files load; it
+    does not choose a path in the port.  The MMPP, trace and
+    capacity-override options of the JAX package are not carried, and
+    per-flow control is only named so that it can be refused."""
 
     inter_arrival_mean: float = 10.0
     deterministic_arrival: bool = True
@@ -146,12 +149,30 @@ class SimConfig:
     admission_iters: int = 3
     # rank levels for sequential WRR among same-substep collisions
     wrr_rank_levels: int = 4
+    # "duration" (batch control, the only one the port runs) or "per_flow"
+    controller: str = "duration"
+    # the JAX package's "xla" or "pallas"; the port runs the megakernel
+    # for either
+    substep_impl: str = "xla"
 
     def __post_init__(self):
         if self.run_duration <= 0 or self.dt <= 0:
             raise ValueError("run_duration and dt must be positive")
         if not self.ttl_choices:
             raise ValueError("TTL must be set in config file")
+        if self.controller not in ("duration", "per_flow"):
+            raise ValueError(f"unknown controller {self.controller!r} "
+                             "(expected 'duration' or 'per_flow')")
+        if self.substep_impl not in ("xla", "pallas"):
+            raise ValueError(f"unknown substep_impl {self.substep_impl!r} "
+                             "(expected 'xla' or 'pallas')")
+        if self.substep_impl == "pallas" and self.controller == "per_flow":
+            raise ValueError(
+                "substep_impl='pallas' supports only controller='duration' "
+                "(per-flow control runs the XLA substep)")
+        if self.controller == "per_flow":
+            raise ValueError("per-flow control is not ported (ROADMAP "
+                             "Queue 1)")
 
     @property
     def substeps_per_run(self) -> int:
@@ -163,14 +184,15 @@ class SimConfig:
 
 @dataclass(frozen=True)
 class AgentConfig:
-    """Agent configuration for serving a graph-mode actor with the
-    monolithic head: observation, GNN and actor widths, the reward
-    objective and the action post-processing threshold.  The critic,
-    replay and optimiser settings of the JAX package wait for the
-    training slice."""
+    """Agent configuration of a graph-mode DDPG agent with monolithic
+    heads: observation, GNN, actor and critic widths, the reward
+    objective, replay, exploration and optimiser settings and the action
+    post-processing threshold."""
 
     observation_space: Tuple[str, ...] = ("ingress_traffic", "node_load", "node_cap")
     graph_mode: bool = True
+    # per-step node-permutation augmentation (not ported: must stay off)
+    shuffle_nodes: bool = False
     episode_steps: int = 200
     gnn_features: int = 22
     gnn_num_layers: int = 2
@@ -180,6 +202,7 @@ class AgentConfig:
     # kernel; ``gsc_tpu_torch.ops.gat_attention`` on the card)
     gnn_impl: str = "dense"
     actor_hidden_layer_nodes: Tuple[int, ...] = (256,)
+    critic_hidden_layer_nodes: Tuple[int, ...] = (64,)
     # None = automatic (the JAX package factors at action dims >= 16384);
     # the port carries the monolithic head only
     factored_head: Optional[bool] = None
@@ -191,6 +214,17 @@ class AgentConfig:
     target_success: float | str = "auto"
     soft_deadline: float = 10.0
     dropoff: float = 10.0
+    # replay, exploration and optimisation
+    mem_limit: int = 10000
+    rand_mu: float = 0.0
+    rand_sigma: float = 0.3
+    nb_steps_warmup_critic: int = 200
+    gamma: float = 0.99
+    target_model_update: float = 1e-4
+    learning_rate: float = 1e-3
+    batch_size: int = 100
+    # gradient steps per learn burst; None = episode_steps
+    learn_steps: Optional[int] = None
     schedule_threshold: float = 0.1
     precision: str = "f32"
 
@@ -211,6 +245,8 @@ class AgentConfig:
         if self.objective == "prio-flow" and self.target_success != "auto":
             if not 0 <= float(self.target_success) <= 1:
                 raise ValueError("target_success must be in [0,1] or 'auto'")
+        if self.learn_steps is not None and self.learn_steps < 1:
+            raise ValueError("learn_steps must be >= 1 (or None)")
         if self.precision not in PRECISION_POLICIES:
             raise ValueError(
                 f"unknown precision {self.precision!r} (the port carries "

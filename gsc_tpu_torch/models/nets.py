@@ -1,10 +1,12 @@
-"""Actor network (graph mode, monolithic head).
+"""Actor and critic networks (graph mode, monolithic heads).
 
-The port of ``gsc_tpu.models.nets.Actor`` with the monolithic head: GNN
-embedding of the padded network graph, concatenated with the flattened
-action mask, through an MLP (Linear -> ReLU between layers, plain last
-layer), multiplied by the mask so padded (src, dst) entries are exactly
-zero.  The factored head and the critic are not ported yet.
+The port of ``gsc_tpu.models.nets.Actor`` and ``QNetwork`` with the
+monolithic heads: GNN embedding of the padded network graph, concatenated
+with the flattened action mask (and, for the critic, the action), through
+an MLP (Linear -> ReLU between layers, plain last layer).  The actor's
+output is multiplied by the mask so padded (src, dst) entries are exactly
+zero; the critic returns Q [..., 1].  The factored heads are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -46,24 +48,31 @@ class MLP(nn.Module):
         return x
 
 
+def _check_monolithic(agent: AgentConfig, action_dim: int):
+    if agent.factored_head or (agent.factored_head is None
+                               and action_dim >= FACTORED_HEAD_THRESHOLD):
+        raise ValueError(
+            f"action dim {action_dim} needs the factored head, which the "
+            "port does not carry yet")
+
+
+def _embedder(agent: AgentConfig, gnn_impl: str) -> GNNEmbedder:
+    return GNNEmbedder(
+        in_features=len(agent.observation_space), hidden=agent.gnn_features,
+        num_layers=agent.gnn_num_layers, num_iter=agent.gnn_num_iter,
+        mean_aggr=agent.gnn_aggr == "mean", impl=gnn_impl)
+
+
 class Actor(nn.Module):
     """Policy network: embedding ++ mask -> MLP -> action_dim, masked."""
 
     def __init__(self, agent: AgentConfig, action_dim: int,
                  gnn_impl: str = "dense"):
         super().__init__()
-        if agent.factored_head or (agent.factored_head is None
-                                   and action_dim >= FACTORED_HEAD_THRESHOLD):
-            raise ValueError(
-                f"action dim {action_dim} needs the factored head, which the "
-                "port does not carry yet")
+        _check_monolithic(agent, action_dim)
         self.action_dim = action_dim
         self.gnn_impl = gnn_impl
-        self.embedder = GNNEmbedder(
-            in_features=len(agent.observation_space),
-            hidden=agent.gnn_features, num_layers=agent.gnn_num_layers,
-            num_iter=agent.gnn_num_iter, mean_aggr=agent.gnn_aggr == "mean",
-            impl=gnn_impl)
+        self.embedder = _embedder(agent, gnn_impl)
         self.mlp = MLP(agent.gnn_features + action_dim,
                        tuple(agent.actor_hidden_layer_nodes) + (action_dim,))
 
@@ -76,3 +85,40 @@ class Actor(nn.Module):
                             obs.node_mask)
         h = torch.cat([emb, obs.mask.to(emb.dtype)], dim=-1)
         return self.mlp(h) * obs.mask
+
+
+class QNetwork(nn.Module):
+    """Critic Q(s, a): embedding ++ mask ++ action -> MLP -> [..., 1]."""
+
+    def __init__(self, agent: AgentConfig, action_dim: int,
+                 gnn_impl: str = "dense"):
+        super().__init__()
+        _check_monolithic(agent, action_dim)
+        self.action_dim = action_dim
+        self.gnn_impl = gnn_impl
+        self.embedder = _embedder(agent, gnn_impl)
+        self.mlp = MLP(agent.gnn_features + 2 * action_dim,
+                       tuple(agent.critic_hidden_layer_nodes) + (1,))
+
+    def reset_parameters(self, generator: torch.Generator):
+        self.embedder.reset_parameters(generator)
+        self.mlp.reset_parameters(generator)
+
+    def forward(self, obs: GraphObs, action: torch.Tensor) -> torch.Tensor:
+        emb = self.embedder(obs.nodes, obs.edge_index, obs.edge_mask,
+                            obs.node_mask)
+        h = torch.cat([emb, obs.mask.to(emb.dtype), action.to(emb.dtype)],
+                      dim=-1)
+        return self.mlp(h)
+
+
+def scale_action(action: torch.Tensor, low: float = 0.0,
+                 high: float = 1.0) -> torch.Tensor:
+    """[low, high] -> [-1, 1]."""
+    return 2.0 * (action - low) / (high - low) - 1.0
+
+
+def unscale_action(scaled: torch.Tensor, low: float = 0.0,
+                   high: float = 1.0) -> torch.Tensor:
+    """[-1, 1] -> [low, high]."""
+    return low + 0.5 * (scaled + 1.0) * (high - low)

@@ -1,7 +1,10 @@
-"""GATv2 attention: plain PyTorch functions and the CUDA kernel's wrapper
-(``ops.gat_attention.gat_attention``)."""
+"""The port's kernels and their plain versions: GATv2 attention
+(``ops.gat_attention.gat_attention``) and the simulator substep
+megakernel (``ops.substep.substep_megakernel``)."""
 from .gat import LEAKY_SLOPE, NEG_INF, attention_dense, dense_adj, project
 from .gat_attention import GatAttention, attention_plain
+from .substep import SubstepMegakernel, substep_plain
 
-__all__ = ["GatAttention", "LEAKY_SLOPE", "NEG_INF", "attention_dense",
-           "attention_plain", "dense_adj", "project"]
+__all__ = ["GatAttention", "LEAKY_SLOPE", "NEG_INF", "SubstepMegakernel",
+           "attention_dense", "attention_plain", "dense_adj", "project",
+           "substep_plain"]

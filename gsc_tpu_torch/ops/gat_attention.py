@@ -10,42 +10,51 @@ bound with ``ctypes`` through a plain C interface.
 
 ``gat_attention(xl, xr, att, bias, adj, mean_aggr)`` dispatches on where
 the tensors lie: CUDA tensors launch the kernel (or raise on what it does
-not take), CPU tensors run ``attention_plain``.  There is no fallback from
+not take) through a ``torch.autograd.Function`` whose backward is the
+plain dense VJP (no backward kernel), CPU tensors run ``attention_plain``,
+which autograd differentiates itself.  There is no fallback from
 the kernel to the plain version.  ``gat_attention.launches`` counts
 kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
-from pathlib import Path
+
 import torch
 
+from .build import MAX_SMEM_BYTES, PKG, build_library
 from .gat import attention_dense
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "gat_attention.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# a block's dynamic shared-memory ceiling on Hopper (227 KB)
-MAX_SMEM_BYTES = 232448
+SOURCE = PKG / "csrc" / "gat_attention.cu"
 
 
 # the kernel's plain PyTorch version: the dense masked attention
 attention_plain = attention_dense
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
+class _GatAttentionFn(torch.autograd.Function):
+    """The kernel with a gradient.  The forward launches the kernel; the
+    backward is the plain dense formulation's VJP (``attention_plain``
+    recomputed under ``enable_grad`` and differentiated by autograd), the
+    port's form of the JAX package's ``_gatv2_pallas_bwd``, which also
+    takes the dense VJP.  The backward launches no kernel."""
 
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (CUDA_HOME / nvcc) to "
-                           "build the attention kernel")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
+    @staticmethod
+    def forward(ctx, op, xl, xr, att, bias, adj, mean_aggr):
+        ctx.save_for_backward(xl, xr, att, bias, adj)
+        ctx.mean_aggr = mean_aggr
+        return op.launch(xl, xr, att, bias, adj, mean_aggr)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        xl, xr, att, bias, adj = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True)
+                   for t in (xl, xr, att, bias)]
+            out = attention_plain(*ins, adj, ctx.mean_aggr)
+            grads = torch.autograd.grad(out, ins, grad_out)
+        return (None, *grads, None, None)
 
 
 class GatAttention:
@@ -68,22 +77,7 @@ class GatAttention:
             return self._lib
 
     def _build_and_load(self) -> ctypes.CDLL:
-        src = SOURCE.read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-        so = BUILD_DIR / f"gat_attention_{digest}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}) building {SOURCE}:\n"
-                    f"{res.stdout}\n{res.stderr}")
-            self.build_log = res.stderr
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
+        lib, self.build_log = build_library(SOURCE)
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.gat_attention_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                           ci, vp]
@@ -101,7 +95,8 @@ class GatAttention:
         """xl, xr [..., N, F] f32; att, bias [F]; adj [..., N, N] bool."""
         if xl.device.type == "cpu":
             return attention_plain(xl, xr, att, bias, adj, mean_aggr)
-        return self.launch(xl, xr, att, bias, adj, mean_aggr)
+        return _GatAttentionFn.apply(self, xl, xr, att, bias, adj,
+                                     bool(mean_aggr))
 
     def launch(self, xl, xr, att, bias, adj, mean_aggr: bool = True
                ) -> torch.Tensor:

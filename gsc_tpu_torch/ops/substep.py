@@ -1,0 +1,272 @@
+"""The simulator substep megakernel: a hand-written CUDA kernel and its
+plain PyTorch version.
+
+The kernel (``csrc/substep_megakernel.cu``) replaces the TPU kernel
+``gsc_tpu/ops/pallas_substep.py::substep_megakernel``; its header says
+what bounds it on the card and how its design answers that.  One launch
+runs ``substeps`` substeps (a whole control interval) of every replica:
+one CTA per replica, one thread per flow slot.  It is compiled with
+``nvcc`` for ``sm_90a`` (with ``-fmad=false``: the plain version rounds a
+product and a sum apart) at first use into ``gsc_tpu_torch/_build/`` and
+bound with ``ctypes`` through a plain C interface that takes one struct of
+pointers and sizes.
+
+``substep_megakernel(engine, state, topo, traffic, cap_now, noise,
+substeps)`` dispatches on where the state lies: CUDA tensors launch the
+kernel (or raise on what it does not take), CPU tensors run
+``substep_plain``, the engine's plain substep repeated.  There is no
+fallback from the kernel to the plain version.  The state it returns is
+new: the kernel updates clones of the mutable fields in place.
+``substep_megakernel.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional
+
+import torch
+
+from ..config.registry import get_resource_function
+from ..sim.state import SimState, TrafficSchedule
+from ..topology.compiler import Topology
+from .build import MAX_SMEM_BYTES, PKG, build_library
+
+SOURCE = PKG / "csrc" / "substep_megakernel.cu"
+EXTRA_FLAGS = ("-fmad=false",)
+MAX_FLOWS = 1024
+# resource functions compiled into the kernel, by id
+RESOURCE_FUNCTION_IDS = {"default": 0, "overhead": 1}
+
+_DIMS = ("B", "M", "N", "C", "S", "P", "E", "H", "F", "K", "R", "iters")
+_STRIDES = ("topo_nn_stride", "topo_e_stride", "traf_stride")
+_STATE = ("t", "cursor", "truncated_arrivals")
+_FLOWS = ("phase", "sfc", "position", "node", "dest", "hop_next", "egress",
+          "dr", "duration", "ttl", "e2e", "pend_path", "timer")
+_TABLES = ("node_load", "sf_available", "sf_startup", "sf_last_active",
+           "placed", "schedule", "edge_used", "rel_node", "rel_edge")
+_METRICS = ("generated", "processed", "dropped", "active", "drop_reasons",
+            "sum_proc_delay", "num_proc_delay", "sum_path_delay",
+            "num_path_delay", "sum_e2e", "run_generated", "run_processed",
+            "run_dropped", "run_dropped_per_node", "run_e2e_sum",
+            "run_e2e_max", "run_path_delay_sum", "run_requested",
+            "run_requested_node", "run_processed_traffic",
+            "run_flow_counts", "run_max_node_usage", "run_passed_traffic")
+_TOPO = ("path_delay", "next_hop", "adj_edge_id", "edge_cap", "edge_delay")
+_TRAFFIC = ("arr_time", "arr_ingress", "arr_dr", "arr_duration", "arr_ttl",
+            "arr_sfc", "arr_egress")
+_EXTRA = ("cap_now", "noise", "chain_len", "chain_sf", "proc", "rf_id")
+# state fields the substep never writes: passed as they are, not cloned
+_READ_ONLY = ("sf_startup", "placed", "schedule")
+
+
+class SubstepArgs(ctypes.Structure):
+    """Mirror of ``struct SubstepArgs`` in the CUDA source: every field 8
+    bytes, in the same order (``substep_args_size()`` checks the size)."""
+
+    _fields_ = ([(n, ctypes.c_longlong) for n in _DIMS]
+                + [("dt", ctypes.c_double)]
+                + [(n, ctypes.c_longlong) for n in _STRIDES]
+                + [(n, ctypes.c_void_p) for n in _STATE + _FLOWS + _TABLES
+                   + _METRICS + _TOPO + _TRAFFIC + _EXTRA])
+
+
+def substep_plain(engine, state: SimState, topo: Topology,
+                  traffic: TrafficSchedule, cap_now: torch.Tensor,
+                  noise: Optional[torch.Tensor] = None,
+                  substeps: Optional[int] = None) -> SimState:
+    """The kernel's plain PyTorch version: the engine's plain substep
+    (``SimEngine.substep``) ``substeps`` times; ``noise`` [B, substeps, M]
+    or None.  ``topo``/``traffic`` carry the batch dim."""
+    k_n = engine.substeps if substeps is None else substeps
+    for k in range(k_n):
+        state = engine.substep(state, topo, traffic, cap_now,
+                               None if noise is None else noise[:, k])
+    return state
+
+
+def _per_replica(t: torch.Tensor, batch: int, name: str):
+    """(contiguous tensor, per-replica element stride): a table shared by
+    every replica (an expanded view) passes once with stride 0."""
+    if t.shape[0] != batch:
+        raise ValueError(f"substep_megakernel: {name} has leading dim "
+                         f"{t.shape[0]}, want the batch {batch}")
+    if t.stride(0) == 0:
+        return t[0].contiguous(), 0
+    t = t.contiguous()
+    return t, t[0].numel()
+
+
+class SubstepMegakernel:
+    """Callable wrapper around the kernel: builds and loads the library on
+    first CUDA use, validates arguments, launches on the current stream and
+    counts launches in ``launches``."""
+
+    def __init__(self):
+        self.launches = 0
+        self.build_log = ""
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def library(self) -> ctypes.CDLL:
+        """Build (once per source digest) and load the shared library."""
+        with self._lock:
+            if self._lib is None:
+                lib, self.build_log = build_library(SOURCE, EXTRA_FLAGS)
+                lib.substep_megakernel.argtypes = [ctypes.POINTER(SubstepArgs),
+                                                   ctypes.c_void_p]
+                lib.substep_megakernel.restype = ctypes.c_int
+                lib.substep_args_size.restype = ctypes.c_longlong
+                lib.substep_smem_bytes.argtypes = [ctypes.c_longlong,
+                                                   ctypes.c_longlong]
+                lib.substep_smem_bytes.restype = ctypes.c_longlong
+                lib.substep_error_string.argtypes = [ctypes.c_int]
+                lib.substep_error_string.restype = ctypes.c_char_p
+                size = lib.substep_args_size()
+                if size != ctypes.sizeof(SubstepArgs):
+                    raise RuntimeError(
+                        f"SubstepArgs is {size} bytes in the kernel and "
+                        f"{ctypes.sizeof(SubstepArgs)} in the wrapper")
+                self._lib = lib
+            return self._lib
+
+    def __call__(self, engine, state: SimState, topo: Topology,
+                 traffic: TrafficSchedule, cap_now: torch.Tensor,
+                 noise: Optional[torch.Tensor] = None,
+                 substeps: Optional[int] = None) -> SimState:
+        if state.t.device.type == "cpu":
+            return substep_plain(engine, state, topo, traffic, cap_now,
+                                 noise, substeps)
+        return self.launch(engine, state, topo, traffic, cap_now, noise,
+                           substeps)
+
+    def launch(self, engine, state: SimState, topo: Topology,
+               traffic: TrafficSchedule, cap_now: torch.Tensor,
+               noise: Optional[torch.Tensor] = None,
+               substeps: Optional[int] = None) -> SimState:
+        """Run ``substeps`` substeps (default: the engine's interval) of
+        every replica on CUDA tensors; raises on anything the kernel does
+        not take."""
+        dev = state.t.device
+        if dev.type != "cuda":
+            raise ValueError(f"substep_megakernel: the state is on {dev}; "
+                             "the kernel takes CUDA tensors")
+        b = state.batch
+        k_n = engine.substeps if substeps is None else int(substeps)
+        cfg = engine.cfg
+        if engine.M > MAX_FLOWS:
+            raise ValueError(f"substep_megakernel: {engine.M} flow slots, "
+                             f"the kernel takes at most {MAX_FLOWS} (one "
+                             "thread per slot)")
+        if cfg.controller != "duration":
+            raise ValueError("substep_megakernel runs the duration "
+                             "controller only")
+        rf_ids = []
+        for fn in engine.tables.resource_fns:
+            ids = [i for name, i in RESOURCE_FUNCTION_IDS.items()
+                   if get_resource_function(name) is fn]
+            if not ids:
+                raise ValueError(
+                    f"substep_megakernel: resource function {fn!r} is not "
+                    f"compiled into the kernel (it has "
+                    f"{sorted(RESOURCE_FUNCTION_IDS)})")
+            rf_ids.append(ids[0])
+        if engine.det_proc:
+            noise = None
+        elif noise is None or tuple(noise.shape) != (b, k_n, engine.M):
+            raise ValueError(
+                f"substep_megakernel: stochastic processing delays need "
+                f"noise [B, substeps, M] = {(b, k_n, engine.M)}, got "
+                f"{None if noise is None else tuple(noise.shape)}")
+
+        fresh = lambda t: t.clone(memory_format=torch.contiguous_format)
+        new = {}
+        for name in _STATE + _TABLES:
+            t = getattr(state, name)
+            new[name] = t.contiguous() if name in _READ_ONLY else fresh(t)
+        flows = state.flows.map(fresh)
+        metrics = state.metrics.map(fresh)
+        ptr = {}
+        for name in _STATE + _TABLES:
+            ptr[name] = new[name]
+        for name in _FLOWS:
+            ptr[name] = getattr(flows, name)
+        for name in _METRICS:
+            ptr[name] = getattr(metrics, name)
+        topo_b = topo.expand(b)
+        traffic_b = traffic.expand(b)
+        strides = {}
+        for name in _TOPO:
+            t, s = _per_replica(getattr(topo_b, name), b, name)
+            ptr[name] = t
+            strides["topo_nn_stride" if name in ("path_delay", "next_hop",
+                                                 "adj_edge_id")
+                    else "topo_e_stride"] = s
+        traf_strides = set()
+        for name in _TRAFFIC:
+            t, s = _per_replica(getattr(traffic_b, name), b, name)
+            ptr[name] = t
+            traf_strides.add(s)
+        if len(traf_strides) != 1:
+            raise ValueError("substep_megakernel: traffic arrays must all be "
+                             "shared or all be per replica")
+        strides["traf_stride"] = traf_strides.pop()
+        tabs = engine._tab(dev)
+        ptr["cap_now"] = cap_now.contiguous()
+        ptr["noise"] = None if noise is None else noise.contiguous()
+        ptr["chain_len"] = tabs["chain_len"]
+        ptr["chain_sf"] = tabs["chain_sf"]
+        ptr["proc"] = tabs["proc"].contiguous()
+        ptr["rf_id"] = torch.tensor(rf_ids, dtype=torch.int32, device=dev)
+        want = {torch.float32: "f32", torch.int32: "i32", torch.bool: "bool"}
+        for name, t in ptr.items():
+            if t is None:
+                continue
+            if t.device != dev:
+                raise ValueError(f"substep_megakernel: {name} is on "
+                                 f"{t.device}, the state on {dev}")
+            if t.dtype not in want:
+                raise TypeError(f"substep_megakernel: {name} is {t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError(f"substep_megakernel: {name} is not "
+                                 "contiguous")
+        for name in ("dr", "ttl", "t", "node_load", "arr_time", "path_delay",
+                     "cap_now", "proc"):
+            if ptr[name].dtype != torch.float32:
+                raise TypeError(f"substep_megakernel: {name} is "
+                                f"{ptr[name].dtype}, the kernel takes f32")
+        for name in ("phase", "cursor", "next_hop", "arr_ingress",
+                     "run_flow_counts"):
+            if ptr[name].dtype != torch.int32:
+                raise TypeError(f"substep_megakernel: {name} is "
+                                f"{ptr[name].dtype}, the kernel takes i32")
+        for name in ("sf_available", "placed"):
+            if ptr[name].dtype != torch.bool:
+                raise TypeError(f"substep_megakernel: {name} is "
+                                f"{ptr[name].dtype}, the kernel takes bool")
+        lib = self.library()
+        smem = lib.substep_smem_bytes(engine.M, engine.P)
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(f"substep_megakernel: M={engine.M}, "
+                             f"P={engine.P} need {smem} bytes of shared "
+                             f"memory, more than a block's {MAX_SMEM_BYTES}")
+        args = SubstepArgs(
+            B=b, M=engine.M, N=engine.N, C=engine.C, S=engine.S, P=engine.P,
+            E=engine.E, H=engine.H, F=traffic.capacity, K=k_n,
+            R=cfg.wrr_rank_levels, iters=cfg.admission_iters, dt=engine.dt,
+            **strides,
+            **{name: (None if t is None else t.data_ptr())
+               for name, t in ptr.items()})
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            code = lib.substep_megakernel(ctypes.byref(args), stream)
+        if code != 0:
+            raise RuntimeError(
+                "substep_megakernel launch failed: "
+                f"{lib.substep_error_string(code).decode()} ({code})")
+        self.launches += 1
+        return state.replace(flows=flows, metrics=metrics,
+                             **{n: new[n] for n in _STATE + _TABLES})
+
+
+substep_megakernel = SubstepMegakernel()

@@ -1,7 +1,10 @@
 """Batched fixed-step flow simulation engine (duration controller).
 
 The port of ``gsc_tpu.sim.engine``: ``ServiceTables``, ``SimEngine.init``
-/ ``apply`` and the substep of ``SimEngine._substep_xla``.  One control
+/ ``apply`` and the substep of ``SimEngine._substep_xla``.  An interval
+runs through the substep megakernel (``ops.substep``): one CUDA launch per
+interval on the card, this module's plain substep on the CPU, whichever
+``SimConfig.substep_impl`` a configuration names.  One control
 interval (= one RL step, ``run_duration`` ms) is a Python loop over
 ``run_duration/dt`` fixed substeps; each substep advances every flow slot
 of every replica in parallel.  Every tensor carries a leading [B] dim of
@@ -253,6 +256,23 @@ class SimEngine:
         b = state.batch
         topo = topo.expand(b)
         traffic = traffic.expand(b)
+        state, cap_now = self.begin_interval(state, traffic, schedule,
+                                             placement)
+        # the megakernel: one launch for the interval on the card, the
+        # plain substep repeated on the CPU (whatever ``substep_impl`` says)
+        from ..ops.substep import substep_megakernel
+        state = substep_megakernel(self, state, topo, traffic, cap_now, noise)
+        state = state.replace(run_idx=state.run_idx + 1)
+        return state, state.metrics
+
+    def begin_interval(self, state: SimState, traffic: TrafficSchedule,
+                       schedule: torch.Tensor, placement: torch.Tensor
+                       ) -> Tuple[SimState, torch.Tensor]:
+        """The action's effect at the start of an interval (placement,
+        schedule, newly available SFs, run-metric reset) and this
+        interval's node capacities ``cap_now`` [B, N]; ``traffic`` carries
+        the batch dim."""
+        b = state.batch
         available = placement | (state.node_load > _EPS)
         newly = available & ~state.sf_available
         tt = state.t[:, None, None]
@@ -265,11 +285,7 @@ class SimEngine:
         idx_now = state.run_idx.clamp(0, t_steps - 1).long()
         cap_now = traffic.node_cap[torch.arange(b, device=idx_now.device),
                                   idx_now]                 # [B, N]
-        for k in range(self.substeps):
-            state = self.substep(state, topo, traffic, cap_now,
-                                 None if noise is None else noise[:, k])
-        state = state.replace(run_idx=state.run_idx + 1)
-        return state, state.metrics
+        return state, cap_now
 
     # ---------------------------------------------------------------- substep
     def substep(self, state: SimState, topo: Topology,

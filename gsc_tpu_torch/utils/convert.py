@@ -1,8 +1,10 @@
-"""Carry weights from the JAX package's flax Actor into the port.
+"""Carry weights from the JAX package's flax networks into the port.
 
-``actor_params_from_jax(tree)`` takes the flax ``Actor`` parameter tree as
-nested dicts of numpy arrays (``jax.device_get(params)``, with or without
-the top-level ``"params"`` key) and returns the port's ``state_dict``:
+``params_from_jax(tree)`` takes a flax ``Actor`` or ``QNetwork`` parameter
+tree as nested dicts of numpy arrays (``jax.device_get(params)``, with or
+without the top-level ``"params"`` key) and returns the port's
+``state_dict`` (``actor_params_from_jax`` and ``critic_params_from_jax``
+name it for each network):
 
 - a Dense ``kernel [in, out]`` becomes ``Linear.weight [out, in]``;
 - a GATv2 ``w_l``/``w_r [in, F]`` becomes ``lin_l``/``lin_r.weight
@@ -10,7 +12,9 @@ the top-level ``"params"`` key) and returns the port's ``state_dict``:
 - a GATv2 ``att [F, 1]`` becomes ``att [F]``.
 
 It raises on a leaf it does not use and on a leaf the port needs that the
-tree lacks.  Nothing here imports JAX.
+tree lacks.  ``learner_state_from_jax`` carries a whole DDPG learner state
+(both networks, both targets and both Adam states) into a port
+``DDPGState``.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -61,11 +65,11 @@ def _map_leaf(path: tuple) -> Optional[tuple]:
     return None
 
 
-def actor_params_from_jax(tree: Mapping, actor: Optional[torch.nn.Module] = None
-                          ) -> Dict[str, torch.Tensor]:
-    """flax Actor params -> the port Actor's ``state_dict``.  With
-    ``actor``, the result is also checked key for key and shape for shape
-    against ``actor.state_dict()``."""
+def params_from_jax(tree: Mapping, actor: Optional[torch.nn.Module] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """flax Actor or QNetwork params -> the port network's ``state_dict``.
+    With a module (``actor``), the result is also checked key for key and
+    shape for shape against its ``state_dict()``."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     state: Dict[str, torch.Tensor] = {}
@@ -74,8 +78,8 @@ def actor_params_from_jax(tree: Mapping, actor: Optional[torch.nn.Module] = None
         mapped = _map_leaf(path)
         if mapped is None:
             raise ValueError(f"unused flax leaf {'/'.join(path)} "
-                             f"{leaf.shape}: the port's Actor has no place "
-                             "for it")
+                             f"{leaf.shape}: the port's network has no "
+                             "place for it")
         mod, key, transpose = mapped
         modules.add(mod)
         arr = leaf.T if transpose else leaf
@@ -99,9 +103,40 @@ def actor_params_from_jax(tree: Mapping, actor: Optional[torch.nn.Module] = None
         unused = sorted(set(state) - set(want))
         if unused:
             raise ValueError(f"flax leaves map to {unused}, which the port's "
-                             "Actor does not have")
+                             "network does not have")
         for k, v in want.items():
             if tuple(v.shape) != tuple(state[k].shape):
                 raise ValueError(f"{k}: flax gives {tuple(state[k].shape)}, "
                                  f"the port wants {tuple(v.shape)}")
     return state
+
+
+actor_params_from_jax = params_from_jax
+critic_params_from_jax = params_from_jax
+
+
+def learner_state_from_jax(tree: Mapping, state) -> None:
+    """Load a JAX ``DDPGState`` into a port ``DDPGState`` in place.
+
+    ``tree`` holds numpy leaves under ``actor_params``, ``critic_params``,
+    ``target_actor_params``, ``target_critic_params`` and, for each of
+    ``actor_opt`` and ``critic_opt``, optax's Adam state as ``count``,
+    ``mu`` and ``nu`` (the moments are laid out like the parameters and
+    convert the same way)."""
+    nets = (("actor_params", state.actor), ("critic_params", state.critic),
+            ("target_actor_params", state.target_actor),
+            ("target_critic_params", state.target_critic))
+    for key, net in nets:
+        sd = params_from_jax(tree[key], net)
+        net.load_state_dict(sd)
+    for key, net, opt in (("actor_opt", state.actor, state.actor_opt),
+                          ("critic_opt", state.critic, state.critic_opt)):
+        adam = tree[key]
+        mu = params_from_jax(adam["mu"], net)
+        nu = params_from_jax(adam["nu"], net)
+        step = float(np.asarray(adam["count"]))
+        for name, p in net.named_parameters():
+            opt.state[p] = {
+                "step": torch.tensor(step),
+                "exp_avg": mu[name].to(p.device).clone(),
+                "exp_avg_sq": nu[name].to(p.device).clone()}

@@ -1,0 +1,130 @@
+"""The substep megakernel's wrapper and the attention kernel's gradient,
+without JAX.
+
+This file imports torch and the port only, so it runs on the card, where
+JAX is absent (``python -m pytest --noconftest
+tests/test_torch_substep_kernel.py -q``); every test is marked ``cuda``
+and skips without a card (the wrapper's CPU behaviour is tested in
+tests/test_torch_substep.py).  On the card the kernel is held against its
+plain version, the attention kernel's gradients through its
+``autograd.Function`` against the dense path's, and the wrapper must
+refuse CPU inputs and a resource function that the kernel does not
+compile in.
+
+Tolerances: megakernel integer and boolean state exact; float state rtol
+1e-5, atol 1e-5 against the plain version on the card (whose scatter-adds
+are float atomics and whose cumsum is a parallel scan, so it adds in
+another order) and against the plain version on CPU copies (whose sums of
+a few whole-state reductions, e.g. the departures' e2e sum, are vectorised
+in another order than the kernel's slot order).  Attention gradients rtol
+1e-4, atol 1e-5: the backward is the same dense VJP on both paths, and
+the kernel's forward output differs from the dense one by f32 rounding
+(the forward's tolerance is atol 1e-5), which the VJP does not amplify
+beyond these bounds.
+"""
+import numpy as np
+import pytest
+import torch
+
+from gsc_tpu_torch.config.schema import (EnvLimits, ServiceConfig,
+                                         ServiceFunction, SimConfig)
+from gsc_tpu_torch.config.registry import register_resource_function
+from gsc_tpu_torch.ops.gat_attention import attention_plain, gat_attention
+from gsc_tpu_torch.ops.substep import substep_megakernel
+from gsc_tpu_torch.sim import cases
+from gsc_tpu_torch.sim.engine import SimEngine
+from torch_port_helpers import one_torch_thread  # noqa: F401
+
+RTOL, ATOL = 1e-5, 1e-5
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (the kernel has no CPU "
+                    "mode; its plain version is tested on the CPU)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_megakernel_matches_plain_on_card():
+    dev = _card()
+    for case in (cases.battery_case("stochastic_startup"), cases.wrr_case(),
+                 cases.fractional_case()):
+        before = substep_megakernel.launches
+        got = cases.run_case(case, dev)
+        assert substep_megakernel.launches == before + case.intervals
+        want_gpu = cases.run_case(case, dev, plain=True)
+        want_cpu = cases.run_case(case, "cpu", plain=True)
+        for i, g in enumerate(got):
+            cases.compare_states(g, want_gpu[i], RTOL, ATOL,
+                                 f"{case.name}[{i}] vs plain on card: ")
+            cases.compare_states(g, want_cpu[i], RTOL, ATOL,
+                                 f"{case.name}[{i}] vs plain on CPU: ")
+        again = cases.run_case(case, dev)
+        assert cases.bit_equal(again[-1], got[-1])
+
+
+@pytest.mark.cuda
+def test_megakernel_refuses_cpu_pointers():
+    """A state on the CPU, or one CPU input beside a state on the card, is
+    refused before anything launches."""
+    dev = _card()
+    case = cases.battery_case("node_cap")
+    eng = case.engine
+    before = substep_megakernel.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        substep_megakernel.launch(eng, eng.init(1, "cpu"), case.topo,
+                                  case.traffic, torch.ones(1, 8))
+    with pytest.raises(ValueError, match="cpu"):
+        substep_megakernel.launch(eng, eng.init(1, dev), case.topo.to(dev),
+                                  case.traffic.to(dev), torch.ones(1, 8))
+    assert substep_megakernel.launches == before
+
+
+@pytest.mark.cuda
+def test_megakernel_refuses_unknown_resource_function():
+    dev = _card()
+    register_resource_function("card_test_square")(lambda x: x * x)
+    sf = lambda n, rf="default": ServiceFunction(
+        name=n, processing_delay_mean=5.0, processing_delay_stdev=0.0,
+        resource_function_id=rf)
+    svc = ServiceConfig(sfc_list={"sfc_1": ("a", "b")},
+                        sf_list={"a": sf("a"), "b": sf("b",
+                                                       "card_test_square")})
+    lim = EnvLimits(max_nodes=8, max_edges=8, num_sfcs=1, max_sfs=2)
+    engine = SimEngine(svc, SimConfig(), lim)
+    case = cases.battery_case("node_cap")
+    state = engine.init(1, dev)
+    with pytest.raises(ValueError, match="resource function"):
+        substep_megakernel.launch(engine, state, case.topo.to(dev),
+                                  case.traffic.to(dev),
+                                  torch.ones(1, 8, device=dev))
+
+
+@pytest.mark.cuda
+def test_attention_gradients_through_the_kernel_match_dense():
+    dev = _card()
+    rng = np.random.default_rng(3)
+    b, n, f = 8, 24, 22
+    xl = torch.tensor(rng.normal(size=(b, n, f)), dtype=torch.float32,
+                      device=dev, requires_grad=True)
+    xr = torch.tensor(rng.normal(size=(b, n, f)), dtype=torch.float32,
+                      device=dev, requires_grad=True)
+    att = torch.tensor(rng.normal(size=f), dtype=torch.float32, device=dev,
+                       requires_grad=True)
+    bias = torch.tensor(rng.normal(size=f), dtype=torch.float32, device=dev,
+                        requires_grad=True)
+    adj = torch.tensor(rng.uniform(size=(b, n, n)) < 0.3, device=dev)
+    adj[:, :, :] |= torch.eye(n, dtype=torch.bool, device=dev)
+    adj[:, :2, :] = False
+    g_out = torch.tensor(rng.normal(size=(b, n, f)), dtype=torch.float32,
+                         device=dev)
+    grads = []
+    for fn in (gat_attention, attention_plain):
+        for mean in (True,):
+            out = fn(xl, xr, att, bias, adj, mean)
+            grads.append(torch.autograd.grad(out, (xl, xr, att, bias),
+                                             g_out))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL)
