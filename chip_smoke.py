@@ -12,7 +12,12 @@ Phases (any failure exits non-zero and prints no result line):
 2. build: compiles both kernels (the GATv2 attention kernel and the
    substep megakernel) from the sources in this checkout
    (``gsc_tpu_torch/csrc/*.cu``, one nvcc for each, started together, for
-   sm_90a, into ``gsc_tpu_torch/_build/``) and prints the build seconds;
+   sm_90a, into ``gsc_tpu_torch/_build/``), the megakernel a second time
+   with ``-DSUBSTEP_STAGE_CLOCKS`` for phase 7's stage clocks, and, where
+   ``_parent/substep_megakernel.cu`` exists (a copy of the parent commit's
+   source, never committed), that one for phase 7's comparison; prints
+   the build seconds and each ptxas line of registers, shared memory and
+   spills;
 3. the attention kernel against its plain version on the card, f32, at
    the serving shapes (B, N, F) = (1, 24, 22), (4, 24, 22), (8, 24, 22),
    the training rollout's (64, 24, 22), the learn-burst shape (100, 24, 22)
@@ -40,18 +45,27 @@ Phases (any failure exits non-zero and prints no result line):
    battery of ``gsc_tpu_torch.sim.cases``: the six drop-taxonomy
    scenarios, the WRR-collision triangle, the saturated-link line,
    fractional data rates and Abilene with 64 replicas under a seeded
-   non-uniform schedule.  Every integer and boolean leaf of state and
-   metrics must be equal, floats within the tolerance below (each side's
-   distance is printed); two launches on the same inputs must be
-   bit-identical, and a single-substep launch must agree as well;
+   non-uniform schedule, data rates of a range (1e-30 beside 1e10) whose
+   admission sums no double holds exactly, and Abilene under heavy
+   traffic at 1024 and at 200 flow slots.  Every leaf of state and metrics
+   must be bit-equal to the plain version on CPU copies of the inputs,
+   and within the tolerance below of the plain version on the card (each
+   side's distance is printed); two launches on the same inputs must be
+   bit-identical, and a single-substep launch must agree as well; the
+   kernel's count of admission rounds that took its sequential scan must
+   be above 0 on the wide-range case and 0 on every other;
 6. the seeded Abilene golden trajectory on the kernel path: generated
    800, processed 658, dropped 133, active 9, drop reasons [0, 0, 0,
    133], average end-to-end delay 34.75 +- 0.1;
 7. the megakernel's time per interval at B = 1, 64 and 256 replicas
    (CUDA events with the wrapper, profiler device time of the kernel),
-   the plain engine's time and the bound; at B = 64 also its device time
-   with 0 and 1 admission rounds and with 1 WRR rank level (the default
-   is 3 and 4), which says where an interval's time goes;
+   the plain engine's time and the bound, and, where the parent's source
+   was built, the parent kernel's device time on the same inputs, timed
+   in turns (parent, kernel, kernel, parent); at B = 64 also its device
+   time with 0 and 1 admission rounds and with 1 WRR rank level (the
+   default is 3 and 4), and the clocked build's share of an interval per
+   stage (thread 0's clock64() between the stage's barriers), which say
+   where an interval's time goes;
 8. the training slice: ``python -m gsc_tpu_torch.cli train --replicas 64
    --chunk 50 --episodes 2`` through ``cli.run_train`` on Abilene at the
    flagship widths (the first episode warm-up, the second acting through
@@ -83,9 +97,11 @@ except in destination rows where a pre-threshold value lies within 1e-4
 of the 0.1 threshold (a last-bit difference may flip that entry).  The
 megakernel's float state rtol 1e-5 / atol 1e-5 against the plain version
 on the card (whose scatter-adds are float atomics and whose cumsum is a
-parallel scan, so it adds in another order) and on the CPU (whose
-whole-slot sums are vectorised in another order than the kernel's slot
-order); its integers exactly.  Training gradients through the kernel
+parallel f32 scan, so it adds in another order), its integers exactly;
+against the plain version on CPU copies every leaf bit for bit: the
+kernel keeps the CPU version's order, or an admission scan order that is
+exact in a double, and the battery's whole-slot sums (which PyTorch's CPU
+sum vectorises) are exact or have at most two fractional terms.  Training gradients through the kernel
 against the dense path: per parameter tensor, the largest difference
 within 1e-4 of the tensor's largest entry plus 1e-5.  The backward is the
 same dense VJP, evaluated at forward outputs that differ by f32 rounding;
@@ -101,6 +117,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-5
 ANSWER_RTOL, ANSWER_ATOL = 1e-5, 1e-6
@@ -126,12 +143,22 @@ TRAIN_ARGS = ["--replicas", "64", "--chunk", "50", "--episodes", "2",
 # phase (the phase test and the timer's advance): a lower count, since
 # what else a slot does depends on phases this script does not trace
 OPS_PER_SLOT_SUBSTEP = 2
-# (requests, concurrency) of the serving bursts: concurrency 4 is the
-# measured load; 1 and 8 make the batcher fill buckets 1 and 8
-BURSTS = [(64, 4), (8, 1), (32, 8)]
+# (requests, concurrency, deadline ms) of the serving bursts: concurrency
+# 4 at the default 5 ms deadline is the measured load; 1 and 8 make the
+# batcher fill buckets 1 and 8. The concurrency-8 burst waits up to 50 ms
+# for its batch: at 5 ms, a dispatch as long as the deadline lets the
+# clients settle into two groups of 4 that alternate, and bucket 8 then
+# serves nothing. A full batch of 8 flushes at once, whatever the deadline.
+BURSTS = [(64, 4, 5.0), (8, 1, 5.0), (32, 8, 50.0)]
 # env steps that build each burst's request pool
 POOL_STEPS = 8
 BUCKETS = (1, 4, 8)
+# a copy of the parent commit's megakernel source, present only in a run
+# that compares the two (never committed)
+PARENT_SOURCE = Path(__file__).resolve().parent / "_parent" / \
+    "substep_megakernel.cu"
+# the battery case whose data rates span more than a double holds
+WIDE_CASE = "wide_range_dr"
 
 
 class SmokeFailure(RuntimeError):
@@ -307,6 +334,61 @@ def check_answers(report, plain_actor, torch, dev):
     return worst, ambiguous
 
 
+def parent_megakernel():
+    """The parent commit's megakernel, bound through its own C interface
+    (the same argument struct without the fields added since), or None
+    when its source is absent."""
+    if not PARENT_SOURCE.exists():
+        return None
+    import ctypes
+
+    from gsc_tpu_torch.ops import substep
+    from gsc_tpu_torch.ops.build import build_library
+
+    class ParentMegakernel(substep.SubstepMegakernel):
+        def library(self):
+            with self._lock:
+                if self._lib is None:
+                    lib, self.build_log = build_library(PARENT_SOURCE,
+                                                        substep.EXTRA_FLAGS)
+                    lib.substep_megakernel.argtypes = [
+                        ctypes.POINTER(substep.SubstepArgs), ctypes.c_void_p]
+                    lib.substep_megakernel.restype = ctypes.c_int
+                    self._lib = lib
+                return self._lib
+
+        def launch(self, engine, state, topo, traffic, cap_now, noise=None,
+                   substeps=None):
+            import torch
+
+            dev = state.t.device
+            args, new = self._prepare(
+                engine, state, topo, traffic, cap_now, noise, substeps,
+                torch.zeros(1, dtype=torch.int64, device=dev), None)
+            code = self.library().substep_megakernel(
+                ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+            check(code == 0, f"parent megakernel launch failed ({code})")
+            self.launches += 1
+            return new
+
+    return ParentMegakernel()
+
+
+def megakernel_smem_bytes(op, max_flows):
+    """The megakernel's shared memory per CTA on Abilene's tables with
+    ``max_flows`` slots, from its own layout function."""
+    import ctypes
+
+    from gsc_tpu_torch.config.catalog import abc_service
+    from gsc_tpu_torch.config.schema import EnvLimits
+    from gsc_tpu_torch.ops.substep import SubstepArgs
+
+    lim = EnvLimits.for_service(abc_service())
+    args = SubstepArgs(M=max_flows, N=lim.max_nodes, C=lim.num_sfcs,
+                       S=lim.max_sfs, P=lim.sf_pool, E=lim.max_edges)
+    return op.library().substep_smem_bytes(ctypes.byref(args))
+
+
 def build_kernels(ops):
     """Build every kernel library at once (one nvcc each, started
     together); returns the seconds each took."""
@@ -355,11 +437,21 @@ def substep_battery(torch, dev):
     returns the largest float difference."""
     from gsc_tpu_torch.sim import cases
 
+    from gsc_tpu_torch.ops.substep import substep_megakernel
+
     worst = 0.0
     for case in cases.all_cases(abilene_batch=64):
         t0 = time.perf_counter()
+        substep_megakernel.serial_rounds = 0
         got = cases.run_case(case, dev)
         torch.cuda.synchronize()
+        serial = substep_megakernel.serial_rounds
+        if case.name == WIDE_CASE:
+            check(serial > 0, f"{case.name}: no admission round took the "
+                  "sequential scan")
+        else:
+            check(serial == 0, f"{case.name}: {serial} admission rounds "
+                  "took the sequential scan")
         on_card = cases.run_case(case, dev, plain=True)
         on_cpu = cases.run_case(case, "cpu", plain=True)
         e_card = e_cpu = e_plain = 0.0
@@ -374,6 +466,9 @@ def substep_battery(torch, dev):
             e_plain = max(e_plain, cases.compare_states(
                 on_card[i], on_cpu[i], SUB_RTOL, SUB_ATOL,
                 f"{what}, plain on card vs CPU: "))
+            check(cases.bit_equal(got[i].to("cpu"), on_cpu[i]),
+                  f"{what}: the kernel is not bit-equal to the plain "
+                  "version on CPU copies")
         again = cases.run_case(case, dev)
         check(all(cases.bit_equal(a, g) for a, g in zip(again, got)),
               f"{case.name}: two launches on the same inputs differ")
@@ -382,11 +477,12 @@ def substep_battery(torch, dev):
         e_one = single_substep_check(case, start, torch, dev)
         m = got[-1].metrics
         worst = max(worst, e_card, e_cpu, e_one)
-        print(f"  {case.name:18s} B={case.batch:3d} x{case.intervals} "
-              f"intervals: max float diff kernel-plain(card) {e_card:.2e}, "
-              f"kernel-plain(CPU) {e_cpu:.2e}, plain card-CPU "
-              f"{e_plain:.2e}, single substep {e_one:.2e}; integers "
-              f"equal; bit-identical relaunch; generated "
+        print(f"  {case.name:18s} M={case.engine.M:4d} B={case.batch:3d} "
+              f"x{case.intervals} intervals: max float diff "
+              f"kernel-plain(card) {e_card:.2e}, kernel-plain(CPU) "
+              f"{e_cpu:.2e} (bit-equal), plain card-CPU {e_plain:.2e}, "
+              f"single substep {e_one:.2e}; serial rounds {serial}; "
+              f"bit-identical relaunch; generated "
               f"{int(m.generated.sum())}, dropped {int(m.dropped.sum())} "
               f"reasons {m.drop_reasons.sum(0).tolist()} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -438,13 +534,18 @@ def substep_bound(engine, before, after, batch):
                                  else "operations"), nbytes, ring_rows
 
 
-def substep_timings(torch, dev, smi):
-    """Phase 7: per-interval times at the SUB_TIMING_BATCHES."""
+def substep_timings(torch, dev, smi, clocked, parent):
+    """Phase 7: per-interval times at the SUB_TIMING_BATCHES; the parent
+    kernel's device time in turns with this kernel's where ``parent`` is
+    built; at SUB_MAIN_BATCH the attribution runs and the stage clocks of
+    ``clocked``."""
     from gsc_tpu_torch.config.schema import replace
-    from gsc_tpu_torch.ops.substep import substep_megakernel, substep_plain
+    from gsc_tpu_torch.ops.substep import (STAGES, substep_megakernel,
+                                           substep_plain)
     from gsc_tpu_torch.sim import cases
     from gsc_tpu_torch.sim.engine import SimEngine
 
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
     out = {}
     for b in SUB_TIMING_BATCHES:
         case = cases.abilene_case(batch=b, intervals=2, seed=7)
@@ -455,23 +556,38 @@ def substep_timings(torch, dev, smi):
         st, cap = eng.begin_interval(states[-1], traffic,
                                      case.schedule.to(dev),
                                      case.placement.to(dev))
-        fn = lambda: substep_megakernel.launch(eng, st, topo, traffic, cap)
-        after = fn()
-        ms = cuda_time_ms(fn, torch, reps=20, warmup=3)
-        dev_ms = profile_device_ms(fn, torch, reps=10,
-                                   kernel="substep_megakernel_kernel")
+        run = lambda op, e=eng: op.launch(e, st, topo, traffic, cap)
+        device_ms = lambda op: profile_device_ms(
+            lambda: run(op), torch, reps=10,
+            kernel="substep_megakernel_kernel")
+        after = run(substep_megakernel)
+        ms = cuda_time_ms(lambda: run(substep_megakernel), torch, reps=20,
+                          warmup=3)
+        turns = []
+        if parent is not None:
+            check(cases.bit_equal(run(parent), after),
+                  f"B={b}: the parent kernel's interval differs")
+            turns.append(device_ms(parent))
+        dev_ms = device_ms(substep_megakernel)
+        if parent is not None:
+            turns += [dev_ms, device_ms(substep_megakernel),
+                      device_ms(parent)]
         plain_ms = cuda_time_ms(
             lambda: substep_plain(eng, st, topo, traffic, cap), torch,
             reps=2, warmup=1)
         bound_ms, bound_by, nbytes, ring_rows = substep_bound(eng, st,
                                                               after, b)
         out[b] = (ms, dev_ms, plain_ms, bound_ms, bound_by)
-        fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
         print(f"  B={b:3d}: per interval (100 substeps) kernel {ms:.4f} ms "
               f"(events, wrapper included), device time {fmt(dev_ms)}; "
               f"plain engine {plain_ms:.2f} ms; bound {bound_ms:.6f} ms "
               f"({bound_by}: {nbytes} bytes, {ring_rows} ring rows of "
               f"{2 * b * eng.H}) on {smi}", flush=True)
+        if turns:
+            print(f"    parent kernel vs this kernel, device time in turns "
+                  f"(parent, kernel, kernel, parent): "
+                  f"{', '.join(fmt(t) for t in turns)}; the same interval "
+                  "bit for bit", flush=True)
         if b == SUB_MAIN_BATCH:
             # where the interval's time goes: the same inputs with fewer
             # admission rounds and WRR rank levels (other results, the
@@ -480,12 +596,24 @@ def substep_timings(torch, dev, smi):
                        {"wrr_rank_levels": 1}):
                 var = SimEngine(eng.service, replace(eng.cfg, **kw),
                                 eng.limits)
-                t = profile_device_ms(
-                    lambda: substep_megakernel.launch(var, st, topo,
-                                                      traffic, cap),
-                    torch, reps=10, kernel="substep_megakernel_kernel")
+                t = profile_device_ms(lambda: run(substep_megakernel, var),
+                                      torch, reps=10,
+                                      kernel="substep_megakernel_kernel")
                 print(f"    attribution at B={b}: {kw} device time "
                       f"{fmt(t)} per interval", flush=True)
+            # the clocked build: thread 0's cycles between stage barriers
+            check(cases.bit_equal(run(clocked), after),
+                  "the clocked build's interval differs")
+            clk_ms = device_ms(clocked)
+            cyc = clocked.stage_clocks.double().mean(0)
+            total = float(cyc.sum())
+            k_n = eng.substeps
+            print(f"    stage clocks at B={b} (clocked build, device time "
+                  f"{fmt(clk_ms)} per interval; {total / k_n:.0f} cycles "
+                  f"per substep, mean over replicas):", flush=True)
+            for name, c in zip(STAGES, cyc.tolist()):
+                print(f"      {name:16s} {c / k_n:9.0f} cycles/substep "
+                      f"{100.0 * c / total:6.2f}%", flush=True)
     return out
 
 
@@ -624,8 +752,10 @@ def main() -> int:
     from gsc_tpu_torch.models.nets import Actor
     from gsc_tpu_torch.ops.gat_attention import (SOURCE, attention_plain,
                                                  gat_attention)
+    from gsc_tpu_torch.ops.build import MAX_SMEM_BYTES
     from gsc_tpu_torch.ops.substep import SOURCE as SUB_SOURCE
-    from gsc_tpu_torch.ops.substep import substep_megakernel
+    from gsc_tpu_torch.ops.substep import (SubstepMegakernel,
+                                           substep_megakernel)
     from gsc_tpu_torch.serve import run_serve
     from gsc_tpu_torch.sim import cases
 
@@ -637,14 +767,26 @@ def main() -> int:
           f"CUDA {torch.version.cuda}", flush=True)
 
     # ---- 2. build ------------------------------------------------------
-    built = build_kernels({"gat_attention": gat_attention,
-                           "substep_megakernel": substep_megakernel})
+    clocked = SubstepMegakernel(stage_clocks=True)
+    parent = parent_megakernel()
+    ops = {"gat_attention": gat_attention,
+           "substep_megakernel": substep_megakernel,
+           "substep_megakernel (stage clocks)": clocked}
+    if parent is not None:
+        ops["substep_megakernel (parent)"] = parent
+    built = build_kernels(ops)
     print("build: " + ", ".join(f"{k} {v:.2f} s" for k, v in built.items()),
           flush=True)
-    for op in (gat_attention, substep_megakernel):
+    for key, op in ops.items():
         for line in op.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  ptxas {key}: {line.strip()}")
+    for m_slots in (128, 1024):
+        smem = megakernel_smem_bytes(substep_megakernel, m_slots)
+        print(f"  megakernel shared memory per CTA at M={m_slots}, "
+              f"Abilene (N=24, E=37, P=3): {smem} bytes", flush=True)
+        check(smem <= MAX_SMEM_BYTES, f"M={m_slots} needs {smem} bytes of "
+              "shared memory")
 
     # ---- 3. kernel vs plain on the card ---------------------------------
     max_err = 0.0
@@ -705,11 +847,11 @@ def main() -> int:
     gat_attention.launches = 0
     substep_megakernel.launches = 0
     reports, serve_wall = [], []
-    for r, c in BURSTS:
+    for r, c, deadline in BURSTS:
         t0 = time.perf_counter()
         reports.append(run_serve(device=dev, pool_steps=POOL_STEPS,
                                  requests=r, concurrency=c, buckets=BUCKETS,
-                                 seed=0))
+                                 deadline_ms=deadline, seed=0))
         serve_wall.append(time.perf_counter() - t0)
     launches = gat_attention.launches
     pool_launches = substep_megakernel.launches
@@ -722,7 +864,7 @@ def main() -> int:
           f"{pool_launches} megakernel launches for {len(BURSTS)} request "
           f"pools of {POOL_STEPS} env steps (want 1 per step)")
     served = set()
-    for (r, c), report in zip(BURSTS, reports):
+    for (r, c, deadline), report in zip(BURSTS, reports):
         summ = report.summary()
         check(not report.errors, f"serve errors: {report.errors[:3]}")
         check(len(report.answers) == r, f"{len(report.answers)} of {r} "
@@ -735,6 +877,7 @@ def main() -> int:
         used = sorted({b for _, b in report.flushes})
         served.update(used)
         print(f"serve burst: {summ['completed']} requests at concurrency {c}, "
+              f"deadline {deadline:g} ms, "
               f"{summ['dispatches']} dispatches (buckets {used}); "
               f"{summ['requests_per_s']:.1f} req/s, p50 {summ['p50_ms']:.3f} ms, "
               f"p99 {summ['p99_ms']:.3f} ms, startup {summ['startup_s']:.2f} s on "
@@ -743,7 +886,7 @@ def main() -> int:
         print(f"serve_summary c={c}: " + json.dumps(summ))
     check(served == set(BUCKETS),
           f"buckets {sorted(set(BUCKETS) - served)} served no request")
-    print(f"serve: {sum(r for r, _ in BURSTS)} requests through buckets "
+    print(f"serve: {sum(b[0] for b in BURSTS)} requests through buckets "
           f"{sorted(served)}, {launches} attention kernel launches; "
           f"{pool_launches} megakernel launches building the request pools; "
           f"run_serve wall {[round(w, 3) for w in serve_wall]} s (pool, "
@@ -775,7 +918,7 @@ def main() -> int:
 
     # ---- 7. megakernel timings ------------------------------------------
     print("megakernel timings:", flush=True)
-    sub_times = substep_timings(torch, dev, smi)
+    sub_times = substep_timings(torch, dev, smi, clocked, parent)
 
     # ---- 8. the training slice -------------------------------------------
     train_launches = train_slice(torch, dev, smi)

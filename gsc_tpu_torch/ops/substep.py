@@ -5,11 +5,18 @@ The kernel (``csrc/substep_megakernel.cu``) replaces the TPU kernel
 ``gsc_tpu/ops/pallas_substep.py::substep_megakernel``; its header says
 what bounds it on the card and how its design answers that.  One launch
 runs ``substeps`` substeps (a whole control interval) of every replica:
-one CTA per replica, one thread per flow slot.  It is compiled with
-``nvcc`` for ``sm_90a`` (with ``-fmad=false``: the plain version rounds a
-product and a sum apart) at first use into ``gsc_tpu_torch/_build/`` and
-bound with ``ctypes`` through a plain C interface that takes one struct of
-pointers and sizes.
+one CTA per replica, one thread per flow slot, the flow table and the
+replica's small tables in shared memory.  Every stage is parallel over
+slots or sorted positions: ranks and lists are warp ballots, the sorted
+groups come from count-ranking, the link and node admission rounds are
+block-wide double scans that are bit-equal to the plain version's
+sequential cumsum whenever a round's values span at most 53 bits (a
+round that spans more runs the sequential scan in the kernel and is
+counted in ``serial_rounds``), and scatter-adds go by target in slot
+order.  It is compiled with ``nvcc`` for ``sm_90a`` (with
+``-fmad=false``: the plain version rounds a product and a sum apart) at
+first use into ``gsc_tpu_torch/_build/`` and bound with ``ctypes``
+through a plain C interface that takes one struct of pointers and sizes.
 
 ``substep_megakernel(engine, state, topo, traffic, cap_now, noise,
 substeps)`` dispatches on where the state lies: CUDA tensors launch the
@@ -17,7 +24,12 @@ kernel (or raise on what it does not take), CPU tensors run
 ``substep_plain``, the engine's plain substep repeated.  There is no
 fallback from the kernel to the plain version.  The state it returns is
 new: the kernel updates clones of the mutable fields in place.
-``substep_megakernel.launches`` counts kernel launches.
+``substep_megakernel.launches`` counts kernel launches and
+``substep_megakernel.serial_rounds`` the admission rounds that took the
+sequential scan (reading it synchronises; assigning 0 resets it).
+``SubstepMegakernel(stage_clocks=True)`` builds the same source with
+``-DSUBSTEP_STAGE_CLOCKS`` for timing: each launch leaves clock64()
+cycles per stage ``STAGES`` and replica in ``stage_clocks``.
 """
 from __future__ import annotations
 
@@ -25,6 +37,7 @@ import ctypes
 import threading
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..config.registry import get_resource_function
@@ -35,6 +48,12 @@ from .build import MAX_SMEM_BYTES, PKG, build_library
 SOURCE = PKG / "csrc" / "substep_megakernel.cu"
 EXTRA_FLAGS = ("-fmad=false",)
 MAX_FLOWS = 1024
+# bits of a double's significand (the kernel's DOUBLE_BITS)
+DOUBLE_BITS = 53
+# the stages a SUBSTEP_STAGE_CLOCKS build times, in the kernel's order
+STAGES = ("releases+timers", "arrivals", "decisions", "wrr", "forwarding",
+          "grouping", "admission scans", "admission tests", "slot results",
+          "ring adds", "scatters+sums")
 # resource functions compiled into the kernel, by id
 RESOURCE_FUNCTION_IDS = {"default": 0, "overhead": 1}
 
@@ -56,6 +75,8 @@ _TOPO = ("path_delay", "next_hop", "adj_edge_id", "edge_cap", "edge_delay")
 _TRAFFIC = ("arr_time", "arr_ingress", "arr_dr", "arr_duration", "arr_ttl",
             "arr_sfc", "arr_egress")
 _EXTRA = ("cap_now", "noise", "chain_len", "chain_sf", "proc", "rf_id")
+# the kernel's own outputs: the serial-round counter, the stage clocks
+_COUNTERS = ("serial_rounds", "stage_clocks")
 # state fields the substep never writes: passed as they are, not cloned
 _READ_ONLY = ("sf_startup", "placed", "schedule")
 
@@ -68,7 +89,7 @@ class SubstepArgs(ctypes.Structure):
                 + [("dt", ctypes.c_double)]
                 + [(n, ctypes.c_longlong) for n in _STRIDES]
                 + [(n, ctypes.c_void_p) for n in _STATE + _FLOWS + _TABLES
-                   + _METRICS + _TOPO + _TRAFFIC + _EXTRA])
+                   + _METRICS + _TOPO + _TRAFFIC + _EXTRA + _COUNTERS])
 
 
 def substep_plain(engine, state: SimState, topo: Topology,
@@ -85,6 +106,37 @@ def substep_plain(engine, state: SimState, topo: Topology,
     return state
 
 
+def scan_order_free(values) -> bool:
+    """The kernel's exactness test of one admission round, in Python: True
+    when every partial sum of the nonzero f32 ``values``, in any
+    association, is exact in a double, so that the kernel's tree scan
+    equals the plain version's sequential double cumsum bit for bit.
+    With lo the smallest exponent of a lowest set bit, top the largest
+    floor(log2|v|) and n the count of nonzero values, that holds when
+    top + 1 + ceil(log2 n) - lo <= 53.  False on a non-finite value."""
+    bits = np.asarray(values, dtype=np.float32).ravel().view(np.uint32)
+    lo, top, n = None, None, 0
+    for u in (int(x) & 0x7FFFFFFF for x in bits):
+        if u == 0:
+            continue
+        e, man = u >> 23, u & 0x7FFFFF
+        if e == 255:
+            return False
+        if e == 0:
+            v_lo = -149 + ((man & -man).bit_length() - 1)
+            v_top = -149 + man.bit_length() - 1
+        else:
+            full = man | 0x800000
+            v_lo = e - 150 + ((full & -full).bit_length() - 1)
+            v_top = e - 127
+        lo = v_lo if lo is None else min(lo, v_lo)
+        top = v_top if top is None else max(top, v_top)
+        n += 1
+    if n == 0:
+        return True
+    return top + 1 + (n - 1).bit_length() - lo <= DOUBLE_BITS
+
+
 def _per_replica(t: torch.Tensor, batch: int, name: str):
     """(contiguous tensor, per-replica element stride): a table shared by
     every replica (an expanded view) passes once with stride 0."""
@@ -97,29 +149,65 @@ def _per_replica(t: torch.Tensor, batch: int, name: str):
     return t, t[0].numel()
 
 
+def _resource_function_ids(engine) -> torch.Tensor:
+    """The kernel's resource-function id of every SF column (CPU i32);
+    raises for a function the kernel does not compile in."""
+    ids = []
+    for fn in engine.tables.resource_fns:
+        hit = [i for name, i in RESOURCE_FUNCTION_IDS.items()
+               if get_resource_function(name) is fn]
+        if not hit:
+            raise ValueError(
+                f"substep_megakernel: resource function {fn!r} is not "
+                f"compiled into the kernel (it has "
+                f"{sorted(RESOURCE_FUNCTION_IDS)})")
+        ids.append(hit[0])
+    return torch.tensor(ids, dtype=torch.int32)
+
+
 class SubstepMegakernel:
     """Callable wrapper around the kernel: builds and loads the library on
     first CUDA use, validates arguments, launches on the current stream and
-    counts launches in ``launches``."""
+    counts launches in ``launches``.  With ``stage_clocks`` it builds the
+    clocked variant and keeps each launch's [B, len(STAGES)] cycles in
+    ``stage_clocks``."""
 
-    def __init__(self):
+    def __init__(self, stage_clocks: bool = False):
         self.launches = 0
         self.build_log = ""
+        self.clocked = stage_clocks
+        self.stage_clocks: Optional[torch.Tensor] = None
         self._lib = None
         self._lock = threading.Lock()
+        self._serial = {}
+
+    @property
+    def serial_rounds(self) -> int:
+        """Admission rounds that ran the sequential scan since the last
+        reset, over every launch and replica (synchronises the card)."""
+        return sum(int(t.item()) for t in self._serial.values())
+
+    @serial_rounds.setter
+    def serial_rounds(self, value: int):
+        if value != 0:
+            raise ValueError("serial_rounds can only be reset to 0")
+        for t in self._serial.values():
+            t.zero_()
 
     def library(self) -> ctypes.CDLL:
         """Build (once per source digest) and load the shared library."""
         with self._lock:
             if self._lib is None:
-                lib, self.build_log = build_library(SOURCE, EXTRA_FLAGS)
+                flags = EXTRA_FLAGS + (("-DSUBSTEP_STAGE_CLOCKS",)
+                                       if self.clocked else ())
+                lib, self.build_log = build_library(SOURCE, flags)
                 lib.substep_megakernel.argtypes = [ctypes.POINTER(SubstepArgs),
                                                    ctypes.c_void_p]
                 lib.substep_megakernel.restype = ctypes.c_int
                 lib.substep_args_size.restype = ctypes.c_longlong
-                lib.substep_smem_bytes.argtypes = [ctypes.c_longlong,
-                                                   ctypes.c_longlong]
+                lib.substep_smem_bytes.argtypes = [ctypes.POINTER(SubstepArgs)]
                 lib.substep_smem_bytes.restype = ctypes.c_longlong
+                lib.substep_n_stages.restype = ctypes.c_int
                 lib.substep_error_string.argtypes = [ctypes.c_int]
                 lib.substep_error_string.restype = ctypes.c_char_p
                 size = lib.substep_args_size()
@@ -127,6 +215,10 @@ class SubstepMegakernel:
                     raise RuntimeError(
                         f"SubstepArgs is {size} bytes in the kernel and "
                         f"{ctypes.sizeof(SubstepArgs)} in the wrapper")
+                stages = lib.substep_n_stages()
+                if stages != (len(STAGES) if self.clocked else 0):
+                    raise RuntimeError(f"the library times {stages} stages, "
+                                       f"the wrapper names {len(STAGES)}")
                 self._lib = lib
             return self._lib
 
@@ -151,6 +243,43 @@ class SubstepMegakernel:
         if dev.type != "cuda":
             raise ValueError(f"substep_megakernel: the state is on {dev}; "
                              "the kernel takes CUDA tensors")
+        counter = self._serial.get(dev)
+        if counter is None:
+            counter = self._serial[dev] = torch.zeros(1, dtype=torch.int64,
+                                                      device=dev)
+        clocks = None
+        if self.clocked:
+            clocks = torch.zeros(state.batch, len(STAGES), dtype=torch.int64,
+                                 device=dev)
+        args, new_state = self._prepare(engine, state, topo, traffic,
+                                        cap_now, noise, substeps, counter,
+                                        clocks)
+        lib = self.library()
+        smem = lib.substep_smem_bytes(ctypes.byref(args))
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(f"substep_megakernel: M={engine.M}, "
+                             f"P={engine.P} need {smem} bytes of shared "
+                             f"memory, more than a block's {MAX_SMEM_BYTES}")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            code = lib.substep_megakernel(ctypes.byref(args), stream)
+        if code != 0:
+            raise RuntimeError(
+                "substep_megakernel launch failed: "
+                f"{lib.substep_error_string(code).decode()} ({code})")
+        self.launches += 1
+        self.stage_clocks = clocks
+        return new_state
+
+    def _prepare(self, engine, state: SimState, topo: Topology,
+                 traffic: TrafficSchedule, cap_now: torch.Tensor,
+                 noise: Optional[torch.Tensor], substeps: Optional[int],
+                 serial_rounds: torch.Tensor,
+                 stage_clocks: Optional[torch.Tensor]):
+        """Validate the inputs and build the kernel's arguments over clones
+        of the mutable state (on the state's device, whatever it is);
+        returns (SubstepArgs, the state the launch fills in)."""
+        dev = state.t.device
         b = state.batch
         k_n = engine.substeps if substeps is None else int(substeps)
         cfg = engine.cfg
@@ -161,16 +290,6 @@ class SubstepMegakernel:
         if cfg.controller != "duration":
             raise ValueError("substep_megakernel runs the duration "
                              "controller only")
-        rf_ids = []
-        for fn in engine.tables.resource_fns:
-            ids = [i for name, i in RESOURCE_FUNCTION_IDS.items()
-                   if get_resource_function(name) is fn]
-            if not ids:
-                raise ValueError(
-                    f"substep_megakernel: resource function {fn!r} is not "
-                    f"compiled into the kernel (it has "
-                    f"{sorted(RESOURCE_FUNCTION_IDS)})")
-            rf_ids.append(ids[0])
         if engine.det_proc:
             noise = None
         elif noise is None or tuple(noise.shape) != (b, k_n, engine.M):
@@ -178,6 +297,9 @@ class SubstepMegakernel:
                 f"substep_megakernel: stochastic processing delays need "
                 f"noise [B, substeps, M] = {(b, k_n, engine.M)}, got "
                 f"{None if noise is None else tuple(noise.shape)}")
+        tabs = engine._tab(dev)
+        if "rf_id" not in tabs:
+            tabs["rf_id"] = _resource_function_ids(engine).to(dev)
 
         fresh = lambda t: t.clone(memory_format=torch.contiguous_format)
         new = {}
@@ -211,14 +333,16 @@ class SubstepMegakernel:
             raise ValueError("substep_megakernel: traffic arrays must all be "
                              "shared or all be per replica")
         strides["traf_stride"] = traf_strides.pop()
-        tabs = engine._tab(dev)
         ptr["cap_now"] = cap_now.contiguous()
         ptr["noise"] = None if noise is None else noise.contiguous()
         ptr["chain_len"] = tabs["chain_len"]
         ptr["chain_sf"] = tabs["chain_sf"]
         ptr["proc"] = tabs["proc"].contiguous()
-        ptr["rf_id"] = torch.tensor(rf_ids, dtype=torch.int32, device=dev)
-        want = {torch.float32: "f32", torch.int32: "i32", torch.bool: "bool"}
+        ptr["rf_id"] = tabs["rf_id"]
+        ptr["serial_rounds"] = serial_rounds
+        ptr["stage_clocks"] = stage_clocks
+        want = {torch.float32: "f32", torch.int32: "i32", torch.bool: "bool",
+                torch.int64: "i64"}
         for name, t in ptr.items():
             if t is None:
                 continue
@@ -244,12 +368,6 @@ class SubstepMegakernel:
             if ptr[name].dtype != torch.bool:
                 raise TypeError(f"substep_megakernel: {name} is "
                                 f"{ptr[name].dtype}, the kernel takes bool")
-        lib = self.library()
-        smem = lib.substep_smem_bytes(engine.M, engine.P)
-        if smem > MAX_SMEM_BYTES:
-            raise ValueError(f"substep_megakernel: M={engine.M}, "
-                             f"P={engine.P} need {smem} bytes of shared "
-                             f"memory, more than a block's {MAX_SMEM_BYTES}")
         args = SubstepArgs(
             B=b, M=engine.M, N=engine.N, C=engine.C, S=engine.S, P=engine.P,
             E=engine.E, H=engine.H, F=traffic.capacity, K=k_n,
@@ -257,16 +375,8 @@ class SubstepMegakernel:
             **strides,
             **{name: (None if t is None else t.data_ptr())
                for name, t in ptr.items()})
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        with torch.cuda.device(dev):
-            code = lib.substep_megakernel(ctypes.byref(args), stream)
-        if code != 0:
-            raise RuntimeError(
-                "substep_megakernel launch failed: "
-                f"{lib.substep_error_string(code).decode()} ({code})")
-        self.launches += 1
-        return state.replace(flows=flows, metrics=metrics,
-                             **{n: new[n] for n in _STATE + _TABLES})
+        return args, state.replace(flows=flows, metrics=metrics,
+                                   **{n: new[n] for n in _STATE + _TABLES})
 
 
 substep_megakernel = SubstepMegakernel()

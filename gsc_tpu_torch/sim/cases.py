@@ -198,15 +198,44 @@ def fractional_case(batch: int = 2) -> SubstepCase:
                  intervals=3, steps=4, seeds=tuple(range(batch)))
 
 
-def abilene_case(batch: int = 64, intervals: int = 3,
-                 seed: int = 0) -> SubstepCase:
+def wide_range_case() -> SubstepCase:
+    """Data rates 1e10 and 1e-30 beside rates ~N(1, 0.35) on the line,
+    everything placed on every node and scheduled to every node: the
+    admission rounds hold values spanning ~2^130, more than a double's 53
+    bits, so the kernel's exactness test sends them to its sequential
+    scan (its serial-round count must grow)."""
+    limits = EnvLimits(max_nodes=8, max_edges=8, num_sfcs=1, max_sfs=3)
+    cfg = SimConfig(inter_arrival_mean=1.0, flow_dr_mean=1.0,
+                    flow_dr_stdev=0.35, flow_size_shape=0.004,
+                    ttl_choices=(60.0, 100.0))
+    sched = np.zeros(limits.scheduling_shape, np.float32)
+    sched[:, :, :, :3] = 1.0 / 3.0
+    place = _place(limits, [(n, s) for n in range(3) for s in range(3)])
+    case = _case("wide_range_dr", _service(), cfg, limits,
+                 _line(node_cap=3.3, link_cap=4.7), sched, place,
+                 intervals=3, steps=4, seeds=(0, 1))
+    rng = np.random.default_rng(11)
+    dr = case.traffic.arr_dr.numpy().copy()
+    kind = rng.integers(0, 3, size=dr.shape)
+    dr = np.where(kind == 0, np.float32(1e10),
+                  np.where(kind == 1, np.float32(1e-30), dr))
+    case.traffic = case.traffic.replace(arr_dr=torch.from_numpy(dr))
+    return case
+
+
+def abilene_case(batch: int = 64, intervals: int = 3, seed: int = 0,
+                 max_flows: int = 128,
+                 inter_arrival_mean: float = 10.0) -> SubstepCase:
     """Abilene (11 nodes padded to 24, 14 edges to 37) with ``batch``
     replicas, each with its own traffic seed and its own seeded
     non-uniform schedule (rows over real nodes, some weights zero) and
-    placement (each real node hosts each SF with probability 0.8)."""
+    placement (each real node hosts each SF with probability 0.8);
+    ``max_flows`` slots and ``inter_arrival_mean`` ms between a node's
+    arrivals."""
     service = abc_service()
     limits = EnvLimits.for_service(service)
-    cfg = SimConfig(ttl_choices=(100.0,))
+    cfg = SimConfig(ttl_choices=(100.0,), max_flows=max_flows,
+                    inter_arrival_mean=inter_arrival_mean)
     topo = compile_topology(synthetic.abilene(node_cap_range=(2, 6)))
     nm = topo.node_mask.numpy()
     rng = np.random.default_rng(seed)
@@ -216,7 +245,9 @@ def abilene_case(batch: int = 64, intervals: int = 3,
     sched = (w / w.sum(-1, keepdims=True)).astype(np.float32)
     place = (rng.uniform(size=(batch, limits.max_nodes, limits.sf_pool))
              < 0.8) & nm[:, None]
-    return _case(f"abilene_b{batch}", service, cfg, limits, topo, sched,
+    name = f"abilene_b{batch}" + ("" if max_flows == 128
+                                  else f"_m{max_flows}")
+    return _case(name, service, cfg, limits, topo, sched,
                  place, intervals=intervals, steps=max(intervals, 4),
                  seeds=tuple(seed + 100 + r for r in range(batch)))
 
@@ -239,10 +270,14 @@ def golden_case() -> SubstepCase:
 
 def all_cases(abilene_batch: int = 64) -> List[SubstepCase]:
     """The battery ``chip_smoke.py`` runs: the six scenarios, the WRR
-    triangle, the saturated link, fractional rates and Abilene."""
+    triangle, the saturated link, fractional rates, rates of a range no
+    double holds, Abilene, and Abilene under heavy traffic at 1024 flow
+    slots (32 warps) and at 200 (a partial last warp)."""
     return ([battery_case(n) for n in _BATTERY]
             + [wrr_case(), linkcap_case(), fractional_case(),
-               abilene_case(batch=abilene_batch)])
+               wide_range_case(), abilene_case(batch=abilene_batch)]
+            + [abilene_case(batch=b, max_flows=m, inter_arrival_mean=1.0)
+               for b, m in ((4, 1024), (2, 200))])
 
 
 def run_case(case: SubstepCase, device, plain: bool = False

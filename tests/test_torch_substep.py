@@ -198,6 +198,17 @@ def test_megakernel_abilene_nonuniform_matches_jax():
     assert not torch.equal(case.schedule[0], case.schedule[1])
 
 
+def test_megakernel_abilene_200_slots_matches_jax():
+    """Abilene under heavy traffic (an arrival every 1 ms per ingress) at
+    200 flow slots, the battery case whose last warp the kernel fills only
+    partly; more flows are in flight than two warps hold."""
+    case = cases.abilene_case(batch=1, intervals=2, max_flows=200,
+                              inter_arrival_mean=1.0)
+    tstate = _run_both(case)
+    assert int(tstate.metrics.active[0]) > 64
+    assert int(tstate.metrics.dropped[0]) > 0
+
+
 def test_pallas_with_per_flow_control_is_refused():
     with pytest.raises(ValueError, match="supports only controller"):
         SimConfig(substep_impl="pallas", controller="per_flow")

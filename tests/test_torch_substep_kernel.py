@@ -6,17 +6,20 @@ JAX is absent (``python -m pytest --noconftest
 tests/test_torch_substep_kernel.py -q``); every test is marked ``cuda``
 and skips without a card (the wrapper's CPU behaviour is tested in
 tests/test_torch_substep.py).  On the card the kernel is held against its
-plain version, the attention kernel's gradients through its
-``autograd.Function`` against the dense path's, and the wrapper must
-refuse CPU inputs and a resource function that the kernel does not
-compile in.
+plain version (bit for bit on CPU copies of the inputs, with its count of
+admission rounds that took the sequential scan above 0 only on the
+wide-range case), its stage-clocked build against the kernel, the
+attention kernel's gradients through its ``autograd.Function`` against
+the dense path's, and the wrapper must refuse CPU inputs and a resource
+function that the kernel does not compile in.
 
-Tolerances: megakernel integer and boolean state exact; float state rtol
-1e-5, atol 1e-5 against the plain version on the card (whose scatter-adds
-are float atomics and whose cumsum is a parallel scan, so it adds in
-another order) and against the plain version on CPU copies (whose sums of
-a few whole-state reductions, e.g. the departures' e2e sum, are vectorised
-in another order than the kernel's slot order).  Attention gradients rtol
+Tolerances: megakernel state bit-equal to the plain version on CPU copies
+(the kernel keeps the CPU version's float order, or a scan order that is
+exact in a double; these cases' whole-slot sums, which PyTorch's CPU sum
+vectorises, are exact or have at most two fractional terms); integer and boolean state exact and float state rtol
+1e-5, atol 1e-5 against the plain version on the card (whose
+scatter-adds are float atomics and whose cumsum is a parallel f32 scan,
+so it adds in another order).  Attention gradients rtol
 1e-4, atol 1e-5: the backward is the same dense VJP on both paths, and
 the kernel's forward output differs from the dense one by f32 rounding
 (the forward's tolerance is atol 1e-5), which the VJP does not amplify
@@ -30,13 +33,23 @@ from gsc_tpu_torch.config.schema import (EnvLimits, ServiceConfig,
                                          ServiceFunction, SimConfig)
 from gsc_tpu_torch.config.registry import register_resource_function
 from gsc_tpu_torch.ops.gat_attention import attention_plain, gat_attention
-from gsc_tpu_torch.ops.substep import substep_megakernel
+from gsc_tpu_torch.ops.substep import (STAGES, SubstepMegakernel,
+                                       substep_megakernel)
 from gsc_tpu_torch.sim import cases
 from gsc_tpu_torch.sim.engine import SimEngine
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+# the battery cases of the parallel design's own paths: a span no double
+# holds (sequential scans), 32 warps, a partial last warp
+NEW_CASES = {
+    "wide_range_dr": cases.wide_range_case,
+    "abilene_b4_m1024": lambda: cases.abilene_case(
+        batch=4, max_flows=1024, inter_arrival_mean=1.0),
+    "abilene_b2_m200": lambda: cases.abilene_case(
+        batch=2, max_flows=200, inter_arrival_mean=1.0),
+}
 
 
 def _card():
@@ -61,8 +74,51 @@ def test_megakernel_matches_plain_on_card():
                                  f"{case.name}[{i}] vs plain on card: ")
             cases.compare_states(g, want_cpu[i], RTOL, ATOL,
                                  f"{case.name}[{i}] vs plain on CPU: ")
+            assert cases.bit_equal(g.to("cpu"), want_cpu[i])
         again = cases.run_case(case, dev)
         assert cases.bit_equal(again[-1], got[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(NEW_CASES))
+def test_megakernel_parallel_paths_bit_equal_on_card(name):
+    dev = _card()
+    case = NEW_CASES[name]()
+    assert case.name == name
+    substep_megakernel.serial_rounds = 0
+    got = cases.run_case(case, dev)
+    serial = substep_megakernel.serial_rounds
+    if name == "wide_range_dr":
+        assert serial > 0
+    else:
+        assert serial == 0
+    want_cpu = cases.run_case(case, "cpu", plain=True)
+    for g, w in zip(got, want_cpu):
+        assert cases.bit_equal(g.to("cpu"), w)
+    again = cases.run_case(case, dev)
+    assert cases.bit_equal(again[-1], got[-1])
+
+
+@pytest.mark.cuda
+def test_stage_clocks_build_matches_the_kernel():
+    """The clocked build gives the kernel's interval bit for bit and a
+    positive cycle count for every stage of every replica."""
+    dev = _card()
+    case = cases.fractional_case()
+    eng, b = case.engine, case.batch
+    traffic = case.traffic.to(dev)
+    state, cap = eng.begin_interval(eng.init(b, dev), traffic,
+                                    case.schedule.to(dev),
+                                    case.placement.to(dev))
+    z = case.noise(0)
+    args = (eng, state, case.topo.to(dev).expand(b), traffic, cap,
+            None if z is None else z.to(dev))
+    clocked = SubstepMegakernel(stage_clocks=True)
+    got = clocked.launch(*args)
+    assert cases.bit_equal(got, substep_megakernel.launch(*args))
+    assert clocked.stage_clocks.shape == (b, len(STAGES))
+    assert bool((clocked.stage_clocks > 0).all())
+    assert substep_megakernel.stage_clocks is None
 
 
 @pytest.mark.cuda
