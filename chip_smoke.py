@@ -9,24 +9,40 @@ Phases (any failure exits non-zero and prints no result line):
 1. device: CUDA must be available; prints the card's name and power limit
    as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    gives them;
-2. build: compiles both kernels (the GATv2 attention kernel and the
-   substep megakernel) from the sources in this checkout
-   (``gsc_tpu_torch/csrc/*.cu``, one nvcc for each, started together, for
-   sm_90a, into ``gsc_tpu_torch/_build/``), the megakernel a second time
-   with ``-DSUBSTEP_STAGE_CLOCKS`` for phase 7's stage clocks, and, where
-   ``_parent/substep_megakernel.cu`` exists (a copy of the parent commit's
-   source, never committed), that one for phase 7's comparison; prints
-   the build seconds and each ptxas line of registers, shared memory and
-   spills;
-3. the attention kernel against its plain version on the card, f32, at
-   the serving shapes (B, N, F) = (1, 24, 22), (4, 24, 22), (8, 24, 22),
+2. build: compiles the three kernels (the GATv2 attention kernel, its
+   backward kernel and the substep megakernel) from the sources in this
+   checkout (``gsc_tpu_torch/csrc/*.cu``, one nvcc for each, started
+   together, for sm_90a, into ``gsc_tpu_torch/_build/``), the megakernel
+   a second time with ``-DSUBSTEP_STAGE_CLOCKS`` for phase 7's stage
+   clocks, both attention kernels a second time with
+   ``-DGAT_STAGE_CLOCKS`` for phase 3's, and, where
+   ``_parent/substep_megakernel.cu`` or ``_parent/gat_attention.cu``
+   exist (copies of the parent commit's sources, never committed; the
+   latter with its wrapper where ``_parent/gat_attention.py`` is beside
+   it), those for the comparisons of phases 7 and 3; prints the build
+   seconds and each ptxas line of registers, shared memory and spills;
+3. the attention kernels against their plain versions on the card, f32,
+   at the serving shapes (B, N, F) = (1, 24, 22), (4, 24, 22), (8, 24, 22),
    the training rollout's (64, 24, 22), the learn-burst shape (100, 24, 22)
    and one N > 32 case (4, 64, 22), mean and sum
    aggregation, seeded inputs with padded nodes and rows without a
-   neighbour (which must come out exactly 0); prints, for both
-   aggregations, the error against the plain version and each side's
-   distance to a float64 evaluation, and for mean aggregation (the
-   flagship's) the kernel's time, the plain version's and the bound;
+   neighbour (which must come out exactly 0) and a seeded grad_out: the
+   forward kernel against ``attention_plain``, the backward kernel's
+   (d_xl, d_xr, d_att, d_bias) against ``attention_backward_plain`` (d_xr
+   exactly 0 on rows without a neighbour, two launches bit-identical),
+   and both again at the learn-burst shape on inputs whose softmax
+   saturates, as trained weights make it (logits ~12 apart);
+   prints, for both aggregations, the errors against the plain versions
+   and each side's distance to a float64 evaluation, and for mean
+   aggregation (the flagship's) each kernel's device time (profiler) and
+   time per call with its wrapper (CUDA events), the plain versions'
+   times, the dense VJP's time per call (what the backward replaces) in
+   turns with the backward kernel's (VJP, kernel, kernel, VJP), the
+   parent forward kernel's device time and time per call in turns with
+   this one's where it was built, and each kernel's bound; then each
+   attention kernel's share of a launch per stage at the learn-burst
+   shape (block 0's clock64() at its stage barriers, from the
+   stage-clocks builds, whose results must equal the kernels');
 4. the slice: ``run_serve`` on Abilene at the flagship widths (GATv2 22
    features x 2 layers x 2 iterations, actor hidden 256, action dim 1728)
    with ``gnn_impl="pallas"`` on the card, a request pool of 8 env steps
@@ -74,11 +90,13 @@ Phases (any failure exits non-zero and prints no result line):
    every replay shard must hold min(400, mem_limit // 64) transitions, the
    megakernel must launch once per env step, the attention kernel 3 times
    per acting rollout step plus 15 times per gradient step (critic loss:
-   target actor, target critic, critic; actor loss: actor, critic; the
-   backward is the dense VJP and launches nothing), and on one sampled
-   batch the gradients of every actor and critic parameter through the
-   kernel's ``autograd.Function`` must equal the dense path's; prints the
-   rollout's env-steps/s and each learn burst's seconds;
+   target actor, target critic, critic; actor loss: actor, critic), its
+   backward kernel 6 times per gradient step (the critic's 3 convs in the
+   critic loss, the actor's 3 in the actor loss; the critic's GNN is not
+   differentiated in the actor loss) and never while acting, and on one
+   sampled batch the gradients of every actor and critic parameter
+   through the kernels' ``autograd.Function`` must equal the dense path's;
+   prints the rollout's env-steps/s and each learn burst's seconds;
 9. a JSON line of the kernels (name, route, source, the TPU kernel it
    replaces, launches on the training path, max abs error, ms, plain ms,
    bound ms and what bounds it, library ms);
@@ -88,8 +106,19 @@ Tolerances (stated here, used below): the attention kernel against its
 plain version rtol 1e-5 / atol 1e-5 (f32 in another summation order: the
 unit-normal inputs give logits summed over 22 products, whose ~1e-6
 relative rounding differences exp and the weighted sum carry into up to
-~1e-5 absolute on outputs of a few units); that this is rounding and not a
-fault is checked on every shape and aggregation: the kernel must lie no
+~1e-5 absolute on outputs of a few units); its backward kernel against
+``attention_backward_plain`` per output tensor: the largest difference
+within 1e-5 of the tensor's largest entry plus 1e-5.  An f32 gradient entry
+is a sum of up to N·F terms (d_att and d_bias over every graph of the
+batch) whose size is the tensor's, not the entry's, each carrying the
+forward's rounding: the plain version itself lies up to ~5e-5 from a
+float64 evaluation on d_att entries of ~100 at B=100, and an entry near 0
+carries the same absolute error, which an elementwise rtol would refuse
+(the first card run: 3.2e-5 on a small d_att entry at B=100, sum
+aggregation); the kernel adds d_att and d_bias across rows and graphs in
+double.  That
+this is rounding and not a fault is checked on every shape and
+aggregation, for each output of both kernels: the kernel must lie no
 further from a float64 evaluation of the same inputs than F64_RATIO times
 the plain version's distance (floored at F64_FLOOR); served
 answers against unbatched and plain-actor answers rtol 1e-5 / atol 1e-6,
@@ -101,15 +130,17 @@ parallel f32 scan, so it adds in another order), its integers exactly;
 against the plain version on CPU copies every leaf bit for bit: the
 kernel keeps the CPU version's order, or an admission scan order that is
 exact in a double, and the battery's whole-slot sums (which PyTorch's CPU
-sum vectorises) are exact or have at most two fractional terms.  Training gradients through the kernel
-against the dense path: per parameter tensor, the largest difference
-within 1e-4 of the tensor's largest entry plus 1e-5.  The backward is the
-same dense VJP, evaluated at forward outputs that differ by f32 rounding;
-those differences reach every gradient entry through sums whose terms are
-of the size of the largest entries (actor gradients reach norms of 1e4
-after two episodes), so an entry's error scales with the tensor's scale,
-not with its own value (the first card run: 2.4e-4 on an entry far
-smaller than its tensor's largest, one f32 ulp at 2e3).
+sum vectorises) are exact or have at most two fractional terms.
+Training gradients through the kernels against the dense path: per
+parameter tensor, the largest difference within 1e-4 of the tensor's
+largest entry plus 1e-5.  The two paths' forward outputs differ by f32
+rounding, and their attention gradients (the backward kernel's against
+the dense VJP) by f32 summation order; those differences reach every
+gradient entry through sums whose terms are of the size of the largest
+entries (actor gradients reach norms of 1e4 after two episodes), so an
+entry's error scales with the tensor's scale, not with its own value (a
+card run with the dense VJP on both paths: 2.4e-4 on an entry far smaller
+than its tensor's largest, one f32 ulp at 2e3).
 """
 from __future__ import annotations
 
@@ -120,6 +151,10 @@ import time
 from pathlib import Path
 
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-5
+# the backward kernel against its plain version, per output tensor: the
+# largest difference within BWD_SCALE of the tensor's largest entry plus
+# BWD_ATOL (see the docstring)
+BWD_SCALE, BWD_ATOL = 1e-5, 1e-5
 ANSWER_RTOL, ANSWER_ATOL = 1e-5, 1e-6
 THRESH_TOL = 1e-4
 F64_RATIO, F64_FLOOR = 4.0, 1e-7
@@ -153,10 +188,13 @@ BURSTS = [(64, 4, 5.0), (8, 1, 5.0), (32, 8, 50.0)]
 # env steps that build each burst's request pool
 POOL_STEPS = 8
 BUCKETS = (1, 4, 8)
-# a copy of the parent commit's megakernel source, present only in a run
-# that compares the two (never committed)
-PARENT_SOURCE = Path(__file__).resolve().parent / "_parent" / \
-    "substep_megakernel.cu"
+# copies of the parent commit's megakernel source and attention kernel
+# source and wrapper, present only in a run that compares them (never
+# committed)
+PARENT_DIR = Path(__file__).resolve().parent / "_parent"
+PARENT_SOURCE = PARENT_DIR / "substep_megakernel.cu"
+PARENT_GAT_SOURCE = PARENT_DIR / "gat_attention.cu"
+PARENT_GAT_WRAPPER = PARENT_DIR / "gat_attention.py"
 # the battery case whose data rates span more than a double holds
 WIDE_CASE = "wide_range_dr"
 
@@ -237,6 +275,74 @@ def profile_device_ms(fn, torch, reps=20, kernel=None):
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
+def saturated_inputs(b, n, f, seed, torch, device, gap=12.0):
+    """Attention inputs whose softmax saturates, as trained weights make
+    it: ``gat_inputs``' adjacency, att = 1/F, xl_j = 100 + U(0, 10) + gap *
+    rank_j, xr in U(0, 1), so each row's logits lie ~gap apart."""
+    import numpy as np
+
+    adj = gat_inputs(b, n, f, seed, torch, device)[4]
+    rng = np.random.default_rng(seed + 7)
+    rank = np.argsort(rng.uniform(size=(b, n)), axis=-1)
+    xl = (100.0 + rng.uniform(0, 10, size=(b, n, f))
+          + gap * rank[..., None]).astype(np.float32)
+    xr = rng.uniform(0, 1, size=(b, n, f)).astype(np.float32)
+    att = np.full((f,), 1.0 / f, np.float32)
+    bias = rng.normal(size=(f,)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (xl, xr, att, bias)] \
+        + [adj]
+
+
+def check_backward(args, grad, mean, what, torch):
+    """The backward kernel against its plain version on one input: within
+    the tolerance per output, no further from float64 than F64_RATIO times
+    the plain version, d_xr 0 on rows without a neighbour, and two launches
+    bit for bit the same.  Returns the largest difference and a line."""
+    from gsc_tpu_torch.ops.gat_attention import (attention_backward_plain,
+                                                 gat_attention_backward)
+
+    xl, xr, att, _, adj = args
+    bwd = gat_attention_backward.launch(grad, xl, xr, att, adj, mean)
+    again = gat_attention_backward.launch(grad, xl, xr, att, adj, mean)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(bwd, again)),
+          f"two backward launches differ at {what}")
+    want = attention_backward_plain(grad, xl, xr, att, adj, mean)
+    ref = attention_backward_plain(grad.double(), xl.double(), xr.double(),
+                                   att.double(), adj, mean)
+    worst = 0.0
+    parts = []
+    for key, g, w, r in zip(("d_xl", "d_xr", "d_att", "d_bias"), bwd, want,
+                            ref):
+        e = float((g - w).abs().max())
+        k64 = float((g.double() - r).abs().max())
+        p64 = float((w.double() - r).abs().max())
+        scale = float(w.abs().max())
+        worst = max(worst, e)
+        parts.append(f"{key} {e:.2e} (f64 {k64:.2e}/{p64:.2e}, max "
+                     f"{scale:.3g})")
+        check(g.shape == w.shape and e <= BWD_SCALE * scale + BWD_ATOL,
+              f"backward {key} != plain at {what}: max abs err {e}, largest "
+              f"entry {scale}")
+        check(k64 <= F64_RATIO * max(p64, F64_FLOOR),
+              f"backward {key} is {k64} from float64 at {what}, the plain "
+              f"version {p64}")
+    empty = ~adj.any(dim=-1)
+    check(bool((bwd[1][empty] == 0).all()),
+          f"d_xr of rows without a neighbour is not 0 at {what}")
+    return worst, ("backward max abs err (vs f64 kernel/plain): "
+                   + "; ".join(parts) + "; relaunch bit-identical")
+
+
+def grad_input(b, n, f, seed, torch, device):
+    """A seeded grad_out for the attention stage's output."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=(b, n, f)).astype(
+        np.float32)).to(device)
+
+
 def gat_bound(args):
     """Least time for the attention stage on these inputs: every input
     read once and the output written once over the HBM rate, against the
@@ -253,6 +359,232 @@ def gat_bound(args):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gat_backward_bound(args, grad):
+    """Least time for the attention stage's gradient on these inputs:
+    grad_out, xl, xr, att and adj read once and d_xl, d_xr, d_att, d_bias
+    written once over the HBM rate, against the f32 operations the closed
+    form needs on this adjacency over the f32 rate."""
+    xl, xr, att, _, adj = args
+    f = xl.shape[-1]
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (grad, xl, xr, att, adj)) \
+        + 2 * xl.numel() * xl.element_size() + 2 * f * att.element_size()
+    edges = int(adj.sum())
+    rows = int(adj.any(dim=-1).sum())
+    # per edge: the logit again (4F), exp and normalise (3), dalpha (2F),
+    # dl (4), d_att's multiply-add (2F), LeakyReLU' and dl x att (2F), the
+    # d_xr add (F), d_xl's alpha x g multiply-add and add (3F); per row:
+    # g / d_i, the empty-row select and the d_bias add (3F)
+    ops = edges * (14 * f + 7) + rows * 3 * f
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def dense_vjp(args, grad, mean, torch):
+    """The dense VJP that the backward kernel replaces (as the JAX
+    package's ``_gatv2_pallas_bwd`` takes it): ``attention_plain``
+    recomputed under autograd and differentiated."""
+    from gsc_tpu_torch.ops.gat_attention import attention_plain
+
+    xl, xr, att, bias, adj = args
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (xl, xr, att, bias)]
+        return torch.autograd.grad(attention_plain(*ins, adj, mean), ins,
+                                   grad)
+
+
+def parent_gat():
+    """The parent commit's attention kernel, or None when its source is
+    absent: with the parent's own wrapper where ``_parent/gat_attention.py``
+    sits beside it (loaded beside the package's modules, so that the time
+    per call compares wrapper and all), else with this one (the C interface
+    is the same)."""
+    if not PARENT_GAT_SOURCE.exists():
+        return None
+    if not PARENT_GAT_WRAPPER.exists():
+        from gsc_tpu_torch.ops.gat_attention import GatAttention
+
+        return GatAttention(PARENT_GAT_SOURCE)
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "gsc_tpu_torch.ops._parent_gat_attention", PARENT_GAT_WRAPPER)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.SOURCE = PARENT_GAT_SOURCE
+    return mod.GatAttention()
+
+
+def attention_phase(torch, dev, smi, parent):
+    """Phase 3: the forward and backward attention kernels against their
+    plain versions at every shape and aggregation, timed at mean
+    aggregation; the parent forward kernel in turns where ``parent`` is
+    built.  Returns the forward's timings by shape and largest error, and
+    the backward's."""
+    from gsc_tpu_torch.ops.gat_attention import (attention_backward_plain,
+                                                 attention_plain,
+                                                 gat_attention,
+                                                 gat_attention_backward)
+
+    fmt = lambda v: "not measured" if v is None else f"{v:.5f} ms"
+    max_err = bwd_err = 0.0
+    timings, bwd_timings = {}, {}
+    print(f"attention kernels vs plain (forward rtol {KERNEL_RTOL}, atol "
+          f"{KERNEL_ATOL}; backward {BWD_SCALE} of each tensor's largest "
+          f"entry + {BWD_ATOL}) on {smi}:")
+    for b, n, f in SHAPES:
+        for mean in (True, False):
+            args = gat_inputs(b, n, f, seed=b * 1000 + n, torch=torch,
+                              device=dev)
+            xl, xr, att, _, adj = args
+            grad = grad_input(b, n, f, seed=b * 1000 + n + 1, torch=torch,
+                              device=dev)
+            got = gat_attention.launch(*args, mean)
+            torch.cuda.synchronize()
+            want = attention_plain(*args, mean)
+            err = float((got - want).abs().max())
+            rel = float(((got - want).abs()
+                         / want.abs().clamp(min=1e-6)).max())
+            # how far each f32 result lies from a float64 evaluation
+            ref = attention_plain(*[a.double() if a.is_floating_point()
+                                    else a for a in args], mean)
+            k64 = float((got.double() - ref).abs().max())
+            p64 = float((want.double() - ref).abs().max())
+            max_err = max(max_err, err)
+            aggr = "mean" if mean else "sum"
+            print(f"  B={b:3d} N={n:2d} F={f} {aggr:4s}: forward max abs err "
+                  f"{err:.2e} rel {rel:.2e}, max |out| "
+                  f"{float(want.abs().max()):.2f} (vs f64: kernel "
+                  f"{k64:.2e}, plain {p64:.2e})", flush=True)
+            check(torch.allclose(got, want, rtol=KERNEL_RTOL,
+                                 atol=KERNEL_ATOL),
+                  f"kernel != plain at {(b, n, f)} {aggr}: "
+                  f"max abs err {err}")
+            check(k64 <= F64_RATIO * max(p64, F64_FLOOR),
+                  f"kernel is {k64} from float64 at {(b, n, f)} {aggr}, "
+                  f"the plain version {p64}")
+            empty = ~adj.any(dim=-1)
+            check(bool(empty.any()) and bool((got[empty] == 0).all()),
+                  f"rows without a neighbour are not exactly 0 at {(b, n, f)}")
+            e, line = check_backward(args, grad, mean, f"{(b, n, f)} {aggr}",
+                                     torch)
+            bwd_err = max(bwd_err, e)
+            print(f"    {line}", flush=True)
+            if not mean:
+                continue
+            fwd = lambda op=gat_attention: op.launch(*args, True)
+            dev_of = lambda op: profile_device_ms(
+                lambda: fwd(op), torch, kernel="gat_attention_kernel")
+            if parent is not None:
+                check(torch.allclose(fwd(parent), got, rtol=KERNEL_RTOL,
+                                     atol=KERNEL_ATOL),
+                      f"the parent kernel differs at {(b, n, f)}")
+                order = (parent, gat_attention, gat_attention, parent)
+                turns_ms = [cuda_time_ms(lambda: fwd(op), torch)
+                            for op in order]
+                turns_dev = [dev_of(op) for op in order]
+                ms, dev_ms = turns_ms[1], turns_dev[1]
+            else:
+                ms, dev_ms = cuda_time_ms(fwd, torch), dev_of(gat_attention)
+            plain_ms = cuda_time_ms(lambda: attention_plain(*args, True),
+                                    torch, reps=50)
+            plain_dev_ms = profile_device_ms(
+                lambda: attention_plain(*args, True), torch)
+            bound_ms, bound_by = gat_bound(args)
+            timings[(b, n, f)] = (ms, plain_ms, bound_ms, bound_by)
+            print(f"    forward per call (events, wrapper) {ms:.4f} ms, "
+                  f"device time (profiler) {fmt(dev_ms)}; plain {plain_ms:.4f}"
+                  f" ms per call, {fmt(plain_dev_ms)} device; bound "
+                  f"{bound_ms:.6f} ms ({bound_by})", flush=True)
+            if parent is not None:
+                print(f"    parent forward kernel vs this one in turns "
+                      f"(parent, kernel, kernel, parent): device time "
+                      f"{', '.join(fmt(t) for t in turns_dev)}; per call "
+                      f"{', '.join(f'{t:.5f} ms' for t in turns_ms)}",
+                      flush=True)
+            bwd_call = lambda: gat_attention_backward.launch(
+                grad, xl, xr, att, adj, True)
+            vjp = lambda: dense_vjp(args, grad, True, torch)
+            turns = [cuda_time_ms(fn, torch, reps=50, warmup=5)
+                     for fn in (vjp, bwd_call, bwd_call, vjp)]
+            b_ms = cuda_time_ms(bwd_call, torch)
+            b_dev = profile_device_ms(bwd_call, torch,
+                                      kernel="gat_attention_backward_kernel")
+            b_plain = cuda_time_ms(
+                lambda: attention_backward_plain(grad, xl, xr, att, adj,
+                                                 True), torch, reps=50)
+            b_bound, b_by = gat_backward_bound(args, grad)
+            bwd_timings[(b, n, f)] = (b_ms, b_plain, b_bound, b_by)
+            print(f"    backward per call (events, wrapper) {b_ms:.4f} ms, "
+                  f"device time (profiler) {fmt(b_dev)}; plain "
+                  f"{b_plain:.4f} ms per call; bound {b_bound:.6f} ms "
+                  f"({b_by}); dense VJP vs backward kernel per call in turns "
+                  f"(VJP, kernel, kernel, VJP): "
+                  f"{', '.join(f'{t:.5f} ms' for t in turns)}", flush=True)
+    # a softmax saturated as trained weights make it (where the textbook
+    # dl = alpha (dalpha - sum alpha dalpha) cancels to its rounding)
+    b, n, f = MAIN_SHAPE
+    for mean in (True, False):
+        aggr = "mean" if mean else "sum"
+        args = saturated_inputs(b, n, f, seed=b * 1000 + n, torch=torch,
+                                device=dev)
+        grad = 0.2 * grad_input(b, n, f, seed=b * 1000 + n + 1, torch=torch,
+                                device=dev)
+        got = gat_attention.launch(*args, mean)
+        want = attention_plain(*args, mean)
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL),
+              f"kernel != plain at saturated {(b, n, f)} {aggr}: max abs "
+              f"err {err}")
+        e, line = check_backward(args, grad, mean,
+                                 f"saturated {(b, n, f)} {aggr}", torch)
+        max_err, bwd_err = max(max_err, err), max(bwd_err, e)
+        print(f"  B={b:3d} N={n:2d} F={f} {aggr:4s} saturated softmax: "
+              f"forward max abs err {err:.2e}; {line}", flush=True)
+    return timings, max_err, bwd_timings, bwd_err
+
+
+def attention_stage_clocks(fwd, bwd, torch, dev):
+    """Where one attention launch's time goes at MAIN_SHAPE, mean
+    aggregation: the stage-clocks builds' block-0 cycles per stage, median
+    over 30 launches, each build's results bit-equal to the kernel's."""
+    import statistics
+
+    from gsc_tpu_torch.ops.gat_attention import (gat_attention,
+                                                 gat_attention_backward)
+
+    b, n, f = MAIN_SHAPE
+    args = gat_inputs(b, n, f, seed=b * 1000 + n, torch=torch, device=dev)
+    grad = grad_input(b, n, f, seed=b * 1000 + n + 1, torch=torch,
+                      device=dev)
+    xl, xr, att, _, adj = args
+    common = [("staging", 0, 1), ("pair logits", 1, 7), ("softmax", 7, 2)]
+    runs = [
+        ("forward", fwd, lambda op: [op.launch(*args, True)], gat_attention,
+         common + [("aggregation", 2, 3)], 3),
+        ("backward", bwd,
+         lambda op: list(op.launch(grad, xl, xr, att, adj, True)),
+         gat_attention_backward,
+         common + [("g / d_i and d_bias terms", 2, 3), ("dalpha, dl", 3, 4),
+                   ("d_xr, d_xl, d_att terms", 4, 5),
+                   ("partials out, count-in, stores", 5, 6)], 6)]
+    for what, op, run, kernel, spans, last in runs:
+        check(all(torch.equal(x, y) for x, y in zip(run(op), run(kernel))),
+              f"the stage-clocks {what} build's results differ")
+        rows = []
+        for _ in range(30):
+            run(op)
+            c = op.read_stage_clocks()
+            rows.append([c[e] - c[s] for _, s, e in spans] + [c[last] - c[0]])
+        med = [statistics.median(r[k] for r in rows)
+               for k in range(len(spans) + 1)]
+        print(f"  {what} stage clocks at B={b} (block 0, median of 30 "
+              f"launches): {med[-1]:.0f} cycles; " + ", ".join(
+                  f"{name} {m:.0f} ({100.0 * m / med[-1]:.1f}%)"
+                  for (name, _, _), m in zip(spans, med)), flush=True)
 
 
 def ambiguous_rows(pre, thr=0.1, n_dst=24):
@@ -626,7 +958,8 @@ def train_slice(torch, dev, smi):
 
     from gsc_tpu_torch import cli
     from gsc_tpu_torch.models.nets import Actor, QNetwork
-    from gsc_tpu_torch.ops.gat_attention import gat_attention
+    from gsc_tpu_torch.ops.gat_attention import (gat_attention,
+                                                 gat_attention_backward)
     from gsc_tpu_torch.ops.substep import substep_megakernel
     from gsc_tpu_torch.parallel.dp import ParallelDDPG
 
@@ -648,10 +981,13 @@ def train_slice(torch, dev, smi):
     try:
         with tempfile.TemporaryDirectory() as d:
             gat_attention.launches = 0
+            gat_attention_backward.launches = 0
             substep_megakernel.launches = 0
             res = cli.run_train(TRAIN_ARGS + ["--result-dir", d])
-            launches = {"gat_attention": gat_attention.launches,
-                        "substep_megakernel": substep_megakernel.launches}
+            launches = {
+                "gat_attention": gat_attention.launches,
+                "gat_attention_backward": gat_attention_backward.launches,
+                "substep_megakernel": substep_megakernel.launches}
             with open(f"{d}/rewards.csv") as f:
                 rewards = f.read().split()[1:]
     finally:
@@ -677,6 +1013,10 @@ def train_slice(torch, dev, smi):
           f"{launches['gat_attention']} attention launches, want 3 x "
           f"{acting} acting steps + 15 x {grad_steps} gradient steps = "
           f"{want_gat}")
+    want_bwd = 6 * grad_steps
+    check(launches["gat_attention_backward"] == want_bwd,
+          f"{launches['gat_attention_backward']} backward attention "
+          f"launches, want 6 x {grad_steps} gradient steps = {want_bwd}")
     cap = max(agent.mem_limit // b, 1)
     want_fill = min(steps, cap)
     check(bool((buffers.size == want_fill).all()),
@@ -729,9 +1069,11 @@ def train_slice(torch, dev, smi):
           f"critic parameter moved; replay {want_fill} per replica", flush=True)
     print(f"train launches: megakernel {launches['substep_megakernel']} "
           f"(1 per env step), attention {launches['gat_attention']} (3 x "
-          f"{acting} acting steps + 15 x {grad_steps} gradient steps); "
-          f"GATv2/actor/critic gradients through the kernel vs dense: max "
-          f"abs diff / largest entry {worst:.2e}", flush=True)
+          f"{acting} acting steps + 15 x {grad_steps} gradient steps), "
+          f"attention backward {launches['gat_attention_backward']} (6 x "
+          f"{grad_steps} gradient steps); GATv2/actor/critic gradients "
+          f"through the kernels vs dense: max abs diff / largest entry "
+          f"{worst:.2e}", flush=True)
     print(f"train timing on {smi}: rollout {roll_steps} env steps in "
           f"{roll_s:.2f} s = {roll_steps / roll_s:.1f} env-steps/s; learn "
           f"bursts {[round(t, 3) for t in spans['learn_burst']]} s "
@@ -742,7 +1084,6 @@ def train_slice(torch, dev, smi):
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
     t_start = time.perf_counter()
@@ -750,8 +1091,11 @@ def main() -> int:
     check(torch.cuda.is_available(), "CUDA is not available")
     from gsc_tpu_torch.device import resolve_device
     from gsc_tpu_torch.models.nets import Actor
-    from gsc_tpu_torch.ops.gat_attention import (SOURCE, attention_plain,
-                                                 gat_attention)
+    from gsc_tpu_torch.ops.gat_attention import (BACKWARD_SOURCE, SOURCE,
+                                                 GatAttention,
+                                                 GatAttentionBackward,
+                                                 gat_attention,
+                                                 gat_attention_backward)
     from gsc_tpu_torch.ops.build import MAX_SMEM_BYTES
     from gsc_tpu_torch.ops.substep import SOURCE as SUB_SOURCE
     from gsc_tpu_torch.ops.substep import (SubstepMegakernel,
@@ -768,12 +1112,20 @@ def main() -> int:
 
     # ---- 2. build ------------------------------------------------------
     clocked = SubstepMegakernel(stage_clocks=True)
+    clocked_fwd = GatAttention(stage_clocks=True)
+    clocked_bwd = GatAttentionBackward(stage_clocks=True)
     parent = parent_megakernel()
+    parent_fwd = parent_gat()
     ops = {"gat_attention": gat_attention,
+           "gat_attention_backward": gat_attention_backward,
            "substep_megakernel": substep_megakernel,
-           "substep_megakernel (stage clocks)": clocked}
+           "substep_megakernel (stage clocks)": clocked,
+           "gat_attention (stage clocks)": clocked_fwd,
+           "gat_attention_backward (stage clocks)": clocked_bwd}
     if parent is not None:
         ops["substep_megakernel (parent)"] = parent
+    if parent_fwd is not None:
+        ops["gat_attention (parent)"] = parent_fwd
     built = build_kernels(ops)
     print("build: " + ", ".join(f"{k} {v:.2f} s" for k, v in built.items()),
           flush=True)
@@ -788,60 +1140,10 @@ def main() -> int:
         check(smem <= MAX_SMEM_BYTES, f"M={m_slots} needs {smem} bytes of "
               "shared memory")
 
-    # ---- 3. kernel vs plain on the card ---------------------------------
-    max_err = 0.0
-    timings = {}
-    print(f"kernel vs plain (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}) on "
-          f"{smi}:")
-    for b, n, f in SHAPES:
-        for mean in (True, False):
-            args = gat_inputs(b, n, f, seed=b * 1000 + n, torch=torch,
-                              device=dev)
-            got = gat_attention.launch(*args, mean)
-            torch.cuda.synchronize()
-            want = attention_plain(*args, mean)
-            err = float((got - want).abs().max())
-            rel = float(((got - want).abs()
-                         / want.abs().clamp(min=1e-6)).max())
-            # how far each f32 result lies from a float64 evaluation
-            ref = attention_plain(*[a.double() if a.is_floating_point()
-                                    else a for a in args], mean)
-            k64 = float((got.double() - ref).abs().max())
-            p64 = float((want.double() - ref).abs().max())
-            max_err = max(max_err, err)
-            aggr = "mean" if mean else "sum"
-            line = (f"  B={b:3d} N={n:2d} F={f} {aggr:4s}: max abs err "
-                    f"{err:.2e} rel {rel:.2e}, max |out| "
-                    f"{float(want.abs().max()):.2f} (vs f64: kernel "
-                    f"{k64:.2e}, plain {p64:.2e})")
-            print(line, flush=True)
-            check(torch.allclose(got, want, rtol=KERNEL_RTOL,
-                                 atol=KERNEL_ATOL),
-                  f"kernel != plain at {(b, n, f)} {aggr}: "
-                  f"max abs err {err}")
-            check(k64 <= F64_RATIO * max(p64, F64_FLOOR),
-                  f"kernel is {k64} from float64 at {(b, n, f)} {aggr}, "
-                  f"the plain version {p64}")
-            empty = ~args[4].any(dim=-1)
-            check(bool(empty.any()) and bool((got[empty] == 0).all()),
-                  f"rows without a neighbour are not exactly 0 at {(b, n, f)}")
-            if mean:
-                ms = cuda_time_ms(lambda: gat_attention.launch(*args, True),
-                                  torch)
-                plain_ms = cuda_time_ms(
-                    lambda: attention_plain(*args, True), torch, reps=50)
-                bound_ms, bound_by = gat_bound(args)
-                timings[(b, n, f)] = (ms, plain_ms, bound_ms, bound_by)
-                dev_ms = profile_device_ms(
-                    lambda: gat_attention.launch(*args, True), torch,
-                    kernel="gat_attention_kernel")
-                plain_dev_ms = profile_device_ms(
-                    lambda: attention_plain(*args, True), torch)
-                fmt = lambda v: "not measured" if v is None else f"{v:.5f} ms"
-                print(f"    per call (events) kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms; device time (profiler) kernel "
-                      f"{fmt(dev_ms)}, plain {fmt(plain_dev_ms)}; bound "
-                      f"{bound_ms:.6f} ms ({bound_by})", flush=True)
+    # ---- 3. attention kernels vs plain on the card ----------------------
+    timings, max_err, bwd_timings, bwd_err = attention_phase(torch, dev, smi,
+                                                             parent_fwd)
+    attention_stage_clocks(clocked_fwd, clocked_bwd, torch, dev)
 
     # ---- 4. the slice: run_serve on the card ----------------------------
     gat_attention.launches = 0
@@ -927,6 +1229,7 @@ def main() -> int:
 
     # ---- 9. kernels line ------------------------------------------------
     ms, plain_ms, bound_ms, bound_by = timings[MAIN_SHAPE]
+    b_ms, b_plain_ms, b_bound_ms, b_bound_by = bwd_timings[MAIN_SHAPE]
     s_ms, _, s_plain_ms, s_bound_ms, s_bound_by = sub_times[SUB_MAIN_BATCH]
     rel = lambda src: str(src.relative_to(src.parents[2]))
     kernels = {"kernels": [{
@@ -940,6 +1243,18 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "gat_attention_backward",
+        "route": "cuda",
+        "source": rel(BACKWARD_SOURCE),
+        "replaces": "gsc_tpu/ops/pallas_gat.py:150",
+        "launches": train_launches["gat_attention_backward"],
+        "max_abs_err": bwd_err,
+        "ms": b_ms,
+        "plain_ms": b_plain_ms,
+        "bound_ms": b_bound_ms,
+        "bound_by": b_bound_by,
         "library_ms": None,
     }, {
         "name": "substep_megakernel",

@@ -14,123 +14,157 @@
 // with the TPU kernel's semantics: the max starts from NEG_INF = -1e30, the
 // 1e-30 floor on the denominator, and the mean taken after the softmax.
 //
-// What bounds it on this card: at the serving shapes (B = 1..8 graphs,
-// N = 24, F = 22, three calls per actor forward) one call moves a few KB and
-// does a few hundred thousand flops, so it is bound by the launch itself,
-// not by memory or arithmetic.  The design therefore does the whole stage
-// in ONE launch with no intermediate in device memory: the pairwise
-// [N, N, F] tensor, the logits and the softmax live in registers and shared
-// memory only.  It is written for correctness first:
+// What bounds it on this card.  One graph of the flagship (N = 24, F = 22)
+// is 2 x 2,112 bytes of features and 576 of adjacency, and ~77 thousand
+// f32 operations: at any batch the main path uses (B = 1..100) the whole
+// call is a few hundred KB at most, so neither memory (0.0002 ms at B=100)
+// nor arithmetic bounds it.  It is bound by latency: one CTA per graph
+// runs a chain of a device-memory round trip, the logits, a softmax and
+// the aggregation, and every CTA of a call fits on the card at once, so
+// the call takes one CTA's chain, flat in B.  Stage clocks (a
+// -DGAT_STAGE_CLOCKS build) split that chain at N = 24 into the staging
+// round trip (~30%), the logits (~28%), the softmax (~22%) and the
+// aggregation (~21%).  The design shortens each link:
 //
-// - one CTA (8 warps) per graph; xl[b], xr[b], att and bias are staged in
-//   shared memory once;
-// - one warp per target row i (warps stride over rows), lanes over source
-//   j in chunks of 32 with a running max and sum (online softmax), so any
-//   N works; the warp combines lanes with shuffles;
-// - each warp keeps its row's alpha in a shared buffer of N floats, then
-//   the output loop puts lanes over f;
-// - shared memory is sized from N and F at launch; above 48 KB the launch
-//   raises the kernel's dynamic shared-memory limit first.
+// - each graph's xl[b], xr[b] and adj[b] (contiguous) are staged with TMA
+//   1-D bulk copies (cp.async.bulk into shared memory, completed on one
+//   mbarrier) issued by one thread, while the other threads load att and
+//   bias; a block whose global address is not 16-byte aligned or whose
+//   size is not a multiple of 16 is loaded by the whole CTA with plain
+//   loads instead (gat_common.cuh, stage());
+// - the logits of all N^2 pairs, every thread of the CTA over the
+//   flattened pairs (576 at N = 24: 18 full warps, where a warp per row
+//   leaves 8 of 32 lanes idle), each as four independent partial sums over
+//   f read as float2 (gat_common.cuh, graph_alpha());
+// - the softmax one warp per target row (N warps, at most 32; rows loop
+//   only beyond that): degree and has-neighbour from __popc of the row's
+//   adjacency ballot, the row max in one integer reduction
+//   (__reduce_max_sync on order-preserving bits), then one expf per edge
+//   outside any branch and a shuffle sum;
+// - the aggregation, every thread over the flattened outputs (i, f), with
+//   alpha_i read as float4 into four independent partial sums, so no
+//   output waits on an N-long chain.
+//
+// The adjacency, the features and the weights are read from shared memory
+// only.  Reading xl rows directly (float2, conflict-free at F = 22) beat a
+// transposed copy, whose extra pass cost more than it saved.
+//
+// No tensor cores: the stage is f32, an f32 mma does not exist, and TF32
+// stays off (the port keeps the JAX reference's "highest" f32 matmul
+// precision); wgmma belongs to a bf16 variant.
 //
 // The host function returns the CUDA error of the launch (0 = success);
 // the Python wrapper raises on anything else.
 
-#include <cuda_runtime.h>
+#include "gat_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr float kNegInf = -1e30f;
-constexpr float kSlope = 0.2f;
+using namespace gat;
 
-__global__ void __launch_bounds__(kWarps * 32)
+// Byte offsets of the dynamic shared memory, each 16-byte aligned;
+// computed on the host and passed by value.
+struct Layout {
+  unsigned xl, xr, adj, att, bias, alpha, deg, bar, total;
+};
+
+Layout layout(int n, int f) {
+  const size_t fl = sizeof(float);
+  const int np = round4(n);
+  Layout l;
+  size_t o = 0;
+  l.xl = o;                                              // [np][f]
+  o += align16(static_cast<size_t>(np) * f * fl);
+  l.xr = o;                                              // [n][f]
+  o += align16(static_cast<size_t>(n) * f * fl);
+  l.adj = o;                                             // [n][n] bytes
+  o += align16(static_cast<size_t>(n) * n);
+  l.att = o;                                             // [f]
+  o += align16(f * fl);
+  l.bias = o;                                            // [f]
+  o += align16(f * fl);
+  l.alpha = o;                                           // [n][np]
+  o += static_cast<size_t>(n) * np * fl;
+  l.deg = o;                                             // [n] ints
+  o += align16(n * sizeof(int));
+  l.bar = o;
+  l.total = o + 16;
+  return l;
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32)
 gat_attention_kernel(const float* __restrict__ xl,
                      const float* __restrict__ xr,
                      const float* __restrict__ att,
                      const float* __restrict__ bias,
                      const unsigned char* __restrict__ adj,
-                     float* __restrict__ out, int n, int f, int mean_aggr) {
-  extern __shared__ float smem[];
-  float* s_xl = smem;                 // [n * f]
-  float* s_xr = s_xl + n * f;         // [n * f]
-  float* s_att = s_xr + n * f;        // [f]
-  float* s_bias = s_att + f;          // [f]
-  float* s_alpha = s_bias + f;        // [kWarps * n]
+                     float* __restrict__ out, const Layout L, int n, int f,
+                     int mean_aggr, float inv_n, float inv_f) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int np = round4(n);
+  float* s_xl = reinterpret_cast<float*>(smem + L.xl);
+  float* s_xr = reinterpret_cast<float*>(smem + L.xr);
+  unsigned char* s_adj = smem + L.adj;
+  float* s_att = reinterpret_cast<float*>(smem + L.att);
+  float* s_bias = reinterpret_cast<float*>(smem + L.bias);
+  float* s_alpha = reinterpret_cast<float*>(smem + L.alpha);
+  int* s_deg = reinterpret_cast<int*>(smem + L.deg);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
+  GAT_CLOCK(0);
 
   const int b = blockIdx.x;
-  const size_t feat_base = static_cast<size_t>(b) * n * f;
-  for (int k = threadIdx.x; k < n * f; k += blockDim.x) {
-    s_xl[k] = xl[feat_base + k];
-    s_xr[k] = xr[feat_base + k];
-  }
+  const int nf = n * f;
+  const uint32_t feat_bytes = static_cast<uint32_t>(nf * sizeof(float));
+  const Block blocks[3] = {
+      {s_xl, xl + static_cast<size_t>(b) * nf, feat_bytes},
+      {s_xr, xr + static_cast<size_t>(b) * nf, feat_bytes},
+      {s_adj, adj + static_cast<size_t>(b) * n * n,
+       static_cast<uint32_t>(n * n)}};
+  const uint32_t tx = stage(blocks, bar);
+  // while the copies fly: att, bias, and xl's rows n..np-1 as zeros, which
+  // the aggregation's float4 reads of alpha's pad columns meet
+#pragma unroll 1
   for (int k = threadIdx.x; k < f; k += blockDim.x) {
     s_att[k] = att[k];
     s_bias[k] = bias[k];
   }
+#pragma unroll 1
+  for (int t = threadIdx.x; t < (np - n) * f; t += blockDim.x)
+    s_xl[nf + t] = 0.f;
   __syncthreads();
+  if (tx) barrier_wait(bar);
+  GAT_CLOCK(1);
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* alpha = s_alpha + warp * n;
-  const unsigned char* adj_b = adj + static_cast<size_t>(b) * n * n;
+  graph_alpha(s_xl, s_xr, s_att, s_adj, n, np, f, inv_n, s_alpha, s_deg);
+  GAT_CLOCK(2);
 
-  for (int i = warp; i < n; i += kWarps) {
-    const unsigned char* arow = adj_b + static_cast<size_t>(i) * n;
-    const float* xr_i = s_xr + i * f;
-
-    // pass 1: logits, with a running max and rescaled running sum per lane
-    float run_max = kNegInf;
-    float run_sum = 0.f;
-    int deg = 0;
-    for (int j = lane; j < n; j += 32) {
-      float logit = kNegInf;
-      if (arow[j]) {
-        const float* xl_j = s_xl + j * f;
-        float acc = 0.f;
-        for (int k = 0; k < f; ++k) {
-          float e = xl_j[k] + xr_i[k];
-          e = e >= 0.f ? e : kSlope * e;
-          acc += e * s_att[k];
-        }
-        logit = acc;
-        ++deg;
-        if (logit > run_max) {
-          run_sum = run_sum * expf(run_max - logit) + 1.f;
-          run_max = logit;
-        } else {
-          run_sum += expf(logit - run_max);
-        }
+  // the aggregation, all threads over the flattened outputs t = i f + k:
+  // sum_j alpha_ij xl_jk with alpha_i read as float4 (four independent
+  // partial sums), / max(deg_i, 1) if mean, + bias; 0 without a neighbour
+  float* out_b = out + static_cast<size_t>(b) * nf;
+#pragma unroll 1
+  for (int t = threadIdx.x; t < nf; t += blockDim.x) {
+    const int i = div_floor(t, inv_f), k = t - i * f;
+    const int deg = s_deg[i];
+    float o = 0.f;
+    if (deg > 0) {
+      const float4* a4 = reinterpret_cast<const float4*>(s_alpha + i * np);
+      const float* x = s_xl + k;
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll 1
+      for (int q = 0; q < np / 4; ++q, x += 4 * f) {
+        const float4 a = a4[q];
+        a0 = fmaf(a.x, x[0], a0);
+        a1 = fmaf(a.y, x[f], a1);
+        a2 = fmaf(a.z, x[2 * f], a2);
+        a3 = fmaf(a.w, x[3 * f], a3);
       }
-      alpha[j] = logit;
+      const float acc = (a0 + a1) + (a2 + a3);
+      o = (mean_aggr ? acc / static_cast<float>(deg) : acc) + s_bias[k];
     }
-    // combine the lanes' (max, sum) pairs and degrees
-    for (int off = 16; off > 0; off >>= 1) {
-      const float o_max = __shfl_xor_sync(0xffffffffu, run_max, off);
-      const float o_sum = __shfl_xor_sync(0xffffffffu, run_sum, off);
-      const float m = fmaxf(run_max, o_max);
-      run_sum = run_sum * expf(run_max - m) + o_sum * expf(o_max - m);
-      run_max = m;
-      deg += __shfl_xor_sync(0xffffffffu, deg, off);
-    }
-    const float denom = fmaxf(run_sum, 1e-30f);
-    __syncwarp();
-
-    // pass 2: normalised attention weights (exact zeros off the adjacency)
-    for (int j = lane; j < n; j += 32) {
-      alpha[j] = arow[j] ? expf(alpha[j] - run_max) / denom : 0.f;
-    }
-    __syncwarp();
-
-    // pass 3: aggregation, lanes over features
-    const float deg_f = mean_aggr ? static_cast<float>(max(deg, 1)) : 1.f;
-    float* out_i = out + feat_base + static_cast<size_t>(i) * f;
-    for (int k = lane; k < f; k += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < n; ++j) acc += alpha[j] * s_xl[j * f + k];
-      out_i[k] = deg > 0 ? acc / deg_f + s_bias[k] : 0.f;
-    }
-    __syncwarp();
+    out_b[t] = o;
   }
+  GAT_CLOCK(3);
 }
 
 }  // namespace
@@ -139,8 +173,7 @@ extern "C" {
 
 // Dynamic shared memory of one launch, in bytes.
 long long gat_attention_smem_bytes(int n, int f) {
-  return (2LL * n * f + 2LL * f + static_cast<long long>(kWarps) * n) *
-         static_cast<long long>(sizeof(float));
+  return static_cast<long long>(layout(n, f).total);
 }
 
 // Launch on `stream`; adj is one byte per entry (torch.bool).  Returns the
@@ -148,23 +181,31 @@ long long gat_attention_smem_bytes(int n, int f) {
 int gat_attention_f32(const float* xl, const float* xr, const float* att,
                       const float* bias, const void* adj, float* out,
                       int batch, int n, int f, int mean_aggr, void* stream) {
-  const long long smem = gat_attention_smem_bytes(n, f);
-  if (smem > 48 * 1024) {
+  const Layout L = layout(n, f);
+  if (L.total > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         gat_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        static_cast<int>(L.total));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (batch == 0) return 0;
-  gat_attention_kernel<<<batch, kWarps * 32, static_cast<size_t>(smem),
+  gat_attention_kernel<<<batch, warps_for(n) * 32, L.total,
                          static_cast<cudaStream_t>(stream)>>>(
-      xl, xr, att, bias, static_cast<const unsigned char*>(adj), out, n, f,
-      mean_aggr);
+      xl, xr, att, bias, static_cast<const unsigned char*>(adj), out, L, n, f,
+      mean_aggr, 1.f / static_cast<float>(n), 1.f / static_cast<float>(f));
   return static_cast<int>(cudaGetLastError());
 }
 
 const char* gat_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#ifdef GAT_STAGE_CLOCKS
+// The last launch's stage clocks of block 0 (kStageClocks values).
+int gat_attention_stage_clocks(long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      host, g_stage_clocks, sizeof(long long) * kStageClocks));
+}
+#endif
 
 }  // extern "C"

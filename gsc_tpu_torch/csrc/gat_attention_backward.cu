@@ -1,0 +1,442 @@
+// Gradient of the fused GATv2 attention stage, f32, for Hopper (sm_90a).
+//
+// The gradient of gat_attention.cu's function, which the JAX package
+// computes as the dense VJP of gsc_tpu/ops/pallas_gat.py::_gatv2_pallas_bwd
+// (jax.vjp of attention_dense, with [B, N, N, F] intermediates).  Given
+// grad_out g [B, N, F] and the forward's inputs, per graph and target row
+// i, with alpha the forward's attention weights, d_i = max(deg_i, 1) under
+// mean aggregation (1 under sum) and e_ijf = xl_jf + xr_if:
+//
+//   g_i := 0 on a row without a neighbour;  d_bias = sum_{b,i} g_i
+//   dalpha_ij = (g_i . xl_j) / d_i
+//   dl_ij = alpha_ij (dalpha_ij - sum_k alpha_ik dalpha_ik)   (0 off adj)
+//   d_att_f = sum_{b,i,j} dl_ij LeakyReLU(e_ijf)
+//   d_xr_if = att_f sum_j dl_ij LeakyReLU'(e_ijf)
+//   d_xl_jf = sum_i alpha_ij g_if / d_i + att_f sum_i dl_ij LeakyReLU'(e_ijf)
+//
+// with LeakyReLU'(0) = 1, as where(e >= 0, ...) takes it in both
+// frameworks.
+//
+// What bounds it on this card: as the forward, latency.  A flagship graph
+// (N = 24, F = 22) is ~9.5 KB in and out and ~0.2 M f32 operations; the
+// dense VJP it replaces issues ~80 small launches per call and moves
+// [B, N, N, F] tensors (5 MB each at B = 100) through device memory.  The
+// design does the whole gradient in ONE launch with nothing of size
+// [N, N, F] outside shared memory and registers:
+//
+// - one CTA per graph; xl[b], xr[b], g[b] and adj[b] staged with TMA 1-D
+//   bulk copies on one mbarrier (plain loads for a block that is not
+//   16-byte aligned or sized), as in the forward;
+// - alpha recomputed by the forward's own code (gat_common.cuh,
+//   graph_alpha()), so it equals the forward's bit for bit; alpha, dalpha
+//   and dl live in shared memory as [N, N];
+// - dalpha over the flattened pairs, dl one warp per row, taken relative
+//   to the row's largest weight (dl_ij = alpha_ij (delta_ij - sum_k
+//   alpha_ik delta_ik), delta_ij = dalpha_ij - dalpha_ip at p = argmax_j
+//   alpha_ij: trained weights give logits of several hundred, a softmax
+//   saturated to f32 precision, and the textbook form's dalpha_ip -
+//   sum_k alpha_ik dalpha_ik then cancels to its rounding, off by more
+//   than the gradient itself), then d_xr (threads over (i, f), sums over
+//   j) and d_xl (threads over (j, f), sums over i) in one pass, e_ijf
+//   recomputed from shared memory;
+// - d_att and d_bias are sums across graphs: each CTA adds its graph's
+//   terms in double in a fixed order (16 threads per feature over strided
+//   rows, then their 16 sums in order), writes them to a scratch buffer,
+//   and the last CTA to finish (an integer atomic counter, reset by that
+//   CTA for the next launch) adds them in graph order the same way.  d_xl
+//   and d_xr wait in shared memory and are stored after the CTA has
+//   counted itself in, so the memory fence waits for the partials alone.
+//   No float atomics: two launches on the same inputs give the same bits.
+//
+// No tensor cores, as the forward: f32, TF32 off.
+//
+// The host function returns the CUDA error of the launch (0 = success);
+// the Python wrapper raises on anything else.
+
+#include "gat_common.cuh"
+
+namespace {
+
+using namespace gat;
+
+// Threads that add the per-graph d_att and d_bias partials in the last
+// CTA: each of the 2 F sums goes to kSumParts threads, each over a strided
+// set of graphs, then one thread adds those kSumParts sums in order.
+constexpr int kSumParts = 16;
+
+// Byte offsets of the dynamic shared memory, each 16-byte aligned;
+// computed on the host and passed by value.
+struct Layout {
+  unsigned xl, xr, g, adj, att, dout, apart, dxr, alpha, dl, deg, sums, bar,
+      total;
+};
+
+Layout layout(int n, int f) {
+  const size_t fl = sizeof(float);
+  const int np = round4(n);
+  const size_t feat = align16(static_cast<size_t>(n) * f * fl);
+  const size_t pair = static_cast<size_t>(n) * np * fl;
+  Layout l;
+  size_t o = 0;
+  l.xl = o;      // [n][f]
+  o += feat;
+  l.xr = o;      // [n][f]
+  o += feat;
+  l.g = o;       // [n][f]
+  o += feat;
+  l.adj = o;     // [n][n] bytes
+  o += align16(static_cast<size_t>(n) * n);
+  l.att = o;     // [f]
+  o += align16(f * fl);
+  l.dout = o;    // [n][f]: g_i / d_i
+  o += feat;
+  l.apart = o;   // [n][f]: d_att's terms summed over j
+  o += feat;
+  l.dxr = o;     // [n][f]: d_xr, until it is stored
+  o += feat;
+  l.alpha = o;   // [n][np]
+  o += pair;
+  l.dl = o;      // [n][np]
+  o += pair;
+  l.deg = o;     // [n] ints
+  o += align16(n * sizeof(int));
+  l.sums = o;    // [2 f][kSumParts] doubles: partial sums in a fixed order
+  o += align16(2 * f * kSumParts * sizeof(double));
+  l.bar = o;
+  l.total = o + 16;
+  return l;
+}
+
+// sum_f u_f w_f over rows of f floats, in four independent partial sums
+// added as (c0 + c1) + (c2 + c3); float2 reads for even f.
+__device__ __forceinline__ float dot(const float* u, const float* w, int f) {
+  float c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f;
+  if ((f & 1) == 0) {
+    const float2* u2 = reinterpret_cast<const float2*>(u);
+    const float2* w2 = reinterpret_cast<const float2*>(w);
+    const int h = f >> 1;
+    int q = 0;
+#pragma unroll 1
+    for (; q + 1 < h; q += 2) {
+      const float2 a = u2[q], b = u2[q + 1], x = w2[q], y = w2[q + 1];
+      c0 = fmaf(a.x, x.x, c0);
+      c1 = fmaf(a.y, x.y, c1);
+      c2 = fmaf(b.x, y.x, c2);
+      c3 = fmaf(b.y, y.y, c3);
+    }
+    if (q < h) {
+      const float2 a = u2[q], x = w2[q];
+      c0 = fmaf(a.x, x.x, c0);
+      c1 = fmaf(a.y, x.y, c1);
+    }
+  } else {
+    int k = 0;
+#pragma unroll 1
+    for (; k + 3 < f; k += 4) {
+      c0 = fmaf(u[k], w[k], c0);
+      c1 = fmaf(u[k + 1], w[k + 1], c1);
+      c2 = fmaf(u[k + 2], w[k + 2], c2);
+      c3 = fmaf(u[k + 3], w[k + 3], c3);
+    }
+#pragma unroll 1
+    for (; k < f; ++k) c0 = fmaf(u[k], w[k], c0);
+  }
+  return (c0 + c1) + (c2 + c3);
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32)
+gat_attention_backward_kernel(const float* __restrict__ grad,
+                              const float* __restrict__ xl,
+                              const float* __restrict__ xr,
+                              const float* __restrict__ att,
+                              const unsigned char* __restrict__ adj,
+                              float* __restrict__ d_xl,
+                              float* __restrict__ d_xr,
+                              float* __restrict__ d_att,
+                              float* __restrict__ d_bias,
+                              double* __restrict__ partials,
+                              unsigned int* __restrict__ counter,
+                              const Layout L, int n, int f, int mean_aggr,
+                              float inv_n, float inv_f) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int np = round4(n);
+  float* s_xl = reinterpret_cast<float*>(smem + L.xl);
+  float* s_xr = reinterpret_cast<float*>(smem + L.xr);
+  float* s_g = reinterpret_cast<float*>(smem + L.g);
+  unsigned char* s_adj = smem + L.adj;
+  float* s_att = reinterpret_cast<float*>(smem + L.att);
+  float* s_do = reinterpret_cast<float*>(smem + L.dout);
+  float* s_apart = reinterpret_cast<float*>(smem + L.apart);
+  float* s_alpha = reinterpret_cast<float*>(smem + L.alpha);
+  float* s_dl = reinterpret_cast<float*>(smem + L.dl);
+  int* s_deg = reinterpret_cast<int*>(smem + L.deg);
+  double* s_sums = reinterpret_cast<double*>(smem + L.sums);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
+  __shared__ bool s_last;
+  GAT_CLOCK(0);
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nf = n * f;
+  const uint32_t feat_bytes = static_cast<uint32_t>(nf * sizeof(float));
+  const Block blocks[4] = {
+      {s_xl, xl + static_cast<size_t>(b) * nf, feat_bytes},
+      {s_xr, xr + static_cast<size_t>(b) * nf, feat_bytes},
+      {s_g, grad + static_cast<size_t>(b) * nf, feat_bytes},
+      {s_adj, adj + static_cast<size_t>(b) * n * n,
+       static_cast<uint32_t>(n * n)}};
+  const uint32_t tx = stage(blocks, bar);
+#pragma unroll 1
+  for (int k = tid; k < f; k += blockDim.x) s_att[k] = att[k];
+  __syncthreads();
+  if (tx) barrier_wait(bar);
+  GAT_CLOCK(1);
+
+  // 1. alpha and the degrees, as the forward computes them
+  graph_alpha(s_xl, s_xr, s_att, s_adj, n, np, f, inv_n, s_alpha, s_deg);
+  GAT_CLOCK(2);
+
+  // 2. the output gradient g_i / d_i (0 on a row without a neighbour), and
+  //    this graph's d_bias partial: kSumParts threads per feature, each
+  //    over rows p, p + kSumParts, ..., then their sums in order, in double
+  double* part = partials + static_cast<size_t>(b) * 2 * f;
+#pragma unroll 1
+  for (int t = tid; t < nf; t += blockDim.x) {
+    const int deg = s_deg[div_floor(t, inv_f)];
+    const float gt = deg > 0 ? s_g[t] : 0.f;
+    s_do[t] = mean_aggr ? gt / static_cast<float>(max(deg, 1)) : gt;
+  }
+#pragma unroll 1
+  for (int t = tid; t < f * kSumParts; t += blockDim.x) {
+    const int k = t / kSumParts, p = t - k * kSumParts;
+    double acc = 0.0;
+#pragma unroll 1
+    for (int i = p; i < n; i += kSumParts)
+      if (s_deg[i] > 0) acc += s_g[i * f + k];
+    s_sums[t] = acc;
+  }
+  __syncthreads();
+  GAT_CLOCK(3);
+
+  // 3. dalpha_ij = (g_i / d_i) . xl_j, all threads over the pairs; the
+  //    d_bias partial in order
+#pragma unroll 1
+  for (int t = tid; t < n * n; t += blockDim.x) {
+    const int i = div_floor(t, inv_n), j = t - i * n;
+    s_dl[i * np + j] = dot(s_do + i * f, s_xl + j * f, f);
+  }
+#pragma unroll 1
+  for (int k = tid; k < f; k += blockDim.x) {
+    double acc = 0.0;
+#pragma unroll 1
+    for (int p = 0; p < kSumParts; ++p) acc += s_sums[k * kSumParts + p];
+    part[f + k] = acc;
+  }
+  __syncthreads();
+
+  // 4. dl_ij = alpha_ij (delta_ij - sum_k alpha_ik delta_ik) with delta_ij
+  //    = dalpha_ij - dalpha_ip at the row's largest weight p (the first
+  //    lane holding it): the same value as alpha_ij (dalpha_ij - sum_k
+  //    alpha_ik dalpha_ik), but where the softmax saturates (alpha_ip = 1
+  //    to f32 precision) that difference of two nearly equal numbers would
+  //    swamp dl with rounding, and here the pivot's own term is exactly 0.
+  //    One warp per row.
+  const int warp = tid >> 5, lane = tid & 31;
+#pragma unroll 1
+  for (int i = warp; i < n; i += blockDim.x >> 5) {
+    const float* alpha_i = s_alpha + i * np;
+    float* dl_i = s_dl + i * np;
+    // the largest weight of the row and where it is: each lane's first,
+    // then the first lane holding the row's
+    float a_max = -1.f;
+    int j_max = 0;
+#pragma unroll 1
+    for (int j = lane; j < n; j += 32)
+      if (alpha_i[j] > a_max) {
+        a_max = alpha_i[j];
+        j_max = j;
+      }
+    const float row_max = warp_max(a_max);
+    const int src = __ffs(__ballot_sync(kFull, a_max == row_max)) - 1;
+    const float pivot = dl_i[__shfl_sync(kFull, j_max, src)];
+    float t = 0.f;
+#pragma unroll 1
+    for (int j = lane; j < n; j += 32)
+      t = fmaf(alpha_i[j], dl_i[j] - pivot, t);
+    t = warp_sum(t);
+    __syncwarp();
+#pragma unroll 1
+    for (int j = lane; j < n; j += 32)
+      dl_i[j] = alpha_i[j] * ((dl_i[j] - pivot) - t);
+  }
+  __syncthreads();
+  GAT_CLOCK(4);
+
+  // 5. d_xr and the d_att terms by (i, f), summed over j; d_xl by (j, f),
+  //    summed over i; two independent partial sums each.  d_xr and d_xl
+  //    wait in shared memory (d_xl where g was) until the partials are out
+  float* s_dxl = s_g;
+  float* s_dxr = reinterpret_cast<float*>(smem + L.dxr);
+#pragma unroll 1
+  for (int t = tid; t < 2 * nf; t += blockDim.x) {
+    if (t < nf) {
+      const int i = div_floor(t, inv_f), k = t - i * f;
+      const float xr_ik = s_xr[t];
+      const float* dl_i = s_dl + i * np;
+      const float* x = s_xl + k;
+      float r0 = 0.f, r1 = 0.f, a0 = 0.f, a1 = 0.f;
+      int j = 0;
+#pragma unroll 1
+      for (; j + 1 < n; j += 2) {
+        const float e0 = x[j * f] + xr_ik, e1 = x[(j + 1) * f] + xr_ik;
+        r0 += e0 >= 0.f ? dl_i[j] : kSlope * dl_i[j];
+        r1 += e1 >= 0.f ? dl_i[j + 1] : kSlope * dl_i[j + 1];
+        a0 = fmaf(dl_i[j], leaky(e0), a0);
+        a1 = fmaf(dl_i[j + 1], leaky(e1), a1);
+      }
+      if (j < n) {
+        const float e0 = x[j * f] + xr_ik;
+        r0 += e0 >= 0.f ? dl_i[j] : kSlope * dl_i[j];
+        a0 = fmaf(dl_i[j], leaky(e0), a0);
+      }
+      s_dxr[t] = s_att[k] * (r0 + r1);
+      s_apart[t] = a0 + a1;
+    } else {
+      const int v = t - nf;
+      const int j = div_floor(v, inv_f), k = v - j * f;
+      const float xl_jk = s_xl[v];
+      const float* xr_k = s_xr + k;
+      const float* do_k = s_do + k;
+      float s0 = 0.f, s1 = 0.f, r0 = 0.f, r1 = 0.f;
+      int i = 0;
+#pragma unroll 1
+      for (; i + 1 < n; i += 2) {
+        const float e0 = xl_jk + xr_k[i * f], e1 = xl_jk + xr_k[(i + 1) * f];
+        const float l0 = s_dl[i * np + j], l1 = s_dl[(i + 1) * np + j];
+        s0 = fmaf(s_alpha[i * np + j], do_k[i * f], s0);
+        s1 = fmaf(s_alpha[(i + 1) * np + j], do_k[(i + 1) * f], s1);
+        r0 += e0 >= 0.f ? l0 : kSlope * l0;
+        r1 += e1 >= 0.f ? l1 : kSlope * l1;
+      }
+      if (i < n) {
+        const float e0 = xl_jk + xr_k[i * f];
+        const float l0 = s_dl[i * np + j];
+        s0 = fmaf(s_alpha[i * np + j], do_k[i * f], s0);
+        r0 += e0 >= 0.f ? l0 : kSlope * l0;
+      }
+      s_dxl[v] = (s0 + s1) + s_att[k] * (r0 + r1);
+    }
+  }
+  __syncthreads();
+  GAT_CLOCK(5);
+
+  // 6. this graph's d_att partial, as d_bias's; out to the scratch, then
+  //    counted in
+#pragma unroll 1
+  for (int t = tid; t < f * kSumParts; t += blockDim.x) {
+    const int k = t / kSumParts, p = t - k * kSumParts;
+    double acc = 0.0;
+#pragma unroll 1
+    for (int i = p; i < n; i += kSumParts) acc += s_apart[i * f + k];
+    s_sums[t] = acc;
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int k = tid; k < f; k += blockDim.x) {
+    double acc = 0.0;
+#pragma unroll 1
+    for (int p = 0; p < kSumParts; ++p) acc += s_sums[k * kSumParts + p];
+    part[k] = acc;
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(counter, 1u) == gridDim.x - 1;
+
+  // 7. d_xl and d_xr out (coalesced); no other CTA reads them
+  float* d_xl_b = d_xl + static_cast<size_t>(b) * nf;
+  float* d_xr_b = d_xr + static_cast<size_t>(b) * nf;
+#pragma unroll 1
+  for (int t = tid; t < nf; t += blockDim.x) {
+    d_xl_b[t] = s_dxl[t];
+    d_xr_b[t] = s_dxr[t];
+  }
+  __syncthreads();
+  GAT_CLOCK(6);
+
+  // 8. the last CTA to finish adds the partials in graph order: kSumParts
+  //    threads per sum, each over graphs c = p, p + kSumParts, ..., then
+  //    the kSumParts sums in order of p
+  if (!s_last) return;
+  __threadfence();
+#pragma unroll 1
+  for (int t = tid; t < 2 * f * kSumParts; t += blockDim.x) {
+    const int k = t / kSumParts, p = t - k * kSumParts;
+    double acc = 0.0;
+#pragma unroll 1
+    for (unsigned int c = p; c < gridDim.x; c += kSumParts)
+      acc += __ldcg(partials + static_cast<size_t>(c) * 2 * f + k);
+    s_sums[t] = acc;
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int k = tid; k < 2 * f; k += blockDim.x) {
+    double acc = 0.0;
+#pragma unroll 1
+    for (int p = 0; p < kSumParts; ++p) acc += s_sums[k * kSumParts + p];
+    if (k < f)
+      d_att[k] = static_cast<float>(acc);
+    else
+      d_bias[k - f] = static_cast<float>(acc);
+  }
+  if (tid == 0) *counter = 0u;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory of one launch, in bytes.
+long long gat_attention_backward_smem_bytes(int n, int f) {
+  return static_cast<long long>(layout(n, f).total);
+}
+
+// Launch on `stream`.  d_att and d_bias [f]; partials [batch, 2 f] doubles
+// (8-byte aligned); counter one unsigned int that is 0 between launches.
+// Returns the cudaError_t of the launch, 0 on success.
+int gat_attention_backward_f32(const float* grad, const float* xl,
+                               const float* xr, const float* att,
+                               const void* adj, float* d_xl, float* d_xr,
+                               float* d_att, float* d_bias, void* partials,
+                               void* counter, int batch, int n, int f,
+                               int mean_aggr, void* stream) {
+  const Layout L = layout(n, f);
+  if (L.total > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gat_attention_backward_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L.total));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (batch == 0) return 0;
+  gat_attention_backward_kernel<<<batch, warps_for(n) * 32, L.total,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      grad, xl, xr, att, static_cast<const unsigned char*>(adj), d_xl, d_xr,
+      d_att, d_bias, static_cast<double*>(partials),
+      static_cast<unsigned int*>(counter), L, n, f, mean_aggr,
+      1.f / static_cast<float>(n), 1.f / static_cast<float>(f));
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* gat_attention_backward_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+#ifdef GAT_STAGE_CLOCKS
+// The last launch's stage clocks of block 0 (kStageClocks values).
+int gat_attention_backward_stage_clocks(long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      host, g_stage_clocks, sizeof(long long) * kStageClocks));
+}
+#endif
+
+}  // extern "C"

@@ -8,8 +8,9 @@ self-loops included.  The graph is dense and padded, so attention is a
 masked [N, N] softmax over every graph of the batch at once.
 
 ``impl``: "dense" runs the plain masked attention; "pallas" runs the fused
-attention kernel (``ops.gat_attention``): the CUDA kernel on CUDA tensors,
-its plain version on CPU tensors.
+attention kernel (``ops.gat_attention``): the CUDA kernel, differentiated
+by its backward kernel, on CUDA tensors; its plain version, differentiated
+by autograd, on CPU tensors.
 """
 from __future__ import annotations
 

@@ -7,6 +7,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 from typing import Sequence, Tuple
 
@@ -33,13 +34,19 @@ def build_library(source: Path, extra_flags: Sequence[str] = ()
     and the compiler's log (ptxas registers and spills) of a fresh build,
     or "" when the library was already built."""
     flags = tuple(NVCC_FLAGS) + tuple(extra_flags)
-    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()
-                            ).hexdigest()[:16]
+    # the headers beside the source are part of what it compiles
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(source.parent.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers
+                            + " ".join(flags).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"{source.stem}_{digest}.so"
     log = ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        # one temporary per process and thread: two threads may build the
+        # same library at once
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}"
+                           ".tmp")
         cmd = [nvcc(), *flags, "-o", str(tmp), str(source)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:

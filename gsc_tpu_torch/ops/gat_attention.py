@@ -1,20 +1,26 @@
-"""The fused GATv2 attention stage: a hand-written CUDA kernel and its plain
-PyTorch version.
+"""The fused GATv2 attention stage: hand-written CUDA kernels for its
+forward and its gradient, and their plain PyTorch versions.
 
-The kernel (``csrc/gat_attention.cu``) replaces the TPU kernel
-``gsc_tpu/ops/pallas_gat.py::_gat_kernel``; its header says what bounds it
-on the card and how its design answers that.  It is compiled with ``nvcc``
-for ``sm_90a`` from the repository's source at first use, into
-``gsc_tpu_torch/_build/`` (one shared library per source digest), and
-bound with ``ctypes`` through a plain C interface.
+The forward kernel (``csrc/gat_attention.cu``) replaces the TPU kernel
+``gsc_tpu/ops/pallas_gat.py::_gat_kernel``.  The backward kernel
+(``csrc/gat_attention_backward.cu``) computes the same gradient as the
+dense VJP that the JAX package's custom VJP takes
+(``_gatv2_pallas_bwd``), without building its [B, N, N, F] intermediates.
+Each source's header says what bounds it on the card and how its design
+answers that.  Each is compiled with ``nvcc`` for ``sm_90a`` from the
+repository's source at first use, into ``gsc_tpu_torch/_build/`` (one
+shared library per source digest), and bound with ``ctypes`` through a
+plain C interface.
 
 ``gat_attention(xl, xr, att, bias, adj, mean_aggr)`` dispatches on where
-the tensors lie: CUDA tensors launch the kernel (or raise on what it does
-not take) through a ``torch.autograd.Function`` whose backward is the
-plain dense VJP (no backward kernel), CPU tensors run ``attention_plain``,
-which autograd differentiates itself.  There is no fallback from
-the kernel to the plain version.  ``gat_attention.launches`` counts
-kernel launches.
+the tensors lie: CUDA tensors launch the forward kernel (or raise on what
+it does not take) through a ``torch.autograd.Function`` whose backward
+launches the backward kernel; CPU tensors run ``attention_plain``, which
+autograd differentiates itself (the mirror of the JAX package's dense
+VJP).  ``attention_backward_plain`` is the backward kernel's plain
+version: the closed-form gradient, written without autograd.  There is no
+fallback from a kernel to its plain version.  ``gat_attention.launches``
+and ``gat_attention_backward.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -24,71 +30,223 @@ import threading
 import torch
 
 from .build import MAX_SMEM_BYTES, PKG, build_library
-from .gat import attention_dense
+from .gat import LEAKY_SLOPE, NEG_INF, attention_dense
 
 SOURCE = PKG / "csrc" / "gat_attention.cu"
+BACKWARD_SOURCE = PKG / "csrc" / "gat_attention_backward.cu"
 
 
-# the kernel's plain PyTorch version: the dense masked attention
+# the forward kernel's plain PyTorch version: the dense masked attention
 attention_plain = attention_dense
 
 
+def attention_backward_plain(grad_out: torch.Tensor, xl: torch.Tensor,
+                             xr: torch.Tensor, att: torch.Tensor,
+                             adj: torch.Tensor, mean_aggr: bool):
+    """The gradient of ``attention_plain`` in closed form (no autograd):
+    ``(d_xl, d_xr, d_att, d_bias)`` for ``grad_out`` [..., N, F].
+
+    Per graph and target row i, with alpha the forward's attention weights,
+    d_i = max(deg_i, 1) under mean aggregation (1 under sum) and
+    e_ijf = xl_jf + xr_if: g_i is taken as 0 on a row without a neighbour;
+    dalpha_ij = (g_i . xl_j) / d_i; dl_ij = alpha_ij (dalpha_ij -
+    sum_k alpha_ik dalpha_ik); d_att = sum dl_ij LeakyReLU(e_ij);
+    d_xr_i = sum_j dl_ij att LeakyReLU'(e_ij); d_xl_j = sum_i alpha_ij g_i /
+    d_i + dl_ij att LeakyReLU'(e_ij); d_bias = sum_i g_i.  LeakyReLU'(0) =
+    1, as ``torch.where(e >= 0, ...)`` and ``jnp.where`` take it.
+
+    dl is taken relative to the row's largest weight, at p = argmax_j
+    alpha_ij: with delta_ij = dalpha_ij - dalpha_ip, dl_ij = alpha_ij
+    (delta_ij - sum_k alpha_ik delta_ik), the same value since the weights
+    sum to 1.  A saturated softmax (alpha_ip = 1 to f32 precision, as
+    trained weights give with logits of several hundred) makes dalpha_ip -
+    sum_k alpha_ik dalpha_ik a difference of two nearly equal numbers whose
+    rounding would swamp dl; the pivot's own term is exactly 0 here, as
+    autograd's gradient through the row max cancels it in the dense
+    VJP."""
+    zero = torch.zeros((), dtype=xl.dtype, device=xl.device)
+    e = xl[..., None, :, :] + xr[..., :, None, :]          # [..., i, j, F]
+    pos = e >= 0
+    act = torch.where(pos, e, LEAKY_SLOPE * e)
+    slope = torch.where(pos, torch.ones((), dtype=xl.dtype, device=xl.device),
+                        torch.full((), LEAKY_SLOPE, dtype=xl.dtype,
+                                   device=xl.device))
+    logits = torch.einsum("...ijf,f->...ij", act, att)
+    logits = torch.where(adj, logits, torch.full((), NEG_INF,
+                                                 device=xl.device))
+    mx = logits.amax(dim=-1, keepdim=True)
+    ex = torch.where(adj, torch.exp(logits - mx), zero)
+    alpha = ex / ex.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    deg = adj.sum(dim=-1, keepdim=True)
+    g = torch.where(deg > 0, grad_out, zero)
+    d_bias = g.reshape(-1, g.shape[-1]).sum(dim=0)
+    g_out = g / deg.clamp(min=1) if mean_aggr else g
+    dalpha = torch.einsum("...if,...jf->...ij", g_out, xl)
+    pivot = alpha.argmax(dim=-1, keepdim=True)
+    delta = dalpha - torch.gather(dalpha, -1, pivot)
+    dl = alpha * (delta - (alpha * delta).sum(dim=-1, keepdim=True))
+    d_att = (dl[..., None] * act).reshape(-1, act.shape[-1]).sum(dim=0)
+    de = dl[..., None] * att * slope                        # [..., i, j, F]
+    d_xr = de.sum(dim=-2)
+    d_xl = torch.einsum("...ij,...if->...jf", alpha, g_out) + de.sum(dim=-3)
+    return d_xl, d_xr, d_att, d_bias
+
+
+def _raw_stream(index: int) -> int:
+    """The current CUDA stream of device ``index`` as a pointer, through the
+    binding PyTorch's generated kernels launch with: no
+    ``torch.cuda.Stream`` object is built per launch."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _batch(lead) -> int:
+    b = 1
+    for d in lead:
+        b *= d
+    return b
+
+
+class _Kernel:
+    """A kernel library built from ``source`` and loaded once; launch
+    counts in ``launches``.  ``stage_clocks=True`` builds it with
+    ``-DGAT_STAGE_CLOCKS``: block 0 then records its stage clocks, which
+    ``read_stage_clocks`` returns after a launch."""
+
+    name = ""
+
+    def __init__(self, source, stage_clocks: bool = False):
+        self.source = source
+        self.flags = ("-DGAT_STAGE_CLOCKS",) if stage_clocks else ()
+        self.launches = 0
+        self.build_log = ""
+        self._lib = None
+        self._lock = threading.Lock()
+        self._smem = {}
+
+    def library(self) -> ctypes.CDLL:
+        """Build (once per source digest) and load the shared library."""
+        lib = self._lib
+        if lib is None:
+            with self._lock:
+                if self._lib is None:
+                    lib, self.build_log = build_library(self.source,
+                                                        self.flags)
+                    self._bind(lib)
+                    self._lib = lib
+                lib = self._lib
+        return lib
+
+    def _bind(self, lib: ctypes.CDLL):
+        err = getattr(lib, f"{self.name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        if self.flags:
+            clocks = getattr(lib, f"{self.name}_stage_clocks")
+            clocks.argtypes = [ctypes.c_void_p]
+            clocks.restype = ctypes.c_int
+
+    def read_stage_clocks(self):
+        """Block 0's clock64() at each stage slot of the last launch (a
+        stage-clocks build; synchronises the card)."""
+        torch.cuda.synchronize()
+        buf = (ctypes.c_longlong * 8)()
+        read = getattr(self.library(), f"{self.name}_stage_clocks")
+        code = read(ctypes.addressof(buf))
+        if code != 0:
+            raise RuntimeError(f"{self.name}: reading stage clocks failed "
+                               f"({code})")
+        return list(buf)
+
+    def _check(self, xl, tensors, floats, n, f):
+        """Device, dtype and contiguity of every tensor, and the shared
+        memory that (n, f) needs; returns the library."""
+        dev = xl.device
+        if dev.type != "cuda":
+            raise ValueError(f"{self.name}: the kernel takes CUDA tensors, "
+                             f"got {dev}")
+        for t in tensors:
+            if t.device != dev:
+                raise ValueError(f"{self.name}: tensors on {t.device} and "
+                                 f"{dev}; the kernel takes CUDA tensors on "
+                                 "one device")
+            if not t.is_contiguous():
+                raise ValueError(f"{self.name}: a {tuple(t.shape)} input is "
+                                 "not contiguous")
+        for t in floats:
+            if t.dtype != torch.float32:
+                raise TypeError(f"{self.name}: a float input is {t.dtype}, "
+                                "the kernel takes f32")
+        if n < 1 or f < 1:
+            raise ValueError(f"{self.name}: empty graph shape N={n} F={f}")
+        lib = self.library()
+        smem = self._smem.get((n, f))
+        if smem is None:
+            smem = self._smem[(n, f)] = int(self._smem_bytes(lib, n, f))
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(
+                f"{self.name}: N={n}, F={f} needs {smem} bytes of shared "
+                f"memory, more than a block's {MAX_SMEM_BYTES}")
+        return lib
+
+    def _run(self, lib, dev, stream, fn, *args):
+        """Call the C launch function on ``stream`` of ``dev`` and raise on
+        its error code.  No device context is entered when ``dev`` is the
+        current device."""
+        if dev.index == torch.cuda.current_device():
+            code = fn(*args, stream)
+        else:
+            with torch.cuda.device(dev):
+                code = fn(*args, stream)
+        if code != 0:
+            raise RuntimeError(
+                f"{self.name} kernel launch failed: "
+                f"{getattr(lib, self.name + '_error_string')(code).decode()}"
+                f" ({code})")
+        self.launches += 1
+
+
 class _GatAttentionFn(torch.autograd.Function):
-    """The kernel with a gradient.  The forward launches the kernel; the
-    backward is the plain dense formulation's VJP (``attention_plain``
-    recomputed under ``enable_grad`` and differentiated by autograd), the
-    port's form of the JAX package's ``_gatv2_pallas_bwd``, which also
-    takes the dense VJP.  The backward launches no kernel."""
+    """The forward kernel with a gradient: the backward launches the
+    backward kernel (``gat_attention_backward``).  Neither the dense VJP
+    nor any other plain code runs on the card in its place."""
 
     @staticmethod
     def forward(ctx, op, xl, xr, att, bias, adj, mean_aggr):
-        ctx.save_for_backward(xl, xr, att, bias, adj)
+        ctx.save_for_backward(xl, xr, att, adj)
         ctx.mean_aggr = mean_aggr
         return op.launch(xl, xr, att, bias, adj, mean_aggr)
 
     @staticmethod
     def backward(ctx, grad_out):
-        xl, xr, att, bias, adj = ctx.saved_tensors
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(True)
-                   for t in (xl, xr, att, bias)]
-            out = attention_plain(*ins, adj, ctx.mean_aggr)
-            grads = torch.autograd.grad(out, ins, grad_out)
+        xl, xr, att, adj = ctx.saved_tensors
+        grads = gat_attention_backward.launch(grad_out.contiguous(), xl, xr,
+                                              att, adj, ctx.mean_aggr)
         return (None, *grads, None, None)
 
 
-class GatAttention:
-    """Callable wrapper around the kernel: builds and loads the library on
-    first CUDA use, validates arguments, launches on the current stream and
-    counts launches in ``launches``."""
+class GatAttention(_Kernel):
+    """Callable wrapper around the forward kernel: builds and loads the
+    library on first CUDA use, validates arguments, launches on the current
+    stream and counts launches in ``launches``."""
 
-    def __init__(self):
-        self.launches = 0
-        self.build_log = ""
-        self._lib = None
-        self._lock = threading.Lock()
+    name = "gat_attention"
 
-    # ------------------------------------------------------------- build
-    def library(self) -> ctypes.CDLL:
-        """Build (once per source digest) and load the shared library."""
-        with self._lock:
-            if self._lib is None:
-                self._lib = self._build_and_load()
-            return self._lib
+    def __init__(self, source=SOURCE, stage_clocks: bool = False):
+        super().__init__(source, stage_clocks)
 
-    def _build_and_load(self) -> ctypes.CDLL:
-        lib, self.build_log = build_library(SOURCE)
+    def _bind(self, lib):
+        super()._bind(lib)
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.gat_attention_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                           ci, vp]
         lib.gat_attention_f32.restype = ci
         lib.gat_attention_smem_bytes.argtypes = [ci, ci]
         lib.gat_attention_smem_bytes.restype = ctypes.c_longlong
-        lib.gat_attention_error_string.argtypes = [ci]
-        lib.gat_attention_error_string.restype = ctypes.c_char_p
-        return lib
 
-    # ------------------------------------------------------------ launch
+    @staticmethod
+    def _smem_bytes(lib, n, f):
+        return lib.gat_attention_smem_bytes(n, f)
+
     def __call__(self, xl: torch.Tensor, xr: torch.Tensor, att: torch.Tensor,
                  bias: torch.Tensor, adj: torch.Tensor,
                  mean_aggr: bool = True) -> torch.Tensor:
@@ -104,50 +262,95 @@ class GatAttention:
         take."""
         n, f = xl.shape[-2], xl.shape[-1]
         lead = xl.shape[:-2]
-        args = {"xl": xl, "xr": xr, "att": att, "bias": bias, "adj": adj}
-        for name, t in args.items():
-            if t.device != xl.device or t.device.type != "cuda":
-                raise ValueError(f"gat_attention: {name} is on {t.device}, "
-                                 f"xl on {xl.device}; the kernel takes CUDA "
-                                 "tensors on one device")
-            if not t.is_contiguous():
-                raise ValueError(f"gat_attention: {name} is not contiguous")
-        for name in ("xl", "xr", "att", "bias"):
-            if args[name].dtype != torch.float32:
-                raise TypeError(f"gat_attention: {name} is "
-                                f"{args[name].dtype}, the kernel takes f32")
-        if adj.dtype != torch.bool:
-            raise TypeError(f"gat_attention: adj is {adj.dtype}, want bool")
         if xr.shape != xl.shape or att.shape != (f,) or bias.shape != (f,) \
                 or adj.shape != lead + (n, n):
             raise ValueError(
                 f"gat_attention: shapes xl {tuple(xl.shape)}, xr "
                 f"{tuple(xr.shape)}, att {tuple(att.shape)}, bias "
                 f"{tuple(bias.shape)}, adj {tuple(adj.shape)} do not match")
-        if n < 1 or f < 1:
-            raise ValueError(f"gat_attention: empty graph shape N={n} F={f}")
-        lib = self.library()
-        smem = lib.gat_attention_smem_bytes(n, f)
-        if smem > MAX_SMEM_BYTES:
-            raise ValueError(
-                f"gat_attention: N={n}, F={f} needs {smem} bytes of shared "
-                f"memory, more than a block's {MAX_SMEM_BYTES}")
-        b = 1
-        for d in lead:
-            b *= d
+        if adj.dtype != torch.bool:
+            raise TypeError(f"gat_attention: adj is {adj.dtype}, want bool")
+        lib = self._check(xl, (xr, att, bias, adj), (xl, xr, att, bias), n, f)
         out = torch.empty_like(xl)
-        stream = torch.cuda.current_stream(xl.device).cuda_stream
-        with torch.cuda.device(xl.device):
-            code = lib.gat_attention_f32(
-                xl.data_ptr(), xr.data_ptr(), att.data_ptr(),
-                bias.data_ptr(), adj.data_ptr(), out.data_ptr(), b, n, f,
-                int(bool(mean_aggr)), stream)
-        if code != 0:
-            raise RuntimeError(
-                "gat_attention kernel launch failed: "
-                f"{lib.gat_attention_error_string(code).decode()} ({code})")
-        self.launches += 1
+        self._run(lib, xl.device, _raw_stream(xl.device.index),
+                  lib.gat_attention_f32, xl.data_ptr(),
+                  xr.data_ptr(), att.data_ptr(), bias.data_ptr(),
+                  adj.data_ptr(), out.data_ptr(), _batch(lead), n, f,
+                  int(bool(mean_aggr)))
         return out
 
 
+class GatAttentionBackward(_Kernel):
+    """Callable wrapper around the backward kernel: ``(d_xl, d_xr, d_att,
+    d_bias)`` of the attention stage for ``grad_out``.  CPU tensors run
+    ``attention_backward_plain``; CUDA tensors launch the kernel once (its
+    last block to finish sums the per-graph ``d_att``/``d_bias`` partials
+    in graph order, so two launches give the same bits).  The count of
+    finished blocks that finds the last one lives in device memory, one per
+    device and stream, since launches on one stream run one at a time."""
+
+    name = "gat_attention_backward"
+
+    def __init__(self, source=BACKWARD_SOURCE, stage_clocks: bool = False):
+        super().__init__(source, stage_clocks)
+        self._counters = {}
+
+    def _bind(self, lib):
+        super()._bind(lib)
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.gat_attention_backward_f32.argtypes = [vp] * 11 + [ci] * 4 + [vp]
+        lib.gat_attention_backward_f32.restype = ci
+        lib.gat_attention_backward_smem_bytes.argtypes = [ci, ci]
+        lib.gat_attention_backward_smem_bytes.restype = ctypes.c_longlong
+
+    @staticmethod
+    def _smem_bytes(lib, n, f):
+        return lib.gat_attention_backward_smem_bytes(n, f)
+
+    def __call__(self, grad_out, xl, xr, att, adj, mean_aggr: bool = True):
+        if xl.device.type == "cpu":
+            return attention_backward_plain(grad_out, xl, xr, att, adj,
+                                            mean_aggr)
+        return self.launch(grad_out, xl, xr, att, adj, mean_aggr)
+
+    def launch(self, grad_out, xl, xr, att, adj, mean_aggr: bool = True):
+        """Run the kernel on CUDA tensors; raises on anything it does not
+        take."""
+        n, f = xl.shape[-2], xl.shape[-1]
+        lead = xl.shape[:-2]
+        if grad_out.shape != xl.shape or xr.shape != xl.shape \
+                or att.shape != (f,) or adj.shape != lead + (n, n):
+            raise ValueError(
+                f"gat_attention_backward: shapes grad_out "
+                f"{tuple(grad_out.shape)}, xl {tuple(xl.shape)}, xr "
+                f"{tuple(xr.shape)}, att {tuple(att.shape)}, adj "
+                f"{tuple(adj.shape)} do not match")
+        if adj.dtype != torch.bool:
+            raise TypeError(f"gat_attention_backward: adj is {adj.dtype}, "
+                            "want bool")
+        lib = self._check(xl, (grad_out, xr, att, adj),
+                          (grad_out, xl, xr, att), n, f)
+        b = _batch(lead)
+        d_xl = torch.empty_like(xl)
+        d_xr = torch.empty_like(xl)
+        # d_att, d_bias, then the per-graph partials of both in double
+        # (8-byte aligned at 8 f bytes); an empty batch launches nothing
+        alloc = torch.empty if b else torch.zeros
+        small = alloc(2 * f + 4 * f * b, dtype=xl.dtype, device=xl.device)
+        stream = _raw_stream(xl.device.index)
+        counter = self._counters.get((xl.device.index, stream))
+        if counter is None:
+            # the kernel's last block resets it to 0 for the next launch
+            counter = self._counters[(xl.device.index, stream)] = \
+                torch.zeros(1, dtype=torch.int32, device=xl.device)
+        self._run(lib, xl.device, stream, lib.gat_attention_backward_f32,
+                  grad_out.data_ptr(), xl.data_ptr(), xr.data_ptr(),
+                  att.data_ptr(), adj.data_ptr(), d_xl.data_ptr(),
+                  d_xr.data_ptr(), small.data_ptr(),
+                  small.data_ptr() + 4 * f, small.data_ptr() + 8 * f,
+                  counter.data_ptr(), b, n, f, int(bool(mean_aggr)))
+        return d_xl, d_xr, small[:f], small[f:2 * f]
+
+
 gat_attention = GatAttention()
+gat_attention_backward = GatAttentionBackward()

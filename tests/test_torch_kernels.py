@@ -1,29 +1,50 @@
-"""The fused GATv2 attention kernel's wrapper, without JAX.
+"""The fused GATv2 attention kernels' wrappers (forward and backward),
+without JAX.
 
 This file imports torch and the port only, so it also runs on the card,
 where JAX is absent (``python -m pytest --noconftest
-tests/test_torch_kernels.py -q``).  On the CPU the wrapper runs the plain
+tests/test_torch_kernels.py -q``).  On the CPU each wrapper runs its plain
 version and counts no launch, and ``launch`` refuses CPU tensors; on the
-card (marker ``cuda``) the kernel is held against its plain version at the
-serving shapes and one N > 32 case.
+card (marker ``cuda``) the forward kernel is held against its plain
+version at the serving shapes and one N > 32 case, and the backward kernel
+against ``attention_backward_plain`` at the shapes of
+tests/test_torch_gat_backward.py and the learn burst's (100, 24, 22), the
+latter also with a saturated softmax; two backward launches on the same
+inputs must give the same bits.
 
-Tolerance: rtol 1e-5, atol 1e-5 — f32, summed in another order than
-the plain einsums: with unit-normal inputs the logits sum 22 products, and
-their ~1e-6 relative rounding differences pass through exp and the
-weighted sum into up to ~1e-5 absolute on outputs of a few units (sum
-aggregation reaches |out| ~5).  ``chip_smoke.py`` checks on the card that
-the kernel's distance to a float64 evaluation stays of the plain
+Tolerances.  Forward: rtol 1e-5, atol 1e-5 — f32, summed in another order
+than the plain einsums: with unit-normal inputs the logits sum 22
+products, and their ~1e-6 relative rounding differences pass through exp
+and the weighted sum into up to ~1e-5 absolute on outputs of a few units
+(sum aggregation reaches |out| ~5).  ``chip_smoke.py`` checks on the card
+that the kernel's distance to a float64 evaluation stays of the plain
 version's order.  Rows without a neighbour must be exactly zero.
+Backward, per output tensor: the largest difference within 1e-5 of the
+tensor's largest entry plus 1e-5.  An f32 gradient entry is a sum of up
+to N·F terms (d_att and d_bias over every graph of the batch) of the size
+of the tensor's largest entries, each carrying the forward's rounding, so
+its error scales with the tensor, not with the entry: the plain version
+lies up to ~5e-5 from a float64 evaluation on d_att entries of ~100 at
+(100, 24, 22), and an entry near 0 carries as much.  ``d_xr`` of a row
+without a neighbour must be exactly zero.
 """
 import numpy as np
 import pytest
 import torch
 
-from gsc_tpu_torch.ops.gat_attention import (GatAttention, attention_plain,
-                                             gat_attention)
+from gsc_tpu_torch.ops.gat_attention import (GatAttention,
+                                             GatAttentionBackward,
+                                             attention_backward_plain,
+                                             attention_plain, gat_attention,
+                                             gat_attention_backward)
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-5
+BWD_SCALE, BWD_ATOL = 1e-5, 1e-5
+# (lead, N, F) of the backward's cases: N = 5 tiny, the flagship's 24,
+# and 40 > 32 (more than one warp of source nodes per row)
+BWD_CASES = [(lead, n, f) for lead in [(), (3,), (2, 3)]
+             for n, f in [(5, 3), (24, 22), (40, 22)]]
 
 
 def make_inputs(lead, n, f, seed, n_pad=3, n_isolated=2):
@@ -41,6 +62,39 @@ def make_inputs(lead, n, f, seed, n_pad=3, n_isolated=2):
     adj[..., :, real:] = False
     adj[..., :n_isolated, :] = False
     return xl, xr, att, bias, adj
+
+
+def make_backward_inputs(lead, n, f, seed):
+    """``make_inputs`` (one padded node and one empty row below N = 8)
+    with an edge i -> j where xl_j + xr_i is exactly 0 in up to three
+    features (LeakyReLU'(0) = 1 there), and a numpy-seeded grad_out."""
+    small = n < 8
+    xl, xr, att, bias, adj = make_inputs(lead, n, f, seed,
+                                         n_pad=1 if small else 3,
+                                         n_isolated=1 if small else 2)
+    i, j = (1, 2) if small else (2, 3)
+    adj[..., i, j] = True
+    xr[..., i, :3] = -xl[..., j, :3]
+    grad = np.random.default_rng(seed + 1).normal(
+        size=xl.shape).astype(np.float32)
+    return xl, xr, att, bias, adj, grad
+
+
+def make_saturated_inputs(lead, n, f, seed, gap=12.0):
+    """``make_backward_inputs``' graphs with features that saturate the
+    softmax, as trained weights do: att = 1/F and xl_j = 100 + U(0, 10) +
+    gap * rank_j (a random rank per source node), xr in U(0, 1), so each
+    row's logits lie ~gap apart and its largest weight is 1 - ~e^-gap;
+    grad_out 0.2 N(0, 1)."""
+    _, _, _, bias, adj, _ = make_backward_inputs(lead, n, f, seed)
+    rng = np.random.default_rng(seed + 7)
+    att = np.full((f,), 1.0 / f, np.float32)
+    rank = np.argsort(rng.uniform(size=lead + (n,)), axis=-1)
+    xl = (100.0 + rng.uniform(0, 10, size=lead + (n, f))
+          + gap * rank[..., None]).astype(np.float32)
+    xr = rng.uniform(0, 1, size=lead + (n, f)).astype(np.float32)
+    grad = (0.2 * rng.normal(size=lead + (n, f))).astype(np.float32)
+    return xl, xr, att, bias, adj, grad
 
 
 
@@ -90,3 +144,74 @@ def test_kernel_matches_plain_on_card():
             torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
             empty = ~args[4].any(dim=-1)
             assert torch.all(got[empty] == 0)
+
+
+def test_backward_wrapper_on_cpu_runs_plain_and_counts_nothing():
+    xl, xr, att, _, adj, grad = (torch.from_numpy(a) for a in
+                                 make_backward_inputs((2,), 24, 22, seed=7))
+    op = GatAttentionBackward()
+    got = op(grad, xl, xr, att, adj, True)
+    want = attention_backward_plain(grad, xl, xr, att, adj, True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert op.launches == 0
+
+
+def test_backward_launch_refuses_cpu_tensors():
+    """The backward kernel's path never takes CPU tensors either."""
+    xl, xr, att, _, adj, grad = (torch.from_numpy(a) for a in
+                                 make_backward_inputs((1,), 24, 22, seed=1))
+    op = GatAttentionBackward()
+    with pytest.raises(ValueError, match="CUDA"):
+        op.launch(grad, xl, xr, att, adj, True)
+    assert op.launches == 0
+
+
+def _card_backward_inputs(lead, n, f, seed, saturated=False):
+    make = make_saturated_inputs if saturated else make_backward_inputs
+    xl, xr, att, _, adj, grad = (torch.from_numpy(a).cuda() for a in
+                                 make(lead, n, f, seed))
+    return grad, xl, xr, att, adj
+
+
+@pytest.mark.cuda
+def test_backward_kernel_matches_plain_on_card():
+    """The backward kernel against ``attention_backward_plain`` on the
+    card, at the CPU test's shapes and the learn burst's, the latter also
+    with a saturated softmax."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (the kernel has no CPU "
+                    "mode; its plain version is tested above)")
+    cases = [(lead, n, f, False) for lead, n, f in BWD_CASES]
+    cases += [((100,), 24, 22, False), ((100,), 24, 22, True)]
+    for lead, n, f, saturated in cases:
+        for mean in (True, False):
+            args = _card_backward_inputs(lead, n, f, seed=n * 31 + f,
+                                         saturated=saturated)
+            before = gat_attention_backward.launches
+            got = gat_attention_backward(*args, mean)
+            torch.cuda.synchronize()
+            assert gat_attention_backward.launches == before + 1
+            want = attention_backward_plain(*args, mean)
+            for g, w in zip(got, want):
+                assert g.shape == w.shape
+                err = float((g - w).abs().max())
+                assert err <= BWD_SCALE * float(w.abs().max()) + BWD_ATOL, \
+                    (lead, n, f, mean, err)
+            empty = ~args[4].any(dim=-1)
+            assert torch.all(got[1][empty] == 0)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_relaunch_is_bit_identical():
+    """No float atomics: two launches on the same inputs give the same
+    bits, d_att and d_bias (summed across graphs) included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    for lead in [(100,), (2, 3)]:
+        args = _card_backward_inputs(lead, 24, 22, seed=5)
+        first = gat_attention_backward.launch(*args, True)
+        again = gat_attention_backward.launch(*args, True)
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
