@@ -9,8 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
 1. device: CUDA must be available; prints the card's name and power limit
    as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    gives them;
-2. build: compiles the three kernels (the GATv2 attention kernel, its
-   backward kernel and the substep megakernel) from the sources in this
+2. build: compiles the three kernel sources (the GATv2 attention kernel,
+   its backward kernel, each with an f32 and a bf16 entry point whose
+   wrappers share the library, and the substep megakernel) from this
    checkout (``gsc_tpu_torch/csrc/*.cu``, one nvcc for each, started
    together, for sm_90a, into ``gsc_tpu_torch/_build/``), the megakernel
    a second time with ``-DSUBSTEP_STAGE_CLOCKS`` for phase 7's stage
@@ -18,8 +19,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``-DGAT_STAGE_CLOCKS`` for phase 3's, and, where
    ``_parent/substep_megakernel.cu`` or ``_parent/gat_attention.cu``
    exist (copies of the parent commit's sources, never committed; the
-   latter with its wrapper where ``_parent/gat_attention.py`` is beside
-   it), those for the comparisons of phases 7 and 3; prints the build
+   latter only with its wrapper ``_parent/gat_attention.py`` beside it),
+   those for the comparisons of phases 7 and 3; prints the build
    seconds and each ptxas line of registers, shared memory and spills;
 3. the attention kernels against their plain versions on the card, f32,
    at the serving shapes (B, N, F) = (1, 24, 22), (4, 24, 22), (8, 24, 22),
@@ -97,10 +98,50 @@ Phases (any failure exits non-zero and prints no result line):
    sampled batch the gradients of every actor and critic parameter
    through the kernels' ``autograd.Function`` must equal the dense path's;
    prints the rollout's env-steps/s and each learn burst's seconds;
-9. a JSON line of the kernels (name, route, source, the TPU kernel it
-   replaces, launches on the training path, max abs error, ms, plain ms,
-   bound ms and what bounds it, library ms);
-10. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+9. the bf16 attention kernels (``gat_attention_bf16``,
+   ``gat_attention_backward_bf16``: the bf16 forms of both attention
+   sources) against their plain versions at phase 3's shapes and
+   aggregations, and at the saturated learn-burst inputs, on the same
+   inputs with xl, xr and grad_out rounded to bf16: each bf16 output (the
+   forward's, d_xl, d_xr) within one bf16 ulp of the tensor's largest
+   entry of the plain version's and no further from a float64 evaluation
+   at the same rounding points than twice the plain version (floored at a
+   quarter of that ulp); d_xl and d_xr with the f32 backward's absolute
+   floors besides (BWD_ATOL, F64_FLOOR: a saturated softmax's d_xr is
+   ~1e-12 everywhere, f32 rounding, below one ulp of its largest entry's
+   noise), d_att and d_bias within the f32 backward's tolerance, d_xr 0
+   on rows without a neighbour, relaunches bit-identical;
+   prints, at mean aggregation, each bf16 kernel's device time and time
+   per call, its bound (xl, xr, out, grad_out, d_xl, d_xr at 2 bytes) and
+   the f32 kernel's time at the same shape, taken in turns (f32, bf16,
+   bf16, f32);
+10. the bf16 training slice: ``cli train --precision bf16 --replicas 64
+   --chunk 50 --episodes 2 --checkpoint DIR`` at the flagship widths, with
+   every kernel count set to 0 before it: the bf16 attention kernels must
+   launch 3 times per acting step plus 15 per gradient step and 6 per
+   gradient step, the f32 attention kernels 0 times, the megakernel once
+   per env step; every actor and critic parameter must move, the masters
+   and Adam states stay f32, the replay's float leaves be bf16, the
+   checkpoint's sidecar record bf16, and on one sampled batch the
+   gradients through the bf16 kernels must match those through the
+   kernels' plain versions (``attention_plain`` with
+   ``attention_backward_plain`` as its gradient, on the card) within
+   GRAD_BF16_SCALE of each tensor's largest entry; prints how far the
+   dense bf16 path's autograd lies from them, and the rollout
+   env-steps/s and each learn burst's seconds beside the f32 run's;
+11. the bf16 serving slice: ``run_serve(checkpoint=DIR)`` on that
+   checkpoint (bf16 adopted from its sidecar), 64 requests at concurrency
+   4 and 32 at concurrency 8, with the counts set to 0 before it: the bf16
+   forward kernel 3 times per dispatch and warm-up call, the f32 one 0
+   times; every answer finite, [1728], rows summing to 1, and equal to the
+   plain (dense) bf16 actor's answer on CPU copies and to an unbatched
+   call within ANSWER_BF16_RTOL / ANSWER_BF16_ATOL outside rows with a
+   value within THRESH_BF16_TOL of the threshold; prints requests/s and
+   p50/p99;
+12. a JSON line of the kernels (name, route, source, the TPU kernel it
+   replaces, launches on the training path of its dtype, max abs error,
+   ms, plain ms, bound ms and what bounds it, library ms);
+13. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Tolerances (stated here, used below): the attention kernel against its
 plain version rtol 1e-5 / atol 1e-5 (f32 in another summation order: the
@@ -140,13 +181,32 @@ gradient entry through sums whose terms are of the size of the largest
 entries (actor gradients reach norms of 1e4 after two episodes), so an
 entry's error scales with the tensor's scale, not with its own value (a
 card run with the dense VJP on both paths: 2.4e-4 on an entry far smaller
-than its tensor's largest, one f32 ulp at 2e3).
+than its tensor's largest, one f32 ulp at 2e3).  The bf16 kernels'
+tolerances are stated with phase 9 and tests/test_torch_kernels.py: the
+two sides round at the same points and sum in other orders, so an f32 sum
+or a weight alpha may land on a neighbouring bf16 value.  Training
+gradients through the bf16 kernels against the kernels' plain versions:
+per parameter tensor within GRAD_BF16_SCALE of its largest entry plus
+GRAD_ATOL (a last-bit difference of an f32 sum moves a bf16 activation by
+one ulp, 2^-8 relative, and the layers after it carry that into the
+gradients).  Not against the dense bf16 path: its autograd rounds the
+cotangents of its bf16 intermediates to bf16 (as the JAX package's VJP
+does), among them de_ij = dl_ij att LeakyReLU', whose sum over j cancels
+(sum_j dl_ij = 0), so d_xr of a trained, saturated actor is bf16 noise:
+a run on an NVIDIA H100 found the actor encoder's lin_r gradient 0.177 off
+where its largest entry is 0.281.  Served bf16 answers against the plain
+bf16 actor on CPU copies: the two forwards round at the same points, and
+a last-bit difference of an f32 sum moves a bf16 activation by one ulp
+(2^-8 relative), which the head carries into the pre-threshold values.
 """
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -162,6 +222,9 @@ F64_RATIO, F64_FLOOR = 4.0, 1e-7
 # tensor cores, which is what this f32 CUDA-core kernel can use
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# the bf16 peak (tensor cores, dense): the least time for work on bf16
+# inputs, whatever pipe a kernel uses
+BF16_FLOP_PER_S = 989e12
 SHAPES = [(1, 24, 22), (4, 24, 22), (8, 24, 22), (64, 24, 22),
           (100, 24, 22), (4, 64, 22)]
 # the learn burst's batch, where the training path launches the attention
@@ -169,6 +232,11 @@ SHAPES = [(1, 24, 22), (4, 24, 22), (8, 24, 22), (64, 24, 22),
 MAIN_SHAPE = (100, 24, 22)
 SUB_RTOL, SUB_ATOL = 1e-5, 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+# the bf16 paths (phases 9-11; see the docstring)
+GRAD_BF16_SCALE = 2.0 ** -4
+ANSWER_BF16_RTOL, ANSWER_BF16_ATOL = 2.0 ** -5, 2.0 ** -9
+THRESH_BF16_TOL = 2.0 ** -7
+BF16_BURSTS = [(64, 4, 5.0), (32, 8, 50.0)]
 # replicas of the megakernel's timings; the training path runs 64
 SUB_TIMING_BATCHES = (1, 64, 256)
 SUB_MAIN_BATCH = 64
@@ -250,9 +318,12 @@ def cuda_time_ms(fn, torch, reps=200, warmup=20) -> float:
 
 
 def profile_device_ms(fn, torch, reps=20, kernel=None):
-    """Device time per call of ``fn`` from the profiler's CUDA events: the
-    kernels whose name contains ``kernel`` (all kernels when None).  None
-    when the profiler records no device time."""
+    """Device time per call of ``fn`` from the profiler's CUDA events: all
+    kernels per call when ``kernel`` is None, else per launch of the
+    kernels whose name contains ``kernel``, averaged over the launches
+    the profiler recorded (some profiles hold only part of a window's
+    launches, which an average over ``reps`` would halve).  None when the
+    profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -265,14 +336,17 @@ def profile_device_ms(fn, torch, reps=20, kernel=None):
     except RuntimeError as e:   # a machine that refuses tracing: no number
         print(f"  profiler unavailable ({e}); device time not measured")
         return None
-    total_us = 0.0
+    total_us, launches = 0.0, 0
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0.0)
         if dev_us and (kernel is None or kernel in evt.key):
             total_us += dev_us
-    return total_us / reps / 1e3 if total_us > 0 else None
+            launches += evt.count
+    if total_us <= 0:
+        return None
+    return total_us / (reps if kernel is None else launches) / 1e3
 
 
 def saturated_inputs(b, n, f, seed, torch, device, gap=12.0):
@@ -343,10 +417,18 @@ def grad_input(b, n, f, seed, torch, device):
         np.float32)).to(device)
 
 
+def flop_rate(t) -> float:
+    """The card's peak operation rate for inputs of ``t``'s dtype."""
+    import torch
+
+    return BF16_FLOP_PER_S if t.dtype == torch.bfloat16 else F32_FLOP_PER_S
+
+
 def gat_bound(args):
     """Least time for the attention stage on these inputs: every input
-    read once and the output written once over the HBM rate, against the
-    f32 operations this adjacency needs over the f32 rate."""
+    read once and the output written once (in the inputs' dtype) over the
+    HBM rate, against the operations this adjacency needs over the peak
+    rate for the features' dtype."""
     xl, xr, att, bias, adj = args
     b, n, f = xl.shape
     nbytes = sum(t.numel() * t.element_size() for t in args) \
@@ -357,15 +439,16 @@ def gat_bound(args):
     # normalise (2), weighted accumulate (2F); per row: divide + bias (2F)
     ops = edges * (6 * f + 3) + rows * 2 * f
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOP_PER_S * 1e3
+    t_ops = ops / flop_rate(xl) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def gat_backward_bound(args, grad):
     """Least time for the attention stage's gradient on these inputs:
-    grad_out, xl, xr, att and adj read once and d_xl, d_xr, d_att, d_bias
-    written once over the HBM rate, against the f32 operations the closed
-    form needs on this adjacency over the f32 rate."""
+    grad_out, xl, xr, att and adj read once and d_xl, d_xr (in the
+    features' dtype), d_att, d_bias (f32) written once over the HBM rate,
+    against the operations the closed form needs on this adjacency over
+    the peak rate for the features' dtype."""
     xl, xr, att, _, adj = args
     f = xl.shape[-1]
     nbytes = sum(t.numel() * t.element_size()
@@ -379,7 +462,7 @@ def gat_backward_bound(args, grad):
     # g / d_i, the empty-row select and the d_bias add (3F)
     ops = edges * (14 * f + 7) + rows * 3 * f
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOP_PER_S * 1e3
+    t_ops = ops / flop_rate(xl) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -397,17 +480,12 @@ def dense_vjp(args, grad, mean, torch):
 
 
 def parent_gat():
-    """The parent commit's attention kernel, or None when its source is
-    absent: with the parent's own wrapper where ``_parent/gat_attention.py``
-    sits beside it (loaded beside the package's modules, so that the time
-    per call compares wrapper and all), else with this one (the C interface
-    is the same)."""
-    if not PARENT_GAT_SOURCE.exists():
+    """The parent commit's attention kernel with its own wrapper (loaded
+    beside the package's modules, so that the time per call compares
+    wrapper and all), or None unless both ``_parent/gat_attention.cu``
+    and ``_parent/gat_attention.py`` are there."""
+    if not (PARENT_GAT_SOURCE.exists() and PARENT_GAT_WRAPPER.exists()):
         return None
-    if not PARENT_GAT_WRAPPER.exists():
-        from gsc_tpu_torch.ops.gat_attention import GatAttention
-
-        return GatAttention(PARENT_GAT_SOURCE)
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -547,6 +625,187 @@ def attention_phase(torch, dev, smi, parent):
     return timings, max_err, bwd_timings, bwd_err
 
 
+def bf16_ulp(t) -> float:
+    """One bf16 ulp at the largest magnitude of ``t``."""
+    import math
+
+    m = float(t.float().abs().max())
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 2.0 ** -133
+
+
+def to_bf16(args):
+    """Attention inputs with xl and xr rounded to bf16 (att, bias f32)."""
+    import torch
+
+    xl, xr, att, bias, adj = args
+    return [xl.to(torch.bfloat16), xr.to(torch.bfloat16), att, bias, adj]
+
+
+def check_backward_bf16(args, grad, mean, what, torch):
+    """The bf16 backward kernel against its plain version on one input:
+    d_xl, d_xr within one bf16 ulp of the tensor's largest entry and no
+    further from float64 than twice the plain version (floored at a
+    quarter ulp); d_att, d_bias as the f32 kernel's; d_xr 0 on rows
+    without a neighbour; two launches bit for bit the same."""
+    from gsc_tpu_torch.ops.gat_attention import (attention_backward_plain,
+                                                 attention_backward_wide,
+                                                 gat_attention_backward_bf16)
+
+    xl, xr, att, _, adj = args
+    op = gat_attention_backward_bf16
+    bwd = op.launch(grad, xl, xr, att, adj, mean)
+    again = op.launch(grad, xl, xr, att, adj, mean)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(bwd, again)),
+          f"two bf16 backward launches differ at {what}")
+    want = attention_backward_plain(grad, xl, xr, att, adj, mean)
+    ref = attention_backward_wide(grad, xl, xr, att, adj, mean,
+                                  torch.float64)
+    worst, parts = 0.0, []
+    for k, (key, g, w, r) in enumerate(zip(
+            ("d_xl", "d_xr", "d_att", "d_bias"), bwd, want, ref)):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"bf16 backward {key} is {g.dtype} {tuple(g.shape)} at {what}")
+        e = float((g.float() - w.float()).abs().max())
+        k64 = float((g.double() - r).abs().max())
+        p64 = float((w.double() - r).abs().max())
+        scale = float(w.float().abs().max())
+        worst = max(worst, e)
+        if k < 2:
+            ulp = bf16_ulp(w)
+            differ = int((g != w).sum())
+            parts.append(f"{key} {e:.2e} (1 ulp {ulp:.2e}, {differ} of "
+                         f"{g.numel()} differ; f64 {k64:.2e}/{p64:.2e})")
+            check(e <= ulp + BWD_ATOL, f"bf16 backward {key} != plain at "
+                  f"{what}: max abs err {e}, one ulp {ulp}")
+            check(k64 <= 2.0 * max(p64, ulp / 4, F64_FLOOR),
+                  f"bf16 backward {key} is {k64} from float64 at {what}, "
+                  f"the plain version {p64}")
+        else:
+            parts.append(f"{key} {e:.2e} (f64 {k64:.2e}/{p64:.2e}, max "
+                         f"{scale:.3g})")
+            check(e <= BWD_SCALE * scale + BWD_ATOL,
+                  f"bf16 backward {key} != plain at {what}: max abs err "
+                  f"{e}, largest entry {scale}")
+            check(k64 <= F64_RATIO * max(p64, F64_FLOOR),
+                  f"bf16 backward {key} is {k64} from float64 at {what}, "
+                  f"the plain version {p64}")
+    empty = ~adj.any(dim=-1)
+    check(bool((bwd[1][empty] == 0).all()),
+          f"bf16 d_xr of rows without a neighbour is not 0 at {what}")
+    return worst, ("bf16 backward max abs err (vs f64 kernel/plain): "
+                   + "; ".join(parts) + "; relaunch bit-identical")
+
+
+def attention_phase_bf16(torch, dev, smi):
+    """Phase 9: the bf16 attention kernels against their plain versions at
+    phase 3's shapes and aggregations and the saturated learn-burst
+    inputs; at mean aggregation their times in turns with the f32
+    kernels'.  Returns the forward's timings by shape and largest error,
+    and the backward's."""
+    from gsc_tpu_torch.ops.gat import attention_bf16
+    from gsc_tpu_torch.ops.gat_attention import (attention_backward_plain,
+                                                 attention_plain,
+                                                 gat_attention,
+                                                 gat_attention_backward,
+                                                 gat_attention_backward_bf16,
+                                                 gat_attention_bf16)
+
+    fmt = lambda v: "not measured" if v is None else f"{v:.5f} ms"
+    max_err = bwd_err = 0.0
+    timings, bwd_timings = {}, {}
+    print(f"bf16 attention kernels vs plain (bf16 outputs within one bf16 "
+          f"ulp of each tensor's largest entry; d_att, d_bias {BWD_SCALE} "
+          f"of the largest entry + {BWD_ATOL}) on {smi}:", flush=True)
+    cases = [(b, n, f, False) for b, n, f in SHAPES] + [(*MAIN_SHAPE, True)]
+    for b, n, f, saturated in cases:
+        for mean in (True, False):
+            seed = b * 1000 + n
+            if saturated:
+                args32 = saturated_inputs(b, n, f, seed=seed, torch=torch,
+                                          device=dev)
+                grad32 = 0.2 * grad_input(b, n, f, seed=seed + 1,
+                                          torch=torch, device=dev)
+            else:
+                args32 = gat_inputs(b, n, f, seed=seed, torch=torch,
+                                    device=dev)
+                grad32 = grad_input(b, n, f, seed=seed + 1, torch=torch,
+                                    device=dev)
+            args = to_bf16(args32)
+            grad = grad32.to(torch.bfloat16)
+            xl, xr, att, _, adj = args
+            aggr = ("mean" if mean else "sum") + (" saturated"
+                                                  if saturated else "")
+            what = f"{(b, n, f)} {aggr}"
+            got = gat_attention_bf16.launch(*args, mean)
+            torch.cuda.synchronize()
+            want = attention_plain(*args, mean)
+            check(got.dtype == want.dtype == torch.bfloat16,
+                  f"bf16 forward returned {got.dtype} at {what}")
+            ulp = bf16_ulp(want)
+            err = float((got.float() - want.float()).abs().max())
+            ref = attention_bf16(*args, mean, wide=torch.float64)
+            k64 = float((got.double() - ref).abs().max())
+            p64 = float((want.double() - ref).abs().max())
+            differ = int((got != want).sum())
+            max_err = max(max_err, err)
+            print(f"  B={b:3d} N={n:2d} F={f} {aggr}: bf16 forward max abs "
+                  f"err {err:.2e} (1 ulp {ulp:.2e}; {differ} of "
+                  f"{got.numel()} entries differ), max |out| "
+                  f"{float(want.float().abs().max()):.2f} (vs f64: kernel "
+                  f"{k64:.2e}, plain {p64:.2e})", flush=True)
+            check(err <= ulp, f"bf16 kernel != plain at {what}: max abs err "
+                  f"{err}, one ulp {ulp}")
+            check(k64 <= 2.0 * max(p64, ulp / 4),
+                  f"bf16 kernel is {k64} from float64 at {what}, the plain "
+                  f"version {p64}")
+            empty = ~adj.any(dim=-1)
+            check(bool(empty.any()) and bool((got[empty] == 0).all()),
+                  f"bf16 rows without a neighbour are not exactly 0 at {what}")
+            e, line = check_backward_bf16(args, grad, mean, what, torch)
+            bwd_err = max(bwd_err, e)
+            print(f"    {line}", flush=True)
+            if not mean or saturated:
+                continue
+            f32 = lambda: gat_attention.launch(*args32, True)
+            h16 = lambda: gat_attention_bf16.launch(*args, True)
+            turns = [cuda_time_ms(fn, torch) for fn in (f32, h16, h16, f32)]
+            dev_turns = [profile_device_ms(fn, torch,
+                                           kernel="gat_attention_kernel")
+                         for fn in (f32, h16, h16, f32)]
+            plain_ms = cuda_time_ms(lambda: attention_plain(*args, True),
+                                    torch, reps=50)
+            bound_ms, bound_by = gat_bound(args)
+            ms = turns[1]
+            timings[(b, n, f)] = (ms, plain_ms, bound_ms, bound_by)
+            print(f"    bf16 forward per call (events, wrapper) in turns "
+                  f"with f32 (f32, bf16, bf16, f32): "
+                  f"{', '.join(f'{t:.5f} ms' for t in turns)}; device time "
+                  f"(profiler) {', '.join(fmt(t) for t in dev_turns)}; "
+                  f"plain bf16 {plain_ms:.4f} ms per call; bound "
+                  f"{bound_ms:.6f} ms ({bound_by})", flush=True)
+            g32 = lambda: gat_attention_backward.launch(
+                grad32, args32[0], args32[1], att, adj, True)
+            g16 = lambda: gat_attention_backward_bf16.launch(
+                grad, xl, xr, att, adj, True)
+            b_turns = [cuda_time_ms(fn, torch) for fn in (g32, g16, g16, g32)]
+            b_dev = [profile_device_ms(fn, torch,
+                                       kernel="gat_attention_backward_kernel")
+                     for fn in (g32, g16, g16, g32)]
+            b_plain = cuda_time_ms(
+                lambda: attention_backward_plain(grad, xl, xr, att, adj,
+                                                 True), torch, reps=50)
+            b_bound, b_by = gat_backward_bound(args, grad)
+            bwd_timings[(b, n, f)] = (b_turns[1], b_plain, b_bound, b_by)
+            print(f"    bf16 backward per call in turns with f32 (f32, "
+                  f"bf16, bf16, f32): "
+                  f"{', '.join(f'{t:.5f} ms' for t in b_turns)}; device "
+                  f"time {', '.join(fmt(t) for t in b_dev)}; plain bf16 "
+                  f"{b_plain:.4f} ms per call; bound {b_bound:.6f} ms "
+                  f"({b_by})", flush=True)
+    return timings, max_err, bwd_timings, bwd_err
+
+
 def attention_stage_clocks(fwd, bwd, torch, dev):
     """Where one attention launch's time goes at MAIN_SHAPE, mean
     aggregation: the stage-clocks builds' block-0 cycles per stage, median
@@ -587,15 +846,15 @@ def attention_stage_clocks(fwd, bwd, torch, dev):
                   for (name, _, _), m in zip(spans, med)), flush=True)
 
 
-def ambiguous_rows(pre, thr=0.1, n_dst=24):
+def ambiguous_rows(pre, thr=0.1, n_dst=24, tol=THRESH_TOL):
     """Destination rows where a value before either threshold pass lies
-    within THRESH_TOL of the threshold."""
+    within ``tol`` of the threshold."""
     import numpy as np
 
     rows = np.clip(pre, 0.0, 1.0).reshape(pre.shape[:-1] + (-1, n_dst))
     amb = np.zeros(rows.shape[:-1], bool)
     for _ in range(2):
-        amb |= (np.abs(rows - thr) < THRESH_TOL).any(-1)
+        amb |= (np.abs(rows - thr) < tol).any(-1)
         kept = np.where(rows >= thr, rows, 0.0)
         total = kept.sum(-1, keepdims=True)
         rows = np.where(total > 0, kept / np.maximum(total, 1e-30),
@@ -603,17 +862,18 @@ def ambiguous_rows(pre, thr=0.1, n_dst=24):
     return amb
 
 
-def compare_answers(got, want, pre, what):
+def compare_answers(got, want, pre, what, rtol=ANSWER_RTOL,
+                    atol=ANSWER_ATOL, thresh_tol=THRESH_TOL):
     """Exact zero pattern and close values outside ambiguous rows."""
     import numpy as np
 
-    amb = ambiguous_rows(pre)
+    amb = ambiguous_rows(pre, tol=thresh_tol)
     g = got.reshape(-1, 24)[~amb.reshape(-1)]
     w = want.reshape(-1, 24)[~amb.reshape(-1)]
     check(np.array_equal(g == 0, w == 0),
           f"{what}: thresholded entries differ outside ambiguous rows")
     err = float(np.max(np.abs(g - w))) if g.size else 0.0
-    check(np.allclose(g, w, rtol=ANSWER_RTOL, atol=ANSWER_ATOL),
+    check(np.allclose(g, w, rtol=rtol, atol=atol),
           f"{what}: answers differ by {err}")
     return err, int(amb.sum())
 
@@ -949,9 +1209,51 @@ def substep_timings(torch, dev, smi, clocked, parent):
     return out
 
 
-def train_slice(torch, dev, smi):
-    """Phase 8: two training episodes through the CLI; returns the launch
-    counts of both kernels in that run."""
+class plain_attention:
+    """While active, the networks' attention (``models.gnn.attention_op``)
+    is the kernels' plain versions on any device: ``attention_plain``
+    forward, ``attention_backward_plain`` as its gradient."""
+
+    def __init__(self, torch):
+        from gsc_tpu_torch.ops.gat_attention import (attention_backward_plain,
+                                                     attention_plain)
+
+        class PlainAttention(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, xl, xr, att, bias, adj, mean):
+                ctx.save_for_backward(xl, xr, att, adj)
+                ctx.mean = mean
+                return attention_plain(xl, xr, att, bias, adj, mean)
+
+            @staticmethod
+            def backward(ctx, grad):
+                xl, xr, att, adj = ctx.saved_tensors
+                return (*attention_backward_plain(grad.contiguous(), xl, xr,
+                                                  att, adj, ctx.mean),
+                        None, None)
+
+        self.op = lambda xl, xr, att, bias, adj, mean=True: \
+            PlainAttention.apply(xl, xr, att, bias, adj, bool(mean))
+
+    def __enter__(self):
+        from gsc_tpu_torch.models import gnn
+
+        self.saved = gnn.attention_op
+        gnn.attention_op = lambda dtype: self.op
+        return self
+
+    def __exit__(self, *exc):
+        from gsc_tpu_torch.models import gnn
+
+        gnn.attention_op = self.saved
+
+
+def train_slice(torch, dev, smi, precision="f32", checkpoint=None):
+    """Phase 8 (f32) or 10 (bf16): two training episodes through the CLI
+    under ``precision`` (saving a checkpoint to ``checkpoint`` when
+    given), with every kernel count set to 0 before it; returns the
+    launch counts of the path's kernels in that run and its rollout
+    env-steps/s and learn-burst seconds."""
     import math
     import tempfile
     from types import SimpleNamespace
@@ -959,10 +1261,22 @@ def train_slice(torch, dev, smi):
     from gsc_tpu_torch import cli
     from gsc_tpu_torch.models.nets import Actor, QNetwork
     from gsc_tpu_torch.ops.gat_attention import (gat_attention,
-                                                 gat_attention_backward)
+                                                 gat_attention_backward,
+                                                 gat_attention_backward_bf16,
+                                                 gat_attention_bf16)
     from gsc_tpu_torch.ops.substep import substep_megakernel
     from gsc_tpu_torch.parallel.dp import ParallelDDPG
+    from gsc_tpu_torch.utils.checkpoint import (read_checkpoint_meta,
+                                                verify_checkpoint)
 
+    bf16 = precision == "bf16"
+    sfx = "_bf16" if bf16 else ""
+    ops = {"gat_attention": gat_attention,
+           "gat_attention_backward": gat_attention_backward,
+           "gat_attention_bf16": gat_attention_bf16,
+           "gat_attention_backward_bf16": gat_attention_backward_bf16,
+           "substep_megakernel": substep_megakernel}
+    fwd_name, bwd_name = "gat_attention" + sfx, "gat_attention_backward" + sfx
     spans = {"rollout": [], "learn_burst": []}
 
     def synced(fn, key):
@@ -978,22 +1292,24 @@ def train_slice(torch, dev, smi):
     saved = (ParallelDDPG.rollout_episodes, ParallelDDPG.learn_burst)
     ParallelDDPG.rollout_episodes = synced(saved[0], "rollout")
     ParallelDDPG.learn_burst = synced(saved[1], "learn_burst")
+    argv = TRAIN_ARGS + ["--precision", precision]
+    if checkpoint:
+        argv += ["--checkpoint", checkpoint]
     try:
         with tempfile.TemporaryDirectory() as d:
-            gat_attention.launches = 0
-            gat_attention_backward.launches = 0
-            substep_megakernel.launches = 0
-            res = cli.run_train(TRAIN_ARGS + ["--result-dir", d])
-            launches = {
-                "gat_attention": gat_attention.launches,
-                "gat_attention_backward": gat_attention_backward.launches,
-                "substep_megakernel": substep_megakernel.launches}
+            for op in ops.values():
+                op.launches = 0
+            res = cli.run_train(argv + ["--result-dir", d])
+            counts = {k: op.launches for k, op in ops.items()}
             with open(f"{d}/rewards.csv") as f:
                 rewards = f.read().split()[1:]
     finally:
         ParallelDDPG.rollout_episodes, ParallelDDPG.learn_burst = saved
     trainer, state, buffers = res["trainer"], res["state"], res["buffers"]
     agent = trainer.agent_cfg
+    check(agent.precision == precision and
+          res["summary"]["precision"] == precision,
+          f"the run trained under {agent.precision}, not {precision}")
     b = int(TRAIN_ARGS[TRAIN_ARGS.index("--replicas") + 1])
     episodes = int(TRAIN_ARGS[TRAIN_ARGS.index("--episodes") + 1])
     steps = episodes * agent.episode_steps
@@ -1005,22 +1321,47 @@ def train_slice(torch, dev, smi):
                   "q_values"):
             check(math.isfinite(row[k]), f"episode {row['episode']}: {k} "
                   f"is {row[k]}")
-    check(launches["substep_megakernel"] == steps,
-          f"{launches['substep_megakernel']} megakernel launches for "
+    check(counts["substep_megakernel"] == steps,
+          f"{counts['substep_megakernel']} megakernel launches for "
           f"{steps} env steps (want 1 per step)")
     want_gat = 3 * acting + 15 * grad_steps
-    check(launches["gat_attention"] == want_gat,
-          f"{launches['gat_attention']} attention launches, want 3 x "
-          f"{acting} acting steps + 15 x {grad_steps} gradient steps = "
-          f"{want_gat}")
+    check(counts[fwd_name] == want_gat,
+          f"{counts[fwd_name]} {fwd_name} launches, want 3 x {acting} acting "
+          f"steps + 15 x {grad_steps} gradient steps = {want_gat}")
     want_bwd = 6 * grad_steps
-    check(launches["gat_attention_backward"] == want_bwd,
-          f"{launches['gat_attention_backward']} backward attention "
-          f"launches, want 6 x {grad_steps} gradient steps = {want_bwd}")
+    check(counts[bwd_name] == want_bwd,
+          f"{counts[bwd_name]} {bwd_name} launches, want 6 x {grad_steps} "
+          f"gradient steps = {want_bwd}")
+    others = {k: n for k, n in counts.items()
+              if k not in (fwd_name, bwd_name, "substep_megakernel")}
+    check(not any(others.values()),
+          f"the {precision} run launched the other dtype's kernels: {others}")
     cap = max(agent.mem_limit // b, 1)
     want_fill = min(steps, cap)
     check(bool((buffers.size == want_fill).all()),
           f"replay holds {buffers.size.tolist()[:4]}..., want {want_fill}")
+    # masters and Adam states f32, replay float leaves in the policy's dtype
+    for net in ("actor", "critic", "target_actor", "target_critic"):
+        check(all(p.dtype == torch.float32
+                  for p in getattr(state, net).parameters()),
+              f"{net} has parameters that are not f32")
+    for opt in (state.actor_opt, state.critic_opt):
+        check(all(st["exp_avg"].dtype == st["exp_avg_sq"].dtype ==
+                  torch.float32 for st in opt.state.values()),
+              "an Adam state is not f32")
+    replay_dt = torch.bfloat16 if bf16 else torch.float32
+    for leaf in ("obs.nodes", "next_obs.nodes", "obs.mask", "action"):
+        check(buffers.data[leaf].dtype == replay_dt,
+              f"replay leaf {leaf} is {buffers.data[leaf].dtype}")
+    for leaf in ("reward", "done"):
+        check(buffers.data[leaf].dtype == torch.float32,
+              f"replay leaf {leaf} is {buffers.data[leaf].dtype}")
+    if checkpoint:
+        meta = read_checkpoint_meta(checkpoint)
+        check(meta.get("precision") == precision and
+              verify_checkpoint(checkpoint),
+              f"checkpoint sidecar {meta} does not record {precision} or "
+              "its checksum")
     # every parameter moved from its seeded initial value
     fresh = ParallelDDPG(trainer.env, agent, b, device=dev).init(
         torch.Generator().manual_seed(trainer.seed))
@@ -1029,58 +1370,169 @@ def train_slice(torch, dev, smi):
         for name, p0 in init.named_parameters():
             check(not torch.equal(p0, final[name]),
                   f"{net}.{name} did not move in training")
-    # gradients through the kernel's autograd.Function vs the dense path
+    # gradients through the kernels' autograd.Function vs a reference of
+    # the same precision: the dense path (f32), the kernels' plain versions
+    # (bf16; the dense bf16 path's autograd rounds its cotangents to bf16
+    # and is only printed)
     pddpg = trainer.pddpg
     batch = pddpg.sample_across(buffers)
-    dense = {}
-    for net in ("actor", "critic", "target_actor", "target_critic"):
-        src = getattr(state, net)
-        cls = Actor if "actor" in net else QNetwork
-        copy = cls(agent, src.action_dim, gnn_impl="dense").to(dev)
-        copy.load_state_dict(src.state_dict())
-        dense[net] = copy
-    dense = SimpleNamespace(**dense)
-    worst = 0.0
-    for kind in ("critic", "actor"):
-        grads = []
-        for st in (state, dense):
+
+    def copies(impl):
+        nets = {}
+        for net in ("actor", "critic", "target_actor", "target_critic"):
+            src = getattr(state, net)
+            cls = Actor if "actor" in net else QNetwork
+            copy = cls(agent, src.action_dim, gnn_impl=impl).to(dev)
+            copy.load_state_dict(src.state_dict())
+            nets[net] = copy
+        return SimpleNamespace(**nets)
+
+    def grads_of(st):
+        out = {}
+        for kind in ("critic", "actor"):
             net = getattr(st, kind)
             loss = (pddpg.ddpg.critic_loss(st, batch)[0] if kind == "critic"
                     else pddpg.ddpg.actor_loss(st, batch))
-            grads.append(dict(zip(
+            out[kind] = dict(zip(
                 [n for n, _ in net.named_parameters()],
-                torch.autograd.grad(loss, list(net.parameters())))))
-        for name, g in grads[0].items():
-            d = grads[1][name]
+                torch.autograd.grad(loss, list(net.parameters()))))
+        return out
+
+    def worst_ratio(got, ref):
+        return max(float((g - ref[k][n]).abs().max())
+                   / max(float(ref[k][n].abs().max()), GRAD_ATOL)
+                   for k in got for n, g in got[k].items())
+
+    kernel_grads = grads_of(state)
+    dense_grads = grads_of(copies("dense"))
+    if bf16:
+        with plain_attention(torch):
+            ref_grads = grads_of(copies("pallas"))
+        ref_name, scale_tol = "the kernels' plain versions", GRAD_BF16_SCALE
+    else:
+        ref_grads, ref_name, scale_tol = dense_grads, "the dense path", \
+            GRAD_RTOL
+    for kind, grads in kernel_grads.items():
+        for name, g in grads.items():
+            d = ref_grads[kind][name]
             err = float((g - d).abs().max())
             scale = float(d.abs().max())
-            worst = max(worst, err / max(scale, GRAD_ATOL))
-            check(err <= GRAD_RTOL * scale + GRAD_ATOL,
-                  f"{kind}.{name}: gradient through the kernel differs "
-                  f"from the dense path by {err} (largest entry {scale})")
+            check(err <= scale_tol * scale + GRAD_ATOL,
+                  f"{precision} {kind}.{name}: gradient through the kernels "
+                  f"differs from {ref_name} by {err} (largest entry "
+                  f"{scale})")
+    worst = worst_ratio(kernel_grads, ref_grads)
+    dense_note = ""
+    if bf16:
+        dense_note = (f"; the dense bf16 path's autograd (bf16 cotangents, "
+                      f"as the JAX package's VJP) lies "
+                      f"{worst_ratio(dense_grads, ref_grads):.2e} of a "
+                      "tensor's largest entry from the plain versions")
     roll_steps = steps * b
     roll_s = sum(spans["rollout"])
-    print(f"train: {episodes} episodes x {agent.episode_steps} steps at "
-          f"B={b}: returns {[round(r['episodic_return'], 4) for r in trainer.history]}, "
+    print(f"train {precision}: {episodes} episodes x {agent.episode_steps} "
+          f"steps at B={b}: returns "
+          f"{[round(r['episodic_return'], 4) for r in trainer.history]}, "
           f"final success {[round(r['final_succ_ratio'], 4) for r in trainer.history]}, "
           f"critic loss {[r['critic_loss'] for r in trainer.history]}, "
           f"actor loss {[r['actor_loss'] for r in trainer.history]}, "
           f"q {[r['q_values'] for r in trainer.history]}; every actor and "
-          f"critic parameter moved; replay {want_fill} per replica", flush=True)
-    print(f"train launches: megakernel {launches['substep_megakernel']} "
-          f"(1 per env step), attention {launches['gat_attention']} (3 x "
-          f"{acting} acting steps + 15 x {grad_steps} gradient steps), "
-          f"attention backward {launches['gat_attention_backward']} (6 x "
-          f"{grad_steps} gradient steps); GATv2/actor/critic gradients "
-          f"through the kernels vs dense: max abs diff / largest entry "
-          f"{worst:.2e}", flush=True)
-    print(f"train timing on {smi}: rollout {roll_steps} env steps in "
-          f"{roll_s:.2f} s = {roll_steps / roll_s:.1f} env-steps/s; learn "
-          f"bursts {[round(t, 3) for t in spans['learn_burst']]} s "
+          f"critic parameter moved; masters and Adam states f32; replay "
+          f"{want_fill} per replica, float leaves {replay_dt}", flush=True)
+    print(f"train {precision} launches (every count 0 before the run): "
+          f"megakernel {counts['substep_megakernel']} (1 per env step), "
+          f"{fwd_name} {counts[fwd_name]} (3 x {acting} acting steps + 15 x "
+          f"{grad_steps} gradient steps), {bwd_name} {counts[bwd_name]} (6 x "
+          f"{grad_steps} gradient steps), other attention kernels {others}; "
+          f"GATv2/actor/critic gradients through the kernels vs {ref_name}: "
+          f"max abs diff / largest entry {worst:.2e} (limit {scale_tol:g})"
+          f"{dense_note}", flush=True)
+    sps = roll_steps / roll_s
+    print(f"train {precision} timing on {smi}: rollout {roll_steps} env "
+          f"steps in {roll_s:.2f} s = {sps:.1f} env-steps/s; learn bursts "
+          f"{[round(t, 3) for t in spans['learn_burst']]} s "
           f"({grad_steps // episodes} gradient steps each); wall "
           f"{res['summary']['wall_s']:.1f} s", flush=True)
-    print("train_summary: " + json.dumps(res["summary"]))
-    return launches
+    print(f"train_summary {precision}: " + json.dumps(res["summary"]))
+    own = {k: counts[k] for k in (fwd_name, bwd_name, "substep_megakernel")}
+    return own, {"sps": sps, "bursts": list(spans["learn_burst"])}
+
+
+def serve_from_checkpoint(torch, dev, smi, checkpoint):
+    """Phase 11: ``run_serve`` on a bf16 checkpoint, with every attention
+    count set to 0 before it; answers held against the plain bf16 actor
+    on CPU copies.  Returns the bf16 forward kernel's launches."""
+    import numpy as np
+
+    from gsc_tpu_torch.env.observations import GraphObs
+    from gsc_tpu_torch.models.nets import Actor
+    from gsc_tpu_torch.ops.gat_attention import (gat_attention,
+                                                 gat_attention_bf16)
+    from gsc_tpu_torch.serve import run_serve
+
+    gat_attention.launches = gat_attention_bf16.launches = 0
+    reports = [run_serve(device=dev, pool_steps=POOL_STEPS, requests=r,
+                         concurrency=c, buckets=BUCKETS, deadline_ms=dl,
+                         seed=0, checkpoint=checkpoint)
+               for r, c, dl in BF16_BURSTS]
+    calls = sum(len(rep.flushes) + len(rep.startup["buckets"])
+                for rep in reports)
+    check(gat_attention.launches == 0,
+          f"the bf16 server launched the f32 kernel "
+          f"{gat_attention.launches} times")
+    check(gat_attention_bf16.launches == 3 * calls,
+          f"{gat_attention_bf16.launches} bf16 kernel launches for {calls} "
+          "dispatches and warm-up calls (want 3 per call)")
+    for (r, c, dl), report in zip(BF16_BURSTS, reports):
+        summ = report.summary()
+        ddpg = report.ddpg
+        check(ddpg.agent.precision == "bf16",
+              f"served under {ddpg.agent.precision}, not the checkpoint's "
+              "bf16")
+        check(not report.errors, f"serve errors: {report.errors[:3]}")
+        check(len(report.answers) == r, f"{len(report.answers)} of {r} "
+              "answered")
+        plain = Actor(ddpg.agent, ddpg.action_dim, gnn_impl="dense")
+        plain.load_state_dict({k: v.cpu() for k, v in
+                               ddpg.actor.state_dict().items()})
+        worst, ambiguous, pre_diff = 0.0, 0, 0.0
+        for k, ans in report.answers:
+            check(ans.shape == (1728,) and bool(np.isfinite(ans).all()),
+                  f"answer for pool obs {k} is {ans.shape} or not finite")
+            check(np.allclose(ans.reshape(-1, 24).sum(-1), 1.0, rtol=1e-5),
+                  "a destination row does not sum to 1")
+        for k in sorted({k for k, _ in report.answers}):
+            obs = GraphObs(**{f: torch.from_numpy(np.asarray(v))[None]
+                              for f, v in vars(report.pool[k]).items()})
+            with torch.inference_mode():
+                pre = ddpg.actor(obs.to(dev))[0].cpu().numpy()
+                single = ddpg.greedy_action(obs.to(dev))[0].cpu().numpy()
+                plain_pre = plain(obs)
+                want = ddpg.env.process_action(
+                    plain_pre.clamp(0.0, 1.0))[0].numpy()
+            pre_diff = max(pre_diff, float(np.abs(
+                pre - plain_pre[0].numpy()).max()))
+            for got, what in [(single, "kernel vs plain bf16 actor on CPU")] \
+                    + [(a, "batched vs plain bf16 actor on CPU")
+                       for kk, a in report.answers if kk == k]:
+                e, amb = compare_answers(got, want, pre, f"{what}, obs {k}",
+                                         ANSWER_BF16_RTOL, ANSWER_BF16_ATOL,
+                                         THRESH_BF16_TOL)
+                worst = max(worst, e)
+                ambiguous = max(ambiguous, amb)
+        print(f"serve bf16 burst from the checkpoint: {summ['completed']} "
+              f"requests at concurrency {c}, deadline {dl:g} ms, "
+              f"{summ['dispatches']} dispatches (buckets "
+              f"{sorted({b for _, b in report.flushes})}); "
+              f"{summ['requests_per_s']:.1f} req/s, p50 {summ['p50_ms']:.3f} "
+              f"ms, p99 {summ['p99_ms']:.3f} ms, startup "
+              f"{summ['startup_s']:.2f} s on {smi}; answers vs the plain "
+              f"bf16 actor on CPU copies max abs diff {worst:.2e} (up to "
+              f"{ambiguous} ambiguous rows per answer; actor outputs "
+              f"before the threshold max abs diff {pre_diff:.2e})",
+              flush=True)
+        print(f"serve_summary bf16 c={c}: " + json.dumps(summ))
+    return gat_attention_bf16.launches
 
 
 def main() -> int:
@@ -1095,7 +1547,9 @@ def main() -> int:
                                                  GatAttention,
                                                  GatAttentionBackward,
                                                  gat_attention,
-                                                 gat_attention_backward)
+                                                 gat_attention_backward,
+                                                 gat_attention_backward_bf16,
+                                                 gat_attention_bf16)
     from gsc_tpu_torch.ops.build import MAX_SMEM_BYTES
     from gsc_tpu_torch.ops.substep import SOURCE as SUB_SOURCE
     from gsc_tpu_torch.ops.substep import (SubstepMegakernel,
@@ -1118,6 +1572,8 @@ def main() -> int:
     parent_fwd = parent_gat()
     ops = {"gat_attention": gat_attention,
            "gat_attention_backward": gat_attention_backward,
+           "gat_attention_bf16": gat_attention_bf16,
+           "gat_attention_backward_bf16": gat_attention_backward_bf16,
            "substep_megakernel": substep_megakernel,
            "substep_megakernel (stage clocks)": clocked,
            "gat_attention (stage clocks)": clocked_fwd,
@@ -1223,14 +1679,42 @@ def main() -> int:
     sub_times = substep_timings(torch, dev, smi, clocked, parent)
 
     # ---- 8. the training slice -------------------------------------------
-    train_launches = train_slice(torch, dev, smi)
+    train_launches, f32_train = train_slice(torch, dev, smi)
     for kernel, n in train_launches.items():
         check(n > 0, f"{kernel} was not launched on the training path")
 
-    # ---- 9. kernels line ------------------------------------------------
+    # ---- 9. bf16 attention kernels vs plain on the card ------------------
+    h_timings, h_err, hb_timings, hb_err = attention_phase_bf16(torch, dev,
+                                                               smi)
+
+    # ---- 10. the bf16 training slice, saving a checkpoint ----------------
+    ck_root = tempfile.mkdtemp(prefix="gsc_bf16_ck_")
+    try:
+        ck = os.path.join(ck_root, "checkpoint")
+        bf16_launches, bf16_train = train_slice(torch, dev, smi, "bf16",
+                                                checkpoint=ck)
+        for kernel, n in bf16_launches.items():
+            check(n > 0, f"{kernel} was not launched on the bf16 training "
+                  "path")
+        print(f"train bf16 beside f32 on {smi}: rollout "
+              f"{bf16_train['sps']:.1f} env-steps/s (f32 "
+              f"{f32_train['sps']:.1f}); learn bursts "
+              f"{[round(t, 3) for t in bf16_train['bursts']]} s (f32 "
+              f"{[round(t, 3) for t in f32_train['bursts']]} s)", flush=True)
+
+        # ---- 11. bf16 serving from that checkpoint -----------------------
+        serve_bf16 = serve_from_checkpoint(torch, dev, smi, ck)
+        print(f"serve bf16: {serve_bf16} bf16 attention launches, 0 f32",
+              flush=True)
+    finally:
+        shutil.rmtree(ck_root, ignore_errors=True)
+
+    # ---- 12. kernels line -----------------------------------------------
     ms, plain_ms, bound_ms, bound_by = timings[MAIN_SHAPE]
     b_ms, b_plain_ms, b_bound_ms, b_bound_by = bwd_timings[MAIN_SHAPE]
     s_ms, _, s_plain_ms, s_bound_ms, s_bound_by = sub_times[SUB_MAIN_BATCH]
+    h_ms, h_plain_ms, h_bound_ms, h_bound_by = h_timings[MAIN_SHAPE]
+    hb_ms, hb_plain_ms, hb_bound_ms, hb_bound_by = hb_timings[MAIN_SHAPE]
     rel = lambda src: str(src.relative_to(src.parents[2]))
     kernels = {"kernels": [{
         "name": "gat_attention",
@@ -1255,6 +1739,30 @@ def main() -> int:
         "plain_ms": b_plain_ms,
         "bound_ms": b_bound_ms,
         "bound_by": b_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "gat_attention_bf16",
+        "route": "cuda",
+        "source": rel(SOURCE),
+        "replaces": "gsc_tpu/ops/pallas_gat.py:45",
+        "launches": bf16_launches["gat_attention_bf16"],
+        "max_abs_err": h_err,
+        "ms": h_ms,
+        "plain_ms": h_plain_ms,
+        "bound_ms": h_bound_ms,
+        "bound_by": h_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "gat_attention_backward_bf16",
+        "route": "cuda",
+        "source": rel(BACKWARD_SOURCE),
+        "replaces": "gsc_tpu/ops/pallas_gat.py:150",
+        "launches": bf16_launches["gat_attention_backward_bf16"],
+        "max_abs_err": hb_err,
+        "ms": hb_ms,
+        "plain_ms": hb_plain_ms,
+        "bound_ms": hb_bound_ms,
+        "bound_by": hb_bound_by,
         "library_ms": None,
     }, {
         "name": "substep_megakernel",

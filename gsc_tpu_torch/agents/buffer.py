@@ -8,7 +8,10 @@ JAX package, leaves of two or more dims per transition are stored
 flattened to one dim and restored to their shapes when a batch is read
 (``restore_batch``).  Unlike the JAX package, ``buffer_add`` writes in
 place and returns the same buffer: the ring is the largest resident of a
-training run, and nothing reads an older version of it.
+training run, and nothing reads an older version of it.  Leaves may mix
+dtypes (under the bf16 policy the float obs, next_obs and action leaves
+are bf16 beside f32 reward and done); ``buffer_add`` casts on write and
+``buffer_nbytes`` counts each leaf at its storage dtype.
 """
 from __future__ import annotations
 
@@ -122,3 +125,10 @@ def buffer_add(buf: ReplayBuffer, item: Any) -> ReplayBuffer:
     buf.pos = (buf.pos + 1) % cap
     buf.size = torch.clamp(buf.size + 1, max=cap)
     return buf
+
+
+def buffer_nbytes(buf: ReplayBuffer) -> int:
+    """Replay storage in bytes, summed per leaf from its storage dtype
+    (never an assumed element size: bf16 leaves count 2 bytes beside f32
+    reward and done)."""
+    return sum(d.numel() * d.element_size() for d in buf.data.values())

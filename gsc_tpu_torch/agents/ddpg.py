@@ -14,6 +14,12 @@ warm-up uniforms and exploration normals from a ``Draws`` source, and the
 learn burst its batches from a caller's ``sample_fn``, so a test can feed
 this port and the JAX package the same numbers.  The learner state's
 modules and optimisers are updated in place.
+
+Under the bf16 policy (``AgentConfig.precision``) the networks compute in
+bf16 and the replay stores bf16 float leaves, while the parameters, both
+Adam states and the Polyak updates stay f32, and the losses and TD
+targets are f32: the networks' outputs are f32 and reward and done are
+stored in f32.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from ..device import resolve_device
 from ..env.env import ServiceCoordEnv
 from ..env.observations import GraphObs
 from ..models.nets import Actor, QNetwork, scale_action, unscale_action
+from ..ops.gat import compute_dtype_of
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -121,10 +128,19 @@ class DDPG:
             actor_opt=adam(actor), critic_opt=adam(critic))
 
     def example_transition(self, sample_obs: GraphObs) -> Dict:
-        """One replay transition's shapes and dtypes (no batch dim)."""
+        """One replay transition's shapes and dtypes (no batch dim).  Under
+        a low-precision replay policy (``replay_cast_dtype``) the float
+        leaves of obs/next_obs and the action are stored in that dtype;
+        reward and done stay f32, bool and integer leaves as they are."""
         dev = sample_obs.nodes.device
-        return {"obs": sample_obs, "next_obs": sample_obs,
-                "action": torch.zeros(self.action_dim, device=dev),
+        obs = sample_obs
+        action = torch.zeros(self.action_dim, device=dev)
+        rd = compute_dtype_of(self.agent.precision_policy.replay_cast_dtype)
+        if rd is not None:
+            obs = sample_obs.map(lambda x: x.to(rd) if x.is_floating_point()
+                                 else x)
+            action = action.to(rd)
+        return {"obs": obs, "next_obs": obs, "action": action,
                 "reward": torch.zeros((), device=dev),
                 "done": torch.zeros((), device=dev),
                 "topo_idx": torch.zeros((), dtype=torch.int32, device=dev)}

@@ -7,8 +7,11 @@ on the host (seed ``base_seed + 1000 * episode + r``), runs the chunked
 rollout and the end-of-episode learn burst (``parallel.harness``), appends
 the return to ``rewards.csv`` (field ``r``, the JAX package's schema) and
 reports one row: return, mean and final success ratio, critic and actor
-loss, q, env-steps/s.  Checkpoints, evaluation, the single-env loop and the
-run observability of the JAX trainer are not ported yet (ROADMAP Queue 1).
+loss, q, env-steps/s.  The agent config's precision policy applies
+throughout (``cli train --precision``).  Saving a checkpoint at the end is
+the CLI's (``cli train --checkpoint``, ``utils.checkpoint``); resuming
+from one, evaluation, the single-env loop and the run observability of the
+JAX trainer are not ported yet (ROADMAP Queue 1).
 """
 from __future__ import annotations
 

@@ -2,12 +2,14 @@
 functions."""
 from .catalog import abc_service, init_configs_agent, init_configs_sim
 from .registry import get_resource_function, register_resource_function
-from .schema import (AgentConfig, EnvLimits, PrecisionPolicy, ServiceConfig,
-                     ServiceFunction, SimConfig, replace)
+from .schema import (PRECISION_POLICIES, AgentConfig, EnvLimits,
+                     PrecisionPolicy, ServiceConfig, ServiceFunction,
+                     SimConfig, precision_policy, replace)
 
 __all__ = [
-    "AgentConfig", "EnvLimits", "PrecisionPolicy", "ServiceConfig",
+    "AgentConfig", "EnvLimits", "PRECISION_POLICIES", "PrecisionPolicy",
+    "ServiceConfig",
     "ServiceFunction", "SimConfig", "abc_service", "get_resource_function",
     "init_configs_agent", "init_configs_sim",
-    "register_resource_function", "replace",
+    "precision_policy", "register_resource_function", "replace",
 ]

@@ -2,7 +2,8 @@
 
 A copy of the subset of ``gsc_tpu.config.schema`` that the port's serving
 and training paths need: ``SimConfig``, ``AgentConfig``, ``EnvLimits``,
-``ServiceConfig``/``ServiceFunction`` and the f32 ``PrecisionPolicy``,
+``ServiceConfig``/``ServiceFunction`` and ``PrecisionPolicy`` with its
+"f32" and "bf16" policies,
 with the same field names, defaults and validation.  Every namespace is a
 frozen dataclass of plain Python scalars and tuples, so a config is
 hashable and can key caches.
@@ -51,10 +52,30 @@ SUPPORTED_OBJECTIVES = ("prio-flow", "soft-deadline", "soft-deadline-exp", "weig
 SUPPORTED_OBSERVATIONS = ("ingress_traffic", "node_load", "node_cap")
 
 
+# Dtypes a mixed-precision compute or replay slot may take.  float16 is
+# absent: bf16 shares f32's exponent range, so the policy needs no loss
+# scaling.
+_COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
 @dataclass(frozen=True)
 class PrecisionPolicy:
-    """Dtype policy.  The port carries the f32 policy only: parameters,
-    activations, accumulators and outputs are all float32."""
+    """End-to-end dtype policy of the training and serving stack.
+
+    - ``param_dtype``: master parameters and optimiser state, always
+      float32 (Polyak updates at tau = 1e-4 and Adam's moments do not
+      survive bf16's 8-bit mantissa);
+    - ``gnn_compute`` / ``mlp_compute``: the activation and matmul dtype
+      of the GATv2 embedder and of the actor/critic Linear stacks; every
+      contraction accumulates in f32 and the attention softmax runs on
+      f32 logits;
+    - ``replay_dtype``: storage dtype of the replay's float obs, next_obs
+      and action leaves; reward and done stay f32.
+
+    Network outputs (actions, Q-values) are always f32.  A float32 slot
+    resolves to None in ``gnn_dtype``/``mlp_dtype``/``replay_cast_dtype``,
+    which every consumer reads as "take the f32 code path verbatim", so
+    the "f32" policy is bit-identical to a stack without a policy."""
 
     name: str = "f32"
     param_dtype: str = "float32"
@@ -65,15 +86,55 @@ class PrecisionPolicy:
     replay_dtype: str = "float32"
 
     def __post_init__(self):
-        for slot in ("param_dtype", "gnn_compute", "mlp_compute",
-                     "accum_dtype", "output_dtype", "replay_dtype"):
+        for slot in ("param_dtype", "accum_dtype", "output_dtype"):
             if getattr(self, slot) != "float32":
                 raise ValueError(
-                    f"{slot} must be float32 (the port runs the f32 policy "
-                    f"only), got {getattr(self, slot)!r}")
+                    f"{slot} must be float32 (f32 master params/accumulators"
+                    f"/outputs are the policy contract), got "
+                    f"{getattr(self, slot)!r}")
+        for slot in ("gnn_compute", "mlp_compute", "replay_dtype"):
+            if getattr(self, slot) not in _COMPUTE_DTYPES:
+                raise ValueError(
+                    f"{slot} must be one of {_COMPUTE_DTYPES}, got "
+                    f"{getattr(self, slot)!r}")
+
+    @property
+    def gnn_dtype(self) -> Optional[str]:
+        return None if self.gnn_compute == "float32" else self.gnn_compute
+
+    @property
+    def mlp_dtype(self) -> Optional[str]:
+        return None if self.mlp_compute == "float32" else self.mlp_compute
+
+    @property
+    def replay_cast_dtype(self) -> Optional[str]:
+        return None if self.replay_dtype == "float32" else self.replay_dtype
+
+    @property
+    def mixed(self) -> bool:
+        return any(getattr(self, s) != "float32"
+                   for s in ("gnn_compute", "mlp_compute", "replay_dtype"))
 
 
-PRECISION_POLICIES = {"f32": PrecisionPolicy(name="f32")}
+# Named policies (AgentConfig.precision, ``cli train --precision``): "f32"
+# is the f32 stack verbatim, "bf16" computes the GNN and the MLP heads and
+# stores replay in bfloat16.
+PRECISION_POLICIES = {
+    "f32": PrecisionPolicy(name="f32"),
+    "bf16": PrecisionPolicy(name="bf16", gnn_compute="bfloat16",
+                            mlp_compute="bfloat16",
+                            replay_dtype="bfloat16"),
+}
+
+
+def precision_policy(name: str) -> PrecisionPolicy:
+    """A policy name (AgentConfig.precision) -> its PrecisionPolicy."""
+    try:
+        return PRECISION_POLICIES[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown precision {name!r} (expected one of "
+            f"{tuple(PRECISION_POLICIES)})") from None
 
 
 @dataclass(frozen=True)
@@ -249,7 +310,7 @@ class AgentConfig:
             raise ValueError("learn_steps must be >= 1 (or None)")
         if self.precision not in PRECISION_POLICIES:
             raise ValueError(
-                f"unknown precision {self.precision!r} (the port carries "
+                f"unknown precision {self.precision!r} (expected one of "
                 f"{tuple(PRECISION_POLICIES)})")
 
     @property

@@ -1,8 +1,10 @@
-// Fused GATv2 attention stage, f32, for Hopper (sm_90a).
+// Fused GATv2 attention stage, f32 and bf16, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel gsc_tpu/ops/pallas_gat.py::_gat_kernel (launched
-// by _gatv2_pallas_impl).  Given projected features xl, xr [B, N, F], the
-// attention vector att [F], bias [F] and the adjacency adj [B, N, N]
+// by _gatv2_pallas_impl), which is dtype-polymorphic: gat_attention_f32
+// takes f32 features, gat_attention_bf16 bf16 ones (the bf16 form below).
+// Given projected features xl, xr [B, N, F], the attention vector att
+// [F], bias [F] and the adjacency adj [B, N, N]
 // (adj[b, i, j] = j is an in-neighbour of i, self-loops included), it
 // computes for every graph b and target row i
 //
@@ -49,12 +51,25 @@
 // only.  Reading xl rows directly (float2, conflict-free at F = 22) beat a
 // transposed copy, whose extra pass cost more than it saved.
 //
-// No tensor cores: the stage is f32, an f32 mma does not exist, and TF32
-// stays off (the port keeps the JAX reference's "highest" f32 matmul
-// precision); wgmma belongs to a bf16 variant.
+// The bf16 form (template parameter kBf16) computes what the bf16 branch
+// of gsc_tpu/ops/gat.py::attention_dense computes, with every rounding in
+// the same place: e = bf16(xl_j + xr_i), its LeakyReLU in bf16 with the
+// slope 0.2 rounded to bf16, logits sum_f e * bf16(att) in f32 (each
+// product exact), the f32 softmax, alpha rounded to bf16, out = sum_j
+// alpha_ij xl_j in f32, / max(deg, 1), + the f32 bias, rounded once to
+// bf16 at the store.  xl[b] and xr[b] (half the f32 bytes) are staged as
+// bf16 and widened to f32 in shared memory, so the rest of the chain is
+// the f32 form's code.  The same latency bound holds.
+//
+// No tensor cores: the f32 form is f32, an f32 mma does not exist, and
+// TF32 stays off (the port keeps the JAX reference's "highest" f32 matmul
+// precision).  The bf16 form keeps the f32 form's scalar chain; an
+// mma.sync m16n8k16 aggregation is later work.
 //
 // The host function returns the CUDA error of the launch (0 = success);
 // the Python wrapper raises on anything else.
+
+#include <type_traits>
 
 #include "gat_common.cuh"
 
@@ -65,11 +80,14 @@ using namespace gat;
 // Byte offsets of the dynamic shared memory, each 16-byte aligned;
 // computed on the host and passed by value.
 struct Layout {
-  unsigned xl, xr, adj, att, bias, alpha, deg, bar, total;
+  unsigned xl, xr, adj, att, bias, alpha, deg, hxl, hxr, bar, total;
 };
 
-Layout layout(int n, int f) {
+// bf16: the staging areas hxl, hxr of the bf16 features (none in f32, whose
+// layout is the same as without them).
+Layout layout(int n, int f, bool bf16) {
   const size_t fl = sizeof(float);
+  const size_t half = bf16 ? align16(static_cast<size_t>(n) * f * 2) : 0;
   const int np = round4(n);
   Layout l;
   size_t o = 0;
@@ -87,19 +105,27 @@ Layout layout(int n, int f) {
   o += static_cast<size_t>(n) * np * fl;
   l.deg = o;                                             // [n] ints
   o += align16(n * sizeof(int));
+  l.hxl = o;                                             // [n][f] bf16
+  o += half;
+  l.hxr = o;                                             // [n][f] bf16
+  o += half;
   l.bar = o;
   l.total = o + 16;
   return l;
 }
 
+template <bool kBf16>
+using Feat = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
+
+template <bool kBf16>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-gat_attention_kernel(const float* __restrict__ xl,
-                     const float* __restrict__ xr,
+gat_attention_kernel(const Feat<kBf16>* __restrict__ xl,
+                     const Feat<kBf16>* __restrict__ xr,
                      const float* __restrict__ att,
                      const float* __restrict__ bias,
                      const unsigned char* __restrict__ adj,
-                     float* __restrict__ out, const Layout L, int n, int f,
-                     int mean_aggr, float inv_n, float inv_f) {
+                     Feat<kBf16>* __restrict__ out, const Layout L, int n,
+                     int f, int mean_aggr, float inv_n, float inv_f) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int np = round4(n);
   float* s_xl = reinterpret_cast<float*>(smem + L.xl);
@@ -112,20 +138,28 @@ gat_attention_kernel(const float* __restrict__ xl,
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
   GAT_CLOCK(0);
 
+  __nv_bfloat16* s_hxl = reinterpret_cast<__nv_bfloat16*>(smem + L.hxl);
+  __nv_bfloat16* s_hxr = reinterpret_cast<__nv_bfloat16*>(smem + L.hxr);
+
   const int b = blockIdx.x;
   const int nf = n * f;
-  const uint32_t feat_bytes = static_cast<uint32_t>(nf * sizeof(float));
+  const uint32_t feat_bytes =
+      static_cast<uint32_t>(nf * sizeof(Feat<kBf16>));
+  // bf16 features land in the staging areas, f32 ones where they are used
+  void* d_xl = kBf16 ? static_cast<void*>(s_hxl) : static_cast<void*>(s_xl);
+  void* d_xr = kBf16 ? static_cast<void*>(s_hxr) : static_cast<void*>(s_xr);
   const Block blocks[3] = {
-      {s_xl, xl + static_cast<size_t>(b) * nf, feat_bytes},
-      {s_xr, xr + static_cast<size_t>(b) * nf, feat_bytes},
+      {d_xl, xl + static_cast<size_t>(b) * nf, feat_bytes},
+      {d_xr, xr + static_cast<size_t>(b) * nf, feat_bytes},
       {s_adj, adj + static_cast<size_t>(b) * n * n,
        static_cast<uint32_t>(n * n)}};
   const uint32_t tx = stage(blocks, bar);
-  // while the copies fly: att, bias, and xl's rows n..np-1 as zeros, which
-  // the aggregation's float4 reads of alpha's pad columns meet
+  // while the copies fly: att (bf16(att) in the bf16 form), bias, and xl's
+  // rows n..np-1 as zeros, which the aggregation's float4 reads of alpha's
+  // pad columns meet
 #pragma unroll 1
   for (int k = threadIdx.x; k < f; k += blockDim.x) {
-    s_att[k] = att[k];
+    s_att[k] = kBf16 ? round_bf16(att[k]) : att[k];
     s_bias[k] = bias[k];
   }
 #pragma unroll 1
@@ -133,15 +167,24 @@ gat_attention_kernel(const float* __restrict__ xl,
     s_xl[nf + t] = 0.f;
   __syncthreads();
   if (tx) barrier_wait(bar);
+  if constexpr (kBf16) {
+    widen_bf16(s_xl, s_hxl, nf);
+    widen_bf16(s_xr, s_hxr, nf);
+    __syncthreads();
+  }
   GAT_CLOCK(1);
 
-  graph_alpha(s_xl, s_xr, s_att, s_adj, n, np, f, inv_n, s_alpha, s_deg);
+  graph_alpha<kBf16>(s_xl, s_xr, s_att, s_adj, n, np, f, inv_n, s_alpha,
+                     s_deg);
   GAT_CLOCK(2);
 
   // the aggregation, all threads over the flattened outputs t = i f + k:
   // sum_j alpha_ij xl_jk with alpha_i read as float4 (four independent
-  // partial sums), / max(deg_i, 1) if mean, + bias; 0 without a neighbour
-  float* out_b = out + static_cast<size_t>(b) * nf;
+  // partial sums; in bf16 each alpha rounded to bf16 first), / max(deg_i,
+  // 1) if mean, + bias; 0 without a neighbour; rounded to bf16 at the
+  // store in the bf16 form
+  Feat<kBf16>* out_b = out + static_cast<size_t>(b) * nf;
+  const auto w = [](float a) { return kBf16 ? round_bf16(a) : a; };
 #pragma unroll 1
   for (int t = threadIdx.x; t < nf; t += blockDim.x) {
     const int i = div_floor(t, inv_f), k = t - i * f;
@@ -154,15 +197,18 @@ gat_attention_kernel(const float* __restrict__ xl,
 #pragma unroll 1
       for (int q = 0; q < np / 4; ++q, x += 4 * f) {
         const float4 a = a4[q];
-        a0 = fmaf(a.x, x[0], a0);
-        a1 = fmaf(a.y, x[f], a1);
-        a2 = fmaf(a.z, x[2 * f], a2);
-        a3 = fmaf(a.w, x[3 * f], a3);
+        a0 = fmaf(w(a.x), x[0], a0);
+        a1 = fmaf(w(a.y), x[f], a1);
+        a2 = fmaf(w(a.z), x[2 * f], a2);
+        a3 = fmaf(w(a.w), x[3 * f], a3);
       }
       const float acc = (a0 + a1) + (a2 + a3);
       o = (mean_aggr ? acc / static_cast<float>(deg) : acc) + s_bias[k];
     }
-    out_b[t] = o;
+    if constexpr (kBf16)
+      out_b[t] = __float2bfloat16_rn(o);
+    else
+      out_b[t] = o;
   }
   GAT_CLOCK(3);
 }
@@ -171,29 +217,56 @@ gat_attention_kernel(const float* __restrict__ xl,
 
 extern "C" {
 
-// Dynamic shared memory of one launch, in bytes.
-long long gat_attention_smem_bytes(int n, int f) {
-  return static_cast<long long>(layout(n, f).total);
+// Dynamic shared memory of one launch, in bytes (bf16: the bf16 form).
+long long gat_attention_smem_bytes(int n, int f, int bf16) {
+  return static_cast<long long>(layout(n, f, bf16 != 0).total);
 }
 
-// Launch on `stream`; adj is one byte per entry (torch.bool).  Returns the
-// cudaError_t of the launch, 0 on success.
-int gat_attention_f32(const float* xl, const float* xr, const float* att,
-                      const float* bias, const void* adj, float* out,
-                      int batch, int n, int f, int mean_aggr, void* stream) {
-  const Layout L = layout(n, f);
+}  // extern "C"
+
+namespace {
+
+template <bool kBf16>
+int launch(const Feat<kBf16>* xl, const Feat<kBf16>* xr, const float* att,
+           const float* bias, const void* adj, Feat<kBf16>* out, int batch,
+           int n, int f, int mean_aggr, void* stream) {
+  const Layout L = layout(n, f, kBf16);
   if (L.total > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gat_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gat_attention_kernel<kBf16>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(L.total));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (batch == 0) return 0;
-  gat_attention_kernel<<<batch, warps_for(n) * 32, L.total,
-                         static_cast<cudaStream_t>(stream)>>>(
+  gat_attention_kernel<kBf16><<<batch, warps_for(n) * 32, L.total,
+                                static_cast<cudaStream_t>(stream)>>>(
       xl, xr, att, bias, static_cast<const unsigned char*>(adj), out, L, n, f,
       mean_aggr, 1.f / static_cast<float>(n), 1.f / static_cast<float>(f));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch on `stream`; adj is one byte per entry (torch.bool); att and bias
+// f32.  Returns the cudaError_t of the launch, 0 on success.
+int gat_attention_f32(const float* xl, const float* xr, const float* att,
+                      const float* bias, const void* adj, float* out,
+                      int batch, int n, int f, int mean_aggr, void* stream) {
+  return launch<false>(xl, xr, att, bias, adj, out, batch, n, f, mean_aggr,
+                       stream);
+}
+
+// The bf16 form: xl, xr and out bf16 (torch.bfloat16), att and bias f32.
+int gat_attention_bf16(const void* xl, const void* xr, const float* att,
+                       const float* bias, const void* adj, void* out,
+                       int batch, int n, int f, int mean_aggr, void* stream) {
+  return launch<true>(static_cast<const __nv_bfloat16*>(xl),
+                      static_cast<const __nv_bfloat16*>(xr), att, bias, adj,
+                      static_cast<__nv_bfloat16*>(out), batch, n, f,
+                      mean_aggr, stream);
 }
 
 const char* gat_attention_error_string(int code) {

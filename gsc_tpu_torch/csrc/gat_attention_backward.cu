@@ -1,4 +1,5 @@
-// Gradient of the fused GATv2 attention stage, f32, for Hopper (sm_90a).
+// Gradient of the fused GATv2 attention stage, f32 and bf16, for Hopper
+// (sm_90a).
 //
 // The gradient of gat_attention.cu's function, which the JAX package
 // computes as the dense VJP of gsc_tpu/ops/pallas_gat.py::_gatv2_pallas_bwd
@@ -48,10 +49,26 @@
 //   counted itself in, so the memory fence waits for the partials alone.
 //   No float atomics: two launches on the same inputs give the same bits.
 //
-// No tensor cores, as the forward: f32, TF32 off.
+// The bf16 form (gat_attention_backward_bf16, template parameter kBf16)
+// is the gradient of gat_attention.cu's bf16 form at that form's own
+// rounding points, each rounding's derivative taken as 1: grad_out, xl
+// and xr arrive in bf16 and are widened to f32 in shared memory; alpha is
+// recomputed in f32 by the forward's own code (the logits of the bf16
+// activations and bf16(att)); dl uses the unrounded alpha and is taken
+// relative to the row's largest weight as in the f32 form; d_att sums dl
+// times the bf16 activations; de = dl bf16(att) LeakyReLU', the slope
+// being 0.2 rounded to bf16; d_xl's aggregation term sums bf16(alpha)
+// g_i / d_i, the weights the forward summed with.  Everything is f32
+// inside, d_xl and d_xr are rounded once to bf16 at the store, d_att and
+// d_bias leave in f32 from their double sums.  Its plain version is
+// gsc_tpu_torch/ops/gat_attention.py::attention_backward_wide (f32).
+//
+// No tensor cores, as the forward: f32 arithmetic, TF32 off.
 //
 // The host function returns the CUDA error of the launch (0 = success);
 // the Python wrapper raises on anything else.
+
+#include <type_traits>
 
 #include "gat_common.cuh"
 
@@ -67,12 +84,15 @@ constexpr int kSumParts = 16;
 // Byte offsets of the dynamic shared memory, each 16-byte aligned;
 // computed on the host and passed by value.
 struct Layout {
-  unsigned xl, xr, g, adj, att, dout, apart, dxr, alpha, dl, deg, sums, bar,
-      total;
+  unsigned xl, xr, g, adj, att, dout, apart, dxr, alpha, dl, deg, sums, hxl,
+      hxr, hg, bar, total;
 };
 
-Layout layout(int n, int f) {
+// bf16: the staging areas hxl, hxr, hg of the bf16 inputs (none in f32,
+// whose layout is the same as without them).
+Layout layout(int n, int f, bool bf16) {
   const size_t fl = sizeof(float);
+  const size_t half = bf16 ? align16(static_cast<size_t>(n) * f * 2) : 0;
   const int np = round4(n);
   const size_t feat = align16(static_cast<size_t>(n) * f * fl);
   const size_t pair = static_cast<size_t>(n) * np * fl;
@@ -102,6 +122,12 @@ Layout layout(int n, int f) {
   o += align16(n * sizeof(int));
   l.sums = o;    // [2 f][kSumParts] doubles: partial sums in a fixed order
   o += align16(2 * f * kSumParts * sizeof(double));
+  l.hxl = o;     // [n][f] bf16
+  o += half;
+  l.hxr = o;     // [n][f] bf16
+  o += half;
+  l.hg = o;      // [n][f] bf16
+  o += half;
   l.bar = o;
   l.total = o + 16;
   return l;
@@ -144,14 +170,18 @@ __device__ __forceinline__ float dot(const float* u, const float* w, int f) {
   return (c0 + c1) + (c2 + c3);
 }
 
+template <bool kBf16>
+using Feat = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
+
+template <bool kBf16>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-gat_attention_backward_kernel(const float* __restrict__ grad,
-                              const float* __restrict__ xl,
-                              const float* __restrict__ xr,
+gat_attention_backward_kernel(const Feat<kBf16>* __restrict__ grad,
+                              const Feat<kBf16>* __restrict__ xl,
+                              const Feat<kBf16>* __restrict__ xr,
                               const float* __restrict__ att,
                               const unsigned char* __restrict__ adj,
-                              float* __restrict__ d_xl,
-                              float* __restrict__ d_xr,
+                              Feat<kBf16>* __restrict__ d_xl,
+                              Feat<kBf16>* __restrict__ d_xr,
                               float* __restrict__ d_att,
                               float* __restrict__ d_bias,
                               double* __restrict__ partials,
@@ -175,25 +205,42 @@ gat_attention_backward_kernel(const float* __restrict__ grad,
   __shared__ bool s_last;
   GAT_CLOCK(0);
 
+  __nv_bfloat16* s_hxl = reinterpret_cast<__nv_bfloat16*>(smem + L.hxl);
+  __nv_bfloat16* s_hxr = reinterpret_cast<__nv_bfloat16*>(smem + L.hxr);
+  __nv_bfloat16* s_hg = reinterpret_cast<__nv_bfloat16*>(smem + L.hg);
+
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nf = n * f;
-  const uint32_t feat_bytes = static_cast<uint32_t>(nf * sizeof(float));
+  const uint32_t feat_bytes =
+      static_cast<uint32_t>(nf * sizeof(Feat<kBf16>));
+  // bf16 inputs land in the staging areas, f32 ones where they are used
+  const auto dst = [](void* h, float* w) {
+    return kBf16 ? h : static_cast<void*>(w);
+  };
   const Block blocks[4] = {
-      {s_xl, xl + static_cast<size_t>(b) * nf, feat_bytes},
-      {s_xr, xr + static_cast<size_t>(b) * nf, feat_bytes},
-      {s_g, grad + static_cast<size_t>(b) * nf, feat_bytes},
+      {dst(s_hxl, s_xl), xl + static_cast<size_t>(b) * nf, feat_bytes},
+      {dst(s_hxr, s_xr), xr + static_cast<size_t>(b) * nf, feat_bytes},
+      {dst(s_hg, s_g), grad + static_cast<size_t>(b) * nf, feat_bytes},
       {s_adj, adj + static_cast<size_t>(b) * n * n,
        static_cast<uint32_t>(n * n)}};
   const uint32_t tx = stage(blocks, bar);
 #pragma unroll 1
-  for (int k = tid; k < f; k += blockDim.x) s_att[k] = att[k];
+  for (int k = tid; k < f; k += blockDim.x)
+    s_att[k] = kBf16 ? round_bf16(att[k]) : att[k];
   __syncthreads();
   if (tx) barrier_wait(bar);
+  if constexpr (kBf16) {
+    widen_bf16(s_xl, s_hxl, nf);
+    widen_bf16(s_xr, s_hxr, nf);
+    widen_bf16(s_g, s_hg, nf);
+    __syncthreads();
+  }
   GAT_CLOCK(1);
 
   // 1. alpha and the degrees, as the forward computes them
-  graph_alpha(s_xl, s_xr, s_att, s_adj, n, np, f, inv_n, s_alpha, s_deg);
+  graph_alpha<kBf16>(s_xl, s_xr, s_att, s_adj, n, np, f, inv_n, s_alpha,
+                     s_deg);
   GAT_CLOCK(2);
 
   // 2. the output gradient g_i / d_i (0 on a row without a neighbour), and
@@ -274,9 +321,12 @@ gat_attention_backward_kernel(const float* __restrict__ grad,
 
   // 5. d_xr and the d_att terms by (i, f), summed over j; d_xl by (j, f),
   //    summed over i; two independent partial sums each.  d_xr and d_xl
-  //    wait in shared memory (d_xl where g was) until the partials are out
+  //    wait in shared memory (d_xl where g was) until the partials are out.
+  //    In bf16, act() and slope_times() are the bf16 activation and slope,
+  //    and d_xl's aggregation term sums bf16(alpha)
   float* s_dxl = s_g;
   float* s_dxr = reinterpret_cast<float*>(smem + L.dxr);
+  const auto w = [](float a) { return kBf16 ? round_bf16(a) : a; };
 #pragma unroll 1
   for (int t = tid; t < 2 * nf; t += blockDim.x) {
     if (t < nf) {
@@ -289,15 +339,15 @@ gat_attention_backward_kernel(const float* __restrict__ grad,
 #pragma unroll 1
       for (; j + 1 < n; j += 2) {
         const float e0 = x[j * f] + xr_ik, e1 = x[(j + 1) * f] + xr_ik;
-        r0 += e0 >= 0.f ? dl_i[j] : kSlope * dl_i[j];
-        r1 += e1 >= 0.f ? dl_i[j + 1] : kSlope * dl_i[j + 1];
-        a0 = fmaf(dl_i[j], leaky(e0), a0);
-        a1 = fmaf(dl_i[j + 1], leaky(e1), a1);
+        r0 += slope_times<kBf16>(e0, dl_i[j]);
+        r1 += slope_times<kBf16>(e1, dl_i[j + 1]);
+        a0 = fmaf(dl_i[j], act<kBf16>(e0), a0);
+        a1 = fmaf(dl_i[j + 1], act<kBf16>(e1), a1);
       }
       if (j < n) {
         const float e0 = x[j * f] + xr_ik;
-        r0 += e0 >= 0.f ? dl_i[j] : kSlope * dl_i[j];
-        a0 = fmaf(dl_i[j], leaky(e0), a0);
+        r0 += slope_times<kBf16>(e0, dl_i[j]);
+        a0 = fmaf(dl_i[j], act<kBf16>(e0), a0);
       }
       s_dxr[t] = s_att[k] * (r0 + r1);
       s_apart[t] = a0 + a1;
@@ -313,16 +363,16 @@ gat_attention_backward_kernel(const float* __restrict__ grad,
       for (; i + 1 < n; i += 2) {
         const float e0 = xl_jk + xr_k[i * f], e1 = xl_jk + xr_k[(i + 1) * f];
         const float l0 = s_dl[i * np + j], l1 = s_dl[(i + 1) * np + j];
-        s0 = fmaf(s_alpha[i * np + j], do_k[i * f], s0);
-        s1 = fmaf(s_alpha[(i + 1) * np + j], do_k[(i + 1) * f], s1);
-        r0 += e0 >= 0.f ? l0 : kSlope * l0;
-        r1 += e1 >= 0.f ? l1 : kSlope * l1;
+        s0 = fmaf(w(s_alpha[i * np + j]), do_k[i * f], s0);
+        s1 = fmaf(w(s_alpha[(i + 1) * np + j]), do_k[(i + 1) * f], s1);
+        r0 += slope_times<kBf16>(e0, l0);
+        r1 += slope_times<kBf16>(e1, l1);
       }
       if (i < n) {
         const float e0 = xl_jk + xr_k[i * f];
         const float l0 = s_dl[i * np + j];
-        s0 = fmaf(s_alpha[i * np + j], do_k[i * f], s0);
-        r0 += e0 >= 0.f ? l0 : kSlope * l0;
+        s0 = fmaf(w(s_alpha[i * np + j]), do_k[i * f], s0);
+        r0 += slope_times<kBf16>(e0, l0);
       }
       s_dxl[v] = (s0 + s1) + s_att[k] * (r0 + r1);
     }
@@ -352,13 +402,19 @@ gat_attention_backward_kernel(const float* __restrict__ grad,
   __syncthreads();
   if (tid == 0) s_last = atomicAdd(counter, 1u) == gridDim.x - 1;
 
-  // 7. d_xl and d_xr out (coalesced); no other CTA reads them
-  float* d_xl_b = d_xl + static_cast<size_t>(b) * nf;
-  float* d_xr_b = d_xr + static_cast<size_t>(b) * nf;
+  // 7. d_xl and d_xr out (coalesced; rounded once to bf16 in the bf16
+  //    form); no other CTA reads them
+  Feat<kBf16>* d_xl_b = d_xl + static_cast<size_t>(b) * nf;
+  Feat<kBf16>* d_xr_b = d_xr + static_cast<size_t>(b) * nf;
 #pragma unroll 1
   for (int t = tid; t < nf; t += blockDim.x) {
-    d_xl_b[t] = s_dxl[t];
-    d_xr_b[t] = s_dxr[t];
+    if constexpr (kBf16) {
+      d_xl_b[t] = __float2bfloat16_rn(s_dxl[t]);
+      d_xr_b[t] = __float2bfloat16_rn(s_dxr[t]);
+    } else {
+      d_xl_b[t] = s_dxl[t];
+      d_xr_b[t] = s_dxr[t];
+    }
   }
   __syncthreads();
   GAT_CLOCK(6);
@@ -395,36 +451,71 @@ gat_attention_backward_kernel(const float* __restrict__ grad,
 
 extern "C" {
 
-// Dynamic shared memory of one launch, in bytes.
-long long gat_attention_backward_smem_bytes(int n, int f) {
-  return static_cast<long long>(layout(n, f).total);
+// Dynamic shared memory of one launch, in bytes (bf16: the bf16 form).
+long long gat_attention_backward_smem_bytes(int n, int f, int bf16) {
+  return static_cast<long long>(layout(n, f, bf16 != 0).total);
 }
 
-// Launch on `stream`.  d_att and d_bias [f]; partials [batch, 2 f] doubles
-// (8-byte aligned); counter one unsigned int that is 0 between launches.
-// Returns the cudaError_t of the launch, 0 on success.
+}  // extern "C"
+
+namespace {
+
+template <bool kBf16>
+int launch(const Feat<kBf16>* grad, const Feat<kBf16>* xl,
+           const Feat<kBf16>* xr, const float* att, const void* adj,
+           Feat<kBf16>* d_xl, Feat<kBf16>* d_xr, float* d_att, float* d_bias,
+           void* partials, void* counter, int batch, int n, int f,
+           int mean_aggr, void* stream) {
+  const Layout L = layout(n, f, kBf16);
+  if (L.total > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gat_attention_backward_kernel<kBf16>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L.total));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (batch == 0) return 0;
+  gat_attention_backward_kernel<kBf16>
+      <<<batch, warps_for(n) * 32, L.total,
+         static_cast<cudaStream_t>(stream)>>>(
+          grad, xl, xr, att, static_cast<const unsigned char*>(adj), d_xl,
+          d_xr, d_att, d_bias, static_cast<double*>(partials),
+          static_cast<unsigned int*>(counter), L, n, f, mean_aggr,
+          1.f / static_cast<float>(n), 1.f / static_cast<float>(f));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch on `stream`.  d_att and d_bias [f] f32; partials [batch, 2 f]
+// doubles (8-byte aligned); counter one unsigned int that is 0 between
+// launches.  Returns the cudaError_t of the launch, 0 on success.
 int gat_attention_backward_f32(const float* grad, const float* xl,
                                const float* xr, const float* att,
                                const void* adj, float* d_xl, float* d_xr,
                                float* d_att, float* d_bias, void* partials,
                                void* counter, int batch, int n, int f,
                                int mean_aggr, void* stream) {
-  const Layout L = layout(n, f);
-  if (L.total > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gat_attention_backward_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(L.total));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  if (batch == 0) return 0;
-  gat_attention_backward_kernel<<<batch, warps_for(n) * 32, L.total,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      grad, xl, xr, att, static_cast<const unsigned char*>(adj), d_xl, d_xr,
-      d_att, d_bias, static_cast<double*>(partials),
-      static_cast<unsigned int*>(counter), L, n, f, mean_aggr,
-      1.f / static_cast<float>(n), 1.f / static_cast<float>(f));
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(grad, xl, xr, att, adj, d_xl, d_xr, d_att, d_bias,
+                       partials, counter, batch, n, f, mean_aggr, stream);
+}
+
+// The bf16 form: grad, xl, xr, d_xl and d_xr bf16 (torch.bfloat16); att,
+// d_att and d_bias f32.
+int gat_attention_backward_bf16(const void* grad, const void* xl,
+                                const void* xr, const float* att,
+                                const void* adj, void* d_xl, void* d_xr,
+                                float* d_att, float* d_bias, void* partials,
+                                void* counter, int batch, int n, int f,
+                                int mean_aggr, void* stream) {
+  using bf = __nv_bfloat16;
+  return launch<true>(static_cast<const bf*>(grad),
+                      static_cast<const bf*>(xl), static_cast<const bf*>(xr),
+                      att, adj, static_cast<bf*>(d_xl), static_cast<bf*>(d_xr),
+                      d_att, d_bias, partials, counter, batch, n, f,
+                      mean_aggr, stream);
 }
 
 const char* gat_attention_backward_error_string(int code) {

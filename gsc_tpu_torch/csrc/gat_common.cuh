@@ -4,6 +4,14 @@
 // and the attention weights of a graph, which both kernels compute with the
 // same code, so the backward's weights are the forward's bit for bit.
 //
+// Both kernels come in an f32 and a bf16 form (template parameter kBf16).
+// The bf16 form stages the bf16 features, widens them to f32 in shared
+// memory (exact), and rounds where the JAX package's bf16 branch of
+// attention_dense rounds: the pairwise features e = bf16(xl_j + xr_i) and
+// their LeakyReLU, bf16(kSlopeBf16 * e), are bf16 (act()), att enters as
+// bf16(att), every product of two bf16 values is exact in f32, and the
+// logits, the softmax and all sums are f32.
+//
 // A build with -DGAT_STAGE_CLOCKS records thread 0's clock64() of block 0
 // at the kernels' stage barriers (read by the host functions
 // gat_attention_stage_clocks and gat_attention_backward_stage_clocks), to
@@ -12,6 +20,7 @@
 // later stages in 3 to 6.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -22,6 +31,9 @@ namespace gat {
 constexpr int kMaxWarps = 32;
 constexpr float kNegInf = -1e30f;
 constexpr float kSlope = 0.2f;
+// 0.2 rounded to bf16: the slope of the bf16 LeakyReLU, as the JAX
+// package's weak-typed 0.2 becomes against bf16 features
+constexpr float kSlopeBf16 = 0.2001953125f;
 constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ inline size_t align16(size_t x) {
@@ -56,6 +68,41 @@ __device__ long long g_stage_clocks[kStageClocks];
 // and 0.2 e below, as where(e >= 0, e, 0.2 e).
 __device__ __forceinline__ float leaky(float e) {
   return fmaxf(e, kSlope * e);
+}
+
+// x rounded to the nearest bf16 (ties to even), back in f32.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The activation of a pairwise sum s = xl_jf + xr_if: LeakyReLU(s) in f32;
+// in bf16 e = bf16(s) (s is the exact sum of two bf16 values rounded once
+// to f32, and rounding it again to bf16 gives the correctly rounded bf16
+// sum), then e or bf16(kSlopeBf16 * e), whose product is exact in f32.
+template <bool kBf16>
+__device__ __forceinline__ float act(float s) {
+  if constexpr (kBf16) {
+    const float e = round_bf16(s);
+    return e >= 0.f ? e : round_bf16(kSlopeBf16 * e);
+  } else {
+    return leaky(s);
+  }
+}
+
+// LeakyReLU'(s) times v: v where s >= 0 (the bf16 sum has the f32 sum's
+// sign), the slope times v below.
+template <bool kBf16>
+__device__ __forceinline__ float slope_times(float s, float v) {
+  return s >= 0.f ? v : (kBf16 ? kSlopeBf16 : kSlope) * v;
+}
+
+// count bf16 values at src (shared) widened to f32 at dst (shared), all
+// threads of the block; the caller synchronises.
+__device__ inline void widen_bf16(float* dst, const __nv_bfloat16* src,
+                                  int count) {
+#pragma unroll 1
+  for (int t = threadIdx.x; t < count; t += blockDim.x)
+    dst[t] = __bfloat162float(src[t]);
 }
 
 // The largest of the warp's values in one integer reduction: a float's
@@ -173,11 +220,13 @@ __device__ inline uint32_t stage(const Block (&blocks)[count], uint64_t* bar) {
   return tx;
 }
 
-// The logit of pair (i, j): sum_f att_f LeakyReLU(xl_jf + xr_if) over rows
+// The logit of pair (i, j): sum_f att_f act(xl_jf + xr_if) over rows
 // xl_j, xr_i and att of f floats, in four independent partial sums added
 // as (c0 + c1) + (c2 + c3).  For even f the rows are 8-byte aligned and
 // read as float2 (threads over consecutive j read xl in two conflict-free
-// wavefronts when f / 2 is odd, as at f = 22).
+// wavefronts when f / 2 is odd, as at f = 22).  In bf16, att holds
+// bf16(att), so each product is exact.
+template <bool kBf16>
 __device__ __forceinline__ float logit(const float* xl_j, const float* xr_i,
                                        const float* att, int f) {
   float c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f;
@@ -192,27 +241,27 @@ __device__ __forceinline__ float logit(const float* xl_j, const float* xr_i,
       const float2 x0 = x2[q], x1 = x2[q + 1];
       const float2 r0 = r2[q], r1 = r2[q + 1];
       const float2 a0 = a2[q], a1 = a2[q + 1];
-      c0 = fmaf(leaky(x0.x + r0.x), a0.x, c0);
-      c1 = fmaf(leaky(x0.y + r0.y), a0.y, c1);
-      c2 = fmaf(leaky(x1.x + r1.x), a1.x, c2);
-      c3 = fmaf(leaky(x1.y + r1.y), a1.y, c3);
+      c0 = fmaf(act<kBf16>(x0.x + r0.x), a0.x, c0);
+      c1 = fmaf(act<kBf16>(x0.y + r0.y), a0.y, c1);
+      c2 = fmaf(act<kBf16>(x1.x + r1.x), a1.x, c2);
+      c3 = fmaf(act<kBf16>(x1.y + r1.y), a1.y, c3);
     }
     if (q < h) {
       const float2 x0 = x2[q], r0 = r2[q], a0 = a2[q];
-      c0 = fmaf(leaky(x0.x + r0.x), a0.x, c0);
-      c1 = fmaf(leaky(x0.y + r0.y), a0.y, c1);
+      c0 = fmaf(act<kBf16>(x0.x + r0.x), a0.x, c0);
+      c1 = fmaf(act<kBf16>(x0.y + r0.y), a0.y, c1);
     }
   } else {
     int k = 0;
 #pragma unroll 1
     for (; k + 3 < f; k += 4) {
-      c0 = fmaf(leaky(xl_j[k] + xr_i[k]), att[k], c0);
-      c1 = fmaf(leaky(xl_j[k + 1] + xr_i[k + 1]), att[k + 1], c1);
-      c2 = fmaf(leaky(xl_j[k + 2] + xr_i[k + 2]), att[k + 2], c2);
-      c3 = fmaf(leaky(xl_j[k + 3] + xr_i[k + 3]), att[k + 3], c3);
+      c0 = fmaf(act<kBf16>(xl_j[k] + xr_i[k]), att[k], c0);
+      c1 = fmaf(act<kBf16>(xl_j[k + 1] + xr_i[k + 1]), att[k + 1], c1);
+      c2 = fmaf(act<kBf16>(xl_j[k + 2] + xr_i[k + 2]), att[k + 2], c2);
+      c3 = fmaf(act<kBf16>(xl_j[k + 3] + xr_i[k + 3]), att[k + 3], c3);
     }
 #pragma unroll 1
-    for (; k < f; ++k) c0 = fmaf(leaky(xl_j[k] + xr_i[k]), att[k], c0);
+    for (; k < f; ++k) c0 = fmaf(act<kBf16>(xl_j[k] + xr_i[k]), att[k], c0);
   }
   return (c0 + c1) + (c2 + c3);
 }
@@ -280,6 +329,7 @@ __device__ inline int row_softmax(float* row, const unsigned char* arow,
 // of every pair, all threads over the flattened pairs t = i n + j (so no
 // lane idles at n = 24 < 32), then the softmax, one warp per target row.
 // xl, xr are [n][f], att [f]; synchronises the block before returning.
+template <bool kBf16>
 __device__ inline void graph_alpha(const float* s_xl, const float* s_xr,
                                    const float* s_att,
                                    const unsigned char* s_adj, int n, int np,
@@ -288,7 +338,7 @@ __device__ inline void graph_alpha(const float* s_xl, const float* s_xr,
 #pragma unroll 1
   for (int t = threadIdx.x; t < n * n; t += blockDim.x) {
     const int i = div_floor(t, inv_n), j = t - i * n;
-    const float l = logit(s_xl + j * f, s_xr + i * f, s_att, f);
+    const float l = logit<kBf16>(s_xl + j * f, s_xr + i * f, s_att, f);
     alpha[i * np + j] = s_adj[t] ? l : kNegInf;
   }
   __syncthreads();

@@ -22,8 +22,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                 "PyTorch versions on the CPU")
         # The JAX reference runs its matmuls at "highest" precision, so the
         # port keeps TF32 off for matmuls and cuDNN alike: f32 stays f32.
+        # A bf16 GEMM, should one run, reduces in f32 as the JAX package's
+        # preferred_element_type=float32 contractions do.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev

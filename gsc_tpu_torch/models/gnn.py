@@ -11,14 +11,22 @@ masked [N, N] softmax over every graph of the batch at once.
 attention kernel (``ops.gat_attention``): the CUDA kernel, differentiated
 by its backward kernel, on CUDA tensors; its plain version, differentiated
 by autograd, on CPU tensors.
+
+``compute_dtype`` (``PrecisionPolicy.gnn_dtype``): None runs the f32 code
+verbatim; "bfloat16" projects into bf16 features (``ops.gat.project``) and
+runs the attention stage in bf16 (the bf16 kernel on the card), with the
+parameters kept as f32 masters and cast at use.  The readout accumulates
+in f32 either way.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from ..ops.gat import attention_dense, dense_adj, project
-from ..ops.gat_attention import gat_attention
+from ..ops.gat_attention import attention_op
 from .init import glorot_uniform_
 
 
@@ -27,7 +35,8 @@ class GATv2Conv(nn.Module):
     [F, F_in])."""
 
     def __init__(self, in_features: int, features: int,
-                 mean_aggr: bool = True, impl: str = "dense"):
+                 mean_aggr: bool = True, impl: str = "dense",
+                 compute_dtype: Optional[str] = None):
         super().__init__()
         if impl not in ("dense", "pallas"):
             raise ValueError(f"unknown GATv2 impl {impl!r}")
@@ -35,6 +44,7 @@ class GATv2Conv(nn.Module):
         self.features = features
         self.mean_aggr = mean_aggr
         self.impl = impl
+        self.compute_dtype = compute_dtype
         self.lin_l = nn.utils.skip_init(nn.Linear, in_features, features)
         self.lin_r = nn.utils.skip_init(nn.Linear, in_features, features)
         self.att = nn.Parameter(torch.empty(features))
@@ -49,19 +59,22 @@ class GATv2Conv(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
-        xl = project(x, self.lin_l.weight, self.lin_l.bias)
-        xr = project(x, self.lin_r.weight, self.lin_r.bias)
+        cd = self.compute_dtype
+        xl = project(x, self.lin_l.weight, self.lin_l.bias, cd)
+        xr = project(x, self.lin_r.weight, self.lin_r.bias, cd)
         if self.impl == "pallas":
-            return gat_attention(xl, xr, self.att, self.bias, adj,
-                                 self.mean_aggr)
+            return attention_op(xl.dtype)(xl, xr, self.att, self.bias, adj,
+                                          self.mean_aggr)
         return attention_dense(xl, xr, self.att, self.bias, adj,
                                self.mean_aggr)
 
 
 def masked_mean_pool(x: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
-    """Mean over real nodes: [..., N, F] -> [..., F]."""
-    m = node_mask.to(x.dtype)[..., None]
-    return (x * m).sum(dim=-2) / m.sum(dim=-2).clamp(min=1.0)
+    """Mean over real nodes: [..., N, F] -> [..., F], accumulated in f32
+    (bf16 activations are widened first; f32 ones are taken as they are)."""
+    xf = x.float()
+    m = node_mask.to(xf.dtype)[..., None]
+    return (xf * m).sum(dim=-2) / m.sum(dim=-2).clamp(min=1.0)
 
 
 class GNNEmbedder(nn.Module):
@@ -70,13 +83,15 @@ class GNNEmbedder(nn.Module):
 
     def __init__(self, in_features: int, hidden: int = 22,
                  num_layers: int = 2, num_iter: int = 2,
-                 mean_aggr: bool = True, impl: str = "dense"):
+                 mean_aggr: bool = True, impl: str = "dense",
+                 compute_dtype: Optional[str] = None):
         super().__init__()
         self.num_layers = num_layers
         self.num_iter = num_iter
-        self.encoder = GATv2Conv(in_features, hidden, mean_aggr, impl)
+        self.encoder = GATv2Conv(in_features, hidden, mean_aggr, impl,
+                                 compute_dtype)
         self.process = nn.ModuleList(
-            GATv2Conv(hidden, hidden, mean_aggr, impl)
+            GATv2Conv(hidden, hidden, mean_aggr, impl, compute_dtype)
             for _ in range(num_layers - 1))
 
     def reset_parameters(self, generator: torch.Generator):

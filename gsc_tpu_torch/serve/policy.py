@@ -8,7 +8,9 @@ repeating the last real request.  ``GreedyServePolicy`` runs
 ``DDPG.greedy_action`` on one such bucket as one eager batched call; rows
 never interact, so an answer does not depend on its batch-mates.  There is
 no ahead-of-time export: the server warms each bucket once at start, so
-the kernel build and the first launch happen before any request.
+the kernel build and the first launch happen before any request.  The
+template's leaves are the env's f32 observations under every precision
+policy: a bf16 actor casts its inputs inside.
 """
 from __future__ import annotations
 

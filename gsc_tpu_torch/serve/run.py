@@ -1,11 +1,13 @@
 """``run_serve``: the body of ``cli serve`` for the port.
 
 Builds the env, rolls a pool of real graph observations under the uniform
-schedule, starts the learned serving tier with actor weights drawn from a
-seeded ``torch.Generator``, fires ``requests`` closed-loop requests from
-``concurrency`` client threads, and reports requests/s and p50/p99
-latency.  Everything runs on ``device`` (the card unless the caller asks
-for the CPU).
+schedule, starts the learned serving tier with the actor of a checkpoint
+(``train --checkpoint``, under the precision policy its sidecar records)
+or actor weights drawn from a seeded ``torch.Generator``, fires
+``requests`` closed-loop requests from ``concurrency`` client threads, and
+reports requests/s and p50/p99 latency.  Requests keep f32 observation
+leaves whatever the policy: a bf16 actor casts inside.  Everything runs on
+``device`` (the card unless the caller asks for the CPU).
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ import torch
 
 from ..agents.ddpg import DDPG
 from ..config.catalog import abc_service, init_configs_agent, init_configs_sim
-from ..config.schema import AgentConfig, EnvLimits, ServiceConfig, SimConfig
+from ..config.schema import (AgentConfig, EnvLimits, ServiceConfig,
+                             SimConfig, replace)
 from ..device import resolve_device
 from ..env.env import ServiceCoordEnv
 from ..env.observations import GraphObs
@@ -28,6 +31,7 @@ from ..obs.hub import MetricsHub
 from ..sim.traffic import generate_traffic
 from ..topology import synthetic
 from ..topology.compiler import NetworkSpec, compile_topology
+from ..utils.checkpoint import checkpoint_precision, load_actor_state
 from .policy import GreedyServePolicy
 from .server import PolicyServer
 
@@ -86,14 +90,20 @@ def run_serve(agent: Optional[AgentConfig] = None,
               pool_steps: int = 8, requests: int = 64, concurrency: int = 4,
               buckets: Sequence[int] = (1, 4, 8), deadline_ms: float = 5.0,
               max_nodes: int = 24, max_edges: int = 37,
-              request_timeout: float = 120.0, device=None) -> ServeReport:
+              request_timeout: float = 120.0, device=None,
+              checkpoint: Optional[str] = None) -> ServeReport:
     """Serve ``requests`` greedy-policy requests; defaults are the
     ``init-configs`` flagship (Abilene, abc chain, GATv2 22x2x2 with the
-    fused attention kernel, actor hidden 256)."""
+    fused attention kernel, actor hidden 256).  With ``checkpoint`` the
+    actor's weights are that checkpoint's and the agent takes the
+    precision policy its sidecar records; else they are drawn from
+    ``seed``."""
     if requests < 1 or concurrency < 1:
         raise ValueError("requests and concurrency must be positive")
     dev = resolve_device(device)
     agent = agent if agent is not None else init_configs_agent(gnn_impl="pallas")
+    if checkpoint is not None:
+        agent = replace(agent, precision=checkpoint_precision(checkpoint))
     sim_cfg = sim_cfg if sim_cfg is not None else init_configs_sim()
     service = service if service is not None else abc_service()
     spec = spec if spec is not None else synthetic.abilene()
@@ -118,7 +128,11 @@ def run_serve(agent: Optional[AgentConfig] = None,
         pool.append(host_obs(ob))
 
     ddpg = DDPG(env, agent, device=dev)
-    ddpg.init(torch.Generator().manual_seed(seed))
+    if checkpoint is not None:
+        ddpg.actor.load_state_dict(load_actor_state(checkpoint))
+        ddpg.actor.to(dev)
+    else:
+        ddpg.init(torch.Generator().manual_seed(seed))
     hub = MetricsHub()
     server = PolicyServer(GreedyServePolicy(ddpg, pool[0]), buckets=buckets,
                           deadline_ms=deadline_ms, hub=hub).start()

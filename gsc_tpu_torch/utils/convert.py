@@ -14,7 +14,10 @@ name it for each network):
 It raises on a leaf it does not use and on a leaf the port needs that the
 tree lacks.  ``learner_state_from_jax`` carries a whole DDPG learner state
 (both networks, both targets and both Adam states) into a port
-``DDPGState``.  Nothing here imports JAX.
+``DDPGState``.  Every leaf becomes an f32 master whatever the precision
+policy (flax keeps f32 parameters under "bf16" too, and a leaf stored in
+another float dtype is widened): the networks cast at use, and no bf16
+copy of the weights exists.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
         if isinstance(v, Mapping):
             out.update(_flatten(v, prefix + (k,)))
         else:
-            out[prefix + (k,)] = np.asarray(v)
+            out[prefix + (k,)] = np.asarray(v, dtype=np.float32)
     return out
 
 

@@ -27,20 +27,45 @@ its error scales with the tensor, not with the entry: the plain version
 lies up to ~5e-5 from a float64 evaluation on d_att entries of ~100 at
 (100, 24, 22), and an entry near 0 carries as much.  ``d_xr`` of a row
 without a neighbour must be exactly zero.
+
+The bf16 kernels (``gat_attention_bf16``, ``gat_attention_backward_bf16``)
+take bf16 features and round where their plain versions round
+(``ops.gat.attention_bf16``, ``attention_backward_wide``); their sums run
+in another order.  Tolerance of a bf16 output (the forward's, d_xl, d_xr):
+one bf16 ulp at the tensor's largest entry (2^(e-7) for a largest entry
+in [2^e, 2^(e+1))).  Two f32 values a rounding apart may round to
+neighbouring bf16 values, and a weight alpha_ij a rounding apart may round
+to a neighbouring bf16 weight, which moves an output by at most 2^-9 of
+an xl entry.  Each such output must also lie no further from a float64
+evaluation at the same rounding points than twice the plain version's
+distance (floored at a quarter of that ulp).  d_xl and d_xr also keep the
+f32 backward's absolute floor (BWD_ATOL, and F64_FLOOR for the float64
+comparison): where the softmax saturates, d_xr is ~1e-12 everywhere, the
+f32 rounding of dl, and one ulp at its largest entry lies below that
+(on an NVIDIA H100: 6.5e-13 against an ulp of 7.1e-15).  d_att and
+d_bias are f32 sums, held as the f32 kernel's.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
 
+from gsc_tpu_torch.ops.gat import attention_bf16
 from gsc_tpu_torch.ops.gat_attention import (GatAttention,
                                              GatAttentionBackward,
                                              attention_backward_plain,
-                                             attention_plain, gat_attention,
-                                             gat_attention_backward)
+                                             attention_backward_wide,
+                                             attention_op, attention_plain,
+                                             backward_op, gat_attention,
+                                             gat_attention_backward,
+                                             gat_attention_backward_bf16,
+                                             gat_attention_bf16)
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-5
 BWD_SCALE, BWD_ATOL = 1e-5, 1e-5
+F64_FLOOR = 1e-7
 # (lead, N, F) of the backward's cases: N = 5 tiny, the flagship's 24,
 # and 40 > 32 (more than one warp of source nodes per row)
 BWD_CASES = [(lead, n, f) for lead in [(), (3,), (2, 3)]
@@ -212,6 +237,128 @@ def test_backward_kernel_relaunch_is_bit_identical():
         args = _card_backward_inputs(lead, 24, 22, seed=5)
         first = gat_attention_backward.launch(*args, True)
         again = gat_attention_backward.launch(*args, True)
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------- bf16
+def bf16_ulp(t: torch.Tensor) -> float:
+    """One bf16 ulp at the largest magnitude of ``t``."""
+    m = float(t.abs().max())
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 2.0 ** -133
+
+
+def _bf16(args):
+    xl, xr = args[0], args[1]
+    return [xl.bfloat16(), xr.bfloat16(), *args[2:]]
+
+
+def test_bf16_wrappers_on_cpu_run_plain_and_count_nothing():
+    t = torch.from_numpy
+    xl, xr, att, bias, adj = _bf16([t(a) for a in
+                                    make_inputs((2,), 24, 22, seed=7)])
+    assert attention_op(torch.bfloat16) is gat_attention_bf16
+    assert attention_op(torch.float32) is gat_attention
+    assert backward_op(torch.bfloat16) is gat_attention_backward_bf16
+    op = GatAttention(dtype=torch.bfloat16)
+    out = op(xl, xr, att, bias, adj, True)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, attention_plain(xl, xr, att, bias, adj, True))
+    grad = torch.randn(xl.shape, generator=torch.Generator().manual_seed(0)
+                       ).bfloat16()
+    bop = GatAttentionBackward(dtype=torch.bfloat16)
+    got = bop(grad, xl, xr, att, adj, True)
+    assert [g.dtype for g in got] == [torch.bfloat16] * 2 + [torch.float32] * 2
+    for g, w in zip(got, attention_backward_plain(grad, xl, xr, att, adj,
+                                                  True)):
+        assert torch.equal(g, w)
+    assert op.launches == bop.launches == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        op.launch(xl, xr, att, bias, adj, True)
+    with pytest.raises(TypeError):
+        GatAttention(dtype=torch.float16)
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_matches_plain_on_card():
+    """The bf16 forward kernel against ``attention_plain`` (its bf16
+    branch) on the card: within one bf16 ulp of each tensor's largest
+    entry, and no further from float64 than twice the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (the kernel has no CPU "
+                    "mode; its plain version is tested in "
+                    "tests/test_torch_precision.py)")
+    for lead, n, f in [((1,), 24, 22), ((8,), 24, 22), ((100,), 24, 22),
+                       ((4,), 64, 22), ((3,), 5, 3)]:
+        for mean in (True, False):
+            args = _bf16([torch.from_numpy(a).cuda()
+                          for a in make_inputs(lead, n, f, seed=n + f,
+                                               n_pad=1 if n < 8 else 3,
+                                               n_isolated=1 if n < 8 else 2)])
+            before = gat_attention_bf16.launches
+            got = gat_attention_bf16(*args, mean)
+            torch.cuda.synchronize()
+            assert gat_attention_bf16.launches == before + 1
+            assert got.dtype == torch.bfloat16
+            want = attention_plain(*args, mean)
+            ulp = bf16_ulp(want.float())
+            err = float((got.float() - want.float()).abs().max())
+            assert err <= ulp, (lead, n, f, mean, err, ulp)
+            ref = attention_bf16(*args, mean, wide=torch.float64)
+            k64 = float((got.double() - ref).abs().max())
+            p64 = float((want.double() - ref).abs().max())
+            assert k64 <= 2.0 * max(p64, ulp / 4), (lead, n, f, k64, p64)
+            empty = ~args[4].any(dim=-1)
+            assert torch.all(got[empty] == 0)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_kernel_matches_plain_on_card():
+    """The bf16 backward kernel against ``attention_backward_plain`` (its
+    bf16 form) on the card, the saturated learn-burst case included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    cases = [(lead, n, f, False) for lead, n, f in BWD_CASES]
+    cases += [((100,), 24, 22, False), ((100,), 24, 22, True)]
+    for lead, n, f, saturated in cases:
+        for mean in (True, False):
+            grad, xl, xr, att, adj = _card_backward_inputs(
+                lead, n, f, seed=n * 31 + f, saturated=saturated)
+            args = (grad.bfloat16(), xl.bfloat16(), xr.bfloat16(), att, adj)
+            before = gat_attention_backward_bf16.launches
+            got = gat_attention_backward_bf16(*args, mean)
+            torch.cuda.synchronize()
+            assert gat_attention_backward_bf16.launches == before + 1
+            want = attention_backward_plain(*args, mean)
+            ref = attention_backward_wide(*args, mean, torch.float64)
+            for k, (g, w, r) in enumerate(zip(got, want, ref)):
+                assert g.shape == w.shape and g.dtype == w.dtype
+                err = float((g.float() - w.float()).abs().max())
+                if k < 2:
+                    ulp = bf16_ulp(w.float())
+                    assert err <= ulp + BWD_ATOL, (lead, n, f, mean, k, err,
+                                                   ulp)
+                    k64 = float((g.double() - r).abs().max())
+                    p64 = float((w.double() - r).abs().max())
+                    assert k64 <= 2.0 * max(p64, ulp / 4, F64_FLOOR), \
+                        (k, k64, p64)
+                else:
+                    assert err <= BWD_SCALE * float(w.abs().max()) \
+                        + BWD_ATOL, (lead, n, f, mean, k, err)
+            empty = ~adj.any(dim=-1)
+            assert torch.all(got[1][empty] == 0)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_kernel_relaunch_is_bit_identical():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    for lead in [(100,), (2, 3)]:
+        grad, xl, xr, att, adj = _card_backward_inputs(lead, 24, 22, seed=5)
+        args = (grad.bfloat16(), xl.bfloat16(), xr.bfloat16(), att, adj)
+        first = gat_attention_backward_bf16.launch(*args, True)
+        again = gat_attention_backward_bf16.launch(*args, True)
         torch.cuda.synchronize()
         for a, b in zip(first, again):
             assert torch.equal(a, b)
