@@ -61,8 +61,9 @@ Phases (any failure exits non-zero and prints no result line):
    substep) on the card and on CPU copies of the same inputs, over the
    battery of ``gsc_tpu_torch.sim.cases``: the six drop-taxonomy
    scenarios, the WRR-collision triangle, the saturated-link line,
-   fractional data rates and Abilene with 64 replicas under a seeded
-   non-uniform schedule, data rates of a range (1e-30 beside 1e10) whose
+   fractional data rates and Abilene with 64 replicas and with one (the
+   single-env trainer's batch) under a seeded non-uniform schedule, data
+   rates of a range (1e-30 beside 1e10) whose
    admission sums no double holds exactly, and Abilene under heavy
    traffic at 1024 and at 200 flow slots.  Every leaf of state and metrics
    must be bit-equal to the plain version on CPU copies of the inputs,
@@ -91,7 +92,9 @@ Phases (any failure exits non-zero and prints no result line):
    every replay shard must hold min(400, mem_limit // 64) transitions, the
    megakernel must launch once per env step, the attention kernel 3 times
    per acting rollout step plus 15 times per gradient step (critic loss:
-   target actor, target critic, critic; actor loss: actor, critic), its
+   target actor, target critic, critic; actor loss: actor, critic) plus 3
+   times per step of the greedy evaluation episode that ends every
+   ``train`` (on one env; the megakernel once per step there too), its
    backward kernel 6 times per gradient step (the critic's 3 convs in the
    critic loss, the actor's 3 in the actor loss; the critic's GNN is not
    differentiated in the actor loss) and never while acting, and on one
@@ -138,10 +141,39 @@ Phases (any failure exits non-zero and prints no result line):
    call within ANSWER_BF16_RTOL / ANSWER_BF16_ATOL outside rows with a
    value within THRESH_BF16_TOL of the threshold; prints requests/s and
    p50/p99;
-12. a JSON line of the kernels (name, route, source, the TPU kernel it
-   replaces, launches on the training path of its dtype, max abs error,
-   ms, plain ms, bound ms and what bounds it, library ms);
-13. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+12. (printed after phase 13, whose launches it counts too) a JSON line
+   of the kernels (name, route, source, the TPU kernel it replaces,
+   launches summed over the training runs of phases 8, 10 and 13, max abs
+   error, ms, plain ms, bound ms and what bounds it, library ms);
+13. the generalization slice, the reference's own training path at the
+   flagship widths: ``cli.init_configs`` writes the yaml set and the
+   GraphML networks with the port's writer (bteurope-in2 must read back
+   as 24 nodes, 37 edges and caps in 1-2); ``cli.run_train --scheduler
+   --replicas 1`` trains one env for 3 episodes on a schedule of
+   abilene-in4 and claranet-in4-cap1 switching every episode, each
+   episode ending in a 200-step learn burst, and evaluates greedily on
+   compuserve-in4-cap1, which no episode trained on.  With every count 0
+   before it: the megakernel once per env and evaluation step (at B=1),
+   the attention kernel 3 times per acting and evaluation step at B=1 and
+   15 times per gradient step at B=100, its backward 6 times per gradient
+   step, no bf16 kernel; returns and losses finite, every parameter
+   moved, the replay's ``topo_idx`` naming each episode's network, the
+   checkpoint's sidecar its episode count.  Then 2 episodes, a
+   checkpoint and ``--resume`` to 3 must give the straight run's tensors
+   (networks, targets, Adam states, replay leaves, pos/size, the Draws
+   generator state) under ``torch.equal``, bit for bit; ``cli.run_infer``
+   on the straight run's checkpoint must reproduce its evaluation
+   exactly.  Prints the single-env rollout's env-steps/s, each
+   learn burst's seconds, the evaluation's ``compile_warmup_s`` /
+   ``steady_s``, the checkpoint's save and load seconds, the launch
+   counts per batch shape, and where a single-env step goes: 20 acting
+   steps under ``torch.profiler`` (wall and device time per step, the
+   megakernel's part, kernel launches and device-to-host reads per step),
+   the last of whose megakernel launches (B=1, on the trained policy's
+   schedule over claranet) must be bit-equal to the plain version on CPU
+   copies of its inputs and within the tolerance below of it on the card;
+   and the seconds of each of the phase's parts;
+14. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Tolerances (stated here, used below): the attention kernel against its
 plain version rtol 1e-5 / atol 1e-5 (f32 in another summation order: the
@@ -242,6 +274,12 @@ SUB_TIMING_BATCHES = (1, 64, 256)
 SUB_MAIN_BATCH = 64
 TRAIN_ARGS = ["--replicas", "64", "--chunk", "50", "--episodes", "2",
               "--seed", "0"]
+# phase 13: single-env episodes over the schedule (switching every
+# GEN_PERIOD episodes)
+GEN_EPISODES = 3
+GEN_PERIOD = 1
+# profiled rollout steps of its split of a single-env step
+GEN_PROFILE_STEPS = 20
 # operations that every flow slot does in every substep, whatever its
 # phase (the phase test and the timer's advance): a lower count, since
 # what else a slot does depends on phases this script does not trace
@@ -269,6 +307,20 @@ WIDE_CASE = "wide_range_dr"
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+class Laps:
+    """Seconds between successive ``lap(name)`` calls, the first counted
+    from the object's creation, in ``seconds``."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.seconds = {}
+
+    def lap(self, name):
+        now = time.perf_counter()
+        self.seconds[name] = now - self.t
+        self.t = now
 
 
 def check(cond: bool, msg: str):
@@ -1321,13 +1373,17 @@ def train_slice(torch, dev, smi, precision="f32", checkpoint=None):
                   "q_values"):
             check(math.isfinite(row[k]), f"episode {row['episode']}: {k} "
                   f"is {row[k]}")
-    check(counts["substep_megakernel"] == steps,
+    # the run ends with one greedy evaluation episode on one env
+    eval_steps = agent.episode_steps
+    check(counts["substep_megakernel"] == steps + eval_steps,
           f"{counts['substep_megakernel']} megakernel launches for "
-          f"{steps} env steps (want 1 per step)")
-    want_gat = 3 * acting + 15 * grad_steps
+          f"{steps} env steps and {eval_steps} evaluation steps (want 1 per "
+          "step)")
+    want_gat = 3 * acting + 15 * grad_steps + 3 * eval_steps
     check(counts[fwd_name] == want_gat,
           f"{counts[fwd_name]} {fwd_name} launches, want 3 x {acting} acting "
-          f"steps + 15 x {grad_steps} gradient steps = {want_gat}")
+          f"steps + 15 x {grad_steps} gradient steps + 3 x {eval_steps} "
+          f"evaluation steps = {want_gat}")
     want_bwd = 6 * grad_steps
     check(counts[bwd_name] == want_bwd,
           f"{counts[bwd_name]} {bwd_name} launches, want 6 x {grad_steps} "
@@ -1440,9 +1496,10 @@ def train_slice(torch, dev, smi, precision="f32", checkpoint=None):
           f"critic parameter moved; masters and Adam states f32; replay "
           f"{want_fill} per replica, float leaves {replay_dt}", flush=True)
     print(f"train {precision} launches (every count 0 before the run): "
-          f"megakernel {counts['substep_megakernel']} (1 per env step), "
-          f"{fwd_name} {counts[fwd_name]} (3 x {acting} acting steps + 15 x "
-          f"{grad_steps} gradient steps), {bwd_name} {counts[bwd_name]} (6 x "
+          f"megakernel {counts['substep_megakernel']} (1 per env step and "
+          f"evaluation step), {fwd_name} {counts[fwd_name]} (3 x {acting} "
+          f"acting steps + 15 x {grad_steps} gradient steps + 3 x "
+          f"{eval_steps} evaluation steps), {bwd_name} {counts[bwd_name]} (6 x "
           f"{grad_steps} gradient steps), other attention kernels {others}; "
           f"GATv2/actor/critic gradients through the kernels vs {ref_name}: "
           f"max abs diff / largest entry {worst:.2e} (limit {scale_tol:g})"
@@ -1535,10 +1592,354 @@ def serve_from_checkpoint(torch, dev, smi, checkpoint):
     return gat_attention_bf16.launches
 
 
+def learner_tensors(state, buffer, draws):
+    """Every tensor of a training run's carries: the four networks, both
+    Adam states, the replay leaves with ``pos`` and ``size``, and the
+    ``Draws`` generator state."""
+    out = {}
+    for net in ("actor", "critic", "target_actor", "target_critic"):
+        for k, v in getattr(state, net).state_dict().items():
+            out[f"{net}.{k}"] = v
+    for opt in ("actor_opt", "critic_opt"):
+        for i, st in getattr(state, opt).state_dict()["state"].items():
+            for k, v in st.items():
+                out[f"{opt}.{i}.{k}"] = v
+    for k, v in buffer.data.items():
+        out[f"replay.{k}"] = v
+    out["replay.pos"], out["replay.size"] = buffer.pos, buffer.size
+    out["draws"] = draws.generator.get_state()
+    return out
+
+
+def single_env_split(torch, dev, trainer, state, ring):
+    """Phase 13 (e): ``GEN_PROFILE_STEPS`` acting single-env rollout steps
+    under ``torch.profiler`` (wall and device time per step, the
+    megakernel's part, kernel launches and device-to-host reads per step),
+    then the last of their megakernel launches (B=1, the trained policy's
+    schedule) against the plain version on the card and on CPU copies;
+    returns the split and that launch's largest float difference."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gsc_tpu_torch.ops.substep import substep_megakernel, substep_plain
+    from gsc_tpu_torch.sim import cases
+
+    agent = trainer.agent_cfg
+    ddpg, draws = trainer.ddpg, trainer.draws
+    step0 = GEN_EPISODES * agent.episode_steps
+    topo, traffic = trainer._episode(GEN_EPISODES)
+    es, obs = trainer.env.reset(topo, traffic, batch=1)
+    ddpg.rollout_episode(state, ring, es, obs, topo, traffic, step0, draws,
+                         num_steps=2)
+    last = {}
+    launch = substep_megakernel.launch
+
+    def kept(engine, *a, **k):
+        last["args"], last["out"] = (engine, *a), launch(engine, *a, **k)
+        return last["out"]
+
+    substep_megakernel.launch = kept
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ddpg.rollout_episode(state, ring, es, obs, topo, traffic, step0,
+                                 draws, num_steps=GEN_PROFILE_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        del substep_megakernel.launch
+    ka = prof.key_averages()
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    n = GEN_PROFILE_STEPS
+    out = {"wall_ms": 1e3 * wall / n,
+           "device_ms": sum(dev_us(e) for e in ka) / 1e3 / n,
+           "mega_ms": sum(dev_us(e) for e in ka
+                          if "substep_megakernel" in e.key) / 1e3 / n,
+           "launches": sum(e.count for e in ka
+                           if e.key in ("cudaLaunchKernel",
+                                        "cuLaunchKernel")) / n,
+           "syncs": sum(e.count for e in ka
+                        if e.key == "aten::_local_scalar_dense") / n}
+    check(out["device_ms"] > 0, "the profiler recorded no device time")
+    out["idle"] = 1.0 - out["device_ms"] / out["wall_ms"]
+
+    engine, *args = last["args"]
+    got = last["out"]
+    check(got.batch == 1, f"the single-env megakernel ran at B={got.batch}")
+    on_cpu = [a.to("cpu") if hasattr(a, "to") else a for a in args]
+    want_card = substep_plain(engine, *args)
+    want_cpu = substep_plain(engine, *on_cpu)
+    what = "single-env megakernel launch on the trained state"
+    err = cases.compare_states(got, want_card, SUB_RTOL, SUB_ATOL,
+                               f"{what}, kernel vs plain on card: ")
+    check(cases.bit_equal(got.to("cpu"), want_cpu),
+          f"{what}: the kernel is not bit-equal to the plain version on "
+          "CPU copies")
+    out["flows"] = int(got.metrics.generated.sum())
+    return out, err
+
+
+def generalization_slice(torch, dev, smi):
+    """Phase 13: ``init-configs``, single-env training over a switching
+    schedule of GraphML networks with an unseen inference network, exact
+    resume and ``infer``, at the flagship widths on the card.  Returns the
+    launch counts of the kernels in the straight run (every count 0
+    before it) and the run's numbers."""
+    import math
+    from collections import Counter
+
+    from gsc_tpu_torch import cli
+    from gsc_tpu_torch.agents.ddpg import DDPG
+    from gsc_tpu_torch.ops.gat_attention import (gat_attention,
+                                                 gat_attention_backward,
+                                                 gat_attention_backward_bf16,
+                                                 gat_attention_bf16)
+    from gsc_tpu_torch.ops.substep import substep_megakernel
+    from gsc_tpu_torch.topology.compiler import load_topology
+    from gsc_tpu_torch.utils.checkpoint import (read_checkpoint_meta,
+                                                verify_checkpoint)
+
+    ops = {"gat_attention": gat_attention,
+           "gat_attention_backward": gat_attention_backward,
+           "gat_attention_bf16": gat_attention_bf16,
+           "gat_attention_backward_bf16": gat_attention_backward_bf16,
+           "substep_megakernel": substep_megakernel}
+    root = tempfile.mkdtemp(prefix="gsc_generalization_")
+    laps = Laps()
+    parts = laps.seconds
+    try:
+        # (a) the config set and the GraphML networks, the port's writer
+        cfg = os.path.join(root, "cfg")
+        cli.init_configs(cfg)
+        nets = os.path.join(cfg, "networks")
+        bt = load_topology(os.path.join(
+            nets, "bteurope-in2-rand-cap1-2.graphml"))
+        caps = set(bt.node_cap[bt.node_mask].tolist())
+        check(int(bt.n_nodes) == 24 and int(bt.n_edges) == 37
+              and caps <= {1.0, 2.0},
+              f"bteurope-in2 read back as {int(bt.n_nodes)} nodes, "
+              f"{int(bt.n_edges)} edges, caps {sorted(caps)}")
+        sched = os.path.join(root, "scheduler.yaml")
+        with open(sched, "w") as f:
+            f.write("training_network_files:\n"
+                    f"  - {nets}/abilene-in4.graphml\n"
+                    f"  - {nets}/claranet-in4-cap1.graphml\n"
+                    f"inference_network: {nets}/compuserve-in4-cap1.graphml\n"
+                    f"period: {GEN_PERIOD}\n")
+        base = ["--scheduler", sched, "--replicas", "1", "--seed", "0",
+                "--simulator-config", os.path.join(cfg, "simulator.yaml"),
+                "--service", os.path.join(cfg, "service_abc.yaml")]
+        laps.lap("a")
+
+        # (b) the straight run, timed and counted
+        spans = {"rollout": [], "learn_burst": []}
+        shapes = Counter()
+
+        def synced(fn, key):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn(*a, **k)
+                torch.cuda.synchronize()
+                spans[key].append(time.perf_counter() - t0)
+                return res
+            return run
+
+        def counted(op):
+            launch = op.launch
+
+            def run(xl, *a, **k):
+                shapes[tuple(xl.shape[:-2])] += 1
+                return launch(xl, *a, **k)
+            return run
+
+        saved = (DDPG.rollout_episode, DDPG.learn_burst)
+        DDPG.rollout_episode = synced(saved[0], "rollout")
+        DDPG.learn_burst = synced(saved[1], "learn_burst")
+        gat_attention.launch = counted(gat_attention)
+        try:
+            for op in ops.values():
+                op.launches = 0
+            res_b = cli.run_train(base + [
+                "--episodes", str(GEN_EPISODES), "--result-dir",
+                os.path.join(root, "b")])
+            counts = {k: op.launches for k, op in ops.items()}
+        finally:
+            DDPG.rollout_episode, DDPG.learn_burst = saved
+            del gat_attention.launch
+        trainer = res_b["trainer"]
+        agent = trainer.agent_cfg
+        steps = GEN_EPISODES * agent.episode_steps
+        acting = sum(1 for g in range(steps)
+                     if g >= agent.nb_steps_warmup_critic)
+        grad_steps = GEN_EPISODES * (agent.learn_steps or agent.episode_steps)
+        eval_steps = agent.episode_steps
+        driver = trainer.driver
+        names = [driver.topology_name_for(ep) for ep in range(GEN_EPISODES)]
+        check(len(set(names)) == 2 and all(
+            a != b for a, b in zip(names, names[1:])),
+            f"the schedule did not switch every episode: {names}")
+        infer_net = driver.inference_topology
+        check(int(infer_net.n_nodes) == 14 and all(
+            not torch.equal(infer_net.node_mask, t.node_mask)
+            or not torch.equal(infer_net.adj_edge_id, t.adj_edge_id)
+            for t in driver.topologies),
+            "the inference network is one of the training networks")
+        for row in trainer.history:
+            for k in ("episodic_return", "critic_loss", "actor_loss",
+                      "q_values"):
+                check(math.isfinite(row[k]), f"episode {row['episode']}: "
+                      f"{k} is {row[k]}")
+        check(len(spans["learn_burst"]) == GEN_EPISODES,
+              f"{len(spans['learn_burst'])} learn bursts in {GEN_EPISODES} "
+              "episodes (each ends at or after the warm-up)")
+        buf = res_b["buffers"]
+        topo_idx = buf.data["topo_idx"][:steps].view(GEN_EPISODES, -1)
+        want_idx = [ep // GEN_PERIOD % 2 for ep in range(GEN_EPISODES)]
+        check(int(buf.size) == min(steps, agent.mem_limit) and all(
+            bool((topo_idx[ep] == want_idx[ep]).all())
+            for ep in range(GEN_EPISODES)),
+            f"replay size {int(buf.size)}, topo_idx per episode "
+            f"{[sorted(set(r.tolist())) for r in topo_idx]}")
+        check(counts["substep_megakernel"] == steps + eval_steps,
+              f"{counts['substep_megakernel']} megakernel launches, want 1 "
+              f"per env step ({steps}) and evaluation step ({eval_steps})")
+        want_gat = 3 * acting + 15 * grad_steps + 3 * eval_steps
+        check(counts["gat_attention"] == want_gat,
+              f"{counts['gat_attention']} attention launches, want 3 x "
+              f"{acting} acting + 15 x {grad_steps} gradient + 3 x "
+              f"{eval_steps} evaluation steps = {want_gat}")
+        check(counts["gat_attention_backward"] == 6 * grad_steps,
+              f"{counts['gat_attention_backward']} backward launches, want "
+              f"6 x {grad_steps}")
+        check(counts["gat_attention_bf16"] == 0 and
+              counts["gat_attention_backward_bf16"] == 0,
+              "the f32 run launched a bf16 kernel")
+        want_shapes = {(1,): 3 * (acting + eval_steps),
+                       (agent.batch_size,): 15 * grad_steps}
+        check(dict(shapes) == want_shapes,
+              f"attention launches per batch shape {dict(shapes)}, want "
+              f"{want_shapes}")
+        fresh = DDPG(trainer.env, agent, device=dev).init_state(
+            torch.Generator().manual_seed(trainer.seed))
+        for net in ("actor", "critic"):
+            final = dict(getattr(res_b["state"], net).named_parameters())
+            for name, p0 in getattr(fresh, net).named_parameters():
+                check(not torch.equal(p0, final[name]),
+                      f"{net}.{name} did not move in training")
+        ck_b = res_b["summary"]["checkpoint"]
+        meta = read_checkpoint_meta(ck_b)
+        check(verify_checkpoint(ck_b) and meta.get("episode") == GEN_EPISODES
+              and meta.get("precision") == "f32",
+              f"final checkpoint sidecar {meta}")
+        ev = res_b["eval"]
+        check(math.isfinite(ev["mean_return"])
+              and 0.0 <= ev["final_succ_ratio"] <= 1.0,
+              f"evaluation on the inference network: {ev}")
+        laps.lap("b")
+
+        # (c) two episodes, a checkpoint, a resumed third: bit for bit
+        res_c = cli.run_train(base + ["--episodes", str(GEN_EPISODES - 1),
+                                      "--result-dir",
+                                      os.path.join(root, "c")])
+        laps.lap("c")
+        res_r = cli.run_train(base + [
+            "--episodes", str(GEN_EPISODES), "--resume",
+            res_c["summary"]["checkpoint"], "--result-dir",
+            os.path.join(root, "r")])
+        check(res_r["summary"]["start_episode"] == GEN_EPISODES - 1,
+              f"resumed at {res_r['summary']['start_episode']}")
+        want = learner_tensors(res_b["state"], buf, trainer.draws)
+        got = learner_tensors(res_r["state"], res_r["buffers"],
+                              res_r["trainer"].draws)
+        check(set(got) == set(want), "the resumed run's tensors differ in "
+              "name from the straight run's")
+        differ = [k for k, v in want.items()
+                  if got[k].dtype != v.dtype or not torch.equal(got[k], v)]
+        check(not differ, f"resumed != straight on {len(differ)} of "
+              f"{len(want)} tensors: {differ[:6]}")
+        check(res_r["trainer"].history[-1]["episodic_return"]
+              == trainer.history[-1]["episodic_return"],
+              "the resumed episode's return differs from the straight one")
+        laps.lap("resume")
+
+        # (d) infer on the straight run's checkpoint, the unseen network
+        res_d = cli.run_infer(base[:2] + base[6:] + [
+            "--checkpoint", ck_b, "--episodes", "1"])
+        check(res_d["eval"]["mean_return"] == ev["mean_return"]
+              and res_d["eval"]["final_succ_ratio"] == ev["final_succ_ratio"],
+              f"infer {res_d['eval']} differs from the run's own evaluation "
+              f"{ev}")
+        laps.lap("d")
+
+        # (e) where a single-env step goes: a profile of acting rollout
+        # steps, whose last megakernel launch is held against its plain
+        # version
+        split, split_err = single_env_split(torch, dev, trainer,
+                                            res_b["state"], buf)
+        laps.lap("e")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    sps = steps / sum(spans["rollout"])
+    s = res_b["summary"]
+    print(f"generalization: {GEN_EPISODES} episodes x {agent.episode_steps} "
+          f"steps on one env over {names} (period {GEN_PERIOD}), inference "
+          f"on compuserve-in4-cap1 (unseen): returns "
+          f"{[round(r['episodic_return'], 4) for r in trainer.history]}, "
+          f"final success {[round(r['final_succ_ratio'], 4) for r in trainer.history]}, "
+          f"critic loss {[r['critic_loss'] for r in trainer.history]}; "
+          f"evaluation {json.dumps(ev)}; infer {json.dumps(res_d['eval'])}",
+          flush=True)
+    print(f"generalization resume: {GEN_EPISODES - 1} episodes, checkpoint, "
+          f"resumed to {GEN_EPISODES}: torch.equal to the straight run on "
+          f"all {len(want)} tensors (networks, targets, Adam states, replay "
+          f"leaves, pos/size, Draws state)", flush=True)
+    print(f"generalization launches (every count 0 before the straight "
+          f"run): megakernel {counts['substep_megakernel']} at B=1, "
+          f"gat_attention {counts['gat_attention']} (B=1: "
+          f"{shapes[(1,)]}, B={agent.batch_size}: "
+          f"{shapes[(agent.batch_size,)]}), gat_attention_backward "
+          f"{counts['gat_attention_backward']} at B={agent.batch_size}",
+          flush=True)
+    print(f"generalization timing on {smi}: single-env rollout {steps} env "
+          f"steps in {sum(spans['rollout']):.3f} s = {sps:.1f} "
+          f"env-steps/s; learn bursts "
+          f"{[round(t, 3) for t in spans['learn_burst']]} s; evaluation "
+          f"compile_warmup_s {ev['compile_warmup_s']} steady_s "
+          f"{ev['steady_s']} (infer: {res_d['eval']['compile_warmup_s']} / "
+          f"{res_d['eval']['steady_s']}); checkpoint save "
+          f"{s['ckpt_save_s']:.3f} s, load (resume) "
+          f"{res_r['summary']['ckpt_load_s']:.3f} s", flush=True)
+    print(f"generalization split on {smi}: {GEN_PROFILE_STEPS} acting "
+          f"single-env steps under the profiler: {split['wall_ms']:.3f} ms "
+          f"per step, device busy {split['device_ms']:.3f} ms per step "
+          f"(idle share {split['idle']:.3f}), megakernel "
+          f"{split['mega_ms']:.3f} ms; per step {split['launches']:.1f} "
+          f"kernel launches and {split['syncs']:.1f} device-to-host reads; "
+          f"the last megakernel launch (B=1, {split['flows']} flows "
+          f"generated) vs plain: bit-equal on CPU copies, max float diff "
+          f"on the card {split_err:.2e}", flush=True)
+    print("generalization part seconds: (a) init-configs "
+          f"{parts['a']:.3f}, (b) straight run {parts['b']:.3f}, (c) "
+          f"{GEN_EPISODES - 1} episodes + checkpoint {parts['c']:.3f}, "
+          f"resume to {GEN_EPISODES} {parts['resume']:.3f}, (d) infer "
+          f"{parts['d']:.3f}, (e) split {parts['e']:.3f}; phase 13 "
+          f"{sum(parts.values()):.3f}", flush=True)
+    print("generalization_summary: " + json.dumps(s))
+    own = {k: counts[k] for k in ("gat_attention", "gat_attention_backward",
+                                  "substep_megakernel")}
+    return own, {"sps": sps, "bursts": list(spans["learn_burst"]),
+                 "max_abs_err": split_err}
+
+
 def main() -> int:
     import torch
 
     t_start = time.perf_counter()
+    phases = Laps()
     # ---- 1. device -----------------------------------------------------
     check(torch.cuda.is_available(), "CUDA is not available")
     from gsc_tpu_torch.device import resolve_device
@@ -1564,6 +1965,7 @@ def main() -> int:
     print(f"device: {name} (x{count}); torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
+    phases.lap("1")
     # ---- 2. build ------------------------------------------------------
     clocked = SubstepMegakernel(stage_clocks=True)
     clocked_fwd = GatAttention(stage_clocks=True)
@@ -1596,11 +1998,13 @@ def main() -> int:
         check(smem <= MAX_SMEM_BYTES, f"M={m_slots} needs {smem} bytes of "
               "shared memory")
 
+    phases.lap("2")
     # ---- 3. attention kernels vs plain on the card ----------------------
     timings, max_err, bwd_timings, bwd_err = attention_phase(torch, dev, smi,
                                                              parent_fwd)
     attention_stage_clocks(clocked_fwd, clocked_bwd, torch, dev)
 
+    phases.lap("3")
     # ---- 4. the slice: run_serve on the card ----------------------------
     gat_attention.launches = 0
     substep_megakernel.launches = 0
@@ -1661,11 +2065,13 @@ def main() -> int:
         print(f"greedy_action B={b}: {fwd_ms:.4f} ms per call on the card "
               f"(3 attention launches: {3 * timings.get((b, 24, 22), (0,))[0]:.4f} ms)")
 
+    phases.lap("4")
     # ---- 5. megakernel vs plain on the card ------------------------------
     print(f"megakernel vs plain (rtol {SUB_RTOL}, atol {SUB_ATOL}; integers "
           f"exact) on {smi}:", flush=True)
     sub_err = substep_battery(torch, dev)
 
+    phases.lap("5")
     # ---- 6. golden trajectory on the kernel path -------------------------
     before = substep_megakernel.launches
     golden = cases.check_golden(cases.run_case(cases.golden_case(), dev)[-1])
@@ -1674,19 +2080,23 @@ def main() -> int:
     print(f"golden Abilene on the kernel path: {json.dumps(golden)}",
           flush=True)
 
+    phases.lap("6")
     # ---- 7. megakernel timings ------------------------------------------
     print("megakernel timings:", flush=True)
     sub_times = substep_timings(torch, dev, smi, clocked, parent)
 
+    phases.lap("7")
     # ---- 8. the training slice -------------------------------------------
     train_launches, f32_train = train_slice(torch, dev, smi)
     for kernel, n in train_launches.items():
         check(n > 0, f"{kernel} was not launched on the training path")
 
+    phases.lap("8")
     # ---- 9. bf16 attention kernels vs plain on the card ------------------
     h_timings, h_err, hb_timings, hb_err = attention_phase_bf16(torch, dev,
                                                                smi)
 
+    phases.lap("9")
     # ---- 10. the bf16 training slice, saving a checkpoint ----------------
     ck_root = tempfile.mkdtemp(prefix="gsc_bf16_ck_")
     try:
@@ -1709,6 +2119,25 @@ def main() -> int:
     finally:
         shutil.rmtree(ck_root, ignore_errors=True)
 
+    phases.lap("10-11")
+
+    # ---- 13. the generalization slice ------------------------------------
+    gen_launches, gen_train = generalization_slice(torch, dev, smi)
+    phases.lap("13")
+    for kernel, n in gen_launches.items():
+        check(n > 0, f"{kernel} was not launched on the single-env path")
+    print(f"train single-env beside B=64 on {smi}: rollout "
+          f"{gen_train['sps']:.1f} env-steps/s (B=64: "
+          f"{f32_train['sps']:.1f}); learn bursts "
+          f"{[round(t, 3) for t in gen_train['bursts']]} s (B=64: "
+          f"{[round(t, 3) for t in f32_train['bursts']]} s)", flush=True)
+    path_launches = {k: train_launches.get(k, 0) + bf16_launches.get(k, 0)
+                     + gen_launches.get(k, 0)
+                     for k in ("gat_attention", "gat_attention_backward",
+                               "gat_attention_bf16",
+                               "gat_attention_backward_bf16",
+                               "substep_megakernel")}
+
     # ---- 12. kernels line -----------------------------------------------
     ms, plain_ms, bound_ms, bound_by = timings[MAIN_SHAPE]
     b_ms, b_plain_ms, b_bound_ms, b_bound_by = bwd_timings[MAIN_SHAPE]
@@ -1721,7 +2150,7 @@ def main() -> int:
         "route": "cuda",
         "source": rel(SOURCE),
         "replaces": "gsc_tpu/ops/pallas_gat.py:45",
-        "launches": train_launches["gat_attention"],
+        "launches": path_launches["gat_attention"],
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1733,7 +2162,7 @@ def main() -> int:
         "route": "cuda",
         "source": rel(BACKWARD_SOURCE),
         "replaces": "gsc_tpu/ops/pallas_gat.py:150",
-        "launches": train_launches["gat_attention_backward"],
+        "launches": path_launches["gat_attention_backward"],
         "max_abs_err": bwd_err,
         "ms": b_ms,
         "plain_ms": b_plain_ms,
@@ -1745,7 +2174,7 @@ def main() -> int:
         "route": "cuda",
         "source": rel(SOURCE),
         "replaces": "gsc_tpu/ops/pallas_gat.py:45",
-        "launches": bf16_launches["gat_attention_bf16"],
+        "launches": path_launches["gat_attention_bf16"],
         "max_abs_err": h_err,
         "ms": h_ms,
         "plain_ms": h_plain_ms,
@@ -1757,7 +2186,7 @@ def main() -> int:
         "route": "cuda",
         "source": rel(BACKWARD_SOURCE),
         "replaces": "gsc_tpu/ops/pallas_gat.py:150",
-        "launches": bf16_launches["gat_attention_backward_bf16"],
+        "launches": path_launches["gat_attention_backward_bf16"],
         "max_abs_err": hb_err,
         "ms": hb_ms,
         "plain_ms": hb_plain_ms,
@@ -1769,14 +2198,16 @@ def main() -> int:
         "route": "cuda",
         "source": rel(SUB_SOURCE),
         "replaces": "gsc_tpu/ops/pallas_substep.py:530",
-        "launches": train_launches["substep_megakernel"],
-        "max_abs_err": sub_err,
+        "launches": path_launches["substep_megakernel"],
+        "max_abs_err": max(sub_err, gen_train["max_abs_err"]),
         "ms": s_ms,
         "plain_ms": s_plain_ms,
         "bound_ms": s_bound_ms,
         "bound_by": s_bound_by,
         "library_ms": None,
     }]}
+    print("phase seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phases.seconds.items()), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels))

@@ -6,7 +6,8 @@ leaves carry a leading [capacity] axis, or per-replica shards whose leaves
 carry [B, capacity] (the replica-parallel learner's layout).  As in the
 JAX package, leaves of two or more dims per transition are stored
 flattened to one dim and restored to their shapes when a batch is read
-(``restore_batch``).  Unlike the JAX package, ``buffer_add`` writes in
+(``restore_batch``); ``buffer_sample`` draws a uniform batch from one
+ring.  Unlike the JAX package, ``buffer_add`` writes in
 place and returns the same buffer: the ring is the largest resident of a
 training run, and nothing reads an older version of it.  Leaves may mix
 dtypes (under the bf16 policy the float obs, next_obs and action leaves
@@ -125,6 +126,13 @@ def buffer_add(buf: ReplayBuffer, item: Any) -> ReplayBuffer:
     buf.pos = (buf.pos + 1) % cap
     buf.size = torch.clamp(buf.size + 1, max=cap)
     return buf
+
+
+def buffer_sample(buf: ReplayBuffer, draws, batch_size: int) -> Dict[str, Any]:
+    """Uniform sample of ``batch_size`` transitions of one ring (slot
+    indices from ``draws.slots``), restored to their shapes."""
+    idx = draws.slots(batch_size, buf.size)
+    return restore_batch(buf.shapes, {k: d[idx] for k, d in buf.data.items()})
 
 
 def buffer_nbytes(buf: ReplayBuffer) -> int:

@@ -4,8 +4,13 @@ The port of ``gsc_tpu.agents.ddpg.DDPG``: building and initialising the
 networks (from an explicit ``torch.Generator``), the greedy inference
 policy, the exploring ``choose_action``, the critic and actor losses, one
 gradient step on a batch (critic step, then the actor step against the
-updated critic, then Polyak averaging of both targets with tau) and the
-learn burst.  ``optax.adam`` becomes ``torch.optim.Adam`` with the same
+updated critic, then Polyak averaging of both targets with tau), the
+learn burst, and the single-env episode: one replay ring
+(``init_buffer``), ``rollout_episode`` (an action per step, ``env.step``,
+a replay write) and ``episode_step`` (the rollout, then the
+end-of-episode learn burst on batches of that ring).  The single env runs
+as a batch of one replica, so its actor forwards are batches of one
+graph.  ``optax.adam`` becomes ``torch.optim.Adam`` with the same
 learning rate, betas (0.9, 0.999) and eps 1e-8; neither side clips
 gradients.
 
@@ -31,10 +36,14 @@ import torch
 
 from ..config.schema import AgentConfig
 from ..device import resolve_device
-from ..env.env import ServiceCoordEnv
+from ..env.env import EnvState, ServiceCoordEnv
 from ..env.observations import GraphObs
+from ..env.permutation import ShuffleOps
 from ..models.nets import Actor, QNetwork, scale_action, unscale_action
 from ..ops.gat import compute_dtype_of
+from ..sim.state import TrafficSchedule
+from ..topology.compiler import Topology
+from .buffer import ReplayBuffer, buffer_add, buffer_init, buffer_sample
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -59,6 +68,13 @@ class Draws:
         """Standard normals of the exploration noise."""
         return torch.randn(shape, generator=self.generator,
                            device=self.device)
+
+    def slots(self, batch: int, size: torch.Tensor) -> torch.Tensor:
+        """Slot indices of one batch from one ring: uniform over its
+        ``size`` filled slots (at least one)."""
+        high = torch.clamp(size.to(self.device), min=1)
+        u = torch.rand((batch,), generator=self.generator, device=self.device)
+        return torch.minimum((u * high).long(), high.long() - 1)
 
     def replay(self, batch: int, replicas: int, sizes: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -145,11 +161,19 @@ class DDPG:
                 "done": torch.zeros((), device=dev),
                 "topo_idx": torch.zeros((), dtype=torch.int32, device=dev)}
 
+    def init_buffer(self, sample_obs: GraphObs) -> ReplayBuffer:
+        """One replay ring of ``mem_limit`` transitions (``sample_obs``
+        without a batch dim)."""
+        return buffer_init(self.example_transition(sample_obs),
+                           self.agent.mem_limit, device=self.device)
+
     # ------------------------------------------------------------- actions
     @torch.inference_mode()
-    def greedy_action(self, obs: GraphObs) -> torch.Tensor:
-        """The greedy policy: [..., A] actions for a (batched) observation."""
-        a = self.actor(obs)
+    def greedy_action(self, obs: GraphObs,
+                      actor: Optional[Actor] = None) -> torch.Tensor:
+        """The greedy policy: [..., A] actions for a (batched) observation,
+        from ``actor`` (default: this agent's)."""
+        a = (actor if actor is not None else self.actor)(obs)
         a = torch.clamp(a, 0.0, 1.0)
         return self.env.process_action(a)
 
@@ -166,6 +190,68 @@ class DDPG:
         a = actor(obs)
         noise = self.agent.rand_mu + self.agent.rand_sigma * draws.normal(shape)
         return torch.clamp(unscale_action(scale_action(a) + noise), 0.0, 1.0)
+
+    # ------------------------------------------------------------- rollout
+    @torch.no_grad()
+    def rollout_episode(self, state: DDPGState, buffer: ReplayBuffer,
+                        env_state: EnvState, obs: GraphObs, topo: Topology,
+                        traffic: TrafficSchedule, episode_start_step: int,
+                        draws: Draws, num_steps: Optional[int] = None
+                        ) -> Tuple[DDPGState, ReplayBuffer, EnvState,
+                                   GraphObs, Dict[str, torch.Tensor]]:
+        """``num_steps`` (default ``episode_steps``) steps of the single
+        env (a batch of one replica): action, env step, one transition
+        into the ring ``buffer``, stamped with ``topo.topo_id``.
+        ``episode_start_step`` is the global step of the first one (the
+        warm-up gate reads it).  Returns the episode's stats (return, mean
+        and final success ratio, mean end-to-end delay), still on the
+        device."""
+        shuffle = ShuffleOps(self.agent, self.env.limits)
+        perm = shuffle.init_perm(1, self.device)
+        obs = shuffle.permute_obs(obs, perm)
+        first = lambda x: x[0]
+        rewards, succ, e2e = [], [], []
+        for i in range(num_steps or self.agent.episode_steps):
+            mask = shuffle.step_mask(obs, None, perm)
+            action = self.choose_action(state.actor, obs, mask,
+                                        episode_start_step + i, draws)
+            action = self.env.process_action(action)
+            env_state, next_obs, reward, done, info = self.env.step(
+                env_state, topo, traffic, shuffle.env_action(action, perm),
+                draws.sim_noise(self.env.engine, 1))
+            next_obs, perm = shuffle.advance(next_obs, perm)
+            buffer_add(buffer, {
+                "obs": obs.map(first), "next_obs": next_obs.map(first),
+                "action": action[0], "reward": reward[0],
+                "done": done[0].to(torch.float32), "topo_idx": topo.topo_id})
+            rewards.append(reward[0])
+            succ.append(info["succ_ratio"][0])
+            e2e.append(info["avg_e2e_delay"][0])
+            obs = next_obs
+        s = torch.stack(succ)
+        stats = {"episodic_return": torch.stack(rewards).sum(),
+                 "mean_succ_ratio": s.mean(),
+                 "mean_e2e_delay": torch.stack(e2e).mean(),
+                 "final_succ_ratio": s[-1]}
+        return state, buffer, env_state, obs, stats
+
+    def episode_step(self, state: DDPGState, buffer: ReplayBuffer,
+                     env_state: EnvState, obs: GraphObs, topo: Topology,
+                     traffic: TrafficSchedule, episode_start_step: int,
+                     draws: Draws, learn: bool = False,
+                     num_steps: Optional[int] = None):
+        """The rollout and, when ``learn``, the end-of-episode learn burst
+        on batches of ``buffer``.  Returns (state, buffer, env_state, obs,
+        stats, learn metrics or None)."""
+        state, buffer, env_state, obs, stats = self.rollout_episode(
+            state, buffer, env_state, obs, topo, traffic, episode_start_step,
+            draws, num_steps)
+        metrics = None
+        if learn:
+            state, metrics = self.learn_burst(
+                state, lambda: buffer_sample(buffer, draws,
+                                             self.agent.batch_size))
+        return state, buffer, env_state, obs, stats, metrics
 
     # ------------------------------------------------------------ learning
     def critic_loss(self, state: DDPGState, batch: Dict

@@ -3,7 +3,9 @@
 The port's copy of ``gsc_tpu.config.registry``'s two built-in functions,
 written as elementwise torch functions.  The engine looks each SF's
 function up by the ``resource_function_id`` of its ``ServiceFunction``.
-Loading user plugins is not ported; an unknown id raises.
+Loading user plugins is not ported: ``config.loader.load_service``
+maps an unknown id to "default" with a warning, and
+``get_resource_function`` raises on one.
 """
 from __future__ import annotations
 

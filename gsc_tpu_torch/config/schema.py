@@ -2,9 +2,9 @@
 
 A copy of the subset of ``gsc_tpu.config.schema`` that the port's serving
 and training paths need: ``SimConfig``, ``AgentConfig``, ``EnvLimits``,
-``ServiceConfig``/``ServiceFunction`` and ``PrecisionPolicy`` with its
-"f32" and "bf16" policies,
-with the same field names, defaults and validation.  Every namespace is a
+``ServiceConfig``/``ServiceFunction``, ``SchedulerConfig`` and
+``PrecisionPolicy`` with its "f32" and "bf16" policies, with the same
+field names, defaults and validation.  Every namespace is a
 frozen dataclass of plain Python scalars and tuples, so a config is
 hashable and can key caches.
 """
@@ -188,9 +188,11 @@ class SimConfig:
     CUDA kernel of ``ops.substep`` on the card, the plain substep on the
     CPU) with deterministic or Poisson arrivals.  ``substep_impl`` is the
     JAX package's key, validated as there so that its yaml files load; it
-    does not choose a path in the port.  The MMPP, trace and
-    capacity-override options of the JAX package are not carried, and
-    per-flow control is only named so that it can be refused."""
+    does not choose a path in the port.  ``force_link_cap`` and
+    ``force_node_cap`` override the capacities of every network read from
+    GraphML (``topology.compiler.read_graphml``).  The MMPP and trace
+    options of the JAX package are not carried, and per-flow control is
+    only named so that it can be refused."""
 
     inter_arrival_mean: float = 10.0
     deterministic_arrival: bool = True
@@ -200,6 +202,10 @@ class SimConfig:
     deterministic_size: bool = True
     run_duration: float = 100.0
     ttl_choices: Tuple[float, ...] = (100.0,)
+    # capacity overrides of GraphML networks: every link's capacity, and
+    # (lo, hi) integer node capacities drawn uniformly in [lo, hi)
+    force_link_cap: Optional[float] = None
+    force_node_cap: Optional[Tuple[float, float]] = None
     # substep quantum in ms of the fixed-step engine
     dt: float = 1.0
     # flow-table slots per replica
@@ -316,6 +322,23 @@ class AgentConfig:
     @property
     def precision_policy(self) -> PrecisionPolicy:
         return PRECISION_POLICIES[self.precision]
+
+
+@dataclass(frozen=True)
+class SchedulerConfig:
+    """Topology schedule across training: the training networks, switched
+    every ``period`` episodes in turn, and the inference network of test
+    mode (GraphML paths)."""
+
+    training_network_files: Tuple[str, ...]
+    inference_network: str
+    period: int = 10
+
+    def __post_init__(self):
+        if not self.training_network_files:
+            raise ValueError("training_network_files must not be empty")
+        if self.period <= 0:
+            raise ValueError("period must be positive")
 
 
 @dataclass(frozen=True)

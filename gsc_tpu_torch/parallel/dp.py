@@ -28,6 +28,12 @@ from ..sim.state import TrafficSchedule
 from ..topology.compiler import Topology
 
 
+def shard_capacity(mem_limit: int, replicas: int) -> int:
+    """Slots per replica shard: ``mem_limit // replicas`` (at least 1), so
+    the shards together hold the single-env agent's budget."""
+    return max(mem_limit // replicas, 1)
+
+
 class ParallelDDPG:
     """B-replica data-parallel wrapper around the DDPG agent."""
 
@@ -51,7 +57,7 @@ class ParallelDDPG:
         ``mem_limit // B`` (at least 1), so the total matches the
         single-env agent's budget.  ``sample_obs`` is one observation
         without a batch dim."""
-        cap = max(self.agent.mem_limit // self.B, 1)
+        cap = shard_capacity(self.agent.mem_limit, self.B)
         return buffer_init(self.ddpg.example_transition(sample_obs), cap,
                            lead=(self.B,), device=self.device)
 

@@ -1,9 +1,11 @@
 """Chunked episodes: the replica-parallel training loop.
 
 The port of ``gsc_tpu.parallel.harness.run_chunked_episodes`` without the
-telemetry hub: each episode resets every replica on its traffic and runs
-``episode_steps / chunk`` chunks, the final one carrying the
-end-of-episode learn burst.  Per-episode numbers, handed to the caller's
+telemetry hub: each episode resets every replica on its network and
+traffic and runs ``episode_steps / chunk`` chunks, the final one carrying
+the end-of-episode learn burst.  The global step of a chunk counts from
+episode 0, so a run resumed at ``start_episode`` continues the warm-up
+schedule where it stood.  Per-episode numbers, handed to the caller's
 ``on_episode``, are taken over all chunks: the return sums them, the mean
 success ratio averages them, and the final success ratio is the last
 step's.
@@ -13,20 +15,22 @@ from __future__ import annotations
 from typing import Callable, Tuple
 
 
-def run_chunked_episodes(pddpg, topo, episode_traffic: Callable,
-                         state, buffers, episodes: int, episode_steps: int,
-                         chunk: int, on_episode: Callable) -> Tuple:
-    """Train for ``episodes`` episodes; returns (state, buffers).
+def run_chunked_episodes(pddpg, episode_inputs: Callable, state, buffers,
+                         episodes: int, episode_steps: int, chunk: int,
+                         on_episode: Callable, start_episode: int = 0
+                         ) -> Tuple:
+    """Train episodes ``start_episode`` to ``episodes - 1``; returns
+    (state, buffers), updated in place.
 
-    ``episode_traffic(ep)`` gives episode ``ep``'s [B]-stacked traffic;
-    ``on_episode(ep, ret, mean_succ, final_succ, learn_metrics)`` runs
-    after each episode's learn burst."""
+    ``episode_inputs(ep)`` gives episode ``ep``'s (topology, [B]-stacked
+    traffic) on the device; ``on_episode(ep, ret, mean_succ, final_succ,
+    learn_metrics)`` runs after each episode's learn burst."""
     if episode_steps % chunk != 0:
         raise ValueError(f"chunk ({chunk}) must divide episode_steps "
                          f"({episode_steps})")
     n_chunks = episode_steps // chunk
-    for ep in range(episodes):
-        traffic = episode_traffic(ep)
+    for ep in range(start_episode, episodes):
+        topo, traffic = episode_inputs(ep)
         env_states, obs = pddpg.reset_all(topo, traffic)
         chunk_stats = []
         for c in range(n_chunks):

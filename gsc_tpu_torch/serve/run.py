@@ -25,6 +25,7 @@ from ..config.catalog import abc_service, init_configs_agent, init_configs_sim
 from ..config.schema import (AgentConfig, EnvLimits, ServiceConfig,
                              SimConfig, replace)
 from ..device import resolve_device
+from ..env.driver import refuse_force_caps
 from ..env.env import ServiceCoordEnv
 from ..env.observations import GraphObs
 from ..obs.hub import MetricsHub
@@ -96,15 +97,18 @@ def run_serve(agent: Optional[AgentConfig] = None,
     ``init-configs`` flagship (Abilene, abc chain, GATv2 22x2x2 with the
     fused attention kernel, actor hidden 256).  With ``checkpoint`` the
     actor's weights are that checkpoint's and the agent takes the
-    precision policy its sidecar records; else they are drawn from
-    ``seed``."""
+    precision policy its sidecar records (without a readable sidecar,
+    ``agent``'s); else they are drawn from ``seed``."""
     if requests < 1 or concurrency < 1:
         raise ValueError("requests and concurrency must be positive")
     dev = resolve_device(device)
     agent = agent if agent is not None else init_configs_agent(gnn_impl="pallas")
-    if checkpoint is not None:
-        agent = replace(agent, precision=checkpoint_precision(checkpoint))
+    recorded = (checkpoint_precision(checkpoint, implicit=None)
+                if checkpoint is not None else None)
+    if recorded:
+        agent = replace(agent, precision=recorded)
     sim_cfg = sim_cfg if sim_cfg is not None else init_configs_sim()
+    refuse_force_caps(sim_cfg, "the served network")
     service = service if service is not None else abc_service()
     spec = spec if spec is not None else synthetic.abilene()
 

@@ -271,11 +271,13 @@ def golden_case() -> SubstepCase:
 def all_cases(abilene_batch: int = 64) -> List[SubstepCase]:
     """The battery ``chip_smoke.py`` runs: the six scenarios, the WRR
     triangle, the saturated link, fractional rates, rates of a range no
-    double holds, Abilene, and Abilene under heavy traffic at 1024 flow
-    slots (32 warps) and at 200 (a partial last warp)."""
+    double holds, Abilene with ``abilene_batch`` replicas and with one (the
+    single-env trainer's batch), and Abilene under heavy traffic at 1024
+    flow slots (32 warps) and at 200 (a partial last warp)."""
     return ([battery_case(n) for n in _BATTERY]
             + [wrr_case(), linkcap_case(), fractional_case(),
-               wide_range_case(), abilene_case(batch=abilene_batch)]
+               wide_range_case(), abilene_case(batch=abilene_batch),
+               abilene_case(batch=1)]
             + [abilene_case(batch=b, max_flows=m, inter_arrival_mean=1.0)
                for b, m in ((4, 1024), (2, 200))])
 

@@ -121,6 +121,12 @@ class SimMetrics(TensorTree):
         return self.replace(**{k: torch.zeros_like(getattr(self, k))
                                for k in self._RUN_FIELDS})
 
+    def avg_e2e(self) -> torch.Tensor:
+        """Cumulative end-to-end delay over the processed flows."""
+        return torch.where(self.processed > 0,
+                           self.sum_e2e / self.processed.clamp(min=1),
+                           torch.zeros_like(self.sum_e2e))
+
     def run_avg_e2e(self) -> torch.Tensor:
         return torch.where(self.run_processed > 0,
                            self.run_e2e_sum / self.run_processed.clamp(min=1),

@@ -9,7 +9,13 @@ dense lookups (next-hop matrix, path-delay matrix).
 - edge weight for path selection = 1/(cap + 1/delay), delay==0 -> 0,
   cap==0 -> inf (such edges are never selected);
 - all-pairs shortest paths by Dijkstra from every source over those
-  weights, path delay = sum of per-edge delays along the chosen path.
+  weights, path delay = sum of per-edge delays along the chosen path;
+- GraphML files (``read_graphml``) parsed with the standard library's
+  ``xml.etree.ElementTree``, in the node and edge order networkx (which
+  the JAX package reads them with) gives, with the attribute types of the
+  ``<key attr.type>`` declarations, and the capacity overrides
+  ``force_link_cap`` / ``force_node_cap`` (node caps drawn in node order
+  from ``np.random.default_rng(seed)``, as the JAX package draws them).
 
 Ties between equal-weight paths are broken exactly as networkx's Johnson
 (which the JAX package calls) breaks them, so ``next_hop`` is byte-equal:
@@ -21,6 +27,10 @@ from __future__ import annotations
 
 import heapq
 import math
+import os
+import warnings
+import xml.etree.ElementTree as ET
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from itertools import count
 from typing import Dict, List, Optional, Tuple
@@ -113,6 +123,150 @@ def edge_weight(cap: float, delay: float) -> float:
     if delay == 0:
         return 0.0
     return 1.0 / (cap + 1.0 / delay)
+
+
+_GRAPHML_NS = "{http://graphml.graphdrawing.org/xmlns}"
+_GRAPHML_TYPES = {"integer": int, "int": int, "long": int, "float": float,
+                  "double": float, "boolean": bool, "string": str,
+                  "yfiles": str}
+_GRAPHML_BOOL = {"true": True, "false": False, "0": False, "1": True}
+
+
+def _graphml_value(text: Optional[str], kind) -> object:
+    if text is None:
+        return ""
+    if kind is bool:
+        return _GRAPHML_BOOL[text.lower()]
+    return kind(text)
+
+
+def _graphml_data(elem, keys) -> dict:
+    """An element's ``<data>`` children, typed by their key declarations
+    (elements with children, yFiles extensions, are skipped)."""
+    data = {}
+    for d in elem.findall(f"{_GRAPHML_NS}data"):
+        key = d.get("key")
+        if key not in keys:
+            raise ValueError(f"Bad GraphML data: no key {key}")
+        if len(d):
+            continue
+        name, kind = keys[key]
+        data[name] = _graphml_value(d.text, kind)
+    return data
+
+
+def _graphml_graph(path: str):
+    """(nodes, edges) of a GraphML file as networkx's ``read_graphml(path,
+    node_type=int)`` yields them: nodes {id: attrs} in document order;
+    edges [(u, v, attrs)] in the order ``edges(data=True)`` gives (each
+    node in turn, its neighbours in the order their first edge appears,
+    an undirected edge once, from the endpoint that comes first; parallel
+    edges one by one, as the multigraph networkx then returns)."""
+    root = ET.parse(path).getroot()
+    keys = {}
+    for k in root.findall(f"{_GRAPHML_NS}key"):
+        name, kind = k.get("attr.name"), k.get("attr.type") or "string"
+        if k.get("yfiles.type") is not None:
+            name, kind = k.get("yfiles.type"), "yfiles"
+        if name is None:
+            raise ValueError(f"Unknown key for id {k.get('id')}.")
+        keys[k.get("id")] = (name, _GRAPHML_TYPES[kind])
+    graph = root.find(f"{_GRAPHML_NS}graph")
+    if graph is None:
+        raise ValueError(f"{path} holds no GraphML graph")
+    if graph.find(f"{_GRAPHML_NS}hyperedge") is not None:
+        raise ValueError("GraphML hyperedges are not supported")
+    directed = graph.get("edgedefault") == "directed"
+    nodes: Dict[int, dict] = {}
+    for n in graph.findall(f"{_GRAPHML_NS}node"):
+        nodes.setdefault(int(n.get("id")), {}).update(_graphml_data(n, keys))
+    # adjacency u -> {v: {edge key: attrs}}, one dict per node pair
+    adj: Dict[int, Dict[int, dict]] = {}
+    parallel = False
+    for e in graph.findall(f"{_GRAPHML_NS}edge"):
+        u, v = int(e.get("source")), int(e.get("target"))
+        data = _graphml_data(e, keys)
+        key = e.get("id") or data.get("key")
+        if key is not None:
+            try:
+                key = int(key)
+            except ValueError:
+                pass
+        for x in (u, v):
+            nodes.setdefault(x, {})
+            adj.setdefault(x, {})
+        keyed = adj[u].get(v)
+        if keyed is None:
+            keyed = adj[u][v] = {}
+            if not directed:
+                adj[v][u] = keyed
+        else:
+            parallel = True
+        keyed.setdefault(object() if key is None else key, {}).update(data)
+    edges, done = [], set()
+    for u in nodes:
+        for v, keyed in adj.get(u, {}).items():
+            if v in done:
+                continue
+            if parallel:
+                edges.extend((u, v, dict(a)) for a in keyed.values())
+            else:
+                edges.append((u, v, dict(next(iter(keyed.values())))))
+        if not directed:
+            done.add(u)
+    return nodes, edges
+
+
+def read_graphml(path: str, node_cap: Optional[float] = None,
+                 link_cap: float = 1000.0,
+                 force_link_cap: Optional[float] = None,
+                 force_node_cap: Optional[Tuple[float, float]] = None,
+                 rng: Optional[np.random.Generator] = None) -> NetworkSpec:
+    """Parse a GraphML network file.
+
+    Node attrs: NodeCap, NodeType (Ingress/Egress/Normal), label, Latitude,
+    Longitude.  Edge attrs: LinkFwdCap, LinkDelay (else geo-derived, or
+    ``DEFAULT_LINK_DELAY`` without coordinates).  ``force_node_cap=(lo,
+    hi)`` draws integer caps uniformly per node from ``rng``;
+    ``force_link_cap`` overrides all link caps."""
+    if not path.endswith(".graphml"):
+        raise ValueError(f"{path} is not a GraphML file")
+    if rng is None:
+        rng = np.random.default_rng(0)
+    nodes, graph_edges = _graphml_graph(path)
+    order = {n: i for i, n in enumerate(nodes)}
+
+    caps, types, names, coords = [], [], [], []
+    for n, d in nodes.items():
+        cap = d.get("NodeCap", node_cap)
+        if force_node_cap is not None:
+            cap = float(rng.integers(int(force_node_cap[0]),
+                                     int(force_node_cap[1])))
+        if cap is None:
+            raise ValueError(f"No NodeCap set for node {n} in {path}")
+        caps.append(float(cap))
+        types.append(d.get("NodeType", "Normal"))
+        names.append(d.get("label", f"pop{n}"))
+        lat, lon = d.get("Latitude"), d.get("Longitude")
+        coords.append((float(lat), float(lon))
+                      if lat is not None and lon is not None else None)
+
+    edges = []
+    for u, v, d in graph_edges:
+        cap = d.get("LinkFwdCap", link_cap)
+        if force_link_cap is not None:
+            cap = force_link_cap
+        delay = d.get("LinkDelay")
+        if delay is None:
+            cu, cv = coords[order[u]], coords[order[v]]
+            delay = (geo_delay_ms(*cu, *cv)
+                     if cu is not None and cv is not None
+                     else DEFAULT_LINK_DELAY)
+        edges.append((order[u], order[v], float(cap), float(delay)))
+
+    return NetworkSpec(node_caps=caps, node_types=types, edges=edges,
+                       node_names=names,
+                       coords=[c if c else (0.0, 0.0) for c in coords])
 
 
 def _dijkstra_paths(adj: Dict[int, Dict[int, float]], source: int
@@ -228,3 +382,80 @@ def stack_topologies(topos) -> Topology:
 
     return Topology(**{f.name: torch.stack([getattr(t, f.name) for t in topos])
                        for f in dataclasses.fields(Topology)})
+
+
+def check_dt_quantization(topo: Topology, dt: float, name: str = "") -> bool:
+    """Warn when edge delays are not integer multiples of ``dt``: the
+    fixed-step engine quantizes hop timers to the substep grid, which then
+    differs from the reference's event-driven timeline.  Returns True when
+    a warning fired."""
+    delays = topo.edge_delay.double().numpy()[topo.edge_mask.numpy()]
+
+    def fractional(f):
+        # relative: f32-sourced delays carry ~1e-7 relative error
+        return np.abs(f - np.round(f)) > 1e-6 * np.maximum(np.abs(f), 1.0)
+
+    bad = fractional(delays / dt)
+    if bad.any():
+        suggest = dt
+        for cand in (0.5, 0.25, 0.125, 0.1, 0.05, 0.025):
+            if not fractional(delays / cand).any():
+                suggest = cand
+                break
+        label = f" {name!r}" if name else ""
+        warnings.warn(
+            f"topology{label} has {int(bad.sum())} edge delay(s) that are "
+            f"not integer multiples of dt={dt} (e.g. {delays[bad][0]:.3f} ms)"
+            f"; the fixed-step engine quantizes hop timers to dt, which "
+            f"diverges from the reference's event-driven contention physics"
+            + (f" — consider dt={suggest}" if suggest != dt else ""),
+            stacklevel=2)
+        return True
+    return False
+
+
+def load_topology(path: str, max_nodes: int = 24, max_edges: int = 37,
+                  force_link_cap: Optional[float] = None,
+                  force_node_cap: Optional[Tuple[float, float]] = None,
+                  seed: int = 0) -> Topology:
+    """GraphML file -> Topology (node-cap draws from
+    ``np.random.default_rng(seed)``)."""
+    spec = read_graphml(path, force_link_cap=force_link_cap,
+                        force_node_cap=force_node_cap,
+                        rng=np.random.default_rng(seed))
+    return compile_topology(spec, max_nodes=max_nodes, max_edges=max_edges)
+
+
+# Compiled topologies shared by every EpisodeDriver of the process, keyed
+# by every input that shapes the result and the file's mtime (an edited
+# file is never served stale); bounded.
+_LOAD_MEMO: "OrderedDict" = OrderedDict()
+_LOAD_MEMO_MAX = 64
+
+
+def load_topology_cached(path: str, max_nodes: int = 24, max_edges: int = 37,
+                         force_link_cap: Optional[float] = None,
+                         force_node_cap: Optional[Tuple[float, float]] = None,
+                         seed: int = 0, topo_id: int = 0) -> Topology:
+    """Memoized :func:`load_topology` stamped with ``topo_id``: a repeated
+    key returns the same Topology object."""
+    ap = os.path.abspath(path)
+    try:
+        mtime = os.path.getmtime(ap)
+    except OSError:
+        mtime = None   # load_topology raises its own error
+    key = (ap, mtime, max_nodes, max_edges, force_link_cap, force_node_cap,
+           seed, topo_id)
+    hit = _LOAD_MEMO.get(key)
+    if hit is not None:
+        _LOAD_MEMO.move_to_end(key)
+        return hit
+    topo = load_topology(path, max_nodes=max_nodes, max_edges=max_edges,
+                         force_link_cap=force_link_cap,
+                         force_node_cap=force_node_cap, seed=seed)
+    if topo_id:
+        topo = topo.replace(topo_id=torch.tensor(topo_id, dtype=torch.int32))
+    _LOAD_MEMO[key] = topo
+    while len(_LOAD_MEMO) > _LOAD_MEMO_MAX:
+        _LOAD_MEMO.popitem(last=False)
+    return topo

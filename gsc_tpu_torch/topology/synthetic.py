@@ -1,13 +1,15 @@
 """Programmatic topology builders.
 
-The port of the ``gsc_tpu.topology.synthetic`` builders on the serving
-slice's path and in its tests: Abilene (11 nodes / 14 edges / 4 ingress,
-the flagship scenario), BT Europe (24 nodes / 37 edges), triangle and
-line.  Node lists are the public Internet Topology Zoo ones; link delays
-come from the city coordinates.
+The port of the ``gsc_tpu.topology.synthetic`` builders that the port's
+paths and ``init-configs`` use: Abilene (11 nodes / 14 edges / 4 ingress,
+the flagship scenario), BT Europe (24 nodes / 37 edges), Claranet (15 /
+18), Compuserve (14 / 17), triangle and line; and ``write_graphml``.
+Node lists are the public Internet Topology Zoo ones; link delays come
+from the city coordinates (3 ms where a network has none).
 """
 from __future__ import annotations
 
+import xml.etree.ElementTree as ET
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -98,6 +100,44 @@ def bteurope(num_ingress: int = 2, link_cap: float = 1000.0,
                             node_cap=node_cap)
 
 
+# Internet Topology Zoo graph structures of the reference's two other
+# small real scenarios (Claranet-in4, Compuserve-in4).  Their assets carry
+# no coordinates, so every link takes the 3 ms default delay.
+_CLARANET_EDGES = [  # 15 nodes / 18 edges
+    (0, 3), (1, 3), (1, 4), (2, 3), (3, 14), (4, 12), (5, 14), (6, 14),
+    (7, 8), (7, 10), (7, 14), (9, 10), (9, 11), (10, 11), (10, 12),
+    (10, 14), (12, 13), (12, 14),
+]
+_COMPUSERVE_EDGES = [  # 14 nodes / 17 edges
+    (0, 12), (1, 12), (2, 11), (2, 12), (2, 5), (3, 12), (4, 5), (4, 13),
+    (6, 13), (6, 7), (7, 8), (7, 12), (8, 9), (9, 10), (9, 12), (10, 11),
+    (12, 13),
+]
+
+
+def _zoo_network(n: int, edge_list, num_ingress: int, link_cap: float,
+                 node_cap: float, link_delay: float = 3.0) -> NetworkSpec:
+    caps = [float(node_cap)] * n
+    types = ["Ingress" if i < num_ingress else "Normal" for i in range(n)]
+    edges = [(u, v, link_cap, link_delay) for u, v in edge_list]
+    return NetworkSpec(node_caps=caps, node_types=types, edges=edges)
+
+
+def claranet(num_ingress: int = 4, link_cap: float = 1000.0,
+             node_cap: float = 1.0) -> NetworkSpec:
+    """Claranet (Topology Zoo): 15 nodes / 18 edges, the reference's
+    Claranet-in4-cap1 scenario shape."""
+    return _zoo_network(15, _CLARANET_EDGES, num_ingress, link_cap, node_cap)
+
+
+def compuserve(num_ingress: int = 4, link_cap: float = 1000.0,
+               node_cap: float = 1.0) -> NetworkSpec:
+    """Compuserve (Topology Zoo): 14 nodes / 17 edges, the reference's
+    Compuserve-in4-cap1 scenario shape."""
+    return _zoo_network(14, _COMPUSERVE_EDGES, num_ingress, link_cap,
+                        node_cap)
+
+
 def _geo_zoo_network(cities, edge_list, num_ingress, link_cap,
                      node_cap_range, seed,
                      node_cap: float = 1.0) -> NetworkSpec:
@@ -141,3 +181,89 @@ def line(n: int = 3, node_cap: float = 10.0, link_cap: float = 100.0,
     types = ["Ingress" if i < num_ingress else "Normal" for i in range(n)]
     edges = [(i, i + 1, link_cap, link_delay) for i in range(n - 1)]
     return NetworkSpec(node_caps=[node_cap] * n, node_types=types, edges=edges)
+
+
+# GraphML attribute types of Python values, as networkx writes them
+_XML_TYPES = ((bool, "boolean"), (int, "long"), (float, "double"),
+              (str, "string"))
+
+
+def _xml_type(value) -> str:
+    for kind, name in _XML_TYPES:
+        if isinstance(value, kind):
+            return name
+    raise TypeError(f"GraphML cannot store {type(value).__name__} "
+                    f"{value!r}")
+
+
+def write_graphml(spec: NetworkSpec, path: str) -> None:
+    """Write a NetworkSpec as a GraphML network file with the standard
+    library: node attributes NodeCap, NodeType and, where the spec has
+    them, label, Latitude and Longitude; edge attributes LinkFwdCap and
+    LinkDelay.  What networkx (and so the JAX package) reads back from it
+    is what the JAX package's own writer gives: the same attribute names,
+    types and values, nodes in order, each node pair's last edge once, in
+    the order networkx lists a graph's edges."""
+    nodes = []
+    for i, cap in enumerate(spec.node_caps):
+        attrs = {"NodeCap": cap, "NodeType": spec.node_types[i]}
+        if spec.node_names:
+            attrs["label"] = spec.node_names[i]
+        if spec.coords:
+            attrs["Latitude"], attrs["Longitude"] = spec.coords[i]
+        nodes.append(attrs)
+    # a simple graph: a repeated pair keeps its first position, last values
+    adj = {i: {} for i in range(len(nodes))}
+    for u, v, cap, delay in spec.edges:
+        attrs = {"LinkFwdCap": cap, "LinkDelay": delay}
+        adj[u].setdefault(v, {}).update(attrs)
+        adj[v][u] = adj[u][v]
+    edges, done = [], set()
+    for u in adj:
+        edges.extend((u, v, a) for v, a in adj[u].items() if v not in done)
+        done.add(u)
+
+    keys = {}
+    root = ET.Element("graphml", {
+        "xmlns": "http://graphml.graphdrawing.org/xmlns",
+        "xmlns:xsi": "http://www.w3.org/2001/XMLSchema-instance",
+        "xsi:schemaLocation": "http://graphml.graphdrawing.org/xmlns "
+        "http://graphml.graphdrawing.org/xmlns/1.0/graphml.xsd"})
+
+    def key_of(name, value, scope):
+        kind = _xml_type(value)
+        if (name, scope) not in keys:
+            kid = f"d{len(keys)}"
+            keys[(name, scope)] = (kid, kind)
+            ET.SubElement(root, "key", {"id": kid, "for": scope,
+                                        "attr.name": name,
+                                        "attr.type": kind})
+        kid, declared = keys[(name, scope)]
+        if declared != kind:
+            raise TypeError(f"GraphML attribute {name} mixes {declared} "
+                            f"and {kind} values")
+        return kid
+
+    def data(parent, attrs, scope):
+        for name, value in attrs.items():
+            kid = key_of(name, value, scope)
+            text = str(value).lower() if isinstance(value, bool) \
+                else str(value)
+            ET.SubElement(parent, "data", {"key": kid}).text = text
+
+    # keys first, as networkx writes them: declare every attribute before
+    # the graph element
+    for attrs in nodes:
+        for name, value in attrs.items():
+            key_of(name, value, "node")
+    for _, _, attrs in edges:
+        for name, value in attrs.items():
+            key_of(name, value, "edge")
+    graph = ET.SubElement(root, "graph", {"edgedefault": "undirected"})
+    for i, attrs in enumerate(nodes):
+        data(ET.SubElement(graph, "node", {"id": str(i)}), attrs, "node")
+    for u, v, attrs in edges:
+        data(ET.SubElement(graph, "edge", {"source": str(u),
+                                           "target": str(v)}), attrs, "edge")
+    ET.indent(root)
+    ET.ElementTree(root).write(path, encoding="utf-8", xml_declaration=True)

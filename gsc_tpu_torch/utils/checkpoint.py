@@ -2,7 +2,8 @@
 
 The port's counterpart of ``gsc_tpu.utils.checkpoint``, in a format of its
 own: a checkpoint is a directory holding ``state.pt`` (the actor, the
-critic, both Polyak targets, both Adam states and, when given, the
+critic, both Polyak targets, both Adam states, the ``extra`` counters such
+as the completed-episode count that resume reads and, when given, the
 ``Draws`` generator's state) and, when a replay is given, ``buffer.pt``
 (its tensors, write positions and fill counts), each written with
 ``torch.save`` and read back with ``torch.load(weights_only=True)``.
@@ -17,7 +18,10 @@ directory, with the JAX package's semantics:
   sidecar, so that an old policy never describes a new checkpoint.
 
 ``checksum=True`` records a sha256 over every file of the directory in
-the sidecar; ``verify_checkpoint`` recomputes it.
+the sidecar; ``verify_checkpoint`` recomputes it.  ``load_full_or_partial``
+restores the learner state alone, replay starting empty, when the saved
+replay does not fit the one asked for (another ``mem_limit`` or replica
+count).
 """
 from __future__ import annotations
 
@@ -73,15 +77,19 @@ def checkpoint_checksum(path: str) -> str:
 
 
 def save_checkpoint(path: str, state, buffer=None, meta: Optional[dict] = None,
-                    checksum: bool = False, draws=None) -> str:
+                    checksum: bool = False, draws=None,
+                    extra: Optional[dict] = None) -> str:
     """Write the learner state ``state`` (a ``DDPGState``), the replay
-    ``buffer`` and the ``draws`` generator state when given, and the
-    ``meta`` sidecar; returns the absolute path of the directory."""
+    ``buffer``, the ``draws`` generator state and the ``extra`` ints (the
+    JAX package's ``extra={"episode": n}``) when given, and the ``meta``
+    sidecar; returns the absolute path of the directory."""
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     payload = {net: getattr(state, net).state_dict() for net in _NETS}
     for opt in _OPTS:
         payload[opt] = getattr(state, opt).state_dict()
+    if extra is not None:
+        payload["extra"] = {k: int(v) for k, v in extra.items()}
     if draws is not None:
         payload["draws"] = draws.generator.get_state()
     _write_atomic(os.path.join(path, STATE_FILE),
@@ -139,13 +147,19 @@ def verify_checkpoint(path: str) -> bool:
     return bool(recorded) and checkpoint_checksum(path) == recorded
 
 
-def checkpoint_precision(path: str, precision: Optional[str] = None) -> str:
+def checkpoint_precision(path: str, precision: Optional[str] = None,
+                         implicit: Optional[str] = "f32") -> Optional[str]:
     """The precision policy to run a checkpoint under: the sidecar's
-    ``precision``, or "f32" for a checkpoint without one.  An explicit
-    ``precision`` that contradicts it raises ValueError (the JAX package's
-    rule for ``--precision`` beside ``--resume``)."""
+    ``precision``; without a readable one, ``implicit``: "f32" to resume
+    (a replay without a recorded policy can only be f32), None to serve or
+    infer its actor, which then returns ``precision`` (None: the agent
+    yaml's).  An explicit ``precision`` that contradicts the recorded or
+    implicit policy raises ValueError (the JAX package's rule for
+    ``--precision`` beside ``--resume``)."""
     meta = read_checkpoint_meta(path)
-    recorded = meta.get("precision") or "f32"
+    recorded = meta.get("precision") or implicit
+    if recorded is None:
+        return precision
     if precision and precision != recorded:
         how = "recorded" if "precision" in meta else "implicit (no sidecar)"
         raise ValueError(
@@ -166,13 +180,7 @@ def load_actor_state(path: str) -> dict:
     return _load(path, STATE_FILE)["actor"]
 
 
-def load_checkpoint(path: str, state, buffer=None, draws=None) -> dict:
-    """Restore a checkpoint into ``state`` (a ``DDPGState`` of the same
-    networks), and into ``buffer`` and ``draws`` when given, in place;
-    every tensor keeps its device and takes the saved values bit for bit.
-    Returns ``{"state": state, "buffer": buffer or None, "draws": draws or
-    None}``.  Raises when the checkpoint lacks what is asked for."""
-    payload = _load(path, STATE_FILE)
+def _restore_state(path: str, payload: dict, state, draws) -> dict:
     for net in _NETS:
         getattr(state, net).load_state_dict(payload[net])
     for opt in _OPTS:
@@ -181,20 +189,58 @@ def load_checkpoint(path: str, state, buffer=None, draws=None) -> dict:
         if "draws" not in payload:
             raise ValueError(f"checkpoint {path} holds no Draws state")
         draws.generator.set_state(payload["draws"])
-    if buffer is not None:
-        rb = _load(path, BUFFER_FILE)
-        if set(rb["data"]) != set(buffer.data):
-            raise ValueError(f"checkpoint {path} replay leaves "
-                             f"{sorted(rb['data'])} differ from the "
-                             f"buffer's {sorted(buffer.data)}")
-        for k, d in buffer.data.items():
-            src = rb["data"][k]
-            if src.shape != d.shape or src.dtype != d.dtype:
-                raise ValueError(
-                    f"checkpoint {path} replay leaf {k} is "
+    return dict(payload.get("extra", {}))
+
+
+def _replay_mismatch(path: str, rb: dict, buffer) -> Optional[str]:
+    """Why the saved replay ``rb`` does not fit ``buffer``, or None."""
+    if set(rb["data"]) != set(buffer.data):
+        return (f"checkpoint {path} replay leaves {sorted(rb['data'])} "
+                f"differ from the buffer's {sorted(buffer.data)}")
+    for k, d in buffer.data.items():
+        src = rb["data"][k]
+        if src.shape != d.shape or src.dtype != d.dtype:
+            return (f"checkpoint {path} replay leaf {k} is "
                     f"{tuple(src.shape)}/{src.dtype}, the buffer's "
                     f"{tuple(d.shape)}/{d.dtype}")
-            d.copy_(src)
-        buffer.pos.copy_(rb["pos"])
-        buffer.size.copy_(rb["size"])
-    return {"state": state, "buffer": buffer, "draws": draws}
+    return None
+
+
+def _restore_buffer(rb: dict, buffer):
+    for k, d in buffer.data.items():
+        d.copy_(rb["data"][k])
+    buffer.pos.copy_(rb["pos"])
+    buffer.size.copy_(rb["size"])
+
+
+def load_checkpoint(path: str, state, buffer=None, draws=None) -> dict:
+    """Restore a checkpoint into ``state`` (a ``DDPGState`` of the same
+    networks), and into ``buffer`` and ``draws`` when given, in place;
+    every tensor keeps its device and takes the saved values bit for bit.
+    Returns ``{"state": state, "buffer": buffer or None, "draws": draws or
+    None, "extra": the saved extra ints ({} without)}``.  Raises when the
+    checkpoint lacks what is asked for."""
+    rb = None
+    if buffer is not None:
+        rb = _load(path, BUFFER_FILE)
+        why = _replay_mismatch(path, rb, buffer)
+        if why:
+            raise ValueError(why)
+    extra = _restore_state(path, _load(path, STATE_FILE), state, draws)
+    if rb is not None:
+        _restore_buffer(rb, buffer)
+    return {"state": state, "buffer": buffer, "draws": draws, "extra": extra}
+
+
+def load_full_or_partial(path: str, state, buffer=None, draws=None):
+    """``load_checkpoint`` of the state, the replay and the random source,
+    falling back to the state and the random source alone when the saved
+    replay is missing or does not fit ``buffer`` (another storage dtype,
+    ``mem_limit`` or replica count).  Returns ``(restored,
+    buffer_restored)``; ``buffer`` is left as it was when not restored."""
+    if buffer is not None:
+        try:
+            return load_checkpoint(path, state, buffer, draws), True
+        except (FileNotFoundError, ValueError):
+            pass   # the state's own faults raise again below
+    return load_checkpoint(path, state, draws=draws), False

@@ -182,6 +182,21 @@ def test_checkpoint_precision_rule(tmp_path):
         checkpoint_precision(bare, "bf16")
 
 
+def test_checkpoint_precision_to_serve(tmp_path):
+    """With ``implicit=None`` (serve and infer) a checkpoint without a
+    sidecar leaves the policy to the caller, and a recorded one still
+    refuses a contradicting ``precision``."""
+    _, state, _ = _stack()
+    ck = save_checkpoint(str(tmp_path / "ck"), state,
+                         meta={"precision": "bf16"})
+    assert checkpoint_precision(ck, implicit=None) == "bf16"
+    with pytest.raises(ValueError, match="contradicts"):
+        checkpoint_precision(ck, "f32", implicit=None)
+    bare = save_checkpoint(str(tmp_path / "bare"), state)
+    assert checkpoint_precision(bare, implicit=None) is None
+    assert checkpoint_precision(bare, "bf16", implicit=None) == "bf16"
+
+
 def _configs(tmp_path):
     (tmp_path / "agent.yaml").write_text(TINY_AGENT)
     (tmp_path / "sim.yaml").write_text(TINY_SIM)
@@ -243,3 +258,71 @@ def test_cli_train_bf16_then_serve_the_checkpoint(tmp_path, capsys):
     with pytest.raises(SystemExit, match="contradicts"):
         cli.main(["serve", "--device", "cpu", "--checkpoint", ck,
                   "--precision", "f32", "--requests", "1", *cfg])
+
+
+def test_serve_without_a_sidecar_keeps_the_yaml_precision(tmp_path, capsys):
+    """A checkpoint whose sidecar is lost or unreadable carries no policy:
+    ``serve --checkpoint`` and ``infer`` then run under the agent yaml's
+    precision (the JAX package's rule), not under f32."""
+    from gsc_tpu_torch.serve import run_serve
+
+    cfg = _configs(tmp_path)
+    ck = str(tmp_path / "ck")
+    cli.run_train(["--device", "cpu", "--replicas", "2", "--chunk", "1",
+                   "--episodes", "1", "--checkpoint", ck, *cfg])
+    os.unlink(ck + ".meta.json")
+    (tmp_path / "bf16.yaml").write_text(TINY_AGENT + "precision: bf16\n")
+    bf16_cfg = ["--agent-config", str(tmp_path / "bf16.yaml"),
+                "--simulator-config", str(tmp_path / "sim.yaml")]
+    from gsc_tpu_torch.config.loader import load_agent, load_sim
+    report = run_serve(load_agent(str(tmp_path / "bf16.yaml")),
+                       load_sim(str(tmp_path / "sim.yaml")), requests=2,
+                       concurrency=1, pool_steps=1, device="cpu",
+                       checkpoint=ck)
+    assert report.ddpg.agent.precision == "bf16"
+    assert not report.errors
+    rc = cli.main(["serve", "--device", "cpu", "--checkpoint", ck,
+                   "--requests", "2", "--concurrency", "1", "--pool-steps",
+                   "1", *bf16_cfg])
+    assert rc == 0
+    (tmp_path / "ck.meta.json").write_text('{"precision": "bf')
+    out = cli.run_infer(["--device", "cpu", "--checkpoint", ck,
+                         *bf16_cfg])
+    assert out["trainer"].agent_cfg.precision == "bf16"
+    out = cli.run_infer(["--device", "cpu", "--checkpoint", ck, *cfg])
+    assert out["trainer"].agent_cfg.precision == "f32"
+    capsys.readouterr()
+
+
+def test_partial_restore_when_the_replay_does_not_fit(tmp_path):
+    """``load_full_or_partial``: a replay of another capacity is not
+    restored (the buffer keeps its values), the learner state, the random
+    source and the episode counter are."""
+    from gsc_tpu_torch.utils.checkpoint import load_full_or_partial
+
+    pd, state, buffers = _stack("f32", seed=0)
+    ck = save_checkpoint(str(tmp_path / "ck"), state, buffer=buffers,
+                         draws=pd.draws, extra={"episode": 5})
+    other, ostate, obuf = _stack("f32", seed=1)
+    full, fstate, fbuf = _stack("f32", seed=2)
+    restored, ok = load_full_or_partial(ck, fstate, buffer=fbuf,
+                                        draws=Draws(3, "cpu"))
+    assert ok and restored["extra"] == {"episode": 5}
+    assert torch.equal(fbuf.data["action"], buffers.data["action"])
+    from gsc_tpu_torch.agents.buffer import buffer_init
+    small = buffer_init(other.ddpg.example_transition(
+        GraphObs(**{k: torch.from_numpy(np.asarray(v[0]))
+                    for k, v in _obs(1, 0).items()})), 2, lead=(B,))
+    before = small.data["action"].clone()
+    draws = Draws(9, "cpu")
+    restored, ok = load_full_or_partial(ck, ostate, buffer=small,
+                                        draws=draws)
+    assert not ok and restored["buffer"] is None
+    assert restored["extra"] == {"episode": 5}
+    assert torch.equal(small.data["action"], before)
+    assert torch.equal(draws.generator.get_state(),
+                       pd.draws.generator.get_state())
+    want = _tensors(state, buffers, pd.draws)
+    got = _tensors(ostate, buffers, draws)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
