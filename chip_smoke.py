@@ -173,7 +173,32 @@ Phases (any failure exits non-zero and prints no result line):
    schedule over claranet) must be bit-equal to the plain version on CPU
    copies of its inputs and within the tolerance below of it on the card;
    and the seconds of each of the phase's parts;
-14. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+14. bench.py's two largest stacks (``large_network_slice``): (a) the four
+   attention forms at (4, 128, 22) and (4, 256, 22) (graphs cut into
+   CTAs of 32 target rows, the backward's as 4- and 8-CTA clusters)
+   against their plain versions on unit-normal and saturated inputs,
+   both aggregations, at phases 3's and 9's tolerances (on saturated
+   inputs d_att and d_bias against float64 only), relaunches
+   bit-identical, and each form's device time, time per call, plain time
+   and bound at mean aggregation; (b) the megakernel on one interroute
+   (M=1024, N=128) and one rung-5 (M=1024, N=256, P=5) interval at B=2,
+   bit-equal to its plain version on CPU copies, a relaunch
+   bit-identical, its shared memory, device time and bound; (c)
+   ``cli.run_train`` on Interoute (128 nodes / 192 edges, abc chain,
+   1024 slots, 200-step episodes, ``mem_limit`` 2048, the factored heads)
+   at 8 replicas for 2 f32 episodes with a checkpoint and (d) 1 bf16
+   episode, with phase 8's checks (launch counts per step, every
+   parameter moved, replay fill, gradients through the kernels against
+   the dense path or the plain versions); (e) ``run_serve`` of 16
+   requests at concurrency 4 from the f32 checkpoint's factored actor,
+   answers against unbatched calls and the plain actor; (f)
+   ``cli.run_train`` on rung 5 (``random_network(200, num_ingress=8,
+   seed=11)`` through GraphML, padded to 256 / 384, the mixed catalog,
+   ``mem_limit`` 1024) at 2 replicas for one 20-step episode and burst.
+   Prints each part's seconds, every run's env-steps/s and burst seconds
+   and the serving numbers beside the card's name and power limit; the
+   kernels line's launch counts include this phase's;
+15. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Tolerances (stated here, used below): the attention kernel against its
 plain version rtol 1e-5 / atol 1e-5 (f32 in another summation order: the
@@ -202,8 +227,8 @@ on the card (whose scatter-adds are float atomics and whose cumsum is a
 parallel f32 scan, so it adds in another order), its integers exactly;
 against the plain version on CPU copies every leaf bit for bit: the
 kernel keeps the CPU version's order, or an admission scan order that is
-exact in a double, and the battery's whole-slot sums (which PyTorch's CPU
-sum vectorises) are exact or have at most two fractional terms.
+exact in a double, and the plain version adds the whole-slot sums in
+slot order as the kernel does (``sim.engine.slot_order_sum``).
 Training gradients through the kernels against the dense path: per
 parameter tensor, the largest difference within 1e-4 of the tensor's
 largest entry plus 1e-5.  The two paths' forward outputs differ by f32
@@ -270,6 +295,33 @@ ANSWER_BF16_RTOL, ANSWER_BF16_ATOL = 2.0 ** -5, 2.0 ** -9
 THRESH_BF16_TOL = 2.0 ** -7
 BF16_BURSTS = [(64, 4, 5.0), (32, 8, 50.0)]
 # replicas of the megakernel's timings; the training path runs 64
+# pairs of device-time measurements, parent and this commit in
+# alternating order, behind phase 3's comparison at the learn-burst shape
+PARENT_PAIRS = 10
+# phase 14: kernel #1 at interroute's and rung 5's graph sizes, and the
+# configurations of bench.py's _interroute_stack and _rung5_stack (their
+# SimConfig(ttl_choices=(100.0,), max_flows=1024) with the defaults
+# written out; the flagship agent with gnn_impl "pallas" and their replay
+# budgets; rung 5's episodes cut from 200 to 20 steps)
+LARGE_SHAPES = [(4, 128, 22), (4, 256, 22)]
+LARGE_SIM_YAML = ("inter_arrival_mean: 10.0\ndeterministic_arrival: true\n"
+                  "deterministic_size: true\nflow_dr_mean: 1.0\n"
+                  "flow_dr_stdev: 0.0\nflow_size_shape: 0.001\n"
+                  "run_duration: 100\nttl_choices: [100]\nmax_flows: 1024\n")
+INTERROUTE_AGENT_YAML = ("episode_steps: 200\nobjective: prio-flow\n"
+                         "mem_limit: 2048\ngnn_impl: pallas\n")
+RUNG5_AGENT_YAML = ("episode_steps: 20\nlearn_steps: 20\n"
+                    "objective: prio-flow\nmem_limit: 1024\n"
+                    "gnn_impl: pallas\n")
+MIXED_SERVICE_YAML = (
+    "sfc_list:\n  sfc_1: [a, b, c]\n  sfc_2: [d, e]\nsf_list:\n"
+    + "".join(f"  {n}:\n    processing_delay_mean: {d}\n"
+              "    processing_delay_stdev: 0.0\n"
+              for n, d in zip("abcde", (5.0, 5.0, 5.0, 8.0, 2.0))))
+INTERROUTE_NET = ["--network", "interroute", "--max-nodes", "128",
+                  "--max-edges", "192"]
+# requests and concurrency of phase 14's interroute serving
+LARGE_SERVE = (16, 4)
 SUB_TIMING_BATCHES = (1, 64, 256)
 SUB_MAIN_BATCH = 64
 TRAIN_ARGS = ["--replicas", "64", "--chunk", "50", "--episodes", "2",
@@ -301,6 +353,7 @@ PARENT_DIR = Path(__file__).resolve().parent / "_parent"
 PARENT_SOURCE = PARENT_DIR / "substep_megakernel.cu"
 PARENT_GAT_SOURCE = PARENT_DIR / "gat_attention.cu"
 PARENT_GAT_WRAPPER = PARENT_DIR / "gat_attention.py"
+PARENT_GAT_BACKWARD_SOURCE = PARENT_DIR / "gat_attention_backward.cu"
 # the battery case whose data rates span more than a double holds
 WIDE_CASE = "wide_range_dr"
 
@@ -419,11 +472,15 @@ def saturated_inputs(b, n, f, seed, torch, device, gap=12.0):
         + [adj]
 
 
-def check_backward(args, grad, mean, what, torch):
+def check_backward(args, grad, mean, what, torch, sums_to_f64=False):
     """The backward kernel against its plain version on one input: within
     the tolerance per output, no further from float64 than F64_RATIO times
     the plain version, d_xr 0 on rows without a neighbour, and two launches
-    bit for bit the same.  Returns the largest difference and a line."""
+    bit for bit the same.  ``sums_to_f64``: d_att and d_bias are held to
+    the float64 evaluation only (a saturated softmax at large N, where
+    their f32 sums cancel terms far larger than themselves and the plain
+    version is the less accurate side).  Returns the largest difference
+    and a line."""
     from gsc_tpu_torch.ops.gat_attention import (attention_backward_plain,
                                                  gat_attention_backward)
 
@@ -447,7 +504,9 @@ def check_backward(args, grad, mean, what, torch):
         worst = max(worst, e)
         parts.append(f"{key} {e:.2e} (f64 {k64:.2e}/{p64:.2e}, max "
                      f"{scale:.3g})")
-        check(g.shape == w.shape and e <= BWD_SCALE * scale + BWD_ATOL,
+        check(g.shape == w.shape, f"backward {key} is {tuple(g.shape)}")
+        check(e <= BWD_SCALE * scale + BWD_ATOL or
+              (sums_to_f64 and key in ("d_att", "d_bias")),
               f"backward {key} != plain at {what}: max abs err {e}, largest "
               f"entry {scale}")
         check(k64 <= F64_RATIO * max(p64, F64_FLOOR),
@@ -531,11 +590,41 @@ def dense_vjp(args, grad, mean, torch):
                                    grad)
 
 
+def alternating_pairs(parent_fn, fn, kernel, torch, pairs=PARENT_PAIRS):
+    """Device time per launch (profiler) of ``parent_fn`` and ``fn`` in
+    ``pairs`` pairs, each pair's order alternating; returns (parent
+    median, median, pairs won by ``fn``, pairs measured), a pair being
+    dropped when the profiler records no device time on a side."""
+    import statistics
+
+    won = measured = 0
+    times = ([], [])
+    for p in range(pairs):
+        sides = [0, 1] if p % 2 == 0 else [1, 0]
+        pair = [None, None]
+        for side in sides:
+            call = parent_fn if side == 0 else fn
+            pair[side] = profile_device_ms(call, torch, reps=30,
+                                           kernel=kernel)
+        if None in pair:
+            continue
+        measured += 1
+        won += pair[1] < pair[0]
+        times[0].append(pair[0])
+        times[1].append(pair[1])
+    if not measured:
+        return None
+    return (statistics.median(times[0]), statistics.median(times[1]), won,
+            measured)
+
+
 def parent_gat():
-    """The parent commit's attention kernel with its own wrapper (loaded
-    beside the package's modules, so that the time per call compares
-    wrapper and all), or None unless both ``_parent/gat_attention.cu``
-    and ``_parent/gat_attention.py`` are there."""
+    """The parent commit's attention kernels with their own wrappers
+    (loaded beside the package's modules, so that the time per call
+    compares wrapper and all): (forward, backward), the backward None
+    unless ``_parent/gat_attention_backward.cu`` is there; None unless
+    both ``_parent/gat_attention.cu`` and ``_parent/gat_attention.py`` are
+    there (the headers they include, ``_parent/*.cuh``, beside them)."""
     if not (PARENT_GAT_SOURCE.exists() and PARENT_GAT_WRAPPER.exists()):
         return None
     import importlib.util
@@ -544,22 +633,24 @@ def parent_gat():
         "gsc_tpu_torch.ops._parent_gat_attention", PARENT_GAT_WRAPPER)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod.SOURCE = PARENT_GAT_SOURCE
-    return mod.GatAttention()
+    backward = (mod.GatAttentionBackward(source=PARENT_GAT_BACKWARD_SOURCE)
+                if PARENT_GAT_BACKWARD_SOURCE.exists() else None)
+    return mod.GatAttention(source=PARENT_GAT_SOURCE), backward
 
 
 def attention_phase(torch, dev, smi, parent):
     """Phase 3: the forward and backward attention kernels against their
     plain versions at every shape and aggregation, timed at mean
-    aggregation; the parent forward kernel in turns where ``parent`` is
-    built.  Returns the forward's timings by shape and largest error, and
-    the backward's."""
+    aggregation; the parent's kernels in turns where ``parent`` (forward,
+    backward or None) is built.  Returns the forward's timings by shape
+    and largest error, and the backward's."""
     from gsc_tpu_torch.ops.gat_attention import (attention_backward_plain,
                                                  attention_plain,
                                                  gat_attention,
                                                  gat_attention_backward)
 
     fmt = lambda v: "not measured" if v is None else f"{v:.5f} ms"
+    parent, parent_bwd = parent if parent is not None else (None, None)
     max_err = bwd_err = 0.0
     timings, bwd_timings = {}, {}
     print(f"attention kernels vs plain (forward rtol {KERNEL_RTOL}, atol "
@@ -642,12 +733,47 @@ def attention_phase(torch, dev, smi, parent):
                      for fn in (vjp, bwd_call, bwd_call, vjp)]
             b_ms = cuda_time_ms(bwd_call, torch)
             b_dev = profile_device_ms(bwd_call, torch,
-                                      kernel="gat_attention_backward_kernel")
+                                      kernel="gat_attention_backward")
             b_plain = cuda_time_ms(
                 lambda: attention_backward_plain(grad, xl, xr, att, adj,
                                                  True), torch, reps=50)
             b_bound, b_by = gat_backward_bound(args, grad)
             bwd_timings[(b, n, f)] = (b_ms, b_plain, b_bound, b_by)
+            if parent is not None and (b, n, f) == MAIN_SHAPE:
+                for what, pfn, fn, kern in (
+                        ("forward", lambda: fwd(parent), fwd,
+                         "gat_attention_kernel"),
+                        ("backward", lambda: parent_bwd.launch(
+                            grad, xl, xr, att, adj, True), bwd_call,
+                         "gat_attention_backward")):
+                    if what == "backward" and parent_bwd is None:
+                        continue
+                    res = alternating_pairs(pfn, fn, kern, torch)
+                    if res is not None:
+                        print(f"    parent vs this {what} kernel in "
+                              f"{res[3]} alternating pairs: device time "
+                              f"median {res[0]:.5f} ms (parent), "
+                              f"{res[1]:.5f} ms (this), ratio "
+                              f"{res[1] / res[0]:.4f}; this one faster in "
+                              f"{res[2]} of {res[3]}", flush=True)
+            if parent_bwd is not None:
+                p_call = lambda: parent_bwd.launch(grad, xl, xr, att, adj,
+                                                   True)
+                for x, y in zip(p_call(), bwd_call()):
+                    check(torch.allclose(x, y, rtol=BWD_SCALE,
+                                         atol=BWD_ATOL),
+                          f"the parent backward kernel differs at "
+                          f"{(b, n, f)}")
+                order = (p_call, bwd_call, bwd_call, p_call)
+                p_turns = [cuda_time_ms(fn, torch) for fn in order]
+                p_dev = [profile_device_ms(
+                    fn, torch, kernel="gat_attention_backward")
+                    for fn in order]
+                print(f"    parent backward kernel vs this one in turns "
+                      f"(parent, kernel, kernel, parent): device time "
+                      f"{', '.join(fmt(t) for t in p_dev)}; per call "
+                      f"{', '.join(f'{t:.5f} ms' for t in p_turns)}",
+                      flush=True)
             print(f"    backward per call (events, wrapper) {b_ms:.4f} ms, "
                   f"device time (profiler) {fmt(b_dev)}; plain "
                   f"{b_plain:.4f} ms per call; bound {b_bound:.6f} ms "
@@ -693,12 +819,13 @@ def to_bf16(args):
     return [xl.to(torch.bfloat16), xr.to(torch.bfloat16), att, bias, adj]
 
 
-def check_backward_bf16(args, grad, mean, what, torch):
+def check_backward_bf16(args, grad, mean, what, torch, sums_to_f64=False):
     """The bf16 backward kernel against its plain version on one input:
     d_xl, d_xr within one bf16 ulp of the tensor's largest entry and no
     further from float64 than twice the plain version (floored at a
-    quarter ulp); d_att, d_bias as the f32 kernel's; d_xr 0 on rows
-    without a neighbour; two launches bit for bit the same."""
+    quarter ulp); d_att, d_bias as the f32 kernel's (``sums_to_f64`` as
+    there); d_xr 0 on rows without a neighbour; two launches bit for bit
+    the same."""
     from gsc_tpu_torch.ops.gat_attention import (attention_backward_plain,
                                                  attention_backward_wide,
                                                  gat_attention_backward_bf16)
@@ -736,7 +863,7 @@ def check_backward_bf16(args, grad, mean, what, torch):
         else:
             parts.append(f"{key} {e:.2e} (f64 {k64:.2e}/{p64:.2e}, max "
                          f"{scale:.3g})")
-            check(e <= BWD_SCALE * scale + BWD_ATOL,
+            check(e <= BWD_SCALE * scale + BWD_ATOL or sums_to_f64,
                   f"bf16 backward {key} != plain at {what}: max abs err "
                   f"{e}, largest entry {scale}")
             check(k64 <= F64_RATIO * max(p64, F64_FLOOR),
@@ -842,7 +969,7 @@ def attention_phase_bf16(torch, dev, smi):
                 grad, xl, xr, att, adj, True)
             b_turns = [cuda_time_ms(fn, torch) for fn in (g32, g16, g16, g32)]
             b_dev = [profile_device_ms(fn, torch,
-                                       kernel="gat_attention_backward_kernel")
+                                       kernel="gat_attention_backward")
                      for fn in (g32, g16, g16, g32)]
             b_plain = cuda_time_ms(
                 lambda: attention_backward_plain(grad, xl, xr, att, adj,
@@ -915,13 +1042,14 @@ def ambiguous_rows(pre, thr=0.1, n_dst=24, tol=THRESH_TOL):
 
 
 def compare_answers(got, want, pre, what, rtol=ANSWER_RTOL,
-                    atol=ANSWER_ATOL, thresh_tol=THRESH_TOL):
-    """Exact zero pattern and close values outside ambiguous rows."""
+                    atol=ANSWER_ATOL, thresh_tol=THRESH_TOL, n_dst=24):
+    """Exact zero pattern and close values outside ambiguous rows (rows of
+    ``n_dst`` destinations)."""
     import numpy as np
 
-    amb = ambiguous_rows(pre, tol=thresh_tol)
-    g = got.reshape(-1, 24)[~amb.reshape(-1)]
-    w = want.reshape(-1, 24)[~amb.reshape(-1)]
+    amb = ambiguous_rows(pre, n_dst=n_dst, tol=thresh_tol)
+    g = got.reshape(-1, n_dst)[~amb.reshape(-1)]
+    w = want.reshape(-1, n_dst)[~amb.reshape(-1)]
     check(np.array_equal(g == 0, w == 0),
           f"{what}: thresholded entries differ outside ambiguous rows")
     err = float(np.max(np.abs(g - w))) if g.size else 0.0
@@ -943,20 +1071,23 @@ def ddpg_policy_batch(report, b, torch, dev):
 
 
 def check_answers(report, plain_actor, torch, dev):
-    """Every answer of one burst: finite, [1728], rows summing to 1, equal
-    to an unbatched call and to the plain actor.  Returns the largest
-    difference and the count of ambiguous rows."""
+    """Every answer of one burst: finite, [action dim] (1728 at the
+    flagship), rows summing to 1, equal to an unbatched call and to the
+    plain actor.  Returns the largest difference and the count of
+    ambiguous rows."""
     import numpy as np
 
     from gsc_tpu_torch.env.observations import GraphObs
 
     ddpg = report.ddpg
+    n_dst = ddpg.env.limits.max_nodes
     worst = 0.0
     ambiguous = 0
     for k, ans in report.answers:
-        check(ans.shape == (1728,) and bool(np.isfinite(ans).all()),
+        check(ans.shape == (ddpg.action_dim,) and
+              bool(np.isfinite(ans).all()),
               f"answer for pool obs {k} is {ans.shape} or not finite")
-        check(np.allclose(ans.reshape(-1, 24).sum(-1), 1.0, rtol=1e-5),
+        check(np.allclose(ans.reshape(-1, n_dst).sum(-1), 1.0, rtol=1e-5),
               "a destination row does not sum to 1")
     for k in sorted({k for k, _ in report.answers}):
         obs = GraphObs(**{f: torch.from_numpy(np.asarray(v))[None].to(dev)
@@ -967,13 +1098,15 @@ def check_answers(report, plain_actor, torch, dev):
             plain = ddpg.env.process_action(
                 plain_actor(obs).clamp(0.0, 1.0))[0].cpu().numpy()
         e1, a1 = compare_answers(single, plain, pre,
-                                 f"kernel vs plain actor, obs {k}")
+                                 f"kernel vs plain actor, obs {k}",
+                                 n_dst=n_dst)
         worst = max(worst, e1)
         ambiguous += a1
         for kk, ans in report.answers:
             if kk == k:
                 e2, _ = compare_answers(ans, single, pre,
-                                        f"batched vs unbatched, obs {k}")
+                                        f"batched vs unbatched, obs {k}",
+                                        n_dst=n_dst)
                 worst = max(worst, e2)
     return worst, ambiguous
 
@@ -1018,16 +1151,17 @@ def parent_megakernel():
     return ParentMegakernel()
 
 
-def megakernel_smem_bytes(op, max_flows):
-    """The megakernel's shared memory per CTA on Abilene's tables with
-    ``max_flows`` slots, from its own layout function."""
+def megakernel_smem_bytes(op, max_flows, limits=None):
+    """The megakernel's shared memory per CTA with ``max_flows`` slots on
+    the tables of ``limits`` (default: Abilene's, N=24, E=37, P=3), from
+    its own layout function."""
     import ctypes
 
     from gsc_tpu_torch.config.catalog import abc_service
     from gsc_tpu_torch.config.schema import EnvLimits
     from gsc_tpu_torch.ops.substep import SubstepArgs
 
-    lim = EnvLimits.for_service(abc_service())
+    lim = limits or EnvLimits.for_service(abc_service())
     args = SubstepArgs(M=max_flows, N=lim.max_nodes, C=lim.num_sfcs,
                        S=lim.max_sfs, P=lim.sf_pool, E=lim.max_edges)
     return op.library().substep_smem_bytes(ctypes.byref(args))
@@ -1300,12 +1434,16 @@ class plain_attention:
         gnn.attention_op = self.saved
 
 
-def train_slice(torch, dev, smi, precision="f32", checkpoint=None):
+def train_slice(torch, dev, smi, precision="f32", checkpoint=None,
+                args=None, label="", result_dir=True):
     """Phase 8 (f32) or 10 (bf16): two training episodes through the CLI
     under ``precision`` (saving a checkpoint to ``checkpoint`` when
     given), with every kernel count set to 0 before it; returns the
     launch counts of the path's kernels in that run and its rollout
-    env-steps/s and learn-burst seconds."""
+    env-steps/s and learn-burst seconds.  ``args`` replaces
+    ``TRAIN_ARGS`` (phase 14's networks), ``label`` names the run;
+    without ``result_dir`` the run writes no rewards.csv and saves no
+    checkpoint (phase 14's runs that nothing reads back)."""
     import math
     import tempfile
     from types import SimpleNamespace
@@ -1344,17 +1482,21 @@ def train_slice(torch, dev, smi, precision="f32", checkpoint=None):
     saved = (ParallelDDPG.rollout_episodes, ParallelDDPG.learn_burst)
     ParallelDDPG.rollout_episodes = synced(saved[0], "rollout")
     ParallelDDPG.learn_burst = synced(saved[1], "learn_burst")
-    argv = TRAIN_ARGS + ["--precision", precision]
+    args = TRAIN_ARGS if args is None else args
+    argv = args + ["--precision", precision]
     if checkpoint:
         argv += ["--checkpoint", checkpoint]
     try:
         with tempfile.TemporaryDirectory() as d:
             for op in ops.values():
                 op.launches = 0
-            res = cli.run_train(argv + ["--result-dir", d])
+            res = cli.run_train(argv + (["--result-dir", d] if result_dir
+                                        else []))
             counts = {k: op.launches for k, op in ops.items()}
-            with open(f"{d}/rewards.csv") as f:
-                rewards = f.read().split()[1:]
+            rewards = res["trainer"].history
+            if result_dir:
+                with open(f"{d}/rewards.csv") as f:
+                    rewards = f.read().split()[1:]
     finally:
         ParallelDDPG.rollout_episodes, ParallelDDPG.learn_burst = saved
     trainer, state, buffers = res["trainer"], res["state"], res["buffers"]
@@ -1362,12 +1504,13 @@ def train_slice(torch, dev, smi, precision="f32", checkpoint=None):
     check(agent.precision == precision and
           res["summary"]["precision"] == precision,
           f"the run trained under {agent.precision}, not {precision}")
-    b = int(TRAIN_ARGS[TRAIN_ARGS.index("--replicas") + 1])
-    episodes = int(TRAIN_ARGS[TRAIN_ARGS.index("--episodes") + 1])
+    b = int(args[args.index("--replicas") + 1])
+    episodes = int(args[args.index("--episodes") + 1])
     steps = episodes * agent.episode_steps
     acting = sum(1 for g in range(steps) if g >= agent.nb_steps_warmup_critic)
     grad_steps = episodes * (agent.learn_steps or agent.episode_steps)
-    check(len(rewards) == episodes, f"rewards.csv has {len(rewards)} rows")
+    check(len(rewards) == episodes, f"{len(rewards)} episodes' rewards for "
+          f"{episodes} episodes")
     for row in trainer.history:
         for k in ("episodic_return", "critic_loss", "actor_loss",
                   "q_values"):
@@ -1438,7 +1581,8 @@ def train_slice(torch, dev, smi, precision="f32", checkpoint=None):
         for net in ("actor", "critic", "target_actor", "target_critic"):
             src = getattr(state, net)
             cls = Actor if "actor" in net else QNetwork
-            copy = cls(agent, src.action_dim, gnn_impl=impl).to(dev)
+            copy = cls(agent, src.action_dim, gnn_impl=impl,
+                       sched_shape=getattr(src, "sched_shape", None)).to(dev)
             copy.load_state_dict(src.state_dict())
             nets[net] = copy
         return SimpleNamespace(**nets)
@@ -1486,7 +1630,7 @@ def train_slice(torch, dev, smi, precision="f32", checkpoint=None):
                       "tensor's largest entry from the plain versions")
     roll_steps = steps * b
     roll_s = sum(spans["rollout"])
-    print(f"train {precision}: {episodes} episodes x {agent.episode_steps} "
+    print(f"train{label} {precision}: {episodes} episodes x {agent.episode_steps} "
           f"steps at B={b}: returns "
           f"{[round(r['episodic_return'], 4) for r in trainer.history]}, "
           f"final success {[round(r['final_succ_ratio'], 4) for r in trainer.history]}, "
@@ -1495,7 +1639,7 @@ def train_slice(torch, dev, smi, precision="f32", checkpoint=None):
           f"q {[r['q_values'] for r in trainer.history]}; every actor and "
           f"critic parameter moved; masters and Adam states f32; replay "
           f"{want_fill} per replica, float leaves {replay_dt}", flush=True)
-    print(f"train {precision} launches (every count 0 before the run): "
+    print(f"train{label} {precision} launches (every count 0 before the run): "
           f"megakernel {counts['substep_megakernel']} (1 per env step and "
           f"evaluation step), {fwd_name} {counts[fwd_name]} (3 x {acting} "
           f"acting steps + 15 x {grad_steps} gradient steps + 3 x "
@@ -1505,14 +1649,15 @@ def train_slice(torch, dev, smi, precision="f32", checkpoint=None):
           f"max abs diff / largest entry {worst:.2e} (limit {scale_tol:g})"
           f"{dense_note}", flush=True)
     sps = roll_steps / roll_s
-    print(f"train {precision} timing on {smi}: rollout {roll_steps} env "
+    print(f"train{label} {precision} timing on {smi}: rollout {roll_steps} env "
           f"steps in {roll_s:.2f} s = {sps:.1f} env-steps/s; learn bursts "
           f"{[round(t, 3) for t in spans['learn_burst']]} s "
           f"({grad_steps // episodes} gradient steps each); wall "
           f"{res['summary']['wall_s']:.1f} s", flush=True)
-    print(f"train_summary {precision}: " + json.dumps(res["summary"]))
+    print(f"train_summary{label} {precision}: " + json.dumps(res["summary"]))
     own = {k: counts[k] for k in (fwd_name, bwd_name, "substep_megakernel")}
-    return own, {"sps": sps, "bursts": list(spans["learn_burst"])}
+    return own, {"sps": sps, "bursts": list(spans["learn_burst"]),
+                 "summary": res["summary"]}
 
 
 def serve_from_checkpoint(torch, dev, smi, checkpoint):
@@ -1935,6 +2080,335 @@ def generalization_slice(torch, dev, smi):
                  "max_abs_err": split_err}
 
 
+def large_attention_checks(torch, dev, smi):
+    """Phase 14 (a): kernel #1's four forms at interroute's and rung 5's
+    graph sizes (LARGE_SHAPES) against their plain versions, plain and
+    saturated inputs, both aggregations, with phase 3's and phase 9's
+    tolerances, forward relaunches bit-identical (check_backward and
+    check_backward_bf16 relaunch the backward; on saturated inputs d_att
+    and d_bias are held to float64, as ``sums_to_f64`` says why); at mean
+    aggregation each
+    form's device time per launch, time per call, its plain version's time
+    and its bound.  Returns the largest errors by form and the times by
+    (form, N)."""
+    from gsc_tpu_torch.ops.gat import attention_bf16
+    from gsc_tpu_torch.ops.gat_attention import (attention_backward_plain,
+                                                 attention_plain,
+                                                 gat_attention,
+                                                 gat_attention_backward,
+                                                 gat_attention_backward_bf16,
+                                                 gat_attention_bf16)
+
+    fmt = lambda v: "not measured" if v is None else f"{v:.5f} ms"
+    errs = {"gat_attention": 0.0, "gat_attention_backward": 0.0,
+            "gat_attention_bf16": 0.0, "gat_attention_backward_bf16": 0.0}
+    times = {}
+    for b, n, f in LARGE_SHAPES:
+        for saturated in (False, True):
+            for mean in (True, False):
+                seed = b * 1000 + n
+                what = (f"{(b, n, f)} {'mean' if mean else 'sum'}"
+                        + (" saturated" if saturated else ""))
+                if saturated:
+                    args = saturated_inputs(b, n, f, seed, torch, dev)
+                    grad = 0.2 * grad_input(b, n, f, seed + 1, torch, dev)
+                else:
+                    args = gat_inputs(b, n, f, seed, torch, dev)
+                    grad = grad_input(b, n, f, seed + 1, torch, dev)
+                adj = args[4]
+                empty = ~adj.any(dim=-1)
+                got = gat_attention.launch(*args, mean)
+                again = gat_attention.launch(*args, mean)
+                torch.cuda.synchronize()
+                want = attention_plain(*args, mean)
+                ref = attention_plain(*[a.double() if a.is_floating_point()
+                                        else a for a in args], mean)
+                err = float((got - want).abs().max())
+                k64 = float((got.double() - ref).abs().max())
+                p64 = float((want.double() - ref).abs().max())
+                check(torch.equal(got, again),
+                      f"two forward launches differ at {what}")
+                check(torch.allclose(got, want, rtol=KERNEL_RTOL,
+                                     atol=KERNEL_ATOL),
+                      f"kernel != plain at {what}: max abs err {err}")
+                check(k64 <= F64_RATIO * max(p64, F64_FLOOR),
+                      f"kernel is {k64} from float64 at {what}, the plain "
+                      f"version {p64}")
+                check(bool((got[empty] == 0).all()),
+                      f"rows without a neighbour are not 0 at {what}")
+                e_b, line = check_backward(args, grad, mean, what, torch,
+                                           sums_to_f64=saturated)
+                h_args, h_grad = to_bf16(args), grad.to(torch.bfloat16)
+                h_got = gat_attention_bf16.launch(*h_args, mean)
+                h_again = gat_attention_bf16.launch(*h_args, mean)
+                torch.cuda.synchronize()
+                h_want = attention_plain(*h_args, mean)
+                h_ref = attention_bf16(*h_args, mean, wide=torch.float64)
+                ulp = bf16_ulp(h_want)
+                h_err = float((h_got.float() - h_want.float()).abs().max())
+                hk64 = float((h_got.double() - h_ref).abs().max())
+                hp64 = float((h_want.double() - h_ref).abs().max())
+                check(torch.equal(h_got, h_again),
+                      f"two bf16 forward launches differ at {what}")
+                check(h_err <= ulp, f"bf16 kernel != plain at {what}: max "
+                      f"abs err {h_err}, one ulp {ulp}")
+                check(hk64 <= 2.0 * max(hp64, ulp / 4),
+                      f"bf16 kernel is {hk64} from float64 at {what}, the "
+                      f"plain version {hp64}")
+                check(bool((h_got[empty] == 0).all()),
+                      f"bf16 rows without a neighbour are not 0 at {what}")
+                e_hb, h_line = check_backward_bf16(h_args, h_grad, mean,
+                                                   what, torch,
+                                                   sums_to_f64=saturated)
+                for key, e in (("gat_attention", err),
+                               ("gat_attention_backward", e_b),
+                               ("gat_attention_bf16", h_err),
+                               ("gat_attention_backward_bf16", e_hb)):
+                    errs[key] = max(errs[key], e)
+                print(f"  {what}: forward max abs err {err:.2e} (vs f64 "
+                      f"{k64:.2e}/{p64:.2e}), bf16 forward {h_err:.2e} (1 "
+                      f"ulp {ulp:.2e}); {line}; {h_line}", flush=True)
+                if not mean or saturated:
+                    continue
+                xl, xr, att, _, adj = args
+                hxl, hxr = h_args[0], h_args[1]
+                forms = {
+                    "gat_attention": (
+                        lambda: gat_attention.launch(*args, True),
+                        lambda: attention_plain(*args, True),
+                        gat_bound(args), "gat_attention_kernel"),
+                    "gat_attention_backward": (
+                        lambda: gat_attention_backward.launch(
+                            grad, xl, xr, att, adj, True),
+                        lambda: attention_backward_plain(grad, xl, xr, att,
+                                                         adj, True),
+                        gat_backward_bound(args, grad),
+                        "gat_attention_backward"),
+                    "gat_attention_bf16": (
+                        lambda: gat_attention_bf16.launch(*h_args, True),
+                        lambda: attention_plain(*h_args, True),
+                        gat_bound(h_args), "gat_attention_kernel"),
+                    "gat_attention_backward_bf16": (
+                        lambda: gat_attention_backward_bf16.launch(
+                            h_grad, hxl, hxr, att, adj, True),
+                        lambda: attention_backward_plain(h_grad, hxl, hxr,
+                                                         att, adj, True),
+                        gat_backward_bound(h_args, h_grad),
+                        "gat_attention_backward")}
+                for name, (fn, plain, (bound, by), kern) in forms.items():
+                    call_ms = cuda_time_ms(fn, torch, reps=50, warmup=5)
+                    dev_ms = profile_device_ms(fn, torch, kernel=kern)
+                    plain_ms = cuda_time_ms(plain, torch, reps=5, warmup=1)
+                    times[(name, n)] = (dev_ms, call_ms, plain_ms, bound, by)
+                    print(f"    {name} at {(b, n, f)}: device time "
+                          f"{fmt(dev_ms)} per launch, {call_ms:.5f} ms per "
+                          f"call (events, wrapper); plain {plain_ms:.4f} ms;"
+                          f" bound {bound:.6f} ms ({by}) on {smi}",
+                          flush=True)
+    return errs, times
+
+
+def large_megakernel_checks(torch, dev, smi):
+    """Phase 14 (b): kernel #2 on one interval of bench.py's interroute
+    stack (M = 1024, N = 128) and one of its rung-5 stack (M = 1024, N =
+    256, 2 chains over 5 SFs): bit-equal to its plain version on CPU
+    copies, a relaunch bit-identical, its shared memory, device time and
+    bound.  Returns the times by N and the largest difference to the
+    plain version on the card."""
+    from gsc_tpu_torch.ops.substep import substep_megakernel, substep_plain
+    from gsc_tpu_torch.sim import cases
+
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    times, worst = {}, 0.0
+    for make in (cases.interroute_case, cases.rung5_case):
+        case = make(batch=2, intervals=1)
+        eng, b = case.engine, case.batch
+        got = cases.run_case(case, dev)
+        want = cases.run_case(case, "cpu", plain=True)
+        on_card = cases.run_case(case, dev, plain=True)
+        for i, (g, w, c) in enumerate(zip(got, want, on_card)):
+            check(cases.bit_equal(g.to("cpu"), w),
+                  f"{case.name} interval {i}: the kernel is not bit-equal to "
+                  "its plain version on CPU copies")
+            worst = max(worst, cases.compare_states(
+                g, c, SUB_RTOL, SUB_ATOL, f"{case.name} on the card: "))
+        check(cases.bit_equal(cases.run_case(case, dev)[-1], got[-1]),
+              f"{case.name}: a relaunch is not bit-identical")
+        # the second interval, from the first one's state
+        topo = case.topo.to(dev).expand(b)
+        traffic = case.traffic.to(dev)
+        st, cap = eng.begin_interval(got[-1], traffic, case.schedule.to(dev),
+                                     case.placement.to(dev))
+        run = lambda: substep_megakernel.launch(eng, st, topo, traffic, cap)
+        after = run()
+        ms = cuda_time_ms(run, torch, reps=5, warmup=1)
+        dev_ms = profile_device_ms(run, torch, reps=5,
+                                   kernel="substep_megakernel_kernel")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        substep_plain(eng, st, topo, traffic, cap)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        bound, by, _, _ = substep_bound(eng, st, after, b)
+        smem = megakernel_smem_bytes(substep_megakernel, eng.M, eng.limits)
+        m = got[-1].metrics
+        times[eng.N] = (dev_ms, ms, plain_ms, bound, by)
+        print(f"  megakernel, {case.name} (B={b}, M={eng.M}, N={eng.N}, "
+              f"E={eng.E}, C={eng.C}, P={eng.P}; {smem} bytes of shared "
+              f"memory per CTA): bit-equal to the plain version on CPU "
+              f"copies, relaunch bit-identical; generated "
+              f"{m.generated.tolist()}, processed {m.processed.tolist()}, "
+              f"dropped {m.dropped.tolist()}; per interval device time "
+              f"{fmt(dev_ms)}, {ms:.4f} ms with the wrapper, plain engine "
+              f"{plain_ms:.1f} ms, bound {bound:.6f} ms ({by}) on {smi}",
+              flush=True)
+    return times, worst
+
+
+def serve_large(torch, dev, smi, agent, sim_cfg, checkpoint):
+    """Phase 14 (e): ``run_serve`` of the interroute checkpoint's f32
+    (factored) actor, LARGE_SERVE requests, every count 0 before it;
+    answers held against an unbatched call and the plain (dense) actor."""
+    from gsc_tpu_torch.config import abc_service
+    from gsc_tpu_torch.models.nets import Actor
+    from gsc_tpu_torch.ops.gat_attention import gat_attention
+    from gsc_tpu_torch.ops.substep import substep_megakernel
+    from gsc_tpu_torch.serve import run_serve
+    from gsc_tpu_torch.topology import synthetic
+
+    requests, concurrency = LARGE_SERVE
+    net = dict(zip(INTERROUTE_NET[::2], INTERROUTE_NET[1::2]))
+    gat_attention.launches = substep_megakernel.launches = 0
+    report = run_serve(agent, sim_cfg, abc_service(),
+                       getattr(synthetic, net["--network"])(), seed=0,
+                       pool_steps=POOL_STEPS, requests=requests,
+                       concurrency=concurrency, buckets=BUCKETS,
+                       deadline_ms=5.0, max_nodes=int(net["--max-nodes"]),
+                       max_edges=int(net["--max-edges"]), device=dev,
+                       checkpoint=checkpoint)
+    calls = len(report.flushes) + len(report.startup["buckets"])
+    counts = {"gat_attention": gat_attention.launches,
+              "substep_megakernel": substep_megakernel.launches}
+    check(not report.errors, f"serve errors: {report.errors[:3]}")
+    check(len(report.answers) == requests,
+          f"{len(report.answers)} of {requests} answered")
+    check(counts["gat_attention"] == 3 * calls,
+          f"{counts['gat_attention']} attention launches for {calls} "
+          "dispatches and warm-up calls (want 3 per call)")
+    check(counts["substep_megakernel"] == POOL_STEPS,
+          f"{counts['substep_megakernel']} megakernel launches for a pool "
+          f"of {POOL_STEPS} env steps")
+    ddpg = report.ddpg
+    check(ddpg.actor.factored, "the served interroute actor is not factored")
+    plain = Actor(ddpg.agent, ddpg.action_dim, gnn_impl="dense",
+                  sched_shape=ddpg.env.limits.scheduling_shape).to(dev)
+    plain.load_state_dict(ddpg.actor.state_dict())
+    worst, ambiguous = check_answers(report, plain, torch, dev)
+    summ = report.summary()
+    print(f"serve interroute (factored f32 actor from the checkpoint, "
+          f"action dim {ddpg.action_dim}): {summ['completed']} requests at "
+          f"concurrency {concurrency}, {summ['dispatches']} dispatches "
+          f"(buckets {sorted({b for _, b in report.flushes})}); "
+          f"{summ['requests_per_s']:.1f} req/s, p50 {summ['p50_ms']:.3f} ms, "
+          f"p99 {summ['p99_ms']:.3f} ms, startup {summ['startup_s']:.2f} s "
+          f"on {smi}; answers vs unbatched and plain actor max abs diff "
+          f"{worst:.2e} ({ambiguous} ambiguous rows); launches: attention "
+          f"{counts['gat_attention']} (3 per call), megakernel "
+          f"{counts['substep_megakernel']} (the request pool)", flush=True)
+    print("serve_summary interroute: " + json.dumps(summ))
+    return counts
+
+
+def large_network_slice(torch, dev, smi):
+    """Phase 14: bench.py's interroute and rung-5 stacks on the card.
+    (a) kernel #1's four forms at N = 128 and 256, (b) kernel #2 on one
+    interroute and one rung-5 interval, (c) ``cli train`` on interroute
+    (128 nodes / 192 edges, abc chain, 1024 slots, 200-step episodes,
+    mem_limit 2048, the factored heads) at 8 replicas for 2 f32 episodes
+    with a checkpoint, then (d) 1 bf16 episode, (e) ``run_serve`` of the
+    f32 checkpoint's actor, and (f) ``cli train`` on rung 5
+    (``random_network(200, num_ingress=8, seed=11)`` written to GraphML,
+    padded to 256 / 384, the mixed catalog, 1024 slots, mem_limit 1024) at
+    2 replicas for one 20-step episode with a 20-step learn burst.
+    Returns the launches of each kernel in (c)-(f), each count 0 before
+    its run, the kernels' times at N = 128 and 256, the largest errors,
+    and each run's rollout env-steps/s and burst seconds."""
+    import tempfile
+
+    from gsc_tpu_torch.config.loader import load_agent, load_sim
+    from gsc_tpu_torch.topology import synthetic
+
+    laps = Laps()
+    print(f"phase 14, kernel #1 at N = 128 and 256 vs plain (phase 3's and "
+          f"9's tolerances) on {smi}:", flush=True)
+    errs, att_times = large_attention_checks(torch, dev, smi)
+    laps.lap("(a) kernel #1")
+    print("phase 14, kernel #2 at bench.py's large stacks:", flush=True)
+    sub_times, sub_err = large_megakernel_checks(torch, dev, smi)
+    laps.lap("(b) kernel #2")
+    launches, runs = {}, {}
+    d = tempfile.mkdtemp(prefix="gsc_large_")
+    try:
+        paths = {}
+        for name, text in (("sim.yaml", LARGE_SIM_YAML),
+                           ("interroute.yaml", INTERROUTE_AGENT_YAML),
+                           ("rung5.yaml", RUNG5_AGENT_YAML),
+                           ("mixed.yaml", MIXED_SERVICE_YAML)):
+            paths[name] = os.path.join(d, name)
+            with open(paths[name], "w") as fh:
+                fh.write(text)
+        paths["rung5.graphml"] = os.path.join(d, "rung5.graphml")
+        synthetic.write_graphml(
+            synthetic.random_network(200, num_ingress=8, seed=11),
+            paths["rung5.graphml"])
+        interroute = INTERROUTE_NET + [
+            "--agent-config", paths["interroute.yaml"],
+            "--simulator-config", paths["sim.yaml"]]
+        ck = os.path.join(d, "interroute_checkpoint")
+
+        def add(counts):
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+
+        counts, runs["interroute f32"] = train_slice(
+            torch, dev, smi, "f32", checkpoint=ck, label=" interroute",
+            args=interroute + ["--replicas", "8", "--chunk", "50",
+                               "--episodes", "2"])
+        add(counts)
+        laps.lap("(c) interroute f32")
+        counts, runs["interroute bf16"] = train_slice(
+            torch, dev, smi, "bf16", label=" interroute", result_dir=False,
+            args=interroute + ["--replicas", "8", "--chunk", "50",
+                               "--episodes", "1"])
+        add(counts)
+        laps.lap("(d) interroute bf16")
+        add(serve_large(torch, dev, smi, load_agent(paths["interroute.yaml"]),
+                        load_sim(paths["sim.yaml"]), ck))
+        laps.lap("(e) serve")
+        counts, runs["rung5 f32"] = train_slice(
+            torch, dev, smi, "f32", label=" rung5", result_dir=False,
+            args=["--network", paths["rung5.graphml"], "--max-nodes", "256",
+                  "--max-edges", "384", "--service", paths["mixed.yaml"],
+                  "--agent-config", paths["rung5.yaml"],
+                  "--simulator-config", paths["sim.yaml"], "--replicas", "2",
+                  "--chunk", "20", "--episodes", "1"])
+        add(counts)
+        laps.lap("(f) rung5")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for name, run in runs.items():
+        print(f"phase 14 {name} on {smi}: rollout {run['sps']:.1f} "
+              f"env-steps/s, learn bursts "
+              f"{[round(t, 3) for t in run['bursts']]} s, evaluation "
+              f"compile_warmup_s {run['summary']['compile_warmup_s']} "
+              f"steady_s {run['summary']['steady_s']}", flush=True)
+    print("phase 14 launches (each count 0 before its run): "
+          + json.dumps(launches))
+    print("phase 14 parts, s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in laps.seconds.items()), flush=True)
+    return launches, att_times, sub_times, errs, sub_err
+
+
 def main() -> int:
     import torch
 
@@ -1971,7 +2445,7 @@ def main() -> int:
     clocked_fwd = GatAttention(stage_clocks=True)
     clocked_bwd = GatAttentionBackward(stage_clocks=True)
     parent = parent_megakernel()
-    parent_fwd = parent_gat()
+    parent_att = parent_gat()
     ops = {"gat_attention": gat_attention,
            "gat_attention_backward": gat_attention_backward,
            "gat_attention_bf16": gat_attention_bf16,
@@ -1982,8 +2456,10 @@ def main() -> int:
            "gat_attention_backward (stage clocks)": clocked_bwd}
     if parent is not None:
         ops["substep_megakernel (parent)"] = parent
-    if parent_fwd is not None:
-        ops["gat_attention (parent)"] = parent_fwd
+    if parent_att is not None:
+        ops["gat_attention (parent)"] = parent_att[0]
+        if parent_att[1] is not None:
+            ops["gat_attention_backward (parent)"] = parent_att[1]
     built = build_kernels(ops)
     print("build: " + ", ".join(f"{k} {v:.2f} s" for k, v in built.items()),
           flush=True)
@@ -1991,17 +2467,36 @@ def main() -> int:
         for line in op.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {key}: {line.strip()}")
-    for m_slots in (128, 1024):
-        smem = megakernel_smem_bytes(substep_megakernel, m_slots)
-        print(f"  megakernel shared memory per CTA at M={m_slots}, "
-              f"Abilene (N=24, E=37, P=3): {smem} bytes", flush=True)
-        check(smem <= MAX_SMEM_BYTES, f"M={m_slots} needs {smem} bytes of "
-              "shared memory")
+    from gsc_tpu_torch.config import abc_service, mixed_service
+    from gsc_tpu_torch.config.schema import EnvLimits
+    for m_slots, lim, net in (
+            (128, None, "Abilene (N=24, E=37, P=3)"),
+            (1024, None, "Abilene (N=24, E=37, P=3)"),
+            (1024, EnvLimits.for_service(abc_service(), 128, 192),
+             "interroute (N=128, E=192, P=3)"),
+            (1024, EnvLimits.for_service(mixed_service(), 256, 384),
+             "rung 5 (N=256, E=384, C=2, P=5)")):
+        smem = megakernel_smem_bytes(substep_megakernel, m_slots, lim)
+        print(f"  megakernel shared memory per CTA at M={m_slots}, {net}: "
+              f"{smem} bytes", flush=True)
+        check(smem <= MAX_SMEM_BYTES, f"M={m_slots} on {net} needs {smem} "
+              "bytes of shared memory")
+    for n in (24, 128, 256):
+        fwd = [gat_attention._smem_bytes(gat_attention.library(), n, 22),
+               gat_attention_bf16._smem_bytes(gat_attention.library(), n,
+                                              22)]
+        bwd = [op._smem_bytes(op.library(), n, 22)
+               for op in (gat_attention_backward,
+                          gat_attention_backward_bf16)]
+        print(f"  attention shared memory per CTA at N={n}, F=22 (f32, "
+              f"bf16): forward {fwd}, backward {bwd} bytes; "
+              f"{gat_attention_backward.library().gat_attention_backward_tiles(n)}"
+              " CTAs per graph", flush=True)
 
     phases.lap("2")
     # ---- 3. attention kernels vs plain on the card ----------------------
     timings, max_err, bwd_timings, bwd_err = attention_phase(torch, dev, smi,
-                                                             parent_fwd)
+                                                             parent_att)
     attention_stage_clocks(clocked_fwd, clocked_bwd, torch, dev)
 
     phases.lap("3")
@@ -2131,12 +2626,26 @@ def main() -> int:
           f"{f32_train['sps']:.1f}); learn bursts "
           f"{[round(t, 3) for t in gen_train['bursts']]} s (B=64: "
           f"{[round(t, 3) for t in f32_train['bursts']]} s)", flush=True)
+    # ---- 14. bench.py's interroute and rung-5 stacks --------------------
+    (large_launches, large_att, large_sub, large_errs,
+     large_sub_err) = large_network_slice(torch, dev, smi)
+    phases.lap("14")
+    for kernel in ("gat_attention", "gat_attention_backward",
+                   "gat_attention_bf16", "gat_attention_backward_bf16",
+                   "substep_megakernel"):
+        check(large_launches.get(kernel, 0) > 0,
+              f"{kernel} was not launched on the large networks' path")
     path_launches = {k: train_launches.get(k, 0) + bf16_launches.get(k, 0)
-                     + gen_launches.get(k, 0)
+                     + gen_launches.get(k, 0) + large_launches.get(k, 0)
                      for k in ("gat_attention", "gat_attention_backward",
                                "gat_attention_bf16",
                                "gat_attention_backward_bf16",
                                "substep_megakernel")}
+    max_err = max(max_err, large_errs["gat_attention"])
+    bwd_err = max(bwd_err, large_errs["gat_attention_backward"])
+    h_err = max(h_err, large_errs["gat_attention_bf16"])
+    hb_err = max(hb_err, large_errs["gat_attention_backward_bf16"])
+    sub_err = max(sub_err, large_sub_err)
 
     # ---- 12. kernels line -----------------------------------------------
     ms, plain_ms, bound_ms, bound_by = timings[MAIN_SHAPE]

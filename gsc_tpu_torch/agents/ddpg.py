@@ -117,8 +117,11 @@ class DDPG:
         self.device = resolve_device(device)
         self.action_dim = env.limits.action_dim
         impl = gnn_impl or agent.gnn_impl
-        self.actor = Actor(agent, self.action_dim, gnn_impl=impl)
-        self.critic = QNetwork(agent, self.action_dim, gnn_impl=impl)
+        sched_shape = env.limits.scheduling_shape
+        self.actor = Actor(agent, self.action_dim, gnn_impl=impl,
+                           sched_shape=sched_shape)
+        self.critic = QNetwork(agent, self.action_dim, gnn_impl=impl,
+                               sched_shape=sched_shape)
 
     def init(self, generator: torch.Generator) -> Actor:
         """Draw the actor's parameters from ``generator`` (on the CPU, so a

@@ -9,8 +9,13 @@ the port's writer.
 
 ``train`` trains on the networks of a scheduler yaml (``--scheduler``:
 GraphML training networks switched every ``period`` episodes, and an
-unseen inference network), or on one built-in ``--network``, which is
-then both.  ``--replicas 1`` (the default, as in the JAX CLI) takes the
+unseen inference network), or on one ``--network``, which is then both:
+a built-in one (abilene, bteurope, claranet, compuserve, tinet, chinanet,
+interroute) or a GraphML file (``topology.synthetic.write_graphml``
+writes one of any builder's network, e.g. ``random_network(200, ...)``),
+padded to ``--max-nodes``/``--max-edges``.  Networks whose action dim
+reaches 16384 (interroute at 128 nodes: 49,152) train the factored
+actor and critic heads.  ``--replicas 1`` (the default, as in the JAX CLI) takes the
 single-env loop (:meth:`gsc_tpu_torch.agents.trainer.Trainer.train`);
 ``--replicas B`` takes replica-parallel training
 (:meth:`~gsc_tpu_torch.agents.trainer.Trainer.train_parallel`) in
@@ -31,8 +36,8 @@ prints the evaluation of ``--episodes`` greedy episodes on the inference
 network, under the checkpoint's recorded precision (else the agent
 yaml's) unless ``--precision`` says otherwise.
 
-``serve`` runs :func:`gsc_tpu_torch.serve.run_serve` and prints its
-summary (requests/s, p50/p99 latency per bucket) as one JSON line; with
+``serve`` runs :func:`gsc_tpu_torch.serve.run_serve` on ``--network``
+(as ``train`` takes it) and prints its summary (requests/s, p50/p99 latency per bucket) as one JSON line; with
 ``--checkpoint`` it serves a checkpoint's actor under the precision its
 sidecar records (a contradicting ``--precision`` is refused; without a
 readable sidecar the agent yaml's), else an actor drawn from ``--seed``.
@@ -53,7 +58,8 @@ import sys
 import time
 from typing import List, Optional
 
-_NETWORKS = ("abilene", "bteurope", "claranet", "compuserve")
+_NETWORKS = ("abilene", "bteurope", "claranet", "compuserve", "tinet",
+             "chinanet", "interroute")
 _PRECISIONS = ("f32", "bf16")
 
 
@@ -83,10 +89,9 @@ def _build(args, precision):
     """(env, driver, agent) of ``train`` and ``infer``: the scheduler
     yaml's networks, or the built-in ``--network`` as a schedule of one."""
     from .config.loader import load_scheduler
-    from .config.schema import EnvLimits
+    from .config.schema import EnvLimits, SchedulerConfig
     from .env.driver import EpisodeDriver
     from .env.env import ServiceCoordEnv
-    from .topology import synthetic
     from .topology.compiler import compile_topology
 
     agent = _agent(args, precision)
@@ -101,9 +106,17 @@ def _build(args, precision):
                                service, agent.episode_steps,
                                max_nodes=args.max_nodes,
                                max_edges=args.max_edges, base_seed=args.seed)
+    elif _is_graphml(args.network):
+        # a GraphML network file: a schedule of one, as a scheduler yaml
+        # naming it would be (the simulator's force caps apply)
+        net = args.network
+        driver = EpisodeDriver(SchedulerConfig((net,), net), sim_cfg,
+                               service, agent.episode_steps,
+                               max_nodes=args.max_nodes,
+                               max_edges=args.max_edges, base_seed=args.seed)
     else:
         name = args.network or "abilene"
-        topo = compile_topology(getattr(synthetic, name)(),
+        topo = compile_topology(_network_spec(name),
                                 max_nodes=args.max_nodes,
                                 max_edges=args.max_edges)
         try:
@@ -115,9 +128,24 @@ def _build(args, precision):
     return env, driver, agent
 
 
+def _is_graphml(network: Optional[str]) -> bool:
+    return bool(network) and network not in _NETWORKS
+
+
+def _network_spec(network: Optional[str]):
+    """The NetworkSpec of ``--network``: a built-in name (default
+    abilene), or a GraphML file (``write_graphml``'s, or any the reader
+    takes)."""
+    from .topology import synthetic
+    from .topology.compiler import read_graphml
+
+    if _is_graphml(network):
+        return read_graphml(network)
+    return getattr(synthetic, network or "abilene")()
+
+
 def _serve(args) -> int:
     from .serve import run_serve
-    from .topology import synthetic
 
     precision = args.precision
     if args.checkpoint:
@@ -129,7 +157,7 @@ def _serve(args) -> int:
             raise SystemExit(str(e))
     agent = _agent(args, precision)
     sim_cfg, service = _sim_and_service(args)
-    spec = getattr(synthetic, args.network or "abilene")()
+    spec = _network_spec(args.network)
     try:
         buckets = tuple(sorted({int(b) for b in args.buckets.split(",")}))
     except ValueError:
@@ -371,6 +399,15 @@ def _device_arg(p):
                    "versions)")
 
 
+def _network_arg(value: str) -> str:
+    if value in _NETWORKS or (value.endswith(".graphml")
+                              and os.path.isfile(value)):
+        return value
+    raise argparse.ArgumentTypeError(
+        f"{value!r} is neither a built-in network ({', '.join(_NETWORKS)}) "
+        "nor a GraphML file")
+
+
 def _config_args(p, what):
     p.add_argument("--agent-config", help="agent yaml, whose gnn_impl "
                    "picks the attention path (default: the init-configs "
@@ -378,8 +415,10 @@ def _config_args(p, what):
     p.add_argument("--simulator-config", help="simulator yaml (default: "
                    "the init-configs simulator)")
     p.add_argument("--service", help="service catalog yaml (default: abc)")
-    p.add_argument("--network", choices=_NETWORKS, default=None,
-                   help=f"built-in network to {what} (default: abilene)")
+    p.add_argument("--network", default=None, type=_network_arg,
+                   help=f"network to {what}: a built-in one "
+                   f"({', '.join(_NETWORKS)}; default: abilene) or a "
+                   "GraphML file; --max-nodes/--max-edges pad it")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max-nodes", type=int, default=24)
     p.add_argument("--max-edges", type=int, default=37)

@@ -12,6 +12,17 @@ def abc_service() -> ServiceConfig:
                          sf_list={n: sf(n) for n in "abc"})
 
 
+def mixed_service() -> ServiceConfig:
+    """The mixed SFC catalog of bench.py's rung-5 stack: two chains over a
+    shared 5-SF pool, abc (3 x 5 ms) and de (8 ms, then 2 ms)."""
+    mk = lambda n, d: ServiceFunction(name=n, processing_delay_mean=d,
+                                      processing_delay_stdev=0.0)
+    return ServiceConfig(
+        sfc_list={"sfc_1": ("a", "b", "c"), "sfc_2": ("d", "e")},
+        sf_list={"a": mk("a", 5.0), "b": mk("b", 5.0), "c": mk("c", 5.0),
+                 "d": mk("d", 8.0), "e": mk("e", 2.0)})
+
+
 def init_configs_agent(**overrides) -> AgentConfig:
     """The agent of ``gsc_tpu.cli init-configs``' agent.yaml (the flagship
     widths: GATv2 22 features, 2 layers, 2 iterations, mean aggregation,

@@ -251,8 +251,8 @@ class SimConfig:
 
 @dataclass(frozen=True)
 class AgentConfig:
-    """Agent configuration of a graph-mode DDPG agent with monolithic
-    heads: observation, GNN, actor and critic widths, the reward
+    """Agent configuration of a graph-mode DDPG agent: observation, GNN,
+    actor and critic widths, the head (monolithic or factored), the reward
     objective, replay, exploration and optimiser settings and the action
     post-processing threshold."""
 
@@ -270,9 +270,12 @@ class AgentConfig:
     gnn_impl: str = "dense"
     actor_hidden_layer_nodes: Tuple[int, ...] = (256,)
     critic_hidden_layer_nodes: Tuple[int, ...] = (64,)
-    # None = automatic (the JAX package factors at action dims >= 16384);
-    # the port carries the monolithic head only
+    # the factored (per-node bilinear) actor and critic heads: None =
+    # automatic, on in graph mode at action dims >= 16384
+    # (models.nets.FACTORED_HEAD_THRESHOLD); key/query width of their
+    # bilinear form
     factored_head: Optional[bool] = None
+    factored_key_dim: int = 32
     objective: str = "weighted"
     flow_weight: float = 1.0
     delay_weight: float = 0.0

@@ -37,7 +37,7 @@
 // - the logits of all N^2 pairs, every thread of the CTA over the
 //   flattened pairs (576 at N = 24: 18 full warps, where a warp per row
 //   leaves 8 of 32 lanes idle), each as four independent partial sums over
-//   f read as float2 (gat_common.cuh, graph_alpha());
+//   f read as float2 (gat_common.cuh, rows_alpha());
 // - the softmax one warp per target row (N warps, at most 32; rows loop
 //   only beyond that): degree and has-neighbour from __popc of the row's
 //   adjacency ballot, the row max in one integer reduction
@@ -46,6 +46,15 @@
 // - the aggregation, every thread over the flattened outputs (i, f), with
 //   alpha_i read as float4 into four independent partial sums, so no
 //   output waits on an N-long chain.
+//
+// Graphs of more than 32 nodes (interroute's 128, rung 5's 256) are cut
+// into tiles of 32 target rows, one CTA each (gat_common.cuh,
+// tile_rows()): each CTA stages the graph's whole xl, its rows' xr and
+// adjacency rows, and computes its rows' weights and outputs, so its
+// shared memory holds [32, N] weights instead of [N, N] (81 KB in f32 at N
+// = 256).  Softmax rows are independent and every row is computed by the
+// same code whichever tile it is in, so the cut changes no bit.  A graph
+// of up to 32 nodes stays one CTA, as before.
 //
 // The adjacency, the features and the weights are read from shared memory
 // only.  Reading xl rows directly (float2, conflict-free at F = 22) beat a
@@ -83,32 +92,34 @@ struct Layout {
   unsigned xl, xr, adj, att, bias, alpha, deg, hxl, hxr, bar, total;
 };
 
-// bf16: the staging areas hxl, hxr of the bf16 features (none in f32, whose
-// layout is the same as without them).
+// One CTA's rows r = tile_rows(n): the whole graph's xl, the rows' xr,
+// adjacency, weights and degrees.  bf16: the staging areas hxl, hxr of
+// the bf16 features (none in f32, whose layout is the same as without
+// them).
 Layout layout(int n, int f, bool bf16) {
   const size_t fl = sizeof(float);
-  const size_t half = bf16 ? align16(static_cast<size_t>(n) * f * 2) : 0;
+  const int r = tile_rows(n);
   const int np = round4(n);
   Layout l;
   size_t o = 0;
   l.xl = o;                                              // [np][f]
   o += align16(static_cast<size_t>(np) * f * fl);
-  l.xr = o;                                              // [n][f]
-  o += align16(static_cast<size_t>(n) * f * fl);
-  l.adj = o;                                             // [n][n] bytes
-  o += align16(static_cast<size_t>(n) * n);
+  l.xr = o;                                              // [r][f]
+  o += align16(static_cast<size_t>(r) * f * fl);
+  l.adj = o;                                             // [r][n] bytes
+  o += align16(static_cast<size_t>(r) * n);
   l.att = o;                                             // [f]
   o += align16(f * fl);
   l.bias = o;                                            // [f]
   o += align16(f * fl);
-  l.alpha = o;                                           // [n][np]
-  o += static_cast<size_t>(n) * np * fl;
-  l.deg = o;                                             // [n] ints
-  o += align16(n * sizeof(int));
+  l.alpha = o;                                           // [r][np]
+  o += static_cast<size_t>(r) * np * fl;
+  l.deg = o;                                             // [r] ints
+  o += align16(r * sizeof(int));
   l.hxl = o;                                             // [n][f] bf16
-  o += half;
-  l.hxr = o;                                             // [n][f] bf16
-  o += half;
+  o += bf16 ? align16(static_cast<size_t>(n) * f * 2) : 0;
+  l.hxr = o;                                             // [r][f] bf16
+  o += bf16 ? align16(static_cast<size_t>(r) * f * 2) : 0;
   l.bar = o;
   l.total = o + 16;
   return l;
@@ -117,7 +128,10 @@ Layout layout(int n, int f, bool bf16) {
 template <bool kBf16>
 using Feat = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
 
-template <bool kBf16>
+// kTiled: the graph is cut into tiles of kTileRows target rows, one CTA
+// each; else one CTA holds the whole graph (N <= kTileRows), whose code is
+// the untiled kernel's, with the tile's offsets 0 at compile time.
+template <bool kBf16, bool kTiled>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 gat_attention_kernel(const Feat<kBf16>* __restrict__ xl,
                      const Feat<kBf16>* __restrict__ xr,
@@ -141,18 +155,28 @@ gat_attention_kernel(const Feat<kBf16>* __restrict__ xl,
   __nv_bfloat16* s_hxl = reinterpret_cast<__nv_bfloat16*>(smem + L.hxl);
   __nv_bfloat16* s_hxr = reinterpret_cast<__nv_bfloat16*>(smem + L.hxr);
 
-  const int b = blockIdx.x;
-  const int nf = n * f;
-  const uint32_t feat_bytes =
-      static_cast<uint32_t>(nf * sizeof(Feat<kBf16>));
+  // graph b, target rows i0 .. i0 + r - 1 (the tile count is computed
+  // here, not passed: one more kernel parameter made the one-CTA path
+  // measurably slower on an H100)
+  const int tiles = kTiled ? (n + kTileRows - 1) / kTileRows : 1;
+  const int b = kTiled ? static_cast<int>(blockIdx.x) / tiles
+                       : static_cast<int>(blockIdx.x);
+  const int i0 =
+      kTiled ? (static_cast<int>(blockIdx.x) - b * tiles) * kTileRows : 0;
+  const int r = kTiled ? min(kTileRows, n - i0) : n;
+  const int nf = n * f, rf = r * f;
+  const size_t fs = sizeof(Feat<kBf16>);
   // bf16 features land in the staging areas, f32 ones where they are used
   void* d_xl = kBf16 ? static_cast<void*>(s_hxl) : static_cast<void*>(s_xl);
   void* d_xr = kBf16 ? static_cast<void*>(s_hxr) : static_cast<void*>(s_xr);
   const Block blocks[3] = {
-      {d_xl, xl + static_cast<size_t>(b) * nf, feat_bytes},
-      {d_xr, xr + static_cast<size_t>(b) * nf, feat_bytes},
-      {s_adj, adj + static_cast<size_t>(b) * n * n,
-       static_cast<uint32_t>(n * n)}};
+      {d_xl, xl + static_cast<size_t>(b) * nf,
+       static_cast<uint32_t>(nf * fs)},
+      {d_xr, xr + static_cast<size_t>(b) * nf + static_cast<size_t>(i0) * f,
+       static_cast<uint32_t>(rf * fs)},
+      {s_adj, adj + static_cast<size_t>(b) * n * n +
+                  static_cast<size_t>(i0) * n,
+       static_cast<uint32_t>(r * n)}};
   const uint32_t tx = stage(blocks, bar);
   // while the copies fly: att (bf16(att) in the bf16 form), bias, and xl's
   // rows n..np-1 as zeros, which the aggregation's float4 reads of alpha's
@@ -169,13 +193,13 @@ gat_attention_kernel(const Feat<kBf16>* __restrict__ xl,
   if (tx) barrier_wait(bar);
   if constexpr (kBf16) {
     widen_bf16(s_xl, s_hxl, nf);
-    widen_bf16(s_xr, s_hxr, nf);
+    widen_bf16(s_xr, s_hxr, rf);
     __syncthreads();
   }
   GAT_CLOCK(1);
 
-  graph_alpha<kBf16>(s_xl, s_xr, s_att, s_adj, n, np, f, inv_n, s_alpha,
-                     s_deg);
+  rows_alpha<kBf16>(s_xl, s_xr, s_att, s_adj, n, r, np, f, inv_n, s_alpha,
+                    s_deg);
   GAT_CLOCK(2);
 
   // the aggregation, all threads over the flattened outputs t = i f + k:
@@ -183,10 +207,11 @@ gat_attention_kernel(const Feat<kBf16>* __restrict__ xl,
   // partial sums; in bf16 each alpha rounded to bf16 first), / max(deg_i,
   // 1) if mean, + bias; 0 without a neighbour; rounded to bf16 at the
   // store in the bf16 form
-  Feat<kBf16>* out_b = out + static_cast<size_t>(b) * nf;
+  Feat<kBf16>* out_b =
+      out + static_cast<size_t>(b) * nf + static_cast<size_t>(i0) * f;
   const auto w = [](float a) { return kBf16 ? round_bf16(a) : a; };
 #pragma unroll 1
-  for (int t = threadIdx.x; t < nf; t += blockDim.x) {
+  for (int t = threadIdx.x; t < rf; t += blockDim.x) {
     const int i = div_floor(t, inv_f), k = t - i * f;
     const int deg = s_deg[i];
     float o = 0.f;
@@ -217,7 +242,7 @@ gat_attention_kernel(const Feat<kBf16>* __restrict__ xl,
 
 extern "C" {
 
-// Dynamic shared memory of one launch, in bytes (bf16: the bf16 form).
+// Dynamic shared memory of one CTA, in bytes (bf16: the bf16 form).
 long long gat_attention_smem_bytes(int n, int f, int bf16) {
   return static_cast<long long>(layout(n, f, bf16 != 0).total);
 }
@@ -231,16 +256,18 @@ int launch(const Feat<kBf16>* xl, const Feat<kBf16>* xr, const float* att,
            const float* bias, const void* adj, Feat<kBf16>* out, int batch,
            int n, int f, int mean_aggr, void* stream) {
   const Layout L = layout(n, f, kBf16);
+  const int tiles = row_tiles(n);
+  auto* const kernel = tiles == 1 ? &gat_attention_kernel<kBf16, false>
+                                  : &gat_attention_kernel<kBf16, true>;
   if (L.total > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gat_attention_kernel<kBf16>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(L.total));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (batch == 0) return 0;
-  gat_attention_kernel<kBf16><<<batch, warps_for(n) * 32, L.total,
-                                static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<batch * tiles, warps_for(n) * 32, L.total,
+           static_cast<cudaStream_t>(stream)>>>(
       xl, xr, att, bias, static_cast<const unsigned char*>(adj), out, L, n, f,
       mean_aggr, 1.f / static_cast<float>(n), 1.f / static_cast<float>(f));
   return static_cast<int>(cudaGetLastError());

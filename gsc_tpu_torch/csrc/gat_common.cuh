@@ -49,6 +49,18 @@ __host__ __device__ inline int warps_for(int n) {
   return n < kMaxWarps ? n : kMaxWarps;
 }
 
+// Target rows per CTA.  A graph of up to kTileRows nodes is one CTA, as
+// it always was; a larger one is cut into tiles of kTileRows rows (the
+// last one shorter), one CTA each, since softmax rows are independent and
+// one CTA's shared memory cannot hold a large graph's [N, N] weights.
+constexpr int kTileRows = 32;
+__host__ __device__ inline int tile_rows(int n) {
+  return n < kTileRows ? n : kTileRows;
+}
+__host__ __device__ inline int row_tiles(int n) {
+  return (n + tile_rows(n) - 1) / tile_rows(n);
+}
+
 #ifdef GAT_STAGE_CLOCKS
 constexpr int kStageClocks = 8;
 __device__ long long g_stage_clocks[kStageClocks];
@@ -324,19 +336,22 @@ __device__ inline int row_softmax(float* row, const unsigned char* arow,
   return deg;
 }
 
-// The attention weights of the graph into alpha [n][np] (0 in the pad
-// columns n..np-1) and each row's degree into deg [n].  First the logits
-// of every pair, all threads over the flattened pairs t = i n + j (so no
-// lane idles at n = 24 < 32), then the softmax, one warp per target row.
-// xl, xr are [n][f], att [f]; synchronises the block before returning.
+// The attention weights of r target rows of a graph of n nodes into alpha
+// [r][np] (0 in the pad columns n..np-1) and each row's degree into deg
+// [r]: xl [n][f] holds every source node, xr [r][f] and adj [r][n] the
+// rows' own (r = n: the whole graph).  First the logits of every pair, all
+// threads over the flattened pairs t = i n + j (so no lane idles at n = 24
+// < 32), then the softmax, one warp per target row.  att [f];
+// synchronises the block before returning.  A row's weights do not depend
+// on which rows share its CTA.
 template <bool kBf16>
-__device__ inline void graph_alpha(const float* s_xl, const float* s_xr,
-                                   const float* s_att,
-                                   const unsigned char* s_adj, int n, int np,
-                                   int f, float inv_n, float* alpha,
-                                   int* deg) {
+__device__ inline void rows_alpha(const float* s_xl, const float* s_xr,
+                                  const float* s_att,
+                                  const unsigned char* s_adj, int n, int r,
+                                  int np, int f, float inv_n, float* alpha,
+                                  int* deg) {
 #pragma unroll 1
-  for (int t = threadIdx.x; t < n * n; t += blockDim.x) {
+  for (int t = threadIdx.x; t < r * n; t += blockDim.x) {
     const int i = div_floor(t, inv_n), j = t - i * n;
     const float l = logit<kBf16>(s_xl + j * f, s_xr + i * f, s_att, f);
     alpha[i * np + j] = s_adj[t] ? l : kNegInf;
@@ -345,7 +360,7 @@ __device__ inline void graph_alpha(const float* s_xl, const float* s_xr,
   GAT_CLOCK(7);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll 1
-  for (int i = warp; i < n; i += blockDim.x >> 5) {
+  for (int i = warp; i < r; i += blockDim.x >> 5) {
     float* row = alpha + i * np;
     const int d = row_softmax(row, s_adj + i * n, n, lane);
     if (lane < np - n) row[n + lane] = 0.f;

@@ -55,6 +55,12 @@
 //    did (the next would repeat it);
 //  - scatter-adds go by target: the first flagged slot of each target adds
 //    that target's values in slot order, targets in parallel;
+//  - shared memory holds 40 to 42 four-byte words per slot: arrays whose
+//    lifetimes within a substep do not overlap share one region, and an
+//    admission base is kept only in its pipeline's own column, so M = 1024
+//    slots fit beside tables of N <= 256 nodes, P <= 5 SFs, C <= 2 chains
+//    and E <= 384 edges (bench.py's interroute and rung-5 stacks) in one
+//    CTA;
 //  - what the per-slot results need after the admission rounds passes
 //    through shared memory, not registers, and blocks of up to 256
 //    threads (the flagship's 128 slots) run an instantiation without the
@@ -65,11 +71,10 @@
 // order per target, and the admission prefix sums as below.  The three
 // whole-slot sums (path credit, processing delay, departures) run in slot
 // order over the flagged slots, whose other entries are zeros that leave a
-// sum unchanged; PyTorch's CPU sum adds them in vectorised order, so the
-// two agree where such a sum is exact (integer-valued delays, as on
-// Abilene) or has at most two terms, and may differ in the last bit when
-// three or more fractional processing delays meet in one substep (the
-// parent kernel did the same).  Rounding half to even
+// sum unchanged, and the plain version adds them in slot order too
+// (gsc_tpu_torch/sim/engine.py slot_order_sum), so the two agree bit for
+// bit however many fractional terms meet in one substep.  Rounding half
+// to even
 // (__float2int_rn) where the plain version calls torch.round; -fmad=false,
 // since an FMA would round a*b+c once where the plain version rounds
 // twice.  No float atomics are used, so two launches on the same inputs
@@ -178,15 +183,29 @@ enum { ST_RELEASE_TIMERS, ST_ARRIVALS, ST_DECISIONS, ST_WRR, ST_FORWARD,
        ST_GROUP, ST_SCAN, ST_TEST, ST_RESULTS, ST_RING_ADDS, ST_SCATTERS,
        N_STAGES };
 
-// shared-memory int arrays of M entries: per slot, then per sorted
-// position (_E: by (edge, slot), _N: by (node, slot))
-enum { I_PH, I_SFC, I_POS, I_ND, I_DST, I_HN, I_EG, I_CELL, I_TEDGE,
-       I_TRELE, I_TNODE, I_TRELN, I_NH, I_FLAGS, I_ST_E, I_REQ_E, I_ADM_E,
-       I_ST_N, I_SF_N, I_ND_N, I_WANT_N, I_ADM_N, N_IARR };
-// float arrays of M entries: per slot, per sorted position, the link scan
-enum { F_DR, F_DUR, F_TTL, F_E2E, F_PP, F_TMR, F_PC, F_PW, F_DEP, F_DEM,
-       F_PDEL, F_PD, F_DR_E, F_HR_E, F_DR_N, F_CAP_N, F_DEM_N, F_V_E, F_CS_E, F_BASE_E,
-       N_FARR };
+// shared-memory int arrays of M entries: per slot (the flow table, then
+// the forwarding's outcomes kept across the admission rounds), then per
+// sorted position (_E: by (edge, slot), _N: by (node, slot))
+enum { I_PH, I_SFC, I_POS, I_ND, I_DST, I_HN, I_EG, I_NH, I_FLAGS, I_ST_E,
+       I_REQ_E, I_ADM_E, I_ST_N, I_SF_N, I_ND_N, I_WANT_N, I_ADM_N, N_IARR };
+// float arrays of M entries: per slot, then per sorted position
+enum { F_DR, F_DUR, F_TTL, F_E2E, F_PP, F_TMR, F_PDEL, F_PD, F_DR_E, F_HR_E,
+       F_DR_N, F_CAP_N, F_DEM_N, N_FARR };
+// One region of 4-byte arrays of M entries shared by three groups whose
+// lifetimes within a substep do not overlap, each separated from the next
+// by a block barrier: (1) the timers' path credits, read by the arrivals,
+// and the decisions' cells, read by the WRR (U_PC and U_CELL never share
+// an array: thread 0 may still add path credits while the others decide);
+// (2) the admission rounds' values, prefix sums and bases, per sorted
+// position (the node scan's prefix sums [M][P] from U_CS_N on; a node
+// position's base differs from its prefix sums only in its own SF's
+// column, so that column's base alone is kept, in U_BASE_N); (3) the
+// slot results that the ring adds and the scatters read.  The region
+// holds max(7, 5 + P) arrays.
+enum { U_PC = 0, U_CELL = 1 };
+enum { U_V_E = 0, U_CS_E, U_BASE_E, U_V_N, U_BASE_N, U_CS_N };
+enum { U_TEDGE = 0, U_TRELE, U_TNODE, U_TRELN, U_PW, U_DEP, U_DEM,
+       N_URES };
 // per-replica tables: [NP] floats, [E] floats, [N] floats
 enum { T_LOAD, T_LAST, T_STARTUP, T_PROCESSED, N_TNP };
 enum { T_USED, T_ECAP, T_EDELAY, T_PASSED, N_TE };
@@ -223,7 +242,7 @@ struct Scalars {
 
 // byte offsets of the shared-memory regions (host and device agree)
 struct Layout {
-    size_t wtot, sc, key, ia, fa, scan_n, tnp, te, tn, tcs, chain, mask,
+    size_t wtot, sc, key, ia, fa, un, tnp, te, tn, tcs, chain, mask,
         total;
 };
 
@@ -241,7 +260,8 @@ __host__ __device__ inline Layout layout_for(long long M, long long N,
     l.key = off; off += round16(sizeof(int) * 2 * M);
     l.ia = off; off += round16(sizeof(int) * N_IARR * M);
     l.fa = off; off += round16(sizeof(float) * N_FARR * M);
-    l.scan_n = off; off += round16(sizeof(float) * 3 * M * P);
+    const long long un = U_CS_N + P > N_URES ? U_CS_N + P : N_URES;
+    l.un = off; off += round16(sizeof(float) * un * M);
     l.tnp = off; off += round16(sizeof(float) * (N_TNP + 2) * N * P);
     l.te = off; off += round16(sizeof(float) * N_TE * E);
     l.tn = off; off += round16(sizeof(float) * (N_TN + 1) * N);
@@ -471,9 +491,7 @@ substep_megakernel_kernel(SubstepArgs a) {
     int2* s_key = (int2*)(smem + L.key);            // (edge, node) keys
     int* si = (int*)(smem + L.ia);
     float* sf = (float*)(smem + L.fa);
-    float* s_vn = (float*)(smem + L.scan_n);        // [M, P] node scan
-    float* s_csn = s_vn + (size_t)M * P;
-    float* s_basen = s_csn + (size_t)M * P;
+    float* su = (float*)(smem + L.un);              // the shared region
     float* tnp = (float*)(smem + L.tnp);
     int* s_avail = (int*)(tnp + (size_t)N_TNP * NP);
     int* s_placed = s_avail + NP;
@@ -489,6 +507,9 @@ substep_megakernel_kernel(SubstepArgs a) {
 #define SI(k) (si + (size_t)(k) * M)
 #define SF(k) (sf + (size_t)(k) * M)
 #define MASK(k) (masks + (k) * MAX_WARPS)
+#define UF(k) (su + (size_t)(k) * M)
+#define UI(k) ((int*)su + (size_t)(k) * M)
+    float* s_csn = UF(U_CS_N);                      // [M, P] node scan
     int *s_ph = SI(I_PH), *s_sfc = SI(I_SFC), *s_pos = SI(I_POS),
         *s_nd = SI(I_ND), *s_dst = SI(I_DST), *s_hn = SI(I_HN),
         *s_eg = SI(I_EG);
@@ -620,7 +641,7 @@ substep_megakernel_kernel(SubstepArgs a) {
             const float pc = arrived ? s_pp[m] : 0.0f;
             s_e2e[m] = s_e2e[m] + pc;
             s_ttl[m] = s_ttl[m] - pc;
-            SF(F_PC)[m] = pc;
+            UF(U_PC)[m] = pc;
             const int sfc = s_sfc[m];
             const int cl = (sfc >= 0 && sfc < C) ? s_chain_len[sfc] : 0;
             depart_hop = arrived && pos >= cl;
@@ -674,7 +695,7 @@ substep_megakernel_kernel(SubstepArgs a) {
             }
             if (tid == 0) {
                 float path_add = 0.0f;
-                FOR_SET(j, MASK(MK_ARRIVED), nw, 0) path_add += SF(F_PC)[j];
+                FOR_SET(j, MASK(MK_ARRIVED), nw, 0) path_add += UF(U_PC)[j];
                 sc.sum_path_delay += path_add;
                 sc.num_path_delay += count_all(MASK(MK_ARRIVED), nw);
                 sc.run_path_delay_sum += path_add;
@@ -724,7 +745,7 @@ substep_megakernel_kernel(SubstepArgs a) {
                 wrr = decide && !to_eg_flag;
                 sf_now = sf_at(s_chain_sf, sfc, pos, C, S);
                 cell = (nd * C + sfc_c) * S + clampi(pos, 0, S - 1);
-                SI(I_CELL)[m] = cell;
+                UI(U_CELL)[m] = cell;
             }
             store_ballot(MASK(MK_WRR), wrr);
             STAGE_SYNC(ST_DECISIONS);
@@ -738,10 +759,10 @@ substep_megakernel_kernel(SubstepArgs a) {
             if (wrr) {
                 for (int j = next_set(MASK(MK_WRR), nw, 0); j < m;
                      j = next_set(MASK(MK_WRR), nw, j + 1))
-                    rank += SI(I_CELL)[j] == cell;
+                    rank += UI(U_CELL)[j] == cell;
                 if (rank == 0 && cell_ok)
                     s_req_cell[cell] = s_req_cell[cell] +
-                        add_run(0.0f, MASK(MK_WRR), nw, SI(I_CELL), s_dr, m, cell);
+                        add_run(0.0f, MASK(MK_WRR), nw, UI(U_CELL), s_dr, m, cell);
             }
             // rank levels: below R - 1 a cell has at most one chooser, so it
             // reads and adds in one step; the last level's choosers of one cell
@@ -892,9 +913,8 @@ substep_megakernel_kernel(SubstepArgs a) {
                 const float ve = adm_e ? SF(F_DR_E)[p] : 0.0f;
                 const float vn = adm_n ? SF(F_DR_N)[p] : 0.0f;
                 if (pv) {
-                    SF(F_V_E)[p] = ve;
-                    for (int c = 0; c < P; ++c)
-                        s_vn[p * P + c] = (adm_n && col == c) ? vn : 0.0f;
+                    UF(U_V_E)[p] = ve;
+                    UF(U_V_N)[p] = vn;
                 }
                 // warp totals and the spans of the nonzero values
                 if (link_on) {
@@ -921,17 +941,17 @@ substep_megakernel_kernel(SubstepArgs a) {
                     const double x = block_prefix(warp_scan_sparse(ve), wtot);
                     if (pv) {
                         const float cs = (float)x;
-                        SF(F_CS_E)[p] = cs;
-                        SF(F_BASE_E)[p] = cs - ve;
+                        UF(U_CS_E)[p] = cs;
+                        UF(U_BASE_E)[p] = cs - ve;
                     }
                 } else if (link_on && tid == 0) {
                     double acc = 0.0;
                     for (int q = 0; q < M; ++q) {
-                        const float v = SF(F_V_E)[q];
+                        const float v = UF(U_V_E)[q];
                         acc += (double)v;
                         const float cs = (float)acc;
-                        SF(F_CS_E)[q] = cs;
-                        SF(F_BASE_E)[q] = cs - v;
+                        UF(U_CS_E)[q] = cs;
+                        UF(U_BASE_E)[q] = cs - v;
                     }
                     atomicAdd(&sc.serial, 1);
                 }
@@ -943,18 +963,19 @@ substep_megakernel_kernel(SubstepArgs a) {
                         if (pv) {
                             const float cs = (float)x;
                             s_csn[p * P + c] = cs;
-                            s_basen[p * P + c] = cs - s_vn[p * P + c];
+                            if (col == c) UF(U_BASE_N)[p] = cs - vn;
                         }
                     }
                 } else if (node_on && tid == node_serial_tid) {
                     for (int c = 0; c < P; ++c) {
                         double acc = 0.0;
                         for (int q = 0; q < M; ++q) {
-                            const float v = s_vn[q * P + c];
+                            const bool own_col = SI(I_SF_N)[q] == c;
+                            const float v = own_col ? UF(U_V_N)[q] : 0.0f;
                             acc += (double)v;
                             const float cs = (float)acc;
                             s_csn[q * P + c] = cs;
-                            s_basen[q * P + c] = cs - v;
+                            if (own_col) UF(U_BASE_N)[q] = cs - v;
                         }
                     }
                     atomicAdd(&sc.serial, 1);
@@ -963,17 +984,22 @@ substep_megakernel_kernel(SubstepArgs a) {
                 if (pv) {
                     const bool was_e = adm_e, was_n = adm_n;
                     if (link_on)
-                        adm_e = req_p && (SF(F_CS_E)[p] - SF(F_BASE_E)[SI(I_ST_E)[p]]
+                        adm_e = req_p && (UF(U_CS_E)[p] - UF(U_BASE_E)[SI(I_ST_E)[p]]
                                           <= SF(F_HR_E)[p]);
                     if (node_on) {
                         const int ndp = SI(I_ND_N)[p], stn = SI(I_ST_N)[p];
                         const bool nv = ndp >= 0 && ndp < N;
+                        // the run start's base: its prefix sums, less its
+                        // value in its own SF's column (x - 0 is x)
+                        const int col_st = SI(I_SF_N)[stn];
                         dem = 0.0f;
                         for (int c = 0; c < P; ++c) {
                             const float base = nv ? node_load[ndp * P + c] : 0.0f;
                             const bool av = nv && s_avail[ndp * P + c];
+                            const float run_base = col_st == c
+                                ? UF(U_BASE_N)[stn] : s_csn[stn * P + c];
                             const float lp = (base + s_csn[p * P + c])
-                                             - s_basen[stn * P + c];
+                                             - run_base;
                             dem = dem + (av ? resource_fn(s_rf[c], lp) : 0.0f);
                         }
                         adm_n = want_p && dem <= SF(F_CAP_N)[p] + EPS;
@@ -1014,15 +1040,15 @@ substep_megakernel_kernel(SubstepArgs a) {
             const float pstart = sf_now < P ? s_proc[sf_now * 3 + 2] : 0.0f;
             admitted = SI(I_ADM_E)[pos_e] != 0;
             admitted_n = SI(I_ADM_N)[pos_n] != 0;
-            SF(F_DEM)[m] = SF(F_DEM_N)[pos_n];
-            SI(I_TEDGE)[m] = (admitted && eid_c < E) ? eid_c : -1;
+            UF(U_DEM)[m] = SF(F_DEM_N)[pos_n];
+            UI(U_TEDGE)[m] = (admitted && eid_c < E) ? eid_c : -1;
             int trele = -1;
             if (admitted) {
                 const int h = ring_row(ridx, s_dur[m] + hop_delay, dt, H);
                 const long long fi = (long long)h * E + eid_c;
                 if (fi >= 0 && fi < (long long)H * E) trele = (int)fi;
             }
-            SI(I_TRELE)[m] = trele;
+            UI(U_TRELE)[m] = trele;
             if (trele >= 0) ring_e = rel_edge[trele];
             const bool drop_link = hop_req && !admitted;
             if (admitted) {
@@ -1037,10 +1063,10 @@ substep_megakernel_kernel(SubstepArgs a) {
             const float pw = want ? pdel : 0.0f;
             s_e2e[m] = s_e2e[m] + pw;
             ttl = ttl - pw;
-            SF(F_PW)[m] = pw;
+            UF(U_PW)[m] = pw;
             const bool nv = nd >= 0 && nd < N;
             const long long fn = (long long)nd * P + sf_now;
-            SI(I_TNODE)[m] = (admitted_n && fn >= 0 && fn < NP) ? (int)fn : -1;
+            UI(U_TNODE)[m] = (admitted_n && fn >= 0 && fn < NP) ? (int)fn : -1;
             const float st_at = (nv && sf_now < P)
                 ? tnp[(size_t)T_STARTUP * NP + nd * P + sf_now] : 0.0f;
             float sw = (st_at + pstart) - tt;
@@ -1062,11 +1088,11 @@ substep_megakernel_kernel(SubstepArgs a) {
                 const long long fi = (long long)h * NP + (long long)nd * P + sf_now;
                 if (fi >= 0 && fi < (long long)H * NP) treln = (int)fi;
             }
-            SI(I_TRELN)[m] = treln;
+            UI(U_TRELN)[m] = treln;
             if (treln >= 0) ring_n = rel_node[treln];
             // departures & drops
             depart = depart_hop || depart_stay;
-            SF(F_DEP)[m] = depart ? s_e2e[m] : 0.0f;
+            UF(U_DEP)[m] = depart ? s_e2e[m] : 0.0f;
             const bool ttl_out = ttl <= EPS;
             const bool masks7[7] = {drop_ttl0, drop_ttl_path, drop_link,
                                     drop_unplaced, drop_ttl_pd, drop_nodecap,
@@ -1094,34 +1120,34 @@ substep_megakernel_kernel(SubstepArgs a) {
         // ---- ring adds: the first slot of each row adds the row's holds in
         // slot order -------------------------------------------------------
         if (admitted) {
-            const int t = SI(I_TRELE)[m];
-            if (t >= 0 && first_of(MASK(MK_ADM_E), nw, SI(I_TRELE), m, t))
+            const int t = UI(U_TRELE)[m];
+            if (t >= 0 && first_of(MASK(MK_ADM_E), nw, UI(U_TRELE), m, t))
                 rel_edge[t] = add_run(ring_e, MASK(MK_ADM_E), nw,
-                                      SI(I_TRELE), s_dr, m, t);
+                                      UI(U_TRELE), s_dr, m, t);
         }
         if (admitted_n) {
-            const int t = SI(I_TRELN)[m];
-            if (t >= 0 && first_of(MASK(MK_ADM_N), nw, SI(I_TRELN), m, t))
+            const int t = UI(U_TRELN)[m];
+            if (t >= 0 && first_of(MASK(MK_ADM_N), nw, UI(U_TRELN), m, t))
                 rel_node[t] = add_run(ring_n, MASK(MK_ADM_N), nw,
-                                      SI(I_TRELN), s_dr, m, t);
+                                      UI(U_TRELN), s_dr, m, t);
         }
         CLOCK_SPLIT(ST_RING_ADDS);
 
         // ---- scatters into the tables, node usage, the slot sums ---------
         if (admitted) {
-            const int t = SI(I_TEDGE)[m];
-            if (t >= 0 && first_of(MASK(MK_ADM_E), nw, SI(I_TEDGE), m, t)) {
+            const int t = UI(U_TEDGE)[m];
+            if (t >= 0 && first_of(MASK(MK_ADM_E), nw, UI(U_TEDGE), m, t)) {
                 const float acc = add_run(0.0f, MASK(MK_ADM_E), nw,
-                                          SI(I_TEDGE), s_dr, m, t);
+                                          UI(U_TEDGE), s_dr, m, t);
                 edge_used[t] = edge_used[t] + acc;
                 te[(size_t)T_PASSED * E + t] = te[(size_t)T_PASSED * E + t] + acc;
             }
         }
         if (admitted_n) {
-            const int t = SI(I_TNODE)[m];
-            if (t >= 0 && first_of(MASK(MK_ADM_N), nw, SI(I_TNODE), m, t)) {
+            const int t = UI(U_TNODE)[m];
+            if (t >= 0 && first_of(MASK(MK_ADM_N), nw, UI(U_TNODE), m, t)) {
                 const float acc = add_run(0.0f, MASK(MK_ADM_N), nw,
-                                          SI(I_TNODE), s_dr, m, t);
+                                          UI(U_TNODE), s_dr, m, t);
                 node_load[t] = node_load[t] + acc;
                 tnp[(size_t)T_PROCESSED * NP + t] =
                     tnp[(size_t)T_PROCESSED * NP + t] + acc;
@@ -1132,7 +1158,7 @@ substep_megakernel_kernel(SubstepArgs a) {
             float mx = 0.0f;
             FOR_SET(j, MASK(MK_ADM_N), nw, 0)
                 if (s_nd[j] == n) {
-                    const float v = SF(F_DEM)[j];
+                    const float v = UF(U_DEM)[j];
                     mx = v > mx ? v : mx;
                 }
             float* mu = tn + (size_t)T_MAX_USE * N + n;
@@ -1140,14 +1166,14 @@ substep_megakernel_kernel(SubstepArgs a) {
         }
         if (tid == 0) {
             float s = 0.0f;
-            FOR_SET(j, MASK(MK_WANT), nw, 0) s += SF(F_PW)[j];
+            FOR_SET(j, MASK(MK_WANT), nw, 0) s += UF(U_PW)[j];
             sc.sum_proc_delay += s;
             sc.num_proc_delay += count_all(MASK(MK_WANT), nw);
         }
         if (tid == (nth > 32 ? 32 : 0)) {
             float dep_sum = 0.0f, dep_max = 0.0f;
             FOR_SET(j, MASK(MK_DEP), nw, 0) {
-                const float v = SF(F_DEP)[j];
+                const float v = UF(U_DEP)[j];
                 dep_sum += v;
                 dep_max = v > dep_max ? v : dep_max;
             }

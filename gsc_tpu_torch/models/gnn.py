@@ -3,7 +3,8 @@
 The port of ``gsc_tpu.models.gnn``: an encoder conv, then
 ``num_layers-1`` process convs applied ``num_iter`` times with shared
 weights (each process conv is built once and called ``num_iter`` times),
-ReLU between convs, masked mean-pool readout.  Single attention head,
+ReLU between convs, masked mean-pool readout (or, ``pool=False``, the
+per-node features).  Single attention head,
 self-loops included.  The graph is dense and padded, so attention is a
 masked [N, N] softmax over every graph of the batch at once.
 
@@ -79,15 +80,18 @@ def masked_mean_pool(x: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
 
 class GNNEmbedder(nn.Module):
     """Encoder conv + weight-tied process convs iterated ``num_iter`` times,
-    ReLU between convs, masked mean-pool readout."""
+    ReLU between convs, masked mean-pool readout; with ``pool=False`` the
+    per-node features [..., N, hidden] at the readout point instead (the
+    factored heads read node embeddings)."""
 
     def __init__(self, in_features: int, hidden: int = 22,
                  num_layers: int = 2, num_iter: int = 2,
                  mean_aggr: bool = True, impl: str = "dense",
-                 compute_dtype: Optional[str] = None):
+                 compute_dtype: Optional[str] = None, pool: bool = True):
         super().__init__()
         self.num_layers = num_layers
         self.num_iter = num_iter
+        self.pool = pool
         self.encoder = GATv2Conv(in_features, hidden, mean_aggr, impl,
                                  compute_dtype)
         self.process = nn.ModuleList(
@@ -101,12 +105,16 @@ class GNNEmbedder(nn.Module):
 
     def forward(self, nodes, edge_index, edge_mask, node_mask):
         adj = dense_adj(edge_index, edge_mask, node_mask)
+
+        def readout(x):
+            return masked_mean_pool(x, node_mask) if self.pool else x
+
         x = torch.relu(self.encoder(nodes, adj))
         if self.num_layers == 1:
-            return masked_mean_pool(x, node_mask)
+            return readout(x)
         for it in range(self.num_iter):
             for i, conv in enumerate(self.process):
                 x = conv(x, adj)
                 if i == self.num_layers - 2 and it == self.num_iter - 1:
-                    return masked_mean_pool(x, node_mask)
+                    return readout(x)
                 x = torch.relu(x)

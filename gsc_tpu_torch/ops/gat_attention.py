@@ -10,8 +10,10 @@ are its f32 and bf16 forms.  The backward kernel
 ``gat_attention_backward_f32`` and ``_bf16``) computes the same gradient
 as the dense VJP that the JAX package's custom VJP takes
 (``_gatv2_pallas_bwd``), without building its [B, N, N, F]
-intermediates.  Each source's header says what bounds it on the card and
-how its design answers that.  Each is compiled with ``nvcc`` for
+intermediates.  A graph of more than 32 nodes is cut into tiles of 32
+target rows, one CTA each; in the backward a graph's tiles form one
+thread block cluster (at most 8 CTAs, so N <= 256).  Each source's
+header says what bounds it on the card and how its design answers that.  Each is compiled with ``nvcc`` for
 ``sm_90a`` from the repository's source at first use, into
 ``gsc_tpu_torch/_build/`` (one shared library per source digest, shared
 by the wrappers of both dtypes), and bound with ``ctypes`` through a plain
@@ -391,8 +393,10 @@ class GatAttentionBackward(_Kernel):
     d_xr, d_att, d_bias)`` of the attention stage for ``grad_out``, d_xl
     and d_xr in the wrapper's dtype, d_att and d_bias f32.  CPU tensors
     run ``attention_backward_plain``; CUDA tensors launch the kernel once
-    (its last block to finish sums the per-graph ``d_att``/``d_bias``
-    partials in graph order, so two launches give the same bits).  The
+    (one CTA per graph, or a cluster of one CTA per 32 target rows above
+    32 nodes, up to 256; its last block to finish sums the per-CTA
+    ``d_att``/``d_bias`` partials in CTA order, so two launches give the
+    same bits).  The
     count of finished blocks that finds the last one lives in device
     memory, one per device and stream, since launches on one stream run
     one at a time."""
@@ -414,6 +418,8 @@ class GatAttentionBackward(_Kernel):
             fn.restype = ci
         lib.gat_attention_backward_smem_bytes.argtypes = [ci, ci, ci]
         lib.gat_attention_backward_smem_bytes.restype = ctypes.c_longlong
+        lib.gat_attention_backward_tiles.argtypes = [ci]
+        lib.gat_attention_backward_tiles.restype = ci
 
     def __call__(self, grad_out, xl, xr, att, adj, mean_aggr: bool = True):
         if xl.device.type == "cpu":
@@ -437,14 +443,17 @@ class GatAttentionBackward(_Kernel):
             raise TypeError(f"{self.entry}: adj is {adj.dtype}, want bool")
         lib = self._check(xl, (grad_out, xr, att, adj), (grad_out, xl, xr),
                           (att,), n, f)
+        tiles = lib.gat_attention_backward_tiles(n)
+        if tiles < 1:
+            raise ValueError(f"{self.entry}: N={n} needs more CTAs per graph "
+                             "than one cluster holds")
         b = _batch(lead)
         d_xl = torch.empty_like(xl)
         d_xr = torch.empty_like(xl)
-        # d_att, d_bias (f32), then the per-graph partials of both in
-        # double (8-byte aligned at 8 f bytes); an empty batch launches
-        # nothing
+        # d_att, d_bias (f32), then the per-CTA partials of both in double
+        # (8-byte aligned at 8 f bytes); an empty batch launches nothing
         alloc = torch.empty if b else torch.zeros
-        small = alloc(2 * f + 4 * f * b, dtype=torch.float32,
+        small = alloc(2 * f + 4 * f * b * tiles, dtype=torch.float32,
                       device=xl.device)
         stream = _raw_stream(xl.device.index)
         counter = self._counters.get((xl.device.index, stream))

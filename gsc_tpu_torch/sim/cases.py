@@ -24,7 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config.catalog import abc_service
+from ..config.catalog import abc_service, mixed_service
 from ..config.schema import (EnvLimits, ServiceConfig, ServiceFunction,
                              SimConfig)
 from ..topology import synthetic
@@ -223,20 +223,12 @@ def wide_range_case() -> SubstepCase:
     return case
 
 
-def abilene_case(batch: int = 64, intervals: int = 3, seed: int = 0,
-                 max_flows: int = 128,
-                 inter_arrival_mean: float = 10.0) -> SubstepCase:
-    """Abilene (11 nodes padded to 24, 14 edges to 37) with ``batch``
-    replicas, each with its own traffic seed and its own seeded
-    non-uniform schedule (rows over real nodes, some weights zero) and
-    placement (each real node hosts each SF with probability 0.8);
-    ``max_flows`` slots and ``inter_arrival_mean`` ms between a node's
-    arrivals."""
-    service = abc_service()
-    limits = EnvLimits.for_service(service)
-    cfg = SimConfig(ttl_choices=(100.0,), max_flows=max_flows,
-                    inter_arrival_mean=inter_arrival_mean)
-    topo = compile_topology(synthetic.abilene(node_cap_range=(2, 6)))
+def _seeded_case(name: str, service: ServiceConfig, cfg: SimConfig,
+                 limits: EnvLimits, topo: Topology, batch: int,
+                 intervals: int, seed: int) -> SubstepCase:
+    """``batch`` replicas, each with its own traffic seed and its own
+    seeded non-uniform schedule (rows over real nodes, some weights zero)
+    and placement (each real node hosts each SF with probability 0.8)."""
     nm = topo.node_mask.numpy()
     rng = np.random.default_rng(seed)
     w = rng.uniform(size=(batch,) + limits.scheduling_shape)
@@ -245,11 +237,74 @@ def abilene_case(batch: int = 64, intervals: int = 3, seed: int = 0,
     sched = (w / w.sum(-1, keepdims=True)).astype(np.float32)
     place = (rng.uniform(size=(batch, limits.max_nodes, limits.sf_pool))
              < 0.8) & nm[:, None]
-    name = f"abilene_b{batch}" + ("" if max_flows == 128
-                                  else f"_m{max_flows}")
     return _case(name, service, cfg, limits, topo, sched,
                  place, intervals=intervals, steps=max(intervals, 4),
                  seeds=tuple(seed + 100 + r for r in range(batch)))
+
+
+def abilene_case(batch: int = 64, intervals: int = 3, seed: int = 0,
+                 max_flows: int = 128,
+                 inter_arrival_mean: float = 10.0) -> SubstepCase:
+    """Abilene (11 nodes padded to 24, 14 edges to 37) with ``batch``
+    seeded replicas (``_seeded_case``), ``max_flows`` slots and
+    ``inter_arrival_mean`` ms between a node's arrivals."""
+    service = abc_service()
+    limits = EnvLimits.for_service(service)
+    cfg = SimConfig(ttl_choices=(100.0,), max_flows=max_flows,
+                    inter_arrival_mean=inter_arrival_mean)
+    topo = compile_topology(synthetic.abilene(node_cap_range=(2, 6)))
+    name = f"abilene_b{batch}" + ("" if max_flows == 128
+                                  else f"_m{max_flows}")
+    return _seeded_case(name, service, cfg, limits, topo, batch, intervals,
+                        seed)
+
+
+def slot_sums_case(batch: int = 2, intervals: int = 2) -> SubstepCase:
+    """Abilene under heavy traffic with stochastic processing delays (5 +-
+    1 ms) and the "overhead" resource function: three or more fractional
+    processing delays and end-to-end delays meet in one substep, where
+    the whole-slot sums depend on the order of their terms, which the
+    plain version keeps as the kernel does (``slot_order_sum``)."""
+    sf = lambda n: ServiceFunction(name=n, processing_delay_mean=5.0,
+                                   processing_delay_stdev=1.0,
+                                   resource_function_id="overhead")
+    service = ServiceConfig(sfc_list={"sfc_1": ("a", "b", "c")},
+                            sf_list={n: sf(n) for n in "abc"})
+    limits = EnvLimits.for_service(service)
+    cfg = SimConfig(ttl_choices=(100.0,), inter_arrival_mean=1.0)
+    topo = compile_topology(synthetic.abilene(node_cap_range=(4, 9)))
+    return _seeded_case("slot_sums_abilene", service, cfg, limits, topo,
+                        batch, intervals, seed=3)
+
+
+def interroute_case(batch: int = 2, intervals: int = 1) -> SubstepCase:
+    """bench.py's interroute stack: Interoute (110 nodes padded to 128, 146
+    edges to 192, 4 ingress), the abc chain, 1024 flow slots, arrivals
+    every 1 ms per ingress, seeded replicas (``_seeded_case``)."""
+    service = abc_service()
+    limits = EnvLimits.for_service(service, max_nodes=128, max_edges=192)
+    cfg = SimConfig(ttl_choices=(100.0,), max_flows=1024,
+                    inter_arrival_mean=1.0)
+    topo = compile_topology(synthetic.interroute(), max_nodes=128,
+                            max_edges=192)
+    return _seeded_case("interroute", service, cfg, limits, topo, batch,
+                        intervals, seed=5)
+
+
+def rung5_case(batch: int = 2, intervals: int = 1) -> SubstepCase:
+    """bench.py's rung-5 stack: ``random_network(200, num_ingress=8,
+    seed=11)`` padded to 256 nodes and 384 edges, the mixed catalog (two
+    chains over 5 SFs), 1024 flow slots, arrivals every 1 ms per ingress
+    (at most the 8 a substep takes), seeded replicas."""
+    service = mixed_service()
+    limits = EnvLimits.for_service(service, max_nodes=256, max_edges=384)
+    cfg = SimConfig(ttl_choices=(100.0,), max_flows=1024,
+                    inter_arrival_mean=1.0)
+    topo = compile_topology(
+        synthetic.random_network(200, num_ingress=8, seed=11),
+        max_nodes=256, max_edges=384)
+    return _seeded_case("rung5", service, cfg, limits, topo, batch,
+                        intervals, seed=7)
 
 
 def golden_case() -> SubstepCase:
@@ -272,14 +327,17 @@ def all_cases(abilene_batch: int = 64) -> List[SubstepCase]:
     """The battery ``chip_smoke.py`` runs: the six scenarios, the WRR
     triangle, the saturated link, fractional rates, rates of a range no
     double holds, Abilene with ``abilene_batch`` replicas and with one (the
-    single-env trainer's batch), and Abilene under heavy traffic at 1024
-    flow slots (32 warps) and at 200 (a partial last warp)."""
+    single-env trainer's batch), Abilene under heavy traffic at 1024
+    flow slots (32 warps) and at 200 (a partial last warp), and Abilene
+    with stochastic delays under "overhead" (order-dependent whole-slot
+    sums)."""
     return ([battery_case(n) for n in _BATTERY]
             + [wrr_case(), linkcap_case(), fractional_case(),
                wide_range_case(), abilene_case(batch=abilene_batch),
                abilene_case(batch=1)]
             + [abilene_case(batch=b, max_flows=m, inter_arrival_mean=1.0)
-               for b, m in ((4, 1024), (2, 200))])
+               for b, m in ((4, 1024), (2, 200))]
+            + [slot_sums_case()])
 
 
 def run_case(case: SubstepCase, device, plain: bool = False

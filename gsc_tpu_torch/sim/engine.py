@@ -31,9 +31,10 @@ Where the JAX package moves data with one-hot contractions (exact under
 give zeros as the one-hot rows did.  ``jnp.mod`` is ``torch.remainder``,
 ``jnp.round`` and ``torch.round`` both round half to even, and the
 grouping argsort sorts unique keys, so its order needs no stability.
-Float sums over flows (the admission cumsums, the scatter-adds) may add in
-another order than XLA does, so they agree bit for bit only where the
-traffic is integer-valued.
+Float sums over flows (the admission cumsums, the scatter-adds, the
+whole-slot sums) may add in another order than XLA does, so they agree
+bit for bit only where the traffic is integer-valued.  The whole-slot sums
+add in slot order (``slot_order_sum``), as kernel #2 does.
 
 Randomness: the processing-delay noise comes in from outside (``noise``,
 or drawn from a ``torch.Generator``), the same way the JAX package's
@@ -146,6 +147,19 @@ def _scatter_add(target: torch.Tensor, idx: torch.Tensor,
     if target.dim() == 3:
         ix = ix[:, :, None].expand(-1, -1, target.shape[2])
     return buf.scatter_add(1, ix, vals.to(target.dtype))[:, :n]
+
+
+def slot_order_sum(vals: torch.Tensor) -> torch.Tensor:
+    """``vals`` [..., M] f32 summed over the slots in slot order from +0,
+    each addition rounded to f32: how kernel #2 adds the whole-slot sums
+    (path credits, processing delays, departures' end-to-end delays), so
+    the two agree bit for bit where a vectorised ``sum`` would add
+    fractional terms in another order.  numpy's ``add.accumulate`` is
+    that sequential sum, on the host."""
+    v = vals.detach().cpu().numpy()
+    v = np.concatenate([np.zeros(v.shape[:-1] + (1,), np.float32), v], -1)
+    acc = np.add.accumulate(v, axis=-1, dtype=np.float32)[..., -1]
+    return torch.from_numpy(np.ascontiguousarray(acc)).to(vals.device)
 
 
 def _group_order(key: torch.Tensor) -> torch.Tensor:
@@ -333,11 +347,8 @@ class SimEngine:
         e2e = F.e2e + path_cred
         ttl = F.ttl - path_cred
         n_arr = arrived.sum(-1, dtype=_I32)
-        path_add = path_cred.sum(-1)
-        m = m.replace(
-            sum_path_delay=m.sum_path_delay + path_add,
-            num_path_delay=m.num_path_delay + n_arr,
-            run_path_delay_sum=m.run_path_delay_sum + path_add)
+        # (the path credits' sum joins the metrics at step 7)
+        m = m.replace(num_path_delay=m.num_path_delay + n_arr)
         chain_len_tab = tab["chain_len"].expand(B, C)
         # an out-of-range SFC id reads chain_len 0 and heads to egress
         chain_len = _take(chain_len_tab, F.sfc)
@@ -526,7 +537,6 @@ class SimEngine:
         e2e = e2e + pdel_w
         ttl = ttl - pdel_w
         m = m.replace(
-            sum_proc_delay=m.sum_proc_delay + pdel_w.sum(-1),
             num_proc_delay=m.num_proc_delay + want.sum(-1, dtype=_I32))
         # node capacity admission through the resource functions, greedy in
         # slot order within each node's group
@@ -591,8 +601,13 @@ class SimEngine:
         depart = depart_hop | depart_stay
         n_dep = depart.sum(-1, dtype=_I32)
         dep_e2e = torch.where(depart, e2e, zero)
-        dep_sum = dep_e2e.sum(-1)
+        # the substep's three whole-slot sums at once (one host round trip)
+        path_add, proc_add, dep_sum = slot_order_sum(
+            torch.stack([path_cred, pdel_w, dep_e2e]))
         m = m.replace(
+            sum_path_delay=m.sum_path_delay + path_add,
+            run_path_delay_sum=m.run_path_delay_sum + path_add,
+            sum_proc_delay=m.sum_proc_delay + proc_add,
             processed=m.processed + n_dep,
             run_processed=m.run_processed + n_dep,
             sum_e2e=m.sum_e2e + dep_sum,

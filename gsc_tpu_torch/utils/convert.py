@@ -9,7 +9,11 @@ name it for each network):
 - a Dense ``kernel [in, out]`` becomes ``Linear.weight [out, in]``;
 - a GATv2 ``w_l``/``w_r [in, F]`` becomes ``lin_l``/``lin_r.weight
   [F, in]`` and ``b_l``/``b_r`` their biases;
-- a GATv2 ``att [F, 1]`` becomes ``att [F]``.
+- a GATv2 ``att [F, 1]`` becomes ``att [F]``;
+- the factored heads' ``query``, ``key`` (actor) and ``key``, ``src``
+  (critic) Dense layers become the port's ``Linear`` layers of the same
+  names, and their per-node hidden stack (``MLP_0``) the ``mlp`` as in the
+  monolithic heads.
 
 It raises on a leaf it does not use and on a leaf the port needs that the
 tree lacks.  ``learner_state_from_jax`` carries a whole DDPG learner state
@@ -32,6 +36,9 @@ _CONV_LEAVES = {
     "w_r": ("lin_r.weight", True), "b_r": ("lin_r.bias", False),
     "att": ("att", False), "bias": ("bias", False),
 }
+
+# the factored heads' dense layers, named as in flax and in the port
+_HEAD_DENSE = ("query", "key", "src")
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -58,6 +65,12 @@ def _map_leaf(path: tuple) -> Optional[tuple]:
             mod = f"embedder.process.{m.group(1)}"
         key, transpose = _CONV_LEAVES[path[2]]
         return mod, f"{mod}.{key}", transpose
+    if len(path) == 2 and path[0] in _HEAD_DENSE \
+            and path[1] in ("kernel", "bias"):
+        # the factored heads' dense layers: query and key (actor), key and
+        # src (critic)
+        key = "weight" if path[1] == "kernel" else "bias"
+        return path[0], f"{path[0]}.{key}", path[1] == "kernel"
     if len(path) == 3 and path[0] == "MLP_0":
         m = re.fullmatch(r"Dense_(\d+)", path[1])
         if m is None or path[2] not in ("kernel", "bias"):

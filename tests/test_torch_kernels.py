@@ -10,7 +10,10 @@ version at the serving shapes and one N > 32 case, and the backward kernel
 against ``attention_backward_plain`` at the shapes of
 tests/test_torch_gat_backward.py and the learn burst's (100, 24, 22), the
 latter also with a saturated softmax; two backward launches on the same
-inputs must give the same bits.
+inputs must give the same bits.  At interroute's N = 128 and rung 5's 256
+(graphs cut into tiles of 32 target rows) all four forms are held to the
+same tolerances and relaunched bit for bit, and the substep megakernel
+runs one interroute interval bit-equal to its plain version.
 
 Tolerances.  Forward: rtol 1e-5, atol 1e-5 — f32, summed in another order
 than the plain einsums: with unit-normal inputs the logits sum 22
@@ -362,3 +365,115 @@ def test_bf16_backward_kernel_relaunch_is_bit_identical():
         torch.cuda.synchronize()
         for a, b in zip(first, again):
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------- large graphs (N > 32)
+# interroute's N = 128 and rung 5's 256: a graph spans 4 and 8 CTAs of 32
+# target rows, the backward's as one thread block cluster
+LARGE = [((4,), 128, 22), ((4,), 256, 22)]
+# a kernel's distance to float64 against its plain version's
+F64_RATIO = 4.0
+
+
+@pytest.mark.cuda
+def test_all_four_forms_match_plain_at_large_n():
+    """The forward and backward kernels, f32 and bf16, at N = 128 and 256
+    against their plain versions, at this file's tolerances, the
+    saturated softmax included; d_xr 0 on rows without a neighbour.
+    Where the softmax saturates, d_att and d_bias sum terms far larger
+    than themselves (act ~ 10^3) over N^2 pairs, and the plain version's
+    f32 sums are the less accurate side (on an NVIDIA H100 at N = 256,
+    mean aggregation, bf16: kernel 5.8e-7, plain 2.2e-6 from a float64
+    evaluation), so there the two are held to float64 instead: the
+    kernel no further from it than F64_RATIO times the plain version
+    (floored at F64_FLOOR), as tests/test_torch_gat_backward.py holds
+    saturated gradients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    for lead, n, f in LARGE:
+        for saturated in (False, True):
+            for mean in (True, False):
+                grad, xl, xr, att, adj = _card_backward_inputs(
+                    lead, n, f, seed=n + 13, saturated=saturated)
+                bias = torch.from_numpy(np.random.default_rng(n).normal(
+                    size=(f,)).astype(np.float32)).cuda()
+                for dt in (torch.float32, torch.bfloat16):
+                    ins = (grad.to(dt), xl.to(dt), xr.to(dt))
+                    fwd, bwd = attention_op(dt), backward_op(dt)
+                    out = fwd.launch(ins[1], ins[2], att, bias, adj, mean)
+                    got = bwd.launch(*ins, att, adj, mean)
+                    torch.cuda.synchronize()
+                    want = attention_plain(ins[1], ins[2], att, bias, adj,
+                                           mean)
+                    plain = attention_backward_plain(*ins, att, adj, mean)
+                    what = (n, saturated, mean, dt)
+                    if dt == torch.float32:
+                        torch.testing.assert_close(out, want, rtol=RTOL,
+                                                   atol=ATOL)
+                    else:
+                        err = float((out.float() - want.float()).abs().max())
+                        assert err <= bf16_ulp(want.float()), (what, err)
+                    assert torch.all(out[~adj.any(dim=-1)] == 0)
+                    if dt == torch.float32:
+                        ref = attention_backward_plain(
+                            grad.double(), xl.double(), xr.double(),
+                            att.double(), adj, mean)
+                    else:
+                        ref = attention_backward_wide(*ins, att, adj, mean,
+                                                      torch.float64)
+                    for k, (g, w, r) in enumerate(zip(got, plain, ref)):
+                        assert g.shape == w.shape and g.dtype == w.dtype
+                        if saturated and k >= 2:
+                            k64 = float((g.double() - r).abs().max())
+                            p64 = float((w.double() - r).abs().max())
+                            assert k64 <= F64_RATIO * max(p64, F64_FLOOR), \
+                                (what, k, k64, p64)
+                            continue
+                        err = float((g.float() - w.float()).abs().max())
+                        bound = BWD_SCALE * float(w.abs().max()) + BWD_ATOL
+                        if dt == torch.bfloat16 and k < 2:
+                            bound = bf16_ulp(w.float()) + BWD_ATOL
+                        assert err <= bound, (what, k, err, bound)
+                    assert torch.all(got[1][~adj.any(dim=-1)] == 0)
+
+
+@pytest.mark.cuda
+def test_large_n_relaunch_is_bit_identical():
+    """At N = 256 (a cluster of 8 CTAs per graph in the backward, per-CTA
+    partials of d_att and d_bias) two launches give the same bits, in
+    both dtypes, forward and backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    grad, xl, xr, att, adj = _card_backward_inputs((4,), 256, 22, seed=9)
+    bias = torch.zeros(22, device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        ins = (grad.to(dt), xl.to(dt), xr.to(dt))
+        for op, args in ((attention_op(dt), (ins[1], ins[2], att, bias,
+                                             adj, True)),
+                         (backward_op(dt), (*ins, att, adj, True))):
+            first = op.launch(*args)
+            again = op.launch(*args)
+            torch.cuda.synchronize()
+            first = first if isinstance(first, tuple) else (first,)
+            again = again if isinstance(again, tuple) else (again,)
+            for a, b in zip(first, again):
+                assert torch.equal(a, b), (dt, op.entry)
+
+
+@pytest.mark.cuda
+def test_megakernel_interroute_interval_is_bit_equal():
+    """Kernel #2 at bench.py's interroute stack (M = 1024 slots, N = 128,
+    E = 192): one interval bit-equal to its plain version on CPU copies,
+    and a relaunch bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    from gsc_tpu_torch.ops.substep import substep_megakernel
+    from gsc_tpu_torch.sim import cases
+
+    case = cases.interroute_case(batch=2, intervals=1)
+    before = substep_megakernel.launches
+    got = cases.run_case(case, "cuda")[-1]
+    assert substep_megakernel.launches == before + 1
+    want = cases.run_case(case, "cpu", plain=True)[-1]
+    assert cases.bit_equal(got.to("cpu"), want)
+    assert cases.bit_equal(cases.run_case(case, "cuda")[-1], got)
