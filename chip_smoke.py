@@ -141,9 +141,9 @@ Phases (any failure exits non-zero and prints no result line):
    call within ANSWER_BF16_RTOL / ANSWER_BF16_ATOL outside rows with a
    value within THRESH_BF16_TOL of the threshold; prints requests/s and
    p50/p99;
-12. (printed after phase 13, whose launches it counts too) a JSON line
+12. (printed after phase 15) a JSON line
    of the kernels (name, route, source, the TPU kernel it replaces,
-   launches summed over the training runs of phases 8, 10 and 13, max abs
+   launches summed over the runs of phases 8, 10, 13, 14 and 15, max abs
    error, ms, plain ms, bound ms and what bounds it, library ms);
 13. the generalization slice, the reference's own training path at the
    flagship widths: ``cli.init_configs`` writes the yaml set and the
@@ -198,7 +198,29 @@ Phases (any failure exits non-zero and prints no result line):
    Prints each part's seconds, every run's env-steps/s and burst seconds
    and the serving numbers beside the card's name and power limit; the
    kernels line's launch counts include this phase's;
-15. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+15. the default train run (``default_run_slice``), on phase 13's schedule
+   at the flagship widths with episodes cut from 200 to
+   ``DEFAULT_RUN_STEPS`` steps (the warm-up as long, so each episode ends
+   in a burst): (a) ``cli.run_train`` for 2 episodes with the defaults
+   (the pipelined loop, the run observer, the learning-signal ledger and
+   the rollback guard) and for the same 2 with ``--no-pipeline
+   --no-learn-obs``: every tensor of the learner state, the replay and
+   the random source ``torch.equal``, the kernel launches equal; each
+   run's learn-burst seconds and, under ``torch.profiler``, kernel
+   launches and milliseconds per gradient step with the ledger on and
+   off; (b) ``--fault-plan "nan_grads@1;dispatch_transient@2"`` for 3
+   episodes: the ``recovery`` events (site, action, episode) that
+   tests/test_torch_resilience.py holds against the JAX package, and a
+   finite final state; (c) ``--precision bf16`` for 1 episode: only the
+   bf16 attention kernels launch; (d) the default run wrote
+   ``events.jsonl``, ``metrics.json`` (with non-zero device gauges),
+   ``series.json``, ``curves.json``, ``result.yaml`` and ``run.log``, and
+   ``tools/obs_report.py`` exits 0 on it; (e) ``cli.run_simulate -d 500``
+   on Abilene on the card (one megakernel launch per interval) and on the
+   CPU (the plain engine): integer fields equal, the mean end-to-end
+   delay within SUB_RTOL.  Prints each part's seconds; the kernels line's
+   launch counts include this phase's;
+16. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Tolerances (stated here, used below): the attention kernel against its
 plain version rtol 1e-5 / atol 1e-5 (f32 in another summation order: the
@@ -326,6 +348,15 @@ SUB_TIMING_BATCHES = (1, 64, 256)
 SUB_MAIN_BATCH = 64
 TRAIN_ARGS = ["--replicas", "64", "--chunk", "50", "--episodes", "2",
               "--seed", "0"]
+# phase 15: the default train run on phase 13's schedule, its episodes
+# cut from 200 to DEFAULT_RUN_STEPS steps (warm-up as long, so every
+# episode ends in a burst of as many gradient steps)
+DEFAULT_RUN_STEPS = 50
+DEFAULT_RUN_PLAN = "nan_grads@1;dispatch_transient@2"
+DEFAULT_RUN_RECOVERIES = [("dispatch", "retry", 2),
+                          ("learner_state", "rollback", 1)]
+# gradient steps profiled per learn burst, ledger on and off
+LEDGER_PROFILE_STEPS = 5
 # phase 13: single-env episodes over the schedule (switching every
 # GEN_PERIOD episodes)
 GEN_EPISODES = 3
@@ -2409,6 +2440,264 @@ def large_network_slice(torch, dev, smi):
     return launches, att_times, sub_times, errs, sub_err
 
 
+def ledger_burst_profile(torch, trainer, state, buffer):
+    """``LEDGER_PROFILE_STEPS`` gradient steps of ``trainer``'s learner
+    (its ledger as configured) under ``torch.profiler``: kernel launches
+    per gradient step and device ms per step.  Updates ``state``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gsc_tpu_torch.agents.buffer import buffer_sample
+
+    ddpg, n = trainer.ddpg, LEDGER_PROFILE_STEPS
+    sample = lambda: buffer_sample(buffer, trainer.draws,
+                                   trainer.agent_cfg.batch_size)
+    ddpg.learn_burst(state, sample, steps=1)       # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = ddpg.learn_burst(state, sample, steps=n)
+        float(m["state_finite"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    return {"launches": sum(e.count for e in ka if e.key in (
+                "cudaLaunchKernel", "cuLaunchKernel",
+                "cudaLaunchKernelExC")) / n,
+            "device_ms": sum(dev_us(e) for e in ka) / 1e3 / n,
+            "wall_ms": 1e3 * wall / n}
+
+
+def default_run_slice(torch, dev, smi):
+    """Phase 15: the default ``cli train`` run (pipeline, observer, learn
+    ledger, rollback) on phase 13's schedule at the flagship widths,
+    episodes cut to ``DEFAULT_RUN_STEPS`` steps: (a) 2 episodes with the
+    defaults against the same 2 with ``--no-pipeline --no-learn-obs``,
+    ``torch.equal`` on every state, replay and random-source tensor,
+    burst seconds and launches per gradient step of both; (b) a fault
+    plan's recoveries; (c) one bf16 episode; (d) the run's artefacts and
+    ``tools/obs_report.py``; (e) ``cli simulate`` on the card and on the
+    CPU.  Returns the kernels' launches summed over the runs (each count 0
+    before its run) and the phase's numbers."""
+    import math
+
+    from gsc_tpu_torch import cli
+    from gsc_tpu_torch.agents.ddpg import DDPG
+    from gsc_tpu_torch.ops.gat_attention import (gat_attention,
+                                                 gat_attention_backward,
+                                                 gat_attention_backward_bf16,
+                                                 gat_attention_bf16)
+    from gsc_tpu_torch.ops.substep import substep_megakernel
+    from gsc_tpu_torch.resilience.guard import all_finite
+
+    ops = {"gat_attention": gat_attention,
+           "gat_attention_backward": gat_attention_backward,
+           "gat_attention_bf16": gat_attention_bf16,
+           "gat_attention_backward_bf16": gat_attention_backward_bf16,
+           "substep_megakernel": substep_megakernel}
+    total = {k: 0 for k in ops}
+    root = tempfile.mkdtemp(prefix="gsc_default_run_")
+    laps = Laps()
+    bursts = []
+    saved = DDPG.learn_burst
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = saved(*a, **k)
+        torch.cuda.synchronize()
+        bursts.append(time.perf_counter() - t0)
+        return res
+
+    def counted_run(argv):
+        """``cli.run_train(argv)`` with every count 0 before it; returns
+        the run and its counts (added to the phase's)."""
+        for op in ops.values():
+            op.launches = 0
+        res = cli.run_train(argv)
+        counts = {k: op.launches for k, op in ops.items()}
+        for k, n in counts.items():
+            total[k] += n
+        return res, counts
+
+    try:
+        cfg = os.path.join(root, "cfg")
+        cli.init_configs(cfg)
+        nets = os.path.join(cfg, "networks")
+        sched = os.path.join(root, "scheduler.yaml")
+        with open(sched, "w") as f:
+            f.write("training_network_files:\n"
+                    f"  - {nets}/abilene-in4.graphml\n"
+                    f"  - {nets}/claranet-in4-cap1.graphml\n"
+                    f"inference_network: {nets}/compuserve-in4-cap1.graphml\n"
+                    f"period: {GEN_PERIOD}\n")
+        agent_yaml = os.path.join(root, "agent.yaml")
+        with open(os.path.join(cfg, "agent.yaml")) as f:
+            text = f.read()
+        with open(agent_yaml, "w") as f:
+            f.write(text.replace("episode_steps: 200",
+                                 f"episode_steps: {DEFAULT_RUN_STEPS}")
+                    .replace("nb_steps_warmup_critic: 200",
+                             f"nb_steps_warmup_critic: {DEFAULT_RUN_STEPS}")
+                    + "gnn_impl: pallas\n")
+        base = ["--scheduler", sched, "--seed", "0", "--agent-config",
+                agent_yaml, "--simulator-config",
+                os.path.join(cfg, "simulator.yaml"), "--service",
+                os.path.join(cfg, "service_abc.yaml")]
+        laps.lap("setup")
+
+        # (a) the defaults against the serial, ledger-free run
+        DDPG.learn_burst = timed
+        try:
+            run_dir = os.path.join(root, "a")
+            res_a, counts_a = counted_run(base + ["--episodes", "2",
+                                                  "--result-dir", run_dir])
+            bursts_on = list(bursts)
+            bursts.clear()
+            laps.lap("a defaults")
+            res_s, counts_s = counted_run(base + [
+                "--episodes", "2", "--no-pipeline", "--no-learn-obs",
+                "--result-dir", os.path.join(root, "s")])
+            bursts_off = list(bursts)
+            bursts.clear()
+        finally:
+            DDPG.learn_burst = saved
+        laps.lap("a serial")
+        want = learner_tensors(res_s["state"], res_s["buffers"],
+                               res_s["trainer"].draws)
+        got = learner_tensors(res_a["state"], res_a["buffers"],
+                              res_a["trainer"].draws)
+        check(set(got) == set(want), "pipelined and serial runs hold "
+              "different tensors")
+        differ = [k for k, v in want.items()
+                  if got[k].dtype != v.dtype or not torch.equal(got[k], v)]
+        check(not differ, f"pipeline+ledger != serial on {len(differ)} of "
+              f"{len(want)} tensors: {differ[:6]}")
+        check(counts_a == counts_s, f"launches differ: defaults {counts_a}, "
+              f"serial {counts_s}")
+        check(res_a["trainer"].learn_obs is not None
+              and res_s["trainer"].learn_obs is None,
+              "the ledger was not on in the default run only")
+        prof_on = ledger_burst_profile(torch, res_a["trainer"],
+                                       res_a["state"], res_a["buffers"])
+        prof_off = ledger_burst_profile(torch, res_s["trainer"],
+                                        res_s["state"], res_s["buffers"])
+        laps.lap("a profile")
+
+        # (d) the default run's artefacts
+        for name in ("events.jsonl", "metrics.json", "series.json",
+                     "curves.json", "result.yaml", "run.log"):
+            check(os.path.isfile(os.path.join(run_dir, name)),
+                  f"the default run wrote no {name}")
+        with open(os.path.join(run_dir, "events.jsonl")) as f:
+            kinds = [json.loads(line)["event"] for line in f]
+        for kind in ("run_start", "precision", "episode", "learn_signal",
+                     "eval_episode", "run_end"):
+            check(kind in kinds, f"no {kind} event in the default run")
+        with open(os.path.join(run_dir, "metrics.json")) as f:
+            metrics = json.load(f)["metrics"]
+        gauges = {k: v for k, v in metrics.items()
+                  if k.startswith("gsc_device_")}
+        check(gauges and all(v > 0 for v in gauges.values()),
+              f"device gauges {gauges}")
+        rep = subprocess.run([sys.executable, os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tools",
+            "obs_report.py"), run_dir], capture_output=True, text=True,
+            timeout=120)
+        check(rep.returncode == 0, f"obs_report exited {rep.returncode}: "
+              f"{rep.stderr[-2000:]}")
+        laps.lap("d artefacts")
+
+        # (b) a fault plan: a retried dispatch and a rollback
+        res_b, counts_b = counted_run(base + [
+            "--episodes", "3", "--fault-plan", DEFAULT_RUN_PLAN,
+            "--result-dir", os.path.join(root, "b")])
+        with open(os.path.join(root, "b", "events.jsonl")) as f:
+            rec = [json.loads(line) for line in f]
+        got_rec = [(e["site"], e["action"], e["episode"]) for e in rec
+                   if e["event"] == "recovery"]
+        check(got_rec == DEFAULT_RUN_RECOVERIES,
+              f"recoveries {got_rec}, want {DEFAULT_RUN_RECOVERIES}")
+        check(float(all_finite(res_b["state"])) == 1.0
+              and math.isfinite(res_b["eval"]["mean_return"]),
+              "the fault-plan run did not end finite")
+        laps.lap("b faults")
+
+        # (c) one bf16 episode under the defaults
+        res_c, counts_c = counted_run(base + [
+            "--episodes", "1", "--precision", "bf16",
+            "--result-dir", os.path.join(root, "c")])
+        check(counts_c["gat_attention_bf16"] > 0
+              and counts_c["gat_attention_backward_bf16"] > 0
+              and counts_c["gat_attention"] == 0
+              and counts_c["gat_attention_backward"] == 0,
+              f"bf16 run launches {counts_c}")
+        check(math.isfinite(res_c["trainer"].history[-1]["critic_loss"]),
+              "bf16 run's loss is not finite")
+        laps.lap("c bf16")
+
+        # (e) simulate on the card and on the CPU
+        sim_args = ["-d", "500", "-n", os.path.join(nets,
+                                                    "abilene-in4.graphml"),
+                    "-sf", os.path.join(cfg, "service_abc.yaml"), "-c",
+                    os.path.join(cfg, "simulator.yaml")]
+        for op in ops.values():
+            op.launches = 0
+        t0 = time.perf_counter()
+        on_card = cli.run_simulate(sim_args)
+        sim_card_s = time.perf_counter() - t0
+        sim_launches = substep_megakernel.launches
+        total["substep_megakernel"] += sim_launches
+        on_cpu = cli.run_simulate(sim_args + ["--device", "cpu"])
+        check(substep_megakernel.launches == sim_launches,
+              "the CPU simulate launched the kernel")
+        check(sim_launches == 5, f"simulate launched the megakernel "
+              f"{sim_launches} times for 5 intervals")
+        for k in ("total_flows", "successful_flows", "dropped_flows",
+                  "drop_reasons"):
+            check(on_card[k] == on_cpu[k], f"simulate {k}: card "
+                  f"{on_card[k]}, cpu {on_cpu[k]}")
+        check(on_card["total_flows"] > 0 and math.isclose(
+            on_card["avg_end2end_delay"], on_cpu["avg_end2end_delay"],
+            rel_tol=SUB_RTOL, abs_tol=SUB_ATOL),
+            f"simulate delay: card {on_card}, cpu {on_cpu}")
+        laps.lap("e simulate")
+    finally:
+        DDPG.learn_burst = saved
+        shutil.rmtree(root, ignore_errors=True)
+
+    ps = laps.seconds
+    print(f"default run: 2 episodes x {DEFAULT_RUN_STEPS} steps with the "
+          "defaults (pipeline, observer, learn ledger, rollback) and with "
+          f"--no-pipeline --no-learn-obs: torch.equal on all {len(want)} "
+          "tensors; returns "
+          f"{[round(r['episodic_return'], 4) for r in res_a['trainer'].history]}",
+          flush=True)
+    print(f"default run learn bursts on {smi}: ledger on "
+          f"{[round(t, 3) for t in bursts_on]} s, off "
+          f"{[round(t, 3) for t in bursts_off]} s; per gradient step "
+          f"(profiled, {LEDGER_PROFILE_STEPS} steps): ledger on "
+          f"{prof_on['launches']:.1f} launches, {prof_on['wall_ms']:.3f} ms "
+          f"wall, {prof_on['device_ms']:.3f} ms device; off "
+          f"{prof_off['launches']:.1f} launches, {prof_off['wall_ms']:.3f} "
+          f"ms wall, {prof_off['device_ms']:.3f} ms device", flush=True)
+    print(f"default run fault plan {DEFAULT_RUN_PLAN!r}: recoveries "
+          f"{got_rec}; final state finite; bf16 episode launches {counts_c}",
+          flush=True)
+    print(f"default run simulate -d 500 on Abilene: card {json.dumps(on_card)} "
+          f"({sim_launches} megakernel launches, {sim_card_s:.3f} s), cpu "
+          f"{json.dumps(on_cpu)}", flush=True)
+    print("default run launches (each count 0 before its run): "
+          + json.dumps(total), flush=True)
+    print("phase 15 parts, s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in ps.items())
+          + f"; phase 15 {sum(ps.values()):.3f}", flush=True)
+    return total, {"bursts_on": bursts_on, "bursts_off": bursts_off,
+                   "prof_on": prof_on, "prof_off": prof_off}
+
+
 def main() -> int:
     import torch
 
@@ -2635,8 +2924,14 @@ def main() -> int:
                    "substep_megakernel"):
         check(large_launches.get(kernel, 0) > 0,
               f"{kernel} was not launched on the large networks' path")
+    # ---- 15. the default train run ---------------------------------------
+    run_launches, _ = default_run_slice(torch, dev, smi)
+    phases.lap("15")
+    for kernel, n in run_launches.items():
+        check(n > 0, f"{kernel} was not launched on the default run's path")
     path_launches = {k: train_launches.get(k, 0) + bf16_launches.get(k, 0)
                      + gen_launches.get(k, 0) + large_launches.get(k, 0)
+                     + run_launches.get(k, 0)
                      for k in ("gat_attention", "gat_attention_backward",
                                "gat_attention_bf16",
                                "gat_attention_backward_bf16",

@@ -20,6 +20,17 @@ learn burst its batches from a caller's ``sample_fn``, so a test can feed
 this port and the JAX package the same numbers.  The learner state's
 modules and optimisers are updated in place.
 
+Two signals ride on tensors the update has already made, so neither
+changes it: ``state_finite``, the all-finite flag of the learner state
+(``resilience.guard.all_finite``) entering each episode (in the
+rollout's stats) and after each learn burst (in its metrics); and, with
+a ``learn_ledger`` (``obs.learning.LearnLedgerSpec``), the learning
+signal: the replay's fill in the rollout's stats (``replay``) and, in
+the burst's metrics (``learn_signal``), |TD| summed per topology over
+every gradient step of the burst, with the Q moments and the per-layer
+norms of its last step, accumulated on the device and read once per
+episode.
+
 Under the bf16 policy (``AgentConfig.precision``) the networks compute in
 bf16 and the replay stores bf16 float leaves, while the parameters, both
 Adam states and the Polyak updates stay f32, and the losses and TD
@@ -40,7 +51,11 @@ from ..env.env import EnvState, ServiceCoordEnv
 from ..env.observations import GraphObs
 from ..env.permutation import ShuffleOps
 from ..models.nets import Actor, QNetwork, scale_action, unscale_action
+from ..obs.learning import (LearnLedgerSpec, accumulate_signal,
+                            learn_signal, replay_stats, td_segments,
+                            zero_learn_signal)
 from ..ops.gat import compute_dtype_of
+from ..resilience.guard import all_finite
 from ..sim.state import TrafficSchedule
 from ..topology.compiler import Topology
 from .buffer import ReplayBuffer, buffer_add, buffer_init, buffer_sample
@@ -111,9 +126,11 @@ def global_norm(grads) -> torch.Tensor:
 
 class DDPG:
     def __init__(self, env: ServiceCoordEnv, agent: AgentConfig,
-                 gnn_impl: Optional[str] = None, device=None):
+                 gnn_impl: Optional[str] = None, device=None,
+                 learn_ledger: Optional[LearnLedgerSpec] = None):
         self.env = env
         self.agent = agent
+        self.learn_ledger = learn_ledger
         self.device = resolve_device(device)
         self.action_dim = env.limits.action_dim
         impl = gnn_impl or agent.gnn_impl
@@ -207,8 +224,10 @@ class DDPG:
         into the ring ``buffer``, stamped with ``topo.topo_id``.
         ``episode_start_step`` is the global step of the first one (the
         warm-up gate reads it).  Returns the episode's stats (return, mean
-        and final success ratio, mean end-to-end delay), still on the
-        device."""
+        and final success ratio, mean end-to-end delay, the all-finite
+        flag of the entering learner state and, with a ledger, the replay's
+        fill), still on the device."""
+        state_finite = all_finite(state)
         shuffle = ShuffleOps(self.agent, self.env.limits)
         perm = shuffle.init_perm(1, self.device)
         obs = shuffle.permute_obs(obs, perm)
@@ -235,7 +254,9 @@ class DDPG:
         stats = {"episodic_return": torch.stack(rewards).sum(),
                  "mean_succ_ratio": s.mean(),
                  "mean_e2e_delay": torch.stack(e2e).mean(),
-                 "final_succ_ratio": s[-1]}
+                 "final_succ_ratio": s[-1], "state_finite": state_finite}
+        if self.learn_ledger is not None:
+            stats["replay"] = replay_stats(buffer)
         return state, buffer, env_state, obs, stats
 
     def episode_step(self, state: DDPGState, buffer: ReplayBuffer,
@@ -261,6 +282,11 @@ class DDPG:
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Mean squared TD error against r + gamma (1 - done) Q'(s',
         clamp(pi'(s'), -1, 1)); returns (loss, q)."""
+        loss, q, _ = self._critic_loss_td(state, batch)
+        return loss, q
+
+    def _critic_loss_td(self, state: DDPGState, batch: Dict):
+        """(loss, q, td) with td = q - target, the loss's own residual."""
         with torch.no_grad():
             next_a = torch.clamp(state.target_actor(batch["next_obs"]),
                                  -1.0, 1.0)
@@ -269,21 +295,25 @@ class DDPG:
                 * self.agent.gamma * q_next
         q = state.critic(batch["obs"], batch["action"])[..., 0]
         td = q - target
-        return torch.mean(td ** 2), q
+        return torch.mean(td ** 2), q, td
 
     def actor_loss(self, state: DDPGState, batch: Dict) -> torch.Tensor:
         """-Q(s, pi(s)).mean() under the (current) critic."""
         a = state.actor(batch["obs"])
         return -torch.mean(state.critic(batch["obs"], a))
 
-    def gradient_step_on_batch(self, state: DDPGState, batch: Dict
+    def gradient_step_on_batch(self, state: DDPGState, batch: Dict,
+                               signal: Optional[str] = None
                                ) -> Tuple[DDPGState, Dict[str, torch.Tensor]]:
         """Critic Adam step, actor Adam step against the updated critic,
         then Polyak averaging with tau = target_model_update.  Updates
-        ``state`` in place; the metrics stay on the device."""
+        ``state`` in place; the metrics stay on the device.  With a
+        ledger, ``signal`` "td" adds this batch's per-topology |TD|
+        (``learn_signal``) and "full" the whole signal (moments and layer
+        norms too)."""
         c_params = list(state.critic.parameters())
         a_params = list(state.actor.parameters())
-        critic_loss, q = self.critic_loss(state, batch)
+        critic_loss, q, td = self._critic_loss_td(state, batch)
         cgrad = torch.autograd.grad(critic_loss, c_params)
         for p, g in zip(c_params, cgrad):
             p.grad = g
@@ -304,6 +334,17 @@ class DDPG:
                    "q_values": q.detach().mean(),
                    "critic_grad_norm": global_norm(cgrad),
                    "actor_grad_norm": global_norm(agrad)}
+        spec = self.learn_ledger
+        if spec is not None and signal == "td":
+            metrics["learn_signal"] = td_segments(spec, batch["topo_idx"], td)
+        elif spec is not None and signal == "full":
+            actor = dict(state.actor.named_parameters())
+            critic = dict(state.critic.named_parameters())
+            metrics["learn_signal"] = learn_signal(
+                spec, batch["topo_idx"], td, q,
+                params={"actor": actor, "critic": critic},
+                grads={"actor": dict(zip(actor, agrad)),
+                       "critic": dict(zip(critic, cgrad))})
         return state, metrics
 
     def learn_burst(self, state: DDPGState, sample_fn: Callable[[], Dict],
@@ -311,11 +352,23 @@ class DDPG:
                     ) -> Tuple[DDPGState, Dict[str, torch.Tensor]]:
         """End-of-episode training: ``learn_steps`` (default
         ``episode_steps``) gradient steps, each on ``sample_fn()``'s batch;
-        returns the last step's metrics."""
+        returns the last step's metrics, the all-finite flag of the
+        updated state (``state_finite``) and, with a ledger, the burst's
+        learning signal."""
         n = (steps if steps is not None else self.agent.learn_steps
              if self.agent.learn_steps is not None
              else self.agent.episode_steps)
+        ledger = self.learn_ledger is not None
+        acc = zero_learn_signal(self.learn_ledger, self.device) \
+            if ledger else None
         metrics = {}
-        for _ in range(n):
-            state, metrics = self.gradient_step_on_batch(state, sample_fn())
+        for i in range(n):
+            state, metrics = self.gradient_step_on_batch(
+                state, sample_fn(),
+                signal=("full" if i == n - 1 else "td") if ledger else None)
+            if ledger:
+                acc = accumulate_signal(acc, metrics["learn_signal"])
+        if ledger:
+            metrics["learn_signal"] = acc
+        metrics["state_finite"] = all_finite(state)
         return state, metrics

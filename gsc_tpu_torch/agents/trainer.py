@@ -1,14 +1,19 @@
 """Trainers: the single-env loop, replica-parallel training, evaluation.
 
-The port of ``gsc_tpu.agents.trainer.Trainer`` without the run observer,
-the rollback guard, fault injection, preemption and hot-swap publishing:
+The port of ``gsc_tpu.agents.trainer.Trainer`` without hot-swap
+publishing:
 
-- ``train`` is the single-env loop (the JAX package's serial loop,
-  ``pipeline=False``, whose results its pipelined loop equals bit for
-  bit): per episode ``driver.episode(ep)`` (the schedule's network and
-  traffic seeded ``base_seed + ep``), ``env.reset``, then
-  ``DDPG.episode_step``, which learns when the episode ends at or after
-  the last warm-up step (``end_step >= nb_steps_warmup_critic - 1``);
+- ``train`` is the single-env loop: per episode ``driver.episode(ep)``
+  (the schedule's network and traffic seeded ``base_seed + ep``),
+  ``env.reset``, then ``DDPG.episode_step``, which learns when the
+  episode ends at or after the last warm-up step (``end_step >=
+  nb_steps_warmup_critic - 1``).  ``pipeline=True`` (the default) samples
+  the next episodes' traffic on the host in a prefetch thread and reads
+  each episode's metrics one episode behind its dispatch;
+  ``pipeline=False`` is the serial loop.  Both give the same learner
+  state, replay and random source, tensor for tensor: the prefetch thread
+  builds host data only, and the main thread moves it to the device and
+  draws every random number;
 - ``train_parallel`` trains B env replicas on each episode's scheduled
   network, with host traffic (seed ``base_seed + 1000 * episode + r``),
   the chunked rollout and the end-of-episode learn burst
@@ -20,9 +25,25 @@ the rollback guard, fault injection, preemption and hot-swap publishing:
 Both training loops append one ``rewards.csv`` row (field ``r``) and one
 ``history`` row per episode, resume from a restored (``init_state``,
 ``init_buffer(s)``, ``start_episode``) with the random source restored
-into ``Trainer.draws``, and save a checkpoint through ``ckpt_manager``
-every ``ckpt_interval`` episodes once the learner state read back on the
-host is finite.  The agent config's precision policy applies throughout.
+into ``Trainer.draws``, stop at an episode boundary when a
+``PreemptionGuard`` has caught a signal, and report into a
+``RunObserver`` (``obs``) when given one: ``episode`` events with the
+phase timings, drop reasons and device memory, ``recovery`` events,
+``learn_signal`` events when the observer keeps a learn ledger, and the
+pipeline watchdog.
+
+Self-healing on the single-env loop, each action a ``recovery`` event: a
+``TransientDispatchError`` is dispatched again after a backoff
+(``retry_policy``); a dead or interrupted prefetcher is restarted from
+the episode counter, and past ``pipeline_fault_limit`` faults the run
+continues with the pipeline off; a learner state whose all-finite flag
+drains false is rolled back to the last verified snapshot
+(``rollback``, ``resilience.guard.RollbackGuard``) and the poisoned
+episodes are skipped; periodic checkpoints (``ckpt_manager``,
+``ckpt_interval``) save the verified snapshot.  ``fault_plan`` injects
+the faults that drive these paths.  On the replica path a fault plan
+adds a host-side finite check after every episode, backed by the guard.
+The agent config's precision policy applies throughout.
 """
 from __future__ import annotations
 
@@ -41,7 +62,15 @@ from ..env.env import ServiceCoordEnv
 from ..env.observations import GraphObs
 from ..parallel.dp import ParallelDDPG
 from ..parallel.harness import run_chunked_episodes
+from ..resilience.faults import FaultInjected, refuse_async_sites
+from ..resilience.guard import (RollbackGuard, all_finite, materialize,
+                                poison_tree)
+from ..resilience.retry import (RetryPolicy, TransientDispatchError,
+                                call_with_retry)
+from ..sim.state import DROP_REASONS
 from ..topology.compiler import Topology
+from ..utils.telemetry import PhaseTimer, phase_span
+from .buffer import buffer_nbytes
 from .ddpg import DDPG, DDPGState, Draws
 
 log = logging.getLogger("gsc_tpu_torch.agents.trainer")
@@ -74,35 +103,52 @@ def _first(obs: GraphObs) -> GraphObs:
 
 
 def state_is_finite(state: DDPGState) -> bool:
-    """Every float tensor of the learner state (networks, targets, Adam
-    moments), read on the host, is finite."""
-    tensors = [t for net in ("actor", "critic", "target_actor",
-                             "target_critic")
-               for t in getattr(state, net).state_dict().values()]
-    for opt in (state.actor_opt, state.critic_opt):
-        tensors += [t for st in opt.state.values() for t in st.values()
-                    if torch.is_tensor(t)]
-    return all(bool(torch.isfinite(t).all()) for t in tensors
-               if t.is_floating_point())
+    """The learner state's all-finite flag, read on the host."""
+    return float(all_finite(state)) > 0
 
 
 class Trainer:
     def __init__(self, env: ServiceCoordEnv, driver: EpisodeDriver,
                  agent_cfg: AgentConfig, seed: int = 0,
-                 result_dir: Optional[str] = None, device=None):
+                 result_dir: Optional[str] = None, device=None, obs=None,
+                 check_invariants: bool = False, fault_plan=None,
+                 rollback: bool = True,
+                 retry_policy: Optional[RetryPolicy] = None,
+                 pipeline_fault_limit: int = 3):
         self.env = env
         self.driver = driver
         self.agent_cfg = agent_cfg
         self.seed = seed
         self.result_dir = result_dir
-        self.ddpg = DDPG(env, agent_cfg, device=device)
+        refuse_async_sites(fault_plan)
+        self.fault_plan = fault_plan
+        self.rollback = rollback
+        self.retry_policy = retry_policy or RetryPolicy()
+        self.pipeline_fault_limit = pipeline_fault_limit
+        self.check_invariants = check_invariants
+        # the run observer: the trainer reports into it; its lifecycle
+        # (start, close) belongs to the caller
+        self.obs = obs
+        self.learn_obs = obs.learn if obs is not None else None
+        spec = (self.learn_obs.spec(driver.num_topo_ids,
+                                    driver.topo_id_names)
+                if self.learn_obs is not None else None)
+        self.ddpg = DDPG(env, agent_cfg, device=device, learn_ledger=spec)
         self.device = self.ddpg.device
+        if obs is not None:
+            obs.record_precision(agent_cfg.precision_policy)
         # the random source of every training path: warm-up uniforms,
         # exploration normals, replay indices, processing-delay noise
         self.draws = Draws(seed, self.device)
         self.history: List[Dict] = []
         self.pddpg: Optional[ParallelDDPG] = None
+        # episodes drained when a loop returned, and whether a preemption
+        # guard stopped it: the CLI checkpoints off these
         self.completed_episodes = 0
+        self.preempted = False
+        self.phase_timer: Optional[PhaseTimer] = None
+        self._last_drained = -1
+        self._live_prefetch = None
         self._topos: Dict[int, Topology] = {}
 
     # ---------------------------------------------------------------- inputs
@@ -146,55 +192,352 @@ class Trainer:
                 or (ep + 1 - start_episode) % ckpt_interval:
             return
         if not state_is_finite(state):
-            log.warning("episode=%d: the learner state is not finite; no "
-                        "periodic checkpoint", ep)
+            self._recover(ep, site="learner_state", action="detected",
+                          fault="non_finite_state",
+                          detail="checkpoint skipped so the last-good "
+                                 "pointer keeps the previous verified state")
             return
         ckpt_manager.save(state, buffer, episode=ep + 1, draws=self.draws)
 
+    # ------------------------------------------------------------ resilience
+    def _recover(self, episode: int, site: str, action: str,
+                 fault: Optional[str] = None, attempt: Optional[int] = None,
+                 detail: Optional[str] = None):
+        """Log one self-healing action and emit its ``recovery`` event."""
+        log.warning("recovery: site=%s action=%s episode=%s fault=%s%s",
+                    site, action, episode, fault,
+                    f" ({detail})" if detail else "")
+        if self.obs is not None:
+            self.obs.recovery(episode=episode, site=site, action=action,
+                              fault=fault, attempt=attempt, detail=detail)
+
+    def _topology_extra(self, episode: int, episodic_return: float,
+                        extra: Optional[Dict] = None) -> Optional[Dict]:
+        """Stamp the scheduled network's name on an episode event and
+        gauge its return (``topology_return{topology=}``)."""
+        if self.obs is None:
+            return extra
+        name = self.driver.topology_name_for(episode)
+        self.obs.hub.gauge("topology_return", float(episodic_return),
+                           topology=name)
+        return {**(extra or {}), "topology": name}
+
+    def _prefetch_fault_hook(self):
+        """The prefetcher's ``before_episode`` hook: the injection point
+        of ``slow_episode`` and ``prefetch_die``."""
+        plan = self.fault_plan
+        if plan is None:
+            return None
+
+        def hook(ep: int, stop_event):
+            spec = plan.fire("slow_episode", ep)
+            if spec is not None:
+                stop_event.wait(spec.arg if spec.arg is not None else 1.0)
+            if plan.fire("prefetch_die", ep) is not None:
+                raise FaultInjected(
+                    f"injected prefetcher death at episode {ep}")
+        return hook
+
+    def _on_watchdog_escalate(self, age: float):
+        """Watchdog escalation (on the watchdog thread): interrupt the live
+        prefetcher; the loop restarts it from the episode counter."""
+        pf = self._live_prefetch
+        if pf is not None:
+            pf.interrupt(f"watchdog escalation: no completed episode in "
+                         f"{age:.1f}s")
+
+    def _save_verified(self, ckpt_manager, guard: RollbackGuard, state,
+                       buffer, episode: int):
+        """Checkpoint the guard's verified snapshot (the state after
+        ``episode - 1``), whatever the live state has moved on to."""
+        _, snap = guard.last_good
+        v_state, v_buffer = materialize(snap, state, buffer)
+        v_draws = Draws(self.seed, self.device)
+        v_draws.generator.set_state(snap.draws)
+        ckpt_manager.save(v_state, v_buffer, episode=episode, draws=v_draws)
+
     # ------------------------------------------------------------ single env
+    def _drain(self, entry, start: float, start_episode: int, timer,
+               writer, on_row, verbose: bool) -> bool:
+        """Read one dispatched episode's metrics, log its row and report
+        it; returns its all-finite verdict (the flags of the state that
+        entered the episode and of the state its burst left)."""
+        ep, end_step, stats, metrics, sim, topo, replay_bytes = entry
+        hub = self.obs.hub if self.obs else None
+        steps = self.agent_cfg.episode_steps
+        with phase_span("drain", timer, hub):
+            replay = stats.pop("replay", None)
+            signal = metrics.pop("learn_signal", None) if metrics else None
+            row = {k: float(v) for k, v in stats.items()}
+            row.update({k: float(v) for k, v in (metrics or {}).items()})
+            sps = (ep - start_episode + 1) * steps / (time.perf_counter()
+                                                      - start)
+            trunc = int(sim.truncated_arrivals[0])
+            if trunc > 0:
+                log.warning(
+                    "episode=%d: %d arrivals admitted late (flow-table "
+                    "slot exhaustion): raise SimConfig.max_flows to restore "
+                    "exact arrival timing", ep, trunc)
+            finite = float(stats["state_finite"]) > 0 and (
+                metrics is None or float(metrics["state_finite"]) > 0)
+            row.update(episode=ep, sps=sps)
+            self.history.append(row)
+            writer.write(row["episodic_return"])
+            if on_row is not None:
+                on_row(row)
+            if verbose:
+                log.info("episode=%d return=%.3f succ=%.3f sps=%.1f", ep,
+                         row["episodic_return"], row["mean_succ_ratio"],
+                         sps)
+        if self.check_invariants:
+            from ..utils.debug import check_invariants
+            errs = check_invariants(sim, topo,
+                                    self.env.engine.tables.chain_len)
+            if errs:
+                log.warning("episode=%d simulator invariants violated: %s",
+                            ep, "; ".join(errs))
+                if self.obs:
+                    self.obs.invariant_violation(ep, errs)
+        if self.obs:
+            self.obs.episode_end(
+                episode=ep, global_step=end_step,
+                metrics={k: v for k, v in row.items()
+                         if k not in ("episode", "sps")},
+                sps=sps, phases=timer.summary(),
+                drop_reasons=dict(zip(
+                    DROP_REASONS, sim.metrics.drop_reasons[0].tolist())),
+                truncated_arrivals=trunc, replay_bytes=replay_bytes,
+                extra=self._topology_extra(ep, row["episodic_return"]))
+            if self.learn_obs is not None and (signal is not None
+                                               or replay is not None):
+                self.learn_obs.episode(ep, signal=signal, replay=replay)
+        return finite
+
     def train(self, episodes: int,
               init_state: Optional[DDPGState] = None, init_buffer=None,
               start_episode: int = 0, ckpt_manager=None,
               ckpt_interval: int = 0,
-              on_row: Optional[Callable[[Dict], None]] = None):
+              on_row: Optional[Callable[[Dict], None]] = None,
+              pipeline: bool = True, preempt=None, profile: bool = False,
+              verbose: bool = False):
         """Train one env through episode ``episodes - 1``; returns (state,
         buffer).  A restored (``init_state``, ``init_buffer``,
         ``start_episode``), with ``draws`` restored too, continues a run
-        bit for bit.  ``on_row`` gets each episode's row."""
+        bit for bit.  ``on_row`` gets each episode's row; ``preempt`` (a
+        ``PreemptionGuard``) stops the loop at the next episode boundary
+        after a signal; ``profile`` writes a ``torch.profiler`` trace to
+        ``<result_dir>/profile``."""
+        if profile and self.result_dir:
+            from ..utils.debug import Profiler
+            with Profiler(os.path.join(self.result_dir, "profile")):
+                return self.train(episodes, init_state, init_buffer,
+                                  start_episode, ckpt_manager, ckpt_interval,
+                                  on_row, pipeline, preempt, False, verbose)
+        self.phase_timer = timer = PhaseTimer()
+        hub = self.obs.hub if self.obs else None
         steps = self.agent_cfg.episode_steps
-        topo, traffic = self._episode(start_episode)
-        env_state, obs = self.env.reset(topo, traffic, batch=1)
-        state = init_state if init_state is not None else self.init_state()
-        buffer = init_buffer if init_buffer is not None else \
-            self.ddpg.init_buffer(_first(obs))
+        plan = self.fault_plan
+        guard = RollbackGuard(self.draws) if self.rollback else None
+        self.preempted = False
+        self._last_drained = start_episode - 1
+        if ckpt_interval and ckpt_manager is not None and guard is None:
+            log.warning("periodic checkpoints save the rollback guard's "
+                        "verified snapshots (rollback on); --ckpt-interval "
+                        "is ignored this run")
+
+        def make_prefetcher(from_ep):
+            pf = self.driver.prefetcher(
+                from_ep, max(episodes, start_episode + 1),
+                heartbeat=(self.obs.prefetcher_heartbeat()
+                           if self.obs else None),
+                before_episode=self._prefetch_fault_hook())
+            self._live_prefetch = pf
+            if self.obs:
+                self.obs.attach_prefetcher(pf)
+            return pf
+
+        prefetch = make_prefetcher(start_episode) if pipeline else None
+        pipeline_faults = 0
+        if self.obs:
+            if self.obs.watchdog is not None:
+                self.obs.watchdog.on_escalate = self._on_watchdog_escalate
+            self.obs.resume_watchdog()
+        pending = []   # dispatched episodes whose metrics are not yet read
+        max_pending = 1 if pipeline else 0
+
+        def next_episode(ep):
+            nonlocal prefetch, pipeline_faults, max_pending
+            item = None
+            while prefetch is not None and item is None:
+                try:
+                    with phase_span("host_sample_wait", timer, hub):
+                        item = prefetch.get(ep)
+                except RuntimeError as e:
+                    # the producer died or was interrupted: restart it from
+                    # the episode counter (staging depends on the index
+                    # alone), or past the limit go on without it
+                    pipeline_faults += 1
+                    prefetch.close()
+                    fault = f"{type(e).__name__}: {e}"
+                    if pipeline_faults > self.pipeline_fault_limit:
+                        prefetch = self._live_prefetch = None
+                        max_pending = 0
+                        self._recover(
+                            ep, site="pipeline", action="pipeline_off",
+                            fault=fault, attempt=pipeline_faults,
+                            detail=f"{pipeline_faults} pipeline faults > "
+                                   f"limit {self.pipeline_fault_limit}; "
+                                   "serial sampling + immediate drains "
+                                   "for the rest of the run")
+                    else:
+                        self._recover(
+                            ep, site="prefetcher", action="restart",
+                            fault=fault, attempt=pipeline_faults,
+                            detail=f"re-staging from episode {ep}")
+                        prefetch = make_prefetcher(ep)
+            if item is None:
+                with phase_span("host_sample", timer, hub):
+                    item = self.driver.episode(ep)
+            topo, traffic = item
+            return self._on_device(topo), traffic.to(self.device)
+
         writer = self._rewards()
         start = time.perf_counter()
+        state = buffer = None
         try:
+            topo, traffic = next_episode(start_episode)
+            env_state, obs = self.env.reset(topo, traffic, batch=1)
+            state = init_state if init_state is not None \
+                else self.init_state()
+            buffer = init_buffer if init_buffer is not None else \
+                self.ddpg.init_buffer(_first(obs))
+            replay_bytes = buffer_nbytes(buffer)
+            if guard is not None:
+                guard.init(start_episode - 1, state, buffer)
+
+            def drain_one():
+                """Drain the oldest pending episode: on a finite verdict
+                promote the snapshot and checkpoint, else roll back and
+                drop the episodes in flight."""
+                entry = pending.pop(0)
+                k = entry[0]
+                if self._drain(entry, start, start_episode, timer, writer,
+                               on_row, verbose):
+                    self._last_drained = max(self._last_drained, k)
+                    if guard is not None:
+                        guard.promote(k, state, buffer,
+                                      pending_empty=not pending)
+                        if (ckpt_manager is not None and ckpt_interval
+                                and (k + 1 - start_episode) % ckpt_interval
+                                == 0 and guard.last_good[0] == k):
+                            self._save_verified(ckpt_manager, guard, state,
+                                                buffer, k + 1)
+                    return
+                if guard is None:
+                    self._recover(
+                        k, site="learner_state", action="detected",
+                        fault="non_finite_state",
+                        detail="rollback disabled (--no-rollback): "
+                               "continuing with the poisoned state")
+                    self._last_drained = max(self._last_drained, k)
+                    return
+                dropped = [e[0] for e in pending]
+                pending.clear()
+                tag, _, _ = guard.restore(state, buffer)
+                self._recover(
+                    k, site="learner_state", action="rollback",
+                    fault="non_finite_state",
+                    detail=f"restored snapshot of episode {tag}; skipped "
+                           f"poisoned episode {k}"
+                           + (f"; dropped in-flight {dropped}"
+                              if dropped else ""))
+
             for ep in range(start_episode, episodes):
+                if preempt is not None and preempt.triggered:
+                    self.preempted = True
+                    self._recover(
+                        ep, site="run", action="preempt_snapshot",
+                        fault=preempt.signame,
+                        detail=f"stopping before episode {ep}; in-flight "
+                               "episodes drain, then the caller "
+                               "checkpoints")
+                    break
                 if ep > start_episode:
-                    topo, traffic = self._episode(ep)
+                    topo, traffic = next_episode(ep)
                     env_state, obs = self.env.reset(topo, traffic, batch=1)
                 global_step = ep * steps
                 end_step = global_step + steps - 1
                 learn = end_step >= self.agent_cfg.nb_steps_warmup_critic - 1
-                state, buffer, env_state, obs, stats, metrics = \
-                    self.ddpg.episode_step(state, buffer, env_state, obs,
-                                           topo, traffic, global_step,
-                                           self.draws, learn=learn)
-                row = {k: float(v) for k, v in stats.items()}
-                row.update({k: float(v) for k, v in (metrics or {}).items()})
-                row.update(episode=ep, sps=(ep - start_episode + 1) * steps
-                           / (time.perf_counter() - start))
-                self.history.append(row)
-                writer.write(row["episodic_return"])
-                if on_row is not None:
-                    on_row(row)
-                self._maybe_save(ckpt_manager, ckpt_interval, ep,
-                                 start_episode, state, buffer)
+                if guard is not None:
+                    # the candidate: the state after episode ep - 1, taken
+                    # before any fault injection
+                    guard.stage(ep - 1, state, buffer)
+                if plan is not None and plan.fire("nan_grads", ep):
+                    # the effect of a NaN gradient update on the state
+                    # entering this episode
+                    poison_tree(state.actor)
+                (state, buffer, env_state, obs, stats,
+                 metrics) = self._dispatch_with_retry(
+                    ep, state, buffer, env_state, obs, topo, traffic,
+                    global_step, learn, timer, hub)
+                if self.obs:
+                    self.obs.episode_dispatched(ep)
+                pending.append((ep, end_step, stats, metrics, env_state.sim,
+                                topo, replay_bytes))
+                while len(pending) > max_pending:
+                    drain_one()
+            while pending:
+                drain_one()
         finally:
+            if self.obs:
+                self.obs.pause_watchdog()
+                if self.obs.watchdog is not None:
+                    self.obs.watchdog.on_escalate = None
+            self._live_prefetch = None
+            # only nonempty when an exception propagates: keep the rows of
+            # episodes that completed before it, best effort
+            while pending:
+                entry = pending.pop(0)
+                try:
+                    self._drain(entry, start, start_episode, timer, writer,
+                                on_row, verbose)
+                except Exception:
+                    log.warning("dropping metrics of episode %d: drain "
+                                "failed after a faulted dispatch", entry[0])
+                    break
+            if prefetch is not None:
+                prefetch.close()
             writer.close()
-        self.completed_episodes = max(episodes, start_episode)
+        self.completed_episodes = self._last_drained + 1
+        if plan is not None:
+            plan.warn_unfired(hub)
+        if verbose:
+            log.info("pipeline phase timings: %s", timer.summary())
         return state, buffer
+
+    def _dispatch_with_retry(self, ep, state, buffer, env_state, obs, topo,
+                             traffic, global_step, learn, timer, hub):
+        """One episode's ``episode_step`` under the retry policy.  The
+        injected ``dispatch_transient`` raises at entry, before any tensor
+        is touched, so a retry dispatches the same inputs."""
+        plan = self.fault_plan
+
+        def dispatch():
+            if plan is not None and plan.fire("dispatch_transient", ep):
+                raise TransientDispatchError(
+                    f"injected transient dispatch failure at episode {ep}")
+            with phase_span("dispatch", timer, hub), \
+                    torch.profiler.record_function(f"episode_step_{ep}"):
+                return self.ddpg.episode_step(
+                    state, buffer, env_state, obs, topo, traffic,
+                    global_step, self.draws, learn=learn)
+
+        return call_with_retry(
+            dispatch, self.retry_policy,
+            on_retry=lambda attempt, exc, delay: self._recover(
+                ep, site="dispatch", action="retry", fault=repr(exc),
+                attempt=attempt,
+                detail=f"backing off {delay:.2f}s before re-dispatch"))
 
     # ------------------------------------------------------- replica-parallel
     def train_parallel(self, episodes: int, num_replicas: int,
@@ -202,12 +545,29 @@ class Trainer:
                        on_row: Optional[Callable[[Dict], None]] = None,
                        init_state: Optional[DDPGState] = None,
                        init_buffers=None, start_episode: int = 0,
-                       ckpt_manager=None, ckpt_interval: int = 0):
+                       ckpt_manager=None, ckpt_interval: int = 0,
+                       preempt=None, profile: bool = False,
+                       verbose: bool = False):
         """Train ``num_replicas`` replicas through episode ``episodes -
         1``, each episode on the network the schedule names; returns
-        (state, buffers).  Resumes like ``train``.  ``on_row`` gets each
-        episode's row as soon as it is drained."""
+        (state, buffers).  Resumes, stops on preemption and reports like
+        ``train``.  Episodes drain as they finish, so the live state after
+        an episode is the one checked: periodic checkpoints save a state
+        found finite on the host, and under a fault plan every episode is
+        checked on the host (``nan_grads`` poisons the state entering its
+        episode) and a non-finite one rolls back to the guard's last
+        verified snapshot."""
+        if profile and self.result_dir:
+            from ..utils.debug import Profiler
+            with Profiler(os.path.join(self.result_dir, "profile")):
+                return self.train_parallel(
+                    episodes, num_replicas, chunk, on_row, init_state,
+                    init_buffers, start_episode, ckpt_manager, ckpt_interval,
+                    preempt, False, verbose)
         steps = self.agent_cfg.episode_steps
+        if steps % chunk != 0:
+            raise ValueError(f"chunk ({chunk}) must divide episode_steps "
+                             f"({steps})")
         self.pddpg = pddpg = ParallelDDPG(
             self.env, self.agent_cfg, num_replicas, device=self.device,
             seed=self.seed)
@@ -219,36 +579,96 @@ class Trainer:
             pddpg.init(torch.Generator().manual_seed(self.seed))
         buffers = init_buffers if init_buffers is not None else \
             pddpg.init_buffers(_first(one_obs))
+        chaos = self.fault_plan
+        guard = None
+        if chaos is not None and self.rollback:
+            guard = RollbackGuard(self.draws)
+            guard.init(start_episode - 1, state, buffers)
+        self.phase_timer = timer = PhaseTimer()
+        hub = self.obs.hub if self.obs else None
+        self.preempted = False
+        self._last_drained = start_episode - 1
         writer = self._rewards()
         start = time.perf_counter()
-
-        def report(ep, ret, succ, final, learned):
-            # the learner state and the shards are updated in place, so
-            # ``state`` and ``buffers`` are those after episode ``ep``
-            sps = ((ep - start_episode + 1) * steps * num_replicas
-                   / (time.perf_counter() - start))
-            row = {"episode": ep, "episodic_return": ret,
-                   "mean_succ_ratio": succ, "final_succ_ratio": final,
-                   **{k: float(v) for k, v in (learned or {}).items()},
-                   "sps": sps}
-            self.history.append(row)
-            writer.write(ret)
-            if on_row is not None:
-                on_row(row)
-            self._maybe_save(ckpt_manager, ckpt_interval, ep, start_episode,
-                             state, buffers)
-
+        if self.obs:
+            self.obs.resume_watchdog()
         try:
-            state, buffers = run_chunked_episodes(
-                pddpg,
-                lambda ep: (self._on_device(self.driver.topology_for(ep)),
-                            self.driver.replica_traffic(
-                                ep, num_replicas).to(dev)),
-                state, buffers, episodes, steps, chunk, on_episode=report,
-                start_episode=start_episode)
+            for ep in range(start_episode, episodes):
+                if preempt is not None and preempt.triggered:
+                    self.preempted = True
+                    self._recover(
+                        ep, site="run", action="preempt_snapshot",
+                        fault=preempt.signame,
+                        detail=f"stopping before episode {ep}; the caller "
+                               "checkpoints the drained state")
+                    break
+                if chaos is not None and chaos.fire("nan_grads", ep):
+                    poison_tree(state.actor)
+                if self.obs:
+                    self.obs.episode_dispatched(ep)
+                done = {}
+                with phase_span("dispatch", timer, hub):
+                    state, buffers = run_chunked_episodes(
+                        pddpg,
+                        lambda e: (self._on_device(self.driver.topology_for(
+                            e)), self.driver.replica_traffic(
+                                e, num_replicas).to(dev)),
+                        state, buffers, ep + 1, steps, chunk,
+                        on_episode=lambda *a: done.update(result=a),
+                        start_episode=ep)
+                _, ret, succ, final, learned = done["result"]
+                if chaos is not None:
+                    # the replicas drain as they finish: the live state is
+                    # the state after episode ep
+                    if state_is_finite(state):
+                        if guard is not None:
+                            guard.promote(ep, state, buffers,
+                                          pending_empty=True)
+                    elif guard is not None:
+                        tag, _, _ = guard.restore(state, buffers)
+                        self._recover(
+                            ep, site="learner_state", action="rollback",
+                            fault="non_finite_state",
+                            detail=f"restored snapshot of episode {tag}; "
+                                   f"dropped poisoned episode {ep}")
+                    else:
+                        self._recover(
+                            ep, site="learner_state", action="detected",
+                            fault="non_finite_state",
+                            detail="rollback disabled (--no-rollback): "
+                                   "continuing with the poisoned state")
+                sps = ((ep - start_episode + 1) * steps * num_replicas
+                       / (time.perf_counter() - start))
+                row = {"episode": ep, "episodic_return": ret,
+                       "mean_succ_ratio": succ, "final_succ_ratio": final,
+                       **{k: float(v) for k, v in (learned or {}).items()},
+                       "sps": sps}
+                self.history.append(row)
+                writer.write(ret)
+                if on_row is not None:
+                    on_row(row)
+                if verbose:
+                    log.info("episode=%d return=%.3f succ=%.3f sps=%.1f",
+                             ep, ret, succ, sps)
+                if self.obs:
+                    self.obs.episode_end(
+                        episode=ep, global_step=(ep + 1) * steps - 1,
+                        metrics={k: v for k, v in row.items()
+                                 if k not in ("episode", "sps")},
+                        sps=sps, phases=timer.summary(),
+                        replay_bytes=buffer_nbytes(buffers),
+                        extra=self._topology_extra(
+                            ep, ret, extra={"replicas": num_replicas}))
+                self._last_drained = ep
+                self._maybe_save(ckpt_manager, ckpt_interval, ep,
+                                 start_episode, state, buffers)
         finally:
+            if self.obs:
+                self.obs.pause_watchdog()
             writer.close()
-        self.completed_episodes = max(episodes, start_episode)
+        self.completed_episodes = self._last_drained + 1
+        if chaos is not None:
+            chaos.warn_unfired(hub)
         return state, buffers
 
     # ------------------------------------------------------------ evaluation
@@ -280,6 +700,7 @@ class Trainer:
         # actions are inference tensors, which the env then consumes
         with torch.inference_mode():
             for ep in range(episodes):
+                t_ep = time.perf_counter()
                 topo, traffic = self._episode(ep, test_mode)
                 env_state, obs = self.env.reset(topo, traffic, batch=1)
                 noise = Draws(self.seed + 10_000 + ep, self.device)
@@ -312,6 +733,9 @@ class Trainer:
                             truncated_arrivals=int(sim.truncated_arrivals[0]))
                 totals.append(ep_reward)
                 succ.append(float(info["succ_ratio"][0]))
+                if self.obs is not None:
+                    self.obs.eval_episode(ep, ep_reward, succ[-1],
+                                          time.perf_counter() - t_ep)
         if writer:
             writer.close()
         total_s = time.perf_counter() - t_eval0

@@ -1,5 +1,6 @@
 """Command line of the port: ``python -m gsc_tpu_torch.cli`` with the
-commands ``init-configs``, ``train``, ``infer`` and ``serve``.
+commands ``init-configs``, ``train``, ``infer``, ``serve`` and
+``simulate``.
 
 ``init-configs --out DIR`` writes the JAX package's example config set:
 the agent, simulator, service and scheduler yaml files (the same bytes)
@@ -30,6 +31,24 @@ and the evaluation.  ``--resume PATH|auto`` continues a checkpoint
 (``auto``: the newest under ``--result-dir`` whose checksum validates)
 bit for bit, under the checkpoint's precision; ``--ckpt-interval N``
 saves rotating checkpoints to ``<result-dir>/ckpts`` every N episodes.
+Its defaults are the JAX CLI's: the pipelined single-env loop
+(``--no-pipeline``: the serial one), the run observer (``--no-obs``;
+``events.jsonl``, ``metrics.json``, ``series.json``, ``curves.json`` with
+the learning-signal ledger, ``--no-learn-obs``), the rollback guard
+(``--no-rollback``), retry of transient dispatch failures, fault
+injection from ``--fault-plan`` or ``GSC_FAULT_PLAN``, a checkpoint and a
+clean exit on SIGTERM/SIGINT, ``result.yaml`` and ``run.log`` in the run
+directory.  The run directory is ``--result-dir`` itself, or with
+``--runs N`` (seeds ``--seed + k``; the best run by ``select_best_agent``
+is reported) or ``--experiment-id`` one
+``<result-dir>/<id or default>/<timestamp>`` per run.  Without
+``--result-dir`` nothing is written and the observer keeps its events in
+memory.
+
+``simulate`` runs the duration controller for ``--duration`` ms on one
+GraphML network with a uniform schedule and every SF everywhere and
+prints the JAX CLI's JSON (flow counts, drop reasons, mean end-to-end
+delay); per-flow control is refused.
 
 ``infer --checkpoint PATH`` restores a checkpoint's learner state and
 prints the evaluation of ``--episodes`` greedy episodes on the inference
@@ -85,9 +104,10 @@ def _sim_and_service(args):
     return sim_cfg, service
 
 
-def _build(args, precision):
+def _build(args, precision, seed=None):
     """(env, driver, agent) of ``train`` and ``infer``: the scheduler
-    yaml's networks, or the built-in ``--network`` as a schedule of one."""
+    yaml's networks, or the built-in ``--network`` as a schedule of one;
+    traffic seeded from ``seed`` (default ``--seed``)."""
     from .config.loader import load_scheduler
     from .config.schema import EnvLimits, SchedulerConfig
     from .env.driver import EpisodeDriver
@@ -99,13 +119,14 @@ def _build(args, precision):
     limits = EnvLimits.for_service(service, max_nodes=args.max_nodes,
                                    max_edges=args.max_edges)
     env = ServiceCoordEnv(service, sim_cfg, agent, limits)
+    seed = args.seed if seed is None else seed
     if args.scheduler:
         if args.network:
             raise SystemExit("--network and --scheduler exclude each other")
         driver = EpisodeDriver(load_scheduler(args.scheduler), sim_cfg,
                                service, agent.episode_steps,
                                max_nodes=args.max_nodes,
-                               max_edges=args.max_edges, base_seed=args.seed)
+                               max_edges=args.max_edges, base_seed=seed)
     elif _is_graphml(args.network):
         # a GraphML network file: a schedule of one, as a scheduler yaml
         # naming it would be (the simulator's force caps apply)
@@ -113,7 +134,7 @@ def _build(args, precision):
         driver = EpisodeDriver(SchedulerConfig((net,), net), sim_cfg,
                                service, agent.episode_steps,
                                max_nodes=args.max_nodes,
-                               max_edges=args.max_edges, base_seed=args.seed)
+                               max_edges=args.max_edges, base_seed=seed)
     else:
         name = args.network or "abilene"
         topo = compile_topology(_network_spec(name),
@@ -122,7 +143,7 @@ def _build(args, precision):
         try:
             driver = EpisodeDriver.single(topo, sim_cfg, service,
                                           agent.episode_steps, name,
-                                          base_seed=args.seed)
+                                          base_seed=seed)
         except ValueError as e:
             raise SystemExit(str(e))
     return env, driver, agent
@@ -193,75 +214,199 @@ def _resume_path(args) -> Optional[str]:
     return found
 
 
-def _train(args) -> dict:
-    from .agents.trainer import Trainer
-    from .device import resolve_device
-    from .resilience.ckpt import CheckpointManager
-    from .utils.checkpoint import (checkpoint_precision, load_full_or_partial,
-                                   save_checkpoint)
+def _check_train_args(args):
+    """The JAX CLI's refusals, before any run state exists."""
+    from .resilience.faults import FaultPlan, refuse_async_sites
 
-    dev = resolve_device(args.device)
-    resume = _resume_path(args)
-    precision = args.precision
-    if resume:
-        try:
-            precision = checkpoint_precision(resume, precision)
-        except ValueError as e:
-            raise SystemExit(str(e))
-    env, driver, agent = _build(args, precision)
-    trainer = Trainer(env, driver, agent, seed=args.seed,
-                      result_dir=args.result_dir, device=dev)
-    manager = (CheckpointManager(os.path.join(args.result_dir, "ckpts"),
-                                 meta={"precision": agent.precision})
-               if args.result_dir else None)
-    init_state = init_buffer = None
-    start_episode, load_s = 0, None
-    if resume:
+    if args.resume and args.runs != 1:
+        raise SystemExit("--resume only supports --runs 1")
+    if args.runs < 1:
+        raise SystemExit("--runs must be >= 1")
+    if args.runs > 1 and not args.result_dir:
+        raise SystemExit("--runs > 1 picks the best run from the runs' "
+                         "rewards.csv: give --result-dir")
+    if args.metrics_port < 0:
+        raise SystemExit("--metrics-port must be >= 0 (0 = disabled)")
+    if args.metrics_port and not args.obs:
+        raise SystemExit("--metrics-port needs the run observer (drop "
+                         "--no-obs)")
+    try:
+        refuse_async_sites(FaultPlan.from_env(args.fault_plan))
+    except ValueError as e:
+        raise SystemExit(f"--fault-plan: {e}")
+
+
+def _run_dir(args) -> Optional[str]:
+    """The run's directory: ``--result-dir`` itself for one run without
+    an experiment id, else ``<result-dir>/<id or default>/<timestamp>``
+    per run, as the JAX package makes them; None without
+    ``--result-dir``."""
+    from .utils.experiment import setup_result_dir
+
+    if not args.result_dir:
+        return None
+    if args.runs == 1 and not args.experiment_id:
+        os.makedirs(args.result_dir, exist_ok=True)
+        return args.result_dir
+    return setup_result_dir(args.result_dir, args.experiment_id)
+
+
+def _observer(args, run: int, rdir: Optional[str], seed: int):
+    from .obs import RunObserver
+
+    if not args.obs:
+        return None
+    odir = args.obs_dir or rdir
+    if args.obs_dir and args.runs > 1:
+        odir = os.path.join(args.obs_dir, f"run{run}")
+    return RunObserver(odir, snapshot_interval=args.obs_interval,
+                       watchdog_budget_s=args.watchdog_budget,
+                       watchdog_escalate=args.watchdog_escalate,
+                       rotate_mb=args.obs_rotate_mb, learn=args.learn_obs,
+                       metrics_port=(args.metrics_port or None),
+                       series_window=args.obs_series_window,
+                       tags={"seed": seed})
+
+
+def _train_run(args, run: int, dev, precision, resume) -> dict:
+    """One run of ``train``: observer, trainer, preemption guard, final
+    checkpoint and evaluation."""
+    from .agents.trainer import Trainer
+    from .resilience.ckpt import CheckpointManager
+    from .resilience.faults import FaultPlan
+    from .resilience.preempt import PreemptionGuard
+    from .utils.checkpoint import load_full_or_partial, save_checkpoint
+    from .utils.experiment import ExperimentResult, copy_inputs
+    from .utils.logging import setup_logging
+
+    fplan = FaultPlan.from_env(args.fault_plan)   # fires once: one per run
+    seed = args.seed + run
+    rdir = _run_dir(args)
+    result = None
+    if rdir:
+        copy_inputs(rdir, [args.agent_config, args.simulator_config,
+                           args.service, args.scheduler])
+        result = ExperimentResult(rdir)
+        result.env_config = {"agent_config": args.agent_config,
+                             "simulator_config": args.simulator_config,
+                             "service": args.service,
+                             "scheduler": args.scheduler,
+                             "network": args.network, "seed": seed}
+        setup_logging(logfile=os.path.join(rdir, "run.log"))
+    env, driver, agent = _build(args, precision, seed=seed)
+    obs = _observer(args, run, rdir, seed)
+    if obs is not None:
+        obs.start(meta={"episodes": args.episodes, "replicas": args.replicas,
+                        "pipeline": args.pipeline, "seed": seed,
+                        "topo_mix": None, "precision": agent.precision,
+                        "substep_impl": env.sim_cfg.substep_impl,
+                        "result_dir": rdir, "device": str(dev),
+                        "ckpt_interval": args.ckpt_interval,
+                        "hot_swap_dir": None,
+                        **({"fault_plan": fplan.summary()} if fplan
+                           else {})})
+    try:
+        trainer = Trainer(env, driver, agent, seed=seed, result_dir=rdir,
+                          device=dev, obs=obs,
+                          check_invariants=args.check_invariants,
+                          fault_plan=fplan, rollback=args.rollback)
+        manager = (CheckpointManager(os.path.join(rdir, "ckpts"),
+                                     retain=args.ckpt_retain,
+                                     meta={"precision": agent.precision},
+                                     fault_plan=fplan, obs=obs)
+                   if rdir else None)
+        init_state = init_buffer = None
+        start_episode, load_s = 0, None
+        if resume:
+            t0 = time.perf_counter()
+            init_state, template = trainer.template(args.replicas)
+            restored, buffer_ok = load_full_or_partial(
+                resume, init_state, buffer=template, draws=trainer.draws)
+            load_s = time.perf_counter() - t0
+            if buffer_ok:
+                init_buffer = template
+            else:
+                print("[resume] replay not restorable (replay config such "
+                      "as mem_limit or --replicas changed since the "
+                      "checkpoint): restored the learner state only, replay "
+                      "starts empty", file=sys.stderr)
+            start_episode = int(restored["extra"].get("episode", 0))
+            if start_episode >= args.episodes:
+                raise SystemExit(
+                    f"--episodes ({args.episodes}) must exceed the "
+                    f"checkpoint's completed episode count ({start_episode})")
+        on_row = lambda row: print(json.dumps(row), flush=True)
+        if result is not None:
+            result.runtime_start("train")
         t0 = time.perf_counter()
-        init_state, template = trainer.template(args.replicas)
-        restored, buffer_ok = load_full_or_partial(
-            resume, init_state, buffer=template, draws=trainer.draws)
-        load_s = time.perf_counter() - t0
-        if buffer_ok:
-            init_buffer = template
-        else:
-            print("[resume] replay not restorable (replay config such as "
-                  "mem_limit or --replicas changed since the checkpoint): "
-                  "restored the learner state only, replay starts empty",
-                  file=sys.stderr)
-        start_episode = int(restored["extra"].get("episode", 0))
-        if start_episode >= args.episodes:
-            raise SystemExit(
-                f"--episodes ({args.episodes}) must exceed the checkpoint's "
-                f"completed episode count ({start_episode})")
-    on_row = lambda row: print(json.dumps(row), flush=True)
-    t0 = time.perf_counter()
-    if args.replicas > 1:
-        state, buffer = trainer.train_parallel(
-            args.episodes, args.replicas, chunk=args.chunk, on_row=on_row,
-            init_state=init_state, init_buffers=init_buffer,
-            start_episode=start_episode, ckpt_manager=manager,
-            ckpt_interval=args.ckpt_interval)
-    else:
-        state, buffer = trainer.train(
-            args.episodes, init_state=init_state, init_buffer=init_buffer,
-            start_episode=start_episode, ckpt_manager=manager,
-            ckpt_interval=args.ckpt_interval, on_row=on_row)
-    train_s = time.perf_counter() - t0
-    ckpt = args.checkpoint or (os.path.join(args.result_dir, "checkpoint")
-                               if args.result_dir else None)
-    save_s = None
-    if ckpt:
-        t1 = time.perf_counter()
-        ckpt = save_checkpoint(ckpt, state, buffer=buffer,
-                               meta={"precision": agent.precision,
-                                     "episode": args.episodes},
-                               checksum=True, draws=trainer.draws,
-                               extra={"episode": args.episodes})
-        save_s = time.perf_counter() - t1
-    wall_s = time.perf_counter() - t0
-    test = trainer.evaluate(state, episodes=1, test_mode=True,
-                            telemetry=True)
+        with PreemptionGuard() as guard:
+            if args.replicas > 1:
+                state, buffer = trainer.train_parallel(
+                    args.episodes, args.replicas, chunk=args.chunk,
+                    on_row=on_row, init_state=init_state,
+                    init_buffers=init_buffer, start_episode=start_episode,
+                    ckpt_manager=manager, ckpt_interval=args.ckpt_interval,
+                    preempt=guard, profile=args.profile, verbose=True)
+            else:
+                state, buffer = trainer.train(
+                    args.episodes, init_state=init_state,
+                    init_buffer=init_buffer, start_episode=start_episode,
+                    ckpt_manager=manager, ckpt_interval=args.ckpt_interval,
+                    on_row=on_row, pipeline=args.pipeline, preempt=guard,
+                    profile=args.profile, verbose=True)
+        train_s = time.perf_counter() - t0
+        if result is not None:
+            result.runtime_stop("train")
+        if trainer.preempted:
+            # a checksummed snapshot of the drained state, a clean exit
+            # and a line saying how to continue; no evaluation
+            done = trainer.completed_episodes
+            ckpt = (manager.save(state, buffer, episode=done,
+                                 draws=trainer.draws) if manager else None)
+            if obs is not None:
+                obs.close(status="preempted")
+            if result is not None:
+                result.metrics = {"status": "preempted"}
+                result.write()
+            payload = {"status": "preempted", "signal": guard.signame,
+                       "result_dir": rdir, "checkpoint": ckpt,
+                       "episodes_completed": done,
+                       "hint": "continue with --resume auto"}
+            return {"summary": payload, "trainer": trainer, "state": state,
+                    "buffers": buffer, "eval": None, "result_dir": rdir}
+        ckpt = args.checkpoint or (os.path.join(rdir, "checkpoint")
+                                   if rdir else None)
+        save_s = None
+        if ckpt:
+            t1 = time.perf_counter()
+            ckpt = save_checkpoint(ckpt, state, buffer=buffer,
+                                   meta={"precision": agent.precision,
+                                         "episode": args.episodes},
+                                   checksum=True, draws=trainer.draws,
+                                   extra={"episode": args.episodes})
+            save_s = time.perf_counter() - t1
+        wall_s = time.perf_counter() - t0
+        if result is not None:
+            result.runtime_start("test")
+        test = trainer.evaluate(state, episodes=1, test_mode=True,
+                                telemetry=True)
+        if result is not None:
+            result.runtime_stop("test")
+    except BaseException:
+        # the run's last events (run_end status=error, a last snapshot)
+        # land even when training fails; a failing close must not mask
+        # the original error
+        if obs is not None:
+            try:
+                obs.close(status="error")
+            except Exception:
+                pass
+        raise
+    if obs is not None:
+        obs.close(status="ok")
+    if result is not None:
+        result.metrics = test
+        result.write()
     last = trainer.history[-1] if trainer.history else {}
     summary = {"device": str(dev), "precision": agent.precision,
                "replicas": args.replicas, "episodes": args.episodes,
@@ -271,12 +416,43 @@ def _train(args) -> dict:
                "ckpt_save_s": save_s, "ckpt_load_s": load_s,
                "final_return": last.get("episodic_return"),
                "sps": last.get("sps"),
-               "result_dir": (os.path.abspath(args.result_dir)
-                              if args.result_dir else None),
+               "result_dir": os.path.abspath(rdir) if rdir else None,
                "checkpoint": ckpt, **test}
-    print(json.dumps(summary), flush=True)
     return {"summary": summary, "trainer": trainer, "state": state,
-            "buffers": buffer, "eval": test}
+            "buffers": buffer, "eval": test, "result_dir": rdir}
+
+
+def _train(args) -> dict:
+    """``train``: ``--runs`` independent seeded runs (seed + run), each
+    in its own run directory; the best by ``select_best_agent`` is
+    reported in the last JSON line and returned."""
+    from .device import resolve_device
+    from .utils.checkpoint import checkpoint_precision
+    from .utils.experiment import select_best_agent
+
+    _check_train_args(args)
+    dev = resolve_device(args.device)
+    resume = _resume_path(args)
+    precision = args.precision
+    if resume:
+        try:
+            precision = checkpoint_precision(resume, precision)
+        except ValueError as e:
+            raise SystemExit(str(e))
+    outputs = []
+    for run in range(args.runs):
+        out = _train_run(args, run, dev, precision, resume)
+        if out["eval"] is None:    # preempted: its line, and no more runs
+            print(json.dumps(out["summary"]), flush=True)
+            return out
+        outputs.append(out)
+    dirs = [o["result_dir"] for o in outputs]
+    best = outputs[0]
+    if args.runs > 1:
+        best = outputs[dirs.index(select_best_agent(dirs))]
+    print(json.dumps({**best["summary"], "runs": args.runs,
+                      "all_result_dirs": dirs}), flush=True)
+    return {**best, "runs": outputs}
 
 
 def run_train(argv: List[str]) -> dict:
@@ -301,6 +477,83 @@ def _infer(args) -> dict:
     out = trainer.evaluate(state, episodes=args.episodes, test_mode=True)
     print(json.dumps(out), flush=True)
     return {"eval": out, "trainer": trainer, "state": state}
+
+
+def _uniform_schedule(limits, node_mask):
+    """[N, C, S, N] uniform schedule over the real nodes."""
+    import numpy as np
+
+    sched = np.zeros(limits.scheduling_shape, np.float32)
+    sched[:, :, :, node_mask] = 1.0 / max(int(node_mask.sum()), 1)
+    return sched
+
+
+def _simulate(args) -> dict:
+    """``simulate``: ``--duration`` ms of the duration controller on one
+    GraphML network with a uniform schedule and every SF placed on every
+    node; prints the flow counters, drop reasons and mean end-to-end
+    delay as one JSON line.  On the card every interval is one launch of
+    the substep megakernel."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from .agents.ddpg import Draws
+    from .config.loader import load_service, load_sim
+    from .config.schema import EnvLimits
+    from .device import resolve_device
+    from .sim.engine import SimEngine
+    from .sim.state import DROP_REASONS
+    from .sim.traffic import generate_traffic
+    from .topology.compiler import check_dt_quantization, load_topology
+
+    dev = resolve_device(args.device)
+    service = load_service(args.service)
+    try:
+        sim_cfg = load_sim(args.config)
+    except ValueError as e:
+        raise SystemExit(f"{args.config}: {e}; simulate runs the duration "
+                         "controller only")
+    limits = EnvLimits.for_service(service, max_nodes=args.max_nodes,
+                                   max_edges=args.max_edges)
+    topo = load_topology(args.network, max_nodes=args.max_nodes,
+                         max_edges=args.max_edges,
+                         force_link_cap=sim_cfg.force_link_cap,
+                         force_node_cap=sim_cfg.force_node_cap,
+                         seed=args.seed)
+    check_dt_quantization(topo, sim_cfg.dt, name=args.network)
+    steps = int(math.ceil(args.duration / sim_cfg.run_duration))
+    if steps < 1:
+        raise SystemExit("duration must cover at least one run_duration "
+                         f"({sim_cfg.run_duration} ms)")
+    traffic = generate_traffic(sim_cfg, service, topo, steps, args.seed)
+    engine = SimEngine(service, sim_cfg, limits)
+    nm = topo.node_mask.cpu().numpy()
+    sched = torch.from_numpy(_uniform_schedule(limits, nm))[None].to(dev)
+    placement = torch.from_numpy(np.broadcast_to(
+        nm[:, None], (args.max_nodes, limits.sf_pool)).copy())[None].to(dev)
+    topo, traffic = topo.to(dev), traffic.to(dev)
+    state = engine.init(1, dev)
+    draws = Draws(args.seed, dev)
+    metrics = state.metrics
+    for _ in range(steps):
+        state, metrics = engine.apply(state, topo, traffic, sched, placement,
+                                      draws.sim_noise(engine, 1))
+    m = metrics.map(lambda t: t[0].cpu())
+    out = {"total_flows": int(m.generated),
+           "successful_flows": int(m.processed),
+           "dropped_flows": int(m.dropped),
+           "drop_reasons": {k: int(v) for k, v in
+                            zip(DROP_REASONS, m.drop_reasons.tolist())},
+           "avg_end2end_delay": float(m.avg_e2e())}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def run_simulate(argv: List[str]) -> dict:
+    """``simulate`` with these arguments; returns its JSON record."""
+    return _simulate(_parser().parse_args(["simulate", *argv]))
 
 
 def run_infer(argv: List[str]) -> dict:
@@ -480,8 +733,90 @@ def _parser() -> argparse.ArgumentParser:
                    "newest under --result-dir whose checksum validates); "
                    "--episodes stays the total")
     t.add_argument("--ckpt-interval", type=int, default=0,
-                   help="save a checkpoint to <result-dir>/ckpts every N "
-                   "episodes, keeping the newest 3 (0: never)")
+                   help="save a checkpoint of the verified learner state "
+                   "to <result-dir>/ckpts every N episodes (0: never); a "
+                   "SIGTERM/SIGINT always saves one on the way out")
+    t.add_argument("--ckpt-retain", type=int, default=3,
+                   help="periodic checkpoints kept (never the last-good "
+                   "pointer's)")
+    t.add_argument("--runs", type=int, default=1,
+                   help="independent runs seeded --seed + run; the best "
+                   "by mean return over its last 10 episodes is reported "
+                   "(needs --result-dir when > 1)")
+    t.add_argument("--experiment-id", default=None,
+                   help="runs go to <result-dir>/<id>/<timestamp> (also "
+                   "the layout of --runs > 1, under 'default')")
+    t.add_argument("--pipeline", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="single env: prefetch the next episodes' traffic "
+                   "on a host thread and read each episode's metrics one "
+                   "episode behind its dispatch (the same results as "
+                   "--no-pipeline, the serial loop)")
+    t.add_argument("--obs", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="run observer: events.jsonl, metrics.json, "
+                   "series.json and the watchdog (files under --obs-dir, "
+                   "else the run directory; in memory without either)")
+    t.add_argument("--obs-dir", default=None,
+                   help="directory of the observer's files (default: the "
+                   "run directory; run<k> subdirectories with --runs > 1)")
+    t.add_argument("--obs-interval", type=int, default=10,
+                   help="episodes between metrics.json rewrites")
+    t.add_argument("--obs-rotate-mb", type=float, default=0.0,
+                   help="rotate events.jsonl past this many MiB (0: never)")
+    t.add_argument("--obs-series-window", type=int, default=1024,
+                   help="points kept per metric in the series rings "
+                   "(series.json, /series; 0: none)")
+    t.add_argument("--learn-obs", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="learning-signal ledger: per-topology |TD|, Q "
+                   "moments, layer norms and replay fill from every learn "
+                   "burst (learn_signal events, curves.json)")
+    t.add_argument("--metrics-port", type=int, default=0,
+                   help="serve /metrics and /series on 127.0.0.1:PORT "
+                   "while the run executes (0: off)")
+    t.add_argument("--watchdog-budget", type=float, default=300.0,
+                   help="seconds without a completed episode before a "
+                   "'stall' event (0: no watchdog)")
+    t.add_argument("--watchdog-escalate", type=int, default=3,
+                   help="budget periods of further silence after a stall "
+                   "before the watchdog restarts the prefetcher (0: report "
+                   "only)")
+    t.add_argument("--check-invariants",
+                   action=argparse.BooleanOptionalAction, default=False,
+                   help="check every drained episode's simulator state; "
+                   "violations become 'invariant_violation' events")
+    t.add_argument("--fault-plan", default=None,
+                   help="fault injection, 'site@episode[:arg]' joined by "
+                   "';' (prefetch_die, slow_episode, dispatch_transient, "
+                   "nan_grads, ckpt_corrupt); unset: the GSC_FAULT_PLAN "
+                   "variable")
+    t.add_argument("--rollback", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="keep a verified snapshot of the learner state and "
+                   "replay and restore it when the all-finite flag trips "
+                   "(two replay copies on the device); on one env the "
+                   "periodic checkpoints save that snapshot, so "
+                   "--no-rollback ignores --ckpt-interval there")
+    t.add_argument("--profile", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="write a torch.profiler Chrome trace of training "
+                   "to <run>/profile/trace.json")
+
+    m = sub.add_parser("simulate", help="a standalone simulator run: a "
+                       "uniform schedule over every node, every SF placed "
+                       "everywhere, the duration controller")
+    m.add_argument("--duration", "-d", type=float, default=1000.0,
+                   help="simulated ms")
+    m.add_argument("--network", "-n", required=True, help="GraphML file")
+    m.add_argument("--service", "-sf", required=True,
+                   help="service catalog yaml")
+    m.add_argument("--config", "-c", required=True,
+                   help="simulator config yaml")
+    m.add_argument("--seed", type=int, default=0)
+    m.add_argument("--max-nodes", type=int, default=24)
+    m.add_argument("--max-edges", type=int, default=37)
+    _device_arg(m)
 
     i = sub.add_parser("infer", help="greedy episodes of a checkpoint's "
                        "actor on the inference network")
@@ -503,6 +838,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
     if args.command == "infer":
         _infer(args)
+        return 0
+    if args.command == "simulate":
+        _simulate(args)
         return 0
     if args.command == "init-configs":
         init_configs(args.out)

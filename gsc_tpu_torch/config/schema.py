@@ -239,7 +239,7 @@ class SimConfig:
                 "(per-flow control runs the XLA substep)")
         if self.controller == "per_flow":
             raise ValueError("per-flow control is not ported (ROADMAP "
-                             "Queue 1)")
+                             "Queue 1 item 8)")
 
     @property
     def substeps_per_run(self) -> int:

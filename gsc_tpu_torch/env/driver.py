@@ -1,7 +1,8 @@
 """Episode driver: the topology schedule and per-episode host traffic.
 
-The port of ``gsc_tpu.env.driver.EpisodeDriver`` without mixed-topology
-batches, the scenario factory, traces and the prefetcher.  The training
+The port of ``gsc_tpu.env.driver.EpisodeDriver`` (with its
+``EpisodePrefetcher``) without mixed-topology batches, the scenario
+factory and traces.  The training
 networks of a ``SchedulerConfig`` (GraphML files, or topologies given
 directly) switch every ``period`` episodes in turn, and test mode always
 takes the inference network (``topology_for``).  Each topology carries its
@@ -16,11 +17,21 @@ seeds, ``train_parallel`` with ``device_traffic=False``).
 inference network are the same.  A simulator config's ``force_link_cap`` /
 ``force_node_cap`` apply where a GraphML network is read, as in the JAX
 package; a built-in network refuses them (``refuse_force_caps``).
+
+``EpisodeDriver.prefetcher`` samples episodes ahead of the training loop
+on a daemon thread (:class:`EpisodePrefetcher`).  The thread builds host
+data only (CPU tensors from numpy): it never draws from the trainer's
+random source and never copies to the card, so the main thread moves
+each episode to the device on the stream its kernels use, and the
+sequence equals serial ``episode`` calls (traffic is seeded by the
+episode index alone).
 """
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Sequence
+import queue
+import threading
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -144,3 +155,132 @@ class EpisodeDriver:
                for r in range(replicas)]
         return TrafficSchedule(**{f: torch.stack([getattr(t, f) for t in per])
                                   for f in TrafficSchedule._RANKS})
+
+    @property
+    def num_topo_ids(self) -> int:
+        """How many ``topo_id`` values the episodes stamp into the replay
+        (the learn ledger's segment axis): the schedule's length."""
+        return len(self.topologies)
+
+    @property
+    def topo_id_names(self) -> List[str]:
+        """``topo_id`` -> name, aligned with :attr:`num_topo_ids`."""
+        return self._schedule_names()
+
+    def prefetcher(self, start: int, stop: int, test_mode: bool = False,
+                   depth: int = 2, heartbeat: Optional[Callable] = None,
+                   before_episode: Optional[Callable] = None
+                   ) -> "EpisodePrefetcher":
+        """A background double buffer over :meth:`episode` for episodes
+        ``start..stop-1``.  ``heartbeat`` runs in the producer after every
+        staged episode; ``before_episode(ep, stop_event)`` before each
+        episode's sampling (the fault-injection hook)."""
+        return EpisodePrefetcher(self, start, stop, test_mode=test_mode,
+                                 depth=depth, heartbeat=heartbeat,
+                                 before_episode=before_episode)
+
+
+class PrefetchInterrupted(RuntimeError):
+    """The prefetcher was interrupted on purpose (watchdog escalation):
+    the consumer restarts it from its episode counter."""
+
+
+class EpisodePrefetcher:
+    """A daemon thread runs the driver's per-episode sampling ``depth``
+    episodes ahead of the training loop, through a bounded queue; the
+    sequence equals serial ``driver.episode(ep, test_mode)`` calls, with
+    the driver's own topology objects."""
+
+    _DONE = "done"
+    _ERROR = "error"
+
+    def __init__(self, driver: EpisodeDriver, start: int, stop: int,
+                 test_mode: bool = False, depth: int = 2,
+                 heartbeat: Optional[Callable] = None,
+                 before_episode: Optional[Callable] = None):
+        if depth < 1:
+            raise ValueError(f"prefetch depth must be >= 1, got {depth}")
+        self.driver = driver
+        self._queue: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop_flag = threading.Event()
+        self._interrupted: Optional[str] = None
+        self._args = (start, stop, test_mode, heartbeat, before_episode)
+        self._thread = threading.Thread(
+            target=self._produce, name="gsc-episode-prefetch", daemon=True)
+        self._thread.start()
+
+    @property
+    def queue_depth(self) -> int:
+        """Episodes currently staged (approximate)."""
+        return self._queue.qsize()
+
+    def is_alive(self) -> bool:
+        """Producer-thread liveness (a watchdog probe)."""
+        return self._thread.is_alive()
+
+    def _produce(self):
+        start, stop, test_mode, heartbeat, before_episode = self._args
+        try:
+            for ep in range(start, stop):
+                if before_episode is not None:
+                    # gets the stop flag, so an injected slow stage ends
+                    # the moment close() abandons this producer
+                    before_episode(ep, self._stop_flag)
+                if self._stop_flag.is_set():
+                    return
+                item = self.driver.episode(ep, test_mode)
+                if heartbeat is not None:
+                    heartbeat()
+                # bounded put, polled so close() can abandon a full queue
+                while not self._stop_flag.is_set():
+                    try:
+                        self._queue.put((ep, item), timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+                if self._stop_flag.is_set():
+                    return
+        except BaseException as e:  # surfaced on the consumer's next get()
+            self._queue.put((self._ERROR, e))
+        else:
+            self._queue.put((self._DONE, None))
+
+    def interrupt(self, reason: str):
+        """Fail the consumer's next (or currently blocked) ``get`` with a
+        :class:`PrefetchInterrupted` (the watchdog's escalation, from the
+        watchdog thread); ``close()`` stops the producer."""
+        self._interrupted = reason
+        try:   # wakes a consumer blocked on an empty queue
+            self._queue.put_nowait((self._ERROR,
+                                    PrefetchInterrupted(reason)))
+        except queue.Full:
+            pass
+
+    def get(self, episode: int):
+        """(topo, traffic) of ``episode``, on the host; episodes are
+        consumed in order."""
+        if self._interrupted is not None:
+            raise PrefetchInterrupted(self._interrupted)
+        tag, item = self._queue.get()
+        if tag == self._ERROR:
+            if isinstance(item, PrefetchInterrupted):
+                raise item
+            raise RuntimeError("episode prefetch thread failed") from item
+        if tag == self._DONE:
+            raise RuntimeError(
+                f"prefetcher exhausted before episode {episode}")
+        if tag != episode:
+            raise RuntimeError(
+                f"out-of-order prefetch consumption: asked for episode "
+                f"{episode}, next staged is {tag}")
+        return item
+
+    def close(self):
+        """Stop the producer; safe at any point."""
+        self._stop_flag.set()
+        try:
+            while True:  # unblock a producer waiting on a full queue
+                self._queue.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=5.0)

@@ -1,4 +1,28 @@
-"""Observability: the metrics hub the serving path reports into."""
-from .hub import MetricsHub
+"""Run observability: the metrics hub, event sinks, series rings, device
+gauges, the pipeline watchdog, the ``/metrics`` endpoint, the learning
+signal ledger, learning curves and the run observer.
 
-__all__ = ["MetricsHub"]
+The port of ``gsc_tpu.obs`` without the device-cost ledger (``perf``),
+the retrace sentinel and serving's SLO engine and tracer.
+"""
+from .curves import CURVES_SCHEMA_VERSION, extract_curves, write_curves
+from .device import device_memory_snapshot, record_device_gauges
+from .endpoint import MetricsEndpoint, prometheus_text
+from .hub import MetricsHub
+from .learning import LearnLedger, LearnLedgerSpec, emit_learn_signal
+from .run import RunObserver
+from .series import (BLACKBOX_SCHEMA_VERSION, SERIES_SCHEMA_VERSION,
+                     SeriesStore, write_blackbox, write_series)
+from .sinks import (JsonlSink, ListSink, TailSink, read_events,
+                    rotated_paths, write_atomic_json)
+from .watchdog import PipelineWatchdog
+
+__all__ = [
+    "MetricsHub", "JsonlSink", "ListSink", "TailSink", "SeriesStore",
+    "SERIES_SCHEMA_VERSION", "BLACKBOX_SCHEMA_VERSION", "write_series",
+    "write_blackbox", "write_atomic_json", "read_events",
+    "rotated_paths", "device_memory_snapshot", "record_device_gauges",
+    "PipelineWatchdog", "RunObserver", "LearnLedger", "LearnLedgerSpec",
+    "emit_learn_signal", "MetricsEndpoint", "prometheus_text",
+    "CURVES_SCHEMA_VERSION", "extract_curves", "write_curves",
+]

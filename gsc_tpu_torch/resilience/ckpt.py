@@ -10,7 +10,11 @@ episodes through a :class:`CheckpointManager`:
   written once more, and only a validated one moves the pointer;
 - ``last_good.json`` is an atomically rewritten pointer to the newest
   validated checkpoint;
-- only the newest ``retain`` checkpoints are kept (never the pointer's).
+- only the newest ``retain`` checkpoints are kept (never the pointer's);
+- ``fault_plan`` wires the ``ckpt_corrupt`` injection site (the first
+  save at or after the keyed episode is damaged on disk after its write),
+  and the rewrite after a failed validation is a ``recovery`` event
+  through ``obs``.
 
 :func:`find_resumable` walks a result tree for checksummed sidecars,
 newest episode first, and returns the first checkpoint whose checksum
@@ -34,6 +38,23 @@ POINTER_NAME = "last_good.json"
 _META_SUFFIX = ".meta.json"
 
 
+def corrupt_checkpoint(path: str) -> Optional[str]:
+    """Truncate the largest file under a checkpoint to half its size (the
+    ``ckpt_corrupt`` fault); returns that file, or None."""
+    target, target_size = None, -1
+    for root, _, files in os.walk(path):
+        for name in files:
+            fp = os.path.join(root, name)
+            size = os.path.getsize(fp)
+            if size > target_size:
+                target, target_size = fp, size
+    if target is None:
+        return None
+    with open(target, "r+b") as f:
+        f.truncate(max(target_size // 2, 1))
+    return target
+
+
 def _write_atomic_json(path: str, obj) -> None:
     tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "w") as f:
@@ -48,10 +69,12 @@ class CheckpointManager:
     prunes all but the newest ``retain``."""
 
     def __init__(self, root: str, retain: int = 3,
-                 meta: Optional[dict] = None):
+                 meta: Optional[dict] = None, fault_plan=None, obs=None):
         self.root = os.path.abspath(root)
         self.retain = max(int(retain), 1)
         self.meta = dict(meta or {})
+        self.fault_plan = fault_plan
+        self.obs = obs
 
     def _path(self, episode: int) -> str:
         return os.path.join(self.root, f"ep{int(episode):08d}")
@@ -75,9 +98,19 @@ class CheckpointManager:
                 meta={**self.meta, "episode": int(episode)}, checksum=True)
 
         write_ckpt()
+        if self.fault_plan is not None and self.fault_plan.fire(
+                "ckpt_corrupt", episode, at_or_after=True):
+            log.warning("fault ckpt_corrupt: damaged %s",
+                        corrupt_checkpoint(path))
         if not verify_checkpoint(path):
-            log.warning("checkpoint %s failed checksum validation; "
-                        "writing it once more", path)
+            if self.obs is not None:
+                self.obs.recovery(episode=episode, site="checkpoint",
+                                  fault="checksum_mismatch", action="resave",
+                                  detail=f"validation failed for {path}; "
+                                         "rewriting once")
+            else:
+                log.warning("checkpoint %s failed checksum validation; "
+                            "writing it once more", path)
             write_ckpt()
             if not verify_checkpoint(path):
                 log.error("checkpoint %s failed validation twice; the "

@@ -130,6 +130,21 @@ def params_from_jax(tree: Mapping, actor: Optional[torch.nn.Module] = None
 actor_params_from_jax = params_from_jax
 critic_params_from_jax = params_from_jax
 
+# the port's top-level submodules -> the flax module each comes from
+_FLAX_MODULES = {"embedder": "GNNEmbedder_0", "mlp": "MLP_0",
+                 "query": "query", "key": "key", "src": "src"}
+
+
+def flax_module_name(name: str) -> str:
+    """The flax top-level module of a port parameter name (``embedder.*``
+    -> ``GNNEmbedder_0``, ``mlp.*`` -> ``MLP_0``, the factored heads'
+    ``query``/``key``/``src`` as they are): the names the JAX package's
+    learn ledger gives its layer groups."""
+    head = name.split(".", 1)[0]
+    if head not in _FLAX_MODULES:
+        raise ValueError(f"parameter {name!r} has no flax module")
+    return _FLAX_MODULES[head]
+
 
 def learner_state_from_jax(tree: Mapping, state) -> None:
     """Load a JAX ``DDPGState`` into a port ``DDPGState`` in place.

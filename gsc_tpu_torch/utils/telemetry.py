@@ -1,6 +1,13 @@
-"""Test-mode CSV telemetry with the reference writer's files and headers.
+"""Phase timing of the training loop, and the test-mode CSV telemetry
+with the reference writer's files and headers.
 
-The port of ``gsc_tpu.utils.telemetry.TestModeWriter``: greedy evaluation
+``PhaseTimer`` and ``phase_span`` port ``gsc_tpu.utils.telemetry.
+PhaseTimer`` and ``gsc_tpu.obs.trace.phase_span``: host wall time per
+named phase of the episode loop (``host_sample``, ``host_sample_wait``,
+``dispatch``, ``drain``), each span also a ``torch.profiler`` range and
+the hub's last-phase record (what a stall event reports being stuck in).
+
+``TestModeWriter`` ports ``gsc_tpu.utils.telemetry.TestModeWriter``: greedy evaluation
 (``Trainer.evaluate(telemetry=True)``) writes one row set per control
 interval to ``placements.csv``, ``node_metrics.csv``, ``metrics.csv``,
 ``run_flows.csv``, ``runtimes.csv``, ``drop_reasons.csv``,
@@ -12,11 +19,67 @@ from __future__ import annotations
 
 import csv
 import os
-from typing import Optional, Sequence
+import threading
+import time
+from contextlib import contextmanager
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
 from ..sim.state import DROP_REASONS
+
+
+class PhaseTimer:
+    """Host wall seconds per named phase, accumulated under a lock."""
+
+    def __init__(self):
+        self._total: Dict[str, float] = {}   # guarded-by: self._lock
+        self._count: Dict[str, int] = {}     # guarded-by: self._lock
+        self._lock = threading.Lock()
+
+    @contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.add(name, time.perf_counter() - t0)
+
+    def add(self, name: str, seconds: float):
+        with self._lock:
+            self._total[name] = self._total.get(name, 0.0) + seconds
+            self._count[name] = self._count.get(name, 0) + 1
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        """{phase: {total_s, count, mean_ms}} over everything recorded."""
+        with self._lock:
+            totals = dict(self._total)
+            counts = dict(self._count)
+        return {
+            name: {"total_s": round(t, 4), "count": counts[name],
+                   "mean_ms": round(1e3 * t / max(counts[name], 1), 3)}
+            for name, t in sorted(totals.items())
+        }
+
+
+@contextmanager
+def phase_span(name: str, timer: Optional[PhaseTimer] = None, hub=None):
+    """One pipeline phase: a ``torch.profiler`` range, the ``timer``'s
+    accumulation and the hub's last-phase record."""
+    import torch
+
+    if hub is not None:
+        hub.note_phase(name, done=False)
+    with torch.profiler.record_function(name):
+        try:
+            if timer is not None:
+                with timer.phase(name):
+                    yield
+            else:
+                yield
+        finally:
+            if hub is not None:
+                hub.note_phase(name, done=True)
 
 
 class TestModeWriter:

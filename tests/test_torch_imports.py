@@ -83,3 +83,75 @@ def test_default_device_is_the_card_and_raises_without_one():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DDPG(env, init_configs_agent())
     assert resolve_device("cpu").type == "cpu"
+
+
+# the modules of the default train run and of ``simulate``, which the
+# rglob above must keep finding
+TRAIN_RUN_MODULES = (
+    "obs/sinks.py", "obs/series.py", "obs/hub.py", "obs/device.py",
+    "obs/watchdog.py", "obs/endpoint.py", "obs/learning.py",
+    "obs/curves.py", "obs/run.py", "resilience/faults.py",
+    "resilience/guard.py", "resilience/preempt.py", "resilience/retry.py",
+    "utils/experiment.py", "utils/debug.py", "utils/logging.py")
+
+
+def test_the_default_train_run_runs_with_jax_yaml_and_click_blocked(
+        tmp_path):
+    """The default single-env loop (prefetcher, observer with the learn
+    ledger, rollback guard, a fault plan, invariant checks, the profiler)
+    and ``simulate``'s engine path, run in a process where every blocked
+    module fails to import: the lazy imports inside them too."""
+    for rel in TRAIN_RUN_MODULES:
+        assert (PKG / rel).is_file(), rel
+    code = "\n".join([
+        "import sys",
+        f"for name in {BLOCKED!r}:",
+        "    for mod in [m for m in sys.modules if m == name or "
+        "m.startswith(name + '.')]:",
+        "        del sys.modules[mod]",
+        "    sys.modules[name] = None",
+        "from gsc_tpu_torch.agents.trainer import Trainer",
+        "from gsc_tpu_torch.config import abc_service",
+        "from gsc_tpu_torch.config.schema import (AgentConfig, EnvLimits,",
+        "    SimConfig)",
+        "from gsc_tpu_torch.env.driver import EpisodeDriver",
+        "from gsc_tpu_torch.env.env import ServiceCoordEnv",
+        "from gsc_tpu_torch.obs import RunObserver",
+        "from gsc_tpu_torch.resilience.faults import FaultPlan",
+        "from gsc_tpu_torch.topology import synthetic",
+        "from gsc_tpu_torch.topology.compiler import compile_topology",
+        "from gsc_tpu_torch.utils.experiment import ExperimentResult",
+        "agent = AgentConfig(episode_steps=3, gnn_features=4,",
+        "    gnn_num_layers=1, gnn_num_iter=1, actor_hidden_layer_nodes=(8,),",
+        "    critic_hidden_layer_nodes=(8,), batch_size=4, mem_limit=6,",
+        "    nb_steps_warmup_critic=2)",
+        "sim = SimConfig(run_duration=10.0, ttl_choices=(100.0,))",
+        "limits = EnvLimits.for_service(abc_service(), max_nodes=8,",
+        "    max_edges=8)",
+        "env = ServiceCoordEnv(abc_service(), sim, agent, limits)",
+        "topo = compile_topology(synthetic.triangle(), max_nodes=8,",
+        "    max_edges=8)",
+        "driver = EpisodeDriver.single(topo, sim, abc_service(), 3, 'tri')",
+        f"obs = RunObserver({str(tmp_path / 'o')!r}, learn=True,",
+        "    series_window=16, watchdog_budget_s=60.0).start()",
+        "t = Trainer(env, driver, agent, device='cpu', obs=obs,",
+        f"    result_dir={str(tmp_path / 'r')!r}, check_invariants=True,",
+        "    fault_plan=FaultPlan.parse('nan_grads@1;dispatch_transient@0'))",
+        "t.train(3, profile=True)",
+        "obs.close()",
+        f"ExperimentResult({str(tmp_path / 'r')!r}).write()",
+        "leaked = [m for m in sys.modules if sys.modules[m] is not None and "
+        f"m.split('.')[0] in {BLOCKED!r}]",
+        "assert not leaked, leaked",
+        "print('ok')",
+    ])
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert res.stdout.strip().endswith("ok")
+    for name in ("events.jsonl", "metrics.json", "series.json",
+                 "curves.json"):
+        assert (tmp_path / "o" / name).is_file(), name
+    assert (tmp_path / "r" / "profile" / "trace.json").is_file()
+    assert (tmp_path / "r" / "result.yaml").is_file()
