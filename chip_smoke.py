@@ -40,10 +40,14 @@ Phases (any failure exits non-zero and prints no result line):
    times, the dense VJP's time per call (what the backward replaces) in
    turns with the backward kernel's (VJP, kernel, kernel, VJP), the
    parent forward kernel's device time and time per call in turns with
-   this one's where it was built, and each kernel's bound; then each
-   attention kernel's share of a launch per stage at the learn-burst
-   shape (block 0's clock64() at its stage barriers, from the
-   stage-clocks builds, whose results must equal the kernels');
+   this one's where it was built (and the backward's in 10 alternating
+   pairs at the learn-burst shape), and each kernel's bound; then each
+   attention kernel's share of a launch per stage (block 0's clock64() at
+   its stage barriers, from the stage-clocks builds, whose results must
+   equal the kernels'): the forward's at the learn-burst shape, the
+   backward's at the learn bursts' shapes (100, 24, 22), (100, 128, 22)
+   and (100, 256, 22), and the parent backward's beside it where
+   ``_parent/gat_attention_backward.cu`` was built;
 4. the slice: ``run_serve`` on Abilene at the flagship widths (GATv2 22
    features x 2 layers x 2 iterations, actor hidden 256, action dim 1728)
    with ``gnn_impl="pallas"`` on the card, a request pool of 8 env steps
@@ -117,7 +121,10 @@ Phases (any failure exits non-zero and prints no result line):
    prints, at mean aggregation, each bf16 kernel's device time and time
    per call, its bound (xl, xr, out, grad_out, d_xl, d_xr at 2 bytes) and
    the f32 kernel's time at the same shape, taken in turns (f32, bf16,
-   bf16, f32);
+   bf16, f32), and where the parent's backward was built, its bf16 form's
+   device time and time per call in turns with this one's (parent,
+   kernel, kernel, parent) and, at the learn-burst shape, in 10
+   alternating pairs;
 10. the bf16 training slice: ``cli train --precision bf16 --replicas 64
    --chunk 50 --episodes 2 --checkpoint DIR`` at the flagship widths, with
    every kernel count set to 0 before it: the bf16 attention kernels must
@@ -180,7 +187,10 @@ Phases (any failure exits non-zero and prints no result line):
    both aggregations, at phases 3's and 9's tolerances (on saturated
    inputs d_att and d_bias against float64 only), relaunches
    bit-identical, and each form's device time, time per call, plain time
-   and bound at mean aggregation; (b) the megakernel on one interroute
+   and bound at mean aggregation; both backward forms at the learn bursts'
+   batch, (100, 128, 22) and (100, 256, 22), checked at mean aggregation
+   and timed the same way, in turns with the parent's where built; (b)
+   the megakernel on one interroute
    (M=1024, N=128) and one rung-5 (M=1024, N=256, P=5) interval at B=2,
    bit-equal to its plain version on CPU copies, a relaunch
    bit-identical, its shared memory, device time and bound; (c)
@@ -320,6 +330,10 @@ BF16_BURSTS = [(64, 4, 5.0), (32, 8, 50.0)]
 # pairs of device-time measurements, parent and this commit in
 # alternating order, behind phase 3's comparison at the learn-burst shape
 PARENT_PAIRS = 10
+# the learn bursts' shapes of interroute's and rung 5's graphs (batch 100),
+# where phase 14 times the backward kernels (and phase 3 their stage
+# clocks)
+BURST_LARGE_SHAPES = [(100, 128, 22), (100, 256, 22)]
 # phase 14: kernel #1 at interroute's and rung 5's graph sizes, and the
 # configurations of bench.py's _interroute_stack and _rung5_stack (their
 # SimConfig(ttl_choices=(100.0,), max_flows=1024) with the defaults
@@ -652,21 +666,51 @@ def alternating_pairs(parent_fn, fn, kernel, torch, pairs=PARENT_PAIRS):
 def parent_gat():
     """The parent commit's attention kernels with their own wrappers
     (loaded beside the package's modules, so that the time per call
-    compares wrapper and all): (forward, backward), the backward None
-    unless ``_parent/gat_attention_backward.cu`` is there; None unless
-    both ``_parent/gat_attention.cu`` and ``_parent/gat_attention.py`` are
-    there (the headers they include, ``_parent/*.cuh``, beside them)."""
+    compares wrapper and all): (forward, backward f32, backward bf16,
+    backward with stage clocks), the backward's None unless
+    ``_parent/gat_attention_backward.cu`` is there; None unless both
+    ``_parent/gat_attention.cu`` and ``_parent/gat_attention.py`` are there
+    (the headers they include, ``_parent/*.cuh``, beside them)."""
     if not (PARENT_GAT_SOURCE.exists() and PARENT_GAT_WRAPPER.exists()):
         return None
     import importlib.util
+
+    import torch
 
     spec = importlib.util.spec_from_file_location(
         "gsc_tpu_torch.ops._parent_gat_attention", PARENT_GAT_WRAPPER)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    backward = (mod.GatAttentionBackward(source=PARENT_GAT_BACKWARD_SOURCE)
-                if PARENT_GAT_BACKWARD_SOURCE.exists() else None)
-    return mod.GatAttention(source=PARENT_GAT_SOURCE), backward
+    fwd = mod.GatAttention(source=PARENT_GAT_SOURCE)
+    if not PARENT_GAT_BACKWARD_SOURCE.exists():
+        return fwd, None, None, None
+    src = PARENT_GAT_BACKWARD_SOURCE
+    return (fwd, mod.GatAttentionBackward(source=src),
+            mod.GatAttentionBackward(source=src, dtype=torch.bfloat16),
+            mod.GatAttentionBackward(source=src, stage_clocks=True))
+
+
+def backward_spans(source, n):
+    """The stage-clock spans (name, first slot, last slot) of a backward
+    kernel source at graphs of n nodes: this design's, or the first
+    design's (the one whose d_xl walked every row through distributed
+    shared memory, ``column_sums``), whose slot 7 fell inside its
+    recomputed forward."""
+    if "column_sums" in Path(source).read_text():
+        return [("staging", 0, 1), ("pair logits", 1, 7), ("softmax", 7, 2),
+                ("g / d_i and d_bias terms", 2, 3), ("dalpha, dl", 3, 4),
+                ("d_xr, d_xl, d_att terms", 4, 5),
+                ("partials out, count-in, stores", 5, 6)]
+    if n <= 32:
+        return [("staging", 0, 1),
+                ("pair logits and dots, softmax, dl (a warp per row)", 1, 3),
+                ("triples", 3, 4), ("partial sums and stores beside the "
+                                    "graph's sums", 4, 5),
+                ("count-in", 5, 6)]
+    return [("staging", 0, 1), ("pair logits and dots", 1, 2),
+            ("softmax, dl", 2, 3), ("triples", 3, 4),
+            ("CTA sums, cluster barrier", 4, 5),
+            ("count-in, column exchange, stores", 5, 6)]
 
 
 def attention_phase(torch, dev, smi, parent):
@@ -681,7 +725,7 @@ def attention_phase(torch, dev, smi, parent):
                                                  gat_attention_backward)
 
     fmt = lambda v: "not measured" if v is None else f"{v:.5f} ms"
-    parent, parent_bwd = parent if parent is not None else (None, None)
+    parent, parent_bwd = parent[:2] if parent is not None else (None, None)
     max_err = bwd_err = 0.0
     timings, bwd_timings = {}, {}
     print(f"attention kernels vs plain (forward rtol {KERNEL_RTOL}, atol "
@@ -907,12 +951,14 @@ def check_backward_bf16(args, grad, mean, what, torch, sums_to_f64=False):
                    + "; ".join(parts) + "; relaunch bit-identical")
 
 
-def attention_phase_bf16(torch, dev, smi):
+def attention_phase_bf16(torch, dev, smi, parent_bwd=None):
     """Phase 9: the bf16 attention kernels against their plain versions at
     phase 3's shapes and aggregations and the saturated learn-burst
     inputs; at mean aggregation their times in turns with the f32
-    kernels'.  Returns the forward's timings by shape and largest error,
-    and the backward's."""
+    kernels', and the bf16 backward's in turns with the parent's where
+    ``parent_bwd`` (the parent commit's bf16 backward) is built, in
+    PARENT_PAIRS alternating pairs at MAIN_SHAPE.  Returns the forward's
+    timings by shape and largest error, and the backward's."""
     from gsc_tpu_torch.ops.gat import attention_bf16
     from gsc_tpu_torch.ops.gat_attention import (attention_backward_plain,
                                                  attention_plain,
@@ -1013,47 +1059,90 @@ def attention_phase_bf16(torch, dev, smi):
                   f"time {', '.join(fmt(t) for t in b_dev)}; plain bf16 "
                   f"{b_plain:.4f} ms per call; bound {b_bound:.6f} ms "
                   f"({b_by})", flush=True)
+            if parent_bwd is None:
+                continue
+            p16 = lambda: parent_bwd.launch(grad, xl, xr, att, adj, True)
+            order = (p16, g16, g16, p16)
+            p_turns = [cuda_time_ms(fn, torch) for fn in order]
+            p_dev = [profile_device_ms(fn, torch,
+                                       kernel="gat_attention_backward")
+                     for fn in order]
+            print(f"    parent bf16 backward kernel vs this one in turns "
+                  f"(parent, kernel, kernel, parent): device time "
+                  f"{', '.join(fmt(t) for t in p_dev)}; per call "
+                  f"{', '.join(f'{t:.5f} ms' for t in p_turns)}",
+                  flush=True)
+            if (b, n, f) == MAIN_SHAPE:
+                res = alternating_pairs(p16, g16, "gat_attention_backward",
+                                        torch)
+                if res is not None:
+                    print(f"    parent vs this bf16 backward kernel in "
+                          f"{res[3]} alternating pairs: device time median "
+                          f"{res[0]:.5f} ms (parent), {res[1]:.5f} ms "
+                          f"(this), ratio {res[1] / res[0]:.4f}; this one "
+                          f"faster in {res[2]} of {res[3]}", flush=True)
     return timings, max_err, bwd_timings, bwd_err
 
 
-def attention_stage_clocks(fwd, bwd, torch, dev):
-    """Where one attention launch's time goes at MAIN_SHAPE, mean
-    aggregation: the stage-clocks builds' block-0 cycles per stage, median
-    over 30 launches, each build's results bit-equal to the kernel's."""
+def attention_stage_clocks(fwd, bwd, torch, dev, parent_bwd=None):
+    """Where one attention launch's time goes, mean aggregation: the
+    stage-clocks builds' block-0 cycles per stage, median over 30
+    launches, each build's results bit-equal to the kernel's; the forward
+    at MAIN_SHAPE, the backward in both forms (this build's and, where
+    ``parent_bwd`` is built, the parent's) at the learn bursts' shapes,
+    MAIN_SHAPE and BURST_LARGE_SHAPES."""
     import statistics
 
     from gsc_tpu_torch.ops.gat_attention import (gat_attention,
-                                                 gat_attention_backward)
+                                                 gat_attention_backward,
+                                                 gat_attention_backward_bf16)
 
-    b, n, f = MAIN_SHAPE
-    args = gat_inputs(b, n, f, seed=b * 1000 + n, torch=torch, device=dev)
-    grad = grad_input(b, n, f, seed=b * 1000 + n + 1, torch=torch,
-                      device=dev)
-    xl, xr, att, _, adj = args
+    def bf16_of(op):
+        # the same stage-clocks library, launched on bf16 features
+        return type(op)(source=op.source, stage_clocks=True,
+                        dtype=torch.bfloat16)
+
     common = [("staging", 0, 1), ("pair logits", 1, 7), ("softmax", 7, 2)]
-    runs = [
-        ("forward", fwd, lambda op: [op.launch(*args, True)], gat_attention,
-         common + [("aggregation", 2, 3)], 3),
-        ("backward", bwd,
-         lambda op: list(op.launch(grad, xl, xr, att, adj, True)),
-         gat_attention_backward,
-         common + [("g / d_i and d_bias terms", 2, 3), ("dalpha, dl", 3, 4),
-                   ("d_xr, d_xl, d_att terms", 4, 5),
-                   ("partials out, count-in, stores", 5, 6)], 6)]
-    for what, op, run, kernel, spans, last in runs:
-        check(all(torch.equal(x, y) for x, y in zip(run(op), run(kernel))),
-              f"the stage-clocks {what} build's results differ")
-        rows = []
-        for _ in range(30):
-            run(op)
-            c = op.read_stage_clocks()
-            rows.append([c[e] - c[s] for _, s, e in spans] + [c[last] - c[0]])
-        med = [statistics.median(r[k] for r in rows)
-               for k in range(len(spans) + 1)]
-        print(f"  {what} stage clocks at B={b} (block 0, median of 30 "
-              f"launches): {med[-1]:.0f} cycles; " + ", ".join(
-                  f"{name} {m:.0f} ({100.0 * m / med[-1]:.1f}%)"
-                  for (name, _, _), m in zip(spans, med)), flush=True)
+    for b, n, f in [MAIN_SHAPE] + BURST_LARGE_SHAPES:
+        args = gat_inputs(b, n, f, seed=b * 1000 + n, torch=torch, device=dev)
+        grad = grad_input(b, n, f, seed=b * 1000 + n + 1, torch=torch,
+                          device=dev)
+        xl, xr, att, _, adj = args
+        bwd_run = lambda op: list(op.launch(grad, xl, xr, att, adj, True))
+        h_ins = (grad.to(torch.bfloat16), xl.to(torch.bfloat16),
+                 xr.to(torch.bfloat16), att, adj, True)
+        h_run = lambda op: list(op.launch(*h_ins))
+        runs = [("backward", bwd, bwd_run, gat_attention_backward,
+                 backward_spans(bwd.source, n)),
+                ("bf16 backward", bf16_of(bwd), h_run,
+                 gat_attention_backward_bf16, backward_spans(bwd.source, n))]
+        if parent_bwd is not None:
+            runs += [("parent backward", parent_bwd, bwd_run, None,
+                      backward_spans(parent_bwd.source, n)),
+                     ("parent bf16 backward", bf16_of(parent_bwd), h_run,
+                      None, backward_spans(parent_bwd.source, n))]
+        if (b, n, f) == MAIN_SHAPE:
+            runs.insert(0, ("forward", fwd,
+                            lambda op: [op.launch(*args, True)],
+                            gat_attention, common + [("aggregation", 2, 3)]))
+        for what, op, run, kernel, spans in runs:
+            if kernel is not None:
+                check(all(torch.equal(x, y)
+                          for x, y in zip(run(op), run(kernel))),
+                      f"the stage-clocks {what} build's results differ")
+            last = spans[-1][2]
+            rows = []
+            for _ in range(30):
+                run(op)
+                c = op.read_stage_clocks()
+                rows.append([c[e] - c[s] for _, s, e in spans]
+                            + [c[last] - c[0]])
+            med = [statistics.median(r[k] for r in rows)
+                   for k in range(len(spans) + 1)]
+            print(f"  {what} stage clocks at {(b, n, f)} (block 0, median "
+                  f"of 30 launches): {med[-1]:.0f} cycles; " + ", ".join(
+                      f"{name} {m:.0f} ({100.0 * m / med[-1]:.1f}%)"
+                      for (name, _, _), m in zip(spans, med)), flush=True)
 
 
 def ambiguous_rows(pre, thr=0.1, n_dst=24, tol=THRESH_TOL):
@@ -2111,7 +2200,7 @@ def generalization_slice(torch, dev, smi):
                  "max_abs_err": split_err}
 
 
-def large_attention_checks(torch, dev, smi):
+def large_attention_checks(torch, dev, smi, parent=None):
     """Phase 14 (a): kernel #1's four forms at interroute's and rung 5's
     graph sizes (LARGE_SHAPES) against their plain versions, plain and
     saturated inputs, both aggregations, with phase 3's and phase 9's
@@ -2120,8 +2209,11 @@ def large_attention_checks(torch, dev, smi):
     and d_bias are held to float64, as ``sums_to_f64`` says why); at mean
     aggregation each
     form's device time per launch, time per call, its plain version's time
-    and its bound.  Returns the largest errors by form and the times by
-    (form, N)."""
+    and its bound.  Then both backward forms at the learn bursts' batch
+    (BURST_LARGE_SHAPES): checked at mean aggregation and timed, and timed
+    in turns with ``parent`` (the parent commit's f32 and bf16 backward
+    wrappers) where built.  Returns the largest errors by form and the
+    times by (form, N) and, at batch 100, (form, N, B)."""
     from gsc_tpu_torch.ops.gat import attention_bf16
     from gsc_tpu_torch.ops.gat_attention import (attention_backward_plain,
                                                  attention_plain,
@@ -2236,6 +2328,54 @@ def large_attention_checks(torch, dev, smi):
                           f"call (events, wrapper); plain {plain_ms:.4f} ms;"
                           f" bound {bound:.6f} ms ({by}) on {smi}",
                           flush=True)
+    # the backward at the learn bursts' batch: checked at mean
+    # aggregation, timed, and timed in turns with the parent's where built
+    for b, n, f in BURST_LARGE_SHAPES:
+        seed = b * 1000 + n
+        args = gat_inputs(b, n, f, seed, torch, dev)
+        grad = grad_input(b, n, f, seed + 1, torch, dev)
+        h_args, h_grad = to_bf16(args), grad.to(torch.bfloat16)
+        what = f"{(b, n, f)} mean"
+        e_b, line = check_backward(args, grad, True, what, torch)
+        e_hb, h_line = check_backward_bf16(h_args, h_grad, True, what, torch)
+        errs["gat_attention_backward"] = max(errs["gat_attention_backward"],
+                                             e_b)
+        errs["gat_attention_backward_bf16"] = max(
+            errs["gat_attention_backward_bf16"], e_hb)
+        print(f"  {what}: {line}; {h_line}", flush=True)
+        xl, xr, att, _, adj = args
+        hxl, hxr = h_args[0], h_args[1]
+        forms = [("gat_attention_backward", gat_attention_backward,
+                  (grad, xl, xr, att, adj), args, 0),
+                 ("gat_attention_backward_bf16", gat_attention_backward_bf16,
+                  (h_grad, hxl, hxr, att, adj), h_args, 1)]
+        for name, op, ins, a, k in forms:
+            fn = lambda: op.launch(*ins, True)
+            call_ms = cuda_time_ms(fn, torch, reps=50, warmup=5)
+            dev_ms = profile_device_ms(fn, torch,
+                                       kernel="gat_attention_backward")
+            plain_ms = cuda_time_ms(
+                lambda: attention_backward_plain(*ins, True), torch, reps=3,
+                warmup=1)
+            bound, by = gat_backward_bound(a, ins[0])
+            times[(name, n, b)] = (dev_ms, call_ms, plain_ms, bound, by)
+            turns = ""
+            if parent is not None and parent[k] is not None:
+                pfn = lambda: parent[k].launch(*ins, True)
+                order = (pfn, fn, fn, pfn)
+                p_dev = [profile_device_ms(g, torch,
+                                           kernel="gat_attention_backward")
+                         for g in order]
+                p_ms = [cuda_time_ms(g, torch, reps=20, warmup=3)
+                        for g in order]
+                turns = (f"; parent in turns (parent, kernel, kernel, "
+                         f"parent): device time "
+                         f"{', '.join(fmt(t) for t in p_dev)}, per call "
+                         f"{', '.join(f'{t:.5f} ms' for t in p_ms)}")
+            print(f"    {name} at {(b, n, f)}: device time {fmt(dev_ms)} "
+                  f"per launch, {call_ms:.5f} ms per call (events, "
+                  f"wrapper); plain {plain_ms:.4f} ms; bound {bound:.6f} ms "
+                  f"({by}){turns} on {smi}", flush=True)
     return errs, times
 
 
@@ -2350,7 +2490,7 @@ def serve_large(torch, dev, smi, agent, sim_cfg, checkpoint):
     return counts
 
 
-def large_network_slice(torch, dev, smi):
+def large_network_slice(torch, dev, smi, parent=None):
     """Phase 14: bench.py's interroute and rung-5 stacks on the card.
     (a) kernel #1's four forms at N = 128 and 256, (b) kernel #2 on one
     interroute and one rung-5 interval, (c) ``cli train`` on interroute
@@ -2372,7 +2512,7 @@ def large_network_slice(torch, dev, smi):
     laps = Laps()
     print(f"phase 14, kernel #1 at N = 128 and 256 vs plain (phase 3's and "
           f"9's tolerances) on {smi}:", flush=True)
-    errs, att_times = large_attention_checks(torch, dev, smi)
+    errs, att_times = large_attention_checks(torch, dev, smi, parent)
     laps.lap("(a) kernel #1")
     print("phase 14, kernel #2 at bench.py's large stacks:", flush=True)
     sub_times, sub_err = large_megakernel_checks(torch, dev, smi)
@@ -2749,6 +2889,8 @@ def main() -> int:
         ops["gat_attention (parent)"] = parent_att[0]
         if parent_att[1] is not None:
             ops["gat_attention_backward (parent)"] = parent_att[1]
+            ops["gat_attention_backward (parent, stage clocks)"] = \
+                parent_att[3]
     built = build_kernels(ops)
     print("build: " + ", ".join(f"{k} {v:.2f} s" for k, v in built.items()),
           flush=True)
@@ -2786,7 +2928,8 @@ def main() -> int:
     # ---- 3. attention kernels vs plain on the card ----------------------
     timings, max_err, bwd_timings, bwd_err = attention_phase(torch, dev, smi,
                                                              parent_att)
-    attention_stage_clocks(clocked_fwd, clocked_bwd, torch, dev)
+    attention_stage_clocks(clocked_fwd, clocked_bwd, torch, dev,
+                           parent_att[3] if parent_att else None)
 
     phases.lap("3")
     # ---- 4. the slice: run_serve on the card ----------------------------
@@ -2877,8 +3020,8 @@ def main() -> int:
 
     phases.lap("8")
     # ---- 9. bf16 attention kernels vs plain on the card ------------------
-    h_timings, h_err, hb_timings, hb_err = attention_phase_bf16(torch, dev,
-                                                               smi)
+    h_timings, h_err, hb_timings, hb_err = attention_phase_bf16(
+        torch, dev, smi, parent_att[2] if parent_att else None)
 
     phases.lap("9")
     # ---- 10. the bf16 training slice, saving a checkpoint ----------------
@@ -2917,7 +3060,8 @@ def main() -> int:
           f"{[round(t, 3) for t in f32_train['bursts']]} s)", flush=True)
     # ---- 14. bench.py's interroute and rung-5 stacks --------------------
     (large_launches, large_att, large_sub, large_errs,
-     large_sub_err) = large_network_slice(torch, dev, smi)
+     large_sub_err) = large_network_slice(
+         torch, dev, smi, parent_att[1:3] if parent_att else None)
     phases.lap("14")
     for kernel in ("gat_attention", "gat_attention_backward",
                    "gat_attention_bf16", "gat_attention_backward_bf16",

@@ -13,7 +13,8 @@ as the dense VJP that the JAX package's custom VJP takes
 intermediates.  A graph of more than 32 nodes is cut into tiles of 32
 target rows, one CTA each; in the backward a graph's tiles form one
 thread block cluster (at most 8 CTAs, so N <= 256).  Each source's
-header says what bounds it on the card and how its design answers that.  Each is compiled with ``nvcc`` for
+header says what bounds it on the card and how its design answers that.
+Each is compiled with ``nvcc`` for
 ``sm_90a`` from the repository's source at first use, into
 ``gsc_tpu_torch/_build/`` (one shared library per source digest, shared
 by the wrappers of both dtypes), and bound with ``ctypes`` through a plain
@@ -393,13 +394,19 @@ class GatAttentionBackward(_Kernel):
     d_xr, d_att, d_bias)`` of the attention stage for ``grad_out``, d_xl
     and d_xr in the wrapper's dtype, d_att and d_bias f32.  CPU tensors
     run ``attention_backward_plain``; CUDA tensors launch the kernel once
-    (one CTA per graph, or a cluster of one CTA per 32 target rows above
-    32 nodes, up to 256; its last block to finish sums the per-CTA
-    ``d_att``/``d_bias`` partials in CTA order, so two launches give the
-    same bits).  The
-    count of finished blocks that finds the last one lives in device
-    memory, one per device and stream, since launches on one stream run
-    one at a time."""
+    and nothing else.
+
+    A graph of up to 32 nodes is one CTA, a larger one (up to 256) a
+    cluster of one CTA per 32 target rows.  The kernel recomputes the
+    forward's weights bit for bit, takes dl relative to each row's largest
+    weight, and sums each triple's d_xr, d_xl and d_att terms in register
+    tiles; a cluster's CTAs add their d_xl column sums in rank order
+    through distributed shared memory.  Each graph's ``d_att``/``d_bias``
+    terms go to a scratch buffer of [B, 2 F] doubles, and the last graph
+    to finish adds them in graph order, so two launches give the same bits
+    (no float atomics).  The count of finished graphs that finds the last
+    one lives in device memory, one per device and stream, since launches
+    on one stream run one at a time; the last graph resets it."""
 
     name = "gat_attention_backward"
 
@@ -443,17 +450,16 @@ class GatAttentionBackward(_Kernel):
             raise TypeError(f"{self.entry}: adj is {adj.dtype}, want bool")
         lib = self._check(xl, (grad_out, xr, att, adj), (grad_out, xl, xr),
                           (att,), n, f)
-        tiles = lib.gat_attention_backward_tiles(n)
-        if tiles < 1:
+        if lib.gat_attention_backward_tiles(n) < 1:
             raise ValueError(f"{self.entry}: N={n} needs more CTAs per graph "
                              "than one cluster holds")
         b = _batch(lead)
         d_xl = torch.empty_like(xl)
         d_xr = torch.empty_like(xl)
-        # d_att, d_bias (f32), then the per-CTA partials of both in double
+        # d_att, d_bias (f32), then each graph's terms of both in double
         # (8-byte aligned at 8 f bytes); an empty batch launches nothing
         alloc = torch.empty if b else torch.zeros
-        small = alloc(2 * f + 4 * f * b * tiles, dtype=torch.float32,
+        small = alloc(2 * f + 4 * f * b, dtype=torch.float32,
                       device=xl.device)
         stream = _raw_stream(xl.device.index)
         counter = self._counters.get((xl.device.index, stream))

@@ -23,6 +23,17 @@ gradient through the row max cancels that rounding, stays accurate.  The
 closed form, in f32, must lie no further from a float64 evaluation than 4
 times torch autograd in f32 does (floored at 1e-6), per output.
 
+A third holds the closed form against the JAX VJP at the sizes where the
+backward kernels change shape (N = 1, 2, 31, 32, 33, 96, 255, 256: one
+CTA per graph up to 32 nodes, then clusters of CTAs of 32 target rows)
+and where every row lacks a neighbour (every gradient 0).  Its tolerance
+is the backward kernels' (tests/test_torch_kernels.py): per output
+tensor, the largest difference within 1e-5 of the tensor's largest entry
+plus 1e-5, since at N = 256 an entry sums up to N F terms of the
+tensor's scale in each side's own f32 order (measured: d_att under sum
+aggregation at N = 256, 4.7e-4 apart on entries up to 81; elementwise
+rtol 1e-4 fails there, as at N = 96 and 255).
+
 Tolerance of the first test: rtol 1e-4, atol 1e-5.  Each side is an f32
 evaluation in its own order: a gradient entry is a sum of up to N·F
 products (d_att and d_bias over every graph and row of the batch), each
@@ -41,7 +52,8 @@ from gsc_tpu.ops.pallas_gat import gatv2_pallas
 
 from gsc_tpu_torch.ops.gat_attention import (attention_backward_plain,
                                              attention_plain)
-from test_torch_kernels import (BWD_CASES, make_backward_inputs,
+from test_torch_kernels import (BWD_CASES, BWD_ATOL, BWD_SCALE, EDGE_N,
+                                make_backward_inputs, make_edge_inputs,
                                 make_saturated_inputs)
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
@@ -103,3 +115,51 @@ def test_backward_plain_stays_accurate_when_the_softmax_saturates(lead, n, f,
         ours = float((g.double() - r).abs().max())
         dense = float((a.double() - r).abs().max())
         assert ours <= 4.0 * max(dense, 1e-6), (name, ours, dense)
+
+
+def _jax_vjp(xl, xr, att, bias, adj, grad, mean):
+    adj_j = jax.numpy.asarray(adj)
+    _, vjp = jax.vjp(lambda a, b, c, d: gatv2_pallas(a, b, c, d, adj_j, mean,
+                                                     None, True),
+                     xl, xr, att, bias)
+    return [np.asarray(g) for g in vjp(grad)]
+
+
+def _assert_per_tensor(got, want, what):
+    for name, g, w in zip(NAMES, got, want):
+        assert g.shape == w.shape, (what, name)
+        err = float(np.abs(g - w).max()) if g.size else 0.0
+        scale = float(np.abs(w).max()) if w.size else 0.0
+        assert err <= BWD_SCALE * scale + BWD_ATOL, (what, name, err, scale)
+
+
+@pytest.mark.parametrize("mean", [True, False])
+@pytest.mark.parametrize("n", EDGE_N)
+def test_backward_plain_matches_jax_vjp_at_edge_sizes(n, mean):
+    xl, xr, att, bias, adj, grad = make_edge_inputs((2,), n, 22,
+                                                    seed=n * 7 + 3)
+    t = torch.from_numpy
+    got = [g.numpy() for g in attention_backward_plain(
+        t(grad), t(xl), t(xr), t(att), t(adj), mean)]
+    _assert_per_tensor(got, _jax_vjp(xl, xr, att, bias, adj, grad, mean),
+                       (n, mean, "jax"))
+    ins = [t(a).requires_grad_(True) for a in (xl, xr, att, bias)]
+    auto = torch.autograd.grad(attention_plain(*ins, t(adj), mean), ins,
+                               t(grad))
+    _assert_per_tensor(got, [a.numpy() for a in auto], (n, mean, "autograd"))
+    empty = ~adj.any(axis=-1)
+    assert np.all(got[1][empty] == 0.0)
+
+
+@pytest.mark.parametrize("mean", [True, False])
+@pytest.mark.parametrize("n", [24, 40])
+def test_backward_plain_is_zero_when_every_row_is_isolated(n, mean):
+    xl, xr, att, bias, _, grad = make_edge_inputs((3,), n, 22, seed=n)
+    adj = np.zeros(xl.shape[:-1] + (n,), bool)
+    t = torch.from_numpy
+    got = [g.numpy() for g in attention_backward_plain(
+        t(grad), t(xl), t(xr), t(att), t(adj), mean)]
+    for name, g, j in zip(NAMES, got, _jax_vjp(xl, xr, att, bias, adj, grad,
+                                               mean)):
+        assert np.all(g == 0.0), name
+        np.testing.assert_array_equal(j, 0.0, err_msg=name)

@@ -10,7 +10,13 @@ version at the serving shapes and one N > 32 case, and the backward kernel
 against ``attention_backward_plain`` at the shapes of
 tests/test_torch_gat_backward.py and the learn burst's (100, 24, 22), the
 latter also with a saturated softmax; two backward launches on the same
-inputs must give the same bits.  At interroute's N = 128 and rung 5's 256
+inputs must give the same bits.  Both backward forms are also held, at
+both aggregations and on unit-normal and saturated inputs, at the sizes
+where the backward kernels change shape (``EDGE_N``: 1, 2, 31, 32, 33, 96,
+255, 256 nodes) at batch 1 and at a batch whose last wave of CTAs is not
+full; with every row isolated (all gradients 0); and relaunched bit for
+bit at N = 24, 128 and 256 at the learn bursts' batch of 100.  At
+interroute's N = 128 and rung 5's 256
 (graphs cut into tiles of 32 target rows) all four forms are held to the
 same tolerances and relaunched bit for bit, and the substep megakernel
 runs one interroute interval bit-equal to its plain version.
@@ -90,6 +96,25 @@ def make_inputs(lead, n, f, seed, n_pad=3, n_isolated=2):
     adj[..., :, real:] = False
     adj[..., :n_isolated, :] = False
     return xl, xr, att, bias, adj
+
+
+# graph sizes at the backward kernels' edges: one node, two, a warp of
+# source nodes and one past it (the last one-CTA graph, then the first
+# cluster, of 2 CTAs), a 3-CTA cluster, and the largest clusters (8 CTAs,
+# the last one row short and full)
+EDGE_N = [1, 2, 31, 32, 33, 96, 255, 256]
+
+
+def make_edge_inputs(lead, n, f, seed):
+    """``make_inputs`` for any n >= 1 (three padded nodes and two rows
+    without a neighbour from n = 3 on, one such row at n = 2, none at n =
+    1) with a numpy-seeded grad_out."""
+    xl, xr, att, bias, adj = make_inputs(
+        lead, n, f, seed, n_pad=3 if n >= 3 else 0,
+        n_isolated=2 if n >= 3 else n - 1)
+    grad = np.random.default_rng(seed + 1).normal(
+        size=xl.shape).astype(np.float32)
+    return xl, xr, att, bias, adj, grad
 
 
 def make_backward_inputs(lead, n, f, seed):
@@ -458,6 +483,140 @@ def test_large_n_relaunch_is_bit_identical():
             again = again if isinstance(again, tuple) else (again,)
             for a, b in zip(first, again):
                 assert torch.equal(a, b), (dt, op.entry)
+
+
+def _tail_batch(n):
+    """One graph more than 132 SMs hold at one CTA each: the last wave (or
+    cluster wave) is not full."""
+    return 132 // math.ceil(n / 32) + 1
+
+
+def _hold_backward(ins, att, adj, mean, saturated, what):
+    """Both backward forms on these f32 inputs against their plain
+    versions at this file's tolerances (on a saturated softmax above 32
+    nodes d_att and d_bias against float64, as
+    test_all_four_forms_match_plain_at_large_n says why); d_xr 0 on rows
+    without a neighbour."""
+    grad, xl, xr = ins
+    empty = ~adj.any(dim=-1)
+    for dt in (torch.float32, torch.bfloat16):
+        fin = tuple(t.to(dt) for t in ins)
+        op = backward_op(dt)
+        before = op.launches
+        got = op(*fin, att, adj, mean)
+        torch.cuda.synchronize()
+        assert op.launches == before + 1
+        plain = attention_backward_plain(*fin, att, adj, mean)
+        if dt == torch.float32:
+            ref = attention_backward_plain(grad.double(), xl.double(),
+                                           xr.double(), att.double(), adj,
+                                           mean)
+        else:
+            ref = attention_backward_wide(*fin, att, adj, mean,
+                                          torch.float64)
+        for k, (g, w, r) in enumerate(zip(got, plain, ref)):
+            assert g.shape == w.shape and g.dtype == w.dtype, (what, dt, k)
+            k64 = float((g.double() - r).abs().max())
+            p64 = float((w.double() - r).abs().max())
+            if saturated and adj.shape[-1] > 32 and k >= 2:
+                assert k64 <= F64_RATIO * max(p64, F64_FLOOR), \
+                    (what, dt, k, k64, p64)
+                continue
+            err = float((g.float() - w.float()).abs().max())
+            bound = BWD_SCALE * float(w.float().abs().max()) + BWD_ATOL
+            if dt == torch.bfloat16 and k < 2:
+                ulp = bf16_ulp(w.float())
+                bound = ulp + BWD_ATOL
+                assert k64 <= 2.0 * max(p64, ulp / 4, F64_FLOOR), \
+                    (what, dt, k, k64, p64)
+            else:
+                assert k64 <= F64_RATIO * max(p64, F64_FLOOR), \
+                    (what, dt, k, k64, p64)
+            assert err <= bound, (what, dt, k, err, bound)
+        assert torch.all(got[1][empty] == 0), (what, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_N)
+def test_backward_kernels_at_edge_sizes_on_card(n):
+    """Both backward forms where the kernels change shape (one CTA per
+    graph up to 32 nodes, then clusters of 2, 3 and 8 CTAs), at batch 1
+    and at a batch whose last wave is not full, both aggregations, unit-
+    normal and saturated inputs, against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (the kernel has no CPU "
+                    "mode; its plain version is tested in "
+                    "tests/test_torch_gat_backward.py)")
+    c = lambda a: torch.from_numpy(a).cuda()
+    for b in (1, _tail_batch(n)):
+        for saturated in (False, True):
+            if saturated and n < 3:
+                continue
+            for mean in (True, False):
+                make = make_saturated_inputs if saturated \
+                    else make_edge_inputs
+                xl, xr, att, _, adj, grad = make((b,), n, 22, seed=n + b)
+                _hold_backward((c(grad), c(xl), c(xr)), c(att), c(adj), mean,
+                               saturated, (n, b, saturated, mean))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f", [(32, 200), (256, 56), (256, 40)])
+def test_backward_kernels_in_feature_chunks_on_card(n, f):
+    """Feature counts whose partials do not fit one CTA's shared memory at
+    once run in chunks of features (at (32, 200) both forms, at (256, 56)
+    the f32 form; (256, 40) is the bf16 form's largest at 256 nodes in the
+    first design), against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    c = lambda a: torch.from_numpy(a).cuda()
+    for mean in (True, False):
+        xl, xr, att, _, adj, grad = make_edge_inputs((3,), n, f, seed=n + f)
+        ins = (c(grad), c(xl), c(xr))
+        if (n, f) == (256, 56):
+            got = gat_attention_backward(*ins, c(att), c(adj), mean)
+            want = attention_backward_plain(*ins, c(att), c(adj), mean)
+            for g, w in zip(got, want):
+                err = float((g - w).abs().max())
+                assert err <= BWD_SCALE * float(w.abs().max()) + BWD_ATOL, \
+                    (n, f, mean, err)
+            continue
+        _hold_backward(ins, c(att), c(adj), mean, False, (n, f, mean))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [24, 40, 128])
+def test_backward_kernels_with_every_row_isolated_on_card(n):
+    """No row has a neighbour: every gradient of both forms is 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    xl, xr, att, _, _, grad = make_edge_inputs((5,), n, 22, seed=n)
+    c = lambda a: torch.from_numpy(a).cuda()
+    adj = torch.zeros(5, n, n, dtype=torch.bool, device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        for mean in (True, False):
+            got = backward_op(dt).launch(c(grad).to(dt), c(xl).to(dt),
+                                         c(xr).to(dt), c(att), adj, mean)
+            torch.cuda.synchronize()
+            for g in got:
+                assert torch.all(g == 0), (n, dt, mean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [24, 128, 256])
+def test_backward_relaunch_is_bit_identical_at_learn_burst_batch(n):
+    """At the learn bursts' batch of 100 graphs, two launches of either
+    backward form give the same bits, d_att and d_bias included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    grad, xl, xr, att, adj = _card_backward_inputs((100,), n, 22, seed=n)
+    for dt in (torch.float32, torch.bfloat16):
+        ins = (grad.to(dt), xl.to(dt), xr.to(dt), att, adj, True)
+        first = backward_op(dt).launch(*ins)
+        again = backward_op(dt).launch(*ins)
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b), (n, dt)
 
 
 @pytest.mark.cuda

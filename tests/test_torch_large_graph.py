@@ -172,7 +172,32 @@ def attention_smem(n, f, bf16):
 
 
 def attention_backward_smem(n, f, bf16):
-    """csrc/gat_attention_backward.cu ``layout``."""
+    """csrc/gat_attention_backward.cu ``layout``: up to 32 nodes one CTA
+    with its 4 x 4 tiles' partials, above that a CTA of 32 rows with xl
+    transposed and rows padded to 64 columns; the partials of as many
+    features as fit (fc)."""
+    small = n <= 32
+    r = tile_rows(n)
+    np_ = (n + 3) // 4 * 4 if small else (n + 63) // 64 * 64
+    nt, chunks = np_ // 4, np_ // 64
+    rows = _r16(r * f * 4)
+    o = (rows if small else _r16(f * (np_ + 4) * 4)) + 3 * rows
+    o += _r16(r * n) + _r16(f * 4) + 2 * r * np_ * 4 + _r16(r * 4)
+    o += _r16((nt * nt if small else chunks) * f * 4)
+    o += 0 if small else _r16(2 * f * 8)
+    h = _r16(r * f * 2) if bf16 else 0
+    o += (h if small else 0) + 2 * h + 16
+    per = nt * (r + np_) * 4 if small else chunks * r * 4 + np_ * 4
+    budget = MAX_SMEM_BYTES - 1024
+    fc = (budget - o - 32) // per if budget > o + 32 else 1
+    fc = max(1, min(fc, f))
+    return o + _r16((nt if small else chunks) * r * fc * 4) \
+        + _r16((nt * np_ if small else np_) * fc * 4)
+
+
+def first_backward_smem(n, f, bf16):
+    """The first backward design's ``layout``: the whole xl and xr per
+    CTA, no feature chunks."""
     r, np_ = tile_rows(n), (n + 3) // 4 * 4
     rows = _r16(r * f * 4)
     o = 2 * _r16(n * f * 4) + rows + _r16(r * n) + _r16(f * 4) + 3 * rows
@@ -211,6 +236,19 @@ def test_attention_layouts_fit(n, bf16):
         # (and dl in the backward), nothing more
         assert fwd == attention_smem(24, 22, bf16)
         assert bwd > 2 * 24 * 24 * 4
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n", [1, 5, 24, 32, 33, 64, 128, 255, 256])
+def test_backward_layout_takes_every_f_the_first_design_took(n, bf16):
+    """The redesigned backward takes every feature count the first design
+    took at each N: its partials come in chunks of features where F is
+    large."""
+    f_max = max(f for f in range(1, 700)
+                if first_backward_smem(n, f, bf16) <= MAX_SMEM_BYTES)
+    for f in (1, 22, f_max):
+        assert attention_backward_smem(n, f, bf16) <= MAX_SMEM_BYTES, \
+            (n, f, bf16)
 
 
 # ------------------------------------------------------------- slot order
