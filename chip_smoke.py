@@ -150,7 +150,7 @@ Phases (any failure exits non-zero and prints no result line):
    p50/p99;
 12. (printed after phase 15) a JSON line
    of the kernels (name, route, source, the TPU kernel it replaces,
-   launches summed over the runs of phases 8, 10, 13, 14 and 15, max abs
+   launches summed over the runs of phases 8, 10, 13-16, max abs
    error, ms, plain ms, bound ms and what bounds it, library ms);
 13. the generalization slice, the reference's own training path at the
    flagship widths: ``cli.init_configs`` writes the yaml set and the
@@ -230,7 +230,31 @@ Phases (any failure exits non-zero and prints no result line):
    CPU (the plain engine): integer fields equal, the mean end-to-end
    delay within SUB_RTOL.  Prints each part's seconds; the kernels line's
    launch counts include this phase's;
-16. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+16. generalization training (``generalization_training_slice``): (a)
+   the megakernel on ``cases.generalization_cases()`` (a mixed batch of
+   five networks at B=8, a link and a node zeroed from interval 1, 16
+   scenario-factory draws with shapes and faults) against its plain
+   version, bit for bit on CPU copies, 0 serial rounds, relaunch
+   bit-identical, and its device time per interval on a mixed B=64 batch
+   in turns with homogeneous Abilene at B=64; (b) the attention kernel
+   and its backward on a mixed batch of graphs with 4-24 real nodes at
+   (100, 24, 22) within phase 3's tolerances; (c) ``DeviceTraffic`` on the
+   card bit-equal to the host generator on the init-configs traffic over
+   Abilene (200 intervals), and one ``sample_batch`` and one factory
+   draw at B=64: wall ms and kernel launches; (d) ``cli.run_train`` at
+   B=64 for 2 episodes under ``GEN_REGISTRY_MIX`` and (e) under
+   ``GEN_FACTORY_MIX`` with the TD curriculum, each with phase 8's checks
+   (15 forward and 6 backward attention launches per gradient step, one
+   megakernel launch per env step, every parameter moved, finite losses,
+   gradients through the kernels against the dense path), the replay's
+   per-replica ``topo_idx`` (the replica's mix entry; factory families),
+   per-entry returns, curriculum weights summing to 1 with every family
+   at or above floor/K; (f) one B=64 and one single-env episode with
+   ``shuffle_nodes: true`` (launch counts checked).  Prints each part's
+   seconds, (d) and (e)'s env-steps/s and burst seconds beside the card's
+   name and power limit; the kernels line's launch counts include this
+   phase's;
+17. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Tolerances (stated here, used below): the attention kernel against its
 plain version rtol 1e-5 / atol 1e-5 (f32 in another summation order: the
@@ -362,6 +386,13 @@ SUB_TIMING_BATCHES = (1, 64, 256)
 SUB_MAIN_BATCH = 64
 TRAIN_ARGS = ["--replicas", "64", "--chunk", "50", "--episodes", "2",
               "--seed", "0"]
+# phase 16: the registry mix (the schedule's Abilene, a shaped Abilene,
+# a star with a dead link from interval 3, a seeded random network) and
+# the factory mix; the flagship agent with node shuffling
+GEN_REGISTRY_MIX = "schedule,abilene+bursty,star12~link@3.0,random12:7"
+GEN_FACTORY_MIX = "factory:all+shapes~faults"
+SHUFFLE_AGENT_YAML = ("episode_steps: 200\nobjective: prio-flow\n"
+                      "gnn_impl: pallas\nshuffle_nodes: true\n")
 # phase 15: the default train run on phase 13's schedule, its episodes
 # cut from 200 to DEFAULT_RUN_STEPS steps (warm-up as long, so every
 # episode ends in a burst of as many gradient steps)
@@ -1777,7 +1808,7 @@ def train_slice(torch, dev, smi, precision="f32", checkpoint=None,
     print(f"train_summary{label} {precision}: " + json.dumps(res["summary"]))
     own = {k: counts[k] for k in (fwd_name, bwd_name, "substep_megakernel")}
     return own, {"sps": sps, "bursts": list(spans["learn_burst"]),
-                 "summary": res["summary"]}
+                 "summary": res["summary"], "result": res}
 
 
 def serve_from_checkpoint(torch, dev, smi, checkpoint):
@@ -2580,6 +2611,320 @@ def large_network_slice(torch, dev, smi, parent=None):
     return launches, att_times, sub_times, errs, sub_err
 
 
+def launches_of(fn, torch):
+    """(wall ms of one call of ``fn``, the kernels it launched) from one
+    profiled call; launches None when the profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:   # a machine that refuses tracing
+        print(f"  profiler unavailable ({e}); launches not measured")
+        return None
+    n = sum(evt.count for evt in prof.key_averages()
+            if (getattr(evt, "self_device_time_total", None)
+                or getattr(evt, "self_cuda_time_total", 0.0)))
+    return n or None
+
+
+def generalization_case_reference(name):
+    """The plain version's states over ``cases.generalization_cases()``'s
+    case ``name`` on the CPU (a worker process of phase 16 computes
+    these while the card runs the rest of the phase)."""
+    import torch
+
+    from gsc_tpu_torch.sim import cases
+
+    torch.set_num_threads(1)
+    case = {c.name: c for c in cases.generalization_cases()}[name]
+    return cases.run_case(case, "cpu", plain=True)
+
+
+def generalization_training_slice(torch, dev, smi):
+    """Phase 16: generalization training at the flagship widths.  (a)
+    kernel #2 on ``cases.generalization_cases()`` against its plain
+    version (bit for bit on CPU copies, no sequential scan) and its device
+    time per interval on a mixed B=64 batch in turns with homogeneous
+    Abilene at B=64; (b) kernel #1 forward and backward on a mixed batch
+    of graphs at (100, 24, 22); (c) ``DeviceTraffic`` on the card bit-equal
+    to the host generator on the init-configs simulator, and one
+    ``sample_batch`` (and one factory draw) at B=64: wall ms and launches;
+    (d) ``cli.run_train`` at B=64 for 2 episodes under ``GEN_REGISTRY_MIX``
+    and (e) under ``GEN_FACTORY_MIX`` with the curriculum, each with phase
+    8's checks; (f) one single-env and one B=64 episode with
+    ``shuffle_nodes: true``.  Returns (the path's launch counts in (d)-(f),
+    kernel #2's, kernel #1's and its backward's largest errors)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    laps = Laps()
+    # (a) kernel #2 on the new inputs; the plain version's CPU states come
+    # from one worker process, checked at the end of the phase
+    from gsc_tpu_torch.sim import cases
+
+    gen_cases = cases.generalization_cases()
+    pool = ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        refs = {c.name: pool.submit(generalization_case_reference, c.name)
+                for c in gen_cases}
+        return _generalization_parts(torch, dev, smi, gen_cases, refs,
+                                     laps, fmt)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _generalization_parts(torch, dev, smi, gen_cases, refs, laps, fmt):
+    """Phase 16's parts (``generalization_training_slice``); ``refs``
+    holds the futures of the plain version's CPU states per case."""
+    import math
+    import tempfile
+
+    from gsc_tpu_torch import cli
+    from gsc_tpu_torch.config import abc_service, init_configs_sim
+    from gsc_tpu_torch.ops.gat_attention import (attention_backward_plain,
+                                                 attention_plain,
+                                                 gat_attention,
+                                                 gat_attention_backward)
+    from gsc_tpu_torch.ops.substep import substep_megakernel
+    from gsc_tpu_torch.sim import cases
+    from gsc_tpu_torch.sim.traffic import generate_traffic
+    from gsc_tpu_torch.sim.traffic_device import DeviceTraffic
+    from gsc_tpu_torch.topology import synthetic
+    from gsc_tpu_torch.topology.compiler import compile_topology
+    from gsc_tpu_torch.topology.factory import ScenarioFactory, parse_factory
+
+    sub_err = 0.0
+    on_card = {}
+    for case in gen_cases:
+        substep_megakernel.serial_rounds = 0
+        before = substep_megakernel.launches
+        got = cases.run_case(case, dev)
+        torch.cuda.synchronize()
+        check(substep_megakernel.launches - before == case.intervals,
+              f"{case.name}: not one megakernel launch per interval")
+        serial = substep_megakernel.serial_rounds
+        check(serial == 0, f"{case.name}: {serial} admission rounds took "
+              "the sequential scan")
+        plain = cases.run_case(case, dev, plain=True)
+        for i in range(case.intervals):
+            sub_err = max(sub_err, cases.compare_states(
+                got[i], plain[i], SUB_RTOL, SUB_ATOL,
+                f"{case.name} interval {i}, kernel vs plain on card: "))
+        again = cases.run_case(case, dev)
+        check(cases.bit_equal(again[-1], got[-1]),
+              f"{case.name}: two launches on the same inputs differ")
+        on_card[case.name] = [g.to("cpu") for g in got]
+        m = got[-1].metrics
+        print(f"  {case.name:15s} B={case.batch:3d} x{case.intervals} "
+              f"intervals: within SUB_RTOL/SUB_ATOL of plain on the card "
+              f"({sub_err:.2e}), serial rounds 0, relaunch bit-identical; "
+              f"generated {int(m.generated.sum())}, drop reasons "
+              f"{m.drop_reasons.sum(0).tolist()}", flush=True)
+
+    def interval(case):
+        states = cases.run_case(case, dev)
+        eng, b = case.engine, case.batch
+        traffic = case.traffic.to(dev).expand(b)
+        st, cap = eng.begin_interval(states[-1], traffic,
+                                     case.schedule.to(dev),
+                                     case.placement.to(dev))
+        topo = eng.interval_topology(st, case.topo.to(dev).expand(b),
+                                     traffic)
+        return lambda: substep_megakernel.launch(eng, st, topo, traffic,
+                                                 cap)
+
+    mixed = interval(cases.mixed_topology_case(batch=64, intervals=2))
+    homog = interval(cases.abilene_case(batch=64, intervals=2, seed=7))
+    dms = lambda fn: profile_device_ms(fn, torch, reps=10,
+                                       kernel="substep_megakernel_kernel")
+    turns = [dms(mixed), dms(homog), dms(homog), dms(mixed)]
+    print(f"phase 16 (a) kernel #2 device time per interval at B=64 in "
+          f"turns (mixed, Abilene, Abilene, mixed): "
+          f"{', '.join(fmt(t) for t in turns)} on {smi}", flush=True)
+    laps.lap("a")
+
+    # (b) kernel #1 on a mixed batch of graphs
+    xl, xr, att, bias, adj, grad = (t.to(dev) for t in
+                                    cases.mixed_attention_inputs(100, 22))
+    fwd_err = bwd_err = 0.0
+    for mean in (True, False):
+        got = gat_attention(xl, xr, att, bias, adj, mean)
+        want = attention_plain(xl, xr, att, bias, adj, mean)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL),
+              f"mixed batch, mean={mean}: forward off by {err}")
+        check(bool((got[~adj.any(-1)] == 0).all()),
+              "mixed batch: a row without a neighbour is not 0")
+        fwd_err = max(fwd_err, err)
+        back = gat_attention_backward(grad, xl, xr, att, adj, mean)
+        ref = attention_backward_plain(grad, xl, xr, att, adj, mean)
+        for name, g, w in zip(("d_xl", "d_xr", "d_att", "d_bias"), back,
+                              ref):
+            err = float((g - w).abs().max())
+            check(err <= BWD_SCALE * float(w.abs().max()) + BWD_ATOL,
+                  f"mixed batch, mean={mean}: backward {name} off by {err}")
+            bwd_err = max(bwd_err, err)
+        again = gat_attention_backward(grad, xl, xr, att, adj, mean)
+        check(all(torch.equal(a, b) for a, b in zip(again, back)),
+              "mixed batch: two backward launches differ")
+    nodes = adj.diagonal(dim1=-2, dim2=-1).sum(-1)
+    print(f"phase 16 (b) kernel #1 on a mixed batch (100, 24, 22) of graphs "
+          f"with {int(nodes.min())}-{int(nodes.max())} real nodes, both "
+          f"aggregations: forward max abs diff {fwd_err:.2e}, backward "
+          f"{bwd_err:.2e} (within the phase 3 tolerances), relaunch "
+          "bit-identical", flush=True)
+    laps.lap("b")
+
+    # (c) DeviceTraffic on the card
+    sim = init_configs_sim()
+    topo = compile_topology(synthetic.abilene())
+    host = generate_traffic(sim, abc_service(), topo, 200, seed=0)
+    sampler = DeviceTraffic(sim, abc_service(), topo, 200, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    got = sampler.sample(gen)
+    for f in ("arr_time", "arr_ingress", "arr_dr", "arr_duration",
+              "arr_ttl", "arr_sfc", "arr_egress", "ingress_active",
+              "node_cap"):
+        check(torch.equal(getattr(got, f).cpu(), getattr(host, f)),
+              f"DeviceTraffic on the card: {f} differs from the host's")
+
+    def wall_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    draw = lambda: sampler.sample_batch(gen, 64)
+    t_ms, n_launch = wall_ms(draw), launches_of(draw, torch)
+    factory = ScenarioFactory(parse_factory(GEN_FACTORY_MIX), sim,
+                              abc_service(), 200, device=dev)
+    probs = torch.full((4,), 0.25)
+    fdraw = lambda: factory.sample_batch(gen, probs, 64)
+    f_ms, f_launch = wall_ms(fdraw), launches_of(fdraw, torch)
+    print(f"phase 16 (c) DeviceTraffic on the card: Abilene, 200 intervals, "
+          f"init-configs traffic bit-equal to the host generator "
+          f"({int(torch.isfinite(host.arr_time).sum())} flows); one "
+          f"sample_batch at B=64: {t_ms:.2f} ms wall, {n_launch} kernel "
+          f"launches; one factory draw ({GEN_FACTORY_MIX}) at B=64: "
+          f"{f_ms:.2f} ms wall, {f_launch} launches, on {smi}", flush=True)
+    laps.lap("c")
+
+    # (d), (e) the registry mix and the factory with the curriculum
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    c, reg = train_slice(torch, dev, smi, args=TRAIN_ARGS + [
+        "--topo-mix", GEN_REGISTRY_MIX], label=" registry mix",
+        result_dir=False)
+    add(c)
+    trainer = reg["result"]["trainer"]
+    buf = reg["result"]["buffers"]
+    idx = buf.data["topo_idx"][:, :int(buf.size.min())]
+    plan = trainer.driver.mix_plan(idx.shape[0])
+    check(bool((idx == torch.as_tensor(plan.assignment, device=idx.device)
+                [:, None].to(idx.dtype)).all()),
+          "registry mix: a replay row's topo_idx is not its replica's "
+          "entry")
+    ep = trainer.obs.events.of_kind("episode")[-1]
+    check(set(ep["per_topology_return"]) == set(trainer.driver.topo_id_names)
+          and all(math.isfinite(v) for v in ep["per_topology_return"]
+                  .values()), "registry mix: per-entry returns missing")
+    print(f"phase 16 (d) registry mix {GEN_REGISTRY_MIX}: per-entry returns "
+          f"{ {k: round(v, 4) for k, v in ep['per_topology_return'].items()} }"
+          f"; replay topo_idx per replica = its entry", flush=True)
+    laps.lap("d")
+
+    c, fac = train_slice(torch, dev, smi, args=TRAIN_ARGS + [
+        "--topo-mix", GEN_FACTORY_MIX], label=" factory", result_dir=False)
+    add(c)
+    trainer = fac["result"]["trainer"]
+    cur = trainer.obs.events.of_kind("curriculum")
+    check(len(cur) == 2, f"{len(cur)} curriculum events for 2 episodes")
+    floor = trainer.curriculum.cfg.floor
+    w = cur[-1]["weights"]
+    check(abs(sum(w.values()) - 1.0) < 1e-5 and min(w.values())
+          >= floor / len(w) - 1e-6,
+          f"curriculum weights {w} do not sum to 1 over floor/K")
+    buf = fac["result"]["buffers"]
+    idx = buf.data["topo_idx"][:, :int(buf.size.min())]
+    fams = sorted(set(idx.flatten().tolist()))
+    check(fams and min(fams) >= 0 and max(fams) < 4 and len(fams) > 1,
+          f"factory: replay topo_idx holds families {fams}")
+    sig = trainer.obs.events.of_kind("learn_signal")[-1]
+    print(f"phase 16 (e) factory {GEN_FACTORY_MIX}: curriculum weights "
+          f"{w} (floor {floor}), |TD| per family "
+          f"{sig['per_topology_td']}, replay families {fams}", flush=True)
+    laps.lap("e")
+
+    # (f) shuffle_nodes on both trainers
+    with tempfile.TemporaryDirectory() as d:
+        yml = os.path.join(d, "agent.yaml")
+        with open(yml, "w") as fh:
+            fh.write(SHUFFLE_AGENT_YAML)
+        c, _ = train_slice(torch, dev, smi, args=[
+            "--replicas", "64", "--chunk", "50", "--episodes", "1",
+            "--seed", "0", "--agent-config", yml], label=" shuffle",
+            result_dir=False)
+        add(c)
+        for op in (gat_attention, gat_attention_backward,
+                   substep_megakernel):
+            op.launches = 0
+        one = cli.run_train(["--replicas", "1", "--episodes", "1",
+                             "--agent-config", yml, "--no-obs"])
+    agent = one["trainer"].agent_cfg
+    check(agent.shuffle_nodes, "the single env did not shuffle")
+    steps = agent.episode_steps
+    acting = sum(1 for g in range(steps) if g >= agent.nb_steps_warmup_critic)
+    bwd = gat_attention_backward.launches
+    check(substep_megakernel.launches == 2 * steps,
+          f"single env: {substep_megakernel.launches} megakernel launches "
+          f"for {steps} steps and {steps} evaluation steps")
+    check(bwd % 6 == 0 and gat_attention.launches
+          == 3 * (acting + steps) + 15 * (bwd // 6),
+          f"single env: {gat_attention.launches} forward and {bwd} backward "
+          "attention launches")
+    check(all(math.isfinite(h["episodic_return"])
+              for h in one["trainer"].history),
+          "single env shuffled: a return is not finite")
+    add({"gat_attention": gat_attention.launches,
+         "gat_attention_backward": bwd,
+         "substep_megakernel": substep_megakernel.launches})
+    print(f"phase 16 (f) shuffle_nodes single env: 1 episode, "
+          f"{substep_megakernel.launches} megakernel, "
+          f"{gat_attention.launches} forward and {bwd} backward attention "
+          f"launches; return {one['trainer'].history[-1]['episodic_return']}"
+          , flush=True)
+    laps.lap("f")
+    # (a)'s CPU references, from the worker
+    for case in gen_cases:
+        want = refs[case.name].result()
+        for i, (g, w) in enumerate(zip(on_card[case.name], want)):
+            check(cases.bit_equal(g, w),
+                  f"{case.name} interval {i}: the kernel is not bit-equal "
+                  "to the plain version on CPU copies")
+    print("phase 16 (a) kernel #2 bit-equal to its plain version on CPU "
+          f"copies on {', '.join(c.name for c in gen_cases)} (every "
+          "interval)", flush=True)
+    laps.lap("a, CPU copies")
+    print("phase 16 parts, s: " + ", ".join(
+        f"({k}) {v:.3f}" for k, v in laps.seconds.items())
+          + f"; phase 16 {sum(laps.seconds.values()):.3f} on {smi}",
+          flush=True)
+    return counts, sub_err, fwd_err, bwd_err
+
+
 def ledger_burst_profile(torch, trainer, state, buffer):
     """``LEDGER_PROFILE_STEPS`` gradient steps of ``trainer``'s learner
     (its ledger as configured) under ``torch.profiler``: kernel launches
@@ -3073,9 +3418,18 @@ def main() -> int:
     phases.lap("15")
     for kernel, n in run_launches.items():
         check(n > 0, f"{kernel} was not launched on the default run's path")
+    # ---- 16. generalization training ----------------------------------
+    print("phase 16, generalization training:", flush=True)
+    (mix_launches, mix_sub_err, mix_err,
+     mix_bwd_err) = generalization_training_slice(torch, dev, smi)
+    phases.lap("16")
+    for kernel in ("gat_attention", "gat_attention_backward",
+                   "substep_megakernel"):
+        check(mix_launches.get(kernel, 0) > 0,
+              f"{kernel} was not launched on the generalization path")
     path_launches = {k: train_launches.get(k, 0) + bf16_launches.get(k, 0)
                      + gen_launches.get(k, 0) + large_launches.get(k, 0)
-                     + run_launches.get(k, 0)
+                     + run_launches.get(k, 0) + mix_launches.get(k, 0)
                      for k in ("gat_attention", "gat_attention_backward",
                                "gat_attention_bf16",
                                "gat_attention_backward_bf16",
@@ -3084,7 +3438,9 @@ def main() -> int:
     bwd_err = max(bwd_err, large_errs["gat_attention_backward"])
     h_err = max(h_err, large_errs["gat_attention_bf16"])
     hb_err = max(hb_err, large_errs["gat_attention_backward_bf16"])
-    sub_err = max(sub_err, large_sub_err)
+    sub_err = max(sub_err, large_sub_err, mix_sub_err)
+    max_err = max(max_err, mix_err)
+    bwd_err = max(bwd_err, mix_bwd_err)
 
     # ---- 12. kernels line -----------------------------------------------
     ms, plain_ms, bound_ms, bound_by = timings[MAIN_SHAPE]

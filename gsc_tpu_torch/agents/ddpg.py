@@ -229,7 +229,7 @@ class DDPG:
         fill), still on the device."""
         state_finite = all_finite(state)
         shuffle = ShuffleOps(self.agent, self.env.limits)
-        perm = shuffle.init_perm(1, self.device)
+        perm = shuffle.init_perm(1, self.device, draws)
         obs = shuffle.permute_obs(obs, perm)
         first = lambda x: x[0]
         rewards, succ, e2e = [], [], []
@@ -241,7 +241,7 @@ class DDPG:
             env_state, next_obs, reward, done, info = self.env.step(
                 env_state, topo, traffic, shuffle.env_action(action, perm),
                 draws.sim_noise(self.env.engine, 1))
-            next_obs, perm = shuffle.advance(next_obs, perm)
+            next_obs, perm = shuffle.advance(next_obs, perm, draws)
             buffer_add(buffer, {
                 "obs": obs.map(first), "next_obs": next_obs.map(first),
                 "action": action[0], "reward": reward[0],

@@ -15,9 +15,11 @@ publishing:
   builds host data only, and the main thread moves it to the device and
   draws every random number;
 - ``train_parallel`` trains B env replicas on each episode's scheduled
-  network, with host traffic (seed ``base_seed + 1000 * episode + r``),
-  the chunked rollout and the end-of-episode learn burst
-  (``parallel.harness``);
+  network with traffic sampled on the device (``DeviceTraffic``; host
+  traffic seeded ``base_seed + 1000 * episode + r`` with
+  ``device_traffic=False``), on a registry mixture of networks, or on
+  the scenario factory's draws under the TD curriculum, with the chunked
+  rollout and the end-of-episode learn burst (``parallel.harness``);
 - ``evaluate`` runs greedy episodes (no noise, no learning) on the
   inference network, optionally writing the reference's test-mode CSV
   suite to ``<result_dir>/test``.
@@ -150,6 +152,8 @@ class Trainer:
         self._last_drained = -1
         self._live_prefetch = None
         self._topos: Dict[int, Topology] = {}
+        # the replica run's TD curriculum (factory mixes), once it ran
+        self.curriculum = None
 
     # ---------------------------------------------------------------- inputs
     def _on_device(self, topo: Topology) -> Topology:
@@ -327,6 +331,12 @@ class Trainer:
         ``PreemptionGuard``) stops the loop at the next episode boundary
         after a signal; ``profile`` writes a ``torch.profiler`` trace to
         ``<result_dir>/profile``."""
+        if self.driver.topo_mix:
+            # the mixture fills a replica axis the single env lacks
+            raise ValueError(
+                "topo_mix needs the replica-parallel path "
+                "(train_parallel / --replicas > 1); the single-env loop "
+                "has no batch axis to fill with the mixture")
         if profile and self.result_dir:
             from ..utils.debug import Profiler
             with Profiler(os.path.join(self.result_dir, "profile")):
@@ -540,6 +550,70 @@ class Trainer:
                 detail=f"backing off {delay:.2f}s before re-dispatch"))
 
     # ------------------------------------------------------- replica-parallel
+    def _episode_generator(self, episode: int) -> torch.Generator:
+        """The random source of one episode's device-sampled scenarios
+        and traffic, seeded by the trainer's seed and the episode alone
+        (a resumed run draws the same episodes)."""
+        g = torch.Generator(device=self.device)
+        return g.manual_seed(((self.seed & 0xFFFFFFFF) << 32)
+                            | (2000 + episode))
+
+    def _scenario_source(self, num_replicas: int, device_traffic: bool,
+                         curriculum):
+        """(inputs(ep) -> (topology, [B] traffic) on the device, the mix
+        plan or None, the factory or None, the curriculum or None) of a
+        replica run: the scheduled network per episode with one
+        ``DeviceTraffic`` per network (or host traffic), the driver's mix
+        plan with device or host traffic, or the scenario factory
+        steered by the curriculum."""
+        from ..sim.traffic_device import DeviceTraffic
+        from ..topology.scenarios import (mix_device_samplers,
+                                          sample_mix_device)
+
+        drv, dev = self.driver, self.device
+        factory = drv.factory_on(dev) if drv.factory_spec else None
+        if factory is not None and not device_traffic:
+            raise ValueError(
+                "the scenario factory IS on-device sampling — "
+                "device_traffic=False has no host path to fall back to "
+                "(use a registry --topo-mix for host-generated traffic)")
+        plan = (drv.mix_plan(num_replicas)
+                if drv.topo_mix and factory is None else None)
+        curr = None
+        if factory is not None:
+            from ..env.curriculum import Curriculum, CurriculumConfig
+            curr = Curriculum(factory.family_names,
+                              curriculum or CurriculumConfig())
+            return (lambda ep: factory.sample_batch(
+                self._episode_generator(ep),
+                torch.as_tensor(curr.weights(), dtype=torch.float32),
+                num_replicas), None, factory, curr)
+        samplers = {}
+        if plan is not None:
+            topo = self._on_device(plan.topo)
+            if not device_traffic:
+                return (lambda ep: (topo, drv.mix_traffic(ep, plan).to(dev)),
+                        plan, None, None)
+            mix = mix_device_samplers(plan, drv.sim_cfg, drv.service,
+                                      drv.episode_steps,
+                                      default_trace=drv.trace, device=dev)
+            return (lambda ep: (topo, sample_mix_device(
+                plan, mix, self._episode_generator(ep))), plan, None, None)
+
+        def scheduled(ep):
+            host = drv.topology_for(ep)
+            topo = self._on_device(host)
+            if not device_traffic:
+                return topo, drv.replica_traffic(ep, num_replicas).to(dev)
+            # one sampler per scheduled network object
+            if id(host) not in samplers:
+                samplers[id(host)] = DeviceTraffic(
+                    drv.sim_cfg, drv.service, host, drv.episode_steps,
+                    trace=drv.trace, capacity=drv.capacity, device=dev)
+            return topo, samplers[id(host)].sample_batch(
+                self._episode_generator(ep), num_replicas)
+        return scheduled, None, None, None
+
     def train_parallel(self, episodes: int, num_replicas: int,
                        chunk: int = 50,
                        on_row: Optional[Callable[[Dict], None]] = None,
@@ -547,32 +621,48 @@ class Trainer:
                        init_buffers=None, start_episode: int = 0,
                        ckpt_manager=None, ckpt_interval: int = 0,
                        preempt=None, profile: bool = False,
-                       verbose: bool = False):
+                       verbose: bool = False, device_traffic: bool = True,
+                       curriculum=None):
         """Train ``num_replicas`` replicas through episode ``episodes -
-        1``, each episode on the network the schedule names; returns
-        (state, buffers).  Resumes, stops on preemption and reports like
-        ``train``.  Episodes drain as they finish, so the live state after
-        an episode is the one checked: periodic checkpoints save a state
-        found finite on the host, and under a fault plan every episode is
-        checked on the host (``nan_grads`` poisons the state entering its
-        episode) and a non-finite one rolls back to the guard's last
-        verified snapshot."""
+        1``; returns (state, buffers).  Each episode runs on the network
+        the schedule names, its traffic sampled on the device
+        (``DeviceTraffic``, one per network; ``device_traffic=False``: the
+        host traffic seeded ``base_seed + 1000 * episode + r``); under the
+        driver's registry ``topo_mix`` on the mix plan's per-replica
+        networks (device or host traffic alike); under a ``factory:`` mix
+        on scenarios the ``ScenarioFactory`` samples per replica and
+        episode, whose family weights the TD curriculum (``curriculum``, a
+        ``CurriculumConfig``) moves after each episode from the learn
+        ledger's per-family |TD| (uniform without a ledger), with
+        ``curriculum_weight{family=}`` gauges and one ``curriculum`` event
+        per episode.  Device draws come from a generator seeded by the
+        trainer's seed and the episode.  Resumes, stops on preemption and
+        reports like ``train``; episode events of a mixed batch carry the
+        per-entry returns (``per_topology_return``), and the learn ledger
+        attributes |TD| per entry or family.  Episodes drain as they
+        finish, so the live state after an episode is the one checked:
+        periodic checkpoints save a state found finite on the host, and
+        under a fault plan every episode is checked on the host
+        (``nan_grads`` poisons the state entering its episode) and a
+        non-finite one rolls back to the guard's last verified
+        snapshot."""
         if profile and self.result_dir:
             from ..utils.debug import Profiler
             with Profiler(os.path.join(self.result_dir, "profile")):
                 return self.train_parallel(
                     episodes, num_replicas, chunk, on_row, init_state,
                     init_buffers, start_episode, ckpt_manager, ckpt_interval,
-                    preempt, False, verbose)
+                    preempt, False, verbose, device_traffic, curriculum)
         steps = self.agent_cfg.episode_steps
         if steps % chunk != 0:
             raise ValueError(f"chunk ({chunk}) must divide episode_steps "
                              f"({steps})")
+        inputs, plan, factory, curr = self._scenario_source(
+            num_replicas, device_traffic, curriculum)
         self.pddpg = pddpg = ParallelDDPG(
             self.env, self.agent_cfg, num_replicas, device=self.device,
-            seed=self.seed)
+            seed=self.seed, learn_ledger=self.ddpg.learn_ledger)
         pddpg.draws = self.draws
-        dev = pddpg.device
         topo0, traffic0 = self._episode(0)
         _, one_obs = self.env.reset(topo0, traffic0, batch=1)
         state = init_state if init_state is not None else \
@@ -592,6 +682,13 @@ class Trainer:
         start = time.perf_counter()
         if self.obs:
             self.obs.resume_watchdog()
+
+        def episode_inputs(ep):
+            # what producing the episode's (topology, traffic) costs the
+            # host: sampling on the host, or enqueueing the device work
+            with phase_span("scenario_regen", timer, hub):
+                return inputs(ep)
+
         try:
             for ep in range(start_episode, episodes):
                 if preempt is not None and preempt.triggered:
@@ -609,14 +706,20 @@ class Trainer:
                 done = {}
                 with phase_span("dispatch", timer, hub):
                     state, buffers = run_chunked_episodes(
-                        pddpg,
-                        lambda e: (self._on_device(self.driver.topology_for(
-                            e)), self.driver.replica_traffic(
-                                e, num_replicas).to(dev)),
-                        state, buffers, ep + 1, steps, chunk,
-                        on_episode=lambda *a: done.update(result=a),
+                        pddpg, episode_inputs, state, buffers, ep + 1,
+                        steps, chunk,
+                        on_episode=lambda e, res: done.update(res),
                         start_episode=ep)
-                _, ret, succ, final, learned = done["result"]
+                ret = done["episodic_return"]
+                learned = done["learn"]
+                signal = (learned or {}).pop("learn_signal", None)
+                if curr is not None:
+                    # the next episode's family weights from this one's
+                    # per-family |TD| (host arithmetic on drained values)
+                    if signal is not None:
+                        curr.fold_td(signal["td_abs_sum"].cpu().numpy(),
+                                     signal["td_count"].cpu().numpy())
+                    curr.emit_weights(hub, ep)
                 if chaos is not None:
                     # the replicas drain as they finish: the live state is
                     # the state after episode ep
@@ -640,7 +743,8 @@ class Trainer:
                 sps = ((ep - start_episode + 1) * steps * num_replicas
                        / (time.perf_counter() - start))
                 row = {"episode": ep, "episodic_return": ret,
-                       "mean_succ_ratio": succ, "final_succ_ratio": final,
+                       "mean_succ_ratio": done["mean_succ_ratio"],
+                       "final_succ_ratio": done["final_succ_ratio"],
                        **{k: float(v) for k, v in (learned or {}).items()},
                        "sps": sps}
                 self.history.append(row)
@@ -649,16 +753,25 @@ class Trainer:
                     on_row(row)
                 if verbose:
                     log.info("episode=%d return=%.3f succ=%.3f sps=%.1f",
-                             ep, ret, succ, sps)
+                             ep, ret, row["mean_succ_ratio"], sps)
                 if self.obs:
+                    extra = {"replicas": num_replicas}
+                    if plan is not None:
+                        extra.update(self._entry_returns(
+                            plan.names, done["per_replica_return"]))
+                    elif factory is None:
+                        # one network per episode: its schedule name
+                        extra = self._topology_extra(ep, ret, extra=extra)
                     self.obs.episode_end(
                         episode=ep, global_step=(ep + 1) * steps - 1,
                         metrics={k: v for k, v in row.items()
                                  if k not in ("episode", "sps")},
                         sps=sps, phases=timer.summary(),
-                        replay_bytes=buffer_nbytes(buffers),
-                        extra=self._topology_extra(
-                            ep, ret, extra={"replicas": num_replicas}))
+                        replay_bytes=buffer_nbytes(buffers), extra=extra)
+                    if self.learn_obs is not None and (
+                            signal is not None or done["replay"] is not None):
+                        self.learn_obs.episode(ep, signal=signal,
+                                               replay=done["replay"])
                 self._last_drained = ep
                 self._maybe_save(ckpt_manager, ckpt_interval, ep,
                                  start_episode, state, buffers)
@@ -667,9 +780,22 @@ class Trainer:
                 self.obs.pause_watchdog()
             writer.close()
         self.completed_episodes = self._last_drained + 1
+        self.curriculum = curr
         if chaos is not None:
             chaos.warn_unfired(hub)
         return state, buffers
+
+    def _entry_returns(self, names, returns) -> Dict:
+        """A mixed batch's returns per mix entry (the mean over its
+        replicas), gauged as ``topology_return{topology=}``, and the
+        per-replica entry names, for the episode event."""
+        groups: Dict[str, List[float]] = {}
+        for name, v in zip(names, returns):
+            groups.setdefault(name, []).append(v)
+        per = {n: float(np.mean(v)) for n, v in groups.items()}
+        for n, v in per.items():
+            self.obs.hub.gauge("topology_return", v, topology=n)
+        return {"topology": list(names), "per_topology_return": per}
 
     # ------------------------------------------------------------ evaluation
     def evaluate(self, state: DDPGState, episodes: int = 1,

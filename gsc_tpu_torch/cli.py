@@ -20,8 +20,14 @@ actor and critic heads.  ``--replicas 1`` (the default, as in the JAX CLI) takes
 single-env loop (:meth:`gsc_tpu_torch.agents.trainer.Trainer.train`);
 ``--replicas B`` takes replica-parallel training
 (:meth:`~gsc_tpu_torch.agents.trainer.Trainer.train_parallel`) in
-rollout chunks of ``--chunk`` steps.  It prints one JSON line per episode
-and writes ``rewards.csv`` to ``--result-dir``; at the end it saves the
+rollout chunks of ``--chunk`` steps, with every episode's traffic
+sampled on the device, as the JAX CLI does; ``--topo-mix`` fills its
+replicas with a registry mixture (``topology.scenarios``) or the
+on-device scenario factory (``factory:...``, ``topology.factory``),
+whose family weights the TD curriculum moves
+(``--curriculum-temperature``, ``--curriculum-floor``), with the JAX
+CLI's validation.  It prints one JSON line per episode and writes
+``rewards.csv`` to ``--result-dir``; at the end it saves the
 learner state, the replay, the random source and the completed-episode
 count to ``--checkpoint`` (default ``<result-dir>/checkpoint``), with the
 precision policy and a checksum in the checkpoint's sidecar, evaluates
@@ -80,6 +86,8 @@ from typing import List, Optional
 _NETWORKS = ("abilene", "bteurope", "claranet", "compuserve", "tinet",
              "chinanet", "interroute")
 _PRECISIONS = ("f32", "bf16")
+# (temperature, floor) of --curriculum-*, the JAX CLI's defaults
+CURRICULUM_DEFAULTS = (1.0, 0.25)
 
 
 def _agent(args, precision):
@@ -120,32 +128,38 @@ def _build(args, precision, seed=None):
                                    max_edges=args.max_edges)
     env = ServiceCoordEnv(service, sim_cfg, agent, limits)
     seed = args.seed if seed is None else seed
-    if args.scheduler:
-        if args.network:
-            raise SystemExit("--network and --scheduler exclude each other")
-        driver = EpisodeDriver(load_scheduler(args.scheduler), sim_cfg,
-                               service, agent.episode_steps,
-                               max_nodes=args.max_nodes,
-                               max_edges=args.max_edges, base_seed=seed)
-    elif _is_graphml(args.network):
-        # a GraphML network file: a schedule of one, as a scheduler yaml
-        # naming it would be (the simulator's force caps apply)
-        net = args.network
-        driver = EpisodeDriver(SchedulerConfig((net,), net), sim_cfg,
-                               service, agent.episode_steps,
-                               max_nodes=args.max_nodes,
-                               max_edges=args.max_edges, base_seed=seed)
-    else:
-        name = args.network or "abilene"
-        topo = compile_topology(_network_spec(name),
-                                max_nodes=args.max_nodes,
-                                max_edges=args.max_edges)
-        try:
+    mix = getattr(args, "topo_mix", None)
+    try:
+        if args.scheduler:
+            if args.network:
+                raise SystemExit("--network and --scheduler exclude each "
+                                 "other")
+            driver = EpisodeDriver(load_scheduler(args.scheduler), sim_cfg,
+                                   service, agent.episode_steps,
+                                   max_nodes=args.max_nodes,
+                                   max_edges=args.max_edges, base_seed=seed,
+                                   topo_mix=mix)
+        elif _is_graphml(args.network):
+            # a GraphML network file: a schedule of one, as a scheduler
+            # yaml naming it would be (the simulator's force caps apply)
+            net = args.network
+            driver = EpisodeDriver(SchedulerConfig((net,), net), sim_cfg,
+                                   service, agent.episode_steps,
+                                   max_nodes=args.max_nodes,
+                                   max_edges=args.max_edges, base_seed=seed,
+                                   topo_mix=mix)
+        else:
+            name = args.network or "abilene"
+            topo = compile_topology(_network_spec(name),
+                                    max_nodes=args.max_nodes,
+                                    max_edges=args.max_edges)
             driver = EpisodeDriver.single(topo, sim_cfg, service,
                                           agent.episode_steps, name,
-                                          base_seed=seed)
-        except ValueError as e:
-            raise SystemExit(str(e))
+                                          base_seed=seed, topo_mix=mix)
+    except ValueError as e:
+        # forced caps on a built-in network, a mix member that does not
+        # fit the bucket or a fault index past its real elements
+        raise SystemExit(str(e))
     return env, driver, agent
 
 
@@ -234,6 +248,38 @@ def _check_train_args(args):
         refuse_async_sites(FaultPlan.from_env(args.fault_plan))
     except ValueError as e:
         raise SystemExit(f"--fault-plan: {e}")
+    args.curriculum = _curriculum(args)
+
+
+def _curriculum(args):
+    """``--topo-mix`` and ``--curriculum-*`` as the JAX CLI checks them:
+    the grammar of either mix form before anything is built, and the
+    curriculum config of a factory mix (None for any other)."""
+    from .topology.factory import is_factory_mix
+    from .topology.scenarios import validate_mix
+
+    mix = args.topo_mix
+    if mix:
+        if args.replicas <= 1:
+            raise SystemExit(
+                "--topo-mix fills the replica axis with the mixture — it "
+                "requires the replica-parallel path (--replicas > 1)")
+        try:
+            validate_mix(mix)
+        except ValueError as e:
+            raise SystemExit(f"--topo-mix: {e}")
+    knobs = (args.curriculum_temperature, args.curriculum_floor)
+    if is_factory_mix(mix):
+        from .env.curriculum import CurriculumConfig
+        try:
+            return CurriculumConfig(temperature=knobs[0], floor=knobs[1])
+        except ValueError as e:
+            raise SystemExit(str(e))
+    if knobs != CURRICULUM_DEFAULTS:
+        raise SystemExit(
+            "--curriculum-* steers the on-device scenario factory — "
+            "pass --topo-mix factory:... or drop the flags")
+    return None
 
 
 def _run_dir(args) -> Optional[str]:
@@ -298,7 +344,12 @@ def _train_run(args, run: int, dev, precision, resume) -> dict:
     if obs is not None:
         obs.start(meta={"episodes": args.episodes, "replicas": args.replicas,
                         "pipeline": args.pipeline, "seed": seed,
-                        "topo_mix": None, "precision": agent.precision,
+                        "topo_mix": args.topo_mix,
+                        **({"curriculum": {
+                            "temperature": args.curriculum_temperature,
+                            "floor": args.curriculum_floor}}
+                           if args.curriculum is not None else {}),
+                        "precision": agent.precision,
                         "substep_impl": env.sim_cfg.substep_impl,
                         "result_dir": rdir, "device": str(dev),
                         "ckpt_interval": args.ckpt_interval,
@@ -346,7 +397,8 @@ def _train_run(args, run: int, dev, precision, resume) -> dict:
                     on_row=on_row, init_state=init_state,
                     init_buffers=init_buffer, start_episode=start_episode,
                     ckpt_manager=manager, ckpt_interval=args.ckpt_interval,
-                    preempt=guard, profile=args.profile, verbose=True)
+                    preempt=guard, profile=args.profile, verbose=True,
+                    curriculum=args.curriculum)
             else:
                 state, buffer = trainer.train(
                     args.episodes, init_state=init_state,
@@ -714,6 +766,31 @@ def _parser() -> argparse.ArgumentParser:
                    help="1: the single-env loop; B > 1: B replicas in "
                    "lockstep, rollout chunks of --chunk steps")
     t.add_argument("--chunk", type=int, default=50)
+    t.add_argument("--topo-mix", default=None,
+                   help="fill the replica axis (--replicas > 1) with a "
+                   "mixture instead of one network per episode: a "
+                   "comma-separated round-robin of 'schedule' (the "
+                   "scheduler's training networks) and registry names "
+                   "(abilene, triangle, bteurope, ..., random<N>, star<N>, "
+                   "ring<N>, line<N>), each optionally '+<shape>' "
+                   "(bursty|diurnal|flash_crowd), '~<link|node>@<interval>"
+                   "[.<index>]' faults ('&'-joined) and ':<seed>' "
+                   "(randomized generators only), e.g. "
+                   "'schedule,abilene+bursty,random12~link@3.0:7'; or the "
+                   "on-device scenario factory "
+                   "'factory:<fam>[-<fam>...][+shapes][~faults]' (star, "
+                   "ring, line, random or 'all'), steered by the TD "
+                   "curriculum")
+    t.add_argument("--curriculum-temperature", type=float,
+                   default=CURRICULUM_DEFAULTS[0],
+                   help="softmax temperature of the TD curriculum over "
+                   "the per-family |TD| EWMAs (factory --topo-mix only): "
+                   "lower chases the highest-TD families harder")
+    t.add_argument("--curriculum-floor", type=float,
+                   default=CURRICULUM_DEFAULTS[1],
+                   help="probability mass the curriculum always spreads "
+                   "uniformly over the factory families (0..1): no "
+                   "family falls below floor/K")
     t.add_argument("--episodes", type=int, default=2)
     t.add_argument("--result-dir", default=None,
                    help="directory for rewards.csv, the final checkpoint, "

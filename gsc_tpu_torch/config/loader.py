@@ -12,8 +12,8 @@ import os
 from typing import Any, Dict
 
 from .registry import has_resource_function
-from .schema import (AgentConfig, SchedulerConfig, ServiceConfig,
-                     ServiceFunction, SimConfig)
+from .schema import (AgentConfig, MMPPState, SchedulerConfig,
+                     ServiceConfig, ServiceFunction, SimConfig)
 
 log = logging.getLogger("gsc_tpu_torch.config")
 
@@ -75,9 +75,19 @@ def load_sim(path: str, **overrides) -> SimConfig:
         kw["force_link_cap"] = float(cfg["force_link_cap"])
     if cfg.get("force_node_cap") is not None:
         kw["force_node_cap"] = tuple(float(c) for c in cfg["force_node_cap"])
-    for key in ("use_states", "trace_path", "prediction"):
-        if cfg.get(key):
-            raise ValueError(f"simulator option {key!r} is not ported")
+    if cfg.get("use_states"):
+        kw["use_states"] = True
+        kw["init_state"] = cfg["init_state"]
+        kw["rand_init_state"] = bool(cfg.get("rand_init_state", False))
+        kw["states"] = tuple(
+            MMPPState(name=k, inter_arr_mean=float(v["inter_arr_mean"]),
+                      switch_p=float(v["switch_p"]))
+            for k, v in cfg["states"].items())
+    if "trace_path" in cfg:
+        kw["trace_path"] = cfg["trace_path"]
+    if cfg.get("prediction"):
+        # per-flow traffic prediction belongs with per-flow control
+        raise ValueError("simulator option 'prediction' is not ported")
     spelled = {key: _CONTROLLERS.get(cfg[key], cfg[key])
                for key in ("controller_class", "controller") if key in cfg}
     if len(set(spelled.values())) > 1:

@@ -1,7 +1,8 @@
 """Typed configuration of the PyTorch port.
 
 A copy of the subset of ``gsc_tpu.config.schema`` that the port's serving
-and training paths need: ``SimConfig``, ``AgentConfig``, ``EnvLimits``,
+and training paths need: ``SimConfig`` (with ``MMPPState``),
+``AgentConfig``, ``EnvLimits``,
 ``ServiceConfig``/``ServiceFunction``, ``SchedulerConfig`` and
 ``PrecisionPolicy`` with its "f32" and "bf16" policies, with the same
 field names, defaults and validation.  Every namespace is a
@@ -182,17 +183,27 @@ class ServiceConfig:
 
 
 @dataclass(frozen=True)
+class MMPPState:
+    """One state of the two-state Markov-modulated arrival process."""
+
+    name: str
+    inter_arr_mean: float
+    switch_p: float
+
+
+@dataclass(frozen=True)
 class SimConfig:
     """Simulator and traffic configuration.  The port's engine runs the
     duration controller's substep through the substep megakernel (the
     CUDA kernel of ``ops.substep`` on the card, the plain substep on the
-    CPU) with deterministic or Poisson arrivals.  ``substep_impl`` is the
-    JAX package's key, validated as there so that its yaml files load; it
-    does not choose a path in the port.  ``force_link_cap`` and
-    ``force_node_cap`` override the capacities of every network read from
-    GraphML (``topology.compiler.read_graphml``).  The MMPP and trace
-    options of the JAX package are not carried, and per-flow control is
-    only named so that it can be refused."""
+    CPU) with deterministic or Poisson arrivals, whose per-interval mean
+    may follow the two-state MMPP chain (``use_states``, ``init_state``,
+    ``rand_init_state``, ``states``) or a CSV trace (``trace_path``).
+    ``substep_impl`` is the JAX package's key, validated as there so that
+    its yaml files load; it does not choose a path in the port.
+    ``force_link_cap`` and ``force_node_cap`` override the capacities of
+    every network read from GraphML (``topology.compiler.read_graphml``).
+    Per-flow control is only named so that it can be refused."""
 
     inter_arrival_mean: float = 10.0
     deterministic_arrival: bool = True
@@ -206,6 +217,14 @@ class SimConfig:
     # (lo, hi) integer node capacities drawn uniformly in [lo, hi)
     force_link_cap: Optional[float] = None
     force_node_cap: Optional[Tuple[float, float]] = None
+    # two-state MMPP arrival model: the chain's states, the first state
+    # (or a random one per ingress)
+    use_states: bool = False
+    init_state: Optional[str] = None
+    rand_init_state: bool = False
+    states: Tuple[MMPPState, ...] = ()
+    # trace CSV (time, node, inter_arrival_mean[, cap]) of mean changes
+    trace_path: Optional[str] = None
     # substep quantum in ms of the fixed-step engine
     dt: float = 1.0
     # flow-table slots per replica
@@ -223,6 +242,8 @@ class SimConfig:
     substep_impl: str = "xla"
 
     def __post_init__(self):
+        if self.use_states and len(self.states) != 2:
+            raise ValueError("MMPP model requires exactly 2 states")
         if self.run_duration <= 0 or self.dt <= 0:
             raise ValueError("run_duration and dt must be positive")
         if not self.ttl_choices:
@@ -258,7 +279,7 @@ class AgentConfig:
 
     observation_space: Tuple[str, ...] = ("ingress_traffic", "node_load", "node_cap")
     graph_mode: bool = True
-    # per-step node-permutation augmentation (not ported: must stay off)
+    # per-step node-permutation augmentation (env.permutation)
     shuffle_nodes: bool = False
     episode_steps: int = 200
     gnn_features: int = 22

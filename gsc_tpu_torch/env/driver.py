@@ -1,18 +1,27 @@
-"""Episode driver: the topology schedule and per-episode host traffic.
+"""Episode driver: the topology schedule, mixed batches and per-episode
+host traffic.
 
 The port of ``gsc_tpu.env.driver.EpisodeDriver`` (with its
-``EpisodePrefetcher``) without mixed-topology batches, the scenario
-factory and traces.  The training
+``EpisodePrefetcher``).  The training
 networks of a ``SchedulerConfig`` (GraphML files, or topologies given
 directly) switch every ``period`` episodes in turn, and test mode always
 takes the inference network (``topology_for``).  Each topology carries its
 schedule position as ``topo_id``, which the replay records.  Traffic is
 sampled on the host with the port's numpy traffic path (byte-equal to the
-JAX package's) at one capacity for every network of the run:
+JAX package's), following the simulator config's trace (``trace_path``)
+where it names one, at one capacity for every network of the run:
 ``traffic_for`` seeds episode ``ep`` with ``base_seed + ep`` (the
 single-env trainer's seeds), ``replica_traffic`` replica ``r`` with
 ``base_seed + 1000 * ep + r`` (the JAX replica trainer's host-traffic
 seeds, ``train_parallel`` with ``device_traffic=False``).
+
+``topo_mix`` (``topology.scenarios``) fills the replica axis with a
+mixture instead: a registry mix becomes mix entries and a round-robin
+``MixPlan`` per replica count (``mix_plan``, memoized per B, with
+``mix_traffic`` its host traffic), a ``factory:`` mix a ``FactorySpec``
+whose ``ScenarioFactory`` is built on first use (``factory_on(device)``).
+``num_topo_ids`` / ``topo_id_names`` name the learn ledger's segments:
+the mix entries, the factory's families, else the schedule.
 ``EpisodeDriver.single`` makes a one-network schedule, whose training and
 inference network are the same.  A simulator config's ``force_link_cap`` /
 ``force_node_cap`` apply where a GraphML network is read, as in the JAX
@@ -36,10 +45,19 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from ..config.schema import SchedulerConfig, ServiceConfig, SimConfig
-from ..sim.state import TrafficSchedule
-from ..sim.traffic import generate_traffic, traffic_capacity
-from ..topology.compiler import (Topology, check_dt_quantization,
+from ..sim.state import TrafficSchedule, stack_traffic
+from ..sim.traffic import TraceEvents, generate_traffic, traffic_capacity
+from ..topology import scenarios
+from ..topology.compiler import (Topology, TopologyBucket,
+                                 check_dt_quantization,
                                  load_topology_cached)
+from ..topology.factory import is_factory_mix, parse_factory
+
+
+def _node_index(name: str) -> int:
+    """A trace's node column -> node index ('popN' or a bare integer)."""
+    s = str(name)
+    return int(s[3:]) if s.startswith("pop") else int(s)
 
 
 def refuse_force_caps(sim_cfg: SimConfig, network: str) -> None:
@@ -63,7 +81,9 @@ class EpisodeDriver:
                  max_nodes: int = 24, max_edges: int = 37,
                  base_seed: int = 0,
                  topologies: Optional[Sequence[Topology]] = None,
-                 inference_topology: Optional[Topology] = None):
+                 inference_topology: Optional[Topology] = None,
+                 topo_mix: Optional[str] = None,
+                 registry: Optional[scenarios.ScenarioRegistry] = None):
         self.scheduler = scheduler
         self.sim_cfg = sim_cfg
         self.service = service
@@ -87,15 +107,35 @@ class EpisodeDriver:
         self.inference_topology = inference_topology
         for i, t in enumerate(self.topologies + [self.inference_topology]):
             check_dt_quantization(t, sim_cfg.dt, name=f"topology[{i}]")
+        self.trace = (TraceEvents.from_csv(sim_cfg.trace_path, _node_index)
+                      if sim_cfg.trace_path else None)
         # one traffic capacity for every network of the run
         max_ing = max(int(t.is_ingress.sum()) for t in
                       self.topologies + [self.inference_topology])
         self.capacity = traffic_capacity(sim_cfg, max_ing, episode_steps)
+        # mixed batches: registry entries compiled into one bucket now, a
+        # factory spec parsed now and its sampler built on first use
+        self.topo_mix = topo_mix
+        self.registry = registry or scenarios.DEFAULT_REGISTRY
+        self.bucket = TopologyBucket(self.topologies[0].max_nodes,
+                                     self.topologies[0].max_edges)
+        self._mix_entries = None
+        self._mix_plans = {}
+        self.factory_spec = None
+        self._factories = {}
+        if topo_mix and is_factory_mix(topo_mix):
+            self.factory_spec = parse_factory(topo_mix)
+        elif topo_mix:
+            self._mix_entries = scenarios.build_mix_entries(
+                topo_mix, self.registry, self.bucket,
+                schedule_topos=self.topologies,
+                schedule_names=self._schedule_names(), dt=sim_cfg.dt)
 
     @classmethod
     def single(cls, topology: Topology, sim_cfg: SimConfig,
                service: ServiceConfig, episode_steps: int, name: str,
-               base_seed: int = 0) -> "EpisodeDriver":
+               base_seed: int = 0,
+               topo_mix: Optional[str] = None) -> "EpisodeDriver":
         """A schedule of one built-in network ``name``, trained and
         inferred on; refuses forced capacities."""
         refuse_force_caps(sim_cfg, name)
@@ -104,7 +144,52 @@ class EpisodeDriver:
         return cls(sched, sim_cfg, service, episode_steps,
                    max_nodes=topology.max_nodes, max_edges=topology.max_edges,
                    base_seed=base_seed, topologies=[topology],
-                   inference_topology=topology)
+                   inference_topology=topology, topo_mix=topo_mix)
+
+    # ------------------------------------------------------------ mix mode
+    def factory_on(self, device):
+        """The ``ScenarioFactory`` of a ``factory:`` mix on ``device``
+        (built once per device); None without one."""
+        if self.factory_spec is None:
+            return None
+        key = str(device)
+        if key not in self._factories:
+            from ..topology.factory import ScenarioFactory
+            self._factories[key] = ScenarioFactory(
+                self.factory_spec, self.sim_cfg, self.service,
+                self.episode_steps, max_nodes=self.bucket.max_nodes,
+                max_edges=self.bucket.max_edges, device=device)
+        return self._factories[key]
+
+    @property
+    def scenario_factory(self):
+        """The factory on the CPU (``factory_on`` for another device)."""
+        return self.factory_on("cpu")
+
+    def mix_plan(self, num_replicas: int) -> scenarios.MixPlan:
+        """The round-robin ``MixPlan`` of ``num_replicas`` (memoized: the
+        stacked topology is the same object every episode)."""
+        if not self.topo_mix:
+            raise ValueError("driver has no topo_mix configured")
+        if self.factory_spec is not None:
+            raise ValueError(
+                "a factory mix samples scenarios on device per episode — "
+                "no host MixPlan exists (use driver.scenario_factory)")
+        plan = self._mix_plans.get(num_replicas)
+        if plan is None:
+            plan = self._mix_plans[num_replicas] = scenarios.plan_mix(
+                self._mix_entries, num_replicas, self.bucket, self.sim_cfg,
+                self.episode_steps)
+        return plan
+
+    def mix_traffic(self, episode: int,
+                    plan: scenarios.MixPlan) -> TrafficSchedule:
+        """[B]-stacked host traffic of one mixed episode, replica r seeded
+        ``base_seed + 1000 * episode + r``."""
+        return scenarios.mix_traffic_host(
+            plan, self.sim_cfg, self.service, self.episode_steps,
+            seed_for=lambda r: self.base_seed + 1000 * episode + r,
+            default_trace=self.trace)
 
     def topology_for(self, episode: int, test_mode: bool = False) -> Topology:
         """Switch every ``period`` episodes, cycling the training list;
@@ -136,7 +221,7 @@ class EpisodeDriver:
         episode`` unless ``seed`` is given."""
         seed = self.base_seed + episode if seed is None else seed
         return generate_traffic(self.sim_cfg, self.service, topo,
-                                self.episode_steps, seed,
+                                self.episode_steps, seed, trace=self.trace,
                                 capacity=self.capacity)
 
     def episode(self, episode: int, test_mode: bool = False,
@@ -150,21 +235,29 @@ class EpisodeDriver:
         """[B]-stacked traffic on episode ``episode``'s network, replica r
         seeded ``base_seed + 1000 * episode + r``."""
         topo = self.topology_for(episode)
-        per = [self.traffic_for(episode, topo,
-                                seed=self.base_seed + 1000 * episode + r)
-               for r in range(replicas)]
-        return TrafficSchedule(**{f: torch.stack([getattr(t, f) for t in per])
-                                  for f in TrafficSchedule._RANKS})
+        return stack_traffic([
+            self.traffic_for(episode, topo,
+                             seed=self.base_seed + 1000 * episode + r)
+            for r in range(replicas)])
 
     @property
     def num_topo_ids(self) -> int:
         """How many ``topo_id`` values the episodes stamp into the replay
-        (the learn ledger's segment axis): the schedule's length."""
+        (the learn ledger's segment axis): the factory's families, the
+        mix entries, else the schedule's length."""
+        if self.factory_spec is not None:
+            return self.factory_spec.num_families
+        if self._mix_entries is not None:
+            return len(self._mix_entries)
         return len(self.topologies)
 
     @property
     def topo_id_names(self) -> List[str]:
         """``topo_id`` -> name, aligned with :attr:`num_topo_ids`."""
+        if self.factory_spec is not None:
+            return list(self.factory_spec.families)
+        if self._mix_entries is not None:
+            return [e.name for e in self._mix_entries]
         return self._schedule_names()
 
     def prefetcher(self, start: int, stop: int, test_mode: bool = False,

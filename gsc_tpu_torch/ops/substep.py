@@ -72,6 +72,8 @@ _METRICS = ("generated", "processed", "dropped", "active", "drop_reasons",
             "run_requested_node", "run_processed_traffic",
             "run_flow_counts", "run_max_node_usage", "run_passed_traffic")
 _TOPO = ("path_delay", "next_hop", "adj_edge_id", "edge_cap", "edge_delay")
+# the kernel reads each group's tables with one per-replica stride
+_TOPO_GROUPS = {"topo_nn_stride": _TOPO[:3], "topo_e_stride": _TOPO[3:]}
 _TRAFFIC = ("arr_time", "arr_ingress", "arr_dr", "arr_duration", "arr_ttl",
             "arr_sfc", "arr_egress")
 _EXTRA = ("cap_now", "noise", "chain_len", "chain_sf", "proc", "rf_id")
@@ -318,12 +320,15 @@ class SubstepMegakernel:
         topo_b = topo.expand(b)
         traffic_b = traffic.expand(b)
         strides = {}
-        for name in _TOPO:
-            t, s = _per_replica(getattr(topo_b, name), b, name)
-            ptr[name] = t
-            strides["topo_nn_stride" if name in ("path_delay", "next_hop",
-                                                 "adj_edge_id")
-                    else "topo_e_stride"] = s
+        for group, names in _TOPO_GROUPS.items():
+            # one stride per group: a table shared by every replica is
+            # made per replica when another table of its group is (a
+            # link-fault row of edge capacities beside shared delays)
+            group_tabs = [getattr(topo_b, n) for n in names]
+            if any(t.stride(0) != 0 for t in group_tabs):
+                group_tabs = [t.contiguous() for t in group_tabs]
+            for name, tab in zip(names, group_tabs):
+                ptr[name], strides[group] = _per_replica(tab, b, name)
         traf_strides = set()
         for name in _TRAFFIC:
             t, s = _per_replica(getattr(traffic_b, name), b, name)

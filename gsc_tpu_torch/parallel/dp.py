@@ -4,9 +4,14 @@ The port of the single-device path of ``gsc_tpu.parallel.dp.ParallelDDPG``:
 B env replicas step in lockstep (every tensor carries the [B] replica dim
 the JAX package gets from ``vmap``), each with its own traffic, feeding B
 per-replica replay shards; the learner samples batches across all shards
-and updates one set of parameters.  Without a sharding plan or buffer
-donation: the port's carries are updated in place where that saves memory
-(the replay shards, the learner state).
+and updates one set of parameters.  The topology is shared by every
+replica or stacked per replica (a mixed batch or the scenario factory);
+each replay row records its replica's ``topo_id`` as ``topo_idx``.  With
+a ``learn_ledger`` the rollout's stats carry the shards' fill and the
+learn burst's metrics the learning signal, as on the single env.
+Without a sharding plan or buffer donation: the port's carries are
+updated in place where that saves memory (the replay shards, the learner
+state).
 
 Random numbers come from a ``Draws`` source (``agents.ddpg``): warm-up
 uniforms and exploration normals per rollout step, replay indices per
@@ -20,6 +25,7 @@ import torch
 
 from ..agents.buffer import ReplayBuffer, buffer_add, buffer_init, restore_batch
 from ..agents.ddpg import DDPG, DDPGState, Draws
+from ..obs.learning import replay_stats
 from ..config.schema import AgentConfig
 from ..env.env import EnvState, ServiceCoordEnv
 from ..env.observations import GraphObs
@@ -38,11 +44,13 @@ class ParallelDDPG:
     """B-replica data-parallel wrapper around the DDPG agent."""
 
     def __init__(self, env: ServiceCoordEnv, agent: AgentConfig,
-                 num_replicas: int, device=None, seed: int = 0):
+                 num_replicas: int, device=None, seed: int = 0,
+                 learn_ledger=None):
         self.env = env
         self.agent = agent
         self.B = num_replicas
-        self.ddpg = DDPG(env, agent, device=device)
+        self.ddpg = DDPG(env, agent, device=device,
+                         learn_ledger=learn_ledger)
         self.device = self.ddpg.device
         self.shuffle = ShuffleOps(agent, env.limits)
         self.draws = Draws(seed, self.device)
@@ -78,9 +86,10 @@ class ParallelDDPG:
         write.  ``episode_start_step``
         is the global step of the first one (the warm-up gate reads it).
         Returns the chunk's stats, still on the device."""
-        perm = self.shuffle.init_perm(self.B, self.device)
+        perm = self.shuffle.init_perm(self.B, self.device, self.draws)
         obs = self.shuffle.permute_obs(obs, perm)
-        topo_idx = topo.topo_id.expand(self.B)
+        # each replica's network: a stacked topology's per-replica ids
+        topo_idx = topo.expand(self.B).topo_id
         engine = self.env.engine
         rewards, succ, e2e = [], [], []
         for i in range(num_steps):
@@ -92,7 +101,8 @@ class ParallelDDPG:
                 env_states, topo, traffic,
                 self.shuffle.env_action(action, perm),
                 self.draws.sim_noise(engine, self.B))
-            next_obs, perm = self.shuffle.advance(next_obs, perm)
+            next_obs, perm = self.shuffle.advance(next_obs, perm,
+                                                  self.draws)
             buffer_add(buffers, {
                 "obs": obs, "next_obs": next_obs, "action": action,
                 "reward": reward, "done": done.to(torch.float32),
@@ -108,6 +118,8 @@ class ParallelDDPG:
                  "mean_e2e_delay": torch.stack(e2e).mean(),
                  "final_succ_ratio": s[-1].mean(),
                  "per_replica_return": r.sum(0)}
+        if self.ddpg.learn_ledger is not None:
+            stats["replay"] = replay_stats(buffers)
         return state, buffers, env_states, obs, stats
 
     def chunk_step(self, state: DDPGState, buffers: ReplayBuffer,

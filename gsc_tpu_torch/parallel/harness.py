@@ -1,14 +1,15 @@
 """Chunked episodes: the replica-parallel training loop.
 
-The port of ``gsc_tpu.parallel.harness.run_chunked_episodes`` without the
-telemetry hub: each episode resets every replica on its network and
-traffic and runs ``episode_steps / chunk`` chunks, the final one carrying
-the end-of-episode learn burst.  The global step of a chunk counts from
+The port of ``gsc_tpu.parallel.harness.run_chunked_episodes``: each
+episode resets every replica on its network and traffic and runs
+``episode_steps / chunk`` chunks, the final one carrying the
+end-of-episode learn burst.  The global step of a chunk counts from
 episode 0, so a run resumed at ``start_episode`` continues the warm-up
 schedule where it stood.  Per-episode numbers, handed to the caller's
 ``on_episode``, are taken over all chunks: the return sums them, the mean
 success ratio averages them, and the final success ratio is the last
-step's.
+step's; the per-replica returns sum each replica's chunks, so that a
+mixed batch's caller can attribute them per network.
 """
 from __future__ import annotations
 
@@ -23,8 +24,12 @@ def run_chunked_episodes(pddpg, episode_inputs: Callable, state, buffers,
     (state, buffers), updated in place.
 
     ``episode_inputs(ep)`` gives episode ``ep``'s (topology, [B]-stacked
-    traffic) on the device; ``on_episode(ep, ret, mean_succ, final_succ,
-    learn_metrics)`` runs after each episode's learn burst."""
+    traffic) on the device, the topology shared or stacked per replica;
+    ``on_episode(ep, result)`` runs after each episode's learn burst with
+    ``result``: ``episodic_return``, ``mean_succ_ratio`` and
+    ``final_succ_ratio`` (floats), ``per_replica_return`` (a list of B
+    floats), ``learn`` (the burst's metrics, on the device) and
+    ``replay`` (the shards' fill with a learn ledger, else None)."""
     if episode_steps % chunk != 0:
         raise ValueError(f"chunk ({chunk}) must divide episode_steps "
                          f"({episode_steps})")
@@ -41,9 +46,14 @@ def run_chunked_episodes(pddpg, episode_inputs: Callable, state, buffers,
                                  learn=(c == n_chunks - 1))
             chunk_stats.append(stats)
         # device scalars are read once the episode has been issued
-        on_episode(ep,
-                   sum(float(s["episodic_return"]) for s in chunk_stats),
-                   sum(float(s["mean_succ_ratio"]) for s in chunk_stats)
-                   / n_chunks,
-                   float(chunk_stats[-1]["final_succ_ratio"]), metrics)
+        per_replica = sum(s["per_replica_return"] for s in chunk_stats)
+        on_episode(ep, {
+            "episodic_return": sum(float(s["episodic_return"])
+                                   for s in chunk_stats),
+            "mean_succ_ratio": sum(float(s["mean_succ_ratio"])
+                                   for s in chunk_stats) / n_chunks,
+            "final_succ_ratio": float(chunk_stats[-1]["final_succ_ratio"]),
+            "per_replica_return": per_replica.tolist(),
+            "learn": metrics,
+            "replay": chunk_stats[-1].get("replay")})
     return state, buffers

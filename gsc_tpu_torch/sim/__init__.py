@@ -1,9 +1,12 @@
-"""The flow simulator: state, traffic and the fixed-step engine."""
+"""The flow simulator: state, host and device traffic and the fixed-step
+engine."""
 from .engine import ServiceTables, SimEngine
-from .state import (FlowTable, SimMetrics, SimState, TrafficSchedule,
-                    init_state)
-from .traffic import generate_traffic, traffic_capacity
+from .state import (EdgeCapSchedule, FlowTable, SimMetrics, SimState,
+                    TrafficSchedule, init_state)
+from .traffic import TraceEvents, generate_traffic, traffic_capacity
+from .traffic_device import DeviceTraffic
 
-__all__ = ["FlowTable", "ServiceTables", "SimEngine", "SimMetrics",
-           "SimState", "TrafficSchedule", "generate_traffic", "init_state",
-           "traffic_capacity"]
+__all__ = ["DeviceTraffic", "EdgeCapSchedule", "FlowTable",
+           "ServiceTables", "SimEngine", "SimMetrics", "SimState",
+           "TraceEvents", "TrafficSchedule", "generate_traffic",
+           "init_state", "traffic_capacity"]

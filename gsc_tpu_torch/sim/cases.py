@@ -6,7 +6,9 @@ triangle, the saturated-link line of tests/assets/line3-linkcap2.graphml
 under tests/assets/linkcap_config.yaml), one with fractional data rates,
 Abilene with many replicas under a seeded non-uniform schedule, and the
 seeded Abilene golden trajectory (tests/test_debug_and_golden.py), whose
-frozen end-of-run numbers are ``GOLDEN``.  Everything is made from seeds
+frozen end-of-run numbers are ``GOLDEN``; and the generalization path's
+cases (``generalization_cases``): a mixed batch of five networks, a link
+and a node fault, and scenario-factory draws.  Everything is made from seeds
 with numpy and torch, so ``chip_smoke.py`` and the card-only tests run the
 same cases as the CPU tests.
 
@@ -30,7 +32,7 @@ from ..config.schema import (EnvLimits, ServiceConfig, ServiceFunction,
 from ..topology import synthetic
 from ..topology.compiler import NetworkSpec, Topology, compile_topology
 from .engine import SimEngine
-from .state import SimState, TrafficSchedule
+from .state import SimState, TrafficSchedule, stack_traffic
 from .traffic import generate_traffic
 
 # tests/test_debug_and_golden.py: seed 42, uniform schedule, caps 4,
@@ -42,10 +44,10 @@ GOLDEN_AVG_E2E_TOL = 0.1
 
 @dataclass
 class SubstepCase:
-    """One scenario: an engine, a topology (shared by the replicas), one
-    TrafficSchedule per replica stacked [B, ...] (replica r's drawn with
-    ``seeds[r]``), a schedule [B, N, C, S, N] and placement [B, N, P] held
-    for ``intervals`` intervals."""
+    """One scenario: an engine, a topology (shared by the replicas, or
+    stacked per replica), one TrafficSchedule per replica stacked [B, ...]
+    (replica r's drawn with ``seeds[r]``), a schedule [B, N, C, S, N] and
+    placement [B, N, P] held for ``intervals`` intervals."""
 
     name: str
     engine: SimEngine
@@ -107,10 +109,8 @@ def _place(limits: EnvLimits, pairs) -> np.ndarray:
 def _case(name, service, cfg, limits, topo, sched, place, intervals,
           steps, seeds=(0,)) -> SubstepCase:
     engine = SimEngine(service, cfg, limits)
-    per = [generate_traffic(cfg, service, topo, steps, seed=s) for s in seeds]
-    traffic = TrafficSchedule(**{
-        f: torch.stack([getattr(t, f) for t in per])
-        for f in TrafficSchedule._RANKS})
+    traffic = stack_traffic([generate_traffic(cfg, service, topo, steps,
+                                              seed=s) for s in seeds])
     b = len(seeds)
     sched = np.broadcast_to(sched, (b,) + sched.shape[-4:]) \
         if sched.ndim == 4 else sched
@@ -223,20 +223,29 @@ def wide_range_case() -> SubstepCase:
     return case
 
 
-def _seeded_case(name: str, service: ServiceConfig, cfg: SimConfig,
-                 limits: EnvLimits, topo: Topology, batch: int,
-                 intervals: int, seed: int) -> SubstepCase:
-    """``batch`` replicas, each with its own traffic seed and its own
-    seeded non-uniform schedule (rows over real nodes, some weights zero)
-    and placement (each real node hosts each SF with probability 0.8)."""
-    nm = topo.node_mask.numpy()
+def _seeded_tables(limits: EnvLimits, node_mask: np.ndarray, batch: int,
+                   seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Per replica a seeded non-uniform schedule (rows over the replica's
+    real nodes, some weights zero) and placement (each real node hosts
+    each SF with probability 0.8); ``node_mask`` [N] or [B, N]."""
+    nm = np.broadcast_to(node_mask, (batch, limits.max_nodes))
     rng = np.random.default_rng(seed)
     w = rng.uniform(size=(batch,) + limits.scheduling_shape)
-    w = np.where(w < 0.6, 0.0, w) * nm
+    w = np.where(w < 0.6, 0.0, w) * nm[:, None, None, None, :]
     w[..., 0] += 1e-3 * (w.sum(-1) == 0)     # no row without a destination
     sched = (w / w.sum(-1, keepdims=True)).astype(np.float32)
     place = (rng.uniform(size=(batch, limits.max_nodes, limits.sf_pool))
-             < 0.8) & nm[:, None]
+             < 0.8) & nm[:, :, None]
+    return sched, place
+
+
+def _seeded_case(name: str, service: ServiceConfig, cfg: SimConfig,
+                 limits: EnvLimits, topo: Topology, batch: int,
+                 intervals: int, seed: int) -> SubstepCase:
+    """``batch`` replicas, each with its own traffic seed, schedule and
+    placement (``_seeded_tables``)."""
+    sched, place = _seeded_tables(limits, topo.node_mask.numpy(), batch,
+                                  seed)
     return _case(name, service, cfg, limits, topo, sched,
                  place, intervals=intervals, steps=max(intervals, 4),
                  seeds=tuple(seed + 100 + r for r in range(batch)))
@@ -323,6 +332,145 @@ def golden_case() -> SubstepCase:
                  intervals=20, steps=20, seeds=(42,))
 
 
+# the mixed batch's networks, padded to Abilene's 24 nodes / 37 edges
+MIXED_TOPO_MIX = "abilene,star12,ring10,line6,random12:7"
+
+
+def _mixed_case(name: str, topo: Topology, traffic: TrafficSchedule,
+                cfg: SimConfig, intervals: int, seed: int,
+                seeds: Tuple[int, ...]) -> SubstepCase:
+    """A case of per-replica topologies ``topo`` [B, ...] on the abc
+    chain with seeded per-replica schedules and placements."""
+    service = abc_service()
+    limits = EnvLimits.for_service(service, max_nodes=topo.max_nodes,
+                                   max_edges=topo.max_edges)
+    batch = topo.node_cap.shape[0]
+    sched, place = _seeded_tables(limits, topo.node_mask.numpy(), batch,
+                                  seed)
+    return SubstepCase(name, SimEngine(service, cfg, limits), topo, traffic,
+                       torch.from_numpy(sched), torch.from_numpy(place),
+                       intervals, seeds)
+
+
+def mixed_topology_case(batch: int = 8, intervals: int = 3) -> SubstepCase:
+    """A mixed batch: ``batch`` replicas round-robin over Abilene, star12,
+    ring10, line6 and random12:7 (``MIXED_TOPO_MIX``) in one 24/37 bucket,
+    each with its own host traffic (seed ``100 + r``): kernel #2 reads a
+    different topology per replica through its per-replica strides."""
+    from ..topology.compiler import TopologyBucket
+    from ..topology.scenarios import (DEFAULT_REGISTRY, build_mix_entries,
+                                      mix_traffic_host, plan_mix)
+
+    cfg = SimConfig(ttl_choices=(100.0,), inter_arrival_mean=5.0)
+    bucket = TopologyBucket(24, 37)
+    entries = build_mix_entries(MIXED_TOPO_MIX, DEFAULT_REGISTRY, bucket)
+    plan = plan_mix(entries, batch, bucket, cfg, intervals)
+    seeds = tuple(100 + r for r in range(batch))
+    traffic = mix_traffic_host(plan, cfg, abc_service(), intervals,
+                               seed_for=lambda r: seeds[r])
+    return _mixed_case("mixed_topology", plan.topo, traffic, cfg, intervals,
+                       seed=21, seeds=seeds)
+
+
+def _fault_case(name: str, faults: str) -> SubstepCase:
+    """The 3-node line (links of capacity 100, nodes of 10, padded to 8/8)
+    under a fault plan, everything scheduled to node 1 and placed there,
+    two replicas of host traffic, 3 intervals."""
+    from ..topology.scenarios import parse_topo_faults
+
+    limits = EnvLimits(max_nodes=8, max_edges=8, num_sfcs=1, max_sfs=3)
+    cfg = SimConfig(ttl_choices=(100.0,))
+    topo = _line()
+    plan = parse_topo_faults(faults)
+    per = [generate_traffic(cfg, _service(), topo, 4, seed=s, faults=plan)
+           for s in (0, 1)]
+    place = _place(limits, PLACE_ALL1)
+    b = len(per)
+    return SubstepCase(
+        name, SimEngine(_service(), cfg, limits), topo, stack_traffic(per),
+        torch.from_numpy(np.broadcast_to(_sched_to(limits, 1),
+                                         (b,) + limits.scheduling_shape)
+                         .copy()),
+        torch.from_numpy(np.broadcast_to(place, (b,) + place.shape).copy()),
+        3, (0, 1))
+
+
+def link_fault_case() -> SubstepCase:
+    """The line with link 0 (ingress -> node 1) zeroed from interval 1:
+    from then on every flow forwarded over it is dropped for link
+    capacity (the per-interval ``edge_cap_t`` row)."""
+    return _fault_case("link_fault", "link@1.0")
+
+
+def node_fault_case() -> SubstepCase:
+    """The line with node 1 (where every SF runs) zeroed from interval 1:
+    from then on its processing is refused for node capacity."""
+    return _fault_case("node_fault", "node@1.1")
+
+
+def factory_case(batch: int = 16, intervals: int = 3,
+                 seed: int = 5) -> SubstepCase:
+    """``batch`` scenario-factory draws (``factory:all+shapes~faults``,
+    every replica faulted: ``fault_rate`` 1) in the 24/37 bucket, sampled
+    on the CPU from a generator seeded ``seed``: per-replica topologies,
+    shaped traffic and link or node faults at once."""
+    import dataclasses as dc
+
+    from ..topology.factory import ScenarioFactory, parse_factory
+
+    cfg = SimConfig(ttl_choices=(100.0,), inter_arrival_mean=5.0)
+    spec = dc.replace(parse_factory("factory:all+shapes~faults"),
+                      fault_rate=1.0)
+    factory = ScenarioFactory(spec, cfg, abc_service(), intervals,
+                              max_nodes=24, max_edges=37, device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    probs = torch.full((spec.num_families,), 1.0 / spec.num_families)
+    topo, traffic = factory.sample_batch(gen, probs, batch)
+    return _mixed_case("factory", topo, traffic.map(
+        lambda t: t.contiguous()), cfg, intervals, seed=seed + 1,
+        seeds=(seed,) * batch)
+
+
+def generalization_cases() -> List[SubstepCase]:
+    """The generalization path's inputs of kernel #2: a mixed batch, a
+    link fault, a node fault and factory draws.  None takes the
+    sequential admission scan (``serial_rounds`` stays 0)."""
+    return [mixed_topology_case(), link_fault_case(), node_fault_case(),
+            factory_case()]
+
+
+def mixed_attention_inputs(batch: int = 100, features: int = 22,
+                           seed: int = 0):
+    """Kernel #1's inputs on a mixed batch of graphs, as the
+    generalization path's learn bursts give it: ``batch`` graphs taken in
+    turn from the mixed case's five networks and from scenario-factory
+    draws (4 to 24 real nodes in the 24/37 bucket), their dense
+    adjacency with self-loops on real nodes (``ops.gat.dense_adj``), and
+    seeded unit-normal ``xl``, ``xr``, ``att``, ``bias`` and a grad_out.
+    Returns CPU tensors (xl, xr, att, bias, adj, grad)."""
+    from ..ops.gat import dense_adj
+
+    mixed = mixed_topology_case(batch=5, intervals=1).topo
+    drawn = factory_case(batch=max(batch - 5, 1), intervals=1).topo
+    pick = lambda t, r: t.map(lambda x: x[r])
+    graphs = [pick(mixed, r) for r in range(5)] \
+        + [pick(drawn, r) for r in range(drawn.node_cap.shape[0])]
+    graphs = [graphs[r % len(graphs)] for r in range(batch)]
+    ei, em, nm = [], [], []
+    for g in graphs:
+        e, m = g.directed_edge_index()
+        ei.append(e)
+        em.append(m)
+        nm.append(g.node_mask)
+    adj = dense_adj(torch.stack(ei), torch.stack(em), torch.stack(nm))
+    rng = np.random.default_rng(seed)
+    n = adj.shape[-1]
+    f = lambda *shape: torch.from_numpy(
+        rng.normal(size=shape).astype(np.float32))
+    return (f(batch, n, features), f(batch, n, features), f(features),
+            f(features), adj, f(batch, n, features))
+
+
 def all_cases(abilene_batch: int = 64) -> List[SubstepCase]:
     """The battery ``chip_smoke.py`` runs: the six scenarios, the WRR
     triangle, the saturated link, fractional rates, rates of a range no
@@ -362,7 +510,9 @@ def run_case(case: SubstepCase, device, plain: bool = False
         if plain:
             state, cap_now = engine.begin_interval(
                 state, traffic.expand(b), sched, place)
-            state = substep_plain(engine, state, topo.expand(b),
+            topo_i = engine.interval_topology(state, topo.expand(b),
+                                              traffic.expand(b))
+            state = substep_plain(engine, state, topo_i,
                                   traffic.expand(b), cap_now, z)
             state = state.replace(run_idx=state.run_idx + 1)
         else:

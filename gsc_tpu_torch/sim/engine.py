@@ -36,6 +36,11 @@ whole-slot sums) may add in another order than XLA does, so they agree
 bit for bit only where the traffic is integer-valued.  The whole-slot sums
 add in slot order (``slot_order_sum``), as kernel #2 does.
 
+A link-fault schedule (``sim.state.EdgeCapSchedule``) replaces the
+topology's edge capacities by its ``edge_cap_t`` row of the current
+interval for that whole interval (``interval_topology``), on the card and
+on the CPU alike.
+
 Randomness: the processing-delay noise comes in from outside (``noise``,
 or drawn from a ``torch.Generator``), the same way the JAX package's
 megakernel path draws it outside its kernel.  Deterministic processing
@@ -272,6 +277,7 @@ class SimEngine:
         traffic = traffic.expand(b)
         state, cap_now = self.begin_interval(state, traffic, schedule,
                                              placement)
+        topo = self.interval_topology(state, topo, traffic)
         # the megakernel: one launch for the interval on the card, the
         # plain substep repeated on the CPU (whatever ``substep_impl`` says)
         from ..ops.substep import substep_megakernel
@@ -300,6 +306,18 @@ class SimEngine:
         cap_now = traffic.node_cap[torch.arange(b, device=idx_now.device),
                                   idx_now]                 # [B, N]
         return state, cap_now
+
+    def interval_topology(self, state: SimState, topo: Topology,
+                          traffic: TrafficSchedule) -> Topology:
+        """``topo`` (with the batch dim) for this interval: a link-fault
+        schedule's current ``edge_cap_t`` row [B, E] in place of the
+        static edge capacities; unchanged without an edge table."""
+        if traffic.edge_cap_t is None:
+            return topo
+        table = traffic.edge_cap_t                  # [B, T, E]
+        idx = state.run_idx.clamp(0, table.shape[1] - 1).long()
+        return topo.replace(edge_cap=table[
+            torch.arange(state.batch, device=idx.device), idx])
 
     # ---------------------------------------------------------------- substep
     def substep(self, state: SimState, topo: Topology,

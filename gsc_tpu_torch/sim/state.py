@@ -5,7 +5,9 @@ replica's state, every tensor here carries a written-out leading batch dim
 [B] of env replicas: ``FlowTable`` is [B, M] flow slots, ``SimMetrics``
 holds [B]-shaped counters, and ``SimState`` the per-(node, SF) bookkeeping,
 schedule, in-flight edge load and capacity-release rings of each replica.
-``TrafficSchedule`` is shared by all replicas or carries its own [B] dim.
+``TrafficSchedule`` is shared by all replicas or carries its own [B] dim;
+an ``EdgeCapSchedule`` adds the per-interval edge capacities of a
+link-fault scenario.
 """
 from __future__ import annotations
 
@@ -149,6 +151,10 @@ class TrafficSchedule(TensorTree):
     ingress_active: torch.Tensor  # [T, N] bool per control interval
     node_cap: torch.Tensor     # [T, N] f32 per control interval
 
+    # Not a field: a schedule without a per-interval edge table keeps the
+    # topology's edge capacities (see EdgeCapSchedule).
+    edge_cap_t = None
+
     _RANKS = {"arr_time": 1, "arr_ingress": 1, "arr_dr": 1,
               "arr_duration": 1, "arr_ttl": 1, "arr_sfc": 1,
               "arr_egress": 1, "ingress_active": 2, "node_cap": 2}
@@ -156,6 +162,43 @@ class TrafficSchedule(TensorTree):
     @property
     def capacity(self) -> int:
         return self.arr_time.shape[-1]
+
+
+@dataclass
+class EdgeCapSchedule(TrafficSchedule):
+    """A schedule of a link-fault scenario: ``edge_cap_t`` [T, E] (or
+    [B, T, E]) holds every interval's edge capacities, whose current row
+    the engine takes in place of ``topo.edge_cap`` at each interval
+    start.  Only such schedules carry the field, so every other schedule
+    keeps the nine fields of :class:`TrafficSchedule`."""
+
+    edge_cap_t: torch.Tensor = None
+
+    _RANKS = {**TrafficSchedule._RANKS, "edge_cap_t": 2}
+
+
+def attach_edge_cap(traffic: TrafficSchedule,
+                  edge_cap_t: Optional[torch.Tensor]) -> TrafficSchedule:
+    """``traffic`` with the per-interval edge table ``edge_cap_t`` (an
+    :class:`EdgeCapSchedule`), or without one for None."""
+    base = {n: getattr(traffic, n) for n in TrafficSchedule._RANKS}
+    if edge_cap_t is None:
+        return TrafficSchedule(**base)
+    return EdgeCapSchedule(**base, edge_cap_t=edge_cap_t)
+
+
+def stack_traffic(schedules) -> TrafficSchedule:
+    """Stack unbatched schedules along a new leading [B] dim; their edge
+    tables must be all None or all present."""
+    tables = [t.edge_cap_t for t in schedules]
+    if any(e is None for e in tables) and not all(e is None for e in tables):
+        raise ValueError("stack_traffic: some schedules carry an edge "
+                         "table and some do not")
+    stacked = TrafficSchedule(**{
+        n: torch.stack([getattr(t, n) for t in schedules])
+        for n in TrafficSchedule._RANKS})
+    return attach_edge_cap(stacked, None if tables[0] is None
+                         else torch.stack(tables))
 
 
 @dataclass

@@ -2,30 +2,41 @@
 
 The port's own copy of the numpy path of ``gsc_tpu.sim.traffic``: the
 whole episode's traffic (arrival times, rates, sizes, TTLs, SFC and
-egress choices, per-interval ingress activity and node capacity) is
-sampled on the host with numpy into one dense sorted schedule that the
-engine consumes.  The random draws come in the same order as the JAX
-package's numpy path, so one seed gives byte-equal schedules.
+egress choices, per-interval ingress activity and node capacity, and for
+link faults the per-interval edge capacity) is sampled on the host with
+numpy into one dense sorted schedule that the engine consumes.  The
+random draws come in the same order as the JAX package's numpy path, so
+one seed gives byte-equal schedules.
 
 - deterministic vs Poisson arrivals: inter-arrival = mean or Exp(mean);
   first flow at t=0;
 - dr ~ Normal(dr_mean, dr_stdev); size = shape (deterministic) or
   Pareto(shape)+1; joint rejection-resampling of negatives;
 - duration = size/dr * 1000 ms;
-- SFC, egress and TTL are uniform choices.
-
-The MMPP, trace and fault options of the JAX package are not ported.
+- SFC, egress and TTL are uniform choices;
+- MMPP: per-ingress two-state Markov chain switching with probability
+  ``switch_p`` at every ``run_duration`` boundary; the arrival mean
+  follows the current state.  Initial state: ``init_state``, or random
+  per ingress with ``rand_init_state``;
+- trace: rows (time, node, inter_arrival_mean[, cap]) set a node's
+  arrival mean from that time on; 'None' deactivates the ingress (it
+  restarts at the start of the next interval a later row activates); a
+  cap raises the node's capacity from that interval on;
+- faults (``topology.scenarios.TopoFault``): node faults zero rows of the
+  per-interval node capacities, link faults those of the per-interval
+  edge capacities (``EdgeCapSchedule.edge_cap_t``).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import math
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config.schema import ServiceConfig, SimConfig
 from ..topology.compiler import Topology
-from .state import TrafficSchedule
+from .state import TrafficSchedule, attach_edge_cap
 
 
 def traffic_capacity(cfg: SimConfig, num_ingress: int, episode_steps: int,
@@ -34,15 +45,69 @@ def traffic_capacity(cfg: SimConfig, num_ingress: int, episode_steps: int,
     episodes), rounded up to a multiple of 64."""
     horizon = episode_steps * cfg.run_duration
     mean = cfg.inter_arrival_mean
+    if cfg.use_states:
+        mean = min(s.inter_arr_mean for s in cfg.states)
     expected = horizon / max(mean, 1e-6) * max(num_ingress, 1)
     cap = int(expected * pad_factor) + 8 * max(num_ingress, 1)
     return ((cap + 63) // 64) * 64
 
 
+class TraceEvents:
+    """A parsed trace CSV (time,node,inter_arrival_mean[,cap])."""
+
+    def __init__(self, rows: Sequence[Tuple[float, int, Optional[float],
+                                            Optional[float]]]):
+        # each row: (time, node index, inter_arrival_mean or None, cap or None)
+        self.rows = sorted(rows, key=lambda r: r[0])
+
+    @classmethod
+    def from_csv(cls, path: str, node_name_to_idx) -> "TraceEvents":
+        import csv
+
+        rows = []
+        with open(path) as f:
+            for rec in csv.DictReader(f):
+                t = float(rec["time"])
+                idx = node_name_to_idx(rec["node"])
+                mean_raw = rec.get("inter_arrival_mean")
+                mean = (None if mean_raw in (None, "", "None")
+                        else float(mean_raw))
+                cap = rec.get("cap")
+                cap = None if cap in (None, "", "None") else float(cap)
+                rows.append((t, idx, mean, cap))
+        return cls(rows)
+
+
+def _mmpp_interval_means(cfg: SimConfig, ing_idx: np.ndarray, steps: int,
+                         rng: np.random.Generator) -> np.ndarray:
+    """Per-(interval, ingress) arrival means of the two-state chain: the
+    state switches at the end of every interval with the current state's
+    probability."""
+    names = [s.name for s in cfg.states]
+    means = {s.name: s.inter_arr_mean for s in cfg.states}
+    switch = {s.name: s.switch_p for s in cfg.states}
+    n_ing = len(ing_idx)
+    if cfg.rand_init_state:
+        cur = [names[rng.integers(len(names))] for _ in range(n_ing)]
+    else:
+        cur = [cfg.init_state] * n_ing
+    out = np.zeros((steps, n_ing), np.float64)
+    for t in range(steps):
+        out[t] = [means[c] for c in cur]
+        cur = [(names[1 - names.index(c)] if rng.random() < switch[c]
+                else c) for c in cur]
+    return out
+
+
 def generate_traffic(cfg: SimConfig, service: ServiceConfig, topo: Topology,
                      episode_steps: int, seed: int,
-                     capacity: Optional[int] = None) -> TrafficSchedule:
-    """Sample one episode of traffic for one (unbatched) topology."""
+                     trace: Optional[TraceEvents] = None,
+                     capacity: Optional[int] = None, faults: Sequence = (),
+                     with_edge_cap: bool = False) -> TrafficSchedule:
+    """Sample one episode of traffic for one (unbatched) topology.
+    ``faults`` (``TopoFault``s) zero node or link capacities from their
+    interval on; ``with_edge_cap`` attaches the edge table even without a
+    link fault, so that the schedules of a mixed batch stack."""
     rng = np.random.default_rng(seed)
     n = topo.max_nodes
     node_cap = topo.node_cap.cpu().numpy()
@@ -54,9 +119,26 @@ def generate_traffic(cfg: SimConfig, service: ServiceConfig, topo: Topology,
     horizon = episode_steps * cfg.run_duration
 
     means = np.full((episode_steps, n), np.nan)
-    means[:, ing_idx] = cfg.inter_arrival_mean
+    if cfg.use_states and len(ing_idx):
+        means[:, ing_idx] = _mmpp_interval_means(cfg, ing_idx, episode_steps,
+                                                 rng)
+    else:
+        means[:, ing_idx] = cfg.inter_arrival_mean
     caps = np.broadcast_to(node_cap, (episode_steps, n)).copy()
+    if trace is not None:
+        for (t0, node, mean, cap) in trace.rows:
+            k0 = min(int(t0 // cfg.run_duration), episode_steps)
+            if node in ing_idx:
+                means[k0:, node] = np.nan if mean is None else mean
+            if cap is not None:
+                caps[k0:, node] = cap
     active = ~np.isnan(means)
+
+    edge_cap_t = None
+    if faults or with_edge_cap:
+        from ..topology.scenarios import apply_faults
+        caps, edge_cap_t = apply_faults(topo, caps, episode_steps, faults,
+                                        with_edge_cap)
 
     cap_f = capacity if capacity is not None else traffic_capacity(
         cfg, len(ing_idx), episode_steps)
@@ -82,7 +164,16 @@ def generate_traffic(cfg: SimConfig, service: ServiceConfig, topo: Topology,
     for node in ing_idx:
         t = 0.0
         while t < horizon:
-            mean = means[int(t // cfg.run_duration), node]
+            k = int(t // cfg.run_duration)
+            mean = means[k, node]
+            if math.isnan(mean):
+                # deactivated: jump to the next interval a later trace
+                # row activates, if any
+                nxt = np.nonzero(active[k:, node])[0]
+                if len(nxt) == 0:
+                    break
+                t = float((k + nxt[0]) * cfg.run_duration)
+                continue
             # flow generated first, then the inter-arrival sleep
             dr, size = sample_dr_size()
             dur = (size / dr) * 1000.0 if dr > 0 else 0.0
@@ -110,7 +201,7 @@ def generate_traffic(cfg: SimConfig, service: ServiceConfig, topo: Topology,
             out[:f] = np.asarray(vals, dtype)[order]
         return torch.from_numpy(out)
 
-    return TrafficSchedule(
+    return attach_edge_cap(TrafficSchedule(
         arr_time=pad_f(times, np.inf, np.float32),
         arr_ingress=pad_f(ingress, 0, np.int32),
         arr_dr=pad_f(drs, 0.0, np.float32),
@@ -120,4 +211,4 @@ def generate_traffic(cfg: SimConfig, service: ServiceConfig, topo: Topology,
         arr_egress=pad_f(egs, -1, np.int32),
         ingress_active=torch.from_numpy(active),
         node_cap=torch.from_numpy(caps.astype(np.float32)),
-    )
+    ), edge_cap_t)

@@ -384,6 +384,66 @@ def stack_topologies(topos) -> Topology:
                        for f in dataclasses.fields(Topology)})
 
 
+class TopologyBucket:
+    """One (max_nodes, max_edges) padding for several networks, whose
+    compiled topologies stack along a leading replica dim.  Both steps
+    are memoized: ``compile(key, spec, topo_id)`` per (key, topo_id), and
+    ``stack(topos)`` per tuple of member objects, so a mixed batch's
+    stacked topology is the same object every episode."""
+
+    def __init__(self, max_nodes: int = 24, max_edges: int = 37):
+        self.max_nodes = max_nodes
+        self.max_edges = max_edges
+        self._compiled = {}   # (key, topo_id) -> Topology
+        self._stacked = {}    # tuple(id(t)) -> (members, stacked)
+
+    def compile(self, key, spec: NetworkSpec, topo_id: int = 0) -> Topology:
+        """``spec`` compiled into this bucket's padding; raises ValueError
+        naming the bucket when it does not fit."""
+        memo_key = (key, topo_id)
+        hit = self._compiled.get(memo_key)
+        if hit is not None:
+            return hit
+        try:
+            topo = compile_topology(spec, max_nodes=self.max_nodes,
+                                    max_edges=self.max_edges,
+                                    topo_id=topo_id)
+        except ValueError as e:
+            raise ValueError(
+                f"topology {key!r} does not fit bucket "
+                f"[{self.max_nodes} nodes, {self.max_edges} edges]: {e}")
+        self._compiled[memo_key] = topo
+        return topo
+
+    def adopt(self, key, topo: Topology, topo_id: int = 0) -> Topology:
+        """An already compiled topology of this bucket's padding,
+        stamped ``topo_id``."""
+        if (topo.max_nodes, topo.max_edges) != (self.max_nodes,
+                                                self.max_edges):
+            raise ValueError(
+                f"topology {key!r} is padded to [{topo.max_nodes}, "
+                f"{topo.max_edges}], bucket is [{self.max_nodes}, "
+                f"{self.max_edges}]")
+        memo_key = (key, topo_id)
+        hit = self._compiled.get(memo_key)
+        if hit is not None:
+            return hit
+        stamped = topo.replace(topo_id=torch.tensor(topo_id,
+                                                    dtype=torch.int32))
+        self._compiled[memo_key] = stamped
+        return stamped
+
+    def stack(self, topos) -> Topology:
+        """Memoized :func:`stack_topologies` over bucket members."""
+        key = tuple(id(t) for t in topos)
+        hit = self._stacked.get(key)
+        if hit is not None:
+            return hit[1]
+        stacked = stack_topologies(list(topos))
+        self._stacked[key] = (tuple(topos), stacked)
+        return stacked
+
+
 def check_dt_quantization(topo: Topology, dt: float, name: str = "") -> bool:
     """Warn when edge delays are not integer multiples of ``dt``: the
     fixed-step engine quantizes hop timers to the substep grid, which then

@@ -155,3 +155,67 @@ def test_the_default_train_run_runs_with_jax_yaml_and_click_blocked(
         assert (tmp_path / "o" / name).is_file(), name
     assert (tmp_path / "r" / "profile" / "trace.json").is_file()
     assert (tmp_path / "r" / "result.yaml").is_file()
+
+
+# the generalization path's modules, which the rglob above must keep
+# finding
+GENERALIZATION_MODULES = (
+    "sim/traffic.py", "sim/traffic_device.py", "topology/scenarios.py",
+    "topology/factory.py", "env/curriculum.py", "env/permutation.py",
+    "env/driver.py", "parallel/dp.py", "parallel/harness.py")
+
+
+@pytest.mark.parametrize("mix", ["schedule,ring5~link@1.0,random6:3",
+                                 "factory:all+shapes~faults"])
+def test_generalization_training_runs_with_jax_yaml_and_click_blocked(mix):
+    """Replica training under a registry mix (host and device traffic)
+    and the scenario factory with the curriculum, node shuffling on, in a
+    process where every blocked module fails to import."""
+    for rel in GENERALIZATION_MODULES:
+        assert (PKG / rel).is_file(), rel
+    code = "\n".join([
+        "import sys",
+        f"for name in {BLOCKED!r}:",
+        "    for mod in [m for m in sys.modules if m == name or "
+        "m.startswith(name + '.')]:",
+        "        del sys.modules[mod]",
+        "    sys.modules[name] = None",
+        "from gsc_tpu_torch.agents.trainer import Trainer",
+        "from gsc_tpu_torch.config import abc_service",
+        "from gsc_tpu_torch.config.schema import (AgentConfig, EnvLimits,",
+        "    SimConfig)",
+        "from gsc_tpu_torch.env.curriculum import CurriculumConfig",
+        "from gsc_tpu_torch.env.driver import EpisodeDriver",
+        "from gsc_tpu_torch.env.env import ServiceCoordEnv",
+        "from gsc_tpu_torch.obs import RunObserver",
+        "from gsc_tpu_torch.topology import synthetic",
+        "from gsc_tpu_torch.topology.compiler import compile_topology",
+        "agent = AgentConfig(episode_steps=2, gnn_features=4,",
+        "    gnn_num_layers=1, gnn_num_iter=1, actor_hidden_layer_nodes=(8,),",
+        "    critic_hidden_layer_nodes=(8,), batch_size=4, mem_limit=8,",
+        "    nb_steps_warmup_critic=2, shuffle_nodes=True)",
+        "sim = SimConfig(run_duration=10.0, ttl_choices=(100.0,))",
+        "limits = EnvLimits.for_service(abc_service(), max_nodes=8,",
+        "    max_edges=8)",
+        "env = ServiceCoordEnv(abc_service(), sim, agent, limits)",
+        "topo = compile_topology(synthetic.triangle(), max_nodes=8,",
+        "    max_edges=8)",
+        "driver = EpisodeDriver.single(topo, sim, abc_service(), 2, 'tri',",
+        f"    topo_mix={mix!r})",
+        "obs = RunObserver(None, learn=True).start()",
+        "t = Trainer(env, driver, agent, device='cpu', obs=obs)",
+        "t.train_parallel(2, 4, chunk=2,",
+        "    curriculum=CurriculumConfig(floor=0.5))",
+        "if driver.factory_spec is None:",
+        "    t.train_parallel(1, 4, chunk=2, device_traffic=False)",
+        "obs.close()",
+        "leaked = [m for m in sys.modules if sys.modules[m] is not None and "
+        f"m.split('.')[0] in {BLOCKED!r}]",
+        "assert not leaked, leaked",
+        "print('ok')",
+    ])
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert res.stdout.strip().endswith("ok")

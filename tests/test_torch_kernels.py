@@ -9,8 +9,10 @@ card (marker ``cuda``) the forward kernel is held against its plain
 version at the serving shapes and one N > 32 case, and the backward kernel
 against ``attention_backward_plain`` at the shapes of
 tests/test_torch_gat_backward.py and the learn burst's (100, 24, 22), the
-latter also with a saturated softmax; two backward launches on the same
-inputs must give the same bits.  Both backward forms are also held, at
+latter also with a saturated softmax, and both on a mixed batch of graphs
+of 4 to 24 real nodes (the generalization path's); two backward launches
+on the same inputs must give the same bits.  Both backward forms are
+also held, at
 both aggregations and on unit-normal and saturated inputs, at the sizes
 where the backward kernels change shape (``EDGE_N``: 1, 2, 31, 32, 33, 96,
 255, 256 nodes) at batch 1 and at a batch whose last wave of CTAs is not
@@ -253,6 +255,33 @@ def test_backward_kernel_matches_plain_on_card():
                     (lead, n, f, mean, err)
             empty = ~args[4].any(dim=-1)
             assert torch.all(got[1][empty] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mean", [True, False])
+def test_mixed_graph_batch_matches_plain_on_card(mean):
+    """Forward and backward at the learn burst's (100, 24, 22) on a mixed
+    batch of graphs with 4 to 24 real nodes (``cases.
+    mixed_attention_inputs``), within the tolerances above."""
+    from gsc_tpu_torch.sim.cases import mixed_attention_inputs
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (the kernel has no CPU "
+                    "mode; its plain version is tested above)")
+    xl, xr, att, bias, adj, grad = (t.cuda() for t in
+                                    mixed_attention_inputs(100, 22, seed=3))
+    got = gat_attention(xl, xr, att, bias, adj, mean)
+    torch.testing.assert_close(got, attention_plain(xl, xr, att, bias, adj,
+                                                    mean),
+                               rtol=RTOL, atol=ATOL)
+    assert torch.all(got[~adj.any(dim=-1)] == 0)
+    back = gat_attention_backward(grad, xl, xr, att, adj, mean)
+    want = attention_backward_plain(grad, xl, xr, att, adj, mean)
+    for g, w in zip(back, want):
+        err = float((g - w).abs().max())
+        assert err <= BWD_SCALE * float(w.abs().max()) + BWD_ATOL, err
+    again = gat_attention_backward(grad, xl, xr, att, adj, mean)
+    assert all(torch.equal(a, b) for a, b in zip(again, back))
 
 
 @pytest.mark.cuda

@@ -8,7 +8,9 @@ and skips without a card (the wrapper's CPU behaviour is tested in
 tests/test_torch_substep.py).  On the card the kernel is held against its
 plain version (bit for bit on CPU copies of the inputs, with its count of
 admission rounds that took the sequential scan above 0 only on the
-wide-range case), its stage-clocked build against the kernel, the
+wide-range case; the generalization path's mixed batch, link and node
+faults and factory draws among them), its stage-clocked build against
+the kernel, the
 attention kernel's gradients through its ``autograd.Function`` against
 the dense path's, and the wrapper must refuse CPU inputs and a resource
 function that the kernel does not compile in.
@@ -77,6 +79,65 @@ def test_megakernel_matches_plain_on_card():
             assert cases.bit_equal(g.to("cpu"), want_cpu[i])
         again = cases.run_case(case, dev)
         assert cases.bit_equal(again[-1], got[-1])
+
+
+# the generalization path's inputs: per-replica topologies, per-interval
+# edge capacities, zeroed links and nodes, shaped and factory traffic
+GENERALIZATION_CASES = {
+    "mixed_topology": cases.mixed_topology_case,
+    "link_fault": cases.link_fault_case,
+    "node_fault": cases.node_fault_case,
+    "factory": cases.factory_case,
+}
+
+
+@pytest.mark.parametrize("name", sorted(GENERALIZATION_CASES))
+def test_kernel_arguments_of_generalization_cases(name):
+    """The kernel's argument struct, built over CPU tensors: one stride
+    per table group, shared tables made per replica where another table
+    of their group is (a link-fault row of edge capacities beside shared
+    delays), the interval's edge-capacity row in place of the
+    topology's."""
+    case = GENERALIZATION_CASES[name]()
+    b, eng = case.batch, case.engine
+    traffic = case.traffic.expand(b)
+    state, cap = eng.begin_interval(eng.init(b, "cpu"), traffic,
+                                    case.schedule, case.placement)
+    state = state.replace(run_idx=state.run_idx + 2)
+    topo = eng.interval_topology(state, case.topo.expand(b), traffic)
+    args, _ = substep_megakernel._prepare(
+        eng, state, topo, traffic, cap, case.noise(0), None,
+        torch.zeros(1, dtype=torch.int64), None)
+    per_replica = case.topo.node_cap.dim() == 2
+    assert args.topo_nn_stride == (eng.N * eng.N if per_replica else 0)
+    edge_table = case.traffic.edge_cap_t is not None
+    assert args.topo_e_stride == (eng.E if per_replica or edge_table
+                                  else 0)
+    assert args.traf_stride == case.traffic.capacity
+    if edge_table:
+        assert torch.equal(topo.edge_cap, case.traffic.edge_cap_t[:, 2])
+        assert (topo.edge_cap == 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GENERALIZATION_CASES))
+def test_megakernel_generalization_cases_bit_equal_on_card(name):
+    """Kernel #2 on the generalization cases: one launch per interval,
+    bit-equal to its plain version on CPU copies, no sequential scan,
+    relaunch bit-identical."""
+    dev = _card()
+    case = GENERALIZATION_CASES[name]()
+    assert case.name == name
+    substep_megakernel.serial_rounds = 0
+    before = substep_megakernel.launches
+    got = cases.run_case(case, dev)
+    assert substep_megakernel.launches == before + case.intervals
+    assert substep_megakernel.serial_rounds == 0
+    want_cpu = cases.run_case(case, "cpu", plain=True)
+    for g, w in zip(got, want_cpu):
+        assert cases.bit_equal(g.to("cpu"), w)
+    again = cases.run_case(case, dev)
+    assert cases.bit_equal(again[-1], got[-1])
 
 
 @pytest.mark.cuda

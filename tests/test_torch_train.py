@@ -418,10 +418,14 @@ def test_episode_matches_jax():
 
 
 def test_shuffle_nodes_is_refused():
+    """``shuffle_nodes`` draws its permutations from an explicit
+    generator: asked for one without it, the protocol refuses."""
     jenv, tenv = _envs("dense")
     agent = AgentConfig(**AGENT_KW, shuffle_nodes=True)
-    with pytest.raises(NotImplementedError, match="shuffle_nodes"):
-        ParallelDDPG(tenv, agent, B, device="cpu")
+    shuffle = ParallelDDPG(tenv, agent, B, device="cpu").shuffle
+    assert shuffle.on
+    with pytest.raises(ValueError, match="explicit torch.Generator"):
+        shuffle.init_perm(B, "cpu")
 
 
 def test_cli_train_on_cpu(tmp_path):
