@@ -104,7 +104,8 @@ Phases (any failure exits non-zero and prints no result line):
    differentiated in the actor loss) and never while acting, and on one
    sampled batch the gradients of every actor and critic parameter
    through the kernels' ``autograd.Function`` must equal the dense path's;
-   prints the rollout's env-steps/s and each learn burst's seconds;
+   prints the rollout's env-steps/s and each learn burst's seconds; the
+   run saves the f32 checkpoint that phase 17 serves;
 9. the bf16 attention kernels (``gat_attention_bf16``,
    ``gat_attention_backward_bf16``: the bf16 forms of both attention
    sources) against their plain versions at phase 3's shapes and
@@ -254,7 +255,32 @@ Phases (any failure exits non-zero and prints no result line):
    seconds, (d) and (e)'s env-steps/s and burst seconds beside the card's
    name and power limit; the kernels line's launch counts include this
    phase's;
-17. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+17. serving, whole (``serving_slice``), at the flagship serving widths
+   (Abilene at 24/37, the abc chain, GATv2 22x2x2, actor hidden 256,
+   M = 128, buckets 1, 4, 8): (a) ``cli serve`` without a checkpoint
+   serves the SPR tier, every answer equal to ``spr_schedule_action``,
+   the pool's megakernel launches and no attention launch; (b) a fleet of
+   two continuous workers, FLEET_REQUESTS requests at concurrency
+   SERVE_CONCURRENCY, from phase 8's f32 checkpoint and from phase 10's
+   bf16 one: every answer bit-identical to ``greedy_action`` at its
+   bucket, 3 attention launches per dispatch and warm-up call, kernel #1
+   on the served batches against its plain version within phase 3's
+   (f32) and phase 9's (bf16) tolerances; (c) train-while-serve:
+   ``cli train --replicas 64 --hot-swap-dir`` for TWS_EPISODES episodes
+   of TWS_STEPS steps, publishing every episode, while a two-worker fleet
+   watching that directory serves closed-loop load: zero errors and
+   rejections, every version adopted once by each worker, every answer
+   bit-identical to a single-shot call at its bucket under the weights of
+   its stamped version, p50/p99 before and while training, each swap's
+   ``swap_ms``; (d) ``cli serve --trace-sample 1 --slo-p99-ms 10``:
+   ``slo.json``, each span's decomposition within 1e-2 ms of its latency,
+   the exported trace valid, and the device-to-host copies per flush
+   (``torch.profiler``) equal with tracing on and off; (e) a fleet with a
+   queue bound of 1 overloaded into overflow: every shed request answered
+   by the SPR tier and counted in ``serve_brownout_total``.  Prints each
+   part's numbers beside the card's name and power limit; the kernels
+   line's launch counts include this phase's;
+18. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Tolerances (stated here, used below): the attention kernel against its
 plain version rtol 1e-5 / atol 1e-5 (f32 in another summation order: the
@@ -422,6 +448,18 @@ BURSTS = [(64, 4, 5.0), (8, 1, 5.0), (32, 8, 50.0)]
 # env steps that build each burst's request pool
 POOL_STEPS = 8
 BUCKETS = (1, 4, 8)
+# phase 17: requests of the SPR tier, of each learned fleet, of the
+# traced run and of the device-to-host count, the closed-loop clients;
+# train-while-serve's episodes, their length, the watchers' poll and the
+# requests answered before training starts (and after the last swap); the
+# overloaded fleet's requests and clients
+SPR_REQUESTS, FLEET_REQUESTS, TRACE_REQUESTS, D2H_REQUESTS = 64, 256, 64, 64
+SERVE_CONCURRENCY = 8
+TWS_EPISODES, TWS_STEPS, TWS_POLL_S, TWS_WARM = 3, 50, 0.05, 200
+# train-while-serve's clients: fewer than the fleets' SERVE_CONCURRENCY,
+# since every client thread takes the interpreter from the trainer
+TWS_CONCURRENCY = 4
+BROWNOUT_REQUESTS, BROWNOUT_CONCURRENCY = 128, 32
 # copies of the parent commit's megakernel source and attention kernel
 # source and wrapper, present only in a run that compares them (never
 # committed)
@@ -1877,9 +1915,9 @@ def serve_from_checkpoint(torch, dev, smi, checkpoint):
               f"requests at concurrency {c}, deadline {dl:g} ms, "
               f"{summ['dispatches']} dispatches (buckets "
               f"{sorted({b for _, b in report.flushes})}); "
-              f"{summ['requests_per_s']:.1f} req/s, p50 {summ['p50_ms']:.3f} "
+              f"{summ['rps']:.1f} req/s, p50 {summ['p50_ms']:.3f} "
               f"ms, p99 {summ['p99_ms']:.3f} ms, startup "
-              f"{summ['startup_s']:.2f} s on {smi}; answers vs the plain "
+              f"{summ['startup']['startup_s']:.2f} s on {smi}; answers vs the plain "
               f"bf16 actor on CPU copies max abs diff {worst:.2e} (up to "
               f"{ambiguous} ambiguous rows per answer; actor outputs "
               f"before the threshold max abs diff {pre_diff:.2e})",
@@ -2511,8 +2549,8 @@ def serve_large(torch, dev, smi, agent, sim_cfg, checkpoint):
           f"action dim {ddpg.action_dim}): {summ['completed']} requests at "
           f"concurrency {concurrency}, {summ['dispatches']} dispatches "
           f"(buckets {sorted({b for _, b in report.flushes})}); "
-          f"{summ['requests_per_s']:.1f} req/s, p50 {summ['p50_ms']:.3f} ms, "
-          f"p99 {summ['p99_ms']:.3f} ms, startup {summ['startup_s']:.2f} s "
+          f"{summ['rps']:.1f} req/s, p50 {summ['p50_ms']:.3f} ms, "
+          f"p99 {summ['p99_ms']:.3f} ms, startup {summ['startup']['startup_s']:.2f} s "
           f"on {smi}; answers vs unbatched and plain actor max abs diff "
           f"{worst:.2e} ({ambiguous} ambiguous rows); launches: attention "
           f"{counts['gat_attention']} (3 per call), megakernel "
@@ -3183,6 +3221,438 @@ def default_run_slice(torch, dev, smi):
                    "prof_on": prof_on, "prof_off": prof_off}
 
 
+def attention_inputs_of(fn, torch):
+    """Run ``fn()`` with every attention call of the GNN recorded: a list
+    of (wrapper, inputs) per call, the inputs cloned."""
+    import gsc_tpu_torch.models.gnn as gnn
+
+    seen, real = [], gnn.attention_op
+
+    def op(dtype):
+        wrapper = real(dtype)
+
+        def call(*args):
+            seen.append((wrapper, [a.detach().clone() if torch.is_tensor(a)
+                                   else a for a in args]))
+            return wrapper(*args)
+        return call
+
+    gnn.attention_op = op
+    try:
+        fn()
+    finally:
+        gnn.attention_op = real
+    return seen
+
+
+def batch_of(pool, ks, torch, dev):
+    """A [len(ks)]-stack of pool observations on ``dev``."""
+    import numpy as np
+
+    from gsc_tpu_torch.env.observations import GraphObs
+
+    return GraphObs(**{f: torch.from_numpy(np.stack(
+        [np.asarray(getattr(pool[k], f)) for k in ks])).to(dev)
+        for f in vars(pool[0])})
+
+
+def percentiles(values):
+    import numpy as np
+
+    if not values:
+        return float("nan"), float("nan")
+    v = np.asarray(values)
+    return float(np.percentile(v, 50)), float(np.percentile(v, 99))
+
+
+def served_at_bucket(report, actor_of, torch, dev):
+    """Every answer of ``report`` against a single-shot greedy call at
+    the bucket that answered it (the request's observation in every row)
+    under the weights of its stamped version, ``actor_of(version)``:
+    bit for bit.  Returns the number of distinct single-shot calls."""
+    import numpy as np
+
+    ddpg = report.ddpg
+    want = {}
+    for (k, ans), (version, bucket, _, _) in zip(report.answers,
+                                                 report.stamps):
+        key = (version, k, bucket)
+        if key not in want:
+            with torch.inference_mode():
+                want[key] = ddpg.greedy_action(
+                    batch_of(report.pool, [k] * bucket, torch, dev),
+                    actor=actor_of(version))[0].cpu().numpy()
+        check(np.array_equal(ans, want[key]),
+              f"the answer to pool obs {k} at bucket {bucket} under version "
+              f"{version} differs from a single-shot call by "
+              f"{float(np.abs(ans - want[key]).max())}")
+    return len(want)
+
+
+def held_against_plain(report, torch, dev):
+    """Kernel #1 on the served batches (the pool at every bucket) against
+    its plain version: phase 3's tolerances in f32, one bf16 ulp of the
+    output's largest entry in bf16.  Returns the largest difference."""
+    from gsc_tpu_torch.ops.gat_attention import attention_plain
+
+    ddpg, pool = report.ddpg, report.pool
+    worst = 0.0
+    for b in BUCKETS:
+        ks = [i % len(pool) for i in range(b)]
+        with torch.inference_mode():
+            calls = attention_inputs_of(
+                lambda: ddpg.greedy_action(batch_of(pool, ks, torch, dev)),
+                torch)
+            check(len(calls) == 3, f"{len(calls)} attention calls per "
+                  "greedy call, want 3")
+            for wrapper, args in calls:
+                got = wrapper.launch(*args)
+                want = attention_plain(*args)
+                err = float((got.float() - want.float()).abs().max())
+                worst = max(worst, err)
+                if got.dtype == torch.bfloat16:
+                    check(err <= bf16_ulp(want), f"bf16 kernel != plain on "
+                          f"a served batch of {b}: {err}")
+                else:
+                    check(torch.allclose(got, want, rtol=KERNEL_RTOL,
+                                         atol=KERNEL_ATOL),
+                          f"kernel != plain on a served batch of {b}: {err}")
+    return worst
+
+
+def serving_slice(torch, dev, smi, ck_f32, ck_bf16):
+    """Phase 17: serving, whole, at the flagship serving widths (Abilene
+    padded to 24/37, the abc chain, GATv2 22x2x2, actor hidden 256,
+    M = 128, buckets 1, 4, 8): (a) the SPR tier through ``cli serve``
+    without a checkpoint; (b) a learned fleet of two continuous workers
+    from phase 8's f32 and phase 10's bf16 checkpoints; (c)
+    train-while-serve: ``cli train --replicas 64 --hot-swap-dir`` for
+    TWS_EPISODES episodes while a two-worker fleet watching the directory
+    serves closed-loop load; (d) ``cli serve --trace-sample 1
+    --slo-p99-ms 10``: slo.json, span decompositions, the exported trace,
+    and device-to-host copies per flush with tracing on and off; (e) a
+    fleet overloaded into overflow, shedding to the SPR tier.  Returns the
+    path's launches of every kernel (each count 0 before its drive, read
+    just after it) and the phase's largest kernel differences."""
+    import threading
+
+    import numpy as np
+
+    import gsc_tpu_torch.serve as serve
+    from gsc_tpu_torch import cli
+    from gsc_tpu_torch.config import abc_service
+    from gsc_tpu_torch.config.schema import EnvLimits
+    from gsc_tpu_torch.obs import (MetricsHub, RunObserver, ServeTracer,
+                                   parse_slo_spec)
+    from gsc_tpu_torch.obs.trace import export_trace, read_events
+    from gsc_tpu_torch.ops.gat_attention import (gat_attention,
+                                                 gat_attention_backward,
+                                                 gat_attention_backward_bf16,
+                                                 gat_attention_bf16)
+    from gsc_tpu_torch.ops.substep import substep_megakernel
+    from gsc_tpu_torch.serve import (GreedyServePolicy, PolicyServer,
+                                     load_version, read_latest, run_serve,
+                                     spr_schedule_action)
+    from gsc_tpu_torch.topology import synthetic
+    from gsc_tpu_torch.topology.compiler import compile_topology
+
+    ops = {"gat_attention": gat_attention,
+           "gat_attention_backward": gat_attention_backward,
+           "gat_attention_bf16": gat_attention_bf16,
+           "gat_attention_backward_bf16": gat_attention_backward_bf16,
+           "substep_megakernel": substep_megakernel}
+    total = {k: 0 for k in ops}
+    errs = {"gat_attention": 0.0, "gat_attention_bf16": 0.0}
+    laps = Laps()
+    root = tempfile.mkdtemp(prefix="gsc_serving_")
+
+    def counted(fn):
+        """``fn()`` with every count 0 before it; its counts join the
+        phase's."""
+        for op in ops.values():
+            op.launches = 0
+        res = fn()
+        counts = {k: op.launches for k, op in ops.items()}
+        for k, n in counts.items():
+            total[k] += n
+        return res, counts
+
+    def line(s):
+        return (f"{s['completed']} requests, {s['rps']:.1f} req/s, p50 "
+                f"{s['p50_ms']:.3f} ms, p99 {s['p99_ms']:.3f} ms")
+
+    common = dict(device=dev, pool_steps=POOL_STEPS, buckets=BUCKETS,
+                  seed=0)
+    try:
+        # (a) the SPR tier: cli serve without a checkpoint
+        reports = []
+        real = serve.run_serve
+        serve.run_serve = lambda *a, **k: reports.append(real(*a, **k)) \
+            or reports[-1]
+        try:
+            rc, counts = counted(lambda: cli.main(
+                ["serve", "--requests", str(SPR_REQUESTS), "--concurrency",
+                 str(SERVE_CONCURRENCY), "--pool-steps", str(POOL_STEPS)]))
+        finally:
+            serve.run_serve = real
+        (spr,) = reports
+        summ = spr.summary()
+        check(rc == 0 and summ["tier"] == "spr" and not spr.errors,
+              f"cli serve without a checkpoint: rc {rc}, {summ['tier']}, "
+              f"{spr.errors[:3]}")
+        want = spr_schedule_action(
+            compile_topology(synthetic.abilene(), max_nodes=24,
+                             max_edges=37), EnvLimits.for_service(
+                abc_service()))
+        check(len(spr.answers) == SPR_REQUESTS and all(
+            np.array_equal(a, want) for _, a in spr.answers),
+            "an SPR answer differs from spr_schedule_action")
+        check(counts["substep_megakernel"] == POOL_STEPS and not any(
+            n for k, n in counts.items() if k != "substep_megakernel"),
+            f"the SPR tier's launches {counts}: want the pool's "
+            f"{POOL_STEPS} megakernel launches and nothing else")
+        print(f"phase 17 (a) SPR tier (cli serve, no checkpoint): "
+              f"{line(summ)} on {smi}; every answer equals "
+              "spr_schedule_action", flush=True)
+        laps.lap("a spr")
+
+        # (b) learned fleets of two continuous workers, f32 and bf16
+        for precision, ck in (("f32", ck_f32), ("bf16", ck_bf16)):
+            rep, counts = counted(lambda: run_serve(
+                checkpoint=ck, workers=2, continuous=True,
+                requests=FLEET_REQUESTS, concurrency=SERVE_CONCURRENCY,
+                **common))
+            summ = rep.summary()
+            fwd = "gat_attention" + ("_bf16" if precision == "bf16" else "")
+            calls = len(rep.flushes) + rep.warm_calls
+            check(not rep.errors and len(rep.answers) == FLEET_REQUESTS
+                  and rep.rejected == 0,
+                  f"{precision} fleet: {rep.errors[:3]}, "
+                  f"{len(rep.answers)} answered, {rep.rejected} rejected")
+            check(rep.ddpg.agent.precision == precision,
+                  f"served under {rep.ddpg.agent.precision}")
+            check(counts[fwd] == 3 * calls and counts["substep_megakernel"]
+                  == POOL_STEPS, f"{precision} fleet launches {counts} for "
+                  f"{calls} dispatches and warm-ups (want 3 per call) and "
+                  f"a pool of {POOL_STEPS} steps")
+            singles = served_at_bucket(rep, lambda v: rep.ddpg.actor,
+                                       torch, dev)
+            err = held_against_plain(rep, torch, dev)
+            errs[fwd] = max(errs[fwd], err)
+            used = sorted({b for _, b in rep.flushes})
+            print(f"phase 17 (b) {precision} fleet (2 continuous workers, "
+                  f"concurrency {SERVE_CONCURRENCY}): {line(summ)}, "
+                  f"{len(rep.flushes)} dispatches (buckets {used}) on {smi}; "
+                  f"every answer bit-identical to greedy_action at its "
+                  f"bucket ({singles} single-shot calls); kernel #1 vs plain "
+                  f"on the served batches max abs diff {err:.2e}",
+                  flush=True)
+            print(f"serve_summary fleet {precision}: " + json.dumps(summ))
+        laps.lap("b fleets")
+
+        # (c) train-while-serve
+        pub = os.path.join(root, "publish")
+        agent_yaml = os.path.join(root, "agent.yaml")
+        cli.init_configs(os.path.join(root, "cfg"))
+        with open(os.path.join(root, "cfg", "agent.yaml")) as f:
+            text = f.read()
+        with open(agent_yaml, "w") as f:
+            f.write(text.replace("episode_steps: 200",
+                                 f"episode_steps: {TWS_STEPS}")
+                    .replace("nb_steps_warmup_critic: 200",
+                             f"nb_steps_warmup_critic: {TWS_STEPS}")
+                    + "gnn_impl: pallas\n")
+        obs = RunObserver(None)
+        stop = threading.Event()
+        out = {}
+
+        def fleet():
+            try:
+                out["report"] = run_serve(
+                    checkpoint=ck_f32, workers=2, continuous=True,
+                    requests=TWS_CONCURRENCY, concurrency=TWS_CONCURRENCY,
+                    hot_swap_dir=pub,
+                    swap_poll_s=TWS_POLL_S, observer=obs, until=stop,
+                    **common)
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                out["error"] = e
+
+        for op in ops.values():
+            op.launches = 0
+        server = threading.Thread(target=fleet, name="phase17-fleet")
+        server.start()
+        t_wait = time.perf_counter() + 120.0
+        while obs.hub.get_counter("serve_requests_total") < TWS_WARM \
+                and server.is_alive() and time.perf_counter() < t_wait:
+            time.sleep(0.01)
+        check(server.is_alive(), f"the fleet stopped: {out.get('error')}")
+        t_train = time.perf_counter()
+        trained = cli.run_train(TRAIN_ARGS[:2] + [
+            "--chunk", str(TWS_STEPS), "--episodes", str(TWS_EPISODES),
+            "--seed", "0", "--agent-config", agent_yaml, "--hot-swap-dir",
+            pub, "--publish-interval", "1"])
+        t_trained = time.perf_counter()
+        # every worker adopts the last version, then the load stops
+        t_wait = time.perf_counter() + 30.0
+        while min(obs.hub.get_gauge("serve_policy_version", worker=w) or 0
+                  for w in ("w0", "w1")) < TWS_EPISODES \
+                and time.perf_counter() < t_wait:
+            time.sleep(0.01)
+        # and answers some requests under it before the load stops
+        n0 = obs.hub.get_counter("serve_requests_total")
+        while obs.hub.get_counter("serve_requests_total") < n0 + TWS_WARM \
+                and time.perf_counter() < t_wait:
+            time.sleep(0.01)
+        stop.set()
+        server.join(300.0)
+        check(not server.is_alive() and "error" not in out,
+              f"the train-while-serve fleet failed: {out.get('error')}")
+        counts = {k: op.launches for k, op in ops.items()}
+        for k, n in counts.items():
+            total[k] += n
+        rep = out["report"]
+        summ = rep.summary()
+        check(not rep.errors and rep.rejected == 0,
+              f"train-while-serve: {len(rep.errors)} errors "
+              f"({rep.errors[:3]}), {rep.rejected} rejections")
+        swaps = obs.events.of_kind("weight_swap")
+        adopted = {(s["worker"], s["version"]) for s in swaps}
+        want_adopted = {(w, v) for w in ("w0", "w1")
+                        for v in range(1, TWS_EPISODES + 1)}
+        check(adopted == want_adopted and len(swaps) == len(want_adopted),
+              f"adopted (worker, version) {sorted(adopted)}, want every "
+              f"published version once by each worker")
+        check(read_latest(pub)["version"] == TWS_EPISODES,
+              "the trainer did not publish once per episode")
+        check(trained["summary"]["replicas"] == int(TRAIN_ARGS[1]),
+              f"the trainer ran {trained['summary']['replicas']} replicas")
+        versions = {}
+        for v in range(1, TWS_EPISODES + 1):
+            with open(os.path.join(pub, f"v{v:05d}.json")) as f:
+                leaves = load_version(pub, json.load(f))
+            versions[v] = GreedyServePolicy(rep.ddpg, rep.pool[0]).stage(
+                leaves, v)
+        versions[0] = rep.ddpg.actor
+        flushes = obs.events.of_kind("serve_flush")
+        check({f.get("policy_version") for f in flushes} <= set(versions),
+              "a flush stamped an unpublished version")
+        check({v for v, *_ in rep.stamps} == set(versions),
+              f"answers came under versions "
+              f"{sorted({v for v, *_ in rep.stamps})}, want all of "
+              f"{sorted(versions)}")
+        singles = served_at_bucket(rep, versions.__getitem__, torch, dev)
+        before = [lat for _, _, t, lat in rep.stamps if t < t_train]
+        during = [lat for _, _, t, lat in rep.stamps
+                  if t_train <= t < t_trained]
+        pb, pd = percentiles(before), percentiles(during)
+        swap_ms = [s["swap_ms"] for s in swaps]
+        check(counts["gat_attention_backward"] > 0
+              and counts["gat_attention"] > 0
+              and counts["substep_megakernel"] > 0,
+              f"train-while-serve launched {counts}")
+        print(f"phase 17 (c) train-while-serve: cli train B=64, "
+              f"{TWS_EPISODES} episodes of {TWS_STEPS} steps, one publish "
+              f"per episode, {t_trained - t_train:.3f} s, beside a fleet of "
+              f"2 continuous workers at concurrency {TWS_CONCURRENCY}: "
+              f"{line(summ)}, 0 errors, 0 rejections on {smi}; p50/p99 "
+              f"before training {pb[0]:.3f}/{pb[1]:.3f} ms over "
+              f"{len(before)} requests, while training {pd[0]:.3f}/"
+              f"{pd[1]:.3f} ms over {len(during)}; each version adopted "
+              f"once by each worker, swap_ms "
+              f"{[round(x, 3) for x in swap_ms]}; every answer "
+              f"bit-identical to a single-shot call under its stamped "
+              f"version ({singles} calls)", flush=True)
+        laps.lap("c train-while-serve")
+
+        # (d) SLO and trace through cli serve
+        rdir = os.path.join(root, "traced")
+        rc, counts = counted(lambda: cli.main(
+            ["serve", "--checkpoint", ck_f32, "--requests",
+             str(TRACE_REQUESTS), "--concurrency", str(SERVE_CONCURRENCY),
+             "--pool-steps", str(POOL_STEPS), "--trace-sample", "1",
+             "--slo-p99-ms", "10", "--result-dir", rdir]))
+        check(rc == 0, f"cli serve --trace-sample 1 returned {rc}")
+        (run_dir,) = [os.path.join(rdir, "serve", d)
+                      for d in os.listdir(os.path.join(rdir, "serve"))]
+        with open(os.path.join(run_dir, "slo.json")) as f:
+            slo_doc = json.load(f)
+        spans = [e for e in read_events(run_dir)
+                 if e["event"] == "serve_request_span"]
+        check(len(spans) == TRACE_REQUESTS,
+              f"{len(spans)} request spans for {TRACE_REQUESTS} requests")
+        worst_sum = max(abs(s["queue_wait_ms"] + s["batch_wait_ms"]
+                            + s["device_ms"] - s["latency_ms"])
+                        for s in spans)
+        check(worst_sum < 1e-2, f"a span's decomposition misses its "
+              f"latency by {worst_sum} ms")
+        trace, problems = export_trace(run_dir, os.path.join(root,
+                                                             "trace.json"))
+        check(problems == [], f"the exported trace: {problems[:3]}")
+        d2h = {}
+        ddpg = rep.ddpg
+        for traced in (False, True):
+            hub = MetricsHub()
+            srv = PolicyServer(
+                GreedyServePolicy(ddpg, rep.pool[0],
+                                  stream=torch.cuda.Stream(dev)),
+                buckets=BUCKETS, hub=hub,
+                tracer=ServeTracer(hub=hub, sample=1) if traced else None,
+                slo=parse_slo_spec("10") if traced else None).start()
+            futs = []
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for i in range(D2H_REQUESTS):
+                    futs.append(srv.submit(rep.pool[i % len(rep.pool)]))
+                    if len(futs) >= SERVE_CONCURRENCY:
+                        futs.pop(0).result(60)
+                for f in futs:
+                    f.result(60)
+                srv.close()
+            n = sum(1 for e in prof.events() if "DtoH" in e.name)
+            d2h[traced] = (n, len(srv.flushes))
+        per = {k: n / f for k, (n, f) in d2h.items()}
+        check(d2h[False][0] > 0 and per[True] == per[False],
+              f"device-to-host copies per flush: {per[False]} untraced, "
+              f"{per[True]} traced ({d2h})")
+        print(f"phase 17 (d) cli serve --trace-sample 1 --slo-p99-ms 10: "
+              f"slo.json attainment {slo_doc['attainment']}, burn "
+              f"{slo_doc['burn_rate']}, p99 {slo_doc['p99_latency_ms']} ms "
+              f"on {smi}; {len(spans)} spans, decomposition within "
+              f"{worst_sum:.1e} ms of the latency; exported trace of "
+              f"{len(trace['traceEvents'])} events validates; device-to-"
+              f"host copies per flush {per[False]} untraced, {per[True]} "
+              f"traced ({d2h})", flush=True)
+        laps.lap("d slo+trace")
+
+        # (e) a brownout: a fleet overloaded into overflow
+        rep, counts = counted(lambda: run_serve(
+            checkpoint=ck_f32, workers=2, continuous=True, max_queue=1,
+            requests=BROWNOUT_REQUESTS, concurrency=BROWNOUT_CONCURRENCY,
+            observer=RunObserver(None), **common))
+        shed = sum(1 for _, a in rep.answers
+                   if np.array_equal(a, rep.spr_action))
+        check(not rep.errors and len(rep.answers) == BROWNOUT_REQUESTS,
+              f"overloaded fleet: {rep.errors[:3]}")
+        check(rep.brownout["overflow"] > 0 and shed == sum(
+            rep.brownout.values()), f"{shed} SPR answers, brownout "
+            f"counter {rep.brownout}")
+        print(f"phase 17 (e) overloaded fleet (2 workers, queue bound 1, "
+              f"concurrency {BROWNOUT_CONCURRENCY}): {line(rep.summary())} "
+              f"on {smi}; {shed} requests shed to the SPR tier, "
+              f"serve_brownout_total {rep.brownout}", flush=True)
+        laps.lap("e brownout")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("phase 17 parts, s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in laps.seconds.items())
+          + f"; phase 17 {sum(laps.seconds.values()):.3f} on {smi}",
+          flush=True)
+    print("phase 17 launches (each count 0 before its drive): "
+          + json.dumps(total), flush=True)
+    return total, errs
+
+
 def main() -> int:
     import torch
 
@@ -3285,7 +3755,8 @@ def main() -> int:
         t0 = time.perf_counter()
         reports.append(run_serve(device=dev, pool_steps=POOL_STEPS,
                                  requests=r, concurrency=c, buckets=BUCKETS,
-                                 deadline_ms=deadline, seed=0))
+                                 deadline_ms=deadline, seed=0,
+                                 seeded_actor=True))
         serve_wall.append(time.perf_counter() - t0)
     launches = gat_attention.launches
     pool_launches = substep_megakernel.launches
@@ -3313,8 +3784,8 @@ def main() -> int:
         print(f"serve burst: {summ['completed']} requests at concurrency {c}, "
               f"deadline {deadline:g} ms, "
               f"{summ['dispatches']} dispatches (buckets {used}); "
-              f"{summ['requests_per_s']:.1f} req/s, p50 {summ['p50_ms']:.3f} ms, "
-              f"p99 {summ['p99_ms']:.3f} ms, startup {summ['startup_s']:.2f} s on "
+              f"{summ['rps']:.1f} req/s, p50 {summ['p50_ms']:.3f} ms, "
+              f"p99 {summ['p99_ms']:.3f} ms, startup {summ['startup']['startup_s']:.2f} s on "
               f"{smi}; answers vs unbatched and plain actor max abs diff "
               f"{worst:.2e} ({ambiguous} ambiguous rows)", flush=True)
         print(f"serve_summary c={c}: " + json.dumps(summ))
@@ -3359,7 +3830,12 @@ def main() -> int:
 
     phases.lap("7")
     # ---- 8. the training slice -------------------------------------------
-    train_launches, f32_train = train_slice(torch, dev, smi)
+    # phase 8's and phase 10's checkpoints, served again in phase 17
+    ck_root = tempfile.mkdtemp(prefix="gsc_ck_")
+    ck_f32 = os.path.join(ck_root, "f32")
+    ck = os.path.join(ck_root, "checkpoint")
+    train_launches, f32_train = train_slice(torch, dev, smi,
+                                            checkpoint=ck_f32)
     for kernel, n in train_launches.items():
         check(n > 0, f"{kernel} was not launched on the training path")
 
@@ -3370,26 +3846,20 @@ def main() -> int:
 
     phases.lap("9")
     # ---- 10. the bf16 training slice, saving a checkpoint ----------------
-    ck_root = tempfile.mkdtemp(prefix="gsc_bf16_ck_")
-    try:
-        ck = os.path.join(ck_root, "checkpoint")
-        bf16_launches, bf16_train = train_slice(torch, dev, smi, "bf16",
-                                                checkpoint=ck)
-        for kernel, n in bf16_launches.items():
-            check(n > 0, f"{kernel} was not launched on the bf16 training "
-                  "path")
-        print(f"train bf16 beside f32 on {smi}: rollout "
-              f"{bf16_train['sps']:.1f} env-steps/s (f32 "
-              f"{f32_train['sps']:.1f}); learn bursts "
-              f"{[round(t, 3) for t in bf16_train['bursts']]} s (f32 "
-              f"{[round(t, 3) for t in f32_train['bursts']]} s)", flush=True)
+    bf16_launches, bf16_train = train_slice(torch, dev, smi, "bf16",
+                                            checkpoint=ck)
+    for kernel, n in bf16_launches.items():
+        check(n > 0, f"{kernel} was not launched on the bf16 training path")
+    print(f"train bf16 beside f32 on {smi}: rollout "
+          f"{bf16_train['sps']:.1f} env-steps/s (f32 "
+          f"{f32_train['sps']:.1f}); learn bursts "
+          f"{[round(t, 3) for t in bf16_train['bursts']]} s (f32 "
+          f"{[round(t, 3) for t in f32_train['bursts']]} s)", flush=True)
 
-        # ---- 11. bf16 serving from that checkpoint -----------------------
-        serve_bf16 = serve_from_checkpoint(torch, dev, smi, ck)
-        print(f"serve bf16: {serve_bf16} bf16 attention launches, 0 f32",
-              flush=True)
-    finally:
-        shutil.rmtree(ck_root, ignore_errors=True)
+    # ---- 11. bf16 serving from that checkpoint ---------------------------
+    serve_bf16 = serve_from_checkpoint(torch, dev, smi, ck)
+    print(f"serve bf16: {serve_bf16} bf16 attention launches, 0 f32",
+          flush=True)
 
     phases.lap("10-11")
 
@@ -3427,9 +3897,22 @@ def main() -> int:
                    "substep_megakernel"):
         check(mix_launches.get(kernel, 0) > 0,
               f"{kernel} was not launched on the generalization path")
+    # ---- 17. serving, whole --------------------------------------------
+    print("phase 17, serving, whole:", flush=True)
+    try:
+        serving_launches, serving_errs = serving_slice(torch, dev, smi,
+                                                       ck_f32, ck)
+    finally:
+        shutil.rmtree(ck_root, ignore_errors=True)
+    phases.lap("17")
+    for kernel in ("gat_attention", "gat_attention_backward",
+                   "gat_attention_bf16", "substep_megakernel"):
+        check(serving_launches.get(kernel, 0) > 0,
+              f"{kernel} was not launched on the serving path")
     path_launches = {k: train_launches.get(k, 0) + bf16_launches.get(k, 0)
                      + gen_launches.get(k, 0) + large_launches.get(k, 0)
                      + run_launches.get(k, 0) + mix_launches.get(k, 0)
+                     + serving_launches.get(k, 0)
                      for k in ("gat_attention", "gat_attention_backward",
                                "gat_attention_bf16",
                                "gat_attention_backward_bf16",
@@ -3439,8 +3922,9 @@ def main() -> int:
     h_err = max(h_err, large_errs["gat_attention_bf16"])
     hb_err = max(hb_err, large_errs["gat_attention_backward_bf16"])
     sub_err = max(sub_err, large_sub_err, mix_sub_err)
-    max_err = max(max_err, mix_err)
+    max_err = max(max_err, mix_err, serving_errs["gat_attention"])
     bwd_err = max(bwd_err, mix_bwd_err)
+    h_err = max(h_err, serving_errs["gat_attention_bf16"])
 
     # ---- 12. kernels line -----------------------------------------------
     ms, plain_ms, bound_ms, bound_by = timings[MAIN_SHAPE]

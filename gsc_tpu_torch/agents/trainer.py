@@ -1,7 +1,6 @@
 """Trainers: the single-env loop, replica-parallel training, evaluation.
 
-The port of ``gsc_tpu.agents.trainer.Trainer`` without hot-swap
-publishing:
+The port of ``gsc_tpu.agents.trainer.Trainer``:
 
 - ``train`` is the single-env loop: per episode ``driver.episode(ep)``
   (the schedule's network and traffic seeded ``base_seed + ep``),
@@ -46,6 +45,14 @@ episodes are skipped; periodic checkpoints (``ckpt_manager``,
 the faults that drive these paths.  On the replica path a fault plan
 adds a host-side finite check after every episode, backed by the guard.
 The agent config's precision policy applies throughout.
+
+Train-while-serve: both loops take a ``publisher`` (a
+:class:`~gsc_tpu_torch.serve.fleet.WeightPublisher`) and a positive
+``publish_interval`` and publish the actor every N episodes, one host copy
+of its leaves per publish.  The single-env loop ships the rollback
+guard's verified snapshot of the drained episode (the live actor when
+rollback is off); the replica loop ships the drained actor after a host
+finite check, and skips the publish loudly on a non-finite one.
 """
 from __future__ import annotations
 
@@ -203,6 +210,27 @@ class Trainer:
             return
         ckpt_manager.save(state, buffer, episode=ep + 1, draws=self.draws)
 
+    def _publish(self, publisher, publish_interval: int, ep: int,
+                 start_episode: int, actor, verified: bool):
+        """The hot-swap publish after episode ``ep``: ``actor`` (a module
+        or a state dict) copied to the host once, the version's manifest
+        recording the episode count.  ``verified``: the caller found it
+        finite; else it is checked on the host here and a non-finite
+        actor is not published."""
+        if publisher is None or not publish_interval \
+                or (ep + 1 - start_episode) % publish_interval:
+            return
+        from ..serve.fleet import host_leaves, leaves_finite
+
+        leaves = host_leaves(actor)
+        if not verified and not leaves_finite(leaves):
+            self._recover(ep, site="learner_state", action="detected",
+                          fault="non_finite_state",
+                          detail="hot-swap publish skipped so a poisoned "
+                                 "actor never reaches the serving fleet")
+            return
+        publisher.publish(leaves, meta={"episode": ep + 1}, verified=True)
+
     # ------------------------------------------------------------ resilience
     def _recover(self, episode: int, site: str, action: str,
                  fault: Optional[str] = None, attempt: Optional[int] = None,
@@ -323,14 +351,18 @@ class Trainer:
               ckpt_interval: int = 0,
               on_row: Optional[Callable[[Dict], None]] = None,
               pipeline: bool = True, preempt=None, profile: bool = False,
-              verbose: bool = False):
+              verbose: bool = False, publisher=None,
+              publish_interval: int = 0):
         """Train one env through episode ``episodes - 1``; returns (state,
         buffer).  A restored (``init_state``, ``init_buffer``,
         ``start_episode``), with ``draws`` restored too, continues a run
         bit for bit.  ``on_row`` gets each episode's row; ``preempt`` (a
         ``PreemptionGuard``) stops the loop at the next episode boundary
         after a signal; ``profile`` writes a ``torch.profiler`` trace to
-        ``<result_dir>/profile``."""
+        ``<result_dir>/profile``.  ``publisher`` with a positive
+        ``publish_interval`` publishes the guard's verified actor of the
+        drained episode every N episodes (the live actor without
+        rollback)."""
         if self.driver.topo_mix:
             # the mixture fills a replica axis the single env lacks
             raise ValueError(
@@ -342,7 +374,8 @@ class Trainer:
             with Profiler(os.path.join(self.result_dir, "profile")):
                 return self.train(episodes, init_state, init_buffer,
                                   start_episode, ckpt_manager, ckpt_interval,
-                                  on_row, pipeline, preempt, False, verbose)
+                                  on_row, pipeline, preempt, False, verbose,
+                                  publisher, publish_interval)
         self.phase_timer = timer = PhaseTimer()
         hub = self.obs.hub if self.obs else None
         steps = self.agent_cfg.episode_steps
@@ -442,6 +475,17 @@ class Trainer:
                                 == 0 and guard.last_good[0] == k):
                             self._save_verified(ckpt_manager, guard, state,
                                                 buffer, k + 1)
+                        # the verified snapshot after episode k (the live
+                        # actor may be a dispatch ahead, not yet checked)
+                        if guard.last_good[0] == k:
+                            self._publish(publisher, publish_interval, k,
+                                          start_episode,
+                                          guard.last_good[1].nets["actor"],
+                                          verified=True)
+                    else:
+                        self._publish(publisher, publish_interval, k,
+                                      start_episode, state.actor,
+                                      verified=True)
                     return
                 if guard is None:
                     self._recover(
@@ -622,7 +666,8 @@ class Trainer:
                        ckpt_manager=None, ckpt_interval: int = 0,
                        preempt=None, profile: bool = False,
                        verbose: bool = False, device_traffic: bool = True,
-                       curriculum=None):
+                       curriculum=None, publisher=None,
+                       publish_interval: int = 0):
         """Train ``num_replicas`` replicas through episode ``episodes -
         1``; returns (state, buffers).  Each episode runs on the network
         the schedule names, its traffic sampled on the device
@@ -645,14 +690,17 @@ class Trainer:
         under a fault plan every episode is checked on the host
         (``nan_grads`` poisons the state entering its episode) and a
         non-finite one rolls back to the guard's last verified
-        snapshot."""
+        snapshot.  ``publisher`` with a positive ``publish_interval``
+        publishes the drained actor every N episodes after a host finite
+        check (a non-finite one is skipped with a ``recovery`` event)."""
         if profile and self.result_dir:
             from ..utils.debug import Profiler
             with Profiler(os.path.join(self.result_dir, "profile")):
                 return self.train_parallel(
                     episodes, num_replicas, chunk, on_row, init_state,
                     init_buffers, start_episode, ckpt_manager, ckpt_interval,
-                    preempt, False, verbose, device_traffic, curriculum)
+                    preempt, False, verbose, device_traffic, curriculum,
+                    publisher, publish_interval)
         steps = self.agent_cfg.episode_steps
         if steps % chunk != 0:
             raise ValueError(f"chunk ({chunk}) must divide episode_steps "
@@ -773,6 +821,8 @@ class Trainer:
                         self.learn_obs.episode(ep, signal=signal,
                                                replay=done["replay"])
                 self._last_drained = ep
+                self._publish(publisher, publish_interval, ep,
+                              start_episode, state.actor, verified=False)
                 self._maybe_save(ckpt_manager, ckpt_interval, ep,
                                  start_episode, state, buffers)
         finally:

@@ -36,7 +36,9 @@ to ``<result-dir>/test``) and prints a last JSON line with the checkpoint
 and the evaluation.  ``--resume PATH|auto`` continues a checkpoint
 (``auto``: the newest under ``--result-dir`` whose checksum validates)
 bit for bit, under the checkpoint's precision; ``--ckpt-interval N``
-saves rotating checkpoints to ``<result-dir>/ckpts`` every N episodes.
+saves rotating checkpoints to ``<result-dir>/ckpts`` every N episodes;
+``--hot-swap-dir D`` publishes the actor into ``D`` every
+``--publish-interval`` episodes for a ``serve --hot-swap-dir D`` fleet.
 Its defaults are the JAX CLI's: the pipelined single-env loop
 (``--no-pipeline``: the serial one), the run observer (``--no-obs``;
 ``events.jsonl``, ``metrics.json``, ``series.json``, ``curves.json`` with
@@ -62,10 +64,15 @@ network, under the checkpoint's recorded precision (else the agent
 yaml's) unless ``--precision`` says otherwise.
 
 ``serve`` runs :func:`gsc_tpu_torch.serve.run_serve` on ``--network``
-(as ``train`` takes it) and prints its summary (requests/s, p50/p99 latency per bucket) as one JSON line; with
-``--checkpoint`` it serves a checkpoint's actor under the precision its
-sidecar records (a contradicting ``--precision`` is refused; without a
-readable sidecar the agent yaml's), else an actor drawn from ``--seed``.
+(as ``train`` takes it) and prints the JAX CLI's JSON line (tier,
+requests/s, p50/p99 overall and per bucket, SLO verdict, swaps,
+brownouts); with ``--checkpoint`` it serves a checkpoint's actor under
+the precision its sidecar records (a contradicting ``--precision`` is
+refused; without a readable sidecar the agent yaml's), else the SPR
+tier.  ``--continuous``, ``--workers`` (a fleet with an SPR brownout
+tier), ``--hot-swap-dir`` (swap in the versions ``train --hot-swap-dir``
+publishes), ``--trace-sample`` and ``--slo-p99-ms`` (the SLO engine,
+``slo.json`` under ``--result-dir``) are the JAX CLI's flags.
 
 The agent, simulator, service and scheduler configs load from yaml files
 (``yaml`` must be importable then); without them the init-configs values
@@ -179,9 +186,52 @@ def _network_spec(network: Optional[str]):
     return getattr(synthetic, network or "abilene")()
 
 
+def _check_serve_args(args):
+    """The JAX CLI's refusals of ``serve``; returns (buckets, SLO
+    objectives or None)."""
+    try:
+        buckets = tuple(sorted({int(b) for b in args.buckets.split(",")}))
+        if not buckets or any(b < 1 for b in buckets):
+            raise ValueError
+    except ValueError:
+        raise SystemExit(f"--buckets must be comma-separated positive ints, "
+                         f"got {args.buckets!r}")
+    if args.requests < 1 or args.concurrency < 1:
+        raise SystemExit("--requests and --concurrency must be positive")
+    if args.workers < 1:
+        raise SystemExit("--workers must be >= 1")
+    if args.fire_swaps < 0:
+        raise SystemExit("--fire-swaps must be >= 0")
+    if args.fire_swaps and not args.hot_swap_dir:
+        raise SystemExit("--fire-swaps publishes into the hot-swap "
+                         "directory — pass --hot-swap-dir")
+    if args.swap_poll_s <= 0:
+        raise SystemExit("--swap-poll-s must be > 0")
+    if args.metrics_port < 0:
+        raise SystemExit("--metrics-port must be >= 0 (0 = disabled)")
+    if args.metrics_port and not args.obs:
+        raise SystemExit("--metrics-port needs the run observer (drop "
+                         "--no-obs)")
+    if args.trace_sample < 0:
+        raise SystemExit("--trace-sample must be >= 0 (0 = request spans "
+                         "off)")
+    if (args.trace_sample or args.slo_p99_ms) and not args.obs:
+        raise SystemExit("--trace-sample/--slo-p99-ms need the run observer "
+                         "(drop --no-obs)")
+    slo = None
+    if args.slo_p99_ms:
+        from .obs.slo import parse_slo_spec
+        try:
+            slo = parse_slo_spec(args.slo_p99_ms)
+        except ValueError as e:
+            raise SystemExit(f"--slo-p99-ms {args.slo_p99_ms!r}: {e}")
+    return buckets, slo
+
+
 def _serve(args) -> int:
     from .serve import run_serve
 
+    buckets, slo = _check_serve_args(args)
     precision = args.precision
     if args.checkpoint:
         from .utils.checkpoint import checkpoint_precision
@@ -193,11 +243,16 @@ def _serve(args) -> int:
     agent = _agent(args, precision)
     sim_cfg, service = _sim_and_service(args)
     spec = _network_spec(args.network)
-    try:
-        buckets = tuple(sorted({int(b) for b in args.buckets.split(",")}))
-    except ValueError:
-        raise SystemExit(f"--buckets must be comma-separated ints, got "
-                         f"{args.buckets!r}")
+    observer = None
+    if args.obs:
+        from .obs import RunObserver
+        from .utils.experiment import setup_result_dir
+
+        rdir = (setup_result_dir(args.result_dir, "serve")
+                if args.result_dir else None)
+        observer = RunObserver(args.obs_dir or rdir, tags={"seed": args.seed},
+                               metrics_port=(args.metrics_port or None),
+                               series_window=args.obs_series_window)
     try:
         report = run_serve(agent, sim_cfg, service, spec, seed=args.seed,
                            pool_steps=args.pool_steps,
@@ -207,7 +262,15 @@ def _serve(args) -> int:
                            max_nodes=args.max_nodes,
                            max_edges=args.max_edges,
                            request_timeout=args.request_timeout,
-                           device=args.device, checkpoint=args.checkpoint)
+                           device=args.device, checkpoint=args.checkpoint,
+                           continuous=args.continuous, workers=args.workers,
+                           brownout_burn=args.brownout_burn or None,
+                           hot_swap_dir=args.hot_swap_dir,
+                           swap_poll_s=args.swap_poll_s,
+                           fire_swaps=args.fire_swaps,
+                           stats_interval=args.stats_interval,
+                           observer=observer, trace_sample=args.trace_sample,
+                           slo=slo)
     except ValueError as e:
         raise SystemExit(str(e))
     print(json.dumps(report.summary()))
@@ -239,6 +302,8 @@ def _check_train_args(args):
     if args.runs > 1 and not args.result_dir:
         raise SystemExit("--runs > 1 picks the best run from the runs' "
                          "rewards.csv: give --result-dir")
+    if args.publish_interval < 1:
+        raise SystemExit("--publish-interval must be >= 1")
     if args.metrics_port < 0:
         raise SystemExit("--metrics-port must be >= 0 (0 = disabled)")
     if args.metrics_port and not args.obs:
@@ -353,7 +418,7 @@ def _train_run(args, run: int, dev, precision, resume) -> dict:
                         "substep_impl": env.sim_cfg.substep_impl,
                         "result_dir": rdir, "device": str(dev),
                         "ckpt_interval": args.ckpt_interval,
-                        "hot_swap_dir": None,
+                        "hot_swap_dir": args.hot_swap_dir,
                         **({"fault_plan": fplan.summary()} if fplan
                            else {})})
     try:
@@ -386,6 +451,15 @@ def _train_run(args, run: int, dev, precision, resume) -> dict:
                 raise SystemExit(
                     f"--episodes ({args.episodes}) must exceed the "
                     f"checkpoint's completed episode count ({start_episode})")
+        publisher = None
+        if args.hot_swap_dir:
+            from .serve.fleet import WeightPublisher
+            publisher = WeightPublisher(
+                args.hot_swap_dir, hub=(obs.hub if obs is not None else None),
+                fault_plan=fplan)
+        publish = dict(publisher=publisher,
+                       publish_interval=(args.publish_interval
+                                         if publisher else 0))
         on_row = lambda row: print(json.dumps(row), flush=True)
         if result is not None:
             result.runtime_start("train")
@@ -398,14 +472,14 @@ def _train_run(args, run: int, dev, precision, resume) -> dict:
                     init_buffers=init_buffer, start_episode=start_episode,
                     ckpt_manager=manager, ckpt_interval=args.ckpt_interval,
                     preempt=guard, profile=args.profile, verbose=True,
-                    curriculum=args.curriculum)
+                    curriculum=args.curriculum, **publish)
             else:
                 state, buffer = trainer.train(
                     args.episodes, init_state=init_state,
                     init_buffer=init_buffer, start_episode=start_episode,
                     ckpt_manager=manager, ckpt_interval=args.ckpt_interval,
                     on_row=on_row, pipeline=args.pipeline, preempt=guard,
-                    profile=args.profile, verbose=True)
+                    profile=args.profile, verbose=True, **publish)
         train_s = time.perf_counter() - t0
         if result is not None:
             result.runtime_stop("train")
@@ -738,14 +812,14 @@ def _parser() -> argparse.ArgumentParser:
                        "(agent, simulator, service, scheduler, networks)")
     c.add_argument("--out", default="configs")
 
-    s = sub.add_parser("serve", help="serve greedy-policy requests from a "
-                       "trained or seeded actor and report requests/s and "
-                       "p50/p99")
+    s = sub.add_parser("serve", help="serve coordination requests from a "
+                       "trained actor (or the SPR heuristic without one) "
+                       "and report requests/s and p50/p99")
     _config_args(s, "serve on")
     s.add_argument("--checkpoint", default=None,
                    help="a `train` checkpoint directory: serve its actor "
-                   "under the precision its sidecar records (default: an "
-                   "actor drawn from --seed)")
+                   "under the precision its sidecar records (default: the "
+                   "SPR shortest-path tier, no learned weights)")
     s.add_argument("--precision", choices=_PRECISIONS, default=None,
                    help="precision policy (default: the checkpoint's "
                    "recorded one, else the agent yaml's); with a recorded "
@@ -756,6 +830,55 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--deadline-ms", type=float, default=5.0)
     s.add_argument("--pool-steps", type=int, default=8)
     s.add_argument("--request-timeout", type=float, default=120.0)
+    s.add_argument("--continuous", action="store_true",
+                   help="continuous batching: the next batch forms while "
+                   "the current device call runs and dispatches the moment "
+                   "the device frees (default: the deadline batcher)")
+    s.add_argument("--workers", type=int, default=1,
+                   help="fleet size: N servers behind least-queue-depth "
+                   "routing, every series tagged worker=w<i>; a learned "
+                   "fleet sheds overflow to an SPR brownout tier")
+    s.add_argument("--brownout-burn", type=float, default=2.0,
+                   help="error-budget burn rate above which a backlogged "
+                   "learned fleet sheds new load to the SPR tier (needs "
+                   "--slo-p99-ms; 0: only a full queue sheds)")
+    s.add_argument("--hot-swap-dir", default=None,
+                   help="watch this publish directory (what `train "
+                   "--hot-swap-dir` writes) and swap each new weight "
+                   "version in between two dispatches")
+    s.add_argument("--swap-poll-s", type=float, default=0.2,
+                   help="seconds between hot-swap directory polls")
+    s.add_argument("--fire-swaps", type=int, default=0,
+                   help="publish this many versions of the served weights "
+                   "into --hot-swap-dir while the load runs (the whole "
+                   "swap path under load, answers unchanged)")
+    s.add_argument("--stats-interval", type=int, default=50,
+                   help="completed requests between serve_stats events")
+    s.add_argument("--result-dir", default=None,
+                   help="write the observer's files to "
+                   "<result-dir>/serve/<timestamp> (none: kept in memory)")
+    s.add_argument("--obs", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="run observer: serve_start/serve_stats/serve_flush "
+                   "events, latency histograms, the SLO engine")
+    s.add_argument("--obs-dir", default=None,
+                   help="directory of the observer's files (default: the "
+                   "run directory under --result-dir)")
+    s.add_argument("--obs-series-window", type=int, default=1024,
+                   help="points kept per metric in the series rings (the "
+                   "fleet samples queue depth, occupancy, burn and pad "
+                   "waste into them; 0: none)")
+    s.add_argument("--metrics-port", type=int, default=0,
+                   help="serve /metrics and /series on 127.0.0.1:PORT "
+                   "while serving (0: off; needs --obs)")
+    s.add_argument("--trace-sample", type=int, default=0,
+                   help="record every Nth request as a serve_request_span "
+                   "event (0: none; flush spans are always recorded under "
+                   "--obs)")
+    s.add_argument("--slo-p99-ms", default=None,
+                   help="latency objectives for the SLO engine: '<ms>' "
+                   "overall and '<bucket>:<ms>' per bucket, comma-separated "
+                   "(e.g. '25' or '25,8:60')")
 
     t = sub.add_parser("train", help="DDPG training over a topology "
                        "schedule: one env (--replicas 1) or B replicas")
@@ -875,6 +998,14 @@ def _parser() -> argparse.ArgumentParser:
                    "(two replay copies on the device); on one env the "
                    "periodic checkpoints save that snapshot, so "
                    "--no-rollback ignores --ckpt-interval there")
+    t.add_argument("--hot-swap-dir", default=None,
+                   help="train-while-serve: publish the actor as versioned "
+                   "weight artifacts into this directory every "
+                   "--publish-interval episodes (the rollback guard's "
+                   "verified snapshot on one env, the finite-checked "
+                   "replica state with --replicas > 1)")
+    t.add_argument("--publish-interval", type=int, default=1,
+                   help="episodes between hot-swap publishes")
     t.add_argument("--profile", action=argparse.BooleanOptionalAction,
                    default=False,
                    help="write a torch.profiler Chrome trace of training "

@@ -2,8 +2,9 @@
 gauges, the pipeline watchdog, the ``/metrics`` endpoint, the learning
 signal ledger, learning curves and the run observer.
 
-The port of ``gsc_tpu.obs`` without the device-cost ledger (``perf``),
-the retrace sentinel and serving's SLO engine and tracer.
+The port of ``gsc_tpu.obs`` without the device-cost ledger (``perf``)
+and the retrace sentinel; with serving's SLO engine and request tracer
+(``slo``) and the Chrome-trace exporter (``trace``).
 """
 from .curves import CURVES_SCHEMA_VERSION, extract_curves, write_curves
 from .device import device_memory_snapshot, record_device_gauges
@@ -15,6 +16,9 @@ from .series import (BLACKBOX_SCHEMA_VERSION, SERIES_SCHEMA_VERSION,
                      SeriesStore, write_blackbox, write_series)
 from .sinks import (JsonlSink, ListSink, TailSink, read_events,
                     rotated_paths, write_atomic_json)
+from .slo import (SLO_SCHEMA_VERSION, ServeTracer, SLOEngine, SLOObjectives,
+                  parse_slo_spec, write_slo_json)
+from .trace import TRACE_TRACKS, build_trace, export_trace, validate_trace
 from .watchdog import PipelineWatchdog
 
 __all__ = [
@@ -25,4 +29,7 @@ __all__ = [
     "PipelineWatchdog", "RunObserver", "LearnLedger", "LearnLedgerSpec",
     "emit_learn_signal", "MetricsEndpoint", "prometheus_text",
     "CURVES_SCHEMA_VERSION", "extract_curves", "write_curves",
+    "SLO_SCHEMA_VERSION", "SLOEngine", "SLOObjectives", "ServeTracer",
+    "parse_slo_spec", "write_slo_json", "TRACE_TRACKS", "build_trace",
+    "export_trace", "validate_trace",
 ]

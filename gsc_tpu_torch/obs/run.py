@@ -61,6 +61,9 @@ class RunObserver:
         self.curves_path = path("curves.json")
         self.series_path = path("series.json")
         self.blackbox_path = path("blackbox.json")
+        # serving's SLO summary: PolicyServer.close() (or the fleet's
+        # caller) writes it
+        self.slo_path = path("slo.json")
         # no directory: the stream stays in memory
         self.events = None
         if self.out_dir is None:

@@ -181,6 +181,9 @@ def _batch(lead) -> int:
 # dtypes: one build and one load per source digest and process
 _LIBS = {}
 _LIBS_LOCK = threading.Lock()
+# serving workers and a trainer launch from threads of their own: every
+# wrapper's count goes up under this lock
+_COUNT_LOCK = threading.Lock()
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -312,7 +315,8 @@ class _Kernel:
                 f"{self.entry} kernel launch failed: "
                 f"{getattr(lib, self.name + '_error_string')(code).decode()}"
                 f" ({code})")
-        self.launches += 1
+        with _COUNT_LOCK:
+            self.launches += 1
 
 
 class _GatAttentionFn(torch.autograd.Function):

@@ -82,6 +82,9 @@ _COUNTERS = ("serial_rounds", "stage_clocks")
 # state fields the substep never writes: passed as they are, not cloned
 _READ_ONLY = ("sf_startup", "placed", "schedule")
 
+# request pools and a trainer may launch from threads of their own
+_COUNT_LOCK = threading.Lock()
+
 
 class SubstepArgs(ctypes.Structure):
     """Mirror of ``struct SubstepArgs`` in the CUDA source: every field 8
@@ -269,7 +272,8 @@ class SubstepMegakernel:
             raise RuntimeError(
                 "substep_megakernel launch failed: "
                 f"{lib.substep_error_string(code).decode()} ({code})")
-        self.launches += 1
+        with _COUNT_LOCK:
+            self.launches += 1
         self.stage_clocks = clocks
         return new_state
 

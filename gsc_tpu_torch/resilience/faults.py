@@ -23,12 +23,16 @@ site                 effect when the keyed episode is reached
 ``ckpt_corrupt``     the first periodic checkpoint written at or after
                      the keyed episode is damaged on disk; checksum
                      validation catches it and the manager saves again
+``publish_corrupt``  (keyed by version, ``--hot-swap-dir``) the
+                     ``WeightPublisher`` writes that version's blob with
+                     one byte flipped under a clean manifest; the serving
+                     watchers' fingerprint check refuses it
 ==================== =====================================================
 
 The decoupled actor/learner fleet's sites (``actor_die``,
-``ring_poison``, ``publish_corrupt``, ``watcher_stall``,
-``learner_transient``) parse as in the JAX package, but nothing in the
-port fires them: the port has no ``--async`` path, and
+``ring_poison``, ``watcher_stall``, ``learner_transient``) parse as in
+the JAX package, but nothing in the port fires them: the port has no
+``--async`` path, and
 :func:`refuse_async_sites` stops a plan that names one before a run
 starts.
 
@@ -68,8 +72,8 @@ BURST_KEYED = ("learner_transient",)
 ENV_VAR = "GSC_FAULT_PLAN"
 
 # the sites only the decoupled actor/learner fleet fires
-ASYNC_SITES = ("actor_die", "ring_poison", "publish_corrupt",
-               "watcher_stall", "learner_transient")
+ASYNC_SITES = ("actor_die", "ring_poison", "watcher_stall",
+               "learner_transient")
 
 
 class FaultInjected(RuntimeError):
@@ -259,4 +263,4 @@ def refuse_async_sites(plan: Optional[FaultPlan]) -> None:
             f"fault plan entries {bad} need the decoupled actor/learner "
             "fleet (--async), which the port does not have; the serial "
             "sites are prefetch_die, slow_episode, dispatch_transient, "
-            "nan_grads and ckpt_corrupt")
+            "nan_grads, ckpt_corrupt and publish_corrupt")

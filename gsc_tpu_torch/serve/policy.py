@@ -11,9 +11,21 @@ no ahead-of-time export: the server warms each bucket once at start, so
 the kernel build and the first launch happen before any request.  The
 template's leaves are the env's f32 observations under every precision
 policy: a bf16 actor casts its inputs inside.
+
+Served weights are swappable.  The policy holds its own copy of the
+agent's actor and, once a swap has happened, a spare one: a published
+version is staged into the spare (checked leaf by leaf against the
+served state dict, in its order), then :meth:`GreedyServePolicy.swap`
+exchanges the two references, which the server does under the batcher's
+flush lock, between two dispatches.  With ``stream`` (a
+``torch.cuda.Stream``, one per fleet worker) every dispatch and every
+staging copy runs on that stream, so a staged version is complete, in
+stream order, before the first batch that reads it.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 from typing import List, Sequence, Tuple
 
@@ -76,18 +88,71 @@ class ObsTemplate:
 
 
 class GreedyServePolicy:
-    """``DDPG.greedy_action`` over one bucket of stacked requests."""
+    """``DDPG.greedy_action`` over one bucket of stacked requests, with
+    the served actor swappable between dispatches."""
 
-    def __init__(self, ddpg, sample_obs: GraphObs):
+    def __init__(self, ddpg, sample_obs: GraphObs, stream=None):
         self.ddpg = ddpg
         self.template = ObsTemplate(sample_obs)
+        self.stream = stream
+        if stream is not None:
+            # the agent's weights were written on the caller's stream
+            stream.wait_stream(torch.cuda.current_stream(stream.device))
+        with self._on_stream():
+            self.actor = copy.deepcopy(ddpg.actor)
+        self._spare = None
+
+    def _on_stream(self):
+        return (torch.cuda.stream(self.stream) if self.stream is not None
+                else contextlib.nullcontext())
+
+    def leaves(self) -> List[np.ndarray]:
+        """The served weights as host arrays, in state-dict order (the
+        layout :class:`~gsc_tpu_torch.serve.fleet.WeightPublisher`
+        writes)."""
+        with self._on_stream():
+            return [v.detach().cpu().numpy()
+                    for v in self.actor.state_dict().values()]
+
+    def stage(self, leaves: Sequence[np.ndarray], version=None):
+        """An actor holding ``leaves`` (the spare, loaded on the policy's
+        stream), ready for :meth:`swap`.  A leaf count, shape or dtype
+        that differs from the served weights raises and leaves them
+        untouched."""
+        served = self.actor.state_dict()
+        if len(leaves) != len(served):
+            raise ValueError(
+                f"hot-swap version {version} has {len(leaves)} leaves, the "
+                f"served actor has {len(served)}")
+        for i, (new, (name, cur)) in enumerate(zip(leaves, served.items())):
+            new = np.asarray(new)
+            want = str(cur.dtype).removeprefix("torch.")
+            if tuple(new.shape) != tuple(cur.shape) or str(new.dtype) != want:
+                raise ValueError(
+                    f"hot-swap version {version} leaf {i} ({name}) is "
+                    f"{new.shape}/{new.dtype}, the served actor wants "
+                    f"{tuple(cur.shape)}/{want}")
+        with self._on_stream():
+            spare = self._spare if self._spare is not None \
+                else copy.deepcopy(self.actor)
+            spare.load_state_dict(
+                {name: torch.from_numpy(np.array(new))
+                 for name, new in zip(served, leaves)})
+        return spare
+
+    def swap(self, actor) -> None:
+        """Serve ``actor`` (from :meth:`stage`); the old one becomes the
+        spare.  The caller holds the flush lock."""
+        self._spare, self.actor = self.actor, actor
 
     def run_batch(self, leaves: Sequence[np.ndarray]) -> np.ndarray:
         """Bucket arrays -> actions [bucket, A] as a host array."""
         dev = self.ddpg.device
-        obs = GraphObs(**{name: torch.from_numpy(x).to(dev)
-                          for name, x in zip(_FIELDS, leaves)})
-        return self.ddpg.greedy_action(obs).cpu().numpy()
+        with self._on_stream():
+            obs = GraphObs(**{name: torch.from_numpy(x).to(dev)
+                              for name, x in zip(_FIELDS, leaves)})
+            return self.ddpg.greedy_action(obs, actor=self.actor
+                                           ).cpu().numpy()
 
     def warm(self, batch: int) -> np.ndarray:
         """One call at bucket ``batch`` on the template's own sample."""

@@ -137,6 +137,16 @@ def read_checkpoint_meta(path: str) -> dict:
     return meta
 
 
+def checkpoint_fingerprint(path: str) -> str:
+    """Content identity of a checkpoint (the served weights' key in the
+    ``serve_start`` and ``weight_swap`` events): the sidecar's recorded
+    checksum when it has one, else the recomputed sha256 tree digest."""
+    recorded = read_checkpoint_meta(path).get("checksum")
+    if recorded:
+        return recorded
+    return checkpoint_checksum(path)
+
+
 def verify_checkpoint(path: str) -> bool:
     """True iff ``path`` exists and its recomputed checksum equals the
     sidecar's recorded one (False for a checkpoint saved without

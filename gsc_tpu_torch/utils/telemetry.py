@@ -1,8 +1,9 @@
 """Phase timing of the training loop, and the test-mode CSV telemetry
 with the reference writer's files and headers.
 
-``PhaseTimer`` and ``phase_span`` port ``gsc_tpu.utils.telemetry.
-PhaseTimer`` and ``gsc_tpu.obs.trace.phase_span``: host wall time per
+``PhaseTimer``, ``phase_span`` and ``episode_span`` port
+``gsc_tpu.utils.telemetry.PhaseTimer`` and ``gsc_tpu.obs.trace``'s two
+spans: host wall time per
 named phase of the episode loop (``host_sample``, ``host_sample_wait``,
 ``dispatch``, ``drain``), each span also a ``torch.profiler`` range and
 the hub's last-phase record (what a stall event reports being stuck in).
@@ -80,6 +81,17 @@ def phase_span(name: str, timer: Optional[PhaseTimer] = None, hub=None):
         finally:
             if hub is not None:
                 hub.note_phase(name, done=True)
+
+
+@contextmanager
+def episode_span(step: int, name: str = "episode_step"):
+    """Step marker around one episode's dispatch: a ``torch.profiler``
+    range named ``<name> <step>``, so a trace attributes device time per
+    episode."""
+    import torch
+
+    with torch.profiler.record_function(f"{name} {int(step)}"):
+        yield
 
 
 class TestModeWriter:

@@ -1,5 +1,6 @@
-"""The port's serving slice end to end on the CPU: ``run_serve`` at a small
-width (hidden 8, actor (16,)) through the deadline micro-batcher and
+"""The port's serving slice end to end on the CPU: ``run_serve`` of an
+actor drawn from the seed at a small width (hidden 8, actor (16,))
+through the deadline micro-batcher and
 buckets 1/4/8.  Answers must equal direct ``greedy_action`` calls on the
 same pool observation (tolerance below), every destination row must sum to
 1, and padded batch rows must not change the real rows (exact: rows never
@@ -24,7 +25,8 @@ AGENT = dict(gnn_impl="pallas", gnn_features=8, actor_hidden_layer_nodes=(16,))
 @pytest.fixture(scope="module")
 def report():
     return run_serve(agent=init_configs_agent(**AGENT), device="cpu",
-                     pool_steps=3, requests=24, concurrency=4)
+                     pool_steps=3, requests=24, concurrency=4,
+                     seeded_actor=True)
 
 
 def _single(ddpg, obs):
