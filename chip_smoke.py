@@ -149,9 +149,9 @@ Phases (any failure exits non-zero and prints no result line):
    call within ANSWER_BF16_RTOL / ANSWER_BF16_ATOL outside rows with a
    value within THRESH_BF16_TOL of the threshold; prints requests/s and
    p50/p99;
-12. (printed after phase 15) a JSON line
+12. (printed after phase 18) a JSON line
    of the kernels (name, route, source, the TPU kernel it replaces,
-   launches summed over the runs of phases 8, 10, 13-16, max abs
+   launches summed over the runs of phases 8, 10, 13-18, max abs
    error, ms, plain ms, bound ms and what bounds it, library ms);
 13. the generalization slice, the reference's own training path at the
    flagship widths: ``cli.init_configs`` writes the yaml set and the
@@ -280,7 +280,36 @@ Phases (any failure exits non-zero and prints no result line):
    by the SPR tier and counted in ``serve_brownout_total``.  Prints each
    part's numbers beside the card's name and power limit; the kernels
    line's launch counts include this phase's;
-18. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+18. per-flow control (``perflow_slice``): (a) the megakernel's
+   per-flow mode (external decisions, place-on-decision, the
+   ``vnf_timeout`` expiry; one launch per substep) against its plain
+   version, every leaf bit for bit on CPU copies of the inputs, over
+   ``cases.perflow_cases()``: the local policy on line3-egress under
+   tests/assets/perflow_config.yaml (which must also meet the
+   reference's frozen numbers: generated 201 +- 2, processed 197,
+   dropped 0, average end-to-end delay 35.0), random decisions with
+   about a third parked on Abilene at B=64 across two interval
+   boundaries, the expiry at ``vnf_timeout`` 30 (placed, then gone), a
+   link-fault timeline and stochastic processing delays; and a
+   duration-style ``apply`` under a per-flow config (the expiry without
+   decisions); (b) 100 one-substep launches bit-equal to one 100-substep
+   launch in duration mode at B = 1 and 64; (c) ``cli.run_simulate -d
+   300`` on Abilene under the duration controller and under per-flow
+   control with ``--per-flow-algo local`` and ``spr``, each on the card
+   (one per-flow launch per substep) and on the CPU (no launch):
+   integers equal, the mean delay within SUB_RTOL, three different
+   outcomes, each per-flow run processing more than it drops, and
+   ``spr`` under the duration controller refused; (d) one single-env
+   episode of PREDICTION_STEPS steps under ``prediction: true`` on phase
+   13's schedule, every observation's ingress column equal to
+   ``predict_ingress_traffic``, and a ``DummyEngine`` env step on the
+   card; (e) at B = 1 and 64 a per-flow interval's wall and device time,
+   kernel launches and device idle share, one per-flow launch's device
+   time against its bound and the plain substep, and the duration
+   interval's times, beside the card's name and power limit; the kernels
+   line lists the per-flow mode as ``substep_megakernel_perflow`` with
+   its launches from (c);
+19. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Tolerances (stated here, used below): the attention kernel against its
 plain version rtol 1e-5 / atol 1e-5 (f32 in another summation order: the
@@ -423,6 +452,10 @@ SHUFFLE_AGENT_YAML = ("episode_steps: 200\nobjective: prio-flow\n"
 # cut from 200 to DEFAULT_RUN_STEPS steps (warm-up as long, so every
 # episode ends in a burst of as many gradient steps)
 DEFAULT_RUN_STEPS = 50
+# phase 18: the batches timed, cli simulate's -d, the prediction episode
+PERFLOW_BATCHES = (1, 64)
+PERFLOW_SIM_MS = 300
+PREDICTION_STEPS = 20
 DEFAULT_RUN_PLAN = "nan_grads@1;dispatch_transient@2"
 DEFAULT_RUN_RECOVERIES = [("dispatch", "retry", 2),
                           ("learner_state", "rollback", 1)]
@@ -536,36 +569,44 @@ def cuda_time_ms(fn, torch, reps=200, warmup=20) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def profile_device_ms(fn, torch, reps=20, kernel=None):
+def profile_device_ms(fn, torch, reps=20, kernel=None, host_launches=False):
     """Device time per call of ``fn`` from the profiler's CUDA events: all
     kernels per call when ``kernel`` is None, else per launch of the
     kernels whose name contains ``kernel``, averaged over the launches
     the profiler recorded (some profiles hold only part of a window's
     launches, which an average over ``reps`` would halve).  None when the
-    profiler records no device time."""
+    profiler records no device time.  With ``host_launches`` the CPU is
+    traced too and the result is (that time, kernel launches the host
+    made per call)."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA]
+    if host_launches:
+        activities.append(ProfilerActivity.CPU)
     fn()
     torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
     except RuntimeError as e:   # a machine that refuses tracing: no number
         print(f"  profiler unavailable ({e}); device time not measured")
-        return None
-    total_us, launches = 0.0, 0
+        return (None, 0) if host_launches else None
+    total_us, launches, host = 0.0, 0, 0
     for evt in prof.key_averages():
+        if evt.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                       "cudaLaunchKernelExC"):
+            host += evt.count
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0.0)
         if dev_us and (kernel is None or kernel in evt.key):
             total_us += dev_us
             launches += evt.count
-    if total_us <= 0:
-        return None
-    return total_us / (reps if kernel is None else launches) / 1e3
+    ms = (None if total_us <= 0 else
+          total_us / (reps if kernel is None else launches) / 1e3)
+    return (ms, host // reps) if host_launches else ms
 
 
 def saturated_inputs(b, n, f, seed, torch, device, gap=12.0):
@@ -1456,29 +1497,37 @@ def substep_battery(torch, dev):
     return worst
 
 
-def substep_bound(engine, before, after, batch):
-    """Least time for one interval of ``batch`` replicas, from the bytes it
-    must touch: every state leaf read once and every leaf the substep
-    writes written once, except the two release rings, of which only the
-    rows the interval releases (one per substep from the interval's first)
-    and the rows it adds holds into are read and written; the topology
-    (shared by the replicas), the interval's capacities, the traffic
-    records the interval admitted and one arrival time per substep (the
-    next record's, to see that it is not due) read once.  Against a lower
-    count of the slots' operations over the f32 rate."""
+def substep_bound(engine, before, after, batch, substeps=None, written=(),
+                  extra_bytes=0, skip=()):
+    """Least time for one interval (or ``substeps`` substeps) of ``batch``
+    replicas, from the bytes it must touch: every state leaf read once and
+    every leaf the substep writes written once (``placed`` and
+    ``sf_startup`` only where named in ``written``, as per-flow control
+    writes them; the leaves named in ``skip`` not at all, as per-flow
+    control touches neither the WRR schedule nor its counts), except the
+    two release rings, of which only the rows the
+    interval releases (one per substep from the interval's first) and the
+    rows it adds holds into are read and written; the topology (shared by
+    the replicas), the interval's capacities, the traffic records the
+    interval admitted, one arrival time per substep (the next record's, to
+    see that it is not due) and ``extra_bytes`` (per-flow decisions) read
+    once.  Against a lower count of the slots' operations over the f32
+    rate."""
     import torch
 
     from gsc_tpu_torch.sim.cases import state_leaves
 
-    read_only = ("sf_startup", "placed", "schedule")
+    read_only = tuple(n for n in ("sf_startup", "placed", "schedule")
+                      if n not in written)
     rings = ("rel_node", "rel_edge")
-    nbytes = 0
+    nbytes = extra_bytes
     for name, t in state_leaves(before).items():
-        if name == "run_idx" or name in rings:
+        if name == "run_idx" or name in rings or name in skip:
             continue
         n = t.numel() * t.element_size()
         nbytes += n if name in read_only else 2 * n
-    h, k = engine.H, engine.substeps
+    h = engine.H
+    k = engine.substeps if substeps is None else substeps
     g0 = torch.round(before.t / engine.dt).long() % h               # [B]
     rows = torch.arange(h, device=g0.device)
     released = (rows[None] - g0[:, None]) % h < k                    # [B, H]
@@ -3653,6 +3702,341 @@ def serving_slice(torch, dev, smi, ck_f32, ck_bf16):
     return total, errs
 
 
+def perflow_slice(torch, dev, smi):
+    """Phase 18: per-flow control.  (a) the kernel's per-flow mode bit for
+    bit against its plain version on CPU copies over
+    ``cases.perflow_cases()`` and the duration-style ``apply`` under a
+    per-flow config, the local policy's oracle; (b) chained one-substep
+    launches against one interval launch; (c) ``cli simulate
+    --per-flow-algo local|spr`` on the card and on the CPU; (d) one
+    single-env episode under ``prediction: true`` and a ``DummyEngine``
+    env step; (e) the times.  Returns (launches on the main path by
+    kernel, the per-flow mode's largest float difference, the per-flow
+    mode's numbers for the kernels line)."""
+    import math
+
+    from gsc_tpu_torch import cli
+    from gsc_tpu_torch.env.env import ServiceCoordEnv
+    from gsc_tpu_torch.ops.gat_attention import (gat_attention,
+                                                 gat_attention_backward,
+                                                 gat_attention_backward_bf16,
+                                                 gat_attention_bf16)
+    from gsc_tpu_torch.ops.substep import substep_megakernel, substep_plain
+    from gsc_tpu_torch.sim import DummyEngine, cases
+    from gsc_tpu_torch.sim.perflow import local_decisions
+    from gsc_tpu_torch.sim.predictor import predict_ingress_traffic
+
+    ops = {"gat_attention": gat_attention,
+           "gat_attention_backward": gat_attention_backward,
+           "gat_attention_bf16": gat_attention_bf16,
+           "gat_attention_backward_bf16": gat_attention_backward_bf16,
+           "substep_megakernel": substep_megakernel}
+    total = {k: 0 for k in ops}
+    total["substep_megakernel_perflow"] = 0
+    laps = Laps()
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+
+    # (a) the battery: the per-flow mode against its plain version
+    worst = 0.0
+    for case in cases.perflow_cases():
+        t0 = time.perf_counter()
+        every = 10 if case.name == "perflow_vnf_timeout" else None
+        n0, d0 = substep_megakernel.perflow_launches, \
+            substep_megakernel.launches
+        got = cases.run_perflow_case(case, dev, every=every)
+        torch.cuda.synchronize()
+        n = substep_megakernel.perflow_launches - n0
+        check(n == case.substeps and substep_megakernel.launches == d0,
+              f"{case.name}: {n} per-flow launches for {case.substeps} "
+              "substeps (want one each, and no duration launch)")
+        want = cases.run_perflow_case(case, "cpu", plain=True, every=every)
+        for i, (g, w) in enumerate(zip(got, want)):
+            worst = max(worst, cases.compare_states(
+                g, w, SUB_RTOL, SUB_ATOL, f"{case.name} record {i}: "))
+            check(cases.bit_equal(g.to("cpu"), w),
+                  f"{case.name} record {i}: the per-flow mode is not "
+                  "bit-equal to the plain version on CPU copies")
+        note = ""
+        if case.name == "perflow_local_line3":
+            note = f"; oracle {cases.check_perflow_oracle(got[-1].to('cpu'))}"
+        if case.name == "perflow_vnf_timeout":
+            trace = [int(g.placed.sum()) for g in got]
+            check(max(trace) > 0 and trace[-1] == 0
+                  and not bool(got[-1].sf_available.any()),
+                  f"vnf_timeout: placed cells every 10 substeps {trace}")
+            note = f"; placed cells every 10 substeps {trace}"
+        m = got[-1].metrics
+        print(f"  {case.name:20s} B={case.batch:3d} {case.substeps:4d} "
+              f"substeps ({case.policy}): bit-equal to the plain version "
+              f"on CPU copies; generated {int(m.generated.sum())}, "
+              f"processed {int(m.processed.sum())}, dropped "
+              f"{int(m.dropped.sum())} reasons "
+              f"{m.drop_reasons.sum(0).tolist()}{note} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    case = cases.perflow_apply_case()
+    d0 = substep_megakernel.launches
+    got = cases.run_case(case, dev)
+    check(substep_megakernel.launches - d0 == case.intervals,
+          "the duration-style apply under a per-flow config did not launch "
+          "once per interval")
+    want = cases.run_case(case, "cpu", plain=True)
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(cases.bit_equal(g.to("cpu"), w), f"{case.name} interval {i}: "
+              "not bit-equal to the plain version on CPU copies")
+    print(f"  {case.name:20s} B={case.batch:3d} x{case.intervals} intervals "
+          "(the expiry without external decisions): bit-equal; placed "
+          f"cells after each {[int(g.placed.sum()) for g in got]}",
+          flush=True)
+    laps.lap("a battery")
+
+    # (b) K one-substep launches against one K-substep launch
+    for b in PERFLOW_BATCHES:
+        one, chained = cases.chained_launches(
+            cases.abilene_case(batch=b, intervals=2, seed=3), dev)
+        check(cases.bit_equal(one, chained), f"B={b}: 100 one-substep "
+              "launches differ from one 100-substep launch")
+    print(f"  chained: 100 one-substep launches bit-equal to one "
+          f"100-substep launch at B = {PERFLOW_BATCHES}", flush=True)
+    laps.lap("b chained")
+
+    # (c) cli simulate under per-flow control, on the card and the CPU
+    root = tempfile.mkdtemp(prefix="gsc_perflow_")
+    try:
+        from gsc_tpu_torch.topology.synthetic import abilene, write_graphml
+
+        cfg = os.path.join(root, "cfg")
+        cli.init_configs(cfg)
+        net = os.path.join(root, "abilene.graphml")
+        write_graphml(abilene(), net)
+        with open(os.path.join(cfg, "simulator.yaml")) as f:
+            text = f.read()
+        sim_pf = os.path.join(cfg, "sim_perflow.yaml")
+        with open(sim_pf, "w") as f:
+            f.write(text + "controller: per_flow\n")
+        base = ["-d", str(PERFLOW_SIM_MS), "-n", net, "-sf",
+                os.path.join(cfg, "service_abc.yaml")]
+        runs, walls = {}, {}
+        for label, config, algo in (
+                ("duration", os.path.join(cfg, "simulator.yaml"), "local"),
+                ("local", sim_pf, "local"), ("spr", sim_pf, "spr")):
+            argv = base + ["-c", config, "--per-flow-algo", algo]
+            torch.cuda.synchronize()
+            substep_megakernel.launches = 0
+            substep_megakernel.perflow_launches = 0
+            t0 = time.perf_counter()
+            on_card = cli.run_simulate(argv)
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - t0
+            n = substep_megakernel.perflow_launches
+            d = substep_megakernel.launches
+            steps = PERFLOW_SIM_MS // 100
+            if label == "duration":
+                check(n == 0 and d == steps, f"duration simulate: {d} "
+                      f"launches, {n} per-flow")
+                total["substep_megakernel"] += d
+            else:
+                check(n == 100 * steps and d == 0, f"{label} simulate: {n} "
+                      f"per-flow launches for {100 * steps} substeps, {d} "
+                      "duration")
+                total["substep_megakernel_perflow"] += n
+            substep_megakernel.launches = 0
+            substep_megakernel.perflow_launches = 0
+            on_cpu = cli.run_simulate(argv + ["--device", "cpu"])
+            check(substep_megakernel.perflow_launches == 0
+                  and substep_megakernel.launches == 0,
+                  f"the CPU simulate ({label}) launched the kernel")
+            for k in ("total_flows", "successful_flows", "dropped_flows",
+                      "drop_reasons"):
+                check(on_card[k] == on_cpu[k], f"simulate {label} {k}: "
+                      f"card {on_card[k]}, cpu {on_cpu[k]}")
+            check(math.isclose(on_card["avg_end2end_delay"],
+                               on_cpu["avg_end2end_delay"],
+                               rel_tol=SUB_RTOL, abs_tol=SUB_ATOL),
+                  f"simulate {label} delay: card {on_card}, cpu {on_cpu}")
+            runs[label] = on_card
+            print(f"  simulate -d {PERFLOW_SIM_MS} {label}: card "
+                  f"{json.dumps(on_card)} ({n or d} launches, "
+                  f"{walls[label]:.3f} s wall on {smi}); the CPU's equal",
+                  flush=True)
+        sig = lambda r: (r["successful_flows"], r["dropped_flows"],
+                         r["avg_end2end_delay"])
+        check(len({sig(r) for r in runs.values()}) == 3,
+              f"the three controllers gave {[sig(r) for r in runs.values()]}")
+        for label in ("local", "spr"):
+            r = runs[label]
+            check(r["successful_flows"] > r["dropped_flows"],
+                  f"{label} processed {r['successful_flows']}, dropped "
+                  f"{r['dropped_flows']}")
+        try:
+            cli.run_simulate(base + ["-c", os.path.join(cfg, "simulator.yaml"),
+                                     "--per-flow-algo", "spr"])
+            check(False, "spr under the duration controller ran")
+        except SystemExit:
+            pass
+        laps.lap("c simulate")
+
+        # (d) prediction on the single-env path, and the canned backend
+        nets = os.path.join(cfg, "networks")
+        sched = os.path.join(root, "scheduler.yaml")
+        with open(sched, "w") as f:
+            f.write("training_network_files:\n"
+                    f"  - {nets}/abilene-in4.graphml\n"
+                    f"  - {nets}/claranet-in4-cap1.graphml\n"
+                    f"inference_network: {nets}/compuserve-in4-cap1.graphml\n"
+                    f"period: {GEN_PERIOD}\n")
+        agent_yaml = os.path.join(root, "agent.yaml")
+        with open(os.path.join(cfg, "agent.yaml")) as f:
+            text = f.read()
+        with open(agent_yaml, "w") as f:
+            f.write(text.replace("episode_steps: 200",
+                                 f"episode_steps: {PREDICTION_STEPS}")
+                    .replace("nb_steps_warmup_critic: 200",
+                             f"nb_steps_warmup_critic: {PREDICTION_STEPS}")
+                    + "gnn_impl: pallas\n")
+        sim_pred = os.path.join(cfg, "sim_prediction.yaml")
+        with open(os.path.join(cfg, "simulator.yaml")) as f:
+            text = f.read()
+        with open(sim_pred, "w") as f:
+            f.write(text + "prediction: true\n")
+        seen = {"obs": 0, "nonzero": 0}
+        saved_obs = ServiceCoordEnv._obs
+
+        def checked_obs(env, state, topo, traffic):
+            obs = saved_obs(env, state, topo, traffic)
+            col = env.agent.observation_space.index("ingress_traffic")
+            p = predict_ingress_traffic(traffic, state.run_idx,
+                                        env.sim_cfg.run_duration,
+                                        env.limits.max_nodes)
+            p = torch.clamp(p / (p.amax(-1, keepdim=True) + 1e-3), 0.0, 1.0)
+            want = torch.where(topo.expand(state.batch).node_mask, p,
+                               torch.zeros((), device=p.device))
+            check(torch.equal(obs.nodes[..., col], want),
+                  f"observation {seen['obs']}: the ingress column is not "
+                  "the predicted traffic")
+            seen["obs"] += 1
+            seen["nonzero"] += int(bool((want > 0).any()))
+            return obs
+
+        for op in ops.values():
+            op.launches = 0
+        ServiceCoordEnv._obs = checked_obs
+        try:
+            res = cli.run_train(["--scheduler", sched, "--replicas", "1",
+                                 "--seed", "0", "--episodes", "1",
+                                 "--agent-config", agent_yaml,
+                                 "--simulator-config", sim_pred, "--service",
+                                 os.path.join(cfg, "service_abc.yaml")])
+        finally:
+            ServiceCoordEnv._obs = saved_obs
+        for k, op in ops.items():
+            total[k] += op.launches
+        check(seen["obs"] >= PREDICTION_STEPS and seen["nonzero"] > 0,
+              f"prediction: {seen} observations checked")
+        check(math.isfinite(res["trainer"].history[-1]["episodic_return"]),
+              "the prediction episode's return is not finite")
+        laps.lap("d prediction")
+        env = res["trainer"].env
+        dummy = DummyEngine(env.service, env.sim_cfg, env.limits)
+        denv = ServiceCoordEnv(env.service, env.sim_cfg, env.agent,
+                               env.limits, engine=dummy)
+        t_ab, traffic = res["trainer"]._episode(0)
+        es, obs = denv.reset(t_ab, traffic, batch=1)
+        d0 = substep_megakernel.launches
+        action = torch.full((1, env.limits.action_dim), 1.0, device=dev)
+        es, obs, reward, _, info = denv.step(es, t_ab, traffic, action)
+        check(substep_megakernel.launches == d0
+              and math.isclose(float(info["succ_ratio"][0]), 0.8,
+                               rel_tol=1e-6)
+              and math.isclose(float(info["avg_e2e_delay"][0]), 20.0,
+                               rel_tol=1e-6)
+              and obs.nodes.device.type == "cuda",
+              f"DummyEngine step on the card: {info}")
+        print(f"  prediction: {seen['obs']} observations of a "
+              f"{PREDICTION_STEPS}-step single-env episode and its "
+              "evaluation, each ingress column the predicted traffic "
+              f"({seen['nonzero']} non-zero); DummyEngine step on the card: "
+              f"success {float(info['succ_ratio'][0]):.3f}, delay "
+              f"{float(info['avg_e2e_delay'][0]):.1f} ms", flush=True)
+        laps.lap("d dummy")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (e) times: a per-flow interval of the local policy against a
+    # duration interval, and one per-flow launch against its bound
+    timing = {}
+    decide = local_decisions
+    for b in PERFLOW_BATCHES:
+        case = cases.perflow_random_case(batch=b, substeps=100)
+        eng = case.engine
+        topo, traffic = case.topo.to(dev), case.traffic.to(dev)
+        st = eng.apply_per_flow(eng.init(b, dev), topo, traffic, decide)[0]
+        interval = lambda: eng.apply_per_flow(st, topo, traffic, decide)
+        wall = cuda_time_ms(interval, torch, reps=3, warmup=1)
+        dev_ms, n_launch = profile_device_ms(interval, torch, reps=1,
+                                             host_launches=True)
+        mk_ms = profile_device_ms(interval, torch, reps=1,
+                                  kernel="substep_megakernel_kernel")
+        # one launch of the per-flow mode against its bound, and the
+        # plain version's substep
+        st1, topo1, cap = eng.begin_substep(st, topo.expand(b),
+                                            traffic.expand(b))
+        dec = decide(st1)
+        one = lambda: substep_megakernel.launch(
+            eng, st1, topo1, traffic.expand(b), cap, None, 1, dec)
+        after = one()
+        launch_ms = profile_device_ms(one, torch, reps=10,
+                                      kernel="substep_megakernel_kernel")
+        plain_ms = cuda_time_ms(lambda: substep_plain(
+            eng, st1, topo1, traffic.expand(b), cap, None, 1, dec), torch,
+            reps=2, warmup=1)
+        bound_ms, bound_by, nbytes, _ = substep_bound(
+            eng, st1, after, b, substeps=1, written=("placed", "sf_startup"),
+            extra_bytes=dec.numel() * 4,
+            skip=("schedule", "metrics.run_flow_counts"))
+        # the duration controller's interval at the same B, same call
+        dcase = cases.abilene_case(batch=b, intervals=2, seed=7)
+        dstates = cases.run_case(dcase, dev)
+        dtraffic = dcase.traffic.to(dev)
+        dst, dcap = dcase.engine.begin_interval(
+            dstates[-1], dtraffic, dcase.schedule.to(dev),
+            dcase.placement.to(dev))
+        dtopo = dcase.topo.to(dev).expand(b)
+        dur = lambda: substep_megakernel.launch(dcase.engine, dst, dtopo,
+                                                dtraffic, dcap)
+        dur_wall = cuda_time_ms(dur, torch, reps=10, warmup=2)
+        dur_dev = profile_device_ms(dur, torch, reps=5,
+                                    kernel="substep_megakernel_kernel")
+        idle = None if dev_ms is None else 1.0 - dev_ms / wall
+        timing[b] = {"wall_ms": wall, "device_ms": dev_ms,
+                     "megakernel_ms": mk_ms, "launches": n_launch,
+                     "idle": idle, "launch_ms": launch_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "duration_wall_ms": dur_wall,
+                     "duration_device_ms": dur_dev}
+        print(f"  B={b:3d} per-flow interval (100 substeps, local policy): "
+              f"{wall:.3f} ms wall, device {fmt(dev_ms)} (per-flow "
+              f"launches {fmt(mk_ms)} each), {n_launch} kernel launches, "
+              f"device idle share "
+              f"{'not measured' if idle is None else f'{idle:.4f}'}; one "
+              f"per-flow launch {fmt(launch_ms)} device, plain substep "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
+              f"{nbytes} bytes); the duration interval {dur_wall:.4f} ms "
+              f"wall, {fmt(dur_dev)} device, on {smi}", flush=True)
+    print(f"  SPR episode (simulate -d {PERFLOW_SIM_MS}, B=1) "
+          f"{walls['spr']:.3f} s wall, local {walls['local']:.3f} s, "
+          f"duration {walls['duration']:.3f} s, on {smi}", flush=True)
+    laps.lap("e times")
+    print("phase 18 launches on the main path (each count 0 before its "
+          "run): " + json.dumps(total), flush=True)
+    print("phase 18 parts, s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in laps.seconds.items())
+          + f"; phase 18 {sum(laps.seconds.values()):.3f}", flush=True)
+    t = timing[SUB_MAIN_BATCH]
+    return total, worst, {"ms": t["launch_ms"], "plain_ms": t["plain_ms"],
+                          "bound_ms": t["bound_ms"],
+                          "bound_by": t["bound_by"]}
+
+
 def main() -> int:
     import torch
 
@@ -3909,14 +4293,22 @@ def main() -> int:
                    "gat_attention_bf16", "substep_megakernel"):
         check(serving_launches.get(kernel, 0) > 0,
               f"{kernel} was not launched on the serving path")
+    # ---- 18. per-flow control -----------------------------------------
+    print("phase 18, per-flow control:", flush=True)
+    pf_launches, pf_err, pf_times = perflow_slice(torch, dev, smi)
+    phases.lap("18")
+    for kernel in ("substep_megakernel", "substep_megakernel_perflow"):
+        check(pf_launches.get(kernel, 0) > 0,
+              f"{kernel} was not launched on the per-flow path")
     path_launches = {k: train_launches.get(k, 0) + bf16_launches.get(k, 0)
                      + gen_launches.get(k, 0) + large_launches.get(k, 0)
                      + run_launches.get(k, 0) + mix_launches.get(k, 0)
-                     + serving_launches.get(k, 0)
+                     + serving_launches.get(k, 0) + pf_launches.get(k, 0)
                      for k in ("gat_attention", "gat_attention_backward",
                                "gat_attention_bf16",
                                "gat_attention_backward_bf16",
-                               "substep_megakernel")}
+                               "substep_megakernel",
+                               "substep_megakernel_perflow")}
     max_err = max(max_err, large_errs["gat_attention"])
     bwd_err = max(bwd_err, large_errs["gat_attention_backward"])
     h_err = max(h_err, large_errs["gat_attention_bf16"])
@@ -3992,6 +4384,18 @@ def main() -> int:
         "plain_ms": s_plain_ms,
         "bound_ms": s_bound_ms,
         "bound_by": s_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "substep_megakernel_perflow",
+        "route": "cuda",
+        "source": rel(SUB_SOURCE),
+        "replaces": "gsc_tpu/sim/engine.py:389",
+        "launches": path_launches["substep_megakernel_perflow"],
+        "max_abs_err": pf_err,
+        "ms": pf_times["ms"],
+        "plain_ms": pf_times["plain_ms"],
+        "bound_ms": pf_times["bound_ms"],
+        "bound_by": pf_times["bound_by"],
         "library_ms": None,
     }]}
     print("phase seconds: " + ", ".join(

@@ -53,10 +53,14 @@ is reported) or ``--experiment-id`` one
 ``--result-dir`` nothing is written and the observer keeps its events in
 memory.
 
-``simulate`` runs the duration controller for ``--duration`` ms on one
-GraphML network with a uniform schedule and every SF everywhere and
-prints the JAX CLI's JSON (flow counts, drop reasons, mean end-to-end
-delay); per-flow control is refused.
+``simulate`` runs ``--duration`` ms on one GraphML network and prints the
+JAX CLI's JSON (flow counts, drop reasons, mean end-to-end delay): under
+the duration controller with a uniform schedule and every SF everywhere;
+under a ``controller: per_flow`` config with ``--per-flow-algo local``
+(every deciding flow processes at its node, a policy on the device, one
+kernel launch per substep) or ``spr`` (the shortest-path heuristic through
+the host ``PerFlowController`` loop).  ``spr`` under the duration
+controller is refused before any setup.
 
 ``infer --checkpoint PATH`` restores a checkpoint's learner state and
 prints the evaluation of ``--episodes`` greedy episodes on the inference
@@ -615,11 +619,13 @@ def _uniform_schedule(limits, node_mask):
 
 
 def _simulate(args) -> dict:
-    """``simulate``: ``--duration`` ms of the duration controller on one
-    GraphML network with a uniform schedule and every SF placed on every
-    node; prints the flow counters, drop reasons and mean end-to-end
-    delay as one JSON line.  On the card every interval is one launch of
-    the substep megakernel."""
+    """``simulate``: ``--duration`` ms on one GraphML network, under the
+    duration controller with a uniform schedule and every SF placed on
+    every node, or under per-flow control with ``--per-flow-algo``;
+    prints the flow counters, drop reasons and mean end-to-end delay as
+    one JSON line.  On the card every interval of the duration controller
+    is one launch of the substep megakernel, every per-flow substep one
+    launch of its per-flow mode."""
     import math
 
     import numpy as np
@@ -634,13 +640,18 @@ def _simulate(args) -> dict:
     from .sim.traffic import generate_traffic
     from .topology.compiler import check_dt_quantization, load_topology
 
-    dev = resolve_device(args.device)
     service = load_service(args.service)
     try:
         sim_cfg = load_sim(args.config)
     except ValueError as e:
-        raise SystemExit(f"{args.config}: {e}; simulate runs the duration "
-                         "controller only")
+        raise SystemExit(f"{args.config}: {e}")
+    per_flow = sim_cfg.controller == "per_flow"
+    if args.per_flow_algo != "local" and not per_flow:
+        raise SystemExit(
+            f"--per-flow-algo {args.per_flow_algo} requires 'controller: "
+            "per_flow' in the simulator config (this config runs the "
+            "duration controller, which would ignore the algorithm)")
+    dev = resolve_device(args.device)
     limits = EnvLimits.for_service(service, max_nodes=args.max_nodes,
                                    max_edges=args.max_edges)
     topo = load_topology(args.network, max_nodes=args.max_nodes,
@@ -656,17 +667,31 @@ def _simulate(args) -> dict:
     traffic = generate_traffic(sim_cfg, service, topo, steps, args.seed)
     engine = SimEngine(service, sim_cfg, limits)
     nm = topo.node_mask.cpu().numpy()
-    sched = torch.from_numpy(_uniform_schedule(limits, nm))[None].to(dev)
-    placement = torch.from_numpy(np.broadcast_to(
-        nm[:, None], (args.max_nodes, limits.sf_pool)).copy())[None].to(dev)
     topo, traffic = topo.to(dev), traffic.to(dev)
     state = engine.init(1, dev)
     draws = Draws(args.seed, dev)
-    metrics = state.metrics
-    for _ in range(steps):
-        state, metrics = engine.apply(state, topo, traffic, sched, placement,
-                                      draws.sim_noise(engine, 1))
-    m = metrics.map(lambda t: t[0].cpu())
+    if per_flow and args.per_flow_algo == "spr":
+        from .sim.perflow import PerFlowController
+        from .sim.spr import run_spr_episode
+
+        ctrl = PerFlowController(engine, topo, traffic,
+                                 generator=draws.generator)
+        state = run_spr_episode(ctrl, state, steps * engine.substeps)
+    elif per_flow:
+        from .sim.perflow import local_decisions
+
+        for _ in range(steps):
+            state, _ = engine.apply_per_flow(state, topo, traffic,
+                                             local_decisions,
+                                             draws.sim_noise(engine, 1))
+    else:
+        sched = torch.from_numpy(_uniform_schedule(limits, nm))[None].to(dev)
+        placement = torch.from_numpy(np.broadcast_to(
+            nm[:, None], (args.max_nodes, limits.sf_pool)).copy())[None].to(dev)
+        for _ in range(steps):
+            state, _ = engine.apply(state, topo, traffic, sched, placement,
+                                    draws.sim_noise(engine, 1))
+    m = state.metrics.map(lambda t: t[0].cpu())
     out = {"total_flows": int(m.generated),
            "successful_flows": int(m.processed),
            "dropped_flows": int(m.dropped),
@@ -1012,8 +1037,9 @@ def _parser() -> argparse.ArgumentParser:
                    "to <run>/profile/trace.json")
 
     m = sub.add_parser("simulate", help="a standalone simulator run: a "
-                       "uniform schedule over every node, every SF placed "
-                       "everywhere, the duration controller")
+                       "uniform schedule over every node and every SF "
+                       "placed everywhere under the duration controller, "
+                       "or per-flow control")
     m.add_argument("--duration", "-d", type=float, default=1000.0,
                    help="simulated ms")
     m.add_argument("--network", "-n", required=True, help="GraphML file")
@@ -1024,6 +1050,12 @@ def _parser() -> argparse.ArgumentParser:
     m.add_argument("--seed", type=int, default=0)
     m.add_argument("--max-nodes", type=int, default=24)
     m.add_argument("--max-edges", type=int, default=37)
+    m.add_argument("--per-flow-algo", choices=("local", "spr"),
+                   default="local",
+                   help="the per-flow algorithm under 'controller: "
+                   "per_flow': 'local' processes every flow at its node (a "
+                   "policy on the device), 'spr' runs the shortest-path "
+                   "heuristic through the host PerFlowController loop")
     _device_arg(m)
 
     i = sub.add_parser("infer", help="greedy episodes of a checkpoint's "

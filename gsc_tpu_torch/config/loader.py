@@ -64,7 +64,7 @@ def load_sim(path: str, **overrides) -> SimConfig:
         raise ValueError("'deterministic_arrival' or 'deterministic_size' "
                          "are not set in simulator config.")
     for key in ("inter_arrival_mean", "flow_dr_mean", "flow_dr_stdev",
-                "flow_size_shape", "run_duration", "dt"):
+                "flow_size_shape", "run_duration", "vnf_timeout", "dt"):
         if key in cfg:
             kw[key] = float(cfg[key])
     if "ttl_choices" not in cfg:
@@ -85,9 +85,8 @@ def load_sim(path: str, **overrides) -> SimConfig:
             for k, v in cfg["states"].items())
     if "trace_path" in cfg:
         kw["trace_path"] = cfg["trace_path"]
-    if cfg.get("prediction"):
-        # per-flow traffic prediction belongs with per-flow control
-        raise ValueError("simulator option 'prediction' is not ported")
+    if "prediction" in cfg:
+        kw["prediction"] = bool(cfg["prediction"])
     spelled = {key: _CONTROLLERS.get(cfg[key], cfg[key])
                for key in ("controller_class", "controller") if key in cfg}
     if len(set(spelled.values())) > 1:

@@ -194,16 +194,18 @@ class MMPPState:
 @dataclass(frozen=True)
 class SimConfig:
     """Simulator and traffic configuration.  The port's engine runs the
-    duration controller's substep through the substep megakernel (the
-    CUDA kernel of ``ops.substep`` on the card, the plain substep on the
-    CPU) with deterministic or Poisson arrivals, whose per-interval mean
+    substep through the substep megakernel (the CUDA kernel of
+    ``ops.substep`` on the card, the plain substep on the CPU), under the
+    duration controller or per-flow control (``controller``), with
+    deterministic or Poisson arrivals, whose per-interval mean
     may follow the two-state MMPP chain (``use_states``, ``init_state``,
     ``rand_init_state``, ``states``) or a CSV trace (``trace_path``).
     ``substep_impl`` is the JAX package's key, validated as there so that
     its yaml files load; it does not choose a path in the port.
     ``force_link_cap`` and ``force_node_cap`` override the capacities of
     every network read from GraphML (``topology.compiler.read_graphml``).
-    Per-flow control is only named so that it can be refused."""
+    Per-flow control with ``substep_impl="pallas"`` is refused, as in the
+    JAX package."""
 
     inter_arrival_mean: float = 10.0
     deterministic_arrival: bool = True
@@ -213,6 +215,8 @@ class SimConfig:
     deterministic_size: bool = True
     run_duration: float = 100.0
     ttl_choices: Tuple[float, ...] = (100.0,)
+    # per-flow control removes an instance idle for longer than this (ms)
+    vnf_timeout: float = 100.0
     # capacity overrides of GraphML networks: every link's capacity, and
     # (lo, hi) integer node capacities drawn uniformly in [lo, hi)
     force_link_cap: Optional[float] = None
@@ -225,6 +229,9 @@ class SimConfig:
     states: Tuple[MMPPState, ...] = ()
     # trace CSV (time, node, inter_arrival_mean[, cap]) of mean changes
     trace_path: Optional[str] = None
+    # observations show the next interval's ingress traffic instead of the
+    # last interval's (sim.predictor.predict_ingress_traffic)
+    prediction: bool = False
     # substep quantum in ms of the fixed-step engine
     dt: float = 1.0
     # flow-table slots per replica
@@ -235,7 +242,9 @@ class SimConfig:
     admission_iters: int = 3
     # rank levels for sequential WRR among same-substep collisions
     wrr_rank_levels: int = 4
-    # "duration" (batch control, the only one the port runs) or "per_flow"
+    # "duration" (one placement and schedule per interval) or "per_flow"
+    # (a destination per flow, place-on-decision, idle instances removed
+    # after vnf_timeout)
     controller: str = "duration"
     # the JAX package's "xla" or "pallas"; the port runs the megakernel
     # for either
@@ -258,9 +267,6 @@ class SimConfig:
             raise ValueError(
                 "substep_impl='pallas' supports only controller='duration' "
                 "(per-flow control runs the XLA substep)")
-        if self.controller == "per_flow":
-            raise ValueError("per-flow control is not ported (ROADMAP "
-                             "Queue 1 item 8)")
 
     @property
     def substeps_per_run(self) -> int:

@@ -25,6 +25,28 @@
 //     delayed release;
 //  7. departures, the seven drop masks mapped to four reasons, counters.
 //
+// Per-flow control (the JAX package's XLA substep with ext_decisions,
+// gsc_tpu/sim/engine.py:389,576-600; its Pallas kernel refuses it) is a
+// mode of this kernel, two switches that the wrapper sets apart:
+//  - ``ext_decisions`` [B, M] (launched with K = 1, since the policy runs
+//    between substeps) replaces stage 4's WRR: a flow with a destination
+//    >= 0 goes there (clamped to the nodes), one without stays parked in
+//    DECIDE with its timer and node (stage 5 forwards the decided flows
+//    and the egress-bound only); the decided flows' requested traffic is
+//    added per cell in slot order as the WRR's is; then the first decided
+//    slot of each (node, SF) cell places it if absent (place-on-decision:
+//    the startup clock starts where the cell was not available, the idle
+//    clock where it is new) and a barrier publishes s_placed before
+//    forwarding checks the placement;
+//  - ``gc`` removes, at the end of every substep, an instance without
+//    load whose idle clock is older than ``vnf_timeout``; it rides on the
+//    deferred idle-clock stamp (``settle_idle``: the start of the next
+//    substep, or the end of the launch), so K chained launches of one
+//    substep equal one launch of K substeps.
+// A launch with either switch set runs the kPerFlow instantiation; the
+// duration controller's compiles without them, so the switches cost it no
+// registers (with them compiled in, an H100 ran its intervals ~4% slower).
+//
 // What bounds it on this card: neither bytes nor operations.  A substep
 // touches a few tens of KB of one replica's state and does a few thousand
 // operations, so the kernel is latency-bound by its chain of block-wide
@@ -37,7 +59,8 @@
 //    device memory;
 //  - every stage runs one thread per slot or per sorted position, with
 //    at most 13 + R __syncthreads per substep (R = WRR rank levels in
-//    use; 6 of the 13 are the three admission rounds);
+//    use, 2 in place of them under per-flow decisions; 6 of the 13 are
+//    the three admission rounds);
 //  - lists of flagged slots (free, arrived, WRR, requesting, admitted,
 //    departing) are warp ballots: ranks and counts are popcounts, and
 //    loops over such a list visit only its set bits;
@@ -143,8 +166,8 @@ struct SubstepArgs {
     int* phase; int* sfc; int* position; int* node; int* dest; int* hop_next;
     int* egress; float* dr; float* duration; float* ttl; float* e2e;
     float* pend_path; float* timer;
-    float* node_load; uint8_t* sf_available; const float* sf_startup;
-    float* sf_last_active; const uint8_t* placed; const float* schedule;
+    float* node_load; uint8_t* sf_available; float* sf_startup;
+    float* sf_last_active; uint8_t* placed; const float* schedule;
     float* edge_used; float* rel_node; float* rel_edge;
     // metrics [B, ...]
     int* generated; int* processed; int* dropped; int* active;
@@ -176,6 +199,16 @@ struct SubstepArgs {
     // [B, N_STAGES] clock64() cycles per stage; SUBSTEP_STAGE_CLOCKS
     // builds only, null otherwise
     long long* stage_clocks;
+    // per-flow control: [B, M] destination node per slot (-1: none), in
+    // place of the WRR, with place-on-decision (placed and sf_startup are
+    // then written back); null under the duration controller (K = 1
+    // otherwise, the wrapper's check)
+    const int* ext_decisions;
+    // nonzero: instances idle for longer than vnf_timeout ms are removed
+    // at the end of every substep (per-flow control, with or without
+    // ext_decisions; placed is then written back)
+    long long gc;
+    double vnf_timeout;
 };
 
 // stages of a substep, as the clocked build attributes them
@@ -459,6 +492,24 @@ __device__ __forceinline__ double block_prefix(double x, const double* tot) {
     return pre + x;
 }
 
+// the end of a substep at time t for one (node, SF) cell of load x: an
+// active cell's idle clock takes t (deferred to here: nothing reads it
+// within a substep), and under gc an idle cell available for longer than
+// vnf_timeout since its clock is removed (sf_last_active < t - vnf_timeout
+// in f32, as the plain version compares)
+__device__ __forceinline__ void settle_idle(int i, float x, float t, bool gc,
+                                            float vnf_timeout, float* tnp,
+                                            int NP, int* s_avail,
+                                            int* s_placed) {
+    float* last = tnp + (size_t)T_LAST * NP + i;
+    if (x > EPS) {
+        *last = t;
+    } else if (gc && s_avail[i] && *last < __fsub_rn(t, vnf_timeout)) {
+        s_avail[i] = 0;
+        s_placed[i] = 0;
+    }
+}
+
 #ifdef SUBSTEP_STAGE_CLOCKS
 #define STAGE_MARK(s) do { if (tid == 0) { const long long now_ = clock64(); \
     sc.clk[s] += now_ - clk_last; clk_last = now_; } } while (0)
@@ -469,7 +520,9 @@ __device__ __forceinline__ double block_prefix(double x, const double* tot) {
 #endif
 #define STAGE_SYNC(s) do { __syncthreads(); STAGE_MARK(s); } while (0)
 
-template <int MAX_BLOCK>
+// kPerFlow: the instantiation that reads the two per-flow switches (the
+// duration controller's, false, compiles none of their code)
+template <int MAX_BLOCK, bool kPerFlow>
 __global__ void __launch_bounds__(MAX_BLOCK)
 substep_megakernel_kernel(SubstepArgs a) {
     extern __shared__ __align__(16) unsigned char smem[];
@@ -484,6 +537,10 @@ substep_megakernel_kernel(SubstepArgs a) {
     const float dt = (float)a.dt;
     const bool own = tid < M;
     const int m = tid;
+    const int* ext = (kPerFlow && a.ext_decisions != nullptr)
+        ? a.ext_decisions + (size_t)b * M : nullptr;
+    const bool gc = kPerFlow && a.gc != 0;
+    const float vnf_timeout = (float)a.vnf_timeout;
 
     const Layout L = layout_for(M, N, C, S, P, E);
     Scalars& sc = *(Scalars*)(smem + L.sc);
@@ -609,7 +666,8 @@ substep_megakernel_kernel(SubstepArgs a) {
         // ---- 1. capacity releases (after the last substep's activity) ----
         for (int i = tid; i < NP; i += nth) {
             float x = node_load[i];
-            if (k > 0 && x > EPS) tnp[(size_t)T_LAST * NP + i] = t_prev;
+            if (k > 0) settle_idle(i, x, t_prev, gc, vnf_timeout, tnp, NP,
+                                   s_avail, s_placed);
             x = x - rel_node[(size_t)ridx * NP + i];
             x = x < 0.0f ? 0.0f : x;
             node_load[i] = x;
@@ -729,7 +787,7 @@ substep_megakernel_kernel(SubstepArgs a) {
         {
             // ---- 4. decisions ------------------------------------------------
             bool drop_ttl0 = false, decide = false, to_eg = false, wrr = false;
-            int cell = 0, sf_now = 0;
+            int cell = 0, sf_now = 0, ext_dst = 0;
             if (own) {
                 const int ph = s_ph[m], pos = s_pos[m], nd = s_nd[m];
                 const int sfc = s_sfc[m];
@@ -743,6 +801,12 @@ substep_megakernel_kernel(SubstepArgs a) {
                 to_eg = decide && to_eg_flag;
                 if (to_eg && s_eg[m] < 0) s_eg[m] = nd;
                 wrr = decide && !to_eg_flag;
+                // per-flow control: a flow without a decision stays parked
+                if (ext != nullptr && wrr) {
+                    const int e = __ldg(ext + m);
+                    wrr = e >= 0;
+                    ext_dst = clampi(e, 0, N - 1);
+                }
                 sf_now = sf_at(s_chain_sf, sfc, pos, C, S);
                 cell = (nd * C + sfc_c) * S + clampi(pos, 0, S - 1);
                 UI(U_CELL)[m] = cell;
@@ -767,7 +831,7 @@ substep_megakernel_kernel(SubstepArgs a) {
             // rank levels: below R - 1 a cell has at most one chooser, so it
             // reads and adds in one step; the last level's choosers of one cell
             // all read before any adds
-            for (int r = 0; r < R && r < n_wrr; ++r) {
+            for (int r = 0; ext == nullptr && r < R && r < n_wrr; ++r) {
                 const bool last = r == R - 1;
                 const bool sel = wrr && (last ? rank >= r : rank == r);
                 // each warp chooses for its selected slots in turn
@@ -785,6 +849,26 @@ substep_megakernel_kernel(SubstepArgs a) {
                 if (sel && cell_ok) atomicAdd(&flow_counts[(size_t)cell * N + choice], 1);
                 if (!last && r + 1 < n_wrr) __syncthreads();
             }
+            if (ext != nullptr) {
+                // place-on-decision: the first decided slot of each
+                // (node, SF) cell installs it if absent (a cell that was
+                // not available starts its startup clock, every new one
+                // its idle clock), before forwarding reads s_placed.
+                // U_PC is free here: the path credits were read before
+                // the decisions' barrier
+                if (wrr) dst = ext_dst;
+                const int pc = (wrr && sf_now < P) ? dst * P + sf_now : -1;
+                if (own) UI(U_PC)[m] = pc;
+                __syncthreads();
+                if (pc >= 0 && first_of(MASK(MK_WRR), nw, UI(U_PC), m, pc)
+                    && !s_placed[pc]) {
+                    if (!s_avail[pc]) tnp[(size_t)T_STARTUP * NP + pc] = tt;
+                    tnp[(size_t)T_LAST * NP + pc] = tt;
+                    s_avail[pc] = 1;
+                    s_placed[pc] = 1;
+                }
+                __syncthreads();
+            }
             CLOCK_SPLIT(ST_WRR);
 
             // ---- 5. forwarding -----------------------------------------------
@@ -800,10 +884,12 @@ substep_megakernel_kernel(SubstepArgs a) {
                 s_dst[m] = dst;
                 nd = s_nd[m];
                 float ttl = s_ttl[m];
-                const bool stay = decide && dst == nd;
+                // per-flow control forwards the decided flows only
+                const bool fwd = ext != nullptr ? (to_eg || wrr) : decide;
+                const bool stay = fwd && dst == nd;
                 depart_stay = to_eg && stay;
                 const bool need_b = wrr && stay;
-                start_path = decide && !stay;
+                start_path = fwd && !stay;
                 const int dc = dst < 0 ? 0 : dst;
                 const bool nv = nd >= 0 && nd < N;
                 const bool nn_ok = nv && dc < N;
@@ -1195,7 +1281,8 @@ substep_megakernel_kernel(SubstepArgs a) {
 
     // ---- the last substep's activity, then store everything --------------
     for (int i = tid; i < NP; i += nth)
-        if (K > 0 && node_load[i] > EPS) tnp[(size_t)T_LAST * NP + i] = t_prev;
+        if (K > 0) settle_idle(i, node_load[i], t_prev, gc, vnf_timeout, tnp,
+                               NP, s_avail, s_placed);
     if (own) {
         a.phase[fm + m] = s_ph[m];       a.sfc[fm + m] = s_sfc[m];
         a.position[fm + m] = s_pos[m];   a.node[fm + m] = s_nd[m];
@@ -1211,6 +1298,9 @@ substep_megakernel_kernel(SubstepArgs a) {
         a.sf_last_active[g] = tnp[(size_t)T_LAST * NP + i];
         a.run_processed_traffic[g] = tnp[(size_t)T_PROCESSED * NP + i];
         a.sf_available[g] = s_avail[i] ? 1 : 0;
+        if (ext != nullptr || gc) a.placed[g] = s_placed[i] ? 1 : 0;
+        if (ext != nullptr)
+            a.sf_startup[g] = tnp[(size_t)T_STARTUP * NP + i];
     }
     for (int i = tid; i < E; i += nth) {
         a.edge_used[(size_t)b * E + i] = edge_used[i];
@@ -1268,18 +1358,27 @@ extern "C" int substep_n_stages() {
 #endif
 }
 
-template <int MAX_BLOCK>
+template <int MAX_BLOCK, bool kPerFlow>
 static int launch_blocks(const SubstepArgs* args, int threads, size_t smem,
                          void* stream) {
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
-            substep_megakernel_kernel<MAX_BLOCK>,
+            substep_megakernel_kernel<MAX_BLOCK, kPerFlow>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    substep_megakernel_kernel<MAX_BLOCK><<<(unsigned)args->B, threads, smem,
-                                           (cudaStream_t)stream>>>(*args);
+    substep_megakernel_kernel<MAX_BLOCK, kPerFlow>
+        <<<(unsigned)args->B, threads, smem, (cudaStream_t)stream>>>(*args);
     return (int)cudaGetLastError();
+}
+
+// the per-flow instantiation where either per-flow switch is set
+template <int MAX_BLOCK>
+static int launch_for(const SubstepArgs* args, int threads, size_t smem,
+                      void* stream) {
+    return (args->ext_decisions != nullptr || args->gc != 0)
+        ? launch_blocks<MAX_BLOCK, true>(args, threads, smem, stream)
+        : launch_blocks<MAX_BLOCK, false>(args, threads, smem, stream);
 }
 
 extern "C" int substep_megakernel(const SubstepArgs* args, void* stream) {
@@ -1288,8 +1387,8 @@ extern "C" int substep_megakernel(const SubstepArgs* args, void* stream) {
                                    args->P, args->E).total;
     const int threads = (int)((args->M + 31) / 32 * 32);
     return threads <= SMALL_BLOCK
-        ? launch_blocks<SMALL_BLOCK>(args, threads, smem, stream)
-        : launch_blocks<MAX_THREADS>(args, threads, smem, stream);
+        ? launch_for<SMALL_BLOCK>(args, threads, smem, stream)
+        : launch_for<MAX_THREADS>(args, threads, smem, stream);
 }
 
 extern "C" const char* substep_error_string(int code) {

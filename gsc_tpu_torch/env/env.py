@@ -2,7 +2,10 @@
 
 The port of ``gsc_tpu.env.env.ServiceCoordEnv``.  ``EnvState`` carries a
 leading [B] dim of env replicas; ``topo`` and ``traffic`` are shared by
-every replica or carry the same [B].
+every replica or carry the same [B].  With ``SimConfig.prediction`` the
+observations show the upcoming interval's ingress traffic
+(``sim.predictor.predict_ingress_traffic``) in place of the last one's;
+``engine`` replaces the simulator (``sim.dummy.DummyEngine``).
 """
 from __future__ import annotations
 
@@ -38,12 +41,14 @@ class ServiceCoordEnv:
     agent-side post-processing (``process_action``)."""
 
     def __init__(self, service: ServiceConfig, sim_cfg: SimConfig,
-                 agent: AgentConfig, limits: EnvLimits):
+                 agent: AgentConfig, limits: EnvLimits,
+                 engine: Optional[SimEngine] = None):
         self.service = service
         self.sim_cfg = sim_cfg
         self.agent = agent
         self.limits = limits
-        self.engine = SimEngine(service, sim_cfg, limits)
+        self.engine = engine if engine is not None else SimEngine(
+            service, sim_cfg, limits)
         self.tables = self.engine.tables
         self.min_delay, self.diameter = reward_constants(
             agent, [service.sf_list[n].processing_delay_mean
@@ -69,9 +74,15 @@ class ServiceCoordEnv:
         node_cap = traffic.expand(b).node_cap
         idx = state.run_idx.clamp(0, node_cap.shape[1] - 1).long()
         cap_now = node_cap[torch.arange(b, device=idx.device), idx]
+        override = None
+        if self.sim_cfg.prediction:
+            from ..sim.predictor import predict_ingress_traffic
+            override = predict_ingress_traffic(
+                traffic, state.run_idx, self.sim_cfg.run_duration,
+                self.limits.max_nodes)
         return graph_obs(state.metrics, topo, cap_now, self.tables.chain_sf,
                          self.agent.observation_space, self.limits.num_sfcs,
-                         self.limits.max_sfs)
+                         self.limits.max_sfs, ingress_override=override)
 
     def reset(self, topo: Topology, traffic: TrafficSchedule,
               batch: int = 1):

@@ -3,7 +3,8 @@
 The port of ``gsc_tpu.env.observations`` (graph mode).  Three node-feature
 vectors, each max-normalised as ``clip(x / (max(x) + 1e-3), 0, 1)``:
 
-- ``ingress_traffic``: per-node requested traffic of each chain's first SF;
+- ``ingress_traffic``: per-node requested traffic of each chain's first SF
+  (or ``ingress_override``: the traffic predictor's upcoming traffic);
 - ``node_load``: processed traffic / node capacity, 1 where the node has
   zero capacity;
 - ``node_cap``: max-normalised raw capacity.
@@ -14,7 +15,7 @@ the flattened action mask.  Every tensor may carry leading batch dims.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,16 +41,22 @@ def _maxnorm(x: torch.Tensor) -> torch.Tensor:
 
 
 def node_features(metrics, topo: Topology, node_cap_now: torch.Tensor,
-                  chain_sf: np.ndarray,
-                  observation_space: Tuple[str, ...]) -> torch.Tensor:
-    """[..., N, F] feature matrix, columns in ``observation_space`` order."""
+                  chain_sf: np.ndarray, observation_space: Tuple[str, ...],
+                  ingress_override: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """[..., N, F] feature matrix, columns in ``observation_space`` order;
+    ``ingress_override`` [..., N] replaces the observed ingress traffic."""
     cols = []
     for comp in observation_space:
         if comp == "ingress_traffic":
-            ing = torch.zeros_like(node_cap_now)
-            for c in range(chain_sf.shape[0]):
-                # run_requested is position-indexed; the chain entry is 0
-                ing = ing + metrics.run_requested[..., c, 0]
+            if ingress_override is not None:
+                ing = ingress_override
+            else:
+                ing = torch.zeros_like(node_cap_now)
+                for c in range(chain_sf.shape[0]):
+                    # run_requested is position-indexed; the chain entry
+                    # is 0
+                    ing = ing + metrics.run_requested[..., c, 0]
             cols.append(_maxnorm(ing))
         elif comp == "node_load":
             usage = metrics.run_processed_traffic.sum(dim=-1)
@@ -70,9 +77,10 @@ def node_features(metrics, topo: Topology, node_cap_now: torch.Tensor,
 
 def graph_obs(metrics, topo: Topology, node_cap_now: torch.Tensor,
               chain_sf: np.ndarray, observation_space: Tuple[str, ...],
-              num_sfcs: int, max_sfs: int) -> GraphObs:
+              num_sfcs: int, max_sfs: int,
+              ingress_override: Optional[torch.Tensor] = None) -> GraphObs:
     feats = node_features(metrics, topo, node_cap_now, chain_sf,
-                          observation_space)
+                          observation_space, ingress_override)
     edge_index, edge_mask = topo.directed_edge_index()
     return GraphObs(
         nodes=torch.where(topo.node_mask[..., None], feats,

@@ -19,12 +19,18 @@ first use into ``gsc_tpu_torch/_build/`` and bound with ``ctypes``
 through a plain C interface that takes one struct of pointers and sizes.
 
 ``substep_megakernel(engine, state, topo, traffic, cap_now, noise,
-substeps)`` dispatches on where the state lies: CUDA tensors launch the
-kernel (or raise on what it does not take), CPU tensors run
-``substep_plain``, the engine's plain substep repeated.  There is no
-fallback from the kernel to the plain version.  The state it returns is
-new: the kernel updates clones of the mutable fields in place.
-``substep_megakernel.launches`` counts kernel launches and
+substeps, ext_decisions)`` dispatches on where the state lies: CUDA
+tensors launch the kernel (or raise on what it does not take), CPU
+tensors run ``substep_plain``, the engine's plain substep repeated.  There
+is no fallback from the kernel to the plain version.  The state it
+returns is new: the kernel updates clones of the mutable fields in place.
+Per-flow control is a mode of the same kernel with two switches:
+``ext_decisions`` [B, M] i32 (one substep per launch) replaces the WRR by
+external decisions with place-on-decision, and a configuration with
+``controller == "per_flow"`` removes idle instances after
+``vnf_timeout`` (also in a duration-style ``apply``).
+``substep_megakernel.launches`` counts the launches without external
+decisions, ``substep_megakernel.perflow_launches`` those with them, and
 ``substep_megakernel.serial_rounds`` the admission rounds that took the
 sequential scan (reading it synchronises; assigning 0 resets it).
 ``SubstepMegakernel(stage_clocks=True)`` builds the same source with
@@ -79,7 +85,12 @@ _TRAFFIC = ("arr_time", "arr_ingress", "arr_dr", "arr_duration", "arr_ttl",
 _EXTRA = ("cap_now", "noise", "chain_len", "chain_sf", "proc", "rf_id")
 # the kernel's own outputs: the serial-round counter, the stage clocks
 _COUNTERS = ("serial_rounds", "stage_clocks")
-# state fields the substep never writes: passed as they are, not cloned
+# per-flow control, at the struct's end
+_PERFLOW = (("ext_decisions", ctypes.c_void_p), ("gc", ctypes.c_longlong),
+            ("vnf_timeout", ctypes.c_double))
+# state fields the duration controller's substep never writes: passed as
+# they are, not cloned (place-on-decision writes the first two, the idle
+# expiry the second)
 _READ_ONLY = ("sf_startup", "placed", "schedule")
 
 # request pools and a trainer may launch from threads of their own
@@ -94,20 +105,24 @@ class SubstepArgs(ctypes.Structure):
                 + [("dt", ctypes.c_double)]
                 + [(n, ctypes.c_longlong) for n in _STRIDES]
                 + [(n, ctypes.c_void_p) for n in _STATE + _FLOWS + _TABLES
-                   + _METRICS + _TOPO + _TRAFFIC + _EXTRA + _COUNTERS])
+                   + _METRICS + _TOPO + _TRAFFIC + _EXTRA + _COUNTERS]
+                  + list(_PERFLOW))
 
 
 def substep_plain(engine, state: SimState, topo: Topology,
                   traffic: TrafficSchedule, cap_now: torch.Tensor,
                   noise: Optional[torch.Tensor] = None,
-                  substeps: Optional[int] = None) -> SimState:
+                  substeps: Optional[int] = None,
+                  ext_decisions: Optional[torch.Tensor] = None) -> SimState:
     """The kernel's plain PyTorch version: the engine's plain substep
     (``SimEngine.substep``) ``substeps`` times; ``noise`` [B, substeps, M]
-    or None.  ``topo``/``traffic`` carry the batch dim."""
+    or None, ``ext_decisions`` [B, M] or None.  ``topo``/``traffic`` carry
+    the batch dim."""
     k_n = engine.substeps if substeps is None else substeps
     for k in range(k_n):
         state = engine.substep(state, topo, traffic, cap_now,
-                               None if noise is None else noise[:, k])
+                               None if noise is None else noise[:, k],
+                               ext_decisions)
     return state
 
 
@@ -179,6 +194,7 @@ class SubstepMegakernel:
 
     def __init__(self, stage_clocks: bool = False):
         self.launches = 0
+        self.perflow_launches = 0
         self.build_log = ""
         self.clocked = stage_clocks
         self.stage_clocks: Optional[torch.Tensor] = None
@@ -230,20 +246,22 @@ class SubstepMegakernel:
     def __call__(self, engine, state: SimState, topo: Topology,
                  traffic: TrafficSchedule, cap_now: torch.Tensor,
                  noise: Optional[torch.Tensor] = None,
-                 substeps: Optional[int] = None) -> SimState:
+                 substeps: Optional[int] = None,
+                 ext_decisions: Optional[torch.Tensor] = None) -> SimState:
         if state.t.device.type == "cpu":
             return substep_plain(engine, state, topo, traffic, cap_now,
-                                 noise, substeps)
+                                 noise, substeps, ext_decisions)
         return self.launch(engine, state, topo, traffic, cap_now, noise,
-                           substeps)
+                           substeps, ext_decisions)
 
     def launch(self, engine, state: SimState, topo: Topology,
                traffic: TrafficSchedule, cap_now: torch.Tensor,
                noise: Optional[torch.Tensor] = None,
-               substeps: Optional[int] = None) -> SimState:
-        """Run ``substeps`` substeps (default: the engine's interval) of
-        every replica on CUDA tensors; raises on anything the kernel does
-        not take."""
+               substeps: Optional[int] = None,
+               ext_decisions: Optional[torch.Tensor] = None) -> SimState:
+        """Run ``substeps`` substeps (default: the engine's interval, 1
+        with ``ext_decisions``) of every replica on CUDA tensors; raises
+        on anything the kernel does not take."""
         dev = state.t.device
         if dev.type != "cuda":
             raise ValueError(f"substep_megakernel: the state is on {dev}; "
@@ -258,7 +276,7 @@ class SubstepMegakernel:
                                  device=dev)
         args, new_state = self._prepare(engine, state, topo, traffic,
                                         cap_now, noise, substeps, counter,
-                                        clocks)
+                                        clocks, ext_decisions)
         lib = self.library()
         smem = lib.substep_smem_bytes(ctypes.byref(args))
         if smem > MAX_SMEM_BYTES:
@@ -273,7 +291,10 @@ class SubstepMegakernel:
                 "substep_megakernel launch failed: "
                 f"{lib.substep_error_string(code).decode()} ({code})")
         with _COUNT_LOCK:
-            self.launches += 1
+            if ext_decisions is None:
+                self.launches += 1
+            else:
+                self.perflow_launches += 1
         self.stage_clocks = clocks
         return new_state
 
@@ -281,21 +302,33 @@ class SubstepMegakernel:
                  traffic: TrafficSchedule, cap_now: torch.Tensor,
                  noise: Optional[torch.Tensor], substeps: Optional[int],
                  serial_rounds: torch.Tensor,
-                 stage_clocks: Optional[torch.Tensor]):
+                 stage_clocks: Optional[torch.Tensor],
+                 ext_decisions: Optional[torch.Tensor] = None):
         """Validate the inputs and build the kernel's arguments over clones
         of the mutable state (on the state's device, whatever it is);
         returns (SubstepArgs, the state the launch fills in)."""
         dev = state.t.device
         b = state.batch
-        k_n = engine.substeps if substeps is None else int(substeps)
         cfg = engine.cfg
+        if substeps is None:
+            substeps = 1 if ext_decisions is not None else engine.substeps
+        k_n = int(substeps)
         if engine.M > MAX_FLOWS:
             raise ValueError(f"substep_megakernel: {engine.M} flow slots, "
                              f"the kernel takes at most {MAX_FLOWS} (one "
                              "thread per slot)")
-        if cfg.controller != "duration":
-            raise ValueError("substep_megakernel runs the duration "
-                             "controller only")
+        # the idle expiry runs under per-flow control, decided or not
+        gc = cfg.controller == "per_flow"
+        if ext_decisions is not None:
+            if k_n != 1:
+                raise ValueError("substep_megakernel: external decisions "
+                                 f"take one substep per launch, not {k_n}")
+            if tuple(ext_decisions.shape) != (b, engine.M) \
+                    or ext_decisions.dtype != torch.int32:
+                raise ValueError(
+                    "substep_megakernel: ext_decisions must be [B, M] = "
+                    f"{(b, engine.M)} int32, got "
+                    f"{tuple(ext_decisions.shape)} {ext_decisions.dtype}")
         if engine.det_proc:
             noise = None
         elif noise is None or tuple(noise.shape) != (b, k_n, engine.M):
@@ -308,10 +341,17 @@ class SubstepMegakernel:
             tabs["rf_id"] = _resource_function_ids(engine).to(dev)
 
         fresh = lambda t: t.clone(memory_format=torch.contiguous_format)
+        writes = set()
+        if ext_decisions is not None:
+            writes |= {"sf_startup", "placed"}
+        if gc:
+            writes.add("placed")
         new = {}
         for name in _STATE + _TABLES:
             t = getattr(state, name)
-            new[name] = t.contiguous() if name in _READ_ONLY else fresh(t)
+            new[name] = (t.contiguous()
+                         if name in _READ_ONLY and name not in writes
+                         else fresh(t))
         flows = state.flows.map(fresh)
         metrics = state.metrics.map(fresh)
         ptr = {}
@@ -350,6 +390,8 @@ class SubstepMegakernel:
         ptr["rf_id"] = tabs["rf_id"]
         ptr["serial_rounds"] = serial_rounds
         ptr["stage_clocks"] = stage_clocks
+        ptr["ext_decisions"] = (None if ext_decisions is None
+                                else ext_decisions.contiguous())
         want = {torch.float32: "f32", torch.int32: "i32", torch.bool: "bool",
                 torch.int64: "i64"}
         for name, t in ptr.items():
@@ -381,7 +423,7 @@ class SubstepMegakernel:
             B=b, M=engine.M, N=engine.N, C=engine.C, S=engine.S, P=engine.P,
             E=engine.E, H=engine.H, F=traffic.capacity, K=k_n,
             R=cfg.wrr_rank_levels, iters=cfg.admission_iters, dt=engine.dt,
-            **strides,
+            gc=int(gc), vnf_timeout=cfg.vnf_timeout, **strides,
             **{name: (None if t is None else t.data_ptr())
                for name, t in ptr.items()})
         return args, state.replace(flows=flows, metrics=metrics,

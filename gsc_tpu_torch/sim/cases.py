@@ -10,7 +10,10 @@ frozen end-of-run numbers are ``GOLDEN``; and the generalization path's
 cases (``generalization_cases``): a mixed batch of five networks, a link
 and a node fault, and scenario-factory draws.  Everything is made from seeds
 with numpy and torch, so ``chip_smoke.py`` and the card-only tests run the
-same cases as the CPU tests.
+same cases as the CPU tests.  Per-flow control has its own cases
+(``perflow_cases``, ``perflow_apply_case``), driven substep by substep
+by ``run_perflow_case``; ``chained_launches`` runs an interval as one
+launch and as one launch per substep.
 
 ``run_case(case, device)`` drives ``SimEngine.apply`` over the case's
 intervals on ``device`` and returns every state after an interval;
@@ -519,6 +522,245 @@ def run_case(case: SubstepCase, device, plain: bool = False
             state, _ = engine.apply(state, topo, traffic, sched, place, z)
         states.append(state)
     return states
+
+
+# ------------------------------------------------------ per-flow control
+@dataclass
+class PerFlowCase:
+    """One per-flow scenario: ``substeps`` substeps of ``apply_substep``
+    from an empty state under a policy: "local" (every deciding flow
+    processes at its node) or "random" (a destination drawn per slot from
+    the real nodes on a generator seeded by the substep, -1 with
+    probability ``park``, so about that share of the decisions leave a
+    flow parked)."""
+
+    name: str
+    engine: SimEngine
+    topo: Topology
+    traffic: TrafficSchedule
+    batch: int
+    substeps: int
+    policy: str = "local"
+    park: float = 1.0 / 3.0
+
+    def decisions(self, state: SimState, k: int) -> torch.Tensor:
+        """[B, M] i32 decisions before substep ``k``, on the state's
+        device (the random ones drawn on the CPU, so every device gets
+        the same numbers)."""
+        from .perflow import local_decisions
+
+        if self.policy == "local":
+            return local_decisions(state)
+        gen = torch.Generator().manual_seed(10_000 + k)
+        shape = (self.batch, self.engine.M)
+        n_real = int(self.topo.node_mask.reshape(-1, self.engine.N)
+                     .sum(-1).min())
+        dst = torch.randint(0, n_real, shape, generator=gen,
+                            dtype=torch.int32)
+        park = torch.rand(shape, generator=gen) < self.park
+        return torch.where(park, -1, dst).to(state.t.device, torch.int32)
+
+    def noise(self, k: int) -> Optional[torch.Tensor]:
+        """[B, M] normals of substep ``k`` (None when every processing
+        delay is deterministic), drawn on the CPU."""
+        gen = torch.Generator().manual_seed(20_000 + k)
+        z = self.engine.draw_noise(self.batch, gen, "cpu", substeps=1)
+        return None if z is None else z[:, 0]
+
+
+def perflow_local_case(intervals: int = 20) -> PerFlowCase:
+    """The per-flow oracle: the local policy on
+    tests/assets/line3-egress.graphml (padded to 8 nodes / 8 edges) under
+    tests/assets/perflow_config.yaml (read by the loader: the FlowController
+    key), the abc chain, traffic seed 1234; 20 intervals (2000 ms) give
+    the frozen numbers ``PERFLOW_ORACLE``."""
+    from pathlib import Path
+
+    from ..config.loader import load_sim
+    from ..topology.compiler import load_topology
+
+    assets = Path(__file__).resolve().parents[2] / "tests" / "assets"
+    service = abc_service()
+    cfg = load_sim(str(assets / "perflow_config.yaml"))
+    limits = EnvLimits.for_service(service, max_nodes=8, max_edges=8)
+    topo = load_topology(str(assets / "line3-egress.graphml"), max_nodes=8,
+                         max_edges=8)
+    engine = SimEngine(service, cfg, limits)
+    traffic = generate_traffic(cfg, service, topo, intervals, 1234)
+    return PerFlowCase("perflow_local_line3", engine, topo, traffic, 1,
+                       intervals * engine.substeps)
+
+
+# tests/test_reference_parity.py:221-225: the reference's FlowController
+# on line3-egress, 2000 ms at seed 1234 (generated within 2)
+PERFLOW_ORACLE = {"generated": 201, "processed": 197, "dropped": 0,
+                  "avg_e2e": 35.0}
+
+
+def check_perflow_oracle(state: SimState) -> Dict:
+    """Raise unless replica 0 meets ``PERFLOW_ORACLE``; returns its
+    numbers."""
+    m = state.metrics
+    got = {"generated": int(m.generated[0]), "processed": int(m.processed[0]),
+           "dropped": int(m.dropped[0]), "avg_e2e": float(m.avg_e2e()[0])}
+    want = PERFLOW_ORACLE
+    if abs(got["generated"] - want["generated"]) > 2 \
+            or got["processed"] != want["processed"] \
+            or got["dropped"] != want["dropped"] \
+            or abs(got["avg_e2e"] - want["avg_e2e"]) > 1e-6 * want["avg_e2e"]:
+        raise AssertionError(f"per-flow oracle: {got} against {want}")
+    return got
+
+
+def _perflow_cfg(**kw) -> SimConfig:
+    return SimConfig(**{"ttl_choices": (100.0,), "controller": "per_flow",
+                        **kw})
+
+
+def perflow_random_case(batch: int = 64, substeps: int = 250,
+                        seed: int = 0) -> PerFlowCase:
+    """Abilene (24/37, caps 2-6, the abc chain) with ``batch`` replicas of
+    their own traffic, random decisions with about a third parked, over
+    ``substeps`` substeps (250: across two interval boundaries, where the
+    run metrics reset)."""
+    service = abc_service()
+    limits = EnvLimits.for_service(service)
+    cfg = _perflow_cfg()
+    topo = compile_topology(synthetic.abilene(node_cap_range=(2, 6)))
+    intervals = -(-substeps // cfg.substeps_per_run) + 1
+    traffic = stack_traffic([generate_traffic(cfg, service, topo, intervals,
+                                              seed=seed + 100 + r)
+                             for r in range(batch)])
+    return PerFlowCase(f"perflow_random_b{batch}",
+                       SimEngine(service, cfg, limits), topo, traffic, batch,
+                       substeps, policy="random")
+
+
+def perflow_timeout_case() -> PerFlowCase:
+    """tests/test_perflow.py:124's expiry: one early flow on the 3-node
+    line, then silence; the local policy places its SFs on decision, they
+    drain and expire after ``vnf_timeout`` 30 ms within 100 ms."""
+    cfg = _perflow_cfg(ttl_choices=(1000.0,), vnf_timeout=30.0,
+                       inter_arrival_mean=1000.0)
+    limits = EnvLimits(max_nodes=8, max_edges=8, num_sfcs=1, max_sfs=3)
+    topo = _line()
+    traffic = generate_traffic(cfg, _service(), topo, 4, seed=0)
+    return PerFlowCase("perflow_vnf_timeout",
+                       SimEngine(_service(), cfg, limits), topo,
+                       stack_traffic([traffic]), 1, 100)
+
+
+def perflow_link_fault_case() -> PerFlowCase:
+    """Random decisions on the 3-node line whose link 0 is zeroed from
+    interval 1 (the ``edge_cap_t`` timeline of ``link_fault_case``), two
+    replicas, 300 substeps."""
+    from ..topology.scenarios import parse_topo_faults
+
+    cfg = _perflow_cfg()
+    limits = EnvLimits(max_nodes=8, max_edges=8, num_sfcs=1, max_sfs=3)
+    topo = _line()
+    plan = parse_topo_faults("link@1.0")
+    traffic = stack_traffic([generate_traffic(cfg, _service(), topo, 4,
+                                              seed=s, faults=plan)
+                             for s in (0, 1)])
+    return PerFlowCase("perflow_link_fault",
+                       SimEngine(_service(), cfg, limits), topo, traffic, 2,
+                       300, policy="random", park=0.2)
+
+
+def perflow_stochastic_case() -> PerFlowCase:
+    """The local policy on the 3-node line with stochastic processing
+    delays (5 +- 1 ms) and a 2 ms startup delay, noise per substep, two
+    replicas, 200 substeps."""
+    cfg = _perflow_cfg()
+    limits = EnvLimits(max_nodes=8, max_edges=8, num_sfcs=1, max_sfs=3)
+    topo = _line()
+    service = _service(std=1.0, startup=2.0)
+    traffic = stack_traffic([generate_traffic(cfg, service, topo, 3, seed=s)
+                             for s in (0, 1)])
+    return PerFlowCase("perflow_stochastic", SimEngine(service, cfg, limits),
+                       topo, traffic, 2, 200)
+
+
+def perflow_cases() -> List[PerFlowCase]:
+    """Phase 18's battery of the kernel's per-flow mode."""
+    return [perflow_local_case(), perflow_random_case(),
+            perflow_timeout_case(), perflow_link_fault_case(),
+            perflow_stochastic_case()]
+
+
+def perflow_apply_case() -> SubstepCase:
+    """A duration-style ``apply`` under a per-flow config (the expiry
+    without external decisions): the 3-node line, everything scheduled to
+    node 1 and placed there, sparse traffic, ``vnf_timeout`` 30, so placed
+    instances expire within an interval; 3 intervals."""
+    limits = EnvLimits(max_nodes=8, max_edges=8, num_sfcs=1, max_sfs=3)
+    cfg = _perflow_cfg(vnf_timeout=30.0, inter_arrival_mean=40.0)
+    return _case("perflow_apply_expiry", _service(), cfg, limits, _line(),
+                 _sched_to(limits, 1), _place(limits, PLACE_ALL1),
+                 intervals=3, steps=4, seeds=(0, 1))
+
+
+def run_perflow_case(case: PerFlowCase, device, plain: bool = False,
+                     every: Optional[int] = None) -> List[SimState]:
+    """Drive the case's substeps through ``SimEngine.apply_substep`` on
+    ``device`` (one launch of the kernel's per-flow mode per substep on
+    the card), or with ``plain`` through the plain substep on either
+    device; returns the state after every ``every`` substeps (default:
+    every interval) and after the last."""
+    from ..ops.substep import substep_plain
+
+    engine = case.engine
+    b = case.batch
+    every = every or engine.substeps
+    topo = case.topo.to(device)
+    traffic = case.traffic.to(device)
+    state = engine.init(b, device)
+    states = []
+    for k in range(case.substeps):
+        z = case.noise(k)
+        z = None if z is None else z.to(device)
+        dec = case.decisions(state, k)
+        if plain:
+            state, topo_k, cap = engine.begin_substep(
+                state, topo.expand(b), traffic.expand(b))
+            state = substep_plain(engine, state, topo_k, traffic.expand(b),
+                                  cap, None if z is None else z[:, None], 1,
+                                  dec)
+        else:
+            state = engine.apply_substep(state, topo, traffic, dec, z)
+        if (k + 1) % every == 0 or k + 1 == case.substeps:
+            states.append(state)
+    return states
+
+
+def chained_launches(case: SubstepCase, device
+                     ) -> Tuple[SimState, SimState]:
+    """The case's last interval from the state after its first intervals,
+    as one launch of all its substeps and as that many chained launches of
+    one substep each (on the card the kernel, on the CPU the plain
+    version): (one launch's state, the chain's)."""
+    from ..ops.substep import substep_megakernel
+
+    engine = case.engine
+    b = case.batch
+    start = (run_case(case, device)[-2] if case.intervals > 1
+             else engine.init(b, device))
+    traffic = case.traffic.to(device).expand(b)
+    state, cap = engine.begin_interval(start, traffic,
+                                       case.schedule.to(device),
+                                       case.placement.to(device))
+    topo = engine.interval_topology(state, case.topo.to(device).expand(b),
+                                    traffic)
+    z = case.noise(case.intervals - 1)
+    z = None if z is None else z.to(device)
+    one = substep_megakernel(engine, state, topo, traffic, cap, z)
+    chained = state
+    for k in range(engine.substeps):
+        chained = substep_megakernel(
+            engine, chained, topo, traffic, cap,
+            None if z is None else z[:, k:k + 1], substeps=1)
+    return one, chained
 
 
 def golden_numbers(state: SimState) -> Dict:

@@ -1,11 +1,14 @@
-"""Batched fixed-step flow simulation engine (duration controller).
+"""Batched fixed-step flow simulation engine.
 
 The port of ``gsc_tpu.sim.engine``: ``ServiceTables``, ``SimEngine.init``
-/ ``apply`` and the substep of ``SimEngine._substep_xla``.  An interval
-runs through the substep megakernel (``ops.substep``): one CUDA launch per
-interval on the card, this module's plain substep on the CPU, whichever
-``SimConfig.substep_impl`` a configuration names.  One control
-interval (= one RL step, ``run_duration`` ms) is a Python loop over
+/ ``apply`` (the duration controller), ``apply_substep`` /
+``apply_per_flow`` (per-flow control) and the substep of
+``SimEngine._substep_xla``.  An interval runs through the substep
+megakernel (``ops.substep``): one CUDA launch per interval on the card,
+this module's plain substep on the CPU, whichever
+``SimConfig.substep_impl`` a configuration names; per-flow control
+launches it once per substep, since its policy runs between substeps.
+One control interval (= one RL step, ``run_duration`` ms) is a loop over
 ``run_duration/dt`` fixed substeps; each substep advances every flow slot
 of every replica in parallel.  Every tensor carries a leading [B] dim of
 env replicas.
@@ -25,6 +28,11 @@ Per-substep pipeline:
     capacity admission through the per-SF resource functions, startup
     wait, delayed load release;
  7. departures and drops with the 4-reason taxonomy.
+
+Per-flow control (``controller: per_flow``) replaces stage 4's WRR by
+external decisions (``ext_decisions``) with place-on-decision, forwards
+only the decided flows, and removes instances idle for longer than
+``vnf_timeout`` at the end of every substep, also in ``apply``.
 
 Where the JAX package moves data with one-hot contractions (exact under
 ``Precision.HIGHEST``), the port gathers and scatters: out-of-range rows
@@ -196,6 +204,15 @@ def _rank_in_cell(cell: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (same & earlier).sum(-1).to(_I32)
 
 
+def _cap_now(state: SimState, traffic: TrafficSchedule) -> torch.Tensor:
+    """The node capacities [B, N] of the interval ``state.run_idx`` (the
+    last row of the schedule past its end); ``traffic`` carries the batch
+    dim."""
+    idx = state.run_idx.clamp(0, traffic.node_cap.shape[1] - 1).long()
+    return traffic.node_cap[torch.arange(state.batch, device=idx.device),
+                            idx]
+
+
 class SimEngine:
     """Engine closing over static config.
 
@@ -255,12 +272,15 @@ class SimEngine:
         return torch.stack(cols, dim=-1).sum(dim=-1)
 
     def draw_noise(self, batch: int, generator: torch.Generator,
-                   device) -> Optional[torch.Tensor]:
+                   device, substeps: Optional[int] = None
+                   ) -> Optional[torch.Tensor]:
         """Standard-normal processing-delay noise [B, substeps, M] for one
-        interval, or None when every processing delay is deterministic."""
+        interval (or ``substeps`` substeps), or None when every processing
+        delay is deterministic."""
         if self.det_proc:
             return None
-        z = torch.randn((batch, self.substeps, self.M), generator=generator,
+        k = self.substeps if substeps is None else substeps
+        z = torch.randn((batch, k, self.M), generator=generator,
                         device=generator.device)
         return z.to(device)
 
@@ -285,6 +305,68 @@ class SimEngine:
         state = state.replace(run_idx=state.run_idx + 1)
         return state, state.metrics
 
+    # ------------------------------------------------------ per-flow control
+    def apply_substep(self, state: SimState, topo: Topology,
+                      traffic: TrafficSchedule, ext_decisions: torch.Tensor,
+                      noise: Optional[torch.Tensor] = None) -> SimState:
+        """One substep under per-flow control: ``ext_decisions`` [B, M]
+        i32 holds a destination node per flow slot, or -1 to leave the
+        flow waiting in the DECIDE phase; ``noise`` [B, M] or None.
+        ``run_idx`` follows the simulated time (round(t/dt) // substeps),
+        so capacities and link faults follow the interval timeline, and
+        the run metrics reset at the start of each new interval, so after
+        an interval's last substep its run counters stay readable.  One
+        kernel launch of one substep on the card."""
+        if not self.det_proc and noise is None:
+            raise ValueError("stochastic processing delays need noise "
+                             "[B, M] (see draw_noise)")
+        b = state.batch
+        traffic = traffic.expand(b)
+        state, topo, cap_now = self.begin_substep(state, topo.expand(b),
+                                                  traffic)
+        from ..ops.substep import substep_megakernel
+        return substep_megakernel(
+            self, state, topo, traffic, cap_now,
+            None if noise is None else noise[:, None], substeps=1,
+            ext_decisions=ext_decisions)
+
+    def begin_substep(self, state: SimState, topo: Topology,
+                      traffic: TrafficSchedule
+                      ) -> Tuple[SimState, Topology, torch.Tensor]:
+        """A per-flow substep's bookkeeping (``topo``/``traffic`` with the
+        batch dim): ``run_idx`` from the simulated time, the run-metric
+        reset at an interval's start; returns the state, the interval's
+        topology (a link-fault row of edge capacities) and capacities
+        ``cap_now`` [B, N]."""
+        b = state.batch
+        g = torch.round(state.t / self.dt).to(_I32)
+        starts = (g % self.substeps == 0) & (g > 0)              # [B]
+        run = {name: getattr(state.metrics, name)
+               for name in SimMetrics._RUN_FIELDS}
+        metrics = state.metrics.replace(**{
+            name: torch.where(starts.view((b,) + (1,) * (a.dim() - 1)),
+                              torch.zeros_like(a), a)
+            for name, a in run.items()})
+        state = state.replace(
+            run_idx=torch.maximum(g // self.substeps, state.run_idx),
+            metrics=metrics)
+        return (state, self.interval_topology(state, topo, traffic),
+                _cap_now(state, traffic))
+
+    def apply_per_flow(self, state: SimState, topo: Topology,
+                       traffic: TrafficSchedule,
+                       decide_fn: Callable[[SimState], torch.Tensor],
+                       noise: Optional[torch.Tensor] = None
+                       ) -> Tuple[SimState, SimMetrics]:
+        """One control interval under a per-flow policy: ``decide_fn(state)
+        -> [B, M] i32`` (-1 = no decision) is called before every
+        substep; ``noise`` [B, substeps, M] or None."""
+        for k in range(self.substeps):
+            state = self.apply_substep(
+                state, topo, traffic, decide_fn(state),
+                None if noise is None else noise[:, k])
+        return state, state.metrics
+
     def begin_interval(self, state: SimState, traffic: TrafficSchedule,
                        schedule: torch.Tensor, placement: torch.Tensor
                        ) -> Tuple[SimState, torch.Tensor]:
@@ -292,7 +374,6 @@ class SimEngine:
         schedule, newly available SFs, run-metric reset) and this
         interval's node capacities ``cap_now`` [B, N]; ``traffic`` carries
         the batch dim."""
-        b = state.batch
         available = placement | (state.node_load > _EPS)
         newly = available & ~state.sf_available
         tt = state.t[:, None, None]
@@ -301,11 +382,7 @@ class SimEngine:
             sf_startup=torch.where(newly, tt, state.sf_startup),
             sf_last_active=torch.where(newly, tt, state.sf_last_active),
             metrics=state.metrics.reset_run())
-        t_steps = traffic.node_cap.shape[1]
-        idx_now = state.run_idx.clamp(0, t_steps - 1).long()
-        cap_now = traffic.node_cap[torch.arange(b, device=idx_now.device),
-                                  idx_now]                 # [B, N]
-        return state, cap_now
+        return state, _cap_now(state, traffic)
 
     def interval_topology(self, state: SimState, topo: Topology,
                           traffic: TrafficSchedule) -> Topology:
@@ -322,9 +399,15 @@ class SimEngine:
     # ---------------------------------------------------------------- substep
     def substep(self, state: SimState, topo: Topology,
                 traffic: TrafficSchedule, cap_now: torch.Tensor,
-                noise: Optional[torch.Tensor] = None) -> SimState:
+                noise: Optional[torch.Tensor] = None,
+                ext_decisions: Optional[torch.Tensor] = None) -> SimState:
         """One substep of every replica.  ``topo``/``traffic`` carry the
-        batch dim (``expand``); ``noise`` [B, M] or None."""
+        batch dim (``expand``); ``noise`` [B, M] or None.  With
+        ``ext_decisions`` [B, M] i32 (per-flow control: a destination node
+        per slot, -1 for none) those decisions replace the WRR: a flow
+        without one stays parked in the DECIDE phase, and a decided
+        flow's SF is placed on its destination if absent
+        (place-on-decision)."""
         F = state.flows
         m = state.metrics
         dev = state.t.device
@@ -447,36 +530,62 @@ class SimEngine:
                        sfc_c * S + sf_pos).clamp(min=0)
         cell = (node * C + sfc_c) * S + sf_pos      # (node, sfc, sf_pos)
         ncs = N * C * S
-        # requested traffic of every WRR decision, before the schedule lookup
+        placed = state.placed
+        sf_startup = state.sf_startup
+        sf_last_active = state.sf_last_active
+        if ext_decisions is not None:
+            # per-flow control: only flows with a decision proceed
+            wrr = wrr & (ext_decisions >= 0)
+            dest = torch.where(wrr, ext_decisions.clamp(0, N - 1), dest)
+        # requested traffic of every WRR (or decided) flow, before the
+        # schedule lookup
         req_add = _scatter_add(
             torch.zeros(B, ncs, device=dev), cell,
             torch.where(wrr, dr, zero)).view(B, N, C, S)
         m = m.replace(run_requested=m.run_requested + req_add)
 
-        # WRR over the schedule row with realized-ratio counters;
-        # same-cell same-substep collisions run in slot-order rounds so
-        # later flows see the updated counters
-        rank = _rank_in_cell(cell, wrr)
-        flow_counts = m.run_flow_counts.reshape(B, ncs, N)
-        probs = _take(state.schedule.reshape(B, ncs, N), cell)
-        R = self.cfg.wrr_rank_levels
-        for r in range(R):
-            sel = wrr & ((rank == r) if r < R - 1 else (rank >= r))
-            counts = _take(flow_counts, cell)
-            total = counts.sum(-1, keepdim=True)
-            ratios = torch.where(total > 0, counts / total.clamp(min=1), zero)
-            diffs = torch.where(probs > 0, probs - ratios,
-                                torch.tensor(-1.0, device=dev))
-            choice = torch.argmax(diffs, dim=-1).to(_I32)
-            dest = torch.where(sel, choice, dest)
-            flow_counts = _scatter_add(
-                flow_counts.reshape(B, ncs * N), cell * N + choice,
-                sel.to(_I32)).view(B, ncs, N)
-        m = m.replace(run_flow_counts=flow_counts.view(B, N, C, S, N))
+        if ext_decisions is None:
+            # WRR over the schedule row with realized-ratio counters;
+            # same-cell same-substep collisions run in slot-order rounds
+            # so later flows see the updated counters
+            rank = _rank_in_cell(cell, wrr)
+            flow_counts = m.run_flow_counts.reshape(B, ncs, N)
+            probs = _take(state.schedule.reshape(B, ncs, N), cell)
+            R = self.cfg.wrr_rank_levels
+            for r in range(R):
+                sel = wrr & ((rank == r) if r < R - 1 else (rank >= r))
+                counts = _take(flow_counts, cell)
+                total = counts.sum(-1, keepdim=True)
+                ratios = torch.where(total > 0, counts / total.clamp(min=1),
+                                     zero)
+                diffs = torch.where(probs > 0, probs - ratios,
+                                    torch.tensor(-1.0, device=dev))
+                choice = torch.argmax(diffs, dim=-1).to(_I32)
+                dest = torch.where(sel, choice, dest)
+                flow_counts = _scatter_add(
+                    flow_counts.reshape(B, ncs * N), cell * N + choice,
+                    sel.to(_I32)).view(B, ncs, N)
+            m = m.replace(run_flow_counts=flow_counts.view(B, N, C, S, N))
+        else:
+            # place-on-decision: the decided (node, SF) cells not placed
+            # yet are installed now; a cell that was not available starts
+            # its startup clock, every new one its idle clock
+            hits = _scatter_add(
+                torch.zeros(B, N * P, dtype=_I32, device=dev),
+                torch.where(wrr & (sf_now < P), dest * P + sf_now, N * P),
+                torch.ones_like(dest)).view(B, N, P)
+            newly = (hits > 0) & ~placed
+            tt = t[:, None, None]
+            placed = placed | newly
+            sf_startup = torch.where(newly & ~sf_available, tt, sf_startup)
+            sf_last_active = torch.where(newly, tt, sf_last_active)
+            sf_available = sf_available | newly
         dest = torch.where(to_eg, egress, dest)
 
         # --- 5. forwarding --------------------------------------------------
-        fwd = decide
+        # per-flow control forwards the decided flows only: the others
+        # keep their phase, timer and node
+        fwd = decide if ext_decisions is None else to_eg | wrr
         stay = fwd & (dest == node)
         depart_stay = to_eg & stay
         need_proc_b = wrr & stay
@@ -501,7 +610,7 @@ class SimEngine:
         headroom = edge_rows[..., 0]
 
         need_proc = need_proc_a | need_proc_b
-        sf_ok = _take2(state.placed.reshape(B, N, P), node, sf_now)
+        sf_ok = _take2(placed, node, sf_now)
         # SF not in placement -> drop (NODE_CAP)
         drop_unplaced = need_proc & ~sf_ok
         want = need_proc & sf_ok
@@ -592,7 +701,7 @@ class SimEngine:
             run_processed_traffic=m.run_processed_traffic + node_add,
             run_max_node_usage=torch.maximum(m.run_max_node_usage, usage))
         # startup wait; a TTL expiry here releases the load immediately
-        startup_at = _take2(state.sf_startup, node, sf_now)
+        startup_at = _take2(sf_startup, node, sf_now)
         sw = torch.clamp(startup_at + proc_tab[..., 2] - t[:, None], min=0.0)
         drop_ttl_sw = admitted_n & (ttl - sw <= _EPS) & (sw > _EPS)
         ttl = torch.where(drop_ttl_sw, zero, ttl)
@@ -662,9 +771,16 @@ class SimEngine:
         gone = depart | any_drop
         phase = torch.where(gone, PH_FREE, phase)
 
-        # instances with load refresh last_active
-        sf_last_active = torch.where(node_load > _EPS, t[:, None, None],
-                                     state.sf_last_active)
+        # instances with load refresh last_active; under per-flow control
+        # an instance idle for longer than vnf_timeout is removed
+        active_sf = node_load > _EPS
+        sf_last_active = torch.where(active_sf, t[:, None, None],
+                                     sf_last_active)
+        if self.cfg.controller == "per_flow":
+            expire = sf_available & ~active_sf & (
+                sf_last_active < (t - self.cfg.vnf_timeout)[:, None, None])
+            sf_available = sf_available & ~expire
+            placed = placed & ~expire
 
         flows = FlowTable(phase=phase, sfc=sfc, position=position, node=node,
                           dest=dest, hop_next=hop_next, egress=egress, dr=dr,
@@ -673,5 +789,6 @@ class SimEngine:
         return state.replace(
             t=t + dt, flows=flows, cursor=cursor, node_load=node_load,
             sf_available=sf_available, edge_used=edge_used,
+            placed=placed, sf_startup=sf_startup,
             sf_last_active=sf_last_active, rel_node=rel_node,
             rel_edge=rel_edge, metrics=m, truncated_arrivals=truncated)

@@ -18,7 +18,8 @@ name it for each network):
 It raises on a leaf it does not use and on a leaf the port needs that the
 tree lacks.  ``learner_state_from_jax`` carries a whole DDPG learner state
 (both networks, both targets and both Adam states) into a port
-``DDPGState``.  Every leaf becomes an f32 master whatever the precision
+``DDPGState``, and ``gru_forecaster_from_jax`` the traffic forecaster of
+``sim.predictor``.  Every leaf becomes an f32 master whatever the precision
 policy (flax keeps f32 parameters under "bf16" too, and a leaf stored in
 another float dtype is widened): the networks cast at use, and no bf16
 copy of the weights exists.  Nothing here imports JAX.
@@ -171,3 +172,30 @@ def learner_state_from_jax(tree: Mapping, state) -> None:
                 "step": torch.tensor(step),
                 "exp_avg": mu[name].to(p.device).clone(),
                 "exp_avg_sq": nu[name].to(p.device).clone()}
+
+
+def gru_forecaster_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``_GRUForecaster`` parameter tree (``gsc_tpu.sim.predictor``;
+    with or without the top-level ``"params"`` key) as the ``state_dict``
+    of ``sim.predictor.GRUForecaster``: the input kernels of r, z, n
+    stacked into ``weight_ih_l0`` [3H, 1] with their biases, the hidden
+    kernels into ``weight_hh_l0`` [3H, H], and ``bias_hh_l0`` zero on r
+    and z (flax has no such biases) and ``hn``'s bias on n; the head's
+    ``Dense_0``."""
+    tree = tree.get("params", tree)
+    cell = tree["ScanGRUCell_0"]
+    t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
+    hidden = np.asarray(cell["hn"]["bias"]).shape[0]
+    gates = ("r", "z", "n")
+    return {
+        "gru.weight_ih_l0": torch.cat([t(cell["i" + g]["kernel"]).T
+                                       for g in gates]),
+        "gru.bias_ih_l0": torch.cat([t(cell["i" + g]["bias"])
+                                     for g in gates]),
+        "gru.weight_hh_l0": torch.cat([t(cell["h" + g]["kernel"]).T
+                                       for g in gates]),
+        "gru.bias_hh_l0": torch.cat([torch.zeros(2 * hidden),
+                                     t(cell["hn"]["bias"])]),
+        "head.weight": t(tree["Dense_0"]["kernel"]).T.contiguous(),
+        "head.bias": t(tree["Dense_0"]["bias"]),
+    }

@@ -12,7 +12,9 @@ the hub's last-phase record (what a stall event reports being stuck in).
 (``Trainer.evaluate(telemetry=True)``) writes one row set per control
 interval to ``placements.csv``, ``node_metrics.csv``, ``metrics.csv``,
 ``run_flows.csv``, ``runtimes.csv``, ``drop_reasons.csv``,
-``rl_state.csv`` (no header) and, when asked, ``scheduling.csv``.  Values
+``rl_state.csv`` (no header) and, when asked, ``scheduling.csv`` and
+``flow_actions.csv`` (one row per per-flow decision, written by
+``sim.perflow.PerFlowController`` through ``write_flow_action``).  Values
 arrive as host arrays of one replica, so each cell is written as the JAX
 package writes it.
 """
@@ -101,11 +103,13 @@ class TestModeWriter:
     __test__ = False   # not a pytest class, whatever its name
 
     def __init__(self, test_dir: str, write_schedule: bool = False,
-                 sf_names: Sequence[str] = (), sfc_names: Sequence[str] = ()):
+                 sf_names: Sequence[str] = (), sfc_names: Sequence[str] = (),
+                 write_flow_actions: bool = False):
         os.makedirs(test_dir, exist_ok=True)
         self.sf_names = list(sf_names)
         self.sfc_names = list(sfc_names)
         self.write_schedule = write_schedule
+        self.write_flow_actions = write_flow_actions
         self._closed = False
         self._files = {}
         self._writers = {}
@@ -133,7 +137,24 @@ class TestModeWriter:
         if write_schedule:
             w("scheduling.csv", ["episode", "time", "origin_node", "sfc",
                                  "sf", "schedule_node", "schedule_prob"])
+        if write_flow_actions:
+            w("flow_actions.csv", ["episode", "time", "flow_id",
+                                   "flow_rem_ttl", "flow_ttl", "curr_node_id",
+                                   "dest_node", "cur_node_rem_cap",
+                                   "next_node_rem_cap", "link_cap",
+                                   "link_rem_cap"])
         self._run = 0
+
+    def write_flow_action(self, episode: int, time: float, flow_id: int,
+                          rem_ttl: float, ttl: float, cur_node, dest_node,
+                          cur_node_rem_cap: float, next_node_rem_cap: float,
+                          link_cap, link_rem_cap):
+        """One per-flow decision row, flushed at once."""
+        if self.write_flow_actions:
+            self._writers["flow_actions.csv"].writerow(
+                [episode, time, flow_id, rem_ttl, ttl, cur_node, dest_node,
+                 cur_node_rem_cap, next_node_rem_cap, link_cap, link_rem_cap])
+            self._files["flow_actions.csv"].flush()
 
     def write_step(self, episode: int, time: float, metrics, placement,
                    node_cap, node_names: Optional[Sequence[str]] = None,

@@ -16,8 +16,8 @@ tests/test_torch_single_env.py.
 - ``simulate`` on Abilene equals the JAX ``cli simulate``: the integer
   fields exactly, ``avg_end2end_delay`` to rel 1e-6 (a simulator config
   without ``flow_dr_stdev``: the JAX package's native sampler draws in
-  another order, ROADMAP Queue 3), and ``controller: per_flow`` exits
-  non-zero naming ROADMAP Queue 1 item 8;
+  another order, ROADMAP Queue 3), also under ``controller: per_flow``
+  (the local per-flow algorithm, the default ``--per-flow-algo``);
 - one bf16 single-env episode (2 warm-up steps, 2 acting steps, the
   4-step learn burst) against the JAX package's ``DDPG.episode_step`` on
   the same traffic and draws: episode stats rtol 1e-5, atol 1e-5 (the
@@ -201,9 +201,18 @@ def test_simulate_matches_jax(tmp_path, capsys):
     assert got["avg_end2end_delay"] == pytest.approx(
         want["avg_end2end_delay"], rel=1e-6)
     (tmp_path / "pf.yaml").write_text(SIM_YAML + "controller: per_flow\n")
-    with pytest.raises(SystemExit, match="Queue 1 item 8"):
-        cli.main(["simulate", *args[:-1], str(tmp_path / "pf.yaml"),
-                  "--device", "cpu"])
+    pf_args = [*args[:-1], str(tmp_path / "pf.yaml")]
+    res = CliRunner().invoke(j_cli, ["simulate", *pf_args],
+                             catch_exceptions=False)
+    want_pf = json.loads(res.output.strip().splitlines()[-1])
+    assert cli.main(["simulate", *pf_args, "--device", "cpu"]) == 0
+    got_pf = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for k in ("total_flows", "successful_flows", "dropped_flows",
+              "drop_reasons"):
+        assert got_pf[k] == want_pf[k], k
+    assert got_pf["avg_end2end_delay"] == pytest.approx(
+        want_pf["avg_end2end_delay"], rel=1e-6)
+    assert got_pf != got
 
 
 def test_bf16_single_env_episode_matches_jax(monkeypatch):

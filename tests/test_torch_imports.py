@@ -219,3 +219,70 @@ def test_generalization_training_runs_with_jax_yaml_and_click_blocked(mix):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
     assert res.stdout.strip().endswith("ok")
+
+
+# per-flow control and its helpers, which the rglob above must keep finding
+PERFLOW_MODULES = ("sim/perflow.py", "sim/spr.py", "sim/predictor.py",
+                   "sim/dummy.py", "utils/telemetry.py")
+
+
+def test_per_flow_control_runs_with_jax_yaml_and_click_blocked(tmp_path):
+    """The SPR loop through ``PerFlowController`` (with its flow-action
+    CSV), an interval of ``apply_per_flow``, the GRU forecaster, the
+    predicted observations and the canned backend, in a process where
+    every blocked module fails to import."""
+    for rel in PERFLOW_MODULES:
+        assert (PKG / rel).is_file(), rel
+    code = "\n".join([
+        "import sys",
+        f"for name in {BLOCKED!r}:",
+        "    for mod in [m for m in sys.modules if m == name or "
+        "m.startswith(name + '.')]:",
+        "        del sys.modules[mod]",
+        "    sys.modules[name] = None",
+        "import numpy as np, torch",
+        "from gsc_tpu_torch.config import abc_service",
+        "from gsc_tpu_torch.config.schema import (AgentConfig, EnvLimits,",
+        "    SimConfig)",
+        "from gsc_tpu_torch.env.env import ServiceCoordEnv",
+        "from gsc_tpu_torch.sim import (DummyEngine, PerFlowController,",
+        "    RNNTrafficPredictor, SimEngine, generate_traffic)",
+        "from gsc_tpu_torch.sim.spr import run_spr_episode",
+        "from gsc_tpu_torch.topology import synthetic",
+        "from gsc_tpu_torch.topology.compiler import compile_topology",
+        "from gsc_tpu_torch.utils.telemetry import TestModeWriter",
+        "sim = SimConfig(run_duration=10.0, ttl_choices=(100.0,),",
+        "    controller='per_flow', prediction=True)",
+        "svc = abc_service()",
+        "limits = EnvLimits.for_service(svc, max_nodes=8, max_edges=8)",
+        "topo = compile_topology(synthetic.triangle(), max_nodes=8,",
+        "    max_edges=8)",
+        "traffic = generate_traffic(sim, svc, topo, 4, 0)",
+        "eng = SimEngine(svc, sim, limits)",
+        f"w = TestModeWriter({str(tmp_path)!r}, write_flow_actions=True)",
+        "st = run_spr_episode(PerFlowController(eng, topo, traffic,",
+        "    writer=w), eng.init(1, 'cpu'), 30)",
+        "w.close()",
+        "dec = lambda s: torch.where(s.flows.phase == 1, s.flows.node, -1)",
+        "st, m = eng.apply_per_flow(st, topo, traffic,",
+        "    lambda s: dec(s).to(torch.int32))",
+        "assert int(m.generated[0]) > 0",
+        "p = RNNTrafficPredictor(hidden=4)",
+        "p.fit(np.arange(6, dtype=np.float32), epochs=3)",
+        "assert np.isfinite(p.predict(np.arange(3, dtype=np.float32)))",
+        "agent = AgentConfig(episode_steps=2)",
+        "for engine in (None, DummyEngine(svc, sim, limits)):",
+        "    env = ServiceCoordEnv(svc, sim, agent, limits, engine=engine)",
+        "    es, obs = env.reset(topo, traffic)",
+        "    assert float(obs.nodes[0, :, 0].max()) > 0",
+        "leaked = [m for m in sys.modules if sys.modules[m] is not None and "
+        f"m.split('.')[0] in {BLOCKED!r}]",
+        "assert not leaked, leaked",
+        "print('ok')",
+    ])
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert res.stdout.strip().endswith("ok")
+    assert (tmp_path / "flow_actions.csv").read_text().count("\n") > 1

@@ -162,8 +162,8 @@ def test_trace_semantics_of_the_port():
 def test_trace_csv_and_yaml_load_as_in_jax(tmp_path):
     """A trace CSV (the reference's 'popN' node names, 'None' means and an
     empty cap) parses to the JAX package's rows, and a simulator yaml with
-    MMPP states and a trace_path loads to the same values; 'prediction'
-    stays refused (per-flow, ROADMAP Queue 1 item 8)."""
+    MMPP states and a trace_path loads to the same values; so does
+    'prediction'."""
     from gsc_tpu.config.loader import load_sim as j_load_sim
     from gsc_tpu.env.driver import _node_index as j_node_index
 
@@ -191,5 +191,6 @@ def test_trace_csv_and_yaml_load_as_in_jax(tmp_path):
         [dataclasses.astuple(s) for s in jcfg.states]
     (tmp_path / "pred.yaml").write_text(yml.read_text()
                                         + "prediction: true\n")
-    with pytest.raises(ValueError, match="prediction"):
-        load_sim(str(tmp_path / "pred.yaml"))
+    assert load_sim(str(tmp_path / "pred.yaml")).prediction \
+        == j_load_sim(str(tmp_path / "pred.yaml")).prediction is True
+    assert tcfg.prediction == jcfg.prediction is False
