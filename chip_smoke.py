@@ -149,9 +149,9 @@ Phases (any failure exits non-zero and prints no result line):
    call within ANSWER_BF16_RTOL / ANSWER_BF16_ATOL outside rows with a
    value within THRESH_BF16_TOL of the threshold; prints requests/s and
    p50/p99;
-12. (printed after phase 18) a JSON line
+12. (printed after phase 20) a JSON line
    of the kernels (name, route, source, the TPU kernel it replaces,
-   launches summed over the runs of phases 8, 10, 13-18, max abs
+   launches summed over the runs of phases 8, 10, 13-20, max abs
    error, ms, plain ms, bound ms and what bounds it, library ms);
 13. the generalization slice, the reference's own training path at the
    flagship widths: ``cli.init_configs`` writes the yaml set and the
@@ -309,7 +309,46 @@ Phases (any failure exits non-zero and prints no result line):
    interval's times, beside the card's name and power limit; the kernels
    line lists the per-flow mode as ``substep_megakernel_perflow`` with
    its launches from (c);
-19. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+19. resource-function plugins (``plugin_slice``): (a) the build of
+   kernel #2 with the generated header of ``cases.PLUGINS`` (a
+   quadratic, a capped ``where``, a square root with a division; built
+   in phase 2 beside the other kernels), its
+   nvcc seconds and ptxas registers beside the build without plugins
+   (and the parent's); (b) that build over the battery
+   (``cases.all_cases`` with Abilene at B = PLUGIN_ABILENE_BATCH) and
+   over the per-flow cases (cut to PLUGIN_PERFLOW_SUBSTEPS substeps:
+   the kPerFlow instantiation) under
+   the plugins, every leaf bit for bit against the plain version on CPU
+   copies; (c) a plugin with ``exp`` refused on the card, naming it, and
+   never called on a tensor; (d) device time per interval at B=64 with
+   and without plugins in 10 alternating pairs, the plain engine and the
+   bound; (e)
+   where ``_parent/substep_megakernel.cu`` exists, the build without
+   plugins against it in 10 alternating pairs at B = 1, 64, 256 (device
+   medians, the same interval bit for bit); (f) ``cli simulate -d
+   PLUGIN_SIM_MS`` and ``cli train`` (PLUGIN_TRAIN_ARGS, episodes of
+   PLUGIN_EPISODE_STEPS) with ``--resource-functions-path`` and a service yaml
+   naming the plugins, on the card (one plugin launch per interval and
+   env step, none of the build without plugins) and on the CPU:
+   simulate's integers equal and its mean delay within SUB_RTOL; the
+   training runs' episodes, replay sizes and cursors equal (their random
+   draws differ between the devices).  The kernels line lists the plugin
+   build as ``substep_megakernel_plugin`` with its launches from (f);
+20. decoupled actor/learner training (``async_slice``) at B=64 over
+   ASYNC_ARGS (3 episodes of 200 steps): (a) ``cli train`` (the
+   synchronous ``train_parallel``) and ``cli train --async`` with 1 and
+   2 actor threads (each on its own CUDA stream; ``--max-staleness``
+   ASYNC_STALENESS), each with phase 8's launch counts per env step and
+   gradient step; under ``--async`` produced == ingested steps, no
+   transition lost, one burst per episode, at least one publish adopted
+   by an actor; prints env-steps/s, bursts/s, the idle fractions, the
+   largest policy lag and the final-window return and mean return of
+   each run beside the card's name and power limit; (b) one actor with
+   publishing frozen (``--publish-bursts 1000000``), twice: both replays
+   bit-identical (``--learn-ratio 0.5``: one burst, which the replay
+   does not depend on); (c) ``--fault-plan ASYNC_FAULT_PLAN``: an actor restart
+   and a quarantined block, nothing lost, a finite final state;
+21. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Tolerances (stated here, used below): the attention kernel against its
 plain version rtol 1e-5 / atol 1e-5 (f32 in another summation order: the
@@ -369,7 +408,9 @@ a last-bit difference of an f32 sum moves a bf16 activation by one ulp
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -503,6 +544,45 @@ PARENT_GAT_WRAPPER = PARENT_DIR / "gat_attention.py"
 PARENT_GAT_BACKWARD_SOURCE = PARENT_DIR / "gat_attention_backward.cu"
 # the battery case whose data rates span more than a double holds
 WIDE_CASE = "wide_range_dr"
+# processes that run the plain versions on CPU copies beside the card
+# (phases 5, 18 and 19)
+PLAIN_WORKERS = 4
+# phase 19: reference-style plugin files (the plugins of
+# gsc_tpu_torch.sim.cases.PLUGINS), the abc chain naming one per SF,
+# cli simulate's -d, the short replica training run and its agent
+PLUGIN_FILES = {
+    "rf_quadratic.py": ("def resource_function(load):\n"
+                        "    return load * load * 0.25 + load\n"),
+    "rf_capped.py": ("import torch\n\n\ndef resource_function(load):\n"
+                     "    return torch.where(load > 2.0, "
+                     "2.0 + 0.5 * (load - 2.0), load)\n"),
+    "rf_sqrt_ratio.py": ("import torch\n\n\ndef resource_function(load):\n"
+                         "    return torch.sqrt(torch.relu(load)) "
+                         "+ load / 3.0\n"),
+}
+PLUGIN_SERVICE_YAML = "sfc_list:\n  sfc_1: [a, b, c]\nsf_list:\n" + "".join(
+    f"  {n}:\n    processing_delay_mean: 5.0\n"
+    f"    processing_delay_stdev: 0.0\n    resource_function_id: {rf}\n"
+    for n, rf in zip("abc", ("rf_quadratic", "rf_capped", "rf_sqrt_ratio")))
+PLUGIN_SIM_MS = 500
+PLUGIN_EPISODE_STEPS = 10
+PLUGIN_TRAIN_ARGS = ["--replicas", "4", "--chunk", str(PLUGIN_EPISODE_STEPS),
+                     "--episodes", "1", "--seed", "0"]
+PLUGIN_AGENT_YAML = (f"episode_steps: {PLUGIN_EPISODE_STEPS}\n"
+                     "objective: prio-flow\ngnn_impl: pallas\n")
+# the battery's Abilene batch and the substeps of each per-flow case under
+# plugins
+PLUGIN_ABILENE_BATCH = 16
+PLUGIN_PERFLOW_SUBSTEPS = 50
+# phase 20: decoupled training at B=64 (episodes of 200 steps, the first
+# all warm-up), the staleness bound (one episode's steps at B=64, so that
+# the actors wait for the learner's first publish and adopt it), the
+# frozen-publish runs and the fault plan
+ASYNC_ARGS = ["--replicas", "64", "--chunk", "50", "--episodes", "3",
+              "--seed", "0"]
+ASYNC_STALENESS = 64 * 200
+ASYNC_FROZEN_EPISODES = 2
+ASYNC_FAULT_PLAN = "actor_die@a1:1;ring_poison@2"
 
 
 class SmokeFailure(RuntimeError):
@@ -526,6 +606,38 @@ class Laps:
 def check(cond: bool, msg: str):
     if not cond:
         raise SmokeFailure(msg)
+
+
+_PLAIN_POOL = None
+
+
+def _plain_worker_init():
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def on_cpu_aside(fn, *args, **kwargs):
+    """A future of ``fn(*args, **kwargs)`` (a plain version on CPU copies)
+    in one of PLAIN_WORKERS processes of its own, so that the CPU's
+    reference runs beside the card's work; ``stop_cpu_aside`` ends
+    them."""
+    global _PLAIN_POOL
+    if _PLAIN_POOL is None:
+        import multiprocessing as mp
+        from concurrent.futures import ProcessPoolExecutor
+
+        _PLAIN_POOL = ProcessPoolExecutor(
+            PLAIN_WORKERS, mp_context=mp.get_context("spawn"),
+            initializer=_plain_worker_init)
+    return _PLAIN_POOL.submit(fn, *args, **kwargs)
+
+
+def stop_cpu_aside():
+    global _PLAIN_POOL
+    if _PLAIN_POOL is not None:
+        _PLAIN_POOL.shutdown(wait=True, cancel_futures=True)
+        _PLAIN_POOL = None
 
 
 def nvidia_smi_line() -> str:
@@ -1448,7 +1560,10 @@ def substep_battery(torch, dev):
     from gsc_tpu_torch.ops.substep import substep_megakernel
 
     worst = 0.0
-    for case in cases.all_cases(abilene_batch=64):
+    battery = cases.all_cases(abilene_batch=64)
+    aside = [on_cpu_aside(cases.run_case, case, "cpu", plain=True)
+             for case in battery]
+    for case, cpu_run in zip(battery, aside):
         t0 = time.perf_counter()
         substep_megakernel.serial_rounds = 0
         got = cases.run_case(case, dev)
@@ -1461,7 +1576,7 @@ def substep_battery(torch, dev):
             check(serial == 0, f"{case.name}: {serial} admission rounds "
                   "took the sequential scan")
         on_card = cases.run_case(case, dev, plain=True)
-        on_cpu = cases.run_case(case, "cpu", plain=True)
+        on_cpu = cpu_run.result()
         e_card = e_cpu = e_plain = 0.0
         for i in range(case.intervals):
             what = f"{case.name} interval {i}"
@@ -3738,9 +3853,14 @@ def perflow_slice(torch, dev, smi):
 
     # (a) the battery: the per-flow mode against its plain version
     worst = 0.0
-    for case in cases.perflow_cases():
+    battery = cases.perflow_cases()
+    every_of = lambda case: (10 if case.name == "perflow_vnf_timeout"
+                             else None)
+    aside = [on_cpu_aside(cases.run_perflow_case, case, "cpu", plain=True,
+                          every=every_of(case)) for case in battery]
+    for case, cpu_run in zip(battery, aside):
         t0 = time.perf_counter()
-        every = 10 if case.name == "perflow_vnf_timeout" else None
+        every = every_of(case)
         n0, d0 = substep_megakernel.perflow_launches, \
             substep_megakernel.launches
         got = cases.run_perflow_case(case, dev, every=every)
@@ -3749,7 +3869,7 @@ def perflow_slice(torch, dev, smi):
         check(n == case.substeps and substep_megakernel.launches == d0,
               f"{case.name}: {n} per-flow launches for {case.substeps} "
               "substeps (want one each, and no duration launch)")
-        want = cases.run_perflow_case(case, "cpu", plain=True, every=every)
+        want = cpu_run.result()
         for i, (g, w) in enumerate(zip(got, want)):
             worst = max(worst, cases.compare_states(
                 g, w, SUB_RTOL, SUB_ATOL, f"{case.name} record {i}: "))
@@ -4037,6 +4157,437 @@ def perflow_slice(torch, dev, smi):
                           "bound_by": t["bound_by"]}
 
 
+class PluginBuild:
+    """``build_kernels``' handle on kernel #2's build with the generated
+    header of ``cases.PLUGINS``."""
+
+    def __init__(self, dev):
+        from gsc_tpu_torch.ops.substep import resource_plan
+        from gsc_tpu_torch.sim import cases
+
+        case = cases.with_plugins(cases.abilene_case(batch=1, intervals=1))
+        self.header = resource_plan(case.engine, dev)["rf_header"]
+
+    def library(self):
+        from gsc_tpu_torch.ops.substep import substep_megakernel
+
+        return substep_megakernel.library(self.header)
+
+    @property
+    def build_log(self):
+        from gsc_tpu_torch.ops.substep import substep_megakernel
+
+        return substep_megakernel.plugin_build_log.get(self.header, "")
+
+
+def plugin_slice(torch, dev, smi, parent):
+    """Phase 19: resource-function plugins compiled into kernel #2.  (a)
+    the plugin build; (b) the kernel under ``cases.PLUGINS`` bit for bit
+    against its plain version on CPU copies over the battery
+    (``cases.all_cases``) and over the per-flow cases (the kPerFlow
+    instantiation); (c) an out-of-set plugin raising on the card without
+    running anywhere; (d) device time per interval at B=64 with and
+    without plugins in alternating pairs, the bound and the plain
+    engine; (e) the build without plugins against the parent's source in
+    alternating pairs at B = 1, 64, 256 (where ``_parent/`` holds it) and
+    both builds' registers; (f) ``cli simulate`` and ``cli train --replicas
+    4`` under ``--resource-functions-path`` on the card and on the CPU.
+    Returns (launches on the main path by kernel, the plugin build's
+    numbers for the kernels line)."""
+    from gsc_tpu_torch import cli
+    from gsc_tpu_torch.config.registry import register_resource_function
+    from gsc_tpu_torch.ops.gat_attention import (gat_attention,
+                                                 gat_attention_backward)
+    from gsc_tpu_torch.ops.resource_codegen import \
+        UnsupportedResourceFunction
+    from gsc_tpu_torch.ops.substep import (resource_plan, substep_megakernel,
+                                           substep_plain)
+    from gsc_tpu_torch.sim import cases
+
+    laps = Laps()
+    sub = substep_megakernel
+    # (a) the plugin build (phase 2 built it beside the other kernels)
+    probe = cases.with_plugins(cases.abilene_case(batch=64, intervals=2,
+                                                  seed=7))
+    header = resource_plan(probe.engine, dev)["rf_header"]
+    check(header is not None, "the plugin case has no plugin header")
+    t0 = time.perf_counter()
+    sub.library(header)
+    print(f"  plugin build: {sub.plugin_build_s.get(header, 0.0):.2f} s of "
+          f"nvcc ({time.perf_counter() - t0:.2f} s now; {len(header)} bytes "
+          "of generated header)", flush=True)
+    regs = {}
+    for what, log in (("no plugins", sub.build_log),
+                      ("plugins", sub.plugin_build_log.get(header, "")),
+                      ("parent", parent.build_log if parent else "")):
+        lines = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        regs[what] = lines
+        for ln in lines:
+            print(f"  ptxas ({what}): {ln}", flush=True)
+    laps.lap("a build")
+
+    # (b) the battery under plugins, both instantiations
+    worst = 0.0
+    n0 = sub.plugin_launches
+    battery = [cases.with_plugins(case) for case in
+               cases.all_cases(abilene_batch=PLUGIN_ABILENE_BATCH)]
+    flows = [cases.with_plugins(dataclasses.replace(
+        case, substeps=min(case.substeps, PLUGIN_PERFLOW_SUBSTEPS)))
+        for case in cases.perflow_cases()]
+    aside = [on_cpu_aside(cases.run_case, case, "cpu", plain=True)
+             for case in battery]
+    flows_aside = [on_cpu_aside(cases.run_perflow_case, case, "cpu",
+                                plain=True) for case in flows]
+    for case, cpu_run in zip(battery, aside):
+        got = cases.run_case(case, dev)
+        want = cpu_run.result()
+        for i, (g, w) in enumerate(zip(got, want)):
+            worst = max(worst, cases.compare_states(
+                g, w, SUB_RTOL, SUB_ATOL, f"{case.name} interval {i}: "))
+            check(cases.bit_equal(g.to("cpu"), w),
+                  f"{case.name} interval {i}: the plugin build is not "
+                  "bit-equal to the plain version on CPU copies")
+    for case, cpu_run in zip(flows, flows_aside):
+        got = cases.run_perflow_case(case, dev)
+        want = cpu_run.result()
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(cases.bit_equal(g.to("cpu"), w),
+                  f"{case.name} record {i}: the per-flow plugin build is "
+                  "not bit-equal to the plain version on CPU copies")
+    check(sub.plugin_launches > n0, "no plugin launch in the battery")
+    print(f"  battery under {list(cases.PLUGINS)}: {len(battery)} "
+          f"cases and {len(flows)} per-flow cases bit-equal "
+          f"to the plain version on CPU copies ({sub.plugin_launches - n0} "
+          "plugin launches)", flush=True)
+    laps.lap("b battery")
+
+    # (c) an operation outside the compiled set: refused on the card, and
+    # the plugin never runs on a tensor in its place
+    calls = []
+
+    def exp_plugin(load):
+        if isinstance(load, torch.Tensor):
+            calls.append(load.device.type)
+        return torch.exp(load) - 1.0
+
+    register_resource_function("case_exp")(exp_plugin)
+    bad = cases.with_plugins(cases.abilene_case(batch=1, intervals=1),
+                             ("case_exp",))
+    try:
+        cases.run_case(bad, dev)
+        check(False, "a plugin with exp ran on the card")
+    except UnsupportedResourceFunction as e:
+        check("exp" in str(e), f"the refusal does not name exp: {e}")
+        print(f"  refused on the card: {e}", flush=True)
+    check(not calls, f"the refused plugin ran on {calls}")
+    laps.lap("c refusal")
+
+    # (d) one interval at B=64, without and with plugins, in turns
+    base = cases.abilene_case(batch=64, intervals=2, seed=7)
+    b = base.batch
+
+    def interval(case):
+        states = cases.run_case(case, dev)
+        eng = case.engine
+        topo = case.topo.to(dev).expand(b)
+        traffic = case.traffic.to(dev)
+        st, cap = eng.begin_interval(states[-1], traffic,
+                                     case.schedule.to(dev),
+                                     case.placement.to(dev))
+        return eng, st, topo, traffic, cap
+
+    runs = {"none": interval(base), "plugins": interval(probe)}
+    launch = lambda k: sub.launch(*runs[k])
+    pairs = alternating_pairs(lambda: launch("none"),
+                              lambda: launch("plugins"),
+                              "substep_megakernel_kernel", torch)
+    eng, st, topo, traffic, cap = runs["plugins"]
+    after = launch("plugins")
+    ms = cuda_time_ms(lambda: launch("plugins"), torch, reps=20, warmup=3)
+    plain_ms = cuda_time_ms(
+        lambda: substep_plain(eng, st, topo, traffic, cap), torch, reps=1,
+        warmup=0)
+    bound_ms, bound_by, nbytes, _ = substep_bound(eng, st, after, b)
+    plug_ms = pairs[1] if pairs else ms
+    turns = ("not measured" if pairs is None else
+             f"medians without {pairs[0]:.4f} ms, with {pairs[1]:.4f} ms "
+             f"({100 * (pairs[1] / pairs[0] - 1):+.2f}%), with plugins "
+             f"faster in {pairs[2]} of {pairs[3]}")
+    print(f"  B={b} per interval, device time in {PARENT_PAIRS} alternating "
+          f"pairs without and with plugins: {turns}; plugins {ms:.4f} ms "
+          f"per interval (events, wrapper included), plain engine "
+          f"{plain_ms:.2f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
+          f"{nbytes} bytes) on {smi}", flush=True)
+    laps.lap("d times")
+
+    # (e) the build without plugins against the parent's source
+    if parent is not None:
+        for bb in SUB_TIMING_BATCHES:
+            case = cases.abilene_case(batch=bb, intervals=2, seed=7)
+            states = cases.run_case(case, dev)
+            e2 = case.engine
+            traffic2 = case.traffic.to(dev)
+            st2, cap2 = e2.begin_interval(states[-1], traffic2,
+                                          case.schedule.to(dev),
+                                          case.placement.to(dev))
+            topo2 = case.topo.to(dev).expand(bb)
+            run_p = lambda: parent.launch(e2, st2, topo2, traffic2, cap2)
+            run_c = lambda: sub.launch(e2, st2, topo2, traffic2, cap2)
+            check(cases.bit_equal(run_p(), run_c()),
+                  f"B={bb}: the parent's interval differs")
+            pairs = alternating_pairs(run_p, run_c,
+                                      "substep_megakernel_kernel", torch)
+            if pairs is None:
+                print(f"  B={bb}: alternating pairs not measured", flush=True)
+                continue
+            pm, cm, won, measured = pairs
+            print(f"  B={bb:3d} no-plugin build vs the parent, device time "
+                  f"in {measured} alternating pairs: medians parent "
+                  f"{pm:.4f} ms, this {cm:.4f} ms ({100 * (cm / pm - 1):+.2f}"
+                  f"%), this faster in {won}; the same interval bit for bit "
+                  f"on {smi}", flush=True)
+    laps.lap("e parent")
+
+    # (f) the CLI under --resource-functions-path, card and CPU
+    total = {"gat_attention": 0, "gat_attention_backward": 0,
+             "substep_megakernel": 0, "substep_megakernel_plugin": 0}
+    root = tempfile.mkdtemp(prefix="gsc_plugins_")
+    try:
+        from gsc_tpu_torch.topology.synthetic import abilene, write_graphml
+
+        cfg = os.path.join(root, "cfg")
+        cli.init_configs(cfg)
+        plug_dir = os.path.join(root, "plugins")
+        os.makedirs(plug_dir)
+        for name, text in PLUGIN_FILES.items():
+            with open(os.path.join(plug_dir, name), "w") as f:
+                f.write(text)
+        svc = os.path.join(root, "service_plugins.yaml")
+        with open(svc, "w") as f:
+            f.write(PLUGIN_SERVICE_YAML)
+        net = os.path.join(root, "abilene.graphml")
+        write_graphml(abilene(), net)
+        argv = ["-d", str(PLUGIN_SIM_MS), "-n", net, "-sf", svc, "-c",
+                os.path.join(cfg, "simulator.yaml"),
+                "--resource-functions-path", plug_dir]
+        torch.cuda.synchronize()
+        sub.launches = sub.plugin_launches = 0
+        t0 = time.perf_counter()
+        on_card = cli.run_simulate(argv)
+        torch.cuda.synchronize()
+        sim_wall = time.perf_counter() - t0
+        n_sim = sub.plugin_launches
+        total["substep_megakernel_plugin"] += n_sim
+        check(n_sim == math.ceil(PLUGIN_SIM_MS / 100) and sub.launches == 0,
+              f"simulate under plugins: {n_sim} plugin launches, "
+              f"{sub.launches} others (want one plugin launch per interval)")
+        on_cpu = cli.run_simulate(argv + ["--device", "cpu"])
+        for k in ("total_flows", "successful_flows", "dropped_flows",
+                  "drop_reasons"):
+            check(on_card[k] == on_cpu[k], f"simulate {k}: card "
+                  f"{on_card[k]} vs CPU {on_cpu[k]}")
+        check(abs(on_card["avg_end2end_delay"] - on_cpu["avg_end2end_delay"])
+              <= SUB_RTOL * abs(on_cpu["avg_end2end_delay"]) + SUB_ATOL,
+              "simulate's mean delay differs between card and CPU")
+        default = cli.run_simulate(argv[:5] + [os.path.join(
+            cfg, "service_abc.yaml")] + argv[6:8] + ["--device", "cpu"])
+        print(f"  simulate -d {PLUGIN_SIM_MS} under plugins: card "
+              f"{json.dumps(on_card)} ({n_sim} plugin launches, "
+              f"{sim_wall:.3f} s wall); the CPU's integers equal; the "
+              f"default functions give {json.dumps(default)}", flush=True)
+        agent = os.path.join(root, "agent.yaml")
+        with open(agent, "w") as f:
+            f.write(PLUGIN_AGENT_YAML)
+        targv = PLUGIN_TRAIN_ARGS + [
+            "--agent-config", agent, "--service", svc,
+            "--resource-functions-path", plug_dir, "--no-obs"]
+        for op in (gat_attention, gat_attention_backward):
+            op.launches = 0
+        sub.launches = sub.plugin_launches = 0
+        t0 = time.perf_counter()
+        res = cli.run_train(targv)
+        train_wall = time.perf_counter() - t0
+        ev = PLUGIN_EPISODE_STEPS
+        steps = ev * int(PLUGIN_TRAIN_ARGS[PLUGIN_TRAIN_ARGS.index(
+            "--episodes") + 1])
+        n_train = sub.plugin_launches
+        check(n_train == steps + ev and sub.launches == 0,
+              f"train under plugins: {n_train} plugin launches for {steps} "
+              f"env steps and {ev} evaluation steps, {sub.launches} others")
+        total["substep_megakernel_plugin"] += n_train
+        total["gat_attention"] += gat_attention.launches
+        total["gat_attention_backward"] += gat_attention_backward.launches
+        res_cpu = cli.run_train(targv + ["--device", "cpu"])
+        for what, r in (("card", res), ("CPU", res_cpu)):
+            check(all(math.isfinite(h["episodic_return"])
+                      for h in r["trainer"].history),
+                  f"train under plugins on the {what}: non-finite return")
+        ints = lambda r: (len(r["trainer"].history),
+                          r["buffers"].size.tolist(),
+                          r["buffers"].pos.tolist())
+        check(ints(res) == ints(res_cpu),
+              f"train under plugins: episodes, replay sizes and cursors "
+              f"{ints(res)} on the card, {ints(res_cpu)} on the CPU")
+        print(f"  train --replicas 4 under plugins: {n_train} plugin "
+              f"launches, {train_wall:.2f} s wall on the card; episodes, "
+              "replay sizes and cursors equal to the CPU run's (the two "
+              "devices draw other random numbers, so their returns differ: "
+              f"{res['trainer'].history[-1]['episodic_return']:.3f} card, "
+              f"{res_cpu['trainer'].history[-1]['episodic_return']:.3f} CPU)",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    laps.lap("f cli")
+    print("phase 19 parts, s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in laps.seconds.items()), flush=True)
+    numbers = {"ms": plug_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "max_abs_err": worst,
+               "build_s": sub.plugin_build_s.get(header)}
+    return total, numbers
+
+
+def async_slice(torch, dev, smi):
+    """Phase 20: decoupled actor/learner training (``cli train --async``)
+    at B=64.  (a) ``train_parallel`` and ``--async`` with 1 and 2 actor
+    threads over the same episodes, each with phase 8's launch counts,
+    the drain accounting and an adopted publish; (b) a single-actor run
+    with publishing frozen, twice: the replay bit-identical; (c) a fault
+    plan with an actor death and a poisoned block, both recovered.
+    Returns the launches on the main path by kernel."""
+    from gsc_tpu_torch import cli
+    from gsc_tpu_torch.ops.gat_attention import (gat_attention,
+                                                 gat_attention_backward)
+    from gsc_tpu_torch.ops.substep import substep_megakernel
+    from gsc_tpu_torch.resilience.guard import all_finite
+
+    ops = {"gat_attention": gat_attention,
+           "gat_attention_backward": gat_attention_backward,
+           "substep_megakernel": substep_megakernel}
+    total = {k: 0 for k in ops}
+    laps = Laps()
+
+    def counted(argv):
+        for op in ops.values():
+            op.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cli.run_train(argv + ["--no-obs"])
+        torch.cuda.synchronize()
+        res["wall"] = time.perf_counter() - t0
+        counts = {k: op.launches for k, op in ops.items()}
+        for k, n in counts.items():
+            total[k] += n
+        return res, counts
+
+    def check_counts(res, counts, what):
+        agent = res["trainer"].agent_cfg
+        steps = len(res["trainer"].history) * agent.episode_steps
+        acting = sum(1 for g in range(steps)
+                     if g >= agent.nb_steps_warmup_critic)
+        info = res["trainer"].async_info
+        bursts = info["bursts"] if info else len(res["trainer"].history)
+        grad = bursts * (agent.learn_steps or agent.episode_steps)
+        ev = agent.episode_steps
+        want = {"substep_megakernel": steps + ev,
+                "gat_attention": 3 * acting + 15 * grad + 3 * ev,
+                "gat_attention_backward": 6 * grad}
+        check(counts == want, f"{what}: launches {counts}, want {want}")
+
+    def curve(res):
+        r = [h["episodic_return"] for h in sorted(
+            res["trainer"].history, key=lambda h: h["episode"])]
+        return r[-1], sum(r) / len(r)
+
+    # (a) the synchronous loop and 1 and 2 actor threads
+    rows = {}
+    sync, counts = counted(ASYNC_ARGS)
+    check_counts(sync, counts, "train_parallel")
+    eps = len(sync["trainer"].history)
+    steps = eps * 200 * 64
+    rows["sync"] = {"env_steps_s": steps / sync["summary"]["train_s"],
+                    "bursts_s": eps / sync["summary"]["train_s"],
+                    "curve": curve(sync)}
+    for n in (1, 2):
+        res, counts = counted(ASYNC_ARGS + [
+            "--async", "--async-actors", str(n), "--max-staleness",
+            str(ASYNC_STALENESS)])
+        check_counts(res, counts, f"--async with {n} actors")
+        info = res["trainer"].async_info
+        drain = res["summary"]["drain"]
+        check(drain["produced_steps"] == drain["ingested_steps"] == steps
+              and drain["transitions_lost"] == 0
+              and drain["episodes_drained"] == eps
+              and drain["bursts"] == eps,
+              f"--async with {n} actors: drain {drain}")
+        versions = [h["policy_version"] for h in res["trainer"].history]
+        check(info["publishes"] >= 1 and max(versions) >= 1,
+              f"--async with {n} actors: {info['publishes']} publishes, "
+              f"acting versions {versions} (none adopted)")
+        check(float(all_finite(res["state"])) == 1.0,
+              f"--async with {n} actors: a non-finite learner state")
+        rows[f"async{n}"] = {
+            "env_steps_s": info["produced_steps"] / info["wall_s"],
+            "bursts_s": info["bursts"] / info["wall_s"],
+            "learner_idle_frac": info["learner_idle_frac"],
+            "actor_idle_frac": info["actor_idle_frac"],
+            "policy_lag_max": info["policy_lag_max"],
+            "versions": versions, "curve": curve(res)}
+    for label, row in rows.items():
+        extra = "".join(f", {k} {row[k]}" for k in (
+            "learner_idle_frac", "actor_idle_frac", "policy_lag_max",
+            "versions") if k in row)
+        print(f"  {label:6s} B=64, {eps} episodes: {row['env_steps_s']:.1f} "
+              f"env-steps/s, {row['bursts_s']:.3f} bursts/s{extra}; "
+              f"final-window return {row['curve'][0]:.3f}, AUC (mean "
+              f"return) {row['curve'][1]:.3f} on {smi}", flush=True)
+    laps.lap("a runs")
+
+    # (b) one actor, publishing frozen: the replay bit for bit, twice
+    frozen_args = ASYNC_ARGS[:-4] + [
+        "--episodes", str(ASYNC_FROZEN_EPISODES), "--seed", "0", "--async",
+        "--async-actors", "1", "--publish-bursts", "1000000",
+        "--learn-ratio", "0.5"]
+    rings = []
+    for _ in range(2):
+        res, counts = counted(frozen_args)
+        check_counts(res, counts, "frozen-publish run")
+        check(res["trainer"].async_info["publishes"] == 0,
+              "the frozen run published")
+        rings.append(res["buffers"])
+
+    same = lambda a, b: torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+    check(all(same(rings[0].data[k], rings[1].data[k])
+              for k in rings[0].data)
+          and torch.equal(rings[0].pos, rings[1].pos)
+          and torch.equal(rings[0].size, rings[1].size),
+          "two frozen-publish single-actor runs filled different replays")
+    print(f"  frozen publish, 1 actor, {ASYNC_FROZEN_EPISODES} episodes: "
+          f"two runs' replays bit-identical "
+          f"({sum(d.numel() for d in rings[0].data.values())} elements)",
+          flush=True)
+    laps.lap("b frozen")
+
+    # (c) an actor death and a poisoned block
+    res, counts = counted(ASYNC_ARGS + [
+        "--async", "--async-actors", "2", "--max-staleness",
+        str(ASYNC_STALENESS), "--fault-plan", ASYNC_FAULT_PLAN])
+    drain = res["summary"]["drain"]
+    check(drain["actor_restarts"] >= 1 and drain["blocks_quarantined"] >= 1
+          and drain["transitions_lost"] == 0
+          and drain["episodes_drained"] == eps
+          and float(all_finite(res["state"])) == 1.0,
+          f"fault plan {ASYNC_FAULT_PLAN}: drain {drain}")
+    print(f"  fault plan {ASYNC_FAULT_PLAN}: {drain['actor_restarts']} actor "
+          f"restart, {drain['blocks_quarantined']} block quarantined, "
+          f"{drain['produced_steps']} steps produced and ingested, final "
+          "state finite", flush=True)
+    laps.lap("c faults")
+    print("phase 20 parts, s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in laps.seconds.items()), flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -4084,6 +4635,8 @@ def main() -> int:
            "gat_attention_backward (stage clocks)": clocked_bwd}
     if parent is not None:
         ops["substep_megakernel (parent)"] = parent
+    # phase 19's plugin build of kernel #2, beside the others
+    ops["substep_megakernel (plugins)"] = PluginBuild(dev)
     if parent_att is not None:
         ops["gat_attention (parent)"] = parent_att[0]
         if parent_att[1] is not None:
@@ -4300,15 +4853,31 @@ def main() -> int:
     for kernel in ("substep_megakernel", "substep_megakernel_perflow"):
         check(pf_launches.get(kernel, 0) > 0,
               f"{kernel} was not launched on the per-flow path")
+    # ---- 19. resource-function plugins --------------------------------
+    print("phase 19, resource-function plugins:", flush=True)
+    rf_launches, rf_numbers = plugin_slice(torch, dev, smi, parent)
+    phases.lap("19")
+    for kernel in ("gat_attention", "gat_attention_backward",
+                   "substep_megakernel_plugin"):
+        check(rf_launches.get(kernel, 0) > 0,
+              f"{kernel} was not launched on the plugin path")
+    # ---- 20. decoupled actor/learner training -------------------------
+    print("phase 20, train --async:", flush=True)
+    async_launches = async_slice(torch, dev, smi)
+    phases.lap("20")
+    for kernel, n in async_launches.items():
+        check(n > 0, f"{kernel} was not launched on the --async path")
     path_launches = {k: train_launches.get(k, 0) + bf16_launches.get(k, 0)
                      + gen_launches.get(k, 0) + large_launches.get(k, 0)
                      + run_launches.get(k, 0) + mix_launches.get(k, 0)
                      + serving_launches.get(k, 0) + pf_launches.get(k, 0)
+                     + rf_launches.get(k, 0) + async_launches.get(k, 0)
                      for k in ("gat_attention", "gat_attention_backward",
                                "gat_attention_bf16",
                                "gat_attention_backward_bf16",
                                "substep_megakernel",
-                               "substep_megakernel_perflow")}
+                               "substep_megakernel_perflow",
+                               "substep_megakernel_plugin")}
     max_err = max(max_err, large_errs["gat_attention"])
     bwd_err = max(bwd_err, large_errs["gat_attention_backward"])
     h_err = max(h_err, large_errs["gat_attention_bf16"])
@@ -4397,7 +4966,20 @@ def main() -> int:
         "bound_ms": pf_times["bound_ms"],
         "bound_by": pf_times["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "substep_megakernel_plugin",
+        "route": "cuda",
+        "source": rel(SUB_SOURCE),
+        "replaces": "gsc_tpu/ops/pallas_substep.py:110",
+        "launches": path_launches["substep_megakernel_plugin"],
+        "max_abs_err": rf_numbers["max_abs_err"],
+        "ms": rf_numbers["ms"],
+        "plain_ms": rf_numbers["plain_ms"],
+        "bound_ms": rf_numbers["bound_ms"],
+        "bound_by": rf_numbers["bound_by"],
+        "library_ms": None,
     }]}
+    stop_cpu_aside()
     print("phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.seconds.items()), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -4415,5 +4997,6 @@ if __name__ == "__main__":
         import traceback
 
         traceback.print_exc()
+        stop_cpu_aside()
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         sys.exit(1)

@@ -19,6 +19,10 @@ The port of ``gsc_tpu.agents.trainer.Trainer``:
   ``device_traffic=False``), on a registry mixture of networks, or on
   the scenario factory's draws under the TD curriculum, with the chunked
   rollout and the end-of-episode learn burst (``parallel.harness``);
+- ``train_async`` is ``train_parallel``'s decoupled form (``cli train
+  --async``): actor threads, each on its own CUDA stream, roll out into
+  the learner's replay ring while this thread learns and publishes
+  (``parallel.async_rl``);
 - ``evaluate`` runs greedy episodes (no noise, no learning) on the
   inference network, optionally writing the reference's test-mode CSV
   suite to ``<result_dir>/test``.
@@ -129,7 +133,6 @@ class Trainer:
         self.agent_cfg = agent_cfg
         self.seed = seed
         self.result_dir = result_dir
-        refuse_async_sites(fault_plan)
         self.fault_plan = fault_plan
         self.rollback = rollback
         self.retry_policy = retry_policy or RetryPolicy()
@@ -161,6 +164,8 @@ class Trainer:
         self._topos: Dict[int, Topology] = {}
         # the replica run's TD curriculum (factory mixes), once it ran
         self.curriculum = None
+        # the decoupled run's accounting (train_async)
+        self.async_info: Optional[Dict] = None
 
     # ---------------------------------------------------------------- inputs
     def _on_device(self, topo: Topology) -> Topology:
@@ -363,6 +368,7 @@ class Trainer:
         ``publish_interval`` publishes the guard's verified actor of the
         drained episode every N episodes (the live actor without
         rollback)."""
+        refuse_async_sites(self.fault_plan)
         if self.driver.topo_mix:
             # the mixture fills a replica axis the single env lacks
             raise ValueError(
@@ -701,6 +707,7 @@ class Trainer:
                     init_buffers, start_episode, ckpt_manager, ckpt_interval,
                     preempt, False, verbose, device_traffic, curriculum,
                     publisher, publish_interval)
+        refuse_async_sites(self.fault_plan)
         steps = self.agent_cfg.episode_steps
         if steps % chunk != 0:
             raise ValueError(f"chunk ({chunk}) must divide episode_steps "
@@ -834,6 +841,215 @@ class Trainer:
         if chaos is not None:
             chaos.warn_unfired(hub)
         return state, buffers
+
+    def train_async(self, episodes: int, num_replicas: int,
+                    chunk: int = 50, actor_threads: int = 2,
+                    verbose: bool = False, device_traffic: bool = True,
+                    profile: bool = False,
+                    init_state: Optional[DDPGState] = None,
+                    init_buffers=None, start_episode: int = 0,
+                    ckpt_manager=None, ckpt_interval: int = 0,
+                    preempt=None, plan=None, publisher=None,
+                    publish_bursts: int = 1, curriculum=None,
+                    max_staleness: int = 0, learn_ratio: float = 1.0,
+                    throttle_s: float = 0.0,
+                    on_row: Optional[Callable[[Dict], None]] = None):
+        """Decoupled actor/learner training (``cli train --async``):
+        ``actor_threads`` threads roll ``num_replicas`` replicas out
+        continuously, each on its own CUDA stream, and ship transition
+        blocks into the shared replay ring, while this thread, the
+        learner, ingests them, runs learn bursts under its
+        ``learn_ratio`` pacing and publishes the actor every
+        ``publish_bursts`` bursts through a ``WeightPublisher`` that the
+        actors adopt from between chunks (``parallel.async_rl``).
+
+        Scenarios come from the same source as ``train_parallel``'s (the
+        schedule with device traffic, a registry mix, or the factory
+        under the TD curriculum, whose weights each burst's learning
+        signal moves), keyed by the global episode index.  Episodes drain
+        in completion order: each one appends a ``history`` row and a
+        ``rewards.csv`` row and reports an ``episode`` event with the
+        acting actor and policy version; the ``policy_lag``,
+        ``replay_lag``, ``learner_idle_frac``, ``actor_idle_frac`` and
+        ``replay_fill_frac`` gauges and the ``actor_dispatch``,
+        ``replay_ingest``, ``learn_dispatch``, ``actor_idle`` and
+        ``learner_idle`` phases go to the observer.  A preemption stops
+        the actors at their next boundary after the learner has drained
+        everything produced; periodic checkpoints are saved from this
+        thread at the contiguous drained prefix; ``publisher`` (the
+        hot-swap directory's) is the bus the actors subscribe to.  Under
+        a fault plan the async sites fire and, with ``rollback``, blocks
+        are quarantined and bursts rolled back.  ``plan`` (a mesh) does
+        not exist in the port and must be None.  Returns (state,
+        buffers); the run's accounting is ``self.async_info``."""
+        if plan is not None:
+            raise ValueError("the port has no device mesh: plan must be "
+                             "None")
+        if profile and self.result_dir:
+            from ..utils.debug import Profiler
+            with Profiler(os.path.join(self.result_dir, "profile")):
+                return self.train_async(
+                    episodes, num_replicas, chunk,
+                    actor_threads=actor_threads, verbose=verbose,
+                    device_traffic=device_traffic, profile=False,
+                    init_state=init_state, init_buffers=init_buffers,
+                    start_episode=start_episode,
+                    ckpt_manager=ckpt_manager, ckpt_interval=ckpt_interval,
+                    preempt=preempt, publisher=publisher,
+                    publish_bursts=publish_bursts, curriculum=curriculum,
+                    max_staleness=max_staleness, learn_ratio=learn_ratio,
+                    throttle_s=throttle_s, on_row=on_row)
+        import threading
+
+        from ..parallel.async_rl import AsyncConfig, run_async
+
+        steps = self.agent_cfg.episode_steps
+        if steps % chunk != 0:
+            raise ValueError(f"chunk ({chunk}) must divide episode_steps "
+                             f"({steps})")
+        inputs, mix, factory, curr = self._scenario_source(
+            num_replicas, device_traffic, curriculum)
+        self.pddpg = pddpg = ParallelDDPG(
+            self.env, self.agent_cfg, num_replicas, device=self.device,
+            seed=self.seed, learn_ledger=self.ddpg.learn_ledger)
+        # the learner's random source (replay indices); each actor draws
+        # from its own
+        pddpg.draws = self.draws
+        topo0, traffic0 = self._episode(0)
+        _, one_obs = self.env.reset(topo0, traffic0, batch=1)
+        state = init_state if init_state is not None else \
+            pddpg.init(torch.Generator().manual_seed(self.seed))
+        buffers = init_buffers if init_buffers is not None else \
+            pddpg.init_buffers(_first(one_obs))
+        self.phase_timer = timer = PhaseTimer()
+        hub = self.obs.hub if self.obs else None
+        self.preempted = False
+        self._last_drained = start_episode - 1
+        writer = self._rewards()
+        # the curriculum's weights are read by actor threads (scenarios)
+        # and moved by this one (bursts)
+        curr_lock = threading.Lock()
+
+        def scenario_fn(ep):
+            with phase_span("scenario_regen", timer, hub), curr_lock:
+                return inputs(ep)
+
+        start = time.perf_counter()
+        drained_n = [0]
+        # episodes drain in completion order: the resume counter advances
+        # only through the contiguous drained prefix
+        drained_set: set = set()
+        prefix = [start_episode - 1]
+
+        def on_episode(rec, ring):
+            ep = rec["episode"]
+            drained_n[0] += 1
+            sps = (drained_n[0] * steps * num_replicas
+                   / (time.perf_counter() - start))
+            ret = rec["episodic_return"]
+            row = {"episode": ep, "episodic_return": ret,
+                   "mean_succ_ratio": rec["mean_succ_ratio"],
+                   "final_succ_ratio": rec["final_succ_ratio"],
+                   "actor": rec["actor"],
+                   "policy_version": rec["policy_version"], "sps": sps}
+            self.history.append(row)
+            writer.write(ret)
+            if on_row is not None:
+                on_row(row)
+            if verbose:
+                log.info("episode=%d actor=%d v=%d return=%.3f sps=%.1f",
+                         ep, rec["actor"], rec["policy_version"], ret, sps)
+            if curr is not None:
+                with curr_lock:
+                    curr.emit_weights(hub, ep)
+            if self.obs:
+                extra = {"replicas": num_replicas, "actor": rec["actor"],
+                         "policy_version": rec["policy_version"]}
+                if mix is not None:
+                    extra.update(self._entry_returns(
+                        mix.names, rec["per_replica_return"]))
+                elif factory is None:
+                    extra = self._topology_extra(ep, ret, extra=extra)
+                self.obs.episode_dispatched(ep)
+                self.obs.episode_end(
+                    episode=ep, global_step=(ep + 1) * steps - 1,
+                    metrics={k: v for k, v in row.items()
+                             if k not in ("episode", "sps", "actor",
+                                          "policy_version")},
+                    sps=sps, phases=timer.summary(),
+                    replay_bytes=buffer_nbytes(ring), extra=extra)
+            if hub is not None:
+                hub.gauge("replay_fill_frac",
+                          float(ring.size.sum()) / (ring.size.numel()
+                                                    * ring.capacity))
+            drained_set.add(ep)
+            while prefix[0] + 1 in drained_set:
+                prefix[0] += 1
+                drained_set.discard(prefix[0])
+            self._last_drained = prefix[0]
+
+        def on_burst(n, st, metrics):
+            sig = (metrics or {}).get("learn_signal")
+            if curr is not None and sig is not None:
+                # the curriculum steers from each burst's |TD|: bursts
+                # are not tied to one episode's drain
+                with curr_lock:
+                    curr.fold_td(sig["td_abs_sum"].cpu().numpy(),
+                                 sig["td_count"].cpu().numpy())
+
+        def checkpoint_fn(st, ring, n_drained):
+            # the contiguous drained prefix tags it, so a resume never
+            # skips an undrained episode
+            if state_is_finite(st):
+                ckpt_manager.save(st, ring, episode=self._last_drained + 1,
+                                  draws=self.draws)
+            else:
+                self._recover(
+                    self._last_drained, site="learner_state",
+                    action="detected", fault="non_finite_state",
+                    detail="checkpoint skipped so the last-good pointer "
+                           "keeps the previous verified state")
+
+        cfg = AsyncConfig(actor_threads=actor_threads,
+                          publish_bursts=publish_bursts,
+                          max_staleness=max_staleness,
+                          learn_ratio=learn_ratio, throttle_s=throttle_s)
+        if self.obs:
+            self.obs.resume_watchdog()
+        try:
+            res = run_async(
+                pddpg, scenario_fn, state, buffers, episodes, steps, chunk,
+                self.seed, cfg, publisher=publisher, hub=hub, timer=timer,
+                on_episode=on_episode, on_burst=on_burst,
+                should_stop=((lambda: preempt.triggered)
+                             if preempt is not None else None),
+                start_episode=start_episode,
+                checkpoint_every=(ckpt_interval if ckpt_manager is not None
+                                  else 0),
+                checkpoint_fn=(checkpoint_fn if ckpt_manager is not None
+                               else None),
+                fault_plan=self.fault_plan,
+                rollback=(self.rollback and self.fault_plan is not None),
+                on_recovery=self._recover, retry_policy=self.retry_policy)
+        finally:
+            if self.obs:
+                self.obs.pause_watchdog()
+            writer.close()
+        if preempt is not None and preempt.triggered:
+            self.preempted = True
+            self._recover(
+                self._last_drained + 1, site="run",
+                action="preempt_snapshot", fault=preempt.signame,
+                detail="async run drained and stopped; the caller "
+                       "checkpoints the drained state")
+        self.completed_episodes = self._last_drained + 1
+        self.curriculum = curr
+        self.async_info = res.info
+        if self.fault_plan is not None:
+            self.fault_plan.warn_unfired(hub)
+        if hub is not None:
+            hub.event("async_train", **res.info)
+        return res.state, res.buffers
 
     def _entry_returns(self, names, returns) -> Dict:
         """A mixed batch's returns per mix entry (the mean over its

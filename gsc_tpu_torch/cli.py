@@ -39,6 +39,15 @@ bit for bit, under the checkpoint's precision; ``--ckpt-interval N``
 saves rotating checkpoints to ``<result-dir>/ckpts`` every N episodes;
 ``--hot-swap-dir D`` publishes the actor into ``D`` every
 ``--publish-interval`` episodes for a ``serve --hot-swap-dir D`` fleet.
+``--async`` (with ``--replicas B``) takes decoupled actor/learner
+training (:meth:`~gsc_tpu_torch.agents.trainer.Trainer.train_async`):
+``--async-actors`` threads, each on its own CUDA stream, feed the
+learner's replay ring; ``--max-staleness``, ``--publish-bursts`` and
+``--learn-ratio`` tune it, with the JAX CLI's refusals, and the last JSON
+line carries the drain proof (``drain``: produced == ingested steps).
+``--resource-functions-path`` (``train``, ``infer``, ``serve``,
+``simulate``) loads resource-function plugins before the service yaml is
+parsed; on the card they run compiled into the substep kernel.
 Its defaults are the JAX CLI's: the pipelined single-env loop
 (``--no-pipeline``: the serial one), the run observer (``--no-obs``;
 ``events.jsonl``, ``metrics.json``, ``series.json``, ``curves.json`` with
@@ -99,6 +108,13 @@ _NETWORKS = ("abilene", "bteurope", "claranet", "compuserve", "tinet",
 _PRECISIONS = ("f32", "bf16")
 # (temperature, floor) of --curriculum-*, the JAX CLI's defaults
 CURRICULUM_DEFAULTS = (1.0, 0.25)
+# --async-actors, --max-staleness, --publish-bursts, --learn-ratio
+ASYNC_DEFAULTS = (2, 0, 1, 1.0)
+# the drain proof of an --async run's last JSON line
+DRAIN_KEYS = ("produced_steps", "ingested_steps", "transitions_lost",
+              "episodes_drained", "bursts", "publishes", "policy_lag_max",
+              "learner_idle_frac", "actor_idle_frac", "actor_restarts",
+              "actors_degraded", "blocks_quarantined", "rollbacks")
 
 
 def _agent(args, precision):
@@ -116,10 +132,17 @@ def _agent(args, precision):
 def _sim_and_service(args):
     from .config import abc_service, init_configs_sim
     from .config.loader import load_service, load_sim
+    from .config.registry import load_resource_function_plugins
 
     sim_cfg = (load_sim(args.simulator_config) if args.simulator_config
                else init_configs_sim())
-    service = load_service(args.service) if args.service else abc_service()
+    plugins = args.resource_functions_path
+    if args.service:
+        service = load_service(args.service, resource_functions_path=plugins)
+    else:
+        if plugins:
+            load_resource_function_plugins(plugins)
+        service = abc_service()
     return sim_cfg, service
 
 
@@ -313,10 +336,31 @@ def _check_train_args(args):
     if args.metrics_port and not args.obs:
         raise SystemExit("--metrics-port needs the run observer (drop "
                          "--no-obs)")
-    try:
-        refuse_async_sites(FaultPlan.from_env(args.fault_plan))
-    except ValueError as e:
-        raise SystemExit(f"--fault-plan: {e}")
+    if args.async_mode:
+        if args.replicas <= 1:
+            raise SystemExit(
+                "--async decouples the replica rollout from the learner — "
+                "it requires the replica-parallel path (--replicas > 1)")
+        if args.async_actors < 1:
+            raise SystemExit("--async-actors must be >= 1")
+        if args.max_staleness < 0:
+            raise SystemExit("--max-staleness must be >= 0 (0 = two "
+                             "episodes' worth of steps per actor)")
+        if args.publish_bursts < 1:
+            raise SystemExit("--publish-bursts must be >= 1")
+        if args.learn_ratio <= 0:
+            raise SystemExit("--learn-ratio must be > 0")
+    elif (args.async_actors, args.max_staleness, args.publish_bursts,
+          args.learn_ratio) != ASYNC_DEFAULTS:
+        raise SystemExit(
+            "--async-actors/--max-staleness/--publish-bursts/--learn-ratio "
+            "tune the decoupled actor/learner path — pass --async or drop "
+            "the flags")
+    else:
+        try:
+            refuse_async_sites(FaultPlan.from_env(args.fault_plan))
+        except ValueError as e:
+            raise SystemExit(f"--fault-plan: {e}")
     args.curriculum = _curriculum(args)
 
 
@@ -469,7 +513,19 @@ def _train_run(args, run: int, dev, precision, resume) -> dict:
             result.runtime_start("train")
         t0 = time.perf_counter()
         with PreemptionGuard() as guard:
-            if args.replicas > 1:
+            if args.async_mode:
+                state, buffer = trainer.train_async(
+                    args.episodes, args.replicas, chunk=args.chunk,
+                    actor_threads=args.async_actors, verbose=True,
+                    profile=args.profile, init_state=init_state,
+                    init_buffers=init_buffer, start_episode=start_episode,
+                    ckpt_manager=manager, ckpt_interval=args.ckpt_interval,
+                    preempt=guard, publisher=publisher,
+                    publish_bursts=args.publish_bursts,
+                    curriculum=args.curriculum,
+                    max_staleness=args.max_staleness,
+                    learn_ratio=args.learn_ratio, on_row=on_row)
+            elif args.replicas > 1:
                 state, buffer = trainer.train_parallel(
                     args.episodes, args.replicas, chunk=args.chunk,
                     on_row=on_row, init_state=init_state,
@@ -487,6 +543,9 @@ def _train_run(args, run: int, dev, precision, resume) -> dict:
         train_s = time.perf_counter() - t0
         if result is not None:
             result.runtime_stop("train")
+        # the drain proof of an --async run: nothing produced was lost
+        drain = ({k: trainer.async_info[k] for k in DRAIN_KEYS}
+                 if args.async_mode and trainer.async_info else None)
         if trainer.preempted:
             # a checksummed snapshot of the drained state, a clean exit
             # and a line saying how to continue; no evaluation
@@ -502,6 +561,8 @@ def _train_run(args, run: int, dev, precision, resume) -> dict:
                        "result_dir": rdir, "checkpoint": ckpt,
                        "episodes_completed": done,
                        "hint": "continue with --resume auto"}
+            if drain is not None:
+                payload["drain"] = drain
             return {"summary": payload, "trainer": trainer, "state": state,
                     "buffers": buffer, "eval": None, "result_dir": rdir}
         ckpt = args.checkpoint or (os.path.join(rdir, "checkpoint")
@@ -548,6 +609,8 @@ def _train_run(args, run: int, dev, precision, resume) -> dict:
                "sps": last.get("sps"),
                "result_dir": os.path.abspath(rdir) if rdir else None,
                "checkpoint": ckpt, **test}
+    if drain is not None:
+        summary["drain"] = drain
     return {"summary": summary, "trainer": trainer, "state": state,
             "buffers": buffer, "eval": test, "result_dir": rdir}
 
@@ -640,7 +703,8 @@ def _simulate(args) -> dict:
     from .sim.traffic import generate_traffic
     from .topology.compiler import check_dt_quantization, load_topology
 
-    service = load_service(args.service)
+    service = load_service(args.service,
+                           resource_functions_path=args.resource_functions_path)
     try:
         sim_cfg = load_sim(args.config)
     except ValueError as e:
@@ -812,6 +876,16 @@ def _network_arg(value: str) -> str:
         "nor a GraphML file")
 
 
+def _plugins_arg(p):
+    p.add_argument("--resource-functions-path", default=None,
+                   help="a .py file or a directory of them with "
+                   "resource-function plugins, loaded before the service "
+                   "yaml is parsed (reference-style files define "
+                   "resource_function(load), registered under the file "
+                   "stem); on the card they run compiled into the substep "
+                   "kernel")
+
+
 def _config_args(p, what):
     p.add_argument("--agent-config", help="agent yaml, whose gnn_impl "
                    "picks the attention path (default: the init-configs "
@@ -826,6 +900,7 @@ def _config_args(p, what):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max-nodes", type=int, default=24)
     p.add_argument("--max-edges", type=int, default=37)
+    _plugins_arg(p)
     _device_arg(p)
 
 
@@ -1031,6 +1106,30 @@ def _parser() -> argparse.ArgumentParser:
                    "replica state with --replicas > 1)")
     t.add_argument("--publish-interval", type=int, default=1,
                    help="episodes between hot-swap publishes")
+    t.add_argument("--async", dest="async_mode", action="store_true",
+                   help="decoupled actor/learner training (--replicas > 1): "
+                   "--async-actors threads, each on its own CUDA stream, "
+                   "roll the replicas out continuously and ship transition "
+                   "blocks into the learner's replay ring, while the "
+                   "learner runs learn bursts and publishes the actor every "
+                   "--publish-bursts bursts to an in-process bus the actors "
+                   "adopt from between chunks; staleness bounded by "
+                   "--max-staleness, paced by --learn-ratio; the last JSON "
+                   "line carries the drain proof")
+    t.add_argument("--async-actors", type=int, default=ASYNC_DEFAULTS[0],
+                   help="actor threads of --async (episodes go round-robin "
+                   "by global index)")
+    t.add_argument("--max-staleness", type=int, default=ASYNC_DEFAULTS[1],
+                   help="--async backpressure: produced but not ingested "
+                   "env steps the actors may run ahead (0 = two episodes' "
+                   "worth per actor)")
+    t.add_argument("--publish-bursts", type=int, default=ASYNC_DEFAULTS[2],
+                   help="learn bursts between actor-weight publishes under "
+                   "--async")
+    t.add_argument("--learn-ratio", type=float, default=ASYNC_DEFAULTS[3],
+                   help="--async learner pacing: burst budget per ingested "
+                   "env step relative to the synchronous loop (1.0 = one "
+                   "burst per replicas * episode_steps steps)")
     t.add_argument("--profile", action=argparse.BooleanOptionalAction,
                    default=False,
                    help="write a torch.profiler Chrome trace of training "
@@ -1056,6 +1155,7 @@ def _parser() -> argparse.ArgumentParser:
                    "per_flow': 'local' processes every flow at its node (a "
                    "policy on the device), 'spr' runs the shortest-path "
                    "heuristic through the host PerFlowController loop")
+    _plugins_arg(m)
     _device_arg(m)
 
     i = sub.add_parser("infer", help="greedy episodes of a checkpoint's "

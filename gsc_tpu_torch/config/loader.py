@@ -11,7 +11,7 @@ import logging
 import os
 from typing import Any, Dict
 
-from .registry import has_resource_function
+from .registry import has_resource_function, load_resource_function_plugins
 from .schema import (AgentConfig, MMPPState, SchedulerConfig,
                      ServiceConfig, ServiceFunction, SimConfig)
 
@@ -25,10 +25,15 @@ def _load_yaml(path: str) -> Dict[str, Any]:
         return yaml.safe_load(f)
 
 
-def load_service(path: str) -> ServiceConfig:
-    """Parse an SFC/SF catalog yaml.  An SF naming an unknown resource
-    function falls back to "default" with a warning, as in the JAX
-    package and the reference."""
+def load_service(path: str,
+                 resource_functions_path: str = None) -> ServiceConfig:
+    """Parse an SFC/SF catalog yaml.  ``resource_functions_path`` loads
+    resource-function plugins first
+    (``registry.load_resource_function_plugins``).  An SF naming an
+    unknown resource function falls back to "default" with a warning, as
+    in the JAX package and the reference."""
+    if resource_functions_path:
+        load_resource_function_plugins(resource_functions_path)
     data = _load_yaml(path)
     sfc_list = {name: tuple(chain) for name, chain in data["sfc_list"].items()}
     sf_list = {}
@@ -36,8 +41,9 @@ def load_service(path: str) -> ServiceConfig:
         details = details or {}
         rf_id = details.get("resource_function_id", "default")
         if not has_resource_function(rf_id):
-            log.warning("SF %s names unknown resource function %r (plugins "
-                        "are not ported); using default", name, rf_id)
+            log.warning("SF %s names unknown resource function %r (pass "
+                        "--resource-functions-path to load plugins); using "
+                        "default", name, rf_id)
             rf_id = "default"
         sf_list[name] = ServiceFunction(
             name=name,

@@ -21,8 +21,8 @@
 //     by (edge, slot);
 //  6. processing: placement check, processing delay, node admission over
 //     flows grouped by (node, slot) through the resource functions
-//     ("default" = id 0, "overhead" = id 1, compiled in), startup wait,
-//     delayed release;
+//     ("default" = id 0, "overhead" = id 1, compiled in; a user's plugins
+//     from id 2, below), startup wait, delayed release;
 //  7. departures, the seven drop masks mapped to four reasons, counters.
 //
 // Per-flow control (the JAX package's XLA substep with ext_decisions,
@@ -123,6 +123,13 @@
 // at most 1,024 positions) the span stays under 40 bits and no round goes
 // serial.
 //
+// Resource-function plugins: a build with SUBSTEP_RF_PLUGINS includes
+// "resource_plugins.cuh", which ops/resource_codegen.py generates from the
+// plugins' traced graphs (``float rf_plugin(int id, float load)`` over ids
+// 2 and up, every float operation rounded as the CPU's torch op rounds it).
+// The wrapper builds one library per plugin set; without plugins the
+// header is not included and the build is the kernel above.
+//
 // SUBSTEP_STAGE_CLOCKS builds (timing only, never the main path): thread 0
 // adds clock64() deltas per stage into ``stage_clocks`` [B, N_STAGES]; a
 // few extra __syncthreads split stages that otherwise share one.
@@ -143,6 +150,7 @@
 #define ARRIVALS_PER_SUBSTEP 8
 #define RF_DEFAULT 0
 #define RF_OVERHEAD 1
+#define RF_PLUGIN_BASE 2
 #define MAX_THREADS 1024
 #define MAX_WARPS (MAX_THREADS / 32)
 // blocks of up to this many threads (M <= 256, the flagship's 128 slots)
@@ -305,9 +313,16 @@ __host__ __device__ inline Layout layout_for(long long M, long long N,
     return l;
 }
 
+#ifdef SUBSTEP_RF_PLUGINS
+#include "resource_plugins.cuh"
+#endif
+
 __device__ __forceinline__ float resource_fn(int id, float load) {
     if (id == RF_OVERHEAD)
         return load > 0.0f ? __fadd_rn(1.0f, __fmul_rn(1.2f, load)) : 0.0f;
+#ifdef SUBSTEP_RF_PLUGINS
+    if (id >= RF_PLUGIN_BASE) return rf_plugin(id, load);
+#endif
     return load;
 }
 

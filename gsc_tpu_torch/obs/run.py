@@ -28,7 +28,9 @@ from .watchdog import PipelineWatchdog
 log = logging.getLogger("gsc_tpu_torch.obs.run")
 
 # phases whose per-episode wall deltas are worth percentile tracking
-_PHASE_HIST = ("host_sample", "host_sample_wait", "dispatch", "drain")
+_PHASE_HIST = ("host_sample", "host_sample_wait", "dispatch", "drain",
+               "actor_dispatch", "actor_idle", "replay_ingest",
+               "learner_idle")
 
 
 class RunObserver:

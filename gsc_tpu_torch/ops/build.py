@@ -1,6 +1,8 @@
 """Build and load a kernel library: ``nvcc`` for ``sm_90a`` into
-``gsc_tpu_torch/_build/`` (one shared library per digest of source and
-flags), loaded with ``ctypes`` through its plain C interface."""
+``gsc_tpu_torch/_build/`` (one shared library per digest of source,
+headers and flags), loaded with ``ctypes`` through its plain C
+interface.  Generated headers (kernel #2's resource-function plugins) are
+written beside the library and put on the include path."""
 from __future__ import annotations
 
 import ctypes
@@ -9,7 +11,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG / "_build"
@@ -28,26 +30,52 @@ def nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build_library(source: Path, extra_flags: Sequence[str] = ()
+def library_digest(source: Path, flags: Sequence[str],
+                   generated: Optional[Dict[str, str]] = None) -> str:
+    """The digest naming a build: the source, the ``*.cuh`` headers beside
+    it (part of what it compiles), the generated headers and the
+    flags."""
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(source.parent.glob("*.cuh")))
+    gen = b"".join(f"{name}\0{text}\0".encode()
+                   for name, text in sorted((generated or {}).items()))
+    return hashlib.sha256(source.read_bytes() + headers + gen
+                          + " ".join(flags).encode()).hexdigest()[:16]
+
+
+def _write_atomic(path: Path, text: str):
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.{threading.get_ident()}"
+                         ".tmp")
+    tmp.write_text(text)
+    os.replace(tmp, path)
+
+
+def build_library(source: Path, extra_flags: Sequence[str] = (),
+                  generated: Optional[Dict[str, str]] = None
                   ) -> Tuple[ctypes.CDLL, str]:
     """Compile ``source`` once per digest and load it; returns the library
     and the compiler's log (ptxas registers and spills) of a fresh build,
-    or "" when the library was already built."""
+    or "" when the library was already built.  ``generated`` maps header
+    names to their text: they are part of the digest and are written to
+    a directory on the include path of this build."""
     flags = tuple(NVCC_FLAGS) + tuple(extra_flags)
-    # the headers beside the source are part of what it compiles
-    headers = b"".join(h.read_bytes()
-                       for h in sorted(source.parent.glob("*.cuh")))
-    digest = hashlib.sha256(source.read_bytes() + headers
-                            + " ".join(flags).encode()).hexdigest()[:16]
+    digest = library_digest(source, flags, generated)
     so = BUILD_DIR / f"{source.stem}_{digest}.so"
     log = ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        include = []
+        if generated:
+            inc = BUILD_DIR / f"{source.stem}_{digest}_include"
+            inc.mkdir(exist_ok=True)
+            for name, text in generated.items():
+                _write_atomic(inc / name, text)
+            include = ["-I", str(inc)]
         # one temporary per process and thread: two threads may build the
         # same library at once
         tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}"
                            ".tmp")
-        cmd = [nvcc(), *flags, "-o", str(tmp), str(source)]
+        cmd = [nvcc(), *flags, *include, "-o", str(tmp), str(source)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(

@@ -29,8 +29,18 @@ Per-flow control is a mode of the same kernel with two switches:
 external decisions with place-on-decision, and a configuration with
 ``controller == "per_flow"`` removes idle instances after
 ``vnf_timeout`` (also in a duration-style ``apply``).
+Resource-function plugins (``config.registry``) run inside the kernel:
+``ops.resource_codegen`` turns the engine's plugins into a generated
+header of CUDA device functions (ids from 2 up), and the wrapper builds
+one library per distinct header, cached in ``_build/`` by its digest, at
+the first launch that needs it (``plugin_build_s`` keeps each build's
+seconds); a plugin with an operation outside the compiled set raises,
+naming it, and never runs in the plain engine instead.  Without plugins
+the library is the kernel's own build.
 ``substep_megakernel.launches`` counts the launches without external
-decisions, ``substep_megakernel.perflow_launches`` those with them, and
+decisions and without plugins, ``substep_megakernel.perflow_launches``
+those with external decisions, ``substep_megakernel.plugin_launches``
+those of a plugin build (either mode), and
 ``substep_megakernel.serial_rounds`` the admission rounds that took the
 sequential scan (reading it synchronises; assigning 0 resets it).
 ``SubstepMegakernel(stage_clocks=True)`` builds the same source with
@@ -41,15 +51,16 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional
+import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ..config.registry import get_resource_function
 from ..sim.state import SimState, TrafficSchedule
 from ..topology.compiler import Topology
 from .build import MAX_SMEM_BYTES, PKG, build_library
+from .resource_codegen import HEADER_NAME, kernel_plan
 
 SOURCE = PKG / "csrc" / "substep_megakernel.cu"
 EXTRA_FLAGS = ("-fmad=false",)
@@ -60,8 +71,6 @@ DOUBLE_BITS = 53
 STAGES = ("releases+timers", "arrivals", "decisions", "wrr", "forwarding",
           "grouping", "admission scans", "admission tests", "slot results",
           "ring adds", "scatters+sums")
-# resource functions compiled into the kernel, by id
-RESOURCE_FUNCTION_IDS = {"default": 0, "overhead": 1}
 
 _DIMS = ("B", "M", "N", "C", "S", "P", "E", "H", "F", "K", "R", "iters")
 _STRIDES = ("topo_nn_stride", "topo_e_stride", "traf_stride")
@@ -169,20 +178,17 @@ def _per_replica(t: torch.Tensor, batch: int, name: str):
     return t, t[0].numel()
 
 
-def _resource_function_ids(engine) -> torch.Tensor:
-    """The kernel's resource-function id of every SF column (CPU i32);
-    raises for a function the kernel does not compile in."""
-    ids = []
-    for fn in engine.tables.resource_fns:
-        hit = [i for name, i in RESOURCE_FUNCTION_IDS.items()
-               if get_resource_function(name) is fn]
-        if not hit:
-            raise ValueError(
-                f"substep_megakernel: resource function {fn!r} is not "
-                f"compiled into the kernel (it has "
-                f"{sorted(RESOURCE_FUNCTION_IDS)})")
-        ids.append(hit[0])
-    return torch.tensor(ids, dtype=torch.int32)
+def resource_plan(engine, dev) -> Dict:
+    """The kernel's resource-function ids of the engine's SF columns (i32
+    on ``dev``) and the plugin header (None without plugins), made once
+    per engine and device; raises ``UnsupportedResourceFunction`` for a
+    plugin the kernel cannot run."""
+    tabs = engine._tab(dev)
+    if "rf_id" not in tabs:
+        ids, header = kernel_plan(engine.tables.resource_fns)
+        tabs["rf_header"] = header
+        tabs["rf_id"] = torch.tensor(ids, dtype=torch.int32, device=dev)
+    return tabs
 
 
 class SubstepMegakernel:
@@ -195,11 +201,17 @@ class SubstepMegakernel:
     def __init__(self, stage_clocks: bool = False):
         self.launches = 0
         self.perflow_launches = 0
+        self.plugin_launches = 0
         self.build_log = ""
         self.clocked = stage_clocks
         self.stage_clocks: Optional[torch.Tensor] = None
         self._lib = None
+        # plugin builds by header text; each one's build seconds and log
+        self._plugin_libs: Dict[str, ctypes.CDLL] = {}
+        self.plugin_build_s: Dict[str, float] = {}
+        self.plugin_build_log: Dict[str, str] = {}
         self._lock = threading.Lock()
+        self._build_locks: Dict[Optional[str], threading.Lock] = {}
         self._serial = {}
 
     @property
@@ -215,33 +227,54 @@ class SubstepMegakernel:
         for t in self._serial.values():
             t.zero_()
 
-    def library(self) -> ctypes.CDLL:
-        """Build (once per source digest) and load the shared library."""
+    def library(self, plugins: Optional[str] = None) -> ctypes.CDLL:
+        """Build (once per digest of source and ``plugins``, the generated
+        header) and load the shared library; two builds run at once."""
         with self._lock:
+            lock = self._build_locks.setdefault(plugins, threading.Lock())
+        with lock:
+            if plugins is not None:
+                lib = self._plugin_libs.get(plugins)
+                if lib is None:
+                    t0 = time.perf_counter()
+                    lib, log = build_library(
+                        SOURCE, self._flags() + ("-DSUBSTEP_RF_PLUGINS",),
+                        generated={HEADER_NAME: plugins})
+                    self._bind(lib)
+                    self.plugin_build_s[plugins] = time.perf_counter() - t0
+                    self.plugin_build_log[plugins] = log
+                    self._plugin_libs[plugins] = lib
+                return lib
             if self._lib is None:
-                flags = EXTRA_FLAGS + (("-DSUBSTEP_STAGE_CLOCKS",)
-                                       if self.clocked else ())
-                lib, self.build_log = build_library(SOURCE, flags)
-                lib.substep_megakernel.argtypes = [ctypes.POINTER(SubstepArgs),
-                                                   ctypes.c_void_p]
-                lib.substep_megakernel.restype = ctypes.c_int
-                lib.substep_args_size.restype = ctypes.c_longlong
-                lib.substep_smem_bytes.argtypes = [ctypes.POINTER(SubstepArgs)]
-                lib.substep_smem_bytes.restype = ctypes.c_longlong
-                lib.substep_n_stages.restype = ctypes.c_int
-                lib.substep_error_string.argtypes = [ctypes.c_int]
-                lib.substep_error_string.restype = ctypes.c_char_p
-                size = lib.substep_args_size()
-                if size != ctypes.sizeof(SubstepArgs):
-                    raise RuntimeError(
-                        f"SubstepArgs is {size} bytes in the kernel and "
-                        f"{ctypes.sizeof(SubstepArgs)} in the wrapper")
-                stages = lib.substep_n_stages()
-                if stages != (len(STAGES) if self.clocked else 0):
-                    raise RuntimeError(f"the library times {stages} stages, "
-                                       f"the wrapper names {len(STAGES)}")
+                lib, self.build_log = build_library(SOURCE, self._flags())
+                self._bind(lib)
                 self._lib = lib
             return self._lib
+
+    def _flags(self):
+        return EXTRA_FLAGS + (("-DSUBSTEP_STAGE_CLOCKS",)
+                              if self.clocked else ())
+
+    def _bind(self, lib: ctypes.CDLL):
+        """Declare the C interface and check it against the wrapper."""
+        lib.substep_megakernel.argtypes = [ctypes.POINTER(SubstepArgs),
+                                           ctypes.c_void_p]
+        lib.substep_megakernel.restype = ctypes.c_int
+        lib.substep_args_size.restype = ctypes.c_longlong
+        lib.substep_smem_bytes.argtypes = [ctypes.POINTER(SubstepArgs)]
+        lib.substep_smem_bytes.restype = ctypes.c_longlong
+        lib.substep_n_stages.restype = ctypes.c_int
+        lib.substep_error_string.argtypes = [ctypes.c_int]
+        lib.substep_error_string.restype = ctypes.c_char_p
+        size = lib.substep_args_size()
+        if size != ctypes.sizeof(SubstepArgs):
+            raise RuntimeError(
+                f"SubstepArgs is {size} bytes in the kernel and "
+                f"{ctypes.sizeof(SubstepArgs)} in the wrapper")
+        stages = lib.substep_n_stages()
+        if stages != (len(STAGES) if self.clocked else 0):
+            raise RuntimeError(f"the library times {stages} stages, "
+                               f"the wrapper names {len(STAGES)}")
 
     def __call__(self, engine, state: SimState, topo: Topology,
                  traffic: TrafficSchedule, cap_now: torch.Tensor,
@@ -277,7 +310,8 @@ class SubstepMegakernel:
         args, new_state = self._prepare(engine, state, topo, traffic,
                                         cap_now, noise, substeps, counter,
                                         clocks, ext_decisions)
-        lib = self.library()
+        plugins = engine._tab(dev)["rf_header"]
+        lib = self.library(plugins)
         smem = lib.substep_smem_bytes(ctypes.byref(args))
         if smem > MAX_SMEM_BYTES:
             raise ValueError(f"substep_megakernel: M={engine.M}, "
@@ -291,7 +325,9 @@ class SubstepMegakernel:
                 "substep_megakernel launch failed: "
                 f"{lib.substep_error_string(code).decode()} ({code})")
         with _COUNT_LOCK:
-            if ext_decisions is None:
+            if plugins is not None:
+                self.plugin_launches += 1
+            elif ext_decisions is None:
                 self.launches += 1
             else:
                 self.perflow_launches += 1
@@ -336,9 +372,7 @@ class SubstepMegakernel:
                 f"substep_megakernel: stochastic processing delays need "
                 f"noise [B, substeps, M] = {(b, k_n, engine.M)}, got "
                 f"{None if noise is None else tuple(noise.shape)}")
-        tabs = engine._tab(dev)
-        if "rf_id" not in tabs:
-            tabs["rf_id"] = _resource_function_ids(engine).to(dev)
+        tabs = resource_plan(engine, dev)
 
         fresh = lambda t: t.clone(memory_format=torch.contiguous_format)
         writes = set()

@@ -16,15 +16,26 @@ state).
 Random numbers come from a ``Draws`` source (``agents.ddpg``): warm-up
 uniforms and exploration normals per rollout step, replay indices per
 gradient step, and the simulator's processing-delay noise.
+
+One instance serves the decoupled actor/learner loop
+(``parallel.async_rl``) from several threads: an actor thread rolls out
+with ``rollout_episodes(..., actor=, draws=)`` on its own copy of the
+actor network (``actor_copy``) and its own random source
+(``actor_draws``) into a scratch ring of one chunk, never touching the
+learner's modules, whose parameters and Adam moments ``learn_burst``
+updates in place on the learner's thread; ``make_replay_ingest`` folds
+each shipped block into the learner's shared ring.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import copy
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..agents.buffer import ReplayBuffer, buffer_add, buffer_init, restore_batch
 from ..agents.ddpg import DDPG, DDPGState, Draws
+from ..models.nets import Actor
 from ..obs.learning import replay_stats
 from ..config.schema import AgentConfig
 from ..env.env import EnvState, ServiceCoordEnv
@@ -38,6 +49,32 @@ def shard_capacity(mem_limit: int, replicas: int) -> int:
     """Slots per replica shard: ``mem_limit // replicas`` (at least 1), so
     the shards together hold the single-env agent's budget."""
     return max(mem_limit // replicas, 1)
+
+
+def make_replay_ingest(num_replicas: int, capacity: int
+                       ) -> Callable[[ReplayBuffer, Dict], ReplayBuffer]:
+    """The replay service's insert: fold one block of flattened
+    transition leaves [B, T, ...] (an actor's scratch ring in insertion
+    order) into the shared ring [B, capacity, ...] at each replica's
+    cursor, wrapping, with one in-place index copy per leaf on the current
+    stream; the cursors advance by T and the sizes clamp at capacity.
+    The caller owns the ring (the learner thread) and keeps T <=
+    capacity."""
+    b_n, cap = int(num_replicas), int(capacity)
+
+    def replay_ingest(buffers: ReplayBuffer, block: Dict) -> ReplayBuffer:
+        t_n = next(iter(block.values())).shape[1]
+        dev = buffers.pos.device
+        idx = (buffers.pos.long()[:, None]
+               + torch.arange(t_n, device=dev)[None, :]) % cap
+        rows = torch.arange(b_n, device=dev)[:, None].expand(b_n, t_n)
+        for k, d in buffers.data.items():
+            d.index_put_((rows, idx), block[k].to(d.dtype))
+        buffers.pos = (buffers.pos + t_n) % cap
+        buffers.size = torch.clamp(buffers.size + t_n, max=cap)
+        return buffers
+
+    return replay_ingest
 
 
 class ParallelDDPG:
@@ -60,14 +97,28 @@ class ParallelDDPG:
         """Learner state drawn from ``generator`` (on the CPU)."""
         return self.ddpg.init_state(generator)
 
-    def init_buffers(self, sample_obs: GraphObs) -> ReplayBuffer:
+    def init_buffers(self, sample_obs: GraphObs,
+                     capacity: Optional[int] = None) -> ReplayBuffer:
         """Per-replica replay shards [B, capacity, ...], capacity
-        ``mem_limit // B`` (at least 1), so the total matches the
-        single-env agent's budget.  ``sample_obs`` is one observation
+        ``mem_limit // B`` (at least 1) unless given, so the total matches
+        the single-env agent's budget.  ``sample_obs`` is one observation
         without a batch dim."""
-        cap = shard_capacity(self.agent.mem_limit, self.B)
+        cap = capacity or shard_capacity(self.agent.mem_limit, self.B)
         return buffer_init(self.ddpg.example_transition(sample_obs), cap,
                            lead=(self.B,), device=self.device)
+
+    def actor_copy(self, actor: Actor) -> Actor:
+        """An acting copy of ``actor`` (no gradients) for one actor
+        thread: the learner's module is never read while it trains."""
+        return copy.deepcopy(actor).requires_grad_(False)
+
+    def actor_draws(self, seed: int, actor: int) -> Draws:
+        """Actor ``actor``'s random source: a generator on the device
+        seeded by (``seed``, 1000 + actor)."""
+        draws = Draws(0, self.device)
+        draws.generator.manual_seed(((seed & 0xFFFFFFFF) << 32)
+                                    | (1000 + actor))
+        return draws
 
     def reset_all(self, topo: Topology, traffic: TrafficSchedule
                   ) -> Tuple[EnvState, GraphObs]:
@@ -79,14 +130,19 @@ class ParallelDDPG:
     def rollout_episodes(self, state: DDPGState, buffers: ReplayBuffer,
                          env_states: EnvState, obs: GraphObs, topo: Topology,
                          traffic: TrafficSchedule, episode_start_step: int,
-                         num_steps: int
+                         num_steps: int, actor: Optional[Actor] = None,
+                         draws: Optional[Draws] = None
                          ) -> Tuple[DDPGState, ReplayBuffer, EnvState,
                                     GraphObs, Dict[str, torch.Tensor]]:
         """``num_steps`` steps of every replica: action, env step, replay
         write.  ``episode_start_step``
         is the global step of the first one (the warm-up gate reads it).
-        Returns the chunk's stats, still on the device."""
-        perm = self.shuffle.init_perm(self.B, self.device, self.draws)
+        ``actor`` and ``draws`` (default: ``state.actor``, this
+        instance's source) are what an actor thread acts with.  Returns
+        the chunk's stats, still on the device."""
+        actor = actor if actor is not None else state.actor
+        draws = draws if draws is not None else self.draws
+        perm = self.shuffle.init_perm(self.B, self.device, draws)
         obs = self.shuffle.permute_obs(obs, perm)
         # each replica's network: a stacked topology's per-replica ids
         topo_idx = topo.expand(self.B).topo_id
@@ -95,14 +151,13 @@ class ParallelDDPG:
         for i in range(num_steps):
             mask = self.shuffle.step_mask(obs, None, perm)
             action = self.ddpg.choose_action(
-                state.actor, obs, mask, episode_start_step + i, self.draws)
+                actor, obs, mask, episode_start_step + i, draws)
             action = self.env.process_action(action)
             env_states, next_obs, reward, done, info = self.env.step(
                 env_states, topo, traffic,
                 self.shuffle.env_action(action, perm),
-                self.draws.sim_noise(engine, self.B))
-            next_obs, perm = self.shuffle.advance(next_obs, perm,
-                                                  self.draws)
+                draws.sim_noise(engine, self.B))
+            next_obs, perm = self.shuffle.advance(next_obs, perm, draws)
             buffer_add(buffers, {
                 "obs": obs, "next_obs": next_obs, "action": action,
                 "reward": reward, "done": done.to(torch.float32),

@@ -29,12 +29,26 @@ site                 effect when the keyed episode is reached
                      watchers' fingerprint check refuses it
 ==================== =====================================================
 
-The decoupled actor/learner fleet's sites (``actor_die``,
-``ring_poison``, ``watcher_stall``, ``learner_transient``) parse as in
-the JAX package, but nothing in the port fires them: the port has no
-``--async`` path, and
-:func:`refuse_async_sites` stops a plan that names one before a run
-starts.
+The decoupled actor/learner fleet (``train --async``,
+``parallel.async_rl``) fires four more, as the JAX package does:
+
+==================== =====================================================
+``actor_die``        (``actor_die@a0:3``) actor 0 raises at entry to
+                     episode 3; the supervisor restarts it from its
+                     episode counter, degrading the fleet past the
+                     restart budget
+``ring_poison``      the keyed episode's produced blocks are NaN copies;
+                     the learner quarantines them instead of ingesting
+``watcher_stall``    (``watcher_stall@a1:4[:seconds]``) the actor's
+                     version poll raises; it skips that adoption
+``learner_transient`` learn-burst dispatch raises the retryable transient
+                     class at entry to the keyed burst index; the retry
+                     layer backs off and dispatches again
+==================== =====================================================
+
+A plan naming one of them outside ``--async`` could never fire:
+:func:`refuse_async_sites` stops it before the serial loops start
+(the JAX CLI lets it pass and warns at the end that it never fired).
 
 Grammar (``--fault-plan`` / env ``GSC_FAULT_PLAN``)::
 
@@ -253,14 +267,14 @@ class FaultPlan:
 
 def refuse_async_sites(plan: Optional[FaultPlan]) -> None:
     """Raise ValueError when ``plan`` names a site that only the
-    decoupled actor/learner fleet (``--async``) fires: the port has no
-    such path, so the entry could never fire."""
+    decoupled actor/learner fleet (``--async``) fires, before a serial
+    loop that could never fire it."""
     if plan is None:
         return
     bad = [f"{s.site}@{s.key}" for s in plan.specs if s.site in ASYNC_SITES]
     if bad:
         raise ValueError(
             f"fault plan entries {bad} need the decoupled actor/learner "
-            "fleet (--async), which the port does not have; the serial "
-            "sites are prefetch_die, slow_episode, dispatch_transient, "
-            "nan_grads, ckpt_corrupt and publish_corrupt")
+            "fleet (--async); the serial sites are prefetch_die, "
+            "slow_episode, dispatch_transient, nan_grads, ckpt_corrupt and "
+            "publish_corrupt")

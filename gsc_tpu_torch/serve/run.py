@@ -38,6 +38,7 @@ import torch
 
 from ..agents.ddpg import DDPG
 from ..config.catalog import abc_service, init_configs_agent, init_configs_sim
+from ..config.registry import load_resource_function_plugins
 from ..config.schema import (AgentConfig, EnvLimits, ServiceConfig,
                              SimConfig, replace)
 from ..device import resolve_device
@@ -146,13 +147,17 @@ def run_serve(agent: Optional[AgentConfig] = None,
               hot_swap_dir: Optional[str] = None, swap_poll_s: float = 0.2,
               fire_swaps: int = 0, stats_interval: int = 50,
               max_queue: int = 4096, observer=None, trace_sample: int = 0,
-              slo=None, until: Optional[threading.Event] = None
+              slo=None, until: Optional[threading.Event] = None,
+              resource_functions_path: Optional[str] = None
               ) -> ServeReport:
     """Serve ``requests`` requests; defaults are the ``init-configs``
     flagship (Abilene, abc chain, GATv2 22x2x2 with the fused attention
     kernel, actor hidden 256).  ``slo`` is an ``SLOObjectives``;
     ``brownout_burn`` None turns the fleet's burn shedding off (overflow
-    shedding stays)."""
+    shedding stays).  ``resource_functions_path`` loads resource-function
+    plugins (``config.registry``) before the engine is built, for a
+    ``service`` whose SFs name them; the request pool's intervals run
+    them compiled into the substep kernel on the card."""
     if requests < 1 or concurrency < 1:
         raise ValueError("requests and concurrency must be positive")
     if workers < 1:
@@ -163,6 +168,8 @@ def run_serve(agent: Optional[AgentConfig] = None,
     if (trace_sample or slo is not None) and observer is None:
         raise ValueError("trace_sample and slo need an observer")
     dev = resolve_device(device)
+    if resource_functions_path:
+        load_resource_function_plugins(resource_functions_path)
     agent = agent if agent is not None \
         else init_configs_agent(gnn_impl="pallas")
     recorded = (checkpoint_precision(checkpoint, implicit=None)

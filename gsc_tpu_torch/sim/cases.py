@@ -13,7 +13,10 @@ with numpy and torch, so ``chip_smoke.py`` and the card-only tests run the
 same cases as the CPU tests.  Per-flow control has its own cases
 (``perflow_cases``, ``perflow_apply_case``), driven substep by substep
 by ``run_perflow_case``; ``chained_launches`` runs an interval as one
-launch and as one launch per substep.
+launch and as one launch per substep.  ``with_plugins`` re-runs any case
+with resource-function plugins (``PLUGINS``: a quadratic, a capped
+``where`` and a square root with a division) in its SF columns, which
+the kernel then runs compiled in.
 
 ``run_case(case, device)`` drives ``SimEngine.apply`` over the case's
 intervals on ``device`` and returns every state after an interval;
@@ -522,6 +525,51 @@ def run_case(case: SubstepCase, device, plain: bool = False
             state, _ = engine.apply(state, topo, traffic, sched, place, z)
         states.append(state)
     return states
+
+
+# ------------------------------------------- resource-function plugins
+def _rf_quadratic(load):
+    return load * load * 0.25 + load
+
+
+def _rf_capped(load):
+    return torch.where(load > 2.0, 2.0 + 0.5 * (load - 2.0), load)
+
+
+def _rf_sqrt_ratio(load):
+    return torch.sqrt(torch.relu(load)) + load / 3.0
+
+
+# the plugins of the plugin cases, registered under these names
+PLUGINS = {"case_quadratic": _rf_quadratic, "case_capped": _rf_capped,
+           "case_sqrt_ratio": _rf_sqrt_ratio}
+
+
+def register_plugins() -> Tuple[str, ...]:
+    """Register ``PLUGINS`` (again, harmlessly); returns their names."""
+    from ..config.registry import register_resource_function
+
+    for name, fn in PLUGINS.items():
+        register_resource_function(name)(fn)
+    return tuple(PLUGINS)
+
+
+def _plugin_engine(engine: SimEngine, ids) -> SimEngine:
+    """The engine with its SFs' resource functions replaced, column by
+    column, by the plugins named in ``ids`` (cycled)."""
+    register_plugins()
+    sfs = {name: dataclasses.replace(sf, resource_function_id=ids[i % len(ids)])
+           for i, (name, sf) in enumerate(engine.service.sf_list.items())}
+    service = ServiceConfig(sfc_list=dict(engine.service.sfc_list),
+                            sf_list=sfs)
+    return SimEngine(service, engine.cfg, engine.limits)
+
+
+def with_plugins(case, ids=tuple(PLUGINS)):
+    """A ``SubstepCase`` or ``PerFlowCase`` whose engine runs the plugins
+    named in ``ids`` in its SF columns (in column order, cycled)."""
+    return dataclasses.replace(case, name=f"{case.name}+plugins",
+                               engine=_plugin_engine(case.engine, ids))
 
 
 # ------------------------------------------------------ per-flow control

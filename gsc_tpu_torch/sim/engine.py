@@ -64,6 +64,7 @@ import torch
 
 from ..config.registry import get_resource_function
 from ..config.schema import EnvLimits, ServiceConfig, SimConfig
+from ..ops.resource_codegen import plain_form
 from ..topology.compiler import Topology
 from .state import (DROP_DECISION, DROP_LINK_CAP, DROP_NODE_CAP, DROP_TTL,
                     PH_DECIDE, PH_FREE, PH_HOP, PH_PROC, FlowTable,
@@ -84,7 +85,9 @@ class ServiceTables:
     proc_mean: np.ndarray     # [P] f32
     proc_std: np.ndarray      # [P] f32
     startup_delay: np.ndarray  # [P] f32
-    resource_fns: Tuple[Callable, ...]  # per SF id
+    # per SF id: the registered function, or for a plugin with a square
+    # root its traced graph (ops.resource_codegen.plain_form)
+    resource_fns: Tuple[Callable, ...]
 
     @classmethod
     def build(cls, service: ServiceConfig, limits: EnvLimits) -> "ServiceTables":
@@ -112,7 +115,8 @@ class ServiceTables:
             proc_mean[i] = sf.processing_delay_mean
             proc_std[i] = sf.processing_delay_stdev
             startup[i] = sf.startup_delay
-            fns.append(get_resource_function(sf.resource_function_id))
+            fns.append(plain_form(
+                get_resource_function(sf.resource_function_id)))
         while len(fns) < pool:
             fns.append(get_resource_function("default"))
         return cls(chain_sf=chain_sf, chain_len=chain_len, proc_mean=proc_mean,

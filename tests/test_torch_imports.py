@@ -286,3 +286,75 @@ def test_per_flow_control_runs_with_jax_yaml_and_click_blocked(tmp_path):
     assert res.returncode == 0, res.stderr[-4000:]
     assert res.stdout.strip().endswith("ok")
     assert (tmp_path / "flow_actions.csv").read_text().count("\n") > 1
+
+
+# the plugin and decoupled-training modules, which the rglob above must
+# keep finding
+PLUGIN_ASYNC_MODULES = ("ops/resource_codegen.py", "parallel/async_rl.py",
+                        "config/registry.py", "serve/fleet.py")
+
+
+def test_plugin_and_async_paths_run_with_jax_yaml_and_click_blocked(
+        tmp_path):
+    """A resource-function plugin loaded from a file, traced and compiled
+    to the kernel's header, the plain engine under it, and
+    ``Trainer.train_async`` with two actor threads and a fault plan, in a
+    process where every blocked module fails to import."""
+    for rel in PLUGIN_ASYNC_MODULES:
+        assert (PKG / rel).is_file(), rel
+    (tmp_path / "blk_plugin.py").write_text(
+        "import torch\n\n\ndef resource_function(load):\n"
+        "    return torch.where(load > 1.0, load * load, load)\n")
+    code = "\n".join([
+        "import sys",
+        f"for name in {BLOCKED!r}:",
+        "    for mod in [m for m in sys.modules if m == name or "
+        "m.startswith(name + '.')]:",
+        "        del sys.modules[mod]",
+        "    sys.modules[name] = None",
+        "import dataclasses",
+        "from gsc_tpu_torch.agents.trainer import Trainer",
+        "from gsc_tpu_torch.config import abc_service",
+        "from gsc_tpu_torch.config.registry import "
+        "load_resource_function_plugins",
+        "from gsc_tpu_torch.config.schema import (AgentConfig, EnvLimits,",
+        "    SimConfig)",
+        "from gsc_tpu_torch.env.driver import EpisodeDriver",
+        "from gsc_tpu_torch.env.env import ServiceCoordEnv",
+        "from gsc_tpu_torch.ops.resource_codegen import kernel_plan",
+        "from gsc_tpu_torch.resilience.faults import FaultPlan",
+        "from gsc_tpu_torch.sim import cases",
+        "from gsc_tpu_torch.topology import synthetic",
+        "from gsc_tpu_torch.topology.compiler import compile_topology",
+        f"names = load_resource_function_plugins({str(tmp_path)!r})",
+        "assert names == ['blk_plugin'], names",
+        "case = cases.with_plugins(cases.battery_case('node_cap'),",
+        "                          ('blk_plugin',))",
+        "ids, header = kernel_plan(case.engine.tables.resource_fns)",
+        "assert ids == [2, 2, 2] and 'rf_plugin_2' in header",
+        "cases.run_case(dataclasses.replace(case, intervals=1), 'cpu')",
+        "agent = AgentConfig(episode_steps=2, gnn_features=4,",
+        "    gnn_num_layers=1, gnn_num_iter=1, actor_hidden_layer_nodes=(8,),",
+        "    critic_hidden_layer_nodes=(8,), batch_size=4, mem_limit=8,",
+        "    nb_steps_warmup_critic=2)",
+        "sim = SimConfig(run_duration=10.0, ttl_choices=(100.0,))",
+        "limits = EnvLimits.for_service(abc_service(), max_nodes=8,",
+        "    max_edges=8)",
+        "env = ServiceCoordEnv(abc_service(), sim, agent, limits)",
+        "topo = compile_topology(synthetic.triangle(), max_nodes=8,",
+        "    max_edges=8)",
+        "driver = EpisodeDriver.single(topo, sim, abc_service(), 2, 'tri')",
+        "t = Trainer(env, driver, agent, device='cpu',",
+        "    fault_plan=FaultPlan.parse('ring_poison@1'))",
+        "t.train_async(3, 2, chunk=1, actor_threads=2)",
+        "assert t.async_info['blocks_quarantined'] == 1, t.async_info",
+        "leaked = [m for m in sys.modules if sys.modules[m] is not None and "
+        f"m.split('.')[0] in {BLOCKED!r}]",
+        "assert not leaked, leaked",
+        "print('ok')",
+    ])
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert res.stdout.strip().endswith("ok")
