@@ -348,7 +348,35 @@ Phases (any failure exits non-zero and prints no result line):
    bit-identical (``--learn-ratio 0.5``: one burst, which the replay
    does not depend on); (c) ``--fault-plan ASYNC_FAULT_PLAN``: an actor restart
    and a quarantined block, nothing lost, a finite final state;
-21. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+21. the mesh on the card (``mesh_slice``): ``train --replicas 64 --mesh
+   DPxMP`` at the flagship widths on Abilene, 50-step episodes
+   (``MESH_AGENT_YAML``), the ``sharded`` book unless named.  (a) 2
+   episodes with ``--mesh 1x1`` (NCCL, world 1), MESH_ONE_RUNS times in
+   one rank process (the first run cold, the later ones warm), and twice
+   without a mesh: learner state and replay ``torch.equal``, the
+   env-steps/s of each run printed; (b) 2 and 4 ranks sharing
+   the card (``devices=["cuda:0"] * n``, gloo), 2 episodes within the 200
+   warm-up steps: 2x1, 1x2 (sharded and replicated), 4x1, 2x2, each
+   final learner state ``torch.equal`` to (a)'s run without a mesh, the
+   leaves split by each mp > 1 leg printed (> 0); (c) warm-up 50 steps,
+   3 episodes: 2x1 equals 1x2 and 4x1 equals 2x2, the largest
+   difference to the run without a mesh printed, beside a witness of
+   its cause (``acting_rows_witness``: the actor on the 64 acting rows
+   of one step against the same rows in 2 slices of 32 and 4 of 16,
+   the row counts the ranks act on); (d) elastic resume:
+   (b)'s 2x2 leg checkpoints every episode, ``--resume auto`` continues
+   it under 2x1 and, from the same checkpoint, with no mesh: episodes 2
+   and 3 in both, ``run_start`` recording the new mesh; (e) with two or
+   more cards 2x1 and 1x2 again on NCCL, one card per rank (4x1 and 2x2
+   with four), ``torch.equal`` to (b), else one line saying it did not
+   run; (f) a rank raising through the launcher's hook fails the launch
+   within its deadline and leaves no rank running.  Prints per leg the
+   env-steps/s, the seconds per learn burst, the batch gather's ms per
+   gradient step, the ranks' start-up seconds and each rank's launches
+   (every rank must launch every kernel of the path), beside the card's
+   name and power limit; the kernels line's launch counts include this
+   phase's, summed over ranks;
+22. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Tolerances (stated here, used below): the attention kernel against its
 plain version rtol 1e-5 / atol 1e-5 (f32 in another summation order: the
@@ -583,6 +611,21 @@ ASYNC_ARGS = ["--replicas", "64", "--chunk", "50", "--episodes", "3",
 ASYNC_STALENESS = 64 * 200
 ASYNC_FROZEN_EPISODES = 2
 ASYNC_FAULT_PLAN = "actor_die@a1:1;ring_poison@2"
+
+
+# phase 21: the flagship agent with 50-step episodes (warm-up 200 steps:
+# (a), (b), (d); 50: (c)), B=64 on Abilene, and the launches' deadline
+MESH_AGENT_YAML = (
+    "GNN_aggr: mean\nGNN_features: 22\nGNN_num_iter: 2\n"
+    "GNN_num_layers: 2\nactor_hidden_layer_nodes: [256]\nbatch_size: 100\n"
+    "critic_hidden_layer_nodes: [64]\nepisode_steps: 50\ngraph_mode: true\n"
+    "mem_limit: 10000\nnb_steps_warmup_critic: {warmup}\n"
+    "objective: prio-flow\n"
+    "observation_space: [ingress_traffic, node_load, node_cap]\n"
+    "target_success: auto\ngnn_impl: pallas\n")
+MESH_ARGS = ["--replicas", "64", "--chunk", "50", "--seed", "0"]
+MESH_DEADLINE_S = 600.0
+MESH_ONE_RUNS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -4588,6 +4631,272 @@ def async_slice(torch, dev, smi):
     return total
 
 
+def acting_rows_witness(torch, out, same, smi):
+    """Phase 21 (c)'s witness: a run's actor on the B acting rows of one
+    rollout step without a mesh, against the same rows in the slices that
+    2 and 4 ranks act on (B/2 and B/4 rows each).  Every replica's row
+    goes through the same arithmetic, so bits that differ come from the
+    row count, not from the mesh.  Prints which slicings keep the bits
+    (the calls are comparisons: no count of the main path reads them)."""
+    from gsc_tpu_torch.agents.buffer import restore_batch
+
+    buf = out["buffers"]
+    obs = restore_batch(buf.shapes, {k: d[:, 0] for k, d in
+                                     buf.data.items()})["obs"]
+    actor = out["state"].actor
+    b = obs.nodes.shape[0]
+    with torch.no_grad():
+        whole = actor(obs)
+        again = actor(obs)
+        found = []
+        for n in (2, 4):
+            k = b // n
+            parts = torch.cat([actor(obs.map(
+                lambda t: t[i * k:(i + 1) * k])) for i in range(n)])
+            diff = (parts.double() - whole.double()).abs().max().item()
+            found.append(f"{n} slices of {k} rows "
+                         f"{'equal' if same(parts, whole) else 'differ'} "
+                         f"(largest difference {diff:.3e})")
+    check(same(whole, again), "the actor is not deterministic on one input")
+    print(f"  (c) witness: the actor on the {b} acting rows of one step, "
+          f"twice: equal; against {'; '.join(found)}; on {smi}", flush=True)
+
+
+def mesh_slice(torch, dev, smi):
+    """Phase 21: ``train --mesh`` on the card (the docstring's (a)-(f)).
+    Returns the launches on the main path by kernel, summed over ranks
+    and runs."""
+    import multiprocessing
+
+    from gsc_tpu_torch import cli
+    from gsc_tpu_torch.parallel.mesh import RankFailed, launch
+    from gsc_tpu_torch.parallel.partition import state_leaves
+
+    laps = Laps()
+    root = tempfile.mkdtemp(prefix="gsc_mesh_smoke_")
+    total = {}
+    same = lambda a, b: torch.equal(a.reshape(-1).view(torch.uint8),
+                                    b.reshape(-1).view(torch.uint8))
+
+    def argv(warmup, episodes, *extra):
+        path = os.path.join(root, f"agent{warmup}.yaml")
+        with open(path, "w") as f:
+            f.write(MESH_AGENT_YAML.format(warmup=warmup))
+        return ["--agent-config", path, *MESH_ARGS, "--episodes",
+                str(episodes), *extra]
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    def no_mesh(args):
+        cli.zero_kernel_launches()
+        out = cli.run_train(args)
+        add(cli.kernel_launches())
+        state = {k: v.detach().cpu() for k, v in
+                 state_leaves(out["state"]).items()}
+        return state, out["buffers"].to("cpu"), out
+
+    def equal_states(a, b):
+        return set(a) == set(b) and all(same(a[k], b[k]) for k in a)
+
+    def equal_replays(a, b):
+        return (set(a.data) == set(b.data)
+                and all(same(a.data[k], b.data[k]) for k in a.data)
+                and torch.equal(a.pos, b.pos) and torch.equal(a.size, b.size))
+
+    def report(label, leg, startup=None):
+        ranks = leg["ranks"]
+        for r in ranks:
+            for k in ("gat_attention", "gat_attention_backward",
+                      "substep_megakernel"):
+                check(r["launches"][k] > 0,
+                      f"{label}: rank {r['rank']} launched no {k}")
+            add(r["launches"])
+        plan = ranks[0]["plan"]
+        bursts = plan["burst_s"]
+        # the ranks roll out side by side: every rank's env steps over the
+        # slowest rank's rollout seconds
+        rollout = (sum(r["plan"]["rollout_env_steps"] for r in ranks)
+                   / max(r["plan"]["rollout_s"] for r in ranks))
+        print(f"  {label}: {leg['summary']['sps']:.1f} env-steps/s (rollout "
+              f"alone {rollout:.1f}), learn "
+              f"burst {sum(bursts) / len(bursts):.3f} s, batch gather "
+              f"{plan['gather_ms_per_step']:.4f} ms per gradient step, "
+              f"start-up {[round(r['startup_s'], 2) for r in ranks]} s, "
+              f"split leaves {[r['plan']['split_leaves'] for r in ranks]}, "
+              f"resident bytes {[r['plan']['resident_bytes'] for r in ranks]}"
+              f" of {plan['full_bytes']}, launches per rank "
+              f"{[r['launches'] for r in ranks]} on {smi}", flush=True)
+
+    def legs(n, runs, devices):
+        t0 = time.perf_counter()
+        per_rank = launch(cli.mesh_legs, n, 1, devices=devices,
+                          deadline_s=MESH_DEADLINE_S, args=(runs,))
+        wall = time.perf_counter() - t0
+        outs = per_rank[0]
+        for i, out in enumerate(outs):
+            out["ranks"] = [rank[i]["rank"] for rank in per_rank]
+        return outs, wall
+
+    # (a) one rank on NCCL, and no mesh: the rank runs 1x1 three times
+    # in its process, the first run in a process that has just started
+    # (its CUDA context, cuBLAS handles and allocator warm up inside the
+    # run), the later ones warm, as this process is for the runs without
+    # a mesh
+    warm = argv(200, 2, "--no-obs")
+    ref_state, ref_replay, ref = no_mesh(warm)
+    ones, wall = legs(1, [warm + ["--mesh", "1x1", "--partition-rules",
+                                  "sharded"]] * MESH_ONE_RUNS, None)
+    again = no_mesh(warm)[2]
+    for i, one in enumerate(ones):
+        check(one["ranks"][0]["backend"] == "nccl",
+              "1x1 did not run on NCCL")
+        check(equal_states(ref_state, one["state"])
+              and equal_replays(ref_replay, one["buffers"]),
+              "--mesh 1x1 differs from the run without a mesh")
+        report(f"(a) 1x1 run {i + 1} of its process", one)
+    print(f"  (a) 1x1 (NCCL) == no mesh, learner state and replay, "
+          f"{MESH_ONE_RUNS} runs in one process ({wall:.1f} s); no mesh "
+          f"{ref['summary']['sps']:.1f} and {again['summary']['sps']:.1f} "
+          f"env-steps/s, 1x1 "
+          f"{[round(o['summary']['sps'], 1) for o in ones]} on {smi}",
+          flush=True)
+    laps.lap("a")
+
+    # (b), (c) and (d)'s first run on 4 ranks sharing the card, then (b),
+    # (c) and (d)'s resume on 2
+    res = os.path.join(root, "res")
+    ckpt_args = ["--result-dir", res, "--experiment-id", "mesh",
+                 "--ckpt-interval", "1"]
+    past = argv(50, 3, "--no-obs")
+    four = [("(b) 4x1", warm + ["--mesh", "4x1", "--partition-rules",
+                                "sharded"]),
+            ("(b) 2x2", argv(200, 2, *ckpt_args) + [
+                "--mesh", "2x2", "--partition-rules", "sharded"]),
+            ("(c) 4x1", past + ["--mesh", "4x1", "--partition-rules",
+                                "sharded"]),
+            ("(c) 2x2", past + ["--mesh", "2x2", "--partition-rules",
+                                "sharded"])]
+    two = [("(b) 2x1", warm + ["--mesh", "2x1", "--partition-rules",
+                               "sharded"]),
+           ("(b) 1x2", warm + ["--mesh", "1x2", "--partition-rules",
+                               "sharded"]),
+           ("(b) 1x2 replicated", warm + ["--mesh", "1x2",
+                                          "--partition-rules",
+                                          "replicated"]),
+           ("(c) 2x1", past + ["--mesh", "2x1", "--partition-rules",
+                               "sharded"]),
+           ("(c) 1x2", past + ["--mesh", "1x2", "--partition-rules",
+                               "sharded"]),
+           ("(d) 2x1 resumed", argv(200, 4, "--result-dir", res,
+                                    "--experiment-id", "mesh",
+                                    "--resume", "auto") + [
+               "--mesh", "2x1", "--partition-rules", "sharded"])]
+    runs = {}
+    for n, group in ((4, four), (2, two)):
+        outs, wall = legs(n, [a for _, a in group], ["cuda:0"] * n)
+        print(f"  {n} ranks on one card (gloo): {len(group)} runs in "
+              f"{wall:.1f} s", flush=True)
+        for (label, _), out in zip(group, outs):
+            runs[label] = out
+            report(label, out)
+    for label in ("(b) 4x1", "(b) 2x2", "(b) 2x1", "(b) 1x2",
+                  "(b) 1x2 replicated"):
+        check(equal_states(ref_state, runs[label]["state"]),
+              f"{label}: the learner state differs from the run without a "
+              "mesh within the warm-up")
+        split = [r["plan"]["split_leaves"] for r in runs[label]["ranks"]]
+        mp = int(label.split()[1].split("x")[1])
+        if mp > 1 and "replicated" not in label:
+            check(min(split) > 0, f"{label}: no leaf split")
+        print(f"  {label} == no mesh (learner state); split leaves {split}",
+              flush=True)
+    laps.lap("b")
+    past_state, _, past_ref = no_mesh(past)
+    acting_rows_witness(torch, past_ref, same, smi)
+    for a, b in (("(c) 2x1", "(c) 1x2"), ("(c) 4x1", "(c) 2x2")):
+        check(equal_states(runs[a]["state"], runs[b]["state"]),
+              f"{a} and {b} end with different learner states")
+        diff = max((runs[a]["state"][k].double()
+                    - past_state[k].double()).abs().max().item()
+                   for k in past_state)
+        print(f"  {a} == {b} past the warm-up; largest difference to the "
+              f"run without a mesh {diff:.3e}", flush=True)
+    laps.lap("c")
+
+    # (d) elastic resume: 2x2 -> 2x1 (above) and -> no mesh
+    first, resumed = runs["(b) 2x2"], runs["(d) 2x1 resumed"]
+    check([h["episode"] for h in resumed["history"]] == [2, 3],
+          f"(d) 2x1 resumed ran episodes "
+          f"{[h['episode'] for h in resumed['history']]}")
+    _, _, plain = no_mesh(argv(200, 4, "--no-obs", "--resume",
+                               first["summary"]["checkpoint"]))
+    eps = [h["episode"] for h in plain["trainer"].history]
+    check(eps == [2, 3], f"(d) no mesh resumed ran episodes {eps}")
+    starts = {}
+    for d, _, files in os.walk(res):
+        if "events.jsonl" in files:
+            with open(os.path.join(d, "events.jsonl")) as f:
+                for line in f:
+                    ev = json.loads(line)
+                    if ev["event"] == "run_start":
+                        starts[ev.get("mesh")] = ev
+    check(set(starts) == {"2x2", "2x1"}
+          and all(sum(e["partition_specs"].values()) > 0
+                  for e in starts.values()),
+          f"(d) run_start meshes {sorted(map(str, starts))}")
+    print(f"  (d) 2x2 checkpoint -> --resume auto under 2x1 and with no "
+          f"mesh: episodes [2, 3] in both; run_start meshes "
+          f"{sorted(starts)}", flush=True)
+    laps.lap("d")
+
+    # (e) one card per rank on NCCL, where the machine has the cards
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        group = [("(e) 2x1", two[0][1]), ("(e) 1x2", two[1][1])]
+        outs, _ = legs(2, [a for _, a in group], None)
+        if cards >= 4:
+            more = [("(e) 4x1", four[0][1]),
+                    ("(e) 2x2", warm + ["--mesh", "2x2",
+                                        "--partition-rules", "sharded"])]
+            outs += legs(4, [a for _, a in more], None)[0]
+            group += more
+        for (label, _), out in zip(group, outs):
+            check(out["ranks"][0]["backend"] == "nccl",
+                  f"{label} did not run on NCCL")
+            check(equal_states(ref_state, out["state"]),
+                  f"{label} (NCCL) differs from (b)")
+            report(label, out)
+    else:
+        print(f"  (e) not run: this machine has {cards} card (one card per "
+              "rank on NCCL needs 2 or more); no leg moved elsewhere",
+              flush=True)
+    laps.lap("e")
+
+    # (f) a rank that fails (the CPU-aside pool's workers are not ranks)
+    others = set(multiprocessing.active_children())
+    t0 = time.perf_counter()
+    try:
+        launch(cli.mesh_legs, 2, 1, devices=["cuda:0"] * 2,
+               deadline_s=MESH_DEADLINE_S, fail_rank=1, args=([],))
+        check(False, "(f) the launch with a failing rank returned")
+    except RankFailed as e:
+        check("injected failure in rank 1" in str(e),
+              f"(f) the launch failed otherwise: {str(e)[-300:]}")
+    took = time.perf_counter() - t0
+    left = set(multiprocessing.active_children()) - others
+    check(took < MESH_DEADLINE_S and not left,
+          f"(f) {took:.1f} s, ranks left {left}")
+    print(f"  (f) rank 1 raised: the launch failed in {took:.1f} s, no rank "
+          "left running", flush=True)
+    laps.lap("f")
+    shutil.rmtree(root, ignore_errors=True)
+    print("phase 21 parts, s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in laps.seconds.items()), flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -4867,7 +5176,16 @@ def main() -> int:
     phases.lap("20")
     for kernel, n in async_launches.items():
         check(n > 0, f"{kernel} was not launched on the --async path")
-    path_launches = {k: train_launches.get(k, 0) + bf16_launches.get(k, 0)
+    # ---- 21. the mesh ---------------------------------------------------
+    print("phase 21, train --mesh:", flush=True)
+    mesh_launches = mesh_slice(torch, dev, smi)
+    phases.lap("21")
+    for kernel in ("gat_attention", "gat_attention_backward",
+                   "substep_megakernel"):
+        check(mesh_launches.get(kernel, 0) > 0,
+              f"{kernel} was not launched on the mesh path")
+    path_launches = {k: mesh_launches.get(k, 0) + train_launches.get(k, 0)
+                     + bf16_launches.get(k, 0)
                      + gen_launches.get(k, 0) + large_launches.get(k, 0)
                      + run_launches.get(k, 0) + mix_launches.get(k, 0)
                      + serving_launches.get(k, 0) + pf_launches.get(k, 0)

@@ -71,6 +71,20 @@ class ReplayBuffer:
     def capacity(self) -> int:
         return next(iter(self.data.values())).shape[self.pos.dim()]
 
+    def to(self, device) -> "ReplayBuffer":
+        """A copy on ``device``."""
+        return ReplayBuffer(data={k: d.to(device) for k, d in
+                                  self.data.items()},
+                            pos=self.pos.to(device), size=self.size.to(device),
+                            shapes=self.shapes)
+
+    def rows(self, lo: int, hi: int) -> "ReplayBuffer":
+        """Shards ``lo`` to ``hi - 1`` of per-replica shards, copied."""
+        return ReplayBuffer(data={k: d[lo:hi].clone() for k, d in
+                                  self.data.items()},
+                            pos=self.pos[lo:hi].clone(),
+                            size=self.size[lo:hi].clone(), shapes=self.shapes)
+
 
 def transition_shapes(example: Any) -> Dict[str, Optional[Tuple[int, ...]]]:
     """Per-leaf storage spec of an example transition."""

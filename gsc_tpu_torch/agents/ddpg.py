@@ -69,20 +69,41 @@ class Draws:
     exploration normals, replay indices and the simulator's processing-
     delay noise.  The default draws from a seeded ``torch.Generator`` on
     the device; tests replace it to feed both frameworks the same
-    numbers."""
+    numbers.
 
-    def __init__(self, seed: int, device):
+    ``rows`` = ``(lo, hi, B)`` makes this the source of one rank of a
+    mesh, which rolls out replicas ``lo`` to ``hi - 1`` of ``B``: every
+    draw with a replica axis (warm-up uniforms, exploration normals,
+    processing-delay noise, ``shuffle_nodes`` permutations) is drawn
+    whole, [B, ...], and sliced to those rows, so a replica's numbers and
+    the generator's position never depend on the carving."""
+
+    def __init__(self, seed: int, device, rows=None):
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.rows = rows
+
+    def whole(self, shape, draw):
+        """``draw(shape)``, or under ``rows`` the [B, ...] draw's rows
+        (a draw of None stays None)."""
+        if self.rows is None:
+            return draw(tuple(shape))
+        lo, hi, total = self.rows
+        if shape[0] != hi - lo:
+            raise ValueError(f"a draw of {shape[0]} replicas on a rank "
+                             f"that holds rows {lo}:{hi}")
+        out = draw((total,) + tuple(shape[1:]))
+        return None if out is None else out[lo:hi]
 
     def uniform(self, shape) -> torch.Tensor:
         """Warm-up action uniforms in [0, 1)."""
-        return torch.rand(shape, generator=self.generator, device=self.device)
+        return self.whole(shape, lambda s: torch.rand(
+            s, generator=self.generator, device=self.device))
 
     def normal(self, shape) -> torch.Tensor:
         """Standard normals of the exploration noise."""
-        return torch.randn(shape, generator=self.generator,
-                           device=self.device)
+        return self.whole(shape, lambda s: torch.randn(
+            s, generator=self.generator, device=self.device))
 
     def slots(self, batch: int, size: torch.Tensor) -> torch.Tensor:
         """Slot indices of one batch from one ring: uniform over its
@@ -103,9 +124,25 @@ class Draws:
         sidx = torch.minimum((u * high).long(), high.long() - 1)
         return bidx, sidx
 
+    def local(self, replicas: int, per: int, sizes: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(replica, slot) indices of a shard-local batch: ``per`` slots
+        uniform over each replica's filled slots (at least one), the
+        replicas in order (``gsc_tpu.parallel.dp``'s ``_sample_local``
+        layout)."""
+        high = torch.clamp(sizes.to(self.device), min=1)
+        u = torch.rand((replicas, per), generator=self.generator,
+                       device=self.device)
+        sidx = torch.minimum((u * high[:, None]).long(),
+                             high.long()[:, None] - 1)
+        bidx = torch.arange(replicas, device=self.device).repeat_interleave(
+            per)
+        return bidx, sidx.reshape(-1)
+
     def sim_noise(self, engine, batch: int) -> Optional[torch.Tensor]:
         """Processing-delay normals of one interval, or None."""
-        return engine.draw_noise(batch, self.generator, self.device)
+        return self.whole((batch,), lambda s: engine.draw_noise(
+            s[0], self.generator, self.device))
 
 
 @dataclass

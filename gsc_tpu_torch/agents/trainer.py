@@ -19,6 +19,14 @@ The port of ``gsc_tpu.agents.trainer.Trainer``:
   ``device_traffic=False``), on a registry mixture of networks, or on
   the scenario factory's draws under the TD curriculum, with the chunked
   rollout and the end-of-episode learn burst (``parallel.harness``);
+- ``train_parallel(plan=...)`` is one rank of a mesh
+  (``parallel.mesh``, ``parallel.partition``): the rank rolls out its
+  replica rows of every episode (the scenario source's [B] draw, sliced),
+  learns on batches gathered alike on every rank, and agrees with the
+  other ranks on every control decision (the preemption flag, the finite
+  checks, whether a checkpoint or a publish happens); rank 0 owns the
+  outputs (observer, rewards CSV, checkpoints, publishes), and the loop
+  returns the full learner state and the whole replay on every rank;
 - ``train_async`` is ``train_parallel``'s decoupled form (``cli train
   --async``): actor threads, each on its own CUDA stream, roll out into
   the learner's replay ring while this thread learns and publishes
@@ -127,7 +135,7 @@ class Trainer:
                  check_invariants: bool = False, fault_plan=None,
                  rollback: bool = True,
                  retry_policy: Optional[RetryPolicy] = None,
-                 pipeline_fault_limit: int = 3):
+                 pipeline_fault_limit: int = 3, learn_ledger=None):
         self.env = env
         self.driver = driver
         self.agent_cfg = agent_cfg
@@ -142,9 +150,12 @@ class Trainer:
         # (start, close) belongs to the caller
         self.obs = obs
         self.learn_obs = obs.learn if obs is not None else None
+        # the learn ledger's spec: the observer's, else ``learn_ledger``
+        # (a rank of a mesh other than 0 keeps the ledger its rank 0 has,
+        # so the curriculum moves alike on every rank)
         spec = (self.learn_obs.spec(driver.num_topo_ids,
                                     driver.topo_id_names)
-                if self.learn_obs is not None else None)
+                if self.learn_obs is not None else learn_ledger)
         self.ddpg = DDPG(env, agent_cfg, device=device, learn_ledger=spec)
         self.device = self.ddpg.device
         if obs is not None:
@@ -166,6 +177,8 @@ class Trainer:
         self.curriculum = None
         # the decoupled run's accounting (train_async)
         self.async_info: Optional[Dict] = None
+        # a mesh rank's accounting (train_parallel with a plan)
+        self.mesh_info: Optional[Dict] = None
 
     # ---------------------------------------------------------------- inputs
     def _on_device(self, topo: Topology) -> Topology:
@@ -673,7 +686,7 @@ class Trainer:
                        preempt=None, profile: bool = False,
                        verbose: bool = False, device_traffic: bool = True,
                        curriculum=None, publisher=None,
-                       publish_interval: int = 0):
+                       publish_interval: int = 0, plan=None):
         """Train ``num_replicas`` replicas through episode ``episodes -
         1``; returns (state, buffers).  Each episode runs on the network
         the schedule names, its traffic sampled on the device
@@ -698,7 +711,15 @@ class Trainer:
         non-finite one rolls back to the guard's last verified
         snapshot.  ``publisher`` with a positive ``publish_interval``
         publishes the drained actor every N episodes after a host finite
-        check (a non-finite one is skipped with a ``recovery`` event)."""
+        check (a non-finite one is skipped with a ``recovery`` event).
+
+        ``plan`` (a ``parallel.partition.ShardingPlan``) makes this one
+        rank of its mesh: ``init_buffers`` then holds the rank's replica
+        rows, each episode's scenarios are drawn whole and sliced to them,
+        the state lives in the plan's residency between episodes, every
+        control decision is agreed across ranks, checkpoints and
+        publishes gather the state (and the replay) to rank 0, and the
+        returned state and replay are whole on every rank."""
         if profile and self.result_dir:
             from ..utils.debug import Profiler
             with Profiler(os.path.join(self.result_dir, "profile")):
@@ -706,24 +727,38 @@ class Trainer:
                     episodes, num_replicas, chunk, on_row, init_state,
                     init_buffers, start_episode, ckpt_manager, ckpt_interval,
                     preempt, False, verbose, device_traffic, curriculum,
-                    publisher, publish_interval)
+                    publisher, publish_interval, plan)
         refuse_async_sites(self.fault_plan)
         steps = self.agent_cfg.episode_steps
         if steps % chunk != 0:
             raise ValueError(f"chunk ({chunk}) must divide episode_steps "
                              f"({steps})")
-        inputs, plan, factory, curr = self._scenario_source(
-            num_replicas, device_traffic, curriculum)
         self.pddpg = pddpg = ParallelDDPG(
             self.env, self.agent_cfg, num_replicas, device=self.device,
-            seed=self.seed, learn_ledger=self.ddpg.learn_ledger)
+            seed=self.seed, learn_ledger=self.ddpg.learn_ledger, plan=plan)
+        inputs, mix, factory, curr = self._scenario_source(
+            num_replicas, device_traffic, curriculum)
+        mesh = plan.mesh if plan is not None else None
+        if plan is not None:
+            whole = inputs
+            inputs = lambda ep: tuple(x.rows(pddpg.lo, pddpg.hi)
+                                      for x in whole(ep))
         pddpg.draws = self.draws
+        self.draws.rows = pddpg.draw_rows
         topo0, traffic0 = self._episode(0)
         _, one_obs = self.env.reset(topo0, traffic0, batch=1)
         state = init_state if init_state is not None else \
             pddpg.init(torch.Generator().manual_seed(self.seed))
         buffers = init_buffers if init_buffers is not None else \
             pddpg.init_buffers(_first(one_obs))
+        # what rank 0 alone knows, agreed once: whether checkpoints and
+        # publishes happen (every rank joins their gathers)
+        saves = ckpt_manager is not None
+        publishes = publisher is not None
+        if mesh is not None:
+            saves, publishes = mesh.agree_any(saves), mesh.agree_any(
+                publishes)
+            plan.place_state(state)
         chaos = self.fault_plan
         guard = None
         if chaos is not None and self.rollback:
@@ -744,13 +779,36 @@ class Trainer:
             with phase_span("scenario_regen", timer, hub):
                 return inputs(ep)
 
+        def due(interval: int) -> bool:
+            return bool(interval) and (ep + 1 - start_episode) % interval == 0
+
+        def finite(st) -> bool:
+            # the host finite check, agreed: under the sharded book each
+            # rank holds other slices of the state
+            ok = state_is_finite(st)
+            return mesh.agree_all(ok) if mesh is not None else ok
+
+        def whole_state(fn):
+            # run fn on the full learner state (gathered on every rank
+            # under a plan) and go back to the residency after
+            if plan is not None:
+                plan.gather_state(state)
+            try:
+                return fn()
+            finally:
+                if plan is not None:
+                    plan.place_state(state)
+
         try:
             for ep in range(start_episode, episodes):
-                if preempt is not None and preempt.triggered:
+                stop = preempt is not None and preempt.triggered
+                if mesh is not None:
+                    stop = mesh.agree_any(stop)
+                if stop:
                     self.preempted = True
                     self._recover(
                         ep, site="run", action="preempt_snapshot",
-                        fault=preempt.signame,
+                        fault=getattr(preempt, "signame", None),
                         detail=f"stopping before episode {ep}; the caller "
                                "checkpoints the drained state")
                     break
@@ -778,7 +836,7 @@ class Trainer:
                 if chaos is not None:
                     # the replicas drain as they finish: the live state is
                     # the state after episode ep
-                    if state_is_finite(state):
+                    if finite(state):
                         if guard is not None:
                             guard.promote(ep, state, buffers,
                                           pending_empty=True)
@@ -811,9 +869,9 @@ class Trainer:
                              ep, ret, row["mean_succ_ratio"], sps)
                 if self.obs:
                     extra = {"replicas": num_replicas}
-                    if plan is not None:
+                    if mix is not None:
                         extra.update(self._entry_returns(
-                            plan.names, done["per_replica_return"]))
+                            mix.names, done["per_replica_return"]))
                     elif factory is None:
                         # one network per episode: its schedule name
                         extra = self._topology_extra(ep, ret, extra=extra)
@@ -828,18 +886,49 @@ class Trainer:
                         self.learn_obs.episode(ep, signal=signal,
                                                replay=done["replay"])
                 self._last_drained = ep
-                self._publish(publisher, publish_interval, ep,
-                              start_episode, state.actor, verified=False)
-                self._maybe_save(ckpt_manager, ckpt_interval, ep,
-                                 start_episode, state, buffers)
+                # a mesh gathers the state (and the replay) on every rank
+                # before rank 0 checks it on the host and writes it out
+                if mesh is None:
+                    self._publish(publisher, publish_interval, ep,
+                                  start_episode, state.actor, verified=False)
+                    self._maybe_save(ckpt_manager, ckpt_interval, ep,
+                                     start_episode, state, buffers)
+                else:
+                    if publishes and due(publish_interval):
+                        whole_state(lambda: self._publish(
+                            publisher, publish_interval, ep, start_episode,
+                            state.actor, verified=False))
+                    if saves and due(ckpt_interval):
+                        whole_state(lambda: self._maybe_save(
+                            ckpt_manager, ckpt_interval, ep, start_episode,
+                            state, plan.gather_buffers(buffers,
+                                                       num_replicas)))
         finally:
             if self.obs:
                 self.obs.pause_watchdog()
             writer.close()
+            self.draws.rows = None
         self.completed_episodes = self._last_drained + 1
         self.curriculum = curr
         if chaos is not None:
             chaos.warn_unfired(hub)
+        if plan is not None:
+            self.mesh_info = {
+                "mesh": plan.describe(), "rank": mesh.rank,
+                "rules": plan.rules_name,
+                "split_leaves": len(plan.split_leaves()),
+                "entry_gathers": plan.entry_gathers,
+                "resident_bytes": plan.resident_bytes,
+                "full_bytes": plan.full_bytes,
+                "batch_gathers": plan.gathers,
+                "gather_ms_per_step": (1e3 * plan.gather_s / plan.gathers
+                                       if plan.gathers else None),
+                "burst_s": list(pddpg.burst_s),
+                "rollout_s": pddpg.rollout_s,
+                "rollout_env_steps": pddpg.rollout_steps}
+            # the full learner state and the whole replay on every rank
+            plan.gather_state(state)
+            buffers = plan.gather_buffers(buffers, num_replicas)
         return state, buffers
 
     def train_async(self, episodes: int, num_replicas: int,

@@ -45,6 +45,14 @@ training (:meth:`~gsc_tpu_torch.agents.trainer.Trainer.train_async`):
 learner's replay ring; ``--max-staleness``, ``--publish-bursts`` and
 ``--learn-ratio`` tune it, with the JAX CLI's refusals, and the last JSON
 line carries the drain proof (``drain``: produced == ingested steps).
+``--mesh DPxMP`` (with ``--replicas B``, B divisible by dp*mp) trains on
+a mesh of ranks, one process each (``parallel.mesh``): spawned on the
+card one card per rank (NCCL), on the CPU under ``--device cpu`` (gloo),
+or joined from a ``torchrun`` environment; ``--partition-rules
+replicated|sharded`` picks the learner state's residency
+(``parallel.partition``); ``tp`` and ``--async`` are refused with it.
+Rank 0 prints, writes and evaluates; the last JSON line carries ``mesh``
+and ``partition_rules``.
 ``--resource-functions-path`` (``train``, ``infer``, ``serve``,
 ``simulate``) loads resource-function plugins before the service yaml is
 parsed; on the card they run compiled into the substep kernel.
@@ -102,6 +110,8 @@ import os
 import sys
 import time
 from typing import List, Optional
+
+from .meshspec import PARTITION_RULEBOOKS
 
 _NETWORKS = ("abilene", "bteurope", "claranet", "compuserve", "tinet",
              "chinanet", "interroute")
@@ -361,7 +371,44 @@ def _check_train_args(args):
             refuse_async_sites(FaultPlan.from_env(args.fault_plan))
         except ValueError as e:
             raise SystemExit(f"--fault-plan: {e}")
+    _check_mesh_args(args)
     args.curriculum = _curriculum(args)
+
+
+def _check_mesh_args(args):
+    """``--mesh`` and ``--partition-rules`` as the JAX CLI checks them."""
+    from .meshspec import canonical_mesh, parse_mesh_shape
+
+    if not args.mesh:
+        if args.partition_rules != "replicated":
+            raise SystemExit(
+                f"--partition-rules {args.partition_rules} has no effect "
+                "without --mesh — pass --mesh DPxMP (e.g. 4x2) or drop the "
+                "flag")
+        return
+    if args.replicas <= 1:
+        raise SystemExit(
+            "--mesh shards env replicas over the device grid — it requires "
+            "the replica-parallel path (--replicas > 1)")
+    try:
+        dp, mp = parse_mesh_shape(args.mesh)
+    except ValueError as e:
+        raise SystemExit(f"--mesh: {e}")
+    if args.replicas % (dp * mp) != 0:
+        raise SystemExit(
+            f"--replicas ({args.replicas}) must be divisible by the mesh "
+            f"device count ({dp * mp} = {dp}x{mp}) for an even replica "
+            "sharding")
+    if args.async_mode:
+        raise SystemExit(
+            "--async with --mesh (a replay ring sharded over the ranks) is "
+            "the next slice of the port: drop one of the flags")
+    if args.partition_rules == "tp":
+        raise SystemExit(
+            "--partition-rules tp (tensor-parallel layers, collectives "
+            "inside autograd) is the next slice of the port: use "
+            "replicated or sharded")
+    args.mesh = canonical_mesh(args.mesh)
 
 
 def _curriculum(args):
@@ -427,9 +474,11 @@ def _observer(args, run: int, rdir: Optional[str], seed: int):
                        tags={"seed": seed})
 
 
-def _train_run(args, run: int, dev, precision, resume) -> dict:
+def _train_run(args, run: int, dev, precision, resume, mesh=None) -> dict:
     """One run of ``train``: observer, trainer, preemption guard, final
-    checkpoint and evaluation."""
+    checkpoint and evaluation.  ``mesh``: this process is that rank of
+    the run's mesh; rank 0 alone owns the run directory, the observer,
+    the printed rows, checkpoints, publishes and the evaluation."""
     from .agents.trainer import Trainer
     from .resilience.ckpt import CheckpointManager
     from .resilience.faults import FaultPlan
@@ -440,7 +489,8 @@ def _train_run(args, run: int, dev, precision, resume) -> dict:
 
     fplan = FaultPlan.from_env(args.fault_plan)   # fires once: one per run
     seed = args.seed + run
-    rdir = _run_dir(args)
+    rank0 = mesh is None or mesh.rank == 0
+    rdir = _run_dir(args) if rank0 else None
     result = None
     if rdir:
         copy_inputs(rdir, [args.agent_config, args.simulator_config,
@@ -453,7 +503,12 @@ def _train_run(args, run: int, dev, precision, resume) -> dict:
                              "network": args.network, "seed": seed}
         setup_logging(logfile=os.path.join(rdir, "run.log"))
     env, driver, agent = _build(args, precision, seed=seed)
-    obs = _observer(args, run, rdir, seed)
+    plan = mesh_meta = None
+    if mesh is not None:
+        from .parallel.partition import ShardingPlan
+        plan = ShardingPlan(mesh, args.partition_rules)
+        mesh_meta = _mesh_meta(plan, env, agent)
+    obs = _observer(args, run, rdir, seed) if rank0 else None
     if obs is not None:
         obs.start(meta={"episodes": args.episodes, "replicas": args.replicas,
                         "pipeline": args.pipeline, "seed": seed,
@@ -467,13 +522,21 @@ def _train_run(args, run: int, dev, precision, resume) -> dict:
                         "result_dir": rdir, "device": str(dev),
                         "ckpt_interval": args.ckpt_interval,
                         "hot_swap_dir": args.hot_swap_dir,
+                        **(mesh_meta or {}),
                         **({"fault_plan": fplan.summary()} if fplan
                            else {})})
+    learn_spec = None
+    if not rank0 and args.obs and args.learn_obs:
+        # rank 0's learn ledger, so that its signal (and the curriculum it
+        # moves) is computed alike on every rank
+        from .obs.learning import LearnLedgerSpec
+        learn_spec = LearnLedgerSpec.for_topos(driver.num_topo_ids)
     try:
         trainer = Trainer(env, driver, agent, seed=seed, result_dir=rdir,
                           device=dev, obs=obs,
                           check_invariants=args.check_invariants,
-                          fault_plan=fplan, rollback=args.rollback)
+                          fault_plan=fplan, rollback=args.rollback,
+                          learn_ledger=learn_spec)
         manager = (CheckpointManager(os.path.join(rdir, "ckpts"),
                                      retain=args.ckpt_retain,
                                      meta={"precision": agent.precision},
@@ -489,7 +552,10 @@ def _train_run(args, run: int, dev, precision, resume) -> dict:
             load_s = time.perf_counter() - t0
             if buffer_ok:
                 init_buffer = template
-            else:
+                if plan is not None:
+                    # every rank loads the whole checkpoint, keeps its rows
+                    init_buffer = template.rows(*plan.rows(args.replicas))
+            elif rank0:
                 print("[resume] replay not restorable (replay config such "
                       "as mem_limit or --replicas changed since the "
                       "checkpoint): restored the learner state only, replay "
@@ -500,15 +566,16 @@ def _train_run(args, run: int, dev, precision, resume) -> dict:
                     f"--episodes ({args.episodes}) must exceed the "
                     f"checkpoint's completed episode count ({start_episode})")
         publisher = None
-        if args.hot_swap_dir:
+        if args.hot_swap_dir and rank0:
             from .serve.fleet import WeightPublisher
             publisher = WeightPublisher(
                 args.hot_swap_dir, hub=(obs.hub if obs is not None else None),
                 fault_plan=fplan)
         publish = dict(publisher=publisher,
                        publish_interval=(args.publish_interval
-                                         if publisher else 0))
-        on_row = lambda row: print(json.dumps(row), flush=True)
+                                         if args.hot_swap_dir else 0))
+        on_row = ((lambda row: print(json.dumps(row), flush=True))
+                  if rank0 else None)
         if result is not None:
             result.runtime_start("train")
         t0 = time.perf_counter()
@@ -531,8 +598,8 @@ def _train_run(args, run: int, dev, precision, resume) -> dict:
                     on_row=on_row, init_state=init_state,
                     init_buffers=init_buffer, start_episode=start_episode,
                     ckpt_manager=manager, ckpt_interval=args.ckpt_interval,
-                    preempt=guard, profile=args.profile, verbose=True,
-                    curriculum=args.curriculum, **publish)
+                    preempt=guard, profile=args.profile, verbose=rank0,
+                    curriculum=args.curriculum, plan=plan, **publish)
             else:
                 state, buffer = trainer.train(
                     args.episodes, init_state=init_state,
@@ -563,10 +630,16 @@ def _train_run(args, run: int, dev, precision, resume) -> dict:
                        "hint": "continue with --resume auto"}
             if drain is not None:
                 payload["drain"] = drain
+            if mesh_meta:
+                payload.update(mesh=plan.describe(),
+                               partition_rules=plan.rules_name)
             return {"summary": payload, "trainer": trainer, "state": state,
-                    "buffers": buffer, "eval": None, "result_dir": rdir}
-        ckpt = args.checkpoint or (os.path.join(rdir, "checkpoint")
-                                   if rdir else None)
+                    "buffers": buffer, "eval": None, "result_dir": rdir,
+                    "preempted": True}
+        ckpt = None
+        if rank0:
+            ckpt = args.checkpoint or (os.path.join(rdir, "checkpoint")
+                                       if rdir else None)
         save_s = None
         if ckpt:
             t1 = time.perf_counter()
@@ -579,8 +652,10 @@ def _train_run(args, run: int, dev, precision, resume) -> dict:
         wall_s = time.perf_counter() - t0
         if result is not None:
             result.runtime_start("test")
-        test = trainer.evaluate(state, episodes=1, test_mode=True,
-                                telemetry=True)
+        # the evaluation runs on rank 0, on the whole state: independent
+        # of the carving
+        test = (trainer.evaluate(state, episodes=1, test_mode=True,
+                                 telemetry=True) if rank0 else {})
         if result is not None:
             result.runtime_stop("test")
     except BaseException:
@@ -611,20 +686,108 @@ def _train_run(args, run: int, dev, precision, resume) -> dict:
                "checkpoint": ckpt, **test}
     if drain is not None:
         summary["drain"] = drain
+    if mesh_meta:
+        summary.update(mesh=plan.describe(), partition_rules=plan.rules_name)
     return {"summary": summary, "trainer": trainer, "state": state,
-            "buffers": buffer, "eval": test, "result_dir": rdir}
+            "buffers": buffer, "eval": test, "result_dir": rdir,
+            "preempted": False}
 
 
-def _train(args) -> dict:
+def _mesh_meta(plan, env, agent) -> dict:
+    """``run_start``'s record of a mesh run: the canonical mesh, the rule
+    book and ``{spec: leaf count}`` over the learner state the run will
+    hold (its networks, targets and both Adam states)."""
+    from .agents.ddpg import DDPG
+    from .parallel.partition import learner_state_shapes
+
+    nets = DDPG(env, agent, device="cpu")
+    return {"mesh": plan.describe(), "partition_rules": plan.rules_name,
+            "partition_specs": plan.summary(learner_state_shapes(
+                nets.actor, nets.critic))}
+
+
+def _kernel_ops() -> dict:
+    from .ops.gat_attention import (gat_attention, gat_attention_backward,
+                                    gat_attention_backward_bf16,
+                                    gat_attention_bf16)
+    from .ops.substep import substep_megakernel
+
+    return {"gat_attention": gat_attention,
+            "gat_attention_backward": gat_attention_backward,
+            "gat_attention_bf16": gat_attention_bf16,
+            "gat_attention_backward_bf16": gat_attention_backward_bf16,
+            "substep_megakernel": substep_megakernel}
+
+
+def kernel_launches() -> dict:
+    """Each kernel wrapper's launch count in this process."""
+    return {k: op.launches for k, op in _kernel_ops().items()}
+
+
+def zero_kernel_launches() -> None:
+    """Set each kernel wrapper's launch count in this process to 0."""
+    for op in _kernel_ops().values():
+        op.launches = 0
+
+
+def _mesh_rank(mesh, args, precision, resume) -> List[dict]:
+    """The runs of ``train --mesh`` on one rank (a launched process, or a
+    process that joined a torchrun group); returns what each run leaves
+    behind in a form that crosses processes: rank 0's summary, its whole
+    learner state (leaf name -> CPU tensor), its replay on the CPU and
+    its evaluation, and every rank's accounting (``rank``: start-up
+    seconds, kernel launches, the plan's counters)."""
+    from .device import resolve_device
+    from .parallel.partition import state_leaves
+
+    dev = resolve_device(mesh.device)
+    outs = []
+    for run in range(args.runs):
+        zero_kernel_launches()
+        out = _train_run(args, run, dev, precision, resume, mesh=mesh)
+        launches = kernel_launches()
+        trainer = out["trainer"]
+        rank0 = mesh.rank == 0
+        outs.append({
+            "summary": out["summary"] if rank0 else None,
+            "eval": out["eval"] if rank0 else None,
+            "result_dir": out["result_dir"],
+            "preempted": out["preempted"],
+            "history": trainer.history,
+            "state": ({k: v.detach().cpu().clone()
+                       for k, v in state_leaves(out["state"]).items()}
+                      if rank0 else None),
+            "buffers": (out["buffers"].to("cpu") if rank0 else None),
+            "rank": {"rank": mesh.rank, "device": str(mesh.device),
+                     "backend": mesh.backend, "startup_s": mesh.startup_s,
+                     "launches": launches,
+                     "plan": trainer.mesh_info,
+                     "completed_episodes": trainer.completed_episodes}})
+        if out["preempted"]:
+            break
+    return outs
+
+
+def _train(args, devices=None, deadline_s=None) -> dict:
     """``train``: ``--runs`` independent seeded runs (seed + run), each
     in its own run directory; the best by ``select_best_agent`` is
-    reported in the last JSON line and returned."""
+    reported in the last JSON line and returned.  With ``--mesh`` the
+    runs go to the mesh's ranks (``_mesh_runs``)."""
     from .device import resolve_device
     from .utils.checkpoint import checkpoint_precision
     from .utils.experiment import select_best_agent
 
     _check_train_args(args)
     dev = resolve_device(args.device)
+    if args.mesh and not _in_torchrun():
+        # before anything is built: a card run on fewer cards than ranks
+        from .meshspec import parse_mesh_shape
+        from .parallel.mesh import rank_devices
+        dp, mp = parse_mesh_shape(args.mesh)
+        try:
+            rank_devices(dp * mp, dev, devices)
+        except ValueError as e:
+            raise SystemExit(f"--mesh {args.mesh}: {e}")
     resume = _resume_path(args)
     precision = args.precision
     if resume:
@@ -632,13 +795,20 @@ def _train(args) -> dict:
             precision = checkpoint_precision(resume, precision)
         except ValueError as e:
             raise SystemExit(str(e))
-    outputs = []
-    for run in range(args.runs):
-        out = _train_run(args, run, dev, precision, resume)
-        if out["eval"] is None:    # preempted: its line, and no more runs
-            print(json.dumps(out["summary"]), flush=True)
-            return out
-        outputs.append(out)
+    if args.mesh:
+        outputs = _mesh_runs(args, dev, precision, resume, devices,
+                             deadline_s)
+        if outputs is None:        # a torchrun rank other than 0
+            return {}
+    else:
+        outputs = []
+        for run in range(args.runs):
+            outputs.append(_train_run(args, run, dev, precision, resume))
+            if outputs[-1]["preempted"]:
+                break
+    if outputs[-1]["preempted"]:   # its line, and no more runs
+        print(json.dumps(outputs[-1]["summary"]), flush=True)
+        return outputs[-1]
     dirs = [o["result_dir"] for o in outputs]
     best = outputs[0]
     if args.runs > 1:
@@ -648,10 +818,69 @@ def _train(args) -> dict:
     return {**best, "runs": outputs}
 
 
-def run_train(argv: List[str]) -> dict:
+def mesh_legs(mesh, argvs: List[List[str]]) -> List[dict]:
+    """On one rank of a launch: ``train`` with each argv in turn, each on
+    its ``--mesh`` (a carving of the launch's ranks: the same rank
+    count), one run each; returns each run's ``_mesh_rank`` output.
+    ``parallel.mesh.launch(mesh_legs, dp, mp, args=(argvs,))`` runs
+    several mesh runs on one set of processes."""
+    from .meshspec import parse_mesh_shape
+
+    outs = []
+    for argv in argvs:
+        # every rank starts a run once rank 0 has written the last one's
+        # files (its checkpoint may be the next run's --resume auto)
+        mesh.agree_all(True)
+        args = _parser().parse_args(["train", *argv])
+        _check_train_args(args)
+        resume = _resume_path(args)
+        precision = args.precision
+        if resume:
+            from .utils.checkpoint import checkpoint_precision
+            precision = checkpoint_precision(resume, precision)
+        dp, mp = parse_mesh_shape(args.mesh)
+        m = mesh if (dp, mp) == (mesh.dp, mesh.mp) else mesh.recarve(dp, mp)
+        outs.append(_mesh_rank(m, args, precision, resume)[0])
+    return outs
+
+
+def _in_torchrun() -> bool:
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def _mesh_runs(args, dev, precision, resume, devices, deadline_s):
+    """The runs of ``train --mesh``: joined as this process's rank of a
+    torchrun group, or on ``dp * mp`` launched ranks (one card each on
+    the card, ``devices`` naming them outright).  Returns rank 0's run
+    outputs, each with every rank's accounting under ``ranks``; None on
+    a torchrun rank other than 0."""
+    from .meshspec import parse_mesh_shape
+    from .parallel.mesh import init_distributed, launch
+
+    dp, mp = parse_mesh_shape(args.mesh)
+    if _in_torchrun():
+        mesh = init_distributed(dp, mp, device=dev)
+        outs = _mesh_rank(mesh, args, precision, resume)
+        return outs if mesh.rank == 0 else None
+    per_rank = launch(_mesh_rank, dp, mp, device=dev, devices=devices,
+                      deadline_s=deadline_s, args=(args, precision, resume))
+    outs = per_rank[0]
+    for k, out in enumerate(outs):
+        out["ranks"] = [rank[k]["rank"] for rank in per_rank]
+    return outs
+
+
+def run_train(argv: List[str], devices=None,
+              deadline_s: Optional[float] = None) -> dict:
     """``train`` with these arguments; returns the summary, the trainer,
-    the learner state, the replay and the evaluation."""
-    return _train(_parser().parse_args(["train", *argv]))
+    the learner state, the replay and the evaluation.  Under ``--mesh``
+    the learner state is a leaf name -> CPU tensor dict
+    (``parallel.partition.state_leaves``), the replay is on the CPU, the
+    ranks' accounting is under ``ranks``, and there is no trainer but
+    its ``history``; ``devices`` puts the ranks on these devices (ranks
+    sharing a card: gloo), ``deadline_s`` bounds the launch."""
+    return _train(_parser().parse_args(["train", *argv]), devices=devices,
+                  deadline_s=deadline_s)
 
 
 def _infer(args) -> dict:
@@ -989,6 +1218,25 @@ def _parser() -> argparse.ArgumentParser:
                    help="1: the single-env loop; B > 1: B replicas in "
                    "lockstep, rollout chunks of --chunk steps")
     t.add_argument("--chunk", type=int, default=50)
+    t.add_argument("--mesh", default=None,
+                   help="train on a 'DPxMP' mesh of ranks (--replicas > 1): "
+                   "one process per rank on torch.distributed, rank r rolls "
+                   "out replica rows r*B/(dp*mp) to (r+1)*B/(dp*mp)-1 and "
+                   "every rank runs the same learn burst on the same "
+                   "gathered batch.  On the card one card per rank (NCCL; "
+                   "fewer cards than ranks is refused); --device cpu runs "
+                   "the ranks on the CPU (gloo); under torchrun each "
+                   "process joins as its rank.  Checkpoints hold the whole "
+                   "state and replay, so --resume may use another mesh or "
+                   "none (elastic resume)")
+    t.add_argument("--partition-rules", default="replicated",
+                   choices=PARTITION_RULEBOOKS,
+                   help="rule book of the learner state under --mesh: "
+                   "'replicated' keeps every leaf whole on every rank, "
+                   "'sharded' keeps only a rank's mp slice of every Linear "
+                   "weight (and its Polyak target and Adam moments) between "
+                   "episodes, bit-identical to 'replicated'; 'tp' (tensor-"
+                   "parallel compute) is not ported yet")
     t.add_argument("--topo-mix", default=None,
                    help="fill the replica axis (--replicas > 1) with a "
                    "mixture instead of one network per episode: a "

@@ -115,7 +115,15 @@ class ShuffleOps:
         if not isinstance(generator, torch.Generator):
             raise ValueError("shuffle_nodes draws its permutations from an "
                              "explicit torch.Generator; pass one")
-        return random_permutation(generator, self.n, batch)
+        rows = getattr(source, "rows", None)
+        if rows is None:
+            return random_permutation(generator, self.n, batch)
+        # one rank of a mesh: the permutations of every replica, its rows
+        lo, hi, total = rows
+        if batch != hi - lo:
+            raise ValueError(f"{batch} permutations on a rank that holds "
+                             f"rows {lo}:{hi}")
+        return random_permutation(generator, self.n, total)[lo:hi]
 
     def init_perm(self, batch: int, device, source=None) -> torch.Tensor:
         """[B, N] permutations of the first step (the identity when off),

@@ -53,6 +53,11 @@ class LearnLedgerSpec:
 
     num_topos: int = 1
 
+    @classmethod
+    def for_topos(cls, num_topos: Optional[int]) -> "LearnLedgerSpec":
+        """The spec of a run over ``num_topos`` topo ids (at least one)."""
+        return cls(num_topos=max(int(num_topos or 1), 1))
+
 
 _GROUPS: Dict[Tuple, Tuple[List[str], torch.Tensor]] = {}
 
@@ -222,7 +227,7 @@ class LearnLedger:
              names: Optional[Sequence[str]] = None) -> LearnLedgerSpec:
         if names:
             self.segment_names = [str(n) for n in names]
-        return LearnLedgerSpec(num_topos=max(int(num_topos or 1), 1))
+        return LearnLedgerSpec.for_topos(num_topos)
 
     def episode(self, episode: int, signal: Optional[Dict] = None,
                 replay: Optional[Dict] = None) -> Optional[Dict]:

@@ -11,7 +11,11 @@ snapshot cadence, the watchdog, the optional learn ledger
 (``curves.json`` at close), the series rings (``series.json``) and the
 ``/metrics`` endpoint.  ``out_dir=None`` keeps everything in memory (a
 ``ListSink`` in ``self.events``) and writes no files: ``cli train``
-without ``--result-dir``.
+without ``--result-dir``.  A run on a mesh has one observer, on rank 0;
+its ``run_start`` records the canonical ``mesh`` (``"dpxmp"``), the
+``partition_rules`` and ``partition_specs`` (``{spec: leaf count}``
+over the learner state, ``parallel.partition.spec_summary``), as the
+JAX package's does.
 """
 from __future__ import annotations
 

@@ -25,10 +25,28 @@ actor network (``actor_copy``) and its own random source
 learner's modules, whose parameters and Adam moments ``learn_burst``
 updates in place on the learner's thread; ``make_replay_ingest`` folds
 each shipped block into the learner's shared ring.
+
+Under a sharding plan (``plan``, a ``parallel.partition.ShardingPlan``
+over a ``parallel.mesh.Mesh``) the instance is one rank of a mesh: it
+rolls out only its replica rows ``plan.rows(B)`` (their traffic, env
+states and replay shards; every random draw with a replica axis is drawn
+whole and sliced, ``Draws.rows``), the rollout's per-replica numbers are
+gathered into global replica order before any mean, and each gradient
+step's batch is drawn alike on every rank over the global replica and
+slot indices and gathered row by row as bytes
+(``ShardingPlan.gather_batch``), so every rank runs the same learn burst
+on the same batch and ends with the same learner state: no gradient is
+reduced across ranks.  Around each ``chunk_step`` the learner state is
+gathered from the plan's residency and sliced back into it.
+``sample_mode="local"`` takes ``max(batch // B, 1)`` slots from every
+replica in replica order in place of the uniform batch over (replica,
+slot) pairs (``_sample_local`` of the JAX package).
 """
 from __future__ import annotations
 
 import copy
+import time
+from types import SimpleNamespace
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -82,15 +100,47 @@ class ParallelDDPG:
 
     def __init__(self, env: ServiceCoordEnv, agent: AgentConfig,
                  num_replicas: int, device=None, seed: int = 0,
-                 learn_ledger=None):
+                 learn_ledger=None, plan=None, sample_mode: str = "across"):
+        if sample_mode not in ("across", "local"):
+            raise ValueError(f"unknown sample_mode {sample_mode!r}")
+        if plan is not None and num_replicas % plan.n_devices != 0:
+            raise ValueError(
+                f"num_replicas ({num_replicas}) must be divisible by the "
+                f"mesh device count ({plan.n_devices}, mesh "
+                f"{plan.describe()}) for an even replica sharding")
+        if plan is not None and plan.resident_sharded:
+            raise ValueError(
+                "the tp rule book's tensor-parallel dispatch is not ported "
+                "yet (the next slice of the port); use --partition-rules "
+                "replicated or sharded")
         self.env = env
         self.agent = agent
         self.B = num_replicas
+        self.sample_mode = sample_mode
+        self.plan = plan
+        # this rank's replica rows (all of them without a plan)
+        self.lo, self.hi = plan.rows(num_replicas) if plan else (0,
+                                                                 num_replicas)
         self.ddpg = DDPG(env, agent, device=device,
                          learn_ledger=learn_ledger)
         self.device = self.ddpg.device
         self.shuffle = ShuffleOps(agent, env.limits)
-        self.draws = Draws(seed, self.device)
+        self.draws = Draws(seed, self.device, rows=self.draw_rows)
+        # under a plan (synchronized): seconds of each learn burst, and
+        # the rollouts' seconds and env steps on this rank's rows
+        self.burst_s = []
+        self.rollout_s = 0.0
+        self.rollout_steps = 0
+
+    @property
+    def rows_n(self) -> int:
+        """Replicas this instance rolls out."""
+        return self.hi - self.lo
+
+    @property
+    def draw_rows(self):
+        """``Draws.rows`` of this rank (None without a plan)."""
+        return None if self.plan is None else (self.lo, self.hi, self.B)
 
     # ----------------------------------------------------------------- init
     def init(self, generator: torch.Generator) -> DDPGState:
@@ -99,13 +149,13 @@ class ParallelDDPG:
 
     def init_buffers(self, sample_obs: GraphObs,
                      capacity: Optional[int] = None) -> ReplayBuffer:
-        """Per-replica replay shards [B, capacity, ...], capacity
-        ``mem_limit // B`` (at least 1) unless given, so the total matches
-        the single-env agent's budget.  ``sample_obs`` is one observation
-        without a batch dim."""
+        """Per-replica replay shards [B, capacity, ...] (a rank's rows
+        under a plan), capacity ``mem_limit // B`` (at least 1) unless
+        given, so the total matches the single-env agent's budget.
+        ``sample_obs`` is one observation without a batch dim."""
         cap = capacity or shard_capacity(self.agent.mem_limit, self.B)
         return buffer_init(self.ddpg.example_transition(sample_obs), cap,
-                           lead=(self.B,), device=self.device)
+                           lead=(self.rows_n,), device=self.device)
 
     def actor_copy(self, actor: Actor) -> Actor:
         """An acting copy of ``actor`` (no gradients) for one actor
@@ -122,8 +172,9 @@ class ParallelDDPG:
 
     def reset_all(self, topo: Topology, traffic: TrafficSchedule
                   ) -> Tuple[EnvState, GraphObs]:
-        """Fresh episode on every replica (``traffic`` [B, ...])."""
-        return self.env.reset(topo, traffic, batch=self.B)
+        """Fresh episode on every replica (``traffic`` [B, ...]; a rank's
+        rows under a plan)."""
+        return self.env.reset(topo, traffic, batch=self.rows_n)
 
     # -------------------------------------------------------------- rollout
     @torch.no_grad()
@@ -142,10 +193,11 @@ class ParallelDDPG:
         the chunk's stats, still on the device."""
         actor = actor if actor is not None else state.actor
         draws = draws if draws is not None else self.draws
-        perm = self.shuffle.init_perm(self.B, self.device, draws)
+        n = self.rows_n
+        perm = self.shuffle.init_perm(n, self.device, draws)
         obs = self.shuffle.permute_obs(obs, perm)
         # each replica's network: a stacked topology's per-replica ids
-        topo_idx = topo.expand(self.B).topo_id
+        topo_idx = topo.expand(n).topo_id
         engine = self.env.engine
         rewards, succ, e2e = [], [], []
         for i in range(num_steps):
@@ -156,7 +208,7 @@ class ParallelDDPG:
             env_states, next_obs, reward, done, info = self.env.step(
                 env_states, topo, traffic,
                 self.shuffle.env_action(action, perm),
-                draws.sim_noise(engine, self.B))
+                draws.sim_noise(engine, n))
             next_obs, perm = self.shuffle.advance(next_obs, perm, draws)
             buffer_add(buffers, {
                 "obs": obs, "next_obs": next_obs, "action": action,
@@ -168,13 +220,24 @@ class ParallelDDPG:
             obs = next_obs
         r = torch.stack(rewards)            # [T, B]
         s = torch.stack(succ)
+        e = torch.stack(e2e)
+        ring = buffers
+        if self.plan is not None:
+            # every replica's numbers in global replica order, laid out
+            # as a run without a mesh lays them out, before any mean
+            got = self.plan.gather_replica_rows(
+                {"r": r.t(), "s": s.t(), "e": e.t(), "size": buffers.size},
+                self.B)
+            r, s, e = (got[k].t().contiguous() for k in "rse")
+            ring = SimpleNamespace(size=got["size"],
+                                   capacity=buffers.capacity)
         stats = {"episodic_return": r.sum(0).mean(),
                  "mean_succ_ratio": s.mean(),
-                 "mean_e2e_delay": torch.stack(e2e).mean(),
+                 "mean_e2e_delay": e.mean(),
                  "final_succ_ratio": s[-1].mean(),
                  "per_replica_return": r.sum(0)}
         if self.ddpg.learn_ledger is not None:
-            stats["replay"] = replay_stats(buffers)
+            stats["replay"] = replay_stats(ring)
         return state, buffers, env_states, obs, stats
 
     def chunk_step(self, state: DDPGState, buffers: ReplayBuffer,
@@ -182,26 +245,76 @@ class ParallelDDPG:
                    traffic: TrafficSchedule, episode_start_step: int,
                    num_steps: int, learn: bool = False):
         """A chunk of the rollout and, when ``learn`` (the final chunk of
-        an episode), the end-of-episode learn burst.  Returns (state,
-        buffers, env_states, obs, stats, learn_metrics or None)."""
+        an episode), the end-of-episode learn burst.  Under a plan the
+        learner state is gathered from its residency on entry and sliced
+        back on exit.  Returns (state, buffers, env_states, obs, stats,
+        learn_metrics or None)."""
+        if self.plan is not None:
+            self.plan.gather_state(state)
+            t0 = time.perf_counter()
         state, buffers, env_states, obs, stats = self.rollout_episodes(
             state, buffers, env_states, obs, topo, traffic,
             episode_start_step, num_steps)
+        if self.plan is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.rollout_s += time.perf_counter() - t0
+            self.rollout_steps += self.rows_n * num_steps
         metrics = None
         if learn:
             state, metrics = self.learn_burst(state, buffers)
+        if self.plan is not None:
+            self.plan.place_state(state)
         return state, buffers, env_states, obs, stats, metrics
 
     # ------------------------------------------------------------- learning
-    def sample_across(self, buffers: ReplayBuffer) -> Dict:
-        """A uniform batch over (replica, slot) pairs of all shards."""
-        bidx, sidx = self.draws.replay(self.agent.batch_size, self.B,
-                                       buffers.size)
-        raw = {k: d[bidx, sidx] for k, d in buffers.data.items()}
+    def global_sizes(self, buffers: ReplayBuffer) -> torch.Tensor:
+        """The fill of every replica's shard [B] (gathered under a plan)."""
+        if self.plan is None:
+            return buffers.size
+        return self.plan.gather_replica_rows({"size": buffers.size},
+                                             self.B)["size"]
+
+    def _batch(self, buffers: ReplayBuffer, bidx: torch.Tensor,
+               sidx: torch.Tensor) -> Dict:
+        if self.plan is None:
+            raw = {k: d[bidx, sidx] for k, d in buffers.data.items()}
+        else:
+            t0 = time.perf_counter()
+            raw = self.plan.gather_batch(buffers.data, bidx, sidx, self.B)
+            self.plan.gather_s += time.perf_counter() - t0
+            self.plan.gathers += 1
         return restore_batch(buffers.shapes, raw)
+
+    def sample_across(self, buffers: ReplayBuffer,
+                      sizes: Optional[torch.Tensor] = None) -> Dict:
+        """A uniform batch over (replica, slot) pairs of all shards
+        (``sizes``: every replica's fill, default ``buffers.size``)."""
+        bidx, sidx = self.draws.replay(
+            self.agent.batch_size, self.B,
+            buffers.size if sizes is None else sizes)
+        return self._batch(buffers, bidx, sidx)
+
+    def sample_local(self, buffers: ReplayBuffer,
+                     sizes: Optional[torch.Tensor] = None) -> Dict:
+        """A shard-local stratified batch: ``max(batch // B, 1)`` slots
+        from every replica's shard, concatenated in replica order."""
+        per = max(self.agent.batch_size // self.B, 1)
+        bidx, sidx = self.draws.local(
+            self.B, per, buffers.size if sizes is None else sizes)
+        return self._batch(buffers, bidx, sidx)
 
     def learn_burst(self, state: DDPGState, buffers: ReplayBuffer):
         """``learn_steps`` gradient steps on batches sampled across the
-        replica shards."""
-        return self.ddpg.learn_burst(state,
-                                     lambda: self.sample_across(buffers))
+        replica shards (or shard-local ones, ``sample_mode="local"``)."""
+        sample = (self.sample_local if self.sample_mode == "local"
+                  else self.sample_across)
+        if self.plan is None:
+            return self.ddpg.learn_burst(state, lambda: sample(buffers))
+        t0 = time.perf_counter()
+        sizes = self.global_sizes(buffers)
+        out = self.ddpg.learn_burst(state, lambda: sample(buffers, sizes))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.burst_s.append(time.perf_counter() - t0)
+        return out

@@ -9,7 +9,10 @@ schedule where it stood.  Per-episode numbers, handed to the caller's
 ``on_episode``, are taken over all chunks: the return sums them, the mean
 success ratio averages them, and the final success ratio is the last
 step's; the per-replica returns sum each replica's chunks, so that a
-mixed batch's caller can attribute them per network.
+mixed batch's caller can attribute them per network.  On a rank of a
+mesh (``ParallelDDPG`` with a plan) ``episode_inputs`` gives the rank's
+replica rows, and each chunk's stats arrive already gathered into global
+replica order: every number here is the one a run without a mesh logs.
 """
 from __future__ import annotations
 

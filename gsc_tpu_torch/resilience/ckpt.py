@@ -16,6 +16,8 @@ episodes through a :class:`CheckpointManager`:
   and the rewrite after a failed validation is a ``recovery`` event
   through ``obs``.
 
+On a mesh only rank 0 holds a manager; the trainer gathers the state and
+the replay on every rank before it saves (``utils.checkpoint``).
 :func:`find_resumable` walks a result tree for checksummed sidecars,
 newest episode first, and returns the first checkpoint whose checksum
 still validates: a damaged newest checkpoint falls back to the one

@@ -22,6 +22,13 @@ the sidecar; ``verify_checkpoint`` recomputes it.  ``load_full_or_partial``
 restores the learner state alone, replay starting empty, when the saved
 replay does not fit the one asked for (another ``mem_limit`` or replica
 count).
+
+A run on a mesh of ranks (``cli train --mesh``) writes this same format:
+rank 0 saves the whole learner state and the whole replay, gathered from
+every rank, and the generator state every rank shares; every rank of a
+resumed run loads the same files and keeps its replica rows.  So a
+checkpoint resumes under another mesh, or under none, wherever the
+replica count divides (elastic resume).
 """
 from __future__ import annotations
 

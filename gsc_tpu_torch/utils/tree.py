@@ -39,3 +39,14 @@ class TensorTree:
                 v = v.unsqueeze(0).expand((batch,) + tuple(v.shape))
             out[f.name] = v
         return type(self)(**out)
+
+    def rows(self, lo: int, hi: int) -> "TensorTree":
+        """Rows ``lo`` to ``hi - 1`` of the leading [batch] dim of every
+        field that carries one; fields without it are shared and kept."""
+        out = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, torch.Tensor) and v.dim() > self._RANKS[f.name]:
+                v = v[lo:hi]
+            out[f.name] = v
+        return type(self)(**out)

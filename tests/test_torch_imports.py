@@ -358,3 +358,55 @@ def test_plugin_and_async_paths_run_with_jax_yaml_and_click_blocked(
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
     assert res.stdout.strip().endswith("ok")
+
+
+# the mesh path's modules (``train --mesh``), which the rglob above must
+# keep finding
+MESH_MODULES = ("meshspec.py", "parallel/mesh.py", "parallel/partition.py",
+                "parallel/dp.py", "parallel/harness.py", "agents/trainer.py",
+                "utils/checkpoint.py", "resilience/ckpt.py", "obs/run.py")
+
+
+def test_meshspec_imports_without_torch_or_numpy():
+    """The mesh grammar is loaded on its own, with torch and numpy
+    blocked, and gives the grammar's answers."""
+    for rel in MESH_MODULES:
+        assert (PKG / rel).is_file(), rel
+    code = "\n".join([
+        "import importlib.util, sys",
+        "for name in ('torch', 'numpy', 'jax', 'gsc_tpu'):",
+        "    sys.modules[name] = None",
+        "spec = importlib.util.spec_from_file_location(",
+        f"    'meshspec', {str(PKG / 'meshspec.py')!r})",
+        "mod = importlib.util.module_from_spec(spec)",
+        "spec.loader.exec_module(mod)",
+        "assert mod.parse_mesh_shape('4x2') == (4, 2)",
+        "assert mod.canonical_mesh(' 8 ') == '8x1'",
+        "assert mod.validate_partition_rules('sharded') == 'sharded'",
+        "print('ok')",
+    ])
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=60)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip() == "ok"
+
+
+def test_mesh_ranks_import_nothing_of_jax():
+    """A launched rank reports the modules its process loaded: none of
+    JAX or gsc_tpu beyond what a bare interpreter here preloads."""
+    from gsc_tpu_torch.parallel.mesh import launch
+
+    bare = subprocess.run(
+        [sys.executable, "-c", "import sys; print(' '.join(sys.modules))"],
+        capture_output=True, text=True, timeout=60).stdout.split()
+    bare = {m.split(".")[0] for m in bare}
+    loaded = launch(_loaded_roots, 2, 1, device="cpu", deadline_s=120)
+    for roots in loaded:
+        leaked = (roots - bare) & set(FORBIDDEN_ROOTS)
+        assert not leaked, leaked
+
+
+def _loaded_roots(mesh):
+    import gsc_tpu_torch.cli  # noqa: F401
+    import gsc_tpu_torch.parallel.partition  # noqa: F401
+    return {m.split(".")[0] for m in sys.modules}
