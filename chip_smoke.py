@@ -205,7 +205,10 @@ Phases (any failure exits non-zero and prints no result line):
    answers against unbatched calls and the plain actor; (f)
    ``cli.run_train`` on rung 5 (``random_network(200, num_ingress=8,
    seed=11)`` through GraphML, padded to 256 / 384, the mixed catalog,
-   ``mem_limit`` 1024) at 2 replicas for one 20-step episode and burst.
+   ``mem_limit`` 1024) at 2 replicas for one 20-step episode and burst;
+   (g) (f)'s run again with ``--no-perf`` and ``--perf``
+   (``rung5_ledger_memory``): the peak allocated device bytes of each,
+   and the cost ledger's held inputs settled mid-call.
    Prints each part's seconds, every run's env-steps/s and burst seconds
    and the serving numbers beside the card's name and power limit; the
    kernels line's launch counts include this phase's;
@@ -370,13 +373,34 @@ Phases (any failure exits non-zero and prints no result line):
    more cards 2x1 and 1x2 again on NCCL, one card per rank (4x1 and 2x2
    with four), ``torch.equal`` to (b), else one line saying it did not
    run; (f) a rank raising through the launcher's hook fails the launch
-   within its deadline and leaves no rank running.  Prints per leg the
+   within its deadline and leaves no rank running; (g) the cost ledger
+   on a mesh: first in (b)'s 2-rank processes, 2x1 with ``--perf``,
+   warm-up 50 steps, 2 episodes, rank 0's ``perf.json`` held as phase
+   22 holds its own (``check_perf_doc``) with ``chunk_step_sharded``'s
+   collectives > 0.  Prints per leg the
    env-steps/s, the seconds per learn burst, the batch gather's ms per
    gradient step, the ranks' start-up seconds and each rank's launches
    (every rank must launch every kernel of the path), beside the card's
    name and power limit; the kernels line's launch counts include this
    phase's, summed over ranks;
-22. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+22. the device-cost ledger and the runtime sentinels (``perf_slice``):
+   ``cli train`` on the flagship single env with ``--perf`` and
+   ``--no-perf`` (checkpoints byte-equal; the second run under
+   ``assert_no_retrace``, which a forced load trips), ``--replicas 64``,
+   and the server in phase 4's bursts (the mesh's ledger: phase 21
+   (g)): every ``perf.json`` entry available, its hand kernels'
+   launches from the profiler equal to their wrappers' posts wherever
+   the profiler kept its device records (an entry whose records it
+   dropped says so, with ``launches`` None, and is counted and printed;
+   at least one entry kept them), every timed entry 0 < mfu <= 1.05;
+   host syncs, device seconds, launches and capture seconds per entry
+   printed; a ``compile`` event of every library phase 2 built and
+   loaded; the kernels' bounds from ``ops.cost`` equal to the formulas
+   this script held before (the earlier phases run with ``--no-perf``,
+   so their numbers stay comparable); how many of PROFILE_ROUNDS short
+   profiles of 9 fixed launches lost device records; the kernels line's
+   launch counts include this phase's;
+23. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Tolerances (stated here, used below): the attention kernel against its
 plain version rtol 1e-5 / atol 1e-5 (f32 in another summation order: the
@@ -447,6 +471,12 @@ import tempfile
 import time
 from pathlib import Path
 
+# the kernels' work counts and the card's rates (one H100 SXM, NVIDIA data
+# sheet: HBM3, f32 outside the tensor cores, dense bf16) live in the
+# package, where the cost ledger reads them too
+from gsc_tpu_torch.ops.cost import (attention_backward_work, attention_work,
+                                    least_ms, substep_work)
+
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-5
 # the backward kernel against its plain version, per output tensor: the
 # largest difference within BWD_SCALE of the tensor's largest entry plus
@@ -455,13 +485,6 @@ BWD_SCALE, BWD_ATOL = 1e-5, 1e-5
 ANSWER_RTOL, ANSWER_ATOL = 1e-5, 1e-6
 THRESH_TOL = 1e-4
 F64_RATIO, F64_FLOOR = 4.0, 1e-7
-# one H100 SXM (NVIDIA data sheet): HBM rate and the f32 rate outside the
-# tensor cores, which is what this f32 CUDA-core kernel can use
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-# the bf16 peak (tensor cores, dense): the least time for work on bf16
-# inputs, whatever pipe a kernel uses
-BF16_FLOP_PER_S = 989e12
 SHAPES = [(1, 24, 22), (4, 24, 22), (8, 24, 22), (64, 24, 22),
           (100, 24, 22), (4, 64, 22)]
 # the learn burst's batch, where the training path launches the attention
@@ -508,8 +531,10 @@ INTERROUTE_NET = ["--network", "interroute", "--max-nodes", "128",
 LARGE_SERVE = (16, 4)
 SUB_TIMING_BATCHES = (1, 64, 256)
 SUB_MAIN_BATCH = 64
+# the earlier phases' runs keep their numbers without the cost ledger
+# (phase 22 runs it)
 TRAIN_ARGS = ["--replicas", "64", "--chunk", "50", "--episodes", "2",
-              "--seed", "0"]
+              "--seed", "0", "--no-perf"]
 # phase 16: the registry mix (the schedule's Abilene, a shaped Abilene,
 # a star with a dead link from interval 3, a seeded random network) and
 # the factory mix; the flagship agent with node shuffling
@@ -536,10 +561,6 @@ GEN_EPISODES = 3
 GEN_PERIOD = 1
 # profiled rollout steps of its split of a single-env step
 GEN_PROFILE_STEPS = 20
-# operations that every flow slot does in every substep, whatever its
-# phase (the phase test and the timer's advance): a lower count, since
-# what else a slot does depends on phases this script does not trace
-OPS_PER_SLOT_SUBSTEP = 2
 # (requests, concurrency, deadline ms) of the serving bursts: concurrency
 # 4 at the default 5 ms deadline is the measured load; 1 and 8 make the
 # batcher fill buckets 1 and 8. The concurrency-8 burst waits up to 50 ms
@@ -623,9 +644,20 @@ MESH_AGENT_YAML = (
     "objective: prio-flow\n"
     "observation_space: [ingress_traffic, node_load, node_cap]\n"
     "target_success: auto\ngnn_impl: pallas\n")
-MESH_ARGS = ["--replicas", "64", "--chunk", "50", "--seed", "0"]
+MESH_ARGS = ["--replicas", "64", "--chunk", "50", "--seed", "0",
+             "--no-perf"]
 MESH_DEADLINE_S = 600.0
+# a cold run and two warm ones
 MESH_ONE_RUNS = 3
+# phase 22 and phase 21 (g): the cost ledger on MESH_AGENT_YAML's
+# flagship agent with a 50-step warm-up (every episode ends in a learn
+# burst), 2 episodes of 50 steps: the observed one, left out of the
+# timings, and one timed
+PERF_WARMUP = 50
+PERF_EPISODES = 2
+PERF_MFU_MAX = 1.05
+# phase 22 (e): short profiles of a fixed sequence of launches
+PROFILE_ROUNDS = 200
 
 
 class SmokeFailure(RuntimeError):
@@ -838,30 +870,12 @@ def grad_input(b, n, f, seed, torch, device):
         np.float32)).to(device)
 
 
-def flop_rate(t) -> float:
-    """The card's peak operation rate for inputs of ``t``'s dtype."""
-    import torch
-
-    return BF16_FLOP_PER_S if t.dtype == torch.bfloat16 else F32_FLOP_PER_S
-
-
 def gat_bound(args):
     """Least time for the attention stage on these inputs: every input
     read once and the output written once (in the inputs' dtype) over the
     HBM rate, against the operations this adjacency needs over the peak
-    rate for the features' dtype."""
-    xl, xr, att, bias, adj = args
-    b, n, f = xl.shape
-    nbytes = sum(t.numel() * t.element_size() for t in args) \
-        + xl.numel() * xl.element_size()
-    edges = int(adj.sum())
-    rows = int(adj.any(dim=-1).sum())
-    # per edge: add, leaky select, multiply-add into the logit (4F), exp,
-    # normalise (2), weighted accumulate (2F); per row: divide + bias (2F)
-    ops = edges * (6 * f + 3) + rows * 2 * f
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / flop_rate(xl) * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    rate for the features' dtype (``ops.cost.attention_work``)."""
+    return least_ms(attention_work(*args), args[0].dtype)
 
 
 def gat_backward_bound(args, grad):
@@ -869,22 +883,11 @@ def gat_backward_bound(args, grad):
     grad_out, xl, xr, att and adj read once and d_xl, d_xr (in the
     features' dtype), d_att, d_bias (f32) written once over the HBM rate,
     against the operations the closed form needs on this adjacency over
-    the peak rate for the features' dtype."""
+    the peak rate for the features' dtype
+    (``ops.cost.attention_backward_work``)."""
     xl, xr, att, _, adj = args
-    f = xl.shape[-1]
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (grad, xl, xr, att, adj)) \
-        + 2 * xl.numel() * xl.element_size() + 2 * f * att.element_size()
-    edges = int(adj.sum())
-    rows = int(adj.any(dim=-1).sum())
-    # per edge: the logit again (4F), exp and normalise (3), dalpha (2F),
-    # dl (4), d_att's multiply-add (2F), LeakyReLU' and dl x att (2F), the
-    # d_xr add (F), d_xl's alpha x g multiply-add and add (3F); per row:
-    # g / d_i, the empty-row select and the d_bias add (3F)
-    ops = edges * (14 * f + 7) + rows * 3 * f
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / flop_rate(xl) * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return least_ms(attention_backward_work(grad, xl, xr, att, adj),
+                    xl.dtype)
 
 
 def dense_vjp(args, grad, mean, torch):
@@ -1658,54 +1661,37 @@ def substep_battery(torch, dev):
 def substep_bound(engine, before, after, batch, substeps=None, written=(),
                   extra_bytes=0, skip=()):
     """Least time for one interval (or ``substeps`` substeps) of ``batch``
-    replicas, from the bytes it must touch: every state leaf read once and
-    every leaf the substep writes written once (``placed`` and
-    ``sf_startup`` only where named in ``written``, as per-flow control
-    writes them; the leaves named in ``skip`` not at all, as per-flow
-    control touches neither the WRR schedule nor its counts), except the
-    two release rings, of which only the rows the
-    interval releases (one per substep from the interval's first) and the
-    rows it adds holds into are read and written; the topology (shared by
-    the replicas), the interval's capacities, the traffic records the
-    interval admitted, one arrival time per substep (the next record's, to
-    see that it is not due) and ``extra_bytes`` (per-flow decisions) read
-    once.  Against a lower count of the slots' operations over the f32
-    rate."""
+    replicas (``ops.cost.substep_work``), with the two release rings'
+    rows it touches and the traffic records it admitted read from the
+    state ``after`` it: every state leaf read once and every leaf the
+    substep writes written once (``placed`` and ``sf_startup`` only where
+    named in ``written``, as per-flow control writes them; the leaves
+    named in ``skip`` not at all, as per-flow control touches neither the
+    WRR schedule nor its counts), of the release rings only the rows the
+    interval releases (one per substep from the interval's first) and
+    the rows it adds holds into; the topology, the interval's
+    capacities, the admitted records, one arrival time per substep and
+    ``extra_bytes`` (per-flow decisions) read once.  Against a lower
+    count of the slots' operations over the f32 rate.  Returns (ms,
+    "bytes" or "operations", bytes, ring rows)."""
     import torch
 
-    from gsc_tpu_torch.sim.cases import state_leaves
-
-    read_only = tuple(n for n in ("sf_startup", "placed", "schedule")
-                      if n not in written)
-    rings = ("rel_node", "rel_edge")
-    nbytes = extra_bytes
-    for name, t in state_leaves(before).items():
-        if name == "run_idx" or name in rings or name in skip:
-            continue
-        n = t.numel() * t.element_size()
-        nbytes += n if name in read_only else 2 * n
     h = engine.H
     k = engine.substeps if substeps is None else substeps
     g0 = torch.round(before.t / engine.dt).long() % h               # [B]
     rows = torch.arange(h, device=g0.device)
     released = (rows[None] - g0[:, None]) % h < k                    # [B, H]
-    ring_rows = 0
-    for name in rings:
+    ring_rows = {}
+    for name in ("rel_node", "rel_edge"):
         a, z = getattr(before, name), getattr(after, name)
         a = a.reshape(a.shape[0], h, -1)
         z = z.reshape(z.shape[0], h, -1)
-        touched = int((released | (a != z).any(-1)).sum())
-        ring_rows += touched
-        nbytes += 2 * touched * a.shape[-1] * a.element_size()
-    n_nn, e = engine.N * engine.N, engine.E
-    nbytes += 3 * n_nn * 4 + 2 * e * 4 + batch * engine.N * 4
+        ring_rows[name] = int((released | (a != z).any(-1)).sum())
     admitted = int((after.cursor - before.cursor).sum())
-    nbytes += admitted * 7 * 4 + k * batch * 4
-    ops = OPS_PER_SLOT_SUBSTEP * engine.M * k * batch
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, ring_rows
+    work = substep_work(engine, before, batch, k, written, skip, extra_bytes,
+                        ring_rows, admitted)
+    ms, by = least_ms(work)
+    return ms, by, int(work.bytes), sum(ring_rows.values())
 
 
 def substep_timings(torch, dev, smi, clocked, parent):
@@ -1830,6 +1816,57 @@ class plain_attention:
         gnn.attention_op = self.saved
 
 
+def rung5_ledger_memory(torch, smi, args):
+    """Phase 14 (g): ``cli.run_train`` of ``args`` (rung 5) with
+    ``--no-perf`` and with ``--perf``: both runs' peak allocated device
+    bytes printed ((f)'s run adds its checks' own tensors to its peak),
+    and how often the ledger's capture let go of more than
+    ``analysis.launches.HOLD_BYTES`` of held inputs mid-call (a learn
+    burst builds an adjacency of 100 x 256 x 256 per forward); the
+    ledger's entries available, its ``perf.json`` on the card."""
+    from gsc_tpu_torch import cli
+    from gsc_tpu_torch.analysis.launches import HOLD_BYTES
+    from gsc_tpu_torch.obs import perf as perf_mod
+
+    settle = perf_mod._Capture._settle
+    settles = []
+
+    def counted(self):
+        settles.append(self.counter.held_bytes)
+        return settle(self)
+
+    peaks = {}
+    with tempfile.TemporaryDirectory() as d:
+        for flag, extra in (("--no-perf", []), ("--perf", ["--obs-dir", d])):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            perf_mod._Capture._settle = counted
+            try:
+                cli.run_train(args + [flag] + extra)
+            finally:
+                perf_mod._Capture._settle = settle
+            torch.cuda.synchronize()
+            peaks[flag] = torch.cuda.max_memory_allocated()
+        with open(os.path.join(d, "perf.json")) as f:
+            doc = json.load(f)
+    entries = doc["entries"]
+    check(doc["backend"] == "gpu" and set(entries) == {"chunk_step",
+                                                       "learn_burst"}
+          and all(e["available"] for e in entries.values()),
+          f"rung 5 --perf: entries "
+          f"{ {k: e.get('error', 'ok') for k, e in entries.items()} }")
+    check(len(settles) > 0, "rung 5 --perf: the capture never let go of "
+          f"its held inputs (HOLD_BYTES {HOLD_BYTES})")
+    print(f"phase 14 (g) rung5 peak allocated device bytes: --no-perf "
+          f"{peaks['--no-perf']}, --perf {peaks['--perf']} (difference "
+          f"{peaks['--perf'] - peaks['--no-perf']}); the capture let go "
+          f"of its held inputs {len(settles)} times mid-call at "
+          f"{max(settles)} bytes held (HOLD_BYTES {HOLD_BYTES}); "
+          f"learn_burst {entries['learn_burst']['flops']:.6g} FLOP, "
+          f"host_syncs {entries['learn_burst']['host_syncs']}, capture_s "
+          f"{entries['learn_burst']['capture_s']} on {smi}", flush=True)
+
+
 def train_slice(torch, dev, smi, precision="f32", checkpoint=None,
                 args=None, label="", result_dir=True):
     """Phase 8 (f32) or 10 (bf16): two training episodes through the CLI
@@ -1879,7 +1916,7 @@ def train_slice(torch, dev, smi, precision="f32", checkpoint=None,
     ParallelDDPG.rollout_episodes = synced(saved[0], "rollout")
     ParallelDDPG.learn_burst = synced(saved[1], "learn_burst")
     args = TRAIN_ARGS if args is None else args
-    argv = args + ["--precision", precision]
+    argv = args + ["--precision", precision, "--no-perf"]
     if checkpoint:
         argv += ["--checkpoint", checkpoint]
     try:
@@ -2304,7 +2341,7 @@ def generalization_slice(torch, dev, smi):
             for op in ops.values():
                 op.launches = 0
             res_b = cli.run_train(base + [
-                "--episodes", str(GEN_EPISODES), "--result-dir",
+                "--no-perf", "--episodes", str(GEN_EPISODES), "--result-dir",
                 os.path.join(root, "b")])
             counts = {k: op.launches for k, op in ops.items()}
         finally:
@@ -2382,12 +2419,12 @@ def generalization_slice(torch, dev, smi):
         laps.lap("b")
 
         # (c) two episodes, a checkpoint, a resumed third: bit for bit
-        res_c = cli.run_train(base + ["--episodes", str(GEN_EPISODES - 1),
-                                      "--result-dir",
+        res_c = cli.run_train(base + ["--no-perf", "--episodes",
+                                      str(GEN_EPISODES - 1), "--result-dir",
                                       os.path.join(root, "c")])
         laps.lap("c")
         res_r = cli.run_train(base + [
-            "--episodes", str(GEN_EPISODES), "--resume",
+            "--no-perf", "--episodes", str(GEN_EPISODES), "--resume",
             res_c["summary"]["checkpoint"], "--result-dir",
             os.path.join(root, "r")])
         check(res_r["summary"]["start_episode"] == GEN_EPISODES - 1,
@@ -2832,15 +2869,18 @@ def large_network_slice(torch, dev, smi, parent=None):
         add(serve_large(torch, dev, smi, load_agent(paths["interroute.yaml"]),
                         load_sim(paths["sim.yaml"]), ck))
         laps.lap("(e) serve")
+        rung5 = ["--network", paths["rung5.graphml"], "--max-nodes", "256",
+                 "--max-edges", "384", "--service", paths["mixed.yaml"],
+                 "--agent-config", paths["rung5.yaml"],
+                 "--simulator-config", paths["sim.yaml"], "--replicas", "2",
+                 "--chunk", "20", "--episodes", "1"]
         counts, runs["rung5 f32"] = train_slice(
             torch, dev, smi, "f32", label=" rung5", result_dir=False,
-            args=["--network", paths["rung5.graphml"], "--max-nodes", "256",
-                  "--max-edges", "384", "--service", paths["mixed.yaml"],
-                  "--agent-config", paths["rung5.yaml"],
-                  "--simulator-config", paths["sim.yaml"], "--replicas", "2",
-                  "--chunk", "20", "--episodes", "1"])
+            args=rung5)
         add(counts)
         laps.lap("(f) rung5")
+        rung5_ledger_memory(torch, smi, rung5)
+        laps.lap("(g) rung5 ledger")
     finally:
         shutil.rmtree(d, ignore_errors=True)
     for name, run in runs.items():
@@ -3272,8 +3312,8 @@ def default_run_slice(torch, dev, smi):
                     .replace("nb_steps_warmup_critic: 200",
                              f"nb_steps_warmup_critic: {DEFAULT_RUN_STEPS}")
                     + "gnn_impl: pallas\n")
-        base = ["--scheduler", sched, "--seed", "0", "--agent-config",
-                agent_yaml, "--simulator-config",
+        base = ["--scheduler", sched, "--seed", "0", "--no-perf",
+                "--agent-config", agent_yaml, "--simulator-config",
                 os.path.join(cfg, "simulator.yaml"), "--service",
                 os.path.join(cfg, "service_abc.yaml")]
         laps.lap("setup")
@@ -3696,7 +3736,8 @@ def serving_slice(torch, dev, smi, ck_f32, ck_bf16):
         t_train = time.perf_counter()
         trained = cli.run_train(TRAIN_ARGS[:2] + [
             "--chunk", str(TWS_STEPS), "--episodes", str(TWS_EPISODES),
-            "--seed", "0", "--agent-config", agent_yaml, "--hot-swap-dir",
+            "--seed", "0", "--no-perf", "--agent-config", agent_yaml,
+            "--hot-swap-dir",
             pub, "--publish-interval", "1"])
         t_trained = time.perf_counter()
         # every worker adopts the last version, then the load stops
@@ -3777,7 +3818,7 @@ def serving_slice(torch, dev, smi, ck_f32, ck_bf16):
             ["serve", "--checkpoint", ck_f32, "--requests",
              str(TRACE_REQUESTS), "--concurrency", str(SERVE_CONCURRENCY),
              "--pool-steps", str(POOL_STEPS), "--trace-sample", "1",
-             "--slo-p99-ms", "10", "--result-dir", rdir]))
+             "--slo-p99-ms", "10", "--result-dir", rdir, "--no-perf"]))
         check(rc == 0, f"cli serve --trace-sample 1 returned {rc}")
         (run_dir,) = [os.path.join(rdir, "serve", d)
                       for d in os.listdir(os.path.join(rdir, "serve"))]
@@ -4086,6 +4127,7 @@ def perflow_slice(torch, dev, smi):
         try:
             res = cli.run_train(["--scheduler", sched, "--replicas", "1",
                                  "--seed", "0", "--episodes", "1",
+                                 "--no-perf",
                                  "--agent-config", agent_yaml,
                                  "--simulator-config", sim_pred, "--service",
                                  os.path.join(cfg, "service_abc.yaml")])
@@ -4778,7 +4820,12 @@ def mesh_slice(torch, dev, smi):
                                 "sharded"]),
             ("(c) 2x2", past + ["--mesh", "2x2", "--partition-rules",
                                 "sharded"])]
-    two = [("(b) 2x1", warm + ["--mesh", "2x1", "--partition-rules",
+    # (g) first in the 2-rank processes: the cost ledger on a mesh
+    perf_dir = os.path.join(root, "perf")
+    two = [("(g) 2x1 --perf", argv(PERF_WARMUP, PERF_EPISODES,
+                                   "--result-dir", perf_dir) + [
+                "--mesh", "2x1", "--partition-rules", "sharded", "--perf"]),
+           ("(b) 2x1", warm + ["--mesh", "2x1", "--partition-rules",
                                "sharded"]),
            ("(b) 1x2", warm + ["--mesh", "1x2", "--partition-rules",
                                "sharded"]),
@@ -4851,10 +4898,23 @@ def mesh_slice(torch, dev, smi):
           f"{sorted(starts)}", flush=True)
     laps.lap("d")
 
+    # (g) rank 0's ledger of the mesh run
+    with open(os.path.join(perf_dir, "perf.json")) as f:
+        doc = json.load(f)
+    check(set(doc["entries"]) == {"chunk_step", "chunk_step_sharded",
+                                  "learn_burst"},
+          f"(g) entries {sorted(doc['entries'])}")
+    lost = []
+    check_perf_doc(torch, smi, "(g) --mesh 2x1", doc,
+                   {"chunk_step", "chunk_step_sharded"}, lost=lost)
+    print(f"  (g) profiles that lost device records: {lost}", flush=True)
+    check(doc["entries"]["chunk_step_sharded"]["collectives"]["count"] > 0,
+          "(g) the mesh's chunk_step_sharded recorded no collective")
+
     # (e) one card per rank on NCCL, where the machine has the cards
     cards = torch.cuda.device_count()
     if cards >= 2:
-        group = [("(e) 2x1", two[0][1]), ("(e) 1x2", two[1][1])]
+        group = [("(e) 2x1", two[1][1]), ("(e) 1x2", two[2][1])]
         outs, _ = legs(2, [a for _, a in group], None)
         if cards >= 4:
             more = [("(e) 4x1", four[0][1]),
@@ -4897,6 +4957,344 @@ def mesh_slice(torch, dev, smi):
     return total
 
 
+def bounds_as_before(torch, dev, smi):
+    """Phase 22 (d): each kernel's bound as ``ops.cost`` counts it (the
+    functions above) against the formulas this script held before the
+    counts moved into the package (their text below, with the H100 SXM
+    data sheet's rates as literals), at phase 3's shapes (f32 and bf16)
+    and phase 7's batches: printed side by side, equal."""
+    from gsc_tpu_torch.sim import cases
+    from gsc_tpu_torch.sim.state import state_leaves
+    from gsc_tpu_torch.ops.substep import substep_megakernel
+
+    def least(nbytes, ops, bf16):
+        t_bytes = nbytes / 3.35e12 * 1e3
+        t_ops = ops / (989e12 if bf16 else 67e12) * 1e3
+        return max(t_bytes, t_ops)
+
+    def old_gat(args):
+        xl, _, _, _, adj = args
+        f = xl.shape[-1]
+        nbytes = sum(t.numel() * t.element_size() for t in args) \
+            + xl.numel() * xl.element_size()
+        ops = (int(adj.sum()) * (6 * f + 3)
+               + int(adj.any(dim=-1).sum()) * 2 * f)
+        return least(nbytes, ops, xl.dtype == torch.bfloat16)
+
+    def old_backward(args, grad):
+        xl, xr, att, _, adj = args
+        f = xl.shape[-1]
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (grad, xl, xr, att, adj)) \
+            + 2 * xl.numel() * xl.element_size() + 2 * f * att.element_size()
+        ops = (int(adj.sum()) * (14 * f + 7)
+               + int(adj.any(dim=-1).sum()) * 3 * f)
+        return least(nbytes, ops, xl.dtype == torch.bfloat16)
+
+    def old_substep(engine, before, after, batch):
+        read_only = ("sf_startup", "placed", "schedule")
+        rings = ("rel_node", "rel_edge")
+        nbytes = 0
+        for name, t in state_leaves(before).items():
+            if name == "run_idx" or name in rings:
+                continue
+            n = t.numel() * t.element_size()
+            nbytes += n if name in read_only else 2 * n
+        h, k = engine.H, engine.substeps
+        g0 = torch.round(before.t / engine.dt).long() % h
+        rows = torch.arange(h, device=g0.device)
+        released = (rows[None] - g0[:, None]) % h < k
+        for name in rings:
+            a = getattr(before, name).reshape(batch, h, -1)
+            z = getattr(after, name).reshape(batch, h, -1)
+            touched = int((released | (a != z).any(-1)).sum())
+            nbytes += 2 * touched * a.shape[-1] * a.element_size()
+        nbytes += 3 * engine.N * engine.N * 4 + 2 * engine.E * 4 \
+            + batch * engine.N * 4
+        nbytes += int((after.cursor - before.cursor).sum()) * 7 * 4 \
+            + k * batch * 4
+        return least(nbytes, 2 * engine.M * k * batch, False)
+
+    rows = []
+    for shape in SHAPES:
+        args = gat_inputs(*shape, 0, torch, dev)
+        grad = torch.randn_like(args[0])
+        for label, a, g in (("f32", args, grad),
+                            ("bf16", (args[0].bfloat16(), args[1].bfloat16(),
+                                      *args[2:]), grad.bfloat16())):
+            rows.append((f"attention {label} {shape}", old_gat(a),
+                         gat_bound(a)[0]))
+            rows.append((f"attention backward {label} {shape}",
+                         old_backward(a, g), gat_backward_bound(a, g)[0]))
+    for b in SUB_TIMING_BATCHES:
+        case = cases.abilene_case(batch=b, intervals=2, seed=7)
+        eng = case.engine
+        traffic = case.traffic.to(dev)
+        st, cap = eng.begin_interval(cases.run_case(case, dev)[-1], traffic,
+                                     case.schedule.to(dev),
+                                     case.placement.to(dev))
+        after = substep_megakernel.launch(eng, st, case.topo.to(dev).expand(b),
+                                          traffic, cap)
+        rows.append((f"substep B={b}", old_substep(eng, st, after, b),
+                     substep_bound(eng, st, after, b)[0]))
+    for label, old, new in rows:
+        print(f"  bound {label}: before {old:.9f} ms, ops.cost {new:.9f} "
+              "ms", flush=True)
+        check(math.isclose(old, new, rel_tol=1e-12, abs_tol=0.0),
+              f"the bound of {label} moved: {old} -> {new}")
+    print(f"  (d) {len(rows)} bounds unchanged by the move into ops.cost "
+          f"on {smi}", flush=True)
+
+
+def profiler_losses(torch, dev, smi, rounds=PROFILE_ROUNDS):
+    """Phase 22 (e): how often the card's profiler drops device records
+    in this process: ``rounds`` profiles, each of the same 9 launches
+    (kernel #1, a matmul and an add, three times) between two
+    synchronizations, and the number whose records fell short, by
+    kind, printed (no bound: the profiler's behaviour, not the port's)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gsc_tpu_torch.analysis.launches import launch_kind
+    from gsc_tpu_torch.ops.gat_attention import gat_attention
+
+    xl, xr, att, bias, adj = gat_inputs(8, 24, 22, 0, torch, dev)
+    m = torch.randn(64, 64, device=dev)
+
+    def work():
+        for _ in range(3):
+            gat_attention(xl, xr, att, bias, adj)
+            m @ m
+            m.add_(0.0)
+
+    work()
+    short, lost = [], {}
+    for r in range(rounds):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            work()
+            torch.cuda.synchronize()
+        kinds = [launch_kind(e.name())
+                 for e in p.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA]
+        want = {"gat_attention": 3, "gemm": 3, "other": 3}
+        seen = {k: kinds.count(k) for k in want}
+        if any(seen[k] < want[k] for k in want):
+            short.append(r)
+            for k in want:
+                lost[k] = lost.get(k, 0) + max(want[k] - seen[k], 0)
+    print(f"  (e) the profiler kept fewer than the 9 device records of "
+          f"{len(short)} of {rounds} profiles (rounds {short[:10]}), "
+          f"records lost by kind {lost}, on {smi}", flush=True)
+    return len(short)
+
+
+def check_perf_doc(torch, smi, label, doc, timed, timed_buckets=None,
+                   lost=None):
+    """One ``perf.json`` of phases 21 (g) and 22: schema 1 on the card,
+    its name and power limit, the H100 SXM peaks; every entry available,
+    its hand kernels' launches from the profiler equal to what their
+    wrappers posted, and every entry of ``timed`` (and every served
+    bucket that was dispatched) 0 < mfu <= PERF_MFU_MAX; prints each
+    entry's counts, host syncs, device and capture seconds and MFU.
+    Served buckets with an MFU join ``timed_buckets``.  The card's
+    profiler drops a profile's device records now and then (all of
+    them, or some): an entry whose hand kernels' records fall short of
+    the posts has ``launches`` None and says so (``no_profile``), and
+    joins ``lost``; returns the entries whose profile was complete."""
+    complete = 0
+    check(doc["schema_version"] == 1 and doc["backend"] == "gpu",
+          f"{label}: perf.json schema/backend {doc['schema_version']} "
+          f"{doc['backend']}")
+    card = doc["card"] or {}
+    check(card.get("name") == torch.cuda.get_device_name(0)
+          and card.get("power_limit"), f"{label}: card {card}")
+    check(doc["peaks"] is not None,
+          f"{label}: no peaks for {card.get('name')}")
+    for name, e in sorted(doc["entries"].items()):
+        check(e.get("available"), f"{label} {name}: {e.get('error')}")
+        check(e["fusions"] is None and e["kernels"],
+              f"{label} {name}: fusions {e['fusions']}, hand kernels "
+              f"{e['kernels']}")
+        if e["launches"] is None:
+            check("the profiler lost device records"
+                  in (e.get("no_profile") or ""),
+                  f"{label} {name}: launches None ({e.get('no_profile')})")
+            if lost is not None:
+                lost.append(f"{label} {name}")
+        else:
+            complete += 1
+        kinds = (e["launches"] or {}).get("by_kind") or {}
+        for k, rec in e["kernels"].items():
+            check(e["launches"] is None or kinds.get(k, 0) == rec["launches"],
+                  f"{label} {name}: the profiler saw {kinds.get(k, 0)} "
+                  f"{k} launches, the wrappers posted {rec['launches']}")
+        mfu = e.get("mfu")
+        if name in timed or (name.startswith("serve_policy_b")
+                             and e.get("dispatches")):
+            check(mfu is not None and 0 < mfu <= PERF_MFU_MAX,
+                  f"{label} {name}: mfu {mfu}")
+        if name.startswith("serve_policy_b") and mfu \
+                and timed_buckets is not None:
+            timed_buckets.add(name)
+        print(f"  {label} {name}: {e['flops']:.6g} FLOP, "
+              f"{e['bytes_accessed']:.6g} bytes, "
+              f"{(e['launches'] or {}).get('count')} launches {kinds}, "
+              "hand kernels "
+              f"{ {k: r['launches'] for k, r in e['kernels'].items()} }, "
+              f"host_syncs {e['host_syncs']}, device_s {e['device_s']}, "
+              f"capture_s {e['capture_s']}, collectives "
+              f"{e['collectives']['count']} ({e['collectives']['bytes']} "
+              f"bytes); {e.get('dispatches')} timed dispatches, wall "
+              f"{e.get('wall_s_mean')} s each, mfu {mfu} on {smi}",
+              flush=True)
+    return complete
+
+
+def perf_slice(torch, dev, smi, monitor):
+    """Phase 22: the device-cost ledger and the runtime sentinels.  (a)
+    the flagship single env (``MESH_AGENT_YAML``, warm-up PERF_WARMUP,
+    PERF_EPISODES episodes of 50 steps, f32) through ``cli.run_train``
+    with ``--perf`` and again with ``--no-perf`` under
+    ``assert_no_retrace`` (the second run in this process builds and
+    loads nothing; a forced load inside the guard trips it): checkpoints
+    byte-equal, both walls printed; (b) ``--replicas 64 --chunk 50``
+    (the mesh's ledger is phase 21 (g)'s, in its rank processes); (c)
+    the seeded-actor server in phase 4's bursts, one observer each.
+    Every ``perf.json`` passes ``check_perf_doc`` (every fused training
+    entry timed; every bucket in at least one burst; at least one entry
+    whose profile kept its device records).  ``monitor``, started before
+    phase 2's builds, holds a ``compile`` event of every library.  (d)
+    ``bounds_as_before``; (e) ``profiler_losses``.  Returns the path's
+    kernel launches."""
+    from gsc_tpu_torch import cli
+    from gsc_tpu_torch.analysis import RetraceError, assert_no_retrace
+    from gsc_tpu_torch.analysis.sentinels import library_source
+    from gsc_tpu_torch.obs import RunObserver
+    from gsc_tpu_torch.ops.build import build_library
+    from gsc_tpu_torch.ops.gat_attention import SOURCE as GAT_SOURCE
+    from gsc_tpu_torch.serve import run_serve
+
+    laps = Laps()
+    total = {}
+    root = tempfile.mkdtemp(prefix="gsc_perf_")
+    yml = os.path.join(root, "agent.yaml")
+    with open(yml, "w") as f:
+        f.write(MESH_AGENT_YAML.format(warmup=PERF_WARMUP))
+    base = ["--agent-config", yml, "--seed", "0", "--episodes",
+            str(PERF_EPISODES)]
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    def run(label, argv):
+        cli.zero_kernel_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cli.run_train(argv + ["--result-dir",
+                                    os.path.join(root, label)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        add(cli.kernel_launches())
+        return out, wall
+
+    def perf_doc(label):
+        with open(os.path.join(root, label, "perf.json")) as f:
+            return json.load(f)
+
+    timed_buckets = set()
+    lost, complete = [], [0]
+
+    def check_doc(label, doc, timed):
+        complete[0] += check_perf_doc(torch, smi, label, doc, timed,
+                                      timed_buckets, lost)
+
+    # (a) the single env, ledger on and off
+    on, wall_on = run("single", base)
+    with assert_no_retrace():
+        off, wall_off = run("single_noperf", base + ["--no-perf"])
+    tripped = False
+    try:
+        with assert_no_retrace("gat_attention"):
+            build_library(GAT_SOURCE)
+    except RetraceError:
+        tripped = True
+    check(tripped, "assert_no_retrace did not trip on a forced load")
+    ck_on, ck_off = (os.path.join(root, d, "checkpoint")
+                     for d in ("single", "single_noperf"))
+    for fname in sorted(os.listdir(ck_on)):
+        with open(os.path.join(ck_on, fname), "rb") as a, \
+                open(os.path.join(ck_off, fname), "rb") as b:
+            check(a.read() == b.read(),
+                  f"{fname} differs between --perf and --no-perf")
+    check(not os.path.exists(os.path.join(root, "single_noperf",
+                                          "perf.json")),
+          "--no-perf wrote perf.json")
+    with open(os.path.join(root, "single", "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    costs = [ev["fn"] for ev in events if ev["event"] == "compile_cost"]
+    check(costs == ["episode_step"], f"compile_cost events {costs}")
+    start = [ev for ev in events if ev["event"] == "run_start"][0]
+    check(start["perf"] is True and start["compile_events"] is True,
+          f"run_start perf {start['perf']}, compile_events "
+          f"{start['compile_events']}")
+    check_doc("(a) single env", perf_doc("single"), {"episode_step"})
+    print(f"  (a) checkpoints byte-equal with --perf and --no-perf; train_s "
+          f"{on['summary']['train_s']:.3f} and "
+          f"{off['summary']['train_s']:.3f}, wall {wall_on:.3f} and "
+          f"{wall_off:.3f} s; the second run under assert_no_retrace, a "
+          "forced load tripped it", flush=True)
+    laps.lap("a")
+
+    # (b) 64 replicas
+    rep, wall_rep = run("replicas", base + ["--replicas", "64", "--chunk",
+                                            "50"])
+    check_doc("(b) --replicas 64", perf_doc("replicas"), {"chunk_step"})
+    laps.lap("b")
+
+    # (c) serving, phase 4's bursts
+    for r, c, deadline in BURSTS:
+        label = f"serve_c{c}"
+        cli.zero_kernel_launches()
+        run_serve(device=dev, pool_steps=POOL_STEPS, requests=r,
+                  concurrency=c, buckets=BUCKETS, deadline_ms=deadline,
+                  seed=0, seeded_actor=True,
+                  observer=RunObserver(os.path.join(root, label), perf=True))
+        add(cli.kernel_launches())
+        doc = perf_doc(label)
+        check(sorted(doc["entries"]) == sorted(f"serve_policy_b{b}"
+                                               for b in BUCKETS),
+              f"{label}: entries {sorted(doc['entries'])}")
+        check_doc(f"(c) serve c={c}", doc, set())
+    check(timed_buckets == {f"serve_policy_b{b}" for b in BUCKETS},
+          f"buckets timed {sorted(timed_buckets)}")
+    laps.lap("c")
+
+    # the monitor started before phase 2's builds: a compile event of
+    # every library, plugin headers included
+    seen = monitor.snapshot()
+    sources = {library_source(fn) for fn in seen}
+    for want in ("gat_attention", "gat_attention_backward",
+                 "substep_megakernel", "resource_plugins"):
+        check(want in sources, f"no compile event of {want}: {seen}")
+    check(complete[0] > 0, "no profile of phase 22 kept its device records")
+    print(f"  compile events (builds, loads) per library: {seen}; "
+          f"profiles that lost device records: {len(lost)} of "
+          f"{len(lost) + complete[0]} entries {lost}", flush=True)
+
+    # (d) the bounds, before and after the move into the package
+    bounds_as_before(torch, dev, smi)
+    laps.lap("d")
+    # (e) the profiler's own losses in this process
+    profiler_losses(torch, dev, smi)
+    laps.lap("e")
+    print("  phase 22 parts: " + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in laps.seconds.items()), flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -4929,6 +5327,9 @@ def main() -> int:
 
     phases.lap("1")
     # ---- 2. build ------------------------------------------------------
+    # phase 22 reads every build's and load's compile event
+    from gsc_tpu_torch.analysis import CompileMonitor
+    monitor = CompileMonitor(watch=None).start()
     clocked = SubstepMegakernel(stage_clocks=True)
     clocked_fwd = GatAttention(stage_clocks=True)
     clocked_bwd = GatAttentionBackward(stage_clocks=True)
@@ -5184,7 +5585,18 @@ def main() -> int:
                    "substep_megakernel"):
         check(mesh_launches.get(kernel, 0) > 0,
               f"{kernel} was not launched on the mesh path")
-    path_launches = {k: mesh_launches.get(k, 0) + train_launches.get(k, 0)
+    # ---- 22. the cost ledger and the sentinels --------------------------
+    print("phase 22, the device-cost ledger (--perf) and the sentinels:",
+          flush=True)
+    perf_launches = perf_slice(torch, dev, smi, monitor)
+    monitor.stop()
+    phases.lap("22")
+    for kernel in ("gat_attention", "gat_attention_backward",
+                   "substep_megakernel"):
+        check(perf_launches.get(kernel, 0) > 0,
+              f"{kernel} was not launched on the --perf path")
+    path_launches = {k: mesh_launches.get(k, 0) + perf_launches.get(k, 0)
+                     + train_launches.get(k, 0)
                      + bf16_launches.get(k, 0)
                      + gen_launches.get(k, 0) + large_launches.get(k, 0)
                      + run_launches.get(k, 0) + mix_launches.get(k, 0)

@@ -39,6 +39,7 @@ stored in f32.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
@@ -300,18 +301,23 @@ class DDPG:
                      env_state: EnvState, obs: GraphObs, topo: Topology,
                      traffic: TrafficSchedule, episode_start_step: int,
                      draws: Draws, learn: bool = False,
-                     num_steps: Optional[int] = None):
+                     num_steps: Optional[int] = None, observe=None):
         """The rollout and, when ``learn``, the end-of-episode learn burst
         on batches of ``buffer``.  Returns (state, buffer, env_state, obs,
-        stats, learn metrics or None)."""
-        state, buffer, env_state, obs, stats = self.rollout_episode(
-            state, buffer, env_state, obs, topo, traffic, episode_start_step,
-            draws, num_steps)
+        stats, learn metrics or None).  ``observe(name)`` (a cost
+        ledger's, ``obs.perf``) gives the context each of the two runs
+        in, as ``rollout_episode`` and ``learn_burst``."""
+        watch = observe or (lambda name: contextlib.nullcontext())
+        with watch("rollout_episode"):
+            state, buffer, env_state, obs, stats = self.rollout_episode(
+                state, buffer, env_state, obs, topo, traffic,
+                episode_start_step, draws, num_steps)
         metrics = None
         if learn:
-            state, metrics = self.learn_burst(
-                state, lambda: buffer_sample(buffer, draws,
-                                             self.agent.batch_size))
+            with watch("learn_burst"):
+                state, metrics = self.learn_burst(
+                    state, lambda: buffer_sample(buffer, draws,
+                                                 self.agent.batch_size))
         return state, buffer, env_state, obs, stats, metrics
 
     # ------------------------------------------------------------ learning

@@ -35,6 +35,18 @@ The port of ``gsc_tpu.agents.trainer.Trainer``:
   inference network, optionally writing the reference's test-mode CSV
   suite to ``<result_dir>/test``.
 
+Cost ledger (``obs.perf``, when the observer keeps one): the single-env
+loop observes its first ``episode_step`` dispatch (and the first that
+learns, if the first did not), or on the serial loop (``pipeline=False``)
+``rollout_episode`` and ``learn_burst`` apart; the replica loop its first
+learning ``chunk_step`` with the ``learn_burst`` inside it, the scenario
+factory's first ``factory_sample``, and on a mesh's rank 0 the
+``chunk_step`` again as ``chunk_step_sharded`` (the rank's program is the
+one each rank dispatches).  After the loop the ``dispatch`` phase's wall
+goes to the fused entry, as in the JAX package, without the observed
+dispatch; the other entries keep their counts untimed (their calls are
+enqueued, not waited for); ``train_async`` captures nothing.
+
 Both training loops append one ``rewards.csv`` row (field ``r``) and one
 ``history`` row per episode, resume from a restored (``init_state``,
 ``init_buffer(s)``, ``start_episode``) with the random source restored
@@ -68,6 +80,7 @@ finite check, and skips the publish loudly on a non-finite one.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
 import logging
 import os
@@ -306,6 +319,54 @@ class Trainer:
         v_draws.generator.set_state(snap.draws)
         ckpt_manager.save(v_state, v_buffer, episode=episode, draws=v_draws)
 
+    # ------------------------------------------------------------ cost ledger
+    def _watch(self, sharded: bool = False):
+        """``observe(name, learn=True)`` over the observer's cost ledger
+        (None without one): the context a dispatch of entry ``name`` runs
+        in, observed when the ledger wants it; ``sharded`` records a
+        ``chunk_step`` as ``chunk_step_sharded`` too."""
+        perf = self.obs.perf if self.obs is not None else None
+        if perf is None:
+            return None
+
+        def observe(name: str, learn: bool = True):
+            also = ((f"{name}_sharded",) if sharded and name == "chunk_step"
+                    else ())
+            return perf.observe(name, device=self.device, learn=learn,
+                                also=also)
+        return observe
+
+    def _observations(self, name: str) -> int:
+        """The ledger's observations of ``name`` so far (0 without one)."""
+        perf = self.obs.perf if self.obs is not None else None
+        return 0 if perf is None else perf.observations(name)
+
+    def _exclude_observed(self, name: str, before: int, seconds: float):
+        """Leave a dispatch of ``seconds`` out of the timings of ``name``
+        (and its ``_sharded`` twin) when it was observed since ``before``
+        (``_observations``)."""
+        perf = self.obs.perf
+        if perf.observations(name) > before:
+            for n in (name, f"{name}_sharded"):
+                if perf.has(n):
+                    perf.exclude(n, seconds)
+
+    def _note_cost_timings(self, timer, primary: Optional[str]):
+        """Merge the run's measured wall into the ledger after the loop:
+        the ``dispatch`` phase to the fused entry ``primary`` (and its
+        ``_sharded`` twin; None on the serial loop, whose phase covers two
+        entries), and the phase summary itself."""
+        perf = self.obs.perf if self.obs is not None else None
+        if perf is None or timer is None:
+            return
+        phases = timer.summary()
+        disp = phases.get("dispatch")
+        if primary is not None and disp:
+            for name in (primary, f"{primary}_sharded"):
+                if perf.has(name):
+                    perf.note_timing(name, disp["total_s"], disp["count"])
+        perf.note_phases(phases)
+
     # ------------------------------------------------------------ single env
     def _drain(self, entry, start: float, start_episode: int, timer,
                writer, on_row, verbose: bool) -> bool:
@@ -419,6 +480,7 @@ class Trainer:
             return pf
 
         prefetch = make_prefetcher(start_episode) if pipeline else None
+        watch = self._watch()
         pipeline_faults = 0
         if self.obs:
             if self.obs.watchdog is not None:
@@ -552,7 +614,7 @@ class Trainer:
                 (state, buffer, env_state, obs, stats,
                  metrics) = self._dispatch_with_retry(
                     ep, state, buffer, env_state, obs, topo, traffic,
-                    global_step, learn, timer, hub)
+                    global_step, learn, timer, hub, watch, pipeline)
                 if self.obs:
                     self.obs.episode_dispatched(ep)
                 pending.append((ep, end_step, stats, metrics, env_state.sim,
@@ -584,26 +646,41 @@ class Trainer:
         self.completed_episodes = self._last_drained + 1
         if plan is not None:
             plan.warn_unfired(hub)
+        self._note_cost_timings(timer, "episode_step" if pipeline else None)
         if verbose:
             log.info("pipeline phase timings: %s", timer.summary())
         return state, buffer
 
     def _dispatch_with_retry(self, ep, state, buffer, env_state, obs, topo,
-                             traffic, global_step, learn, timer, hub):
-        """One episode's ``episode_step`` under the retry policy.  The
-        injected ``dispatch_transient`` raises at entry, before any tensor
-        is touched, so a retry dispatches the same inputs."""
+                             traffic, global_step, learn, timer, hub,
+                             watch=None, pipeline=True):
+        """One episode's ``episode_step`` under the retry policy, observed
+        by the cost ledger's ``watch`` when it wants it (as
+        ``episode_step``; on the serial loop as ``rollout_episode`` and
+        ``learn_burst``).  The injected ``dispatch_transient`` raises at
+        entry, before any tensor is touched, so a retry dispatches the
+        same inputs."""
         plan = self.fault_plan
 
         def dispatch():
             if plan is not None and plan.fire("dispatch_transient", ep):
                 raise TransientDispatchError(
                     f"injected transient dispatch failure at episode {ep}")
+            fused = watch is not None and pipeline
+            before = self._observations("episode_step")
+            t0 = time.perf_counter()
             with phase_span("dispatch", timer, hub), \
-                    torch.profiler.record_function(f"episode_step_{ep}"):
-                return self.ddpg.episode_step(
+                    torch.profiler.record_function(f"episode_step_{ep}"), \
+                    (watch("episode_step", learn) if fused
+                     else contextlib.nullcontext()):
+                out = self.ddpg.episode_step(
                     state, buffer, env_state, obs, topo, traffic,
-                    global_step, self.draws, learn=learn)
+                    global_step, self.draws, learn=learn,
+                    observe=None if pipeline else watch)
+            if fused:
+                self._exclude_observed("episode_step", before,
+                                       time.perf_counter() - t0)
+            return out
 
         return call_with_retry(
             dispatch, self.retry_policy,
@@ -772,11 +849,15 @@ class Trainer:
         start = time.perf_counter()
         if self.obs:
             self.obs.resume_watchdog()
+        watch = self._watch(sharded=plan is not None)
 
         def episode_inputs(ep):
             # what producing the episode's (topology, traffic) costs the
             # host: sampling on the host, or enqueueing the device work
-            with phase_span("scenario_regen", timer, hub):
+            observed = watch is not None and factory is not None
+            with phase_span("scenario_regen", timer, hub), \
+                    (watch("factory_sample") if observed
+                     else contextlib.nullcontext()):
                 return inputs(ep)
 
         def due(interval: int) -> bool:
@@ -817,12 +898,17 @@ class Trainer:
                 if self.obs:
                     self.obs.episode_dispatched(ep)
                 done = {}
+                before = self._observations("chunk_step")
+                t0 = time.perf_counter()
                 with phase_span("dispatch", timer, hub):
                     state, buffers = run_chunked_episodes(
                         pddpg, episode_inputs, state, buffers, ep + 1,
                         steps, chunk,
                         on_episode=lambda e, res: done.update(res),
-                        start_episode=ep)
+                        start_episode=ep, observe=watch)
+                if watch is not None:
+                    self._exclude_observed("chunk_step", before,
+                                           time.perf_counter() - t0)
                 ret = done["episodic_return"]
                 learned = done["learn"]
                 signal = (learned or {}).pop("learn_signal", None)
@@ -912,6 +998,7 @@ class Trainer:
         self.curriculum = curr
         if chaos is not None:
             chaos.warn_unfired(hub)
+        self._note_cost_timings(timer, "chunk_step")
         if plan is not None:
             self.mesh_info = {
                 "mesh": plan.describe(), "rank": mesh.rank,

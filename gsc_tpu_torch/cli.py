@@ -59,7 +59,9 @@ parsed; on the card they run compiled into the substep kernel.
 Its defaults are the JAX CLI's: the pipelined single-env loop
 (``--no-pipeline``: the serial one), the run observer (``--no-obs``;
 ``events.jsonl``, ``metrics.json``, ``series.json``, ``curves.json`` with
-the learning-signal ledger, ``--no-learn-obs``), the rollback guard
+the learning-signal ledger, ``--no-learn-obs``, ``perf.json`` with the
+device-cost ledger, ``--no-perf``, and ``compile`` events per kernel
+library built or loaded), the rollback guard
 (``--no-rollback``), retry of transient dispatch failures, fault
 injection from ``--fault-plan`` or ``GSC_FAULT_PLAN``, a checkpoint and a
 clean exit on SIGTERM/SIGINT, ``result.yaml`` and ``run.log`` in the run
@@ -92,8 +94,10 @@ the precision its sidecar records (a contradicting ``--precision`` is
 refused; without a readable sidecar the agent yaml's), else the SPR
 tier.  ``--continuous``, ``--workers`` (a fleet with an SPR brownout
 tier), ``--hot-swap-dir`` (swap in the versions ``train --hot-swap-dir``
-publishes), ``--trace-sample`` and ``--slo-p99-ms`` (the SLO engine,
-``slo.json`` under ``--result-dir``) are the JAX CLI's flags.
+publishes), ``--trace-sample``, ``--slo-p99-ms`` (the SLO engine,
+``slo.json`` under ``--result-dir``) and ``--perf/--no-perf`` (the
+learned tier's ``serve_policy_b<B>`` per bucket in ``perf.json``) are
+the JAX CLI's flags.
 
 The agent, simulator, service and scheduler configs load from yaml files
 (``yaml`` must be importable then); without them the init-configs values
@@ -289,7 +293,8 @@ def _serve(args) -> int:
                 if args.result_dir else None)
         observer = RunObserver(args.obs_dir or rdir, tags={"seed": args.seed},
                                metrics_port=(args.metrics_port or None),
-                               series_window=args.obs_series_window)
+                               series_window=args.obs_series_window,
+                               perf=args.perf)
     try:
         report = run_serve(agent, sim_cfg, service, spec, seed=args.seed,
                            pool_steps=args.pool_steps,
@@ -471,7 +476,7 @@ def _observer(args, run: int, rdir: Optional[str], seed: int):
                        rotate_mb=args.obs_rotate_mb, learn=args.learn_obs,
                        metrics_port=(args.metrics_port or None),
                        series_window=args.obs_series_window,
-                       tags={"seed": seed})
+                       perf=args.perf, tags={"seed": seed})
 
 
 def _train_run(args, run: int, dev, precision, resume, mesh=None) -> dict:
@@ -1197,6 +1202,13 @@ def _parser() -> argparse.ArgumentParser:
                    help="points kept per metric in the series rings (the "
                    "fleet samples queue depth, occupancy, burn and pad "
                    "waste into them; 0: none)")
+    s.add_argument("--perf", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="device-cost ledger over the serving buckets: each "
+                   "serve_policy_b<B> records FLOPs, bytes, launches and "
+                   "host syncs of its observed warm-up call at start, and "
+                   "its measured latency merges in at close; perf.json "
+                   "lands next to metrics.json")
     s.add_argument("--metrics-port", type=int, default=0,
                    help="serve /metrics and /series on 127.0.0.1:PORT "
                    "while serving (0: off; needs --obs)")
@@ -1315,6 +1327,14 @@ def _parser() -> argparse.ArgumentParser:
     t.add_argument("--obs-series-window", type=int, default=1024,
                    help="points kept per metric in the series rings "
                    "(series.json, /series; 0: none)")
+    t.add_argument("--perf", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="device-cost ledger: observe the first dispatch of "
+                   "each watched entry point (FLOPs, bytes, launches, host "
+                   "syncs), merge the run's phase wall into per-dispatch "
+                   "MFU/roofline, and write perf.json next to metrics.json "
+                   "(tools/bench_diff.py diffs them across runs).  The "
+                   "observed dispatch runs slower; results are the same")
     t.add_argument("--learn-obs", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="learning-signal ledger: per-topology |TD|, Q "

@@ -2,15 +2,16 @@
 gauges, the pipeline watchdog, the ``/metrics`` endpoint, the learning
 signal ledger, learning curves and the run observer.
 
-The port of ``gsc_tpu.obs`` without the device-cost ledger (``perf``)
-and the retrace sentinel; with serving's SLO engine and request tracer
-(``slo``) and the Chrome-trace exporter (``trace``).
+The port of ``gsc_tpu.obs``, with the device-cost ledger (``perf``:
+observed dispatches in place of compiled programs), serving's SLO engine
+and request tracer (``slo``) and the Chrome-trace exporter (``trace``).
 """
 from .curves import CURVES_SCHEMA_VERSION, extract_curves, write_curves
 from .device import device_memory_snapshot, record_device_gauges
 from .endpoint import MetricsEndpoint, prometheus_text
 from .hub import MetricsHub
 from .learning import LearnLedger, LearnLedgerSpec, emit_learn_signal
+from .perf import PEAK_ENVELOPES, PERF_SCHEMA_VERSION, CostLedger
 from .run import RunObserver
 from .series import (BLACKBOX_SCHEMA_VERSION, SERIES_SCHEMA_VERSION,
                      SeriesStore, write_blackbox, write_series)
@@ -31,5 +32,6 @@ __all__ = [
     "CURVES_SCHEMA_VERSION", "extract_curves", "write_curves",
     "SLO_SCHEMA_VERSION", "SLOEngine", "SLOObjectives", "ServeTracer",
     "parse_slo_spec", "write_slo_json", "TRACE_TRACKS", "build_trace",
-    "export_trace", "validate_trace",
+    "export_trace", "validate_trace", "CostLedger", "PEAK_ENVELOPES",
+    "PERF_SCHEMA_VERSION",
 ]

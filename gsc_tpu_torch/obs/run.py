@@ -1,15 +1,16 @@
 """RunObserver: the facade one training run reports through.
 
-The port of ``gsc_tpu.obs.run.RunObserver`` without the device-cost
-ledger (``perf``, ``perf.json``) and the retrace sentinel (``compile``
-events): the port has neither a compiled-program cost model nor a
-tracer to watch.  ``start`` records both as absent in ``run_start``
-(``perf: null``, ``compile_events: null``) rather than faking them.
-
-It owns the hub, the ``events.jsonl`` sink, the ``metrics.json``
-snapshot cadence, the watchdog, the optional learn ledger
+The port of ``gsc_tpu.obs.run.RunObserver``.  It owns the hub, the
+``events.jsonl`` sink, the ``metrics.json`` snapshot cadence, the
+watchdog, the optional device-cost ledger (``perf``: an
+``obs.perf.CostLedger`` the trainer and the server capture into, written
+to ``perf.json`` at close), the compile monitor
+(``analysis.sentinels.CompileMonitor``, one ``compile`` event per kernel
+library built or loaded while the run is open), the optional learn ledger
 (``curves.json`` at close), the series rings (``series.json``) and the
-``/metrics`` endpoint.  ``out_dir=None`` keeps everything in memory (a
+``/metrics`` endpoint; ``run_start`` records whether the ledger and the
+monitor are on (``perf``; ``compile_events``, always True).
+``out_dir=None`` keeps everything in memory (a
 ``ListSink`` in ``self.events``) and writes no files: ``cli train``
 without ``--result-dir``.  A run on a mesh has one observer, on rank 0;
 its ``run_start`` records the canonical ``mesh`` (``"dpxmp"``), the
@@ -47,6 +48,7 @@ class RunObserver:
                  tags: Optional[Dict[str, object]] = None,
                  watchdog_escalate: int = 0,
                  rotate_mb: float = 0.0,
+                 perf: bool = False,
                  learn: bool = False,
                  metrics_port: Optional[int] = None,
                  series_window: int = 0,
@@ -64,6 +66,7 @@ class RunObserver:
             if self.out_dir else (lambda name: None)
         self.events_path = path("events.jsonl")
         self.snapshot_path = path("metrics.json")
+        self.perf_path = path("perf.json")
         self.curves_path = path("curves.json")
         self.series_path = path("series.json")
         self.blackbox_path = path("blackbox.json")
@@ -87,6 +90,14 @@ class RunObserver:
         if self.hub.series_store is not None:
             self._tail_sink = TailSink()
             self.hub.add_sink(self._tail_sink)
+        # device-cost ledger (obs.perf.CostLedger), opt-in because each
+        # entry point's first dispatch runs observed (the CLI turns it on
+        # with --perf): the trainer and the server capture into it and
+        # close() writes perf.json next to metrics.json
+        self.perf = None
+        if perf:
+            from .perf import CostLedger
+            self.perf = CostLedger(hub=self.hub)
         # learning-signal ledger (obs.learning.LearnLedger), opt-in: the
         # trainer hands the facade's spec to the agent, drains per-episode
         # signals through it, and close() extracts curves.json from the
@@ -118,6 +129,9 @@ class RunObserver:
                 on_blackbox=lambda thread, age: self.write_blackbox(
                     reason=f"watchdog_escalation:{thread}",
                     extra={"age_s": round(age, 3)}))
+        # the kernel-build sentinel (analysis.sentinels.CompileMonitor),
+        # started in start()
+        self.compile_monitor = None
         self._drained = 0
         self._prev_phase_totals: Dict[str, float] = {}
         self._started = False
@@ -128,8 +142,11 @@ class RunObserver:
         if self._started:
             return self
         self._started = True
-        self.hub.event("run_start", **{"perf": None, "compile_events": None,
+        self.hub.event("run_start", **{"perf": self.perf is not None,
+                                       "compile_events": True,
                                        **(meta or {})})
+        from ..analysis.sentinels import CompileMonitor
+        self.compile_monitor = CompileMonitor(hub=self.hub).start()
         if self.watchdog is not None:
             self.watchdog.start()
         if self._metrics_port is not None:
@@ -155,6 +172,8 @@ class RunObserver:
         self._closed = True
         if self.watchdog is not None:
             self.watchdog.stop()
+        if self.compile_monitor is not None:
+            self.compile_monitor.stop()
         if self.endpoint is not None:
             self.endpoint.stop()
             self.endpoint = None
@@ -171,6 +190,14 @@ class RunObserver:
                         write_curves(self.curves_path, events)
                 except Exception:
                     pass
+            if self.perf is not None and self.perf_path \
+                    and self.perf.summary()["entries"]:
+                # the run's cost ledger next to metrics.json, best effort:
+                # a ledger failure must not mask the run's teardown
+                try:
+                    self.perf.write_json(self.perf_path)
+                except Exception:
+                    log.warning("perf.json not written", exc_info=True)
             self.hub.event("run_end", status=status,
                            episodes=self._drained,
                            stalls=self.hub.get_counter("stalls"),
@@ -240,6 +267,8 @@ class RunObserver:
         role so ``metrics.json`` diffs show a dtype change numerically;
         the event carries the dtype names for the per-run report header
         (tools/obs_report.py)."""
+        if self.perf is not None:
+            self.perf.precision = policy.name
         bits = {"float32": 32, "bfloat16": 16, "float16": 16}
         for role, dt in (("param", policy.param_dtype),
                          ("gnn_compute", policy.gnn_compute),

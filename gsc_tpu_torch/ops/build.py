@@ -2,7 +2,9 @@
 ``gsc_tpu_torch/_build/`` (one shared library per digest of source,
 headers and flags), loaded with ``ctypes`` through its plain C
 interface.  Generated headers (kernel #2's resource-function plugins) are
-written beside the library and put on the include path."""
+written beside the library and put on the include path.  Every build and
+every load is reported to the hooks of ``add_build_hook`` (the compile
+monitor's ``compile`` events)."""
 from __future__ import annotations
 
 import ctypes
@@ -10,8 +12,9 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG / "_build"
@@ -19,6 +22,32 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # a block's dynamic shared-memory ceiling on Hopper (227 KB)
 MAX_SMEM_BYTES = 232448
+
+
+# observers of builds and loads (analysis.sentinels.CompileMonitor): each
+# is called with (library, stage "build" or "load", seconds) from the
+# thread that built or loaded it
+_HOOKS: List[Callable[[str, str, float], None]] = []
+_HOOKS_LOCK = threading.Lock()
+
+
+def add_build_hook(fn: Callable[[str, str, float], None]) -> None:
+    with _HOOKS_LOCK:
+        _HOOKS.append(fn)
+
+
+def remove_build_hook(fn: Callable[[str, str, float], None]) -> None:
+    with _HOOKS_LOCK:
+        if fn in _HOOKS:
+            _HOOKS.remove(fn)
+
+
+def notify_build(library: str, stage: str, seconds: float) -> None:
+    """Tell every hook that ``library`` was built or loaded."""
+    with _HOOKS_LOCK:
+        hooks = list(_HOOKS)
+    for fn in hooks:
+        fn(library, stage, seconds)
 
 
 def nvcc() -> str:
@@ -76,6 +105,7 @@ def build_library(source: Path, extra_flags: Sequence[str] = (),
         tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}"
                            ".tmp")
         cmd = [nvcc(), *flags, *include, "-o", str(tmp), str(source)]
+        t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(
@@ -83,4 +113,8 @@ def build_library(source: Path, extra_flags: Sequence[str] = (),
                 f"{res.stdout}\n{res.stderr}")
         log = res.stderr
         os.replace(tmp, so)
-    return ctypes.CDLL(str(so)), log
+        notify_build(so.stem, "build", time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(str(so))
+    notify_build(so.stem, "load", time.perf_counter() - t0)
+    return lib, log

@@ -41,6 +41,8 @@ import threading
 import torch
 
 from .build import MAX_SMEM_BYTES, PKG, build_library
+from .cost import (attention_backward_parts, attention_parts, posted,
+                   watch_plain_backward)
 from .gat import (LEAKY_SLOPE, LEAKY_SLOPE_BF16, NEG_INF, attention_dense,
                   bf16_pairwise)
 
@@ -365,7 +367,14 @@ class GatAttention(_Kernel):
         """xl, xr [..., N, F] of the wrapper's dtype; att, bias [F] f32;
         adj [..., N, N] bool."""
         if xl.device.type == "cpu":
-            return attention_plain(xl, xr, att, bias, adj, mean_aggr)
+            with posted("gat_attention", attention_parts, xl, xr, att, bias,
+                        adj) as t:
+                out = attention_plain(xl, xr, att, bias, adj, mean_aggr)
+            watch_plain_backward(t, out, (xl, xr, att, bias),
+                                 "gat_attention_backward",
+                                 attention_backward_parts, out, xl, xr, att,
+                                 adj)
+            return out
         return _GatAttentionFn.apply(self, xl, xr, att, bias, adj,
                                      bool(mean_aggr))
 
@@ -385,11 +394,13 @@ class GatAttention(_Kernel):
             raise TypeError(f"{self.entry}: adj is {adj.dtype}, want bool")
         lib = self._check(xl, (xr, att, bias, adj), (xl, xr), (att, bias),
                           n, f)
-        out = torch.empty_like(xl)
-        self._run(lib, xl.device, _raw_stream(xl.device.index),
-                  xl.data_ptr(), xr.data_ptr(), att.data_ptr(),
-                  bias.data_ptr(), adj.data_ptr(), out.data_ptr(),
-                  _batch(lead), n, f, int(bool(mean_aggr)))
+        with posted("gat_attention", attention_parts, xl, xr, att, bias,
+                    adj):
+            out = torch.empty_like(xl)
+            self._run(lib, xl.device, _raw_stream(xl.device.index),
+                      xl.data_ptr(), xr.data_ptr(), att.data_ptr(),
+                      bias.data_ptr(), adj.data_ptr(), out.data_ptr(),
+                      _batch(lead), n, f, int(bool(mean_aggr)))
         return out
 
 
@@ -434,8 +445,10 @@ class GatAttentionBackward(_Kernel):
 
     def __call__(self, grad_out, xl, xr, att, adj, mean_aggr: bool = True):
         if xl.device.type == "cpu":
-            return attention_backward_plain(grad_out, xl, xr, att, adj,
-                                            mean_aggr)
+            with posted("gat_attention_backward", attention_backward_parts,
+                        grad_out, xl, xr, att, adj):
+                return attention_backward_plain(grad_out, xl, xr, att, adj,
+                                                mean_aggr)
         return self.launch(grad_out, xl, xr, att, adj, mean_aggr)
 
     def launch(self, grad_out, xl, xr, att, adj, mean_aggr: bool = True):
@@ -457,6 +470,13 @@ class GatAttentionBackward(_Kernel):
         if lib.gat_attention_backward_tiles(n) < 1:
             raise ValueError(f"{self.entry}: N={n} needs more CTAs per graph "
                              "than one cluster holds")
+        with posted("gat_attention_backward", attention_backward_parts,
+                    grad_out, xl, xr, att, adj):
+            return self._launch(lib, grad_out, xl, xr, att, adj, lead, n, f,
+                                mean_aggr)
+
+    def _launch(self, lib, grad_out, xl, xr, att, adj, lead, n, f,
+                mean_aggr):
         b = _batch(lead)
         d_xl = torch.empty_like(xl)
         d_xr = torch.empty_like(xl)

@@ -47,13 +47,17 @@ no fallback from the kernel to the plain engine.
 """
 from __future__ import annotations
 
+import hashlib
 import operator
 import struct
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from .build import notify_build
 
 # the kernel's first plugin id (RF_PLUGIN_BASE in the CUDA source)
 PLUGIN_BASE = 2
@@ -554,7 +558,14 @@ def kernel_plan(fns: Sequence[Callable]
             programs.append(fn if isinstance(fn, ResourceProgram)
                             else trace(fn))
         ids.append(PLUGIN_BASE + keys.index(key))
-    return ids, (plugin_header(programs) if programs else None)
+    if not programs:
+        return ids, None
+    t0 = time.perf_counter()
+    header = plugin_header(programs)
+    digest = hashlib.sha256(header.encode()).hexdigest()[:16]
+    notify_build(f"resource_plugins_{digest}", "build",
+                 time.perf_counter() - t0)
+    return ids, header
 
 
 def plugin_header(programs: Sequence[ResourceProgram]) -> str:

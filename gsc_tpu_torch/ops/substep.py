@@ -60,6 +60,7 @@ import torch
 from ..sim.state import SimState, TrafficSchedule
 from ..topology.compiler import Topology
 from .build import MAX_SMEM_BYTES, PKG, build_library
+from .cost import posted, substep_launch_parts
 from .resource_codegen import HEADER_NAME, kernel_plan
 
 SOURCE = PKG / "csrc" / "substep_megakernel.cu"
@@ -282,8 +283,10 @@ class SubstepMegakernel:
                  substeps: Optional[int] = None,
                  ext_decisions: Optional[torch.Tensor] = None) -> SimState:
         if state.t.device.type == "cpu":
-            return substep_plain(engine, state, topo, traffic, cap_now,
-                                 noise, substeps, ext_decisions)
+            with posted("substep_megakernel", substep_launch_parts, engine,
+                        state, traffic, substeps, ext_decisions):
+                return substep_plain(engine, state, topo, traffic, cap_now,
+                                     noise, substeps, ext_decisions)
         return self.launch(engine, state, topo, traffic, cap_now, noise,
                            substeps, ext_decisions)
 
@@ -299,6 +302,14 @@ class SubstepMegakernel:
         if dev.type != "cuda":
             raise ValueError(f"substep_megakernel: the state is on {dev}; "
                              "the kernel takes CUDA tensors")
+        with posted("substep_megakernel", substep_launch_parts, engine,
+                    state, traffic, substeps, ext_decisions):
+            return self._launch(engine, state, topo, traffic, cap_now, noise,
+                                substeps, ext_decisions)
+
+    def _launch(self, engine, state, topo, traffic, cap_now, noise,
+                substeps, ext_decisions):
+        dev = state.t.device
         counter = self._serial.get(dev)
         if counter is None:
             counter = self._serial[dev] = torch.zeros(1, dtype=torch.int64,

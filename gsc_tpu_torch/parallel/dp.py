@@ -44,6 +44,7 @@ slot) pairs (``_sample_local`` of the JAX package).
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import time
 from types import SimpleNamespace
@@ -243,12 +244,13 @@ class ParallelDDPG:
     def chunk_step(self, state: DDPGState, buffers: ReplayBuffer,
                    env_states: EnvState, obs: GraphObs, topo: Topology,
                    traffic: TrafficSchedule, episode_start_step: int,
-                   num_steps: int, learn: bool = False):
+                   num_steps: int, learn: bool = False, observe=None):
         """A chunk of the rollout and, when ``learn`` (the final chunk of
-        an episode), the end-of-episode learn burst.  Under a plan the
-        learner state is gathered from its residency on entry and sliced
-        back on exit.  Returns (state, buffers, env_states, obs, stats,
-        learn_metrics or None)."""
+        an episode), the end-of-episode learn burst (in ``observe(
+        "learn_burst")``'s context when given, a cost ledger's).  Under a
+        plan the learner state is gathered from its residency on entry
+        and sliced back on exit.  Returns (state, buffers, env_states,
+        obs, stats, learn_metrics or None)."""
         if self.plan is not None:
             self.plan.gather_state(state)
             t0 = time.perf_counter()
@@ -262,7 +264,9 @@ class ParallelDDPG:
             self.rollout_steps += self.rows_n * num_steps
         metrics = None
         if learn:
-            state, metrics = self.learn_burst(state, buffers)
+            with (observe("learn_burst") if observe is not None
+                  else contextlib.nullcontext()):
+                state, metrics = self.learn_burst(state, buffers)
         if self.plan is not None:
             self.plan.place_state(state)
         return state, buffers, env_states, obs, stats, metrics

@@ -16,13 +16,14 @@ replica order: every number here is the one a run without a mesh logs.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import contextlib
+from typing import Callable, Optional, Tuple
 
 
 def run_chunked_episodes(pddpg, episode_inputs: Callable, state, buffers,
                          episodes: int, episode_steps: int, chunk: int,
-                         on_episode: Callable, start_episode: int = 0
-                         ) -> Tuple:
+                         on_episode: Callable, start_episode: int = 0,
+                         observe: Optional[Callable] = None) -> Tuple:
     """Train episodes ``start_episode`` to ``episodes - 1``; returns
     (state, buffers), updated in place.
 
@@ -32,7 +33,10 @@ def run_chunked_episodes(pddpg, episode_inputs: Callable, state, buffers,
     ``result``: ``episodic_return``, ``mean_succ_ratio`` and
     ``final_succ_ratio`` (floats), ``per_replica_return`` (a list of B
     floats), ``learn`` (the burst's metrics, on the device) and
-    ``replay`` (the shards' fill with a learn ledger, else None)."""
+    ``replay`` (the shards' fill with a learn ledger, else None).
+    ``observe(name)`` (a cost ledger's, ``obs.perf``) gives the context
+    each learning chunk runs in, as ``chunk_step``, and its burst, as
+    ``learn_burst``."""
     if episode_steps % chunk != 0:
         raise ValueError(f"chunk ({chunk}) must divide episode_steps "
                          f"({episode_steps})")
@@ -43,10 +47,13 @@ def run_chunked_episodes(pddpg, episode_inputs: Callable, state, buffers,
         chunk_stats = []
         for c in range(n_chunks):
             start = ep * episode_steps + c * chunk
-            state, buffers, env_states, obs, stats, metrics = \
-                pddpg.chunk_step(state, buffers, env_states, obs, topo,
-                                 traffic, start, chunk,
-                                 learn=(c == n_chunks - 1))
+            learn = c == n_chunks - 1
+            with (observe("chunk_step") if observe is not None and learn
+                  else contextlib.nullcontext()):
+                state, buffers, env_states, obs, stats, metrics = \
+                    pddpg.chunk_step(state, buffers, env_states, obs, topo,
+                                     traffic, start, chunk, learn=learn,
+                                     observe=observe)
             chunk_stats.append(stats)
         # device scalars are read once the episode has been issued
         per_replica = sum(s["per_replica_return"] for s in chunk_stats)

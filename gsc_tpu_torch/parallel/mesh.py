@@ -56,6 +56,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..ops.cost import post_collective
+
 
 #: seconds a collective waits for its peers before it raises
 TIMEOUT_S = 600.0
@@ -125,6 +127,7 @@ class Mesh:
             return float(value)
         t = torch.tensor([float(value)], dtype=torch.float32,
                          device=self.device)
+        post_collective("all-reduce", t.numel() * t.element_size())
         dist.all_reduce(t, op=op)
         return float(t.item())
 
@@ -183,16 +186,19 @@ def unpack_rows(buf: torch.Tensor, like: Sequence[torch.Tensor]
 
 def broadcast_rows(leaves: Sequence[torch.Tensor], src: int,
                    like: Sequence[torch.Tensor], rows: int, device,
-                   group=None) -> List[torch.Tensor]:
+                   group=None, post: bool = True) -> List[torch.Tensor]:
     """``src``'s ``leaves`` ([rows, ...] each) on every rank of
     ``group``, moved as one byte buffer.  The other ranks pass ``like``
     (tensors with the leaves' trailing shapes and dtypes); ``src`` is the
-    global rank."""
+    global rank.  Under a cost-ledger capture it records one broadcast of
+    the buffer's bytes (``post``; ``gather_rows`` records its own)."""
     if dist.get_rank() == src:
         buf = pack_rows(list(leaves))
     else:
         buf = torch.empty((rows, sum(row_bytes(like))), dtype=torch.uint8,
                           device=device)
+    if post:
+        post_collective("broadcast", buf.numel())
     dist.broadcast(buf, src=src, group=group)
     if dist.get_rank() == src:
         return list(leaves)
@@ -203,17 +209,20 @@ def gather_rows(mesh: Mesh, local: Dict[str, torch.Tensor],
                 counts: Sequence[int]) -> Dict[str, torch.Tensor]:
     """Every rank's ``local`` leaves ([counts[rank], ...] each, the same
     names, trailing shapes and dtypes everywhere) concatenated in rank
-    order on every rank: one byte broadcast per rank that holds rows."""
+    order on every rank: one byte broadcast per rank that holds rows,
+    recorded under a cost-ledger capture as one all-gather of the
+    gathered bytes."""
     if mesh.world == 1 or not mesh.distributed:
         return dict(local)
     names = list(local)
     like = [local[k] for k in names]
+    post_collective("all-gather", sum(counts) * sum(row_bytes(like)))
     parts: List[List[torch.Tensor]] = []
     for r, n in enumerate(counts):
         if n == 0:
             continue
         parts.append(broadcast_rows(like if r == mesh.rank else (), r,
-                                    like, n, mesh.device))
+                                    like, n, mesh.device, post=False))
     return {k: torch.cat([p[i] for p in parts]) if len(parts) > 1
             else parts[0][i] for i, k in enumerate(names)}
 

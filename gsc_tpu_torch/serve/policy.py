@@ -35,6 +35,12 @@ import torch
 from ..env.observations import GraphObs
 
 _FIELDS = tuple(f.name for f in dataclasses.fields(GraphObs))
+# the cost ledger's name of a bucket's batched policy call
+POLICY_FN_PREFIX = "serve_policy_b"
+
+
+def policy_fn_name(batch: int) -> str:
+    return f"{POLICY_FN_PREFIX}{batch}"
 
 
 class ObsTemplate:

@@ -242,6 +242,12 @@ def run_serve(agent: Optional[AgentConfig] = None,
                       max_queue=max_queue)
         spr = lambda: SPRFallbackPolicy(topo_host, limits, pool[0])
         learned = tier == "learned"
+        # the cost ledger rides one server: the per-bucket capture is the
+        # same on every worker, and the serve_batch_ms histogram it reads
+        # at close is the fleet's already
+        perf = observer.perf if observer is not None else None
+        if perf is not None:
+            perf.precision = agent.precision
         if learned:
             # a CUDA stream of its own for each learned worker on the card
             make = lambda **kw: PolicyServer(
@@ -252,10 +258,11 @@ def run_serve(agent: Optional[AgentConfig] = None,
             make = lambda **kw: PolicyServer(fallback=spr(), tracer=tracer(),
                                              **common, **kw)
         if workers == 1:
-            fleet = [make(slo_path=slo_path)]
+            fleet = [make(slo_path=slo_path, perf=perf)]
             frontend = server = fleet[0]
         else:
-            fleet = [make(worker=f"w{i}") for i in range(workers)]
+            fleet = [make(worker=f"w{i}", perf=perf if i == 0 else None)
+                     for i in range(workers)]
             # a learned fleet sheds to an SPR tier; an SPR fleet is the bottom
             # tier already, and refuses overflow as one server would
             brownout = (PolicyServer(fallback=spr(), buckets=buckets,

@@ -6,14 +6,18 @@ once into ``gsc_tpu_torch/_build/``).  Lifecycle of one server:
 
 1. ``start()`` warms every bucket of the learned tier with one call (the
    kernel build and first launch happen there, never inside a request's
-   latency), starts the micro-batcher, the tracer and SLO engine when
-   given, and the hot-swap watcher when given a directory, and emits
+   latency; with a cost ledger, ``perf``, that call is observed as
+   ``serve_policy_b<B>``), starts the micro-batcher, the tracer and SLO
+   engine when given, and the hot-swap watcher when given a directory,
+   and emits
    ``serve_start`` (tier, buckets, mode, per-bucket ``prepare_s``, the
    served weights' fingerprint);
 2. ``submit(obs)`` returns a :class:`~gsc_tpu_torch.serve.batcher.ServeFuture`;
    ``submit_sync`` blocks;
 3. ``close()`` stops the watcher, drains the queue, drains the tracer,
-   emits the final ``serve_stats`` and writes ``slo.json`` (``slo_path``).
+   emits the final ``serve_stats``, writes ``slo.json`` (``slo_path``) and
+   gives the ledger each bucket's device calls and their wall (the
+   ``serve_batch_ms`` histogram: one observation per dispatch).
 
 ``serve_stats`` events (every ``stats_interval`` completed requests and at
 close) carry requests, requests/s, p50/p99 overall and per bucket,
@@ -33,6 +37,7 @@ action replaces the action, anything else moves the version stamp only.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -41,7 +46,7 @@ import numpy as np
 
 from .batcher import MicroBatcher, ServeFuture
 from .fallback import SPRFallbackPolicy
-from .policy import GreedyServePolicy
+from .policy import GreedyServePolicy, policy_fn_name
 
 log = logging.getLogger("gsc_tpu_torch.serve.server")
 
@@ -58,7 +63,8 @@ class PolicyServer:
                  tracer=None, slo=None, slo_path: Optional[str] = None,
                  mode: str = "deadline", worker: Optional[str] = None,
                  hot_swap_dir: Optional[str] = None,
-                 swap_poll_s: float = 0.2, wall_clock=time.time):
+                 swap_poll_s: float = 0.2, wall_clock=time.time,
+                 perf=None):
         if (policy is None) == (fallback is None):
             raise ValueError("exactly one of policy (the learned tier) or "
                              "fallback (the SPR tier) is required")
@@ -85,6 +91,8 @@ class PolicyServer:
         self._wtag = {"worker": worker} if worker else {}
         self.hot_swap_dir = hot_swap_dir
         self.swap_poll_s = swap_poll_s
+        # the device-cost ledger (obs.perf.CostLedger) or None
+        self.perf = perf
         self.wall_clock = wall_clock
         self.watcher = None
         self.policy_version = 0
@@ -105,7 +113,8 @@ class PolicyServer:
         if self.tier == "learned":
             for b in self.buckets:
                 tb = time.perf_counter()
-                self.policy.warm(b)
+                with self._observe(b):
+                    self.policy.warm(b)
                 per_bucket[str(b)] = {
                     "prepare_s": round(time.perf_counter() - tb, 3)}
             run_batch = self._run_learned
@@ -177,6 +186,18 @@ class PolicyServer:
             except OSError as e:   # a full disk must not mask teardown
                 log.warning("slo.json not written to %s: %s",
                             self.slo_path, e)
+        if self.perf is not None and self.hub is not None \
+                and self.tier == "learned":
+            # each bucket's device calls: serve_batch_ms wraps one run_batch
+            # per observation, so `dispatches` counts device calls, not
+            # requests; its wall includes the host staging around the call
+            # (the MFU is a serving lower bound).  Buckets that never
+            # flushed get no timing.
+            for b in self.buckets:
+                h = self.hub.histogram_summary("serve_batch_ms", bucket=b)
+                if h and h.get("count"):
+                    self.perf.note_timing(policy_fn_name(b), h["sum"] / 1e3,
+                                          int(h["count"]))
 
     def __enter__(self):
         return self.start()
@@ -250,6 +271,13 @@ class PolicyServer:
                 **({"meta": meta} if meta else {}))
 
     # ------------------------------------------------------------ internals
+    def _observe(self, bucket: int):
+        """The cost ledger's context for a call at ``bucket``."""
+        if self.perf is None:
+            return contextlib.nullcontext()
+        return self.perf.observe(policy_fn_name(bucket),
+                                 device=self.policy.ddpg.device)
+
     def _run_learned(self, leaves, n_real: int, bucket: int) -> np.ndarray:
         return self.policy.run_batch(leaves)
 

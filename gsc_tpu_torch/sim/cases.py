@@ -38,7 +38,7 @@ from ..config.schema import (EnvLimits, ServiceConfig, ServiceFunction,
 from ..topology import synthetic
 from ..topology.compiler import NetworkSpec, Topology, compile_topology
 from .engine import SimEngine
-from .state import SimState, TrafficSchedule, stack_traffic
+from .state import SimState, TrafficSchedule, stack_traffic, state_leaves
 from .traffic import generate_traffic
 
 # tests/test_debug_and_golden.py: seed 42, uniform schedule, caps 4,
@@ -831,22 +831,6 @@ def check_golden(state: SimState) -> Dict:
         raise AssertionError(f"golden avg_e2e {got['avg_e2e']} != "
                              f"{GOLDEN['avg_e2e']} +- {GOLDEN_AVG_E2E_TOL}")
     return got
-
-
-def state_leaves(state: SimState) -> Dict[str, torch.Tensor]:
-    """Every tensor of a state by dotted name (flows and metrics
-    included)."""
-    out = {}
-
-    def walk(tree, prefix):
-        for f in dataclasses.fields(tree):
-            v = getattr(tree, f.name)
-            if isinstance(v, torch.Tensor):
-                out[prefix + f.name] = v
-            elif v is not None:
-                walk(v, prefix + f.name + ".")
-    walk(state, "")
-    return out
 
 
 def compare_states(got: SimState, want: SimState, rtol: float,

@@ -11,8 +11,9 @@ link-fault scenario.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -247,3 +248,19 @@ def init_state(batch: int, max_flows: int, n: int, c: int, s: int, e: int,
         metrics=SimMetrics.zeros(batch, n, c, s, e, p, device),
         truncated_arrivals=torch.zeros(batch, dtype=_I32, device=device),
     )
+
+
+def state_leaves(state: SimState) -> Dict[str, torch.Tensor]:
+    """Every tensor of a state by dotted name (flows and metrics
+    included)."""
+    out = {}
+
+    def walk(tree, prefix):
+        for f in dataclasses.fields(tree):
+            v = getattr(tree, f.name)
+            if isinstance(v, torch.Tensor):
+                out[prefix + f.name] = v
+            elif v is not None:
+                walk(v, prefix + f.name + ".")
+    walk(state, "")
+    return out

@@ -2,13 +2,15 @@
 JAX package's, on the CPU at the tiny sizes of
 tests/test_torch_single_env.py.
 
-- a default ``run_train`` (pipeline, observer, learn ledger and rollback
-  on) writes ``events.jsonl``, ``metrics.json``, ``series.json``,
-  ``curves.json``, ``result.yaml`` and ``run.log``; its event kinds are
-  the JAX ``cli train`` run's set minus ``compile`` and ``compile_cost``
-  (the retrace sentinel and the cost ledger, which the port does not
-  have); ``tools/obs_report.py`` exits 0 on it and ``tools/bench_diff.py
-  ingest`` finds its ``curves_<run>`` row; the last ``series.json`` point
+- a default ``run_train`` (pipeline, observer, learn ledger, cost
+  ledger and rollback on) writes ``events.jsonl``, ``metrics.json``,
+  ``series.json``, ``curves.json``, ``perf.json``, ``result.yaml`` and
+  ``run.log``; its event kinds are the JAX ``cli train`` run's set minus
+  ``compile`` (the port's compile monitor reports kernel-library builds
+  and loads, of which a CPU run has none); ``run_start`` records the
+  ledger and the monitor on; ``tools/obs_report.py`` exits 0 on it and
+  ``tools/bench_diff.py ingest`` finds its ``curves_<run>`` and
+  ``perf_<run>`` rows; the last ``series.json`` point
   of each episode gauge equals ``metrics.json``; ``run.log`` has the
   episode lines and the package logger still propagates to the root's
   handlers;
@@ -44,8 +46,9 @@ from test_torch_single_env import (AGENT_KW, TINY_AGENT, TINY_SIM, _Draws,
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# event kinds of the JAX run that the port has no source for
-NOT_PORTED_EVENTS = {"compile", "compile_cost"}
+# event kinds of the JAX run that a CPU run of the port has no source
+# for: the JAX jit traces' compile events (the port's are kernel builds)
+NOT_PORTED_EVENTS = {"compile"}
 
 
 @pytest.fixture(scope="module")
@@ -99,14 +102,25 @@ def test_default_run_writes_what_the_tools_read(configs, tmp_path, capsys):
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert last["runs"] == 1 and last["all_result_dirs"] == [str(run)]
     for name in ("events.jsonl", "metrics.json", "series.json",
-                 "curves.json", "result.yaml", "run.log", "rewards.csv"):
+                 "curves.json", "perf.json", "result.yaml", "run.log",
+                 "rewards.csv"):
         assert (run / name).is_file(), name
     events = _events(run / "events.jsonl")
     kinds = {e["event"] for e in events}
     assert kinds == jkinds - NOT_PORTED_EVENTS
     start = events[0]
     assert start["event"] == "run_start" and start["pipeline"] is True
-    assert start["perf"] is None and start["compile_events"] is None
+    assert start["perf"] is True and start["compile_events"] is True
+    # the cost ledger: the JAX run's entry names and fields (a compiled
+    # executable's memory residency aside)
+    with open(os.path.join(jrun, "perf.json")) as f:
+        jperf = json.load(f)
+    with open(run / "perf.json") as f:
+        tperf = json.load(f)
+    assert set(tperf["entries"]) == set(jperf["entries"]) == {"episode_step"}
+    assert set(jperf["entries"]["episode_step"]) - {"memory"} <= \
+        set(tperf["entries"]["episode_step"])
+    assert tperf["schema_version"] == jperf["schema_version"] == 1
     assert [e["episode"] for e in events if e["event"] == "episode"] == \
         [0, 1, 2]
     assert [e["topology"] for e in events if e["event"] == "episode"] == \
@@ -142,7 +156,8 @@ def test_default_run_writes_what_the_tools_read(configs, tmp_path, capsys):
                          capture_output=True, text=True)
     assert ing.returncode == 0, ing.stderr
     with open(rows) as f:
-        assert "curves_t" in json.load(f)["rows"]
+        got = json.load(f)["rows"]
+    assert "curves_t" in got and "perf_t" in got
 
 
 def test_runs_two_reports_the_best(configs, tmp_path, capsys):

@@ -410,3 +410,79 @@ def _loaded_roots(mesh):
     import gsc_tpu_torch.cli  # noqa: F401
     import gsc_tpu_torch.parallel.partition  # noqa: F401
     return {m.split(".")[0] for m in sys.modules}
+
+
+# the cost ledger's and the sentinels' modules, which the rglob above
+# must keep finding
+LEDGER_MODULES = ("ops/cost.py", "analysis/__init__.py",
+                  "analysis/launches.py", "analysis/sentinels.py",
+                  "obs/perf.py")
+
+
+def test_the_cost_ledger_and_sentinels_run_with_jax_blocked(tmp_path):
+    """A ``perf.json`` written by a perf-enabled observer over a pipelined
+    and a replica run, each under ``assert_no_retrace``, and the
+    ``no_host_sync`` tripwire, in a process where every blocked module
+    fails to import."""
+    for rel in LEDGER_MODULES:
+        assert (PKG / rel).is_file(), rel
+    code = "\n".join([
+        "import json, sys",
+        f"for name in {BLOCKED!r}:",
+        "    for mod in [m for m in sys.modules if m == name or "
+        "m.startswith(name + '.')]:",
+        "        del sys.modules[mod]",
+        "    sys.modules[name] = None",
+        "import torch",
+        "from gsc_tpu_torch.agents.trainer import Trainer",
+        "from gsc_tpu_torch.analysis import (HostSyncError,",
+        "    assert_no_retrace, no_host_sync)",
+        "from gsc_tpu_torch.config import abc_service",
+        "from gsc_tpu_torch.config.schema import (AgentConfig, EnvLimits,",
+        "    SimConfig)",
+        "from gsc_tpu_torch.env.driver import EpisodeDriver",
+        "from gsc_tpu_torch.env.env import ServiceCoordEnv",
+        "from gsc_tpu_torch.obs import RunObserver",
+        "from gsc_tpu_torch.topology import synthetic",
+        "from gsc_tpu_torch.topology.compiler import compile_topology",
+        "agent = AgentConfig(episode_steps=3, gnn_features=4,",
+        "    gnn_num_layers=1, gnn_num_iter=1, actor_hidden_layer_nodes=(8,),",
+        "    critic_hidden_layer_nodes=(8,), batch_size=4, mem_limit=6,",
+        "    nb_steps_warmup_critic=2, gnn_impl='pallas')",
+        "sim = SimConfig(run_duration=10.0, ttl_choices=(100.0,))",
+        "limits = EnvLimits.for_service(abc_service(), max_nodes=8,",
+        "    max_edges=8)",
+        "env = ServiceCoordEnv(abc_service(), sim, agent, limits)",
+        "topo = compile_topology(synthetic.triangle(), max_nodes=8,",
+        "    max_edges=8)",
+        "driver = EpisodeDriver.single(topo, sim, abc_service(), 3, 'tri')",
+        "for name in ('p', 'r'):",
+        f"    d = {str(tmp_path)!r} + '/' + name",
+        "    obs = RunObserver(d, perf=True).start()",
+        "    t = Trainer(env, driver, agent, device='cpu', obs=obs)",
+        "    with assert_no_retrace():",
+        "        if name == 'p':",
+        "            t.train(2)",
+        "        else:",
+        "            t.train_parallel(2, 2, chunk=1)",
+        "    obs.close()",
+        "    doc = json.load(open(d + '/perf.json'))",
+        "    print(name, sorted(doc['entries']))",
+        "try:",
+        "    with no_host_sync('blocked'):",
+        "        torch.ones(2).sum().item()",
+        "except HostSyncError:",
+        "    print('tripped')",
+        "leaked = [m for m in sys.modules if sys.modules[m] is not None and "
+        f"m.split('.')[0] in {BLOCKED!r}]",
+        "assert not leaked, leaked",
+        "print('ok')",
+    ])
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    lines = res.stdout.strip().splitlines()
+    assert "p ['episode_step']" in lines
+    assert "r ['chunk_step', 'learn_burst']" in lines
+    assert lines[-2:] == ["tripped", "ok"]
