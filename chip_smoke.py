@@ -400,7 +400,30 @@ Phases (any failure exits non-zero and prints no result line):
    so their numbers stay comparable); how many of PROFILE_ROUNDS short
    profiles of 9 fixed launches lost device records; the kernels line's
    launch counts include this phase's;
-23. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+23. flat observations and the MLP actor and critic (``flat_slice``):
+   ``init-configs``' agent with ``graph_mode: false`` (observation 24 x 3
+   = 72 floats, action 1,728, actor hidden 256, critic hidden 64): (a)
+   ``cli train --replicas 64`` for one 200-step episode with its learn
+   burst and its evaluation (rollout env-steps/s, burst seconds,
+   kernel #2's launches: one per env step and evaluation step, no
+   attention launch; every loss finite, every parameter moved; the
+   sidecar records ``graph_mode`` false) with one of the run's B=64
+   kernel #2 launches held against its plain version on the card and
+   bit for bit on CPU copies; (b) single-env ``cli train`` of one
+   50-step episode, then ``cli infer`` on its checkpoint, equal to the
+   run's own evaluation; (c) ``run_serve`` (the body of ``cli serve``) of
+   (a)'s checkpoint for FLAT_SERVE[0] closed-loop requests (requests/s,
+   p50, p99; every answer finite, rows summing to 1, equal to an
+   unbatched ``greedy_action`` outside ambiguous rows); (d) the
+   single-env dispatch region (``env.reset`` plus ``episode_step`` with
+   its burst, traffic sampled beforehand, episode 0 outside) in graph
+   mode (the flagship, attention kernels) and in flat mode: one episode
+   recording every synchronizing CUDA operation and every value read
+   into Python (none allowed), one under ``analysis.no_host_sync`` and
+   one under ``torch.cuda.set_sync_debug_mode("error")``, the stats
+   drained after the region; the kernels line's launch counts include
+   this phase's;
+24. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Tolerances (stated here, used below): the attention kernel against its
 plain version rtol 1e-5 / atol 1e-5 (f32 in another summation order: the
@@ -658,6 +681,24 @@ PERF_EPISODES = 2
 PERF_MFU_MAX = 1.05
 # phase 22 (e): short profiles of a fixed sequence of launches
 PROFILE_ROUNDS = 200
+# phase 23: init-configs' agent in flat mode ({steps}-step episodes and
+# as long a warm-up, so each episode ends in a learn burst); (a)'s run,
+# (b)'s episode length, (c)'s requests, concurrency and deadline, (d)'s
+# episode length
+FLAT_AGENT_YAML = (
+    "observation_space: [ingress_traffic, node_load, node_cap]\n"
+    "graph_mode: {graph}\nepisode_steps: {steps}\nobjective: prio-flow\n"
+    "target_success: auto\nGNN_features: 22\nGNN_num_layers: 2\n"
+    "GNN_num_iter: 2\nGNN_aggr: mean\nactor_hidden_layer_nodes: [256]\n"
+    "critic_hidden_layer_nodes: [64]\nmem_limit: 10000\nbatch_size: 100\n"
+    "nb_steps_warmup_critic: {steps}\ngnn_impl: pallas\n")
+FLAT_REPLICAS = 64
+FLAT_ARGS = ["--replicas", str(FLAT_REPLICAS), "--chunk", "50",
+             "--episodes", "1", "--seed", "0", "--no-perf"]
+FLAT_STEPS = 200
+FLAT_SINGLE_STEPS = 50
+FLAT_SERVE = (300, 8, 5.0)
+SYNC_STEPS = 50
 
 
 class SmokeFailure(RuntimeError):
@@ -5240,6 +5281,14 @@ def perf_slice(torch, dev, smi, monitor):
           f"run_start perf {start['perf']}, compile_events "
           f"{start['compile_events']}")
     check_doc("(a) single env", perf_doc("single"), {"episode_step"})
+    # the observed dispatch (the run's first) builds the device tables
+    # without a sync and reads nothing back: 0 per env step
+    syncs = perf_doc("single")["entries"]["episode_step"]["host_syncs"]
+    check(syncs == 0, f"(a) the single-env episode_step made {syncs} host "
+          "syncs")
+    print(f"  (a) single-env episode_step: host_syncs {syncs} in one "
+          f"observed episode with its burst (0 per env step) on {smi}",
+          flush=True)
     print(f"  (a) checkpoints byte-equal with --perf and --no-perf; train_s "
           f"{on['summary']['train_s']:.3f} and "
           f"{off['summary']['train_s']:.3f}, wall {wall_on:.3f} and "
@@ -5293,6 +5342,339 @@ def perf_slice(torch, dev, smi, monitor):
         f"({k}) {v:.1f} s" for k, v in laps.seconds.items()), flush=True)
     shutil.rmtree(root, ignore_errors=True)
     return total
+
+
+class SyncRecorder:
+    """While entered, records without raising every synchronizing CUDA
+    operation of this thread (``analysis.launches.SyncWatch``) and every
+    read of a tensor's value into Python (``aten._local_scalar_dense``),
+    each keyed by what it was and the innermost package frames that made
+    it; ``hits`` maps (what, where) to a count."""
+
+    def __init__(self):
+        self.hits = {}
+
+    def _add(self, what):
+        import traceback
+
+        frames = [f for f in traceback.extract_stack()
+                  if "gsc_tpu_torch" in f.filename]
+        where = " <- ".join(
+            f"{f.filename.split('gsc_tpu_torch/')[-1]}:{f.lineno}"
+            for f in reversed(frames[-4:])) or "outside the package"
+        key = (what.splitlines()[0][:90], where)
+        self.hits[key] = self.hits.get(key, 0) + 1
+
+    def __enter__(self):
+        import threading
+
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        from gsc_tpu_torch.analysis.launches import SyncWatch
+
+        rec = self
+
+        class Reads(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func is torch.ops.aten._local_scalar_dense.default:
+                    rec._add("a value read into Python")
+                return func(*args, **(kwargs or {}))
+
+        self._watch = SyncWatch({threading.get_ident()}, self._add).start()
+        self._mode = Reads()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        self._watch.stop()
+        return False
+
+
+def sync_region(torch, dev, smi, graph):
+    """Phase 23 (d): the single-env dispatch region of
+    tests/test_torch_no_host_sync.py at the flagship widths, in graph
+    mode (``graph`` true, the attention kernels) or flat mode: traffic
+    sampled beforehand, episode 0 outside, then episodes 1-3 of
+    SYNC_STEPS steps with their bursts (``env.reset`` plus
+    ``episode_step``), 1 under ``SyncRecorder`` (nothing may be
+    recorded), 2 under ``no_host_sync``, 3 under
+    ``torch.cuda.set_sync_debug_mode("error")``; the stats drained after
+    the region.  Returns the recorded episode's wall seconds."""
+    from gsc_tpu_torch.agents.trainer import Trainer, _first
+    from gsc_tpu_torch.analysis import no_host_sync
+    from gsc_tpu_torch.config import (abc_service, init_configs_agent,
+                                      init_configs_sim)
+    from gsc_tpu_torch.config.schema import EnvLimits
+    from gsc_tpu_torch.env.driver import EpisodeDriver
+    from gsc_tpu_torch.env.env import ServiceCoordEnv
+    from gsc_tpu_torch.topology import synthetic
+    from gsc_tpu_torch.topology.compiler import compile_topology
+
+    mode = "graph" if graph else "flat"
+    agent = init_configs_agent(gnn_impl="pallas", graph_mode=graph,
+                               episode_steps=SYNC_STEPS,
+                               nb_steps_warmup_critic=SYNC_STEPS)
+    sim, service = init_configs_sim(), abc_service()
+    env = ServiceCoordEnv(service, sim, agent,
+                          EnvLimits.for_service(service))
+    topo = compile_topology(synthetic.abilene(), max_nodes=24, max_edges=37)
+    driver = EpisodeDriver.single(topo, sim, service, SYNC_STEPS, "abilene",
+                                  base_seed=0)
+    trainer = Trainer(env, driver, agent, seed=0, device=dev)
+    ddpg, draws = trainer.ddpg, trainer.draws
+    episodes = [trainer._episode(e) for e in range(4)]
+    state = trainer.init_state()
+    _, obs0 = env.reset(*episodes[0], batch=1)
+    ring = ddpg.init_buffer(_first(obs0))
+
+    def episode(ep):
+        es, obs = env.reset(*episodes[ep], batch=1)
+        return ddpg.episode_step(state, ring, es, obs, *episodes[ep],
+                                 ep * SYNC_STEPS, draws, learn=True)
+
+    outs = [episode(0)]
+    torch.cuda.synchronize()
+    rec = SyncRecorder()
+    t0 = time.perf_counter()
+    with rec:
+        outs.append(episode(1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with no_host_sync(f"phase 23 (d) {mode} episode"):
+        outs.append(episode(2))
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs.append(episode(3))
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+    for site, n in sorted(rec.hits.items(), key=lambda kv: -kv[1]):
+        print(f"    (d) {mode}: {n} x {site[0]} at {site[1]}", flush=True)
+    check(not rec.hits, f"the {mode}-mode single-env region synchronised "
+          f"{sum(rec.hits.values())} times in {SYNC_STEPS} env steps")
+    # the drain, after the region
+    for ep, out in enumerate(outs):
+        stats, metrics = out[4], out[5]
+        check(math.isfinite(float(stats["episodic_return"]))
+              and math.isfinite(float(metrics["critic_loss"]))
+              and float(stats["state_finite"]) == 1.0
+              and float(metrics["state_finite"]) == 1.0,
+              f"(d) {mode} episode {ep}: stats {stats}, metrics {metrics}")
+    print(f"  (d) {mode} mode: episode_step with its burst ({SYNC_STEPS} env "
+          f"steps, {SYNC_STEPS} gradient steps): 0 synchronizing CUDA "
+          "operations and 0 values read into Python (host_syncs 0 per env "
+          "step); no_host_sync and set_sync_debug_mode('error') held; the "
+          f"recorded episode took {wall:.3f} s on {smi}", flush=True)
+    return wall
+
+
+def flat_slice(torch, dev, smi):
+    """Phase 23: the flat agent (``graph_mode: false``) through train,
+    infer and serve, and the host-sync check of both modes (see the
+    module docstring).  Returns the phase's kernel launches and the
+    largest float difference of its kernel #2 launch against the plain
+    version on the card."""
+    import numpy as np
+
+    from gsc_tpu_torch import cli
+    from gsc_tpu_torch.config.loader import load_agent
+    from gsc_tpu_torch.ops.substep import substep_megakernel, substep_plain
+    from gsc_tpu_torch.parallel.dp import ParallelDDPG
+    from gsc_tpu_torch.serve import run_serve
+    from gsc_tpu_torch.sim import cases
+    from gsc_tpu_torch.utils.checkpoint import (read_checkpoint_meta,
+                                                verify_checkpoint)
+
+    laps = Laps()
+    total = {}
+    root = tempfile.mkdtemp(prefix="gsc_flat_")
+
+    def yaml_of(steps):
+        path = os.path.join(root, f"agent_{steps}.yaml")
+        with open(path, "w") as f:
+            f.write(FLAT_AGENT_YAML.format(graph="false", steps=steps))
+        return path
+
+    def counted():
+        counts = cli.kernel_launches()
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        return counts
+
+    # (a) 64 replicas, one episode with its burst, then the evaluation
+    y_a = yaml_of(FLAT_STEPS)
+    spans = {"rollout": [], "learn_burst": []}
+
+    def synced(fn, key):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            spans[key].append(time.perf_counter() - t0)
+            return res
+        return run
+
+    kept = {}
+    launch = substep_megakernel.launch
+
+    def keep(engine, state, *a):
+        out = launch(engine, state, *a)
+        if state.batch == FLAT_REPLICAS:
+            kept["args"], kept["out"] = (engine, state, *a), out
+        return out
+
+    saved = (ParallelDDPG.rollout_episodes, ParallelDDPG.learn_burst)
+    ParallelDDPG.rollout_episodes = synced(saved[0], "rollout")
+    ParallelDDPG.learn_burst = synced(saved[1], "learn_burst")
+    substep_megakernel.launch = keep
+    cli.zero_kernel_launches()
+    try:
+        res = cli.run_train(["--agent-config", y_a, *FLAT_ARGS,
+                             "--result-dir", os.path.join(root, "a")])
+    finally:
+        del substep_megakernel.launch
+        ParallelDDPG.rollout_episodes, ParallelDDPG.learn_burst = saved
+    counts = counted()
+    trainer, state, buffers = res["trainer"], res["state"], res["buffers"]
+    agent = trainer.agent_cfg
+    check(not agent.graph_mode, "phase 23 (a) trained a graph-mode agent")
+    row = trainer.history[-1]
+    for k in ("episodic_return", "critic_loss", "actor_loss", "q_values"):
+        check(k in row and math.isfinite(row[k]), f"(a) {k}: {row.get(k)}")
+    want = 2 * FLAT_STEPS
+    check(counts["substep_megakernel"] == want,
+          f"(a) {counts['substep_megakernel']} kernel #2 launches for "
+          f"{FLAT_STEPS} env steps and {FLAT_STEPS} evaluation steps")
+    att = {k: n for k, n in counts.items() if k.startswith("gat_attention")}
+    check(not any(att.values()), f"(a) the flat run launched {att}")
+    b = FLAT_REPLICAS
+    cap = agent.mem_limit // b
+    check(tuple(buffers.data["obs"].shape) == (b, cap, 72)
+          and buffers.data["obs"].dtype == torch.float32
+          and bool((buffers.size == min(FLAT_STEPS, cap)).all()),
+          f"(a) replay obs {tuple(buffers.data['obs'].shape)}, fill "
+          f"{buffers.size.tolist()[:4]}")
+    ck_a = res["summary"]["checkpoint"]
+    meta = read_checkpoint_meta(ck_a)
+    check(meta.get("graph_mode") is False and verify_checkpoint(ck_a),
+          f"(a) checkpoint sidecar {meta}")
+    fresh = ParallelDDPG(trainer.env, agent, b, device=dev).init(
+        torch.Generator().manual_seed(trainer.seed))
+    for net, init in (("actor", fresh.actor), ("critic", fresh.critic)):
+        final = dict(getattr(state, net).named_parameters())
+        for name, p0 in init.named_parameters():
+            check(not torch.equal(p0, final[name]),
+                  f"(a) {net}.{name} did not move in training")
+    engine, *args = kept["args"]
+    got = kept["out"]
+    what = f"(a) a B={b} kernel #2 launch of the flat run"
+    err = cases.compare_states(got, substep_plain(engine, *args), SUB_RTOL,
+                               SUB_ATOL, f"{what}, kernel vs plain on card: ")
+    on_cpu = [a.to("cpu") if hasattr(a, "to") else a for a in args]
+    check(cases.bit_equal(got.to("cpu"), substep_plain(engine, *on_cpu)),
+          f"{what}: not bit-equal to the plain version on CPU copies")
+    sps = b * FLAT_STEPS / sum(spans["rollout"])
+    print(f"  (a) train --replicas {b}, 1 episode of {FLAT_STEPS} steps, flat "
+          f"observation [72], action [1728]: return "
+          f"{row['episodic_return']:.4f}, critic loss {row['critic_loss']}, "
+          f"actor loss {row['actor_loss']}; evaluation "
+          f"{res['summary']['mean_return']:.4f}; every parameter moved; "
+          f"kernel #2 launches {counts['substep_megakernel']} (1 per env "
+          f"step and evaluation step), attention launches 0; one B={b} "
+          f"launch against the plain version: max abs diff {err:.2e} on the "
+          f"card (rtol {SUB_RTOL}, atol {SUB_ATOL}), bit-equal on CPU "
+          f"copies", flush=True)
+    print(f"  (a) timing on {smi}: rollout {b * FLAT_STEPS} env steps in "
+          f"{sum(spans['rollout']):.3f} s = {sps:.1f} env-steps/s; learn "
+          f"burst {[round(t, 3) for t in spans['learn_burst']]} s "
+          f"({agent.episode_steps} gradient steps); wall "
+          f"{res['summary']['wall_s']:.1f} s", flush=True)
+    laps.lap("a")
+
+    # (b) one single-env episode, then infer on its checkpoint
+    y_b = yaml_of(FLAT_SINGLE_STEPS)
+    cli.zero_kernel_launches()
+    res_b = cli.run_train(["--agent-config", y_b, "--episodes", "1",
+                           "--seed", "0", "--no-perf", "--result-dir",
+                           os.path.join(root, "b")])
+    res_i = cli.run_infer(["--agent-config", y_b, "--seed", "0",
+                           "--checkpoint", res_b["summary"]["checkpoint"],
+                           "--episodes", "1"])
+    counts_b = counted()
+    ev = {k: res_b["summary"][k] for k in ("mean_return",
+                                           "final_succ_ratio")}
+    check(all(res_i["eval"][k] == v for k, v in ev.items()),
+          f"(b) infer {res_i['eval']} differs from the run's own "
+          f"evaluation {ev}")
+    row_b = res_b["trainer"].history[-1]
+    check(math.isfinite(row_b.get("critic_loss", math.nan)),
+          f"(b) the single-env episode did not learn: {row_b}")
+    check(counts_b["substep_megakernel"] == 3 * FLAT_SINGLE_STEPS,
+          f"(b) {counts_b['substep_megakernel']} kernel #2 launches for "
+          f"{FLAT_SINGLE_STEPS} training, evaluation and infer steps each")
+    print(f"  (b) single env, 1 episode of {FLAT_SINGLE_STEPS} steps with "
+          f"its burst: return {row_b['episodic_return']:.4f}, critic loss "
+          f"{row_b['critic_loss']}, {row_b['sps']:.1f} env-steps/s on "
+          f"{smi}; infer on its checkpoint {json.dumps(res_i['eval'])} "
+          f"equal to the run's own evaluation; kernel #2 launches "
+          f"{counts_b['substep_megakernel']}", flush=True)
+    laps.lap("b")
+
+    # (c) serving (a)'s checkpoint
+    n_req, conc, deadline = FLAT_SERVE
+    cli.zero_kernel_launches()
+    rep = run_serve(load_agent(y_a), device=dev, checkpoint=ck_a,
+                    requests=n_req, concurrency=conc, buckets=BUCKETS,
+                    deadline_ms=deadline, pool_steps=POOL_STEPS, seed=0)
+    counts_c = counted()
+    summ = rep.summary()
+    check(not rep.errors and len(rep.answers) == n_req,
+          f"(c) {len(rep.answers)} of {n_req} answered, errors "
+          f"{rep.errors[:3]}")
+    check(counts_c["substep_megakernel"] == POOL_STEPS,
+          f"(c) {counts_c['substep_megakernel']} kernel #2 launches for a "
+          f"request pool of {POOL_STEPS} env steps")
+    ddpg = rep.ddpg
+    check(all(np.asarray(o).shape == (72,) for o in rep.pool),
+          "(c) the request pool is not flat observations")
+    worst, ambiguous = 0.0, 0
+    singles = {}
+    for k in sorted({k for k, _ in rep.answers}):
+        obs = torch.from_numpy(np.asarray(rep.pool[k]))[None].to(dev)
+        with torch.inference_mode():
+            singles[k] = (ddpg.greedy_action(obs)[0].cpu().numpy(),
+                          ddpg.actor(obs)[0].cpu().numpy())
+    for k, ans in rep.answers:
+        check(ans.shape == (1728,) and bool(np.isfinite(ans).all())
+              and np.allclose(ans.reshape(-1, 24).sum(-1), 1.0, rtol=1e-5),
+              f"(c) answer for pool obs {k}: {ans.shape}, finite "
+              f"{bool(np.isfinite(ans).all())}")
+        e, a = compare_answers(ans, singles[k][0], singles[k][1],
+                               f"(c) batched vs unbatched, obs {k}")
+        worst, ambiguous = max(worst, e), ambiguous + a
+    print(f"  (c) run_serve (cli serve's body) of (a)'s checkpoint: "
+          f"{summ['completed']} requests at concurrency {conc}, deadline "
+          f"{deadline:g} ms, {summ['dispatches']} dispatches; "
+          f"{summ['rps']:.1f} req/s, p50 {summ['p50_ms']:.3f} ms, p99 "
+          f"{summ['p99_ms']:.3f} ms on {smi}; answers vs unbatched "
+          f"greedy_action max abs diff {worst:.2e} ({ambiguous} ambiguous "
+          f"rows)", flush=True)
+    print("serve_summary flat: " + json.dumps(summ))
+    laps.lap("c")
+
+    # (d) zero host syncs in the single-env dispatch region, both modes
+    cli.zero_kernel_launches()
+    for graph in (True, False):
+        sync_region(torch, dev, smi, graph)
+    counted()
+    laps.lap("d")
+    print(f"  phase 23 kernel launches: {total}; parts: " + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in laps.seconds.items()), flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return total, err
 
 
 def main() -> int:
@@ -5595,7 +5977,14 @@ def main() -> int:
                    "substep_megakernel"):
         check(perf_launches.get(kernel, 0) > 0,
               f"{kernel} was not launched on the --perf path")
+    # ---- 23. flat observations and the MLP actor and critic -------------
+    print("phase 23, flat observations (graph_mode: false):", flush=True)
+    flat_launches, flat_err = flat_slice(torch, dev, smi)
+    phases.lap("23")
+    check(flat_launches.get("substep_megakernel", 0) > 0,
+          "substep_megakernel was not launched on the flat path")
     path_launches = {k: mesh_launches.get(k, 0) + perf_launches.get(k, 0)
+                     + flat_launches.get(k, 0)
                      + train_launches.get(k, 0)
                      + bf16_launches.get(k, 0)
                      + gen_launches.get(k, 0) + large_launches.get(k, 0)
@@ -5612,7 +6001,7 @@ def main() -> int:
     bwd_err = max(bwd_err, large_errs["gat_attention_backward"])
     h_err = max(h_err, large_errs["gat_attention_bf16"])
     hb_err = max(hb_err, large_errs["gat_attention_backward_bf16"])
-    sub_err = max(sub_err, large_sub_err, mix_sub_err)
+    sub_err = max(sub_err, large_sub_err, mix_sub_err, flat_err)
     max_err = max(max_err, mix_err, serving_errs["gat_attention"])
     bwd_err = max(bwd_err, mix_bwd_err)
     h_err = max(h_err, serving_errs["gat_attention_bf16"])

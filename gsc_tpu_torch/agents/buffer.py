@@ -1,7 +1,8 @@
 """Replay ring buffer on the device.
 
 The port of ``gsc_tpu.agents.buffer``: a transition is a nested dict of
-tensors (graph observations as ``GraphObs``), stored in one ring whose
+tensors (graph observations as ``GraphObs``, flat ones as one tensor
+leaf), stored in one ring whose
 leaves carry a leading [capacity] axis, or per-replica shards whose leaves
 carry [B, capacity] (the replica-parallel learner's layout).  As in the
 JAX package, leaves of two or more dims per transition are stored
@@ -12,7 +13,9 @@ place and returns the same buffer: the ring is the largest resident of a
 training run, and nothing reads an older version of it.  Leaves may mix
 dtypes (under the bf16 policy the float obs, next_obs and action leaves
 are bf16 beside f32 reward and done); ``buffer_add`` casts on write and
-``buffer_nbytes`` counts each leaf at its storage dtype.
+``buffer_nbytes`` counts each leaf at its storage dtype.  Neither
+``buffer_add`` nor ``buffer_sample`` reads a value to the host: the
+write position stays a tensor index.
 """
 from __future__ import annotations
 
@@ -132,9 +135,11 @@ def buffer_add(buf: ReplayBuffer, item: Any) -> ReplayBuffer:
     flat = flatten_transition(item, lead)
     pos = buf.pos.long()
     for k, d in buf.data.items():
-        x = flat[k].to(d.dtype)
+        x = flat[k].to(device=d.device, dtype=d.dtype)
         if lead == 0:
-            d[pos] = x
+            # a one-element index: indexing by the 0-d ``pos`` itself would
+            # read it into Python
+            d.index_copy_(0, pos.reshape(1), x.unsqueeze(0))
         else:
             d[torch.arange(d.shape[0], device=d.device), pos] = x
     buf.pos = (buf.pos + 1) % cap

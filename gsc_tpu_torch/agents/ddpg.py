@@ -11,8 +11,17 @@ a replay write) and ``episode_step`` (the rollout, then the
 end-of-episode learn burst on batches of that ring).  The single env runs
 as a batch of one replica, so its actor forwards are batches of one
 graph.  ``optax.adam`` becomes ``torch.optim.Adam`` with the same
-learning rate, betas (0.9, 0.999) and eps 1e-8; neither side clips
-gradients.
+learning rate, betas (0.9, 0.999) and eps 1e-8, in the form whose step
+count stays on the device (``agents.adam.DeviceAdam``); neither side clips
+gradients.  Both observation modes: a graph observation (``GraphObs``)
+carries its action mask, a flat one (``AgentConfig.graph_mode`` false, a
+[B, N*F] tensor) takes the env's, ``action_mask`` of the topology,
+through ``ShuffleOps.step_mask``.
+
+The single-env episode reads no value into Python between its dispatch
+and the drain of its stats (``analysis.no_host_sync`` holds it): the
+replay's write position, the Adam step counts and every stat stay on the
+device.
 
 Random draws stay outside the networks: ``choose_action`` takes its
 warm-up uniforms and exploration normals from a ``Draws`` source, and the
@@ -48,8 +57,9 @@ import torch
 
 from ..config.schema import AgentConfig
 from ..device import resolve_device
+from ..env.actions import action_mask
 from ..env.env import EnvState, ServiceCoordEnv
-from ..env.observations import GraphObs
+from ..env.observations import GraphObs, obs_map
 from ..env.permutation import ShuffleOps
 from ..models.nets import Actor, QNetwork, scale_action, unscale_action
 from ..obs.learning import (LearnLedgerSpec, accumulate_signal,
@@ -59,6 +69,7 @@ from ..ops.gat import compute_dtype_of
 from ..resilience.guard import all_finite
 from ..sim.state import TrafficSchedule
 from ..topology.compiler import Topology
+from .adam import DeviceAdam
 from .buffer import ReplayBuffer, buffer_add, buffer_init, buffer_sample
 
 ADAM_BETAS = (0.9, 0.999)
@@ -174,9 +185,10 @@ class DDPG:
         impl = gnn_impl or agent.gnn_impl
         sched_shape = env.limits.scheduling_shape
         self.actor = Actor(agent, self.action_dim, gnn_impl=impl,
-                           sched_shape=sched_shape)
+                           sched_shape=sched_shape, obs_dim=env.obs_dim())
         self.critic = QNetwork(agent, self.action_dim, gnn_impl=impl,
-                               sched_shape=sched_shape)
+                               sched_shape=sched_shape,
+                               obs_dim=env.obs_dim())
 
     def init(self, generator: torch.Generator) -> Actor:
         """Draw the actor's parameters from ``generator`` (on the CPU, so a
@@ -192,7 +204,7 @@ class DDPG:
         actor = self.init(generator)
         self.critic.reset_parameters(generator)
         critic = self.critic.to(self.device)
-        adam = lambda m: torch.optim.Adam(
+        adam = lambda m: DeviceAdam(
             m.parameters(), lr=self.agent.learning_rate, betas=ADAM_BETAS,
             eps=ADAM_EPS)
         return DDPGState(
@@ -201,33 +213,45 @@ class DDPG:
             target_critic=copy.deepcopy(critic).requires_grad_(False),
             actor_opt=adam(actor), critic_opt=adam(critic))
 
-    def example_transition(self, sample_obs: GraphObs) -> Dict:
-        """One replay transition's shapes and dtypes (no batch dim).  Under
-        a low-precision replay policy (``replay_cast_dtype``) the float
-        leaves of obs/next_obs and the action are stored in that dtype;
-        reward and done stay f32, bool and integer leaves as they are."""
-        dev = sample_obs.nodes.device
+    def example_transition(self, sample_obs) -> Dict:
+        """One replay transition's shapes and dtypes (no batch dim; a
+        ``GraphObs`` or a flat observation).  Under a low-precision replay
+        policy (``replay_cast_dtype``) the float leaves of obs/next_obs
+        and the action are stored in that dtype; reward and done stay f32,
+        bool and integer leaves as they are."""
+        dev = (sample_obs.nodes if isinstance(sample_obs, GraphObs)
+               else sample_obs).device
         obs = sample_obs
         action = torch.zeros(self.action_dim, device=dev)
         rd = compute_dtype_of(self.agent.precision_policy.replay_cast_dtype)
         if rd is not None:
-            obs = sample_obs.map(lambda x: x.to(rd) if x.is_floating_point()
-                                 else x)
+            obs = obs_map(sample_obs, lambda x: x.to(rd)
+                          if x.is_floating_point() else x)
             action = action.to(rd)
         return {"obs": obs, "next_obs": obs, "action": action,
                 "reward": torch.zeros((), device=dev),
                 "done": torch.zeros((), device=dev),
                 "topo_idx": torch.zeros((), dtype=torch.int32, device=dev)}
 
-    def init_buffer(self, sample_obs: GraphObs) -> ReplayBuffer:
+    def init_buffer(self, sample_obs) -> ReplayBuffer:
         """One replay ring of ``mem_limit`` transitions (``sample_obs``
         without a batch dim)."""
         return buffer_init(self.example_transition(sample_obs),
                            self.agent.mem_limit, device=self.device)
 
+    def env_mask(self, topo: Topology, batch: int) -> Optional[torch.Tensor]:
+        """The env's [batch, A] action mask (real source and destination
+        nodes of ``topo``) that a flat observation does not carry; None
+        in graph mode, where the observation's own mask is used."""
+        if self.agent.graph_mode:
+            return None
+        limits = self.env.limits
+        return action_mask(topo.expand(batch).node_mask, limits.num_sfcs,
+                           limits.max_sfs)
+
     # ------------------------------------------------------------- actions
     @torch.inference_mode()
-    def greedy_action(self, obs: GraphObs,
+    def greedy_action(self, obs,
                       actor: Optional[Actor] = None) -> torch.Tensor:
         """The greedy policy: [..., A] actions for a (batched) observation,
         from ``actor`` (default: this agent's)."""
@@ -236,7 +260,7 @@ class DDPG:
         return self.env.process_action(a)
 
     @torch.no_grad()
-    def choose_action(self, actor: Actor, obs: GraphObs, mask: torch.Tensor,
+    def choose_action(self, actor: Actor, obs, mask: torch.Tensor,
                       global_step: int, draws: Draws) -> torch.Tensor:
         """Warm-up (``global_step < nb_steps_warmup_critic``): uniform
         random action times the mask; after it: the actor's action plus
@@ -252,11 +276,11 @@ class DDPG:
     # ------------------------------------------------------------- rollout
     @torch.no_grad()
     def rollout_episode(self, state: DDPGState, buffer: ReplayBuffer,
-                        env_state: EnvState, obs: GraphObs, topo: Topology,
+                        env_state: EnvState, obs, topo: Topology,
                         traffic: TrafficSchedule, episode_start_step: int,
                         draws: Draws, num_steps: Optional[int] = None
                         ) -> Tuple[DDPGState, ReplayBuffer, EnvState,
-                                   GraphObs, Dict[str, torch.Tensor]]:
+                                   object, Dict[str, torch.Tensor]]:
         """``num_steps`` (default ``episode_steps``) steps of the single
         env (a batch of one replica): action, env step, one transition
         into the ring ``buffer``, stamped with ``topo.topo_id``.
@@ -269,10 +293,11 @@ class DDPG:
         shuffle = ShuffleOps(self.agent, self.env.limits)
         perm = shuffle.init_perm(1, self.device, draws)
         obs = shuffle.permute_obs(obs, perm)
+        env_mask = self.env_mask(topo, 1)
         first = lambda x: x[0]
         rewards, succ, e2e = [], [], []
         for i in range(num_steps or self.agent.episode_steps):
-            mask = shuffle.step_mask(obs, None, perm)
+            mask = shuffle.step_mask(obs, env_mask, perm)
             action = self.choose_action(state.actor, obs, mask,
                                         episode_start_step + i, draws)
             action = self.env.process_action(action)
@@ -281,7 +306,8 @@ class DDPG:
                 draws.sim_noise(self.env.engine, 1))
             next_obs, perm = shuffle.advance(next_obs, perm, draws)
             buffer_add(buffer, {
-                "obs": obs.map(first), "next_obs": next_obs.map(first),
+                "obs": obs_map(obs, first),
+                "next_obs": obs_map(next_obs, first),
                 "action": action[0], "reward": reward[0],
                 "done": done[0].to(torch.float32), "topo_idx": topo.topo_id})
             rewards.append(reward[0])
@@ -298,7 +324,7 @@ class DDPG:
         return state, buffer, env_state, obs, stats
 
     def episode_step(self, state: DDPGState, buffer: ReplayBuffer,
-                     env_state: EnvState, obs: GraphObs, topo: Topology,
+                     env_state: EnvState, obs, topo: Topology,
                      traffic: TrafficSchedule, episode_start_step: int,
                      draws: Draws, learn: bool = False,
                      num_steps: Optional[int] = None, observe=None):

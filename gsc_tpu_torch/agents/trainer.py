@@ -35,6 +35,16 @@ The port of ``gsc_tpu.agents.trainer.Trainer``:
   inference network, optionally writing the reference's test-mode CSV
   suite to ``<result_dir>/test``.
 
+Every loop runs either observation mode (``AgentConfig.graph_mode``); the
+evaluation's ``rl_state`` column is the flat observation itself in flat
+mode and the node features flattened alike in graph mode.  With
+``tensorboard`` and a ``result_dir`` each loop also writes
+``charts/episodic_return`` and ``charts/SPS`` per episode, and the
+single-env loop ``losses/qf1_loss``, ``losses/actor_loss`` and
+``losses/qf1_values`` after a learn burst, to ``<result_dir>/tb``
+through ``torch.utils.tensorboard`` (nothing where it does not import),
+as the JAX trainer does.
+
 Cost ledger (``obs.perf``, when the observer keeps one): the single-env
 loop observes its first ``episode_step`` dispatch (and the first that
 learns, if the first did not), or on the serial loop (``pipeline=False``)
@@ -93,7 +103,7 @@ import torch
 from ..config.schema import AgentConfig
 from ..env.driver import EpisodeDriver
 from ..env.env import ServiceCoordEnv
-from ..env.observations import GraphObs
+from ..env.observations import GraphObs, obs_map
 from ..parallel.dp import ParallelDDPG
 from ..parallel.harness import run_chunked_episodes
 from ..resilience.faults import FaultInjected, refuse_async_sites
@@ -132,8 +142,17 @@ class RewardsWriter:
             self._file = None
 
 
-def _first(obs: GraphObs) -> GraphObs:
-    return GraphObs(**{k: v[0] for k, v in vars(obs).items()})
+def _first(obs):
+    """The first replica's observation (either mode)."""
+    return obs_map(obs, lambda x: x[0])
+
+
+def _rl_state(obs) -> List[float]:
+    """The first replica's observation as the test-mode CSVs' flat
+    ``rl_state``: a flat observation itself, or the node features
+    transposed and flattened."""
+    x = obs.nodes[0].T if isinstance(obs, GraphObs) else obs[0]
+    return x.cpu().numpy().reshape(-1).tolist()
 
 
 def state_is_finite(state: DDPGState) -> bool:
@@ -148,7 +167,8 @@ class Trainer:
                  check_invariants: bool = False, fault_plan=None,
                  rollback: bool = True,
                  retry_policy: Optional[RetryPolicy] = None,
-                 pipeline_fault_limit: int = 3, learn_ledger=None):
+                 pipeline_fault_limit: int = 3, learn_ledger=None,
+                 tensorboard: bool = False):
         self.env = env
         self.driver = driver
         self.agent_cfg = agent_cfg
@@ -192,6 +212,32 @@ class Trainer:
         self.async_info: Optional[Dict] = None
         # a mesh rank's accounting (train_parallel with a plan)
         self.mesh_info: Optional[Dict] = None
+        self.tb = None
+        if tensorboard and result_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self.tb = SummaryWriter(os.path.join(result_dir, "tb"))
+            except ImportError:
+                pass
+
+    def _tb_row(self, row: Dict, global_step: int, losses: bool = False):
+        """One episode's scalars into the TensorBoard writer, if any."""
+        if self.tb is None:
+            return
+        self.tb.add_scalar("charts/episodic_return", row["episodic_return"],
+                           global_step)
+        self.tb.add_scalar("charts/SPS", row["sps"], global_step)
+        if losses:
+            self.tb.add_scalar("losses/qf1_loss", row["critic_loss"],
+                               global_step)
+            self.tb.add_scalar("losses/actor_loss", row["actor_loss"],
+                               global_step)
+            self.tb.add_scalar("losses/qf1_values", row["q_values"],
+                               global_step)
+
+    def _tb_close(self):
+        if self.tb is not None:
+            self.tb.close()
 
     # ---------------------------------------------------------------- inputs
     def _on_device(self, topo: Topology) -> Topology:
@@ -240,6 +286,11 @@ class Trainer:
                                  "pointer keeps the previous verified state")
             return
         ckpt_manager.save(state, buffer, episode=ep + 1, draws=self.draws)
+
+    def _refuse_flat_publish(self, publisher):
+        if publisher is not None and not self.agent_cfg.graph_mode:
+            raise ValueError("hot-swap publishing of a flat agent "
+                             "(graph_mode: false) is not ported yet")
 
     def _publish(self, publisher, publish_interval: int, ep: int,
                  start_episode: int, actor, verified: bool):
@@ -394,6 +445,7 @@ class Trainer:
             row.update(episode=ep, sps=sps)
             self.history.append(row)
             writer.write(row["episodic_return"])
+            self._tb_row(row, end_step, losses=metrics is not None)
             if on_row is not None:
                 on_row(row)
             if verbose:
@@ -443,6 +495,7 @@ class Trainer:
         drained episode every N episodes (the live actor without
         rollback)."""
         refuse_async_sites(self.fault_plan)
+        self._refuse_flat_publish(publisher)
         if self.driver.topo_mix:
             # the mixture fills a replica axis the single env lacks
             raise ValueError(
@@ -643,6 +696,7 @@ class Trainer:
             if prefetch is not None:
                 prefetch.close()
             writer.close()
+            self._tb_close()
         self.completed_episodes = self._last_drained + 1
         if plan is not None:
             plan.warn_unfired(hub)
@@ -806,6 +860,7 @@ class Trainer:
                     preempt, False, verbose, device_traffic, curriculum,
                     publisher, publish_interval, plan)
         refuse_async_sites(self.fault_plan)
+        self._refuse_flat_publish(publisher)
         steps = self.agent_cfg.episode_steps
         if steps % chunk != 0:
             raise ValueError(f"chunk ({chunk}) must divide episode_steps "
@@ -948,6 +1003,7 @@ class Trainer:
                        "sps": sps}
                 self.history.append(row)
                 writer.write(ret)
+                self._tb_row(row, (ep + 1) * steps)
                 if on_row is not None:
                     on_row(row)
                 if verbose:
@@ -993,6 +1049,7 @@ class Trainer:
             if self.obs:
                 self.obs.pause_watchdog()
             writer.close()
+            self._tb_close()
             self.draws.rows = None
         self.completed_episodes = self._last_drained + 1
         self.curriculum = curr
@@ -1061,6 +1118,9 @@ class Trainer:
         if plan is not None:
             raise ValueError("the port has no device mesh: plan must be "
                              "None")
+        if not self.agent_cfg.graph_mode:
+            raise ValueError("decoupled training (--async) of a flat agent "
+                             "(graph_mode: false) is not ported yet")
         if profile and self.result_dir:
             from ..utils.debug import Profiler
             with Profiler(os.path.join(self.result_dir, "profile")):
@@ -1130,6 +1190,7 @@ class Trainer:
                    "policy_version": rec["policy_version"], "sps": sps}
             self.history.append(row)
             writer.write(ret)
+            self._tb_row(row, (ep + 1) * steps)
             if on_row is not None:
                 on_row(row)
             if verbose:
@@ -1211,6 +1272,7 @@ class Trainer:
             if self.obs:
                 self.obs.pause_watchdog()
             writer.close()
+            self._tb_close()
         if preempt is not None and preempt.triggered:
             self.preempted = True
             self._recover(
@@ -1296,8 +1358,7 @@ class Trainer:
                         .numpy(),
                             schedule=host(info["schedule"]).numpy(),
                             runtime=runtime,
-                            rl_state=host(obs.nodes).numpy().T.reshape(-1)
-                            .tolist(),
+                            rl_state=_rl_state(obs),
                             truncated_arrivals=int(sim.truncated_arrivals[0]))
                 totals.append(ep_reward)
                 succ.append(float(info["succ_ratio"][0]))

@@ -146,10 +146,16 @@ def _agent(args, precision):
 def _sim_and_service(args):
     from .config import abc_service, init_configs_sim
     from .config.loader import load_service, load_sim
+    from .config.schema import replace
     from .config.registry import load_resource_function_plugins
 
-    sim_cfg = (load_sim(args.simulator_config) if args.simulator_config
-               else init_configs_sim())
+    # train's --substep-impl / --unroll override the yaml's engine keys
+    over = {k: v for k, v in (
+        ("substep_impl", getattr(args, "substep_impl", None)),
+        ("scan_unroll", getattr(args, "unroll", None))) if v is not None}
+    sim_cfg = (load_sim(args.simulator_config, **over)
+               if args.simulator_config
+               else replace(init_configs_sim(), **over))
     plugins = args.resource_functions_path
     if args.service:
         service = load_service(args.service, resource_functions_path=plugins)
@@ -351,6 +357,8 @@ def _check_train_args(args):
     if args.metrics_port and not args.obs:
         raise SystemExit("--metrics-port needs the run observer (drop "
                          "--no-obs)")
+    if args.unroll is not None and args.unroll < 1:
+        raise SystemExit("--unroll must be a positive integer")
     if args.async_mode:
         if args.replicas <= 1:
             raise SystemExit(
@@ -378,6 +386,27 @@ def _check_train_args(args):
             raise SystemExit(f"--fault-plan: {e}")
     _check_mesh_args(args)
     args.curriculum = _curriculum(args)
+
+
+def _refuse_flat(args, agent, resume) -> None:
+    """A flat agent (``graph_mode: false``) on a path not ported for it
+    yet, or a resume across observation modes, refused by name before
+    anything starts."""
+    if resume:
+        from .utils.checkpoint import check_graph_mode
+        try:
+            check_graph_mode(resume, agent.graph_mode)
+        except ValueError as e:
+            raise SystemExit(f"--resume: {e}")
+    if agent.graph_mode:
+        return
+    for flag, on in (("--async", args.async_mode), ("--mesh", args.mesh),
+                     ("--hot-swap-dir", args.hot_swap_dir)):
+        if on:
+            raise SystemExit(
+                f"{flag} with a flat agent (graph_mode: false) is not "
+                "ported yet: train it with a graph-mode agent, or drop "
+                f"{flag}")
 
 
 def _check_mesh_args(args):
@@ -523,7 +552,9 @@ def _train_run(args, run: int, dev, precision, resume, mesh=None) -> dict:
                             "floor": args.curriculum_floor}}
                            if args.curriculum is not None else {}),
                         "precision": agent.precision,
+                        "graph_mode": agent.graph_mode,
                         "substep_impl": env.sim_cfg.substep_impl,
+                        "unroll": env.sim_cfg.scan_unroll,
                         "result_dir": rdir, "device": str(dev),
                         "ckpt_interval": args.ckpt_interval,
                         "hot_swap_dir": args.hot_swap_dir,
@@ -541,10 +572,12 @@ def _train_run(args, run: int, dev, precision, resume, mesh=None) -> dict:
                           device=dev, obs=obs,
                           check_invariants=args.check_invariants,
                           fault_plan=fplan, rollback=args.rollback,
-                          learn_ledger=learn_spec)
+                          learn_ledger=learn_spec,
+                          tensorboard=args.tensorboard)
         manager = (CheckpointManager(os.path.join(rdir, "ckpts"),
                                      retain=args.ckpt_retain,
-                                     meta={"precision": agent.precision},
+                                     meta={"precision": agent.precision,
+                                           "graph_mode": agent.graph_mode},
                                      fault_plan=fplan, obs=obs)
                    if rdir else None)
         init_state = init_buffer = None
@@ -650,6 +683,7 @@ def _train_run(args, run: int, dev, precision, resume, mesh=None) -> dict:
             t1 = time.perf_counter()
             ckpt = save_checkpoint(ckpt, state, buffer=buffer,
                                    meta={"precision": agent.precision,
+                                         "graph_mode": agent.graph_mode,
                                          "episode": args.episodes},
                                    checksum=True, draws=trainer.draws,
                                    extra={"episode": args.episodes})
@@ -800,6 +834,7 @@ def _train(args, devices=None, deadline_s=None) -> dict:
             precision = checkpoint_precision(resume, precision)
         except ValueError as e:
             raise SystemExit(str(e))
+    _refuse_flat(args, _agent(args, precision), resume)
     if args.mesh:
         outputs = _mesh_runs(args, dev, precision, resume, devices,
                              deadline_s)
@@ -898,6 +933,11 @@ def _infer(args) -> dict:
     precision = (args.precision
                  or checkpoint_precision(args.checkpoint, implicit=None))
     env, driver, agent = _build(args, precision)
+    from .utils.checkpoint import check_graph_mode
+    try:
+        check_graph_mode(args.checkpoint, agent.graph_mode)
+    except ValueError as e:
+        raise SystemExit(str(e))
     trainer = Trainer(env, driver, agent, seed=args.seed, device=dev)
     state = trainer.init_state()
     load_full_or_partial(args.checkpoint, state)
@@ -1402,6 +1442,20 @@ def _parser() -> argparse.ArgumentParser:
                    default=False,
                    help="write a torch.profiler Chrome trace of training "
                    "to <run>/profile/trace.json")
+    t.add_argument("--tensorboard", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="write charts/episodic_return, charts/SPS and "
+                   "losses/* per episode to <run>/tb through "
+                   "torch.utils.tensorboard (nothing where it does not "
+                   "import)")
+    t.add_argument("--substep-impl", choices=("xla", "pallas"), default=None,
+                   help="the simulator yaml's 'substep_impl' override, "
+                   "validated and recorded as in the JAX CLI; every "
+                   "interval runs the substep kernel on the card either way")
+    t.add_argument("--unroll", type=int, default=None,
+                   help="the simulator yaml's 'scan_unroll' override (>= 1), "
+                   "validated and recorded as in the JAX CLI; the port has "
+                   "no substep scan to unroll")
 
     m = sub.add_parser("simulate", help="a standalone simulator run: a "
                        "uniform schedule over every node and every SF "

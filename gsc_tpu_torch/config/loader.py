@@ -102,7 +102,7 @@ def load_sim(path: str, **overrides) -> SimConfig:
     kw["controller"] = next(iter(spelled.values()), "duration")
     kw["substep_impl"] = str(cfg.get("substep_impl", "xla"))
     for key in ("max_flows", "release_horizon", "admission_iters",
-                "wrr_rank_levels"):
+                "wrr_rank_levels", "scan_unroll"):
         if key in cfg:
             kw[key] = int(cfg[key])
     kw.update(overrides)

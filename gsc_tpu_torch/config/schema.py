@@ -200,8 +200,9 @@ class SimConfig:
     deterministic or Poisson arrivals, whose per-interval mean
     may follow the two-state MMPP chain (``use_states``, ``init_state``,
     ``rand_init_state``, ``states``) or a CSV trace (``trace_path``).
-    ``substep_impl`` is the JAX package's key, validated as there so that
-    its yaml files load; it does not choose a path in the port.
+    ``substep_impl`` and ``scan_unroll`` are the JAX package's keys,
+    validated as there so that its yaml files load and recorded; they do
+    not choose a path in the port.
     ``force_link_cap`` and ``force_node_cap`` override the capacities of
     every network read from GraphML (``topology.compiler.read_graphml``).
     Per-flow control with ``substep_impl="pallas"`` is refused, as in the
@@ -249,6 +250,9 @@ class SimConfig:
     # the JAX package's "xla" or "pallas"; the port runs the megakernel
     # for either
     substep_impl: str = "xla"
+    # the JAX package's substep-scan unroll factor, validated as there and
+    # recorded; the port has no scan (one kernel launch per interval)
+    scan_unroll: int = 1
 
     def __post_init__(self):
         if self.use_states and len(self.states) != 2:
@@ -267,6 +271,8 @@ class SimConfig:
             raise ValueError(
                 "substep_impl='pallas' supports only controller='duration' "
                 "(per-flow control runs the XLA substep)")
+        if self.scan_unroll < 1:
+            raise ValueError("scan_unroll must be >= 1")
 
     @property
     def substeps_per_run(self) -> int:
@@ -278,7 +284,9 @@ class SimConfig:
 
 @dataclass(frozen=True)
 class AgentConfig:
-    """Agent configuration of a graph-mode DDPG agent: observation, GNN,
+    """Agent configuration of a DDPG agent (``agent_type``: DDPG only, as
+    in the JAX package): observation, graph mode (GNN embedding of the
+    padded graph) or flat mode (MLPs over the stacked node vectors), GNN,
     actor and critic widths, the head (monolithic or factored), the reward
     objective, replay, exploration and optimiser settings and the action
     post-processing threshold."""
@@ -288,6 +296,7 @@ class AgentConfig:
     # per-step node-permutation augmentation (env.permutation)
     shuffle_nodes: bool = False
     episode_steps: int = 200
+    agent_type: str = "DDPG"
     gnn_features: int = 22
     gnn_num_layers: int = 2
     gnn_num_iter: int = 2
@@ -326,8 +335,9 @@ class AgentConfig:
     precision: str = "f32"
 
     def __post_init__(self):
-        if not self.graph_mode:
-            raise ValueError("the port serves graph-mode actors only")
+        if self.agent_type != "DDPG":
+            raise ValueError(
+                f"unsupported agent_type {self.agent_type!r} (only DDPG)")
         if self.gnn_num_layers < 1 or self.gnn_num_iter < 1:
             raise ValueError("gnn_num_layers and gnn_num_iter must be >= 1")
         if self.gnn_impl not in ("dense", "pallas"):

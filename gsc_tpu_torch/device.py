@@ -2,7 +2,8 @@
 
 Entry points take ``device=None``, which means the card (``"cuda"``).
 Without CUDA they raise unless the caller asked for ``"cpu"`` itself:
-nothing moves to the CPU quietly.
+nothing moves to the CPU quietly.  ``upload`` puts a host table on a
+device without synchronising the host with the card.
 """
 from __future__ import annotations
 
@@ -31,3 +32,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def upload(data, dtype: torch.dtype, device) -> torch.Tensor:
+    """Host data (a numpy array or a list) as a ``dtype`` tensor on
+    ``device``.  To the card it goes through pinned memory in a
+    non-blocking copy: a copy from pageable memory makes the host wait
+    for the card (a synchronizing operation), this one does not, and the
+    caching host allocator keeps the pinned block until the copy has
+    run."""
+    t = torch.as_tensor(data, dtype=dtype)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)

@@ -5,7 +5,9 @@ leading [B] dim of env replicas; ``topo`` and ``traffic`` are shared by
 every replica or carry the same [B].  With ``SimConfig.prediction`` the
 observations show the upcoming interval's ingress traffic
 (``sim.predictor.predict_ingress_traffic``) in place of the last one's;
-``engine`` replaces the simulator (``sim.dummy.DummyEngine``).
+``engine`` replaces the simulator (``sim.dummy.DummyEngine``).  The
+observation is a ``GraphObs`` in graph mode and the flat [B, N*F] vector
+(``obs_dim``) with ``AgentConfig.graph_mode`` false.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from ..sim.state import SimState, TrafficSchedule
 from ..topology.compiler import Topology
 from ..utils.tree import TensorTree
 from .actions import action_to_schedule, derive_placement, post_process_action
-from .observations import GraphObs, graph_obs
+from .observations import flat_obs, graph_obs
 from .rewards import compute_reward, reward_constants
 
 
@@ -43,6 +45,9 @@ class ServiceCoordEnv:
     def __init__(self, service: ServiceConfig, sim_cfg: SimConfig,
                  agent: AgentConfig, limits: EnvLimits,
                  engine: Optional[SimEngine] = None):
+        if not agent.graph_mode and sim_cfg.controller == "per_flow":
+            raise ValueError("a flat agent (graph_mode: false) under "
+                             "per-flow control is not ported yet")
         self.service = service
         self.sim_cfg = sim_cfg
         self.agent = agent
@@ -68,7 +73,7 @@ class ServiceCoordEnv:
         return sched * m[..., :, None, None, None] * m[..., None, None, None, :]
 
     def _obs(self, state: SimState, topo: Topology,
-             traffic: TrafficSchedule) -> GraphObs:
+             traffic: TrafficSchedule):
         b = state.batch
         topo = topo.expand(b)
         node_cap = traffic.expand(b).node_cap
@@ -80,9 +85,20 @@ class ServiceCoordEnv:
             override = predict_ingress_traffic(
                 traffic, state.run_idx, self.sim_cfg.run_duration,
                 self.limits.max_nodes)
-        return graph_obs(state.metrics, topo, cap_now, self.tables.chain_sf,
-                         self.agent.observation_space, self.limits.num_sfcs,
-                         self.limits.max_sfs, ingress_override=override)
+        if self.agent.graph_mode:
+            return graph_obs(state.metrics, topo, cap_now,
+                             self.tables.chain_sf,
+                             self.agent.observation_space,
+                             self.limits.num_sfcs, self.limits.max_sfs,
+                             ingress_override=override)
+        return flat_obs(state.metrics, topo, cap_now, self.tables.chain_sf,
+                        self.agent.observation_space,
+                        ingress_override=override)
+
+    def obs_dim(self) -> int:
+        """Length of the flat observation: one padded node vector per
+        observation component."""
+        return self.limits.max_nodes * len(self.agent.observation_space)
 
     def reset(self, topo: Topology, traffic: TrafficSchedule,
               batch: int = 1):

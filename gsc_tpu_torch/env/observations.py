@@ -1,6 +1,6 @@
-"""Graph observations.
+"""Graph and flat observations.
 
-The port of ``gsc_tpu.env.observations`` (graph mode).  Three node-feature
+The port of ``gsc_tpu.env.observations``.  Three node-feature
 vectors, each max-normalised as ``clip(x / (max(x) + 1e-3), 0, 1)``:
 
 - ``ingress_traffic``: per-node requested traffic of each chain's first SF
@@ -10,12 +10,16 @@ vectors, each max-normalised as ``clip(x / (max(x) + 1e-3), 0, 1)``:
 - ``node_cap``: max-normalised raw capacity.
 
 ``graph_obs`` returns the node feature matrix, the directed edge index and
-the flattened action mask.  Every tensor may carry leading batch dims.
+the flattened action mask (graph mode); ``flat_obs`` the [..., N*F]
+concatenation of the feature vectors, one vector per component (flat
+mode, ``AgentConfig.graph_mode`` false).  Every tensor may carry leading
+batch dims.  ``obs_map`` applies a function to every tensor of an
+observation of either mode.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +77,23 @@ def node_features(metrics, topo: Topology, node_cap_now: torch.Tensor,
         else:
             raise ValueError(f"Unknown observation component {comp!r}")
     return torch.stack(cols, dim=-1)
+
+
+def flat_obs(metrics, topo: Topology, node_cap_now: torch.Tensor,
+             chain_sf: np.ndarray, observation_space: Tuple[str, ...],
+             ingress_override: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+    """[..., N * F]: the selected node vectors one after the other (the
+    feature matrix transposed and flattened)."""
+    feats = node_features(metrics, topo, node_cap_now, chain_sf,
+                          observation_space, ingress_override)
+    return feats.transpose(-1, -2).reshape(feats.shape[:-2] + (-1,))
+
+
+def obs_map(obs, fn: Callable[[torch.Tensor], torch.Tensor]):
+    """``fn`` over every tensor of a graph observation, or over a flat
+    one."""
+    return obs.map(fn) if isinstance(obs, GraphObs) else fn(obs)
 
 
 def graph_obs(metrics, topo: Topology, node_cap_now: torch.Tensor,

@@ -12,7 +12,10 @@ are the tensor's own (one permutation per replica) or none.  The
 permutations come from an explicit ``torch.Generator``: ``ShuffleOps``
 draws them from the one it is handed, and tests pass their own in.
 With ``shuffle_nodes`` off every ``ShuffleOps`` method is the identity,
-so the rollouts call them unconditionally.
+so the rollouts call them unconditionally.  Both observation modes: a
+graph observation's action mask travels with it, a flat observation's
+mask is the env's (``action_mask`` of the topology), permuted by
+``step_mask``.
 """
 from __future__ import annotations
 
@@ -101,7 +104,7 @@ class ShuffleOps:
     """The per-step ``shuffle_nodes`` protocol shared by the single-env
     and replica rollouts: observations live in a per-step permuted frame
     (one permutation per replica), actions map back through the inverse
-    before the env sees them.  Graph observations only (the port's)."""
+    before the env sees them.  Graph and flat observations."""
 
     def __init__(self, agent: AgentConfig, limits: EnvLimits):
         self.agent = agent
@@ -133,15 +136,24 @@ class ShuffleOps:
             return torch.arange(self.n, device=device).expand(batch, self.n)
         return self._draw(source, batch)
 
-    def permute_obs(self, obs: GraphObs, perm: torch.Tensor) -> GraphObs:
+    def permute_obs(self, obs, perm: torch.Tensor):
         if not self.on:
             return obs
-        return permute_graph_obs(obs, perm, self.limits.num_sfcs,
-                                 self.limits.max_sfs)
+        if self.agent.graph_mode:
+            return permute_graph_obs(obs, perm, self.limits.num_sfcs,
+                                     self.limits.max_sfs)
+        return permute_flat_obs(obs, perm)
 
     def step_mask(self, obs, mask, perm):
-        """Action mask in the current frame (graph mode: the obs's)."""
-        return obs.mask
+        """Action mask in the current frame: graph mode the obs's (it
+        travels with the permuted obs); flat mode the env's ``mask``,
+        permuted on both node axes when shuffling."""
+        if self.agent.graph_mode:
+            return obs.mask
+        if not self.on:
+            return mask
+        return _permute_mask(mask, perm, self.limits.num_sfcs,
+                             self.limits.max_sfs)
 
     def env_action(self, action: torch.Tensor,
                    perm: torch.Tensor) -> torch.Tensor:
@@ -151,7 +163,7 @@ class ShuffleOps:
         return reverse_action_permutation(action, perm,
                                           self.limits.scheduling_shape)
 
-    def advance(self, next_obs: GraphObs, perm: torch.Tensor, source=None):
+    def advance(self, next_obs, perm: torch.Tensor, source=None):
         """A fresh permutation (from ``source``, as ``init_perm``) and the
         next observation in its frame."""
         if not self.on:

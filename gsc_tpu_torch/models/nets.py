@@ -1,7 +1,11 @@
-"""Actor and critic networks (graph mode).
+"""Actor and critic networks.
 
-The port of ``gsc_tpu.models.nets.Actor`` and ``QNetwork``.  The
-monolithic heads: GNN embedding of the padded network graph, concatenated
+The port of ``gsc_tpu.models.nets.Actor`` and ``QNetwork``.  Flat mode
+(``AgentConfig.graph_mode`` false): plain MLPs over the flat observation
+[..., N*F] (the actor: hidden layers and an ``action_dim`` output, no
+mask multiply; the critic: hidden layers and one output over the
+observation joined with the action), as in the JAX package.  Graph mode,
+the monolithic heads: GNN embedding of the padded network graph, concatenated
 with the flattened action mask (and, for the critic, the action), through
 an MLP (Linear -> ReLU between layers, plain last layer).  The factored
 heads (``use_factored_head``: on by default at action dims >= 16384, where
@@ -14,9 +18,9 @@ queries and each destination's embedding to a key, logits[n,c,s,m] =
 the destination axis, joins those per-source features to the node
 embeddings through a per-node ``src`` layer, mean-pools, and scores
 [pooled embedding, pooled features] with its MLP.  Parameters scale with
-C*S*hidden*key_dim, not N^2.  The actor's output is multiplied by the
-mask so padded (src, dst) entries are exactly zero; the critic returns Q
-[..., 1].  The bilinear products are plain ``torch.einsum`` products.
+C*S*hidden*key_dim, not N^2.  In graph mode the actor's output is
+multiplied by the mask so padded (src, dst) entries are exactly zero; the
+critic returns Q [..., 1].  The bilinear products are plain ``torch.einsum`` products.
 
 Mixed precision (``AgentConfig.precision``): the embedder computes in the
 policy's ``gnn_dtype`` and the dense layers in its ``mlp_dtype``, with
@@ -35,7 +39,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.schema import AgentConfig
-from ..env.observations import GraphObs
 from ..ops.gat import compute_dtype_of
 from .gnn import GNNEmbedder, masked_mean_pool
 from .init import lecun_normal_
@@ -114,6 +117,14 @@ class MLP(nn.Module):
         return x
 
 
+def _flat_obs_dim(obs_dim: Optional[int]) -> int:
+    if obs_dim is None:
+        raise ValueError("flat mode (graph_mode false) needs obs_dim, the "
+                         "flat observation's length (ServiceCoordEnv."
+                         "obs_dim)")
+    return obs_dim
+
+
 def _embedder(agent: AgentConfig, gnn_impl: str,
               pool: bool = True) -> GNNEmbedder:
     return GNNEmbedder(
@@ -133,18 +144,27 @@ def _bilinear(spec: str, a: torch.Tensor, b: torch.Tensor, cd
 
 
 class Actor(nn.Module):
-    """Policy network: the monolithic head (embedding ++ mask -> MLP ->
-    action_dim) or, per ``use_factored_head``, the factored head over
-    ``sched_shape`` = (N, C, S, N'); masked either way."""
+    """Policy network.  Flat mode: MLP over the [..., obs_dim] flat
+    observation -> action_dim, unmasked.  Graph mode: the monolithic head
+    (embedding ++ mask -> MLP -> action_dim) or, per
+    ``use_factored_head``, the factored head over ``sched_shape`` = (N,
+    C, S, N'); masked either way."""
 
     def __init__(self, agent: AgentConfig, action_dim: int,
                  gnn_impl: str = "dense",
-                 sched_shape: Optional[Tuple[int, int, int, int]] = None):
+                 sched_shape: Optional[Tuple[int, int, int, int]] = None,
+                 obs_dim: Optional[int] = None):
         super().__init__()
         self.action_dim = action_dim
         self.gnn_impl = gnn_impl
+        self.graph_mode = agent.graph_mode
         self.factored = use_factored_head(agent, action_dim)
         mdt = agent.precision_policy.mlp_dtype
+        if not self.graph_mode:
+            self.mlp = MLP(_flat_obs_dim(obs_dim),
+                           tuple(agent.actor_hidden_layer_nodes)
+                           + (action_dim,), dtype=mdt)
+            return
         hidden = agent.gnn_features
         self.embedder = _embedder(agent, gnn_impl, pool=not self.factored)
         if self.factored:
@@ -161,13 +181,18 @@ class Actor(nn.Module):
                            + (action_dim,), dtype=mdt)
 
     def reset_parameters(self, generator: torch.Generator):
-        self.embedder.reset_parameters(generator)
+        if self.graph_mode:
+            self.embedder.reset_parameters(generator)
         self.mlp.reset_parameters(generator)
         if self.factored:
             _reset_linear(self.query, generator)
             _reset_linear(self.key, generator)
 
-    def forward(self, obs: GraphObs) -> torch.Tensor:
+    def forward(self, obs) -> torch.Tensor:
+        if not self.graph_mode:
+            # the flat observation straight through the MLP; actions leave
+            # in f32 whatever the compute dtype
+            return self.mlp(obs).float()
         emb = self.embedder(obs.nodes, obs.edge_index, obs.edge_mask,
                             obs.node_mask)
         cd = self.mlp.dtype
@@ -194,22 +219,29 @@ class Actor(nn.Module):
 
 
 class QNetwork(nn.Module):
-    """Critic Q(s, a) -> [..., 1]: the monolithic head (embedding ++ mask
-    ++ action -> MLP) or, per ``use_factored_head``, the factored head
-    over ``sched_shape`` (which reads the mask only through node
-    validity, as the JAX package's does)."""
+    """Critic Q(s, a) -> [..., 1].  Flat mode: MLP over [obs, action].
+    Graph mode: the monolithic head (embedding ++ mask ++ action -> MLP)
+    or, per ``use_factored_head``, the factored head over ``sched_shape``
+    (which reads the mask only through node validity, as the JAX
+    package's does)."""
 
     def __init__(self, agent: AgentConfig, action_dim: int,
                  gnn_impl: str = "dense",
-                 sched_shape: Optional[Tuple[int, int, int, int]] = None):
+                 sched_shape: Optional[Tuple[int, int, int, int]] = None,
+                 obs_dim: Optional[int] = None):
         super().__init__()
         self.action_dim = action_dim
         self.gnn_impl = gnn_impl
+        self.graph_mode = agent.graph_mode
         self.factored = use_factored_head(agent, action_dim)
         mdt = agent.precision_policy.mlp_dtype
+        head = tuple(agent.critic_hidden_layer_nodes) + (1,)
+        if not self.graph_mode:
+            self.mlp = MLP(_flat_obs_dim(obs_dim) + action_dim, head,
+                           dtype=mdt)
+            return
         hidden = agent.gnn_features
         self.embedder = _embedder(agent, gnn_impl, pool=not self.factored)
-        head = tuple(agent.critic_hidden_layer_nodes) + (1,)
         if self.factored:
             self.sched_shape = _check_sched_shape(sched_shape, action_dim)
             _, c, s, _ = self.sched_shape
@@ -221,13 +253,19 @@ class QNetwork(nn.Module):
             self.mlp = MLP(hidden + 2 * action_dim, head, dtype=mdt)
 
     def reset_parameters(self, generator: torch.Generator):
-        self.embedder.reset_parameters(generator)
+        if self.graph_mode:
+            self.embedder.reset_parameters(generator)
         if self.factored:
             _reset_linear(self.key, generator)
             _reset_linear(self.src, generator)
         self.mlp.reset_parameters(generator)
 
-    def forward(self, obs: GraphObs, action: torch.Tensor) -> torch.Tensor:
+    def forward(self, obs, action: torch.Tensor) -> torch.Tensor:
+        if not self.graph_mode:
+            # [obs, action] with the action in the observation's dtype (a
+            # replayed bf16 observation takes a bf16 action), Q in f32
+            return self.mlp(torch.cat([obs, action.to(obs.dtype)],
+                                      dim=-1)).float()
         emb = self.embedder(obs.nodes, obs.edge_index, obs.edge_mask,
                             obs.node_mask)
         cd = self.mlp.dtype

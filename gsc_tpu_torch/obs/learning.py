@@ -41,8 +41,8 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from ..device import upload
 from ..utils.convert import flax_module_name
 
 
@@ -81,7 +81,7 @@ def _layer_matrix(trees: Mapping[str, Mapping[str, torch.Tensor]]
         m = np.zeros((len(layers), len(names)), np.float32)
         for j, n in enumerate(names):
             m[layers.index(n), j] = 1.0
-        hit = _GROUPS[key] = (layers, torch.from_numpy(m).to(dev))
+        hit = _GROUPS[key] = (layers, upload(m, torch.float32, dev))
     return hit[0], hit[1], tensors
 
 
@@ -101,7 +101,9 @@ def td_segments(spec: LearnLedgerSpec, topo_idx: torch.Tensor,
     """|TD| summed and counted per topology over one batch."""
     k = max(spec.num_topos, 1)
     seg = torch.clamp(topo_idx.long(), 0, k - 1)
-    onehot = F.one_hot(seg, k).to(td.dtype)                  # [batch, k]
+    # [batch, k]; F.one_hot would read the ids' range into Python
+    onehot = (seg[:, None] == torch.arange(k, device=seg.device)).to(
+        td.dtype)
     return {"td_abs_sum": td.detach().abs() @ onehot,
             "td_count": onehot.sum(0)}
 

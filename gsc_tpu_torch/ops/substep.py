@@ -57,6 +57,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..device import upload
 from ..sim.state import SimState, TrafficSchedule
 from ..topology.compiler import Topology
 from .build import MAX_SMEM_BYTES, PKG, build_library
@@ -188,7 +189,7 @@ def resource_plan(engine, dev) -> Dict:
     if "rf_id" not in tabs:
         ids, header = kernel_plan(engine.tables.resource_fns)
         tabs["rf_header"] = header
-        tabs["rf_id"] = torch.tensor(ids, dtype=torch.int32, device=dev)
+        tabs["rf_id"] = upload(ids, torch.int32, dev)
     return tabs
 
 

@@ -6,7 +6,9 @@ the JAX package gets from ``vmap``), each with its own traffic, feeding B
 per-replica replay shards; the learner samples batches across all shards
 and updates one set of parameters.  The topology is shared by every
 replica or stacked per replica (a mixed batch or the scenario factory);
-each replay row records its replica's ``topo_id`` as ``topo_idx``.  With
+each replay row records its replica's ``topo_id`` as ``topo_idx``.
+Either observation mode: a flat observation (``graph_mode`` false) acts
+under the env's action mask of each replica's network.  With
 a ``learn_ledger`` the rollout's stats carry the shards' fill and the
 learn burst's metrics the learning signal, as on the single env.
 Without a sharding plan or buffer donation: the port's carries are
@@ -58,7 +60,6 @@ from ..models.nets import Actor
 from ..obs.learning import replay_stats
 from ..config.schema import AgentConfig
 from ..env.env import EnvState, ServiceCoordEnv
-from ..env.observations import GraphObs
 from ..env.permutation import ShuffleOps
 from ..sim.state import TrafficSchedule
 from ..topology.compiler import Topology
@@ -109,6 +110,9 @@ class ParallelDDPG:
                 f"num_replicas ({num_replicas}) must be divisible by the "
                 f"mesh device count ({plan.n_devices}, mesh "
                 f"{plan.describe()}) for an even replica sharding")
+        if plan is not None and not agent.graph_mode:
+            raise ValueError("a mesh of a flat agent (graph_mode: false) "
+                             "is not ported yet: train it without a mesh")
         if plan is not None and plan.resident_sharded:
             raise ValueError(
                 "the tp rule book's tensor-parallel dispatch is not ported "
@@ -148,7 +152,7 @@ class ParallelDDPG:
         """Learner state drawn from ``generator`` (on the CPU)."""
         return self.ddpg.init_state(generator)
 
-    def init_buffers(self, sample_obs: GraphObs,
+    def init_buffers(self, sample_obs,
                      capacity: Optional[int] = None) -> ReplayBuffer:
         """Per-replica replay shards [B, capacity, ...] (a rank's rows
         under a plan), capacity ``mem_limit // B`` (at least 1) unless
@@ -172,7 +176,7 @@ class ParallelDDPG:
         return draws
 
     def reset_all(self, topo: Topology, traffic: TrafficSchedule
-                  ) -> Tuple[EnvState, GraphObs]:
+                  ) -> Tuple[EnvState, object]:
         """Fresh episode on every replica (``traffic`` [B, ...]; a rank's
         rows under a plan)."""
         return self.env.reset(topo, traffic, batch=self.rows_n)
@@ -180,12 +184,12 @@ class ParallelDDPG:
     # -------------------------------------------------------------- rollout
     @torch.no_grad()
     def rollout_episodes(self, state: DDPGState, buffers: ReplayBuffer,
-                         env_states: EnvState, obs: GraphObs, topo: Topology,
+                         env_states: EnvState, obs, topo: Topology,
                          traffic: TrafficSchedule, episode_start_step: int,
                          num_steps: int, actor: Optional[Actor] = None,
                          draws: Optional[Draws] = None
                          ) -> Tuple[DDPGState, ReplayBuffer, EnvState,
-                                    GraphObs, Dict[str, torch.Tensor]]:
+                                    object, Dict[str, torch.Tensor]]:
         """``num_steps`` steps of every replica: action, env step, replay
         write.  ``episode_start_step``
         is the global step of the first one (the warm-up gate reads it).
@@ -199,10 +203,11 @@ class ParallelDDPG:
         obs = self.shuffle.permute_obs(obs, perm)
         # each replica's network: a stacked topology's per-replica ids
         topo_idx = topo.expand(n).topo_id
+        env_mask = self.ddpg.env_mask(topo, n)
         engine = self.env.engine
         rewards, succ, e2e = [], [], []
         for i in range(num_steps):
-            mask = self.shuffle.step_mask(obs, None, perm)
+            mask = self.shuffle.step_mask(obs, env_mask, perm)
             action = self.ddpg.choose_action(
                 actor, obs, mask, episode_start_step + i, draws)
             action = self.env.process_action(action)
@@ -242,7 +247,7 @@ class ParallelDDPG:
         return state, buffers, env_states, obs, stats
 
     def chunk_step(self, state: DDPGState, buffers: ReplayBuffer,
-                   env_states: EnvState, obs: GraphObs, topo: Topology,
+                   env_states: EnvState, obs, topo: Topology,
                    traffic: TrafficSchedule, episode_start_step: int,
                    num_steps: int, learn: bool = False, observe=None):
         """A chunk of the rollout and, when ``learn`` (the final chunk of

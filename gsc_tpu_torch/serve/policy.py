@@ -2,7 +2,9 @@
 
 The port of ``gsc_tpu.serve.policy``.  ``ObsTemplate`` owns the contract
 between host requests and device batches: a request is a ``GraphObs`` of
-host (numpy) arrays for one graph; the template validates it, and stacks
+host (numpy) arrays for one graph, or in flat mode (``graph_mode`` false)
+one flat observation array, of the template's kind; the template
+validates it, and stacks
 ``k <= bucket`` requests into ``[bucket, ...]`` arrays, padding by
 repeating the last real request.  ``GreedyServePolicy`` runs
 ``DDPG.greedy_action`` on one such bucket as one eager batched call; rows
@@ -35,6 +37,8 @@ import torch
 from ..env.observations import GraphObs
 
 _FIELDS = tuple(f.name for f in dataclasses.fields(GraphObs))
+# the one leaf of a flat observation
+_FLAT_FIELDS = ("obs",)
 # the cost ledger's name of a bucket's batched policy call
 POLICY_FN_PREFIX = "serve_policy_b"
 
@@ -46,33 +50,33 @@ def policy_fn_name(batch: int) -> str:
 class ObsTemplate:
     """Flatten/stack/pad contract between host requests and batches."""
 
-    def __init__(self, sample_obs: GraphObs):
+    def __init__(self, sample_obs):
+        self.graph = isinstance(sample_obs, GraphObs)
+        self.fields = _FIELDS if self.graph else _FLAT_FIELDS
         self.leaves: List[np.ndarray] = self._leaves(sample_obs)
         self.leaf_shapes: Tuple[Tuple[int, ...], ...] = tuple(
             tuple(x.shape) for x in self.leaves)
         self.leaf_dtypes: Tuple[str, ...] = tuple(
             str(x.dtype) for x in self.leaves)
 
-    @staticmethod
-    def _leaves(obs: GraphObs) -> List[np.ndarray]:
-        out = []
-        for name in _FIELDS:
-            v = getattr(obs, name)
-            out.append(v.cpu().numpy() if isinstance(v, torch.Tensor)
-                       else np.asarray(v))
-        return out
+    def _leaves(self, obs) -> List[np.ndarray]:
+        vals = ([getattr(obs, name) for name in _FIELDS] if self.graph
+                else [obs])
+        return [v.cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v) for v in vals]
 
-    def flatten(self, obs: GraphObs) -> List[np.ndarray]:
+    def flatten(self, obs) -> List[np.ndarray]:
         """One request -> host leaf list (validated against the template)."""
-        if not isinstance(obs, GraphObs):
-            raise ValueError(f"request is {type(obs).__name__}, the serving "
-                             "template wants a GraphObs")
+        if isinstance(obs, GraphObs) != self.graph:
+            raise ValueError(
+                f"request is {type(obs).__name__}, the serving template "
+                f"wants {'a GraphObs' if self.graph else 'a flat array'}")
         out = self._leaves(obs)
         for i, arr in enumerate(out):
             if tuple(arr.shape) != self.leaf_shapes[i] or \
                     str(arr.dtype) != self.leaf_dtypes[i]:
                 raise ValueError(
-                    f"request obs leaf {_FIELDS[i]} is {arr.shape}/"
+                    f"request obs leaf {self.fields[i]} is {arr.shape}/"
                     f"{arr.dtype}, template wants {self.leaf_shapes[i]}/"
                     f"{self.leaf_dtypes[i]}")
         return out
@@ -97,7 +101,7 @@ class GreedyServePolicy:
     """``DDPG.greedy_action`` over one bucket of stacked requests, with
     the served actor swappable between dispatches."""
 
-    def __init__(self, ddpg, sample_obs: GraphObs, stream=None):
+    def __init__(self, ddpg, sample_obs, stream=None):
         self.ddpg = ddpg
         self.template = ObsTemplate(sample_obs)
         self.stream = stream
@@ -155,8 +159,9 @@ class GreedyServePolicy:
         """Bucket arrays -> actions [bucket, A] as a host array."""
         dev = self.ddpg.device
         with self._on_stream():
-            obs = GraphObs(**{name: torch.from_numpy(x).to(dev)
-                              for name, x in zip(_FIELDS, leaves)})
+            xs = [torch.from_numpy(x).to(dev) for x in leaves]
+            obs = (GraphObs(**dict(zip(_FIELDS, xs))) if self.template.graph
+                   else xs[0])
             return self.ddpg.greedy_action(obs, actor=self.actor
                                            ).cpu().numpy()
 

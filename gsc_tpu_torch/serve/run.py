@@ -49,8 +49,8 @@ from ..obs.hub import MetricsHub
 from ..sim.traffic import generate_traffic
 from ..topology import synthetic
 from ..topology.compiler import NetworkSpec, compile_topology
-from ..utils.checkpoint import (checkpoint_fingerprint, checkpoint_precision,
-                                load_actor_state)
+from ..utils.checkpoint import (check_graph_mode, checkpoint_fingerprint,
+                                checkpoint_precision, load_actor_state)
 from .fallback import SPRFallbackPolicy
 from .fleet import FleetDispatcher, WeightPublisher
 from .policy import GreedyServePolicy
@@ -65,8 +65,11 @@ def uniform_schedule_action(limits: EnvLimits,
     return sched.reshape(-1)
 
 
-def host_obs(obs: GraphObs, row: int = 0) -> GraphObs:
-    """One replica's observation as host (numpy) arrays."""
+def host_obs(obs, row: int = 0):
+    """One replica's observation as host (numpy) arrays: a ``GraphObs``
+    of them, or the flat observation's array."""
+    if not isinstance(obs, GraphObs):
+        return obs[row].cpu().numpy()
     return GraphObs(**{f.name: getattr(obs, f.name)[row].cpu().numpy()
                        for f in dataclasses.fields(GraphObs)})
 
@@ -102,7 +105,7 @@ class ServeReport:
     answers: List[Tuple[int, np.ndarray]] = field(repr=False)
     stamps: List[Tuple[Optional[int], Optional[int], float, float]] = \
         field(repr=False)
-    pool: List[GraphObs] = field(repr=False)
+    pool: List = field(repr=False)
     ddpg: Optional[DDPG] = field(repr=False)
     spr_action: Optional[np.ndarray] = field(repr=False, default=None)
 
@@ -176,6 +179,12 @@ def run_serve(agent: Optional[AgentConfig] = None,
                 if checkpoint is not None else None)
     if recorded:
         agent = replace(agent, precision=recorded)
+    if checkpoint is not None:
+        check_graph_mode(checkpoint, agent.graph_mode)
+    if hot_swap_dir and not agent.graph_mode:
+        raise ValueError("hot-swap serving of a flat agent (graph_mode: "
+                         "false) is not ported yet: serve it without "
+                         "hot_swap_dir")
     sim_cfg = sim_cfg if sim_cfg is not None else init_configs_sim()
     refuse_force_caps(sim_cfg, "the served network")
     service = service if service is not None else abc_service()
@@ -237,6 +246,7 @@ def run_serve(agent: Optional[AgentConfig] = None,
             return ServeTracer(hub=hub, sample=trace_sample)
 
         common = dict(buckets=buckets, deadline_ms=deadline_ms, hub=hub,
+                      graph_mode=agent.graph_mode,
                       stats_interval=stats_interval, mode=mode, slo=slo,
                       hot_swap_dir=hot_swap_dir, swap_poll_s=swap_poll_s,
                       max_queue=max_queue)

@@ -34,6 +34,11 @@ the server runs the SPR tier
 (:class:`~gsc_tpu_torch.serve.fallback.SPRFallbackPolicy`) through the
 same batcher and accounting; a published single leaf shaped like its
 action replaces the action, anything else moves the version stamp only.
+
+``graph_mode`` is the served agent's observation mode, as the JAX
+server carries it (there it keys the artifact cache, which the port does
+not have): a learned policy whose template holds the other kind of
+observation is refused.
 """
 from __future__ import annotations
 
@@ -64,10 +69,17 @@ class PolicyServer:
                  mode: str = "deadline", worker: Optional[str] = None,
                  hot_swap_dir: Optional[str] = None,
                  swap_poll_s: float = 0.2, wall_clock=time.time,
-                 perf=None):
+                 perf=None, graph_mode: bool = True):
         if (policy is None) == (fallback is None):
             raise ValueError("exactly one of policy (the learned tier) or "
                              "fallback (the SPR tier) is required")
+        graph = getattr(getattr(policy, "template", None), "graph",
+                        graph_mode)
+        if graph != graph_mode:
+            raise ValueError(
+                f"a graph_mode {str(graph_mode).lower()} server was given a "
+                f"policy over {'graph' if graph else 'flat'} observations")
+        self.graph_mode = graph_mode
         self.policy = policy
         self.fallback = fallback
         self.tier = "learned" if policy is not None else "spr"

@@ -64,6 +64,7 @@ import torch
 
 from ..config.registry import get_resource_function
 from ..config.schema import EnvLimits, ServiceConfig, SimConfig
+from ..device import upload
 from ..ops.resource_codegen import plain_form
 from ..topology.compiler import Topology
 from .state import (DROP_DECISION, DROP_LINK_CAP, DROP_NODE_CAP, DROP_TTL,
@@ -253,7 +254,7 @@ class SimEngine:
         tabs = self._dev_tables.get(key)
         if tabs is None:
             t = self.tables
-            f = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
+            f = lambda a, dt: upload(a, dt, device)
             tabs = self._dev_tables[key] = {
                 "chain_len": f(t.chain_len, _I32),
                 "chain_sf": f(t.chain_sf.reshape(-1), _I32),

@@ -8,8 +8,9 @@ as the completed-episode count that resume reads and, when given, the
 (its tensors, write positions and fill counts), each written with
 ``torch.save`` and read back with ``torch.load(weights_only=True)``.
 Metadata that a reader must know before it can build the networks (the
-precision policy) goes to a ``<path>.meta.json`` sidecar beside the
-directory, with the JAX package's semantics:
+precision policy and the observation mode, ``graph_mode``) goes to a
+``<path>.meta.json`` sidecar beside the directory, with the JAX package's
+semantics:
 
 - the sidecar sits next to the checkpoint directory, not inside it;
 - a missing, truncated or non-object sidecar reads as ``{}`` (an f32
@@ -184,6 +185,20 @@ def checkpoint_precision(path: str, precision: Optional[str] = None,
             f"policy ({recorded}); a checkpoint runs under its own "
             "precision: drop the flag or retrain")
     return recorded
+
+
+def check_graph_mode(path: str, graph_mode: bool) -> None:
+    """Refuse (ValueError) a checkpoint whose sidecar records the other
+    observation mode than ``graph_mode``: a flat actor cannot take graph
+    observations, nor the reverse.  A sidecar without the key (written
+    before the port had flat mode) passes."""
+    recorded = read_checkpoint_meta(path).get("graph_mode")
+    if recorded is not None and bool(recorded) != bool(graph_mode):
+        mode = lambda g: "true" if g else "false"
+        raise ValueError(
+            f"checkpoint {path} holds a graph_mode {mode(recorded)} agent, "
+            f"the agent config has graph_mode {mode(graph_mode)}: give the "
+            "agent yaml the checkpoint was trained with")
 
 
 def _load(path: str, name: str):

@@ -13,7 +13,9 @@ name it for each network):
 - the factored heads' ``query``, ``key`` (actor) and ``key``, ``src``
   (critic) Dense layers become the port's ``Linear`` layers of the same
   names, and their per-node hidden stack (``MLP_0``) the ``mlp`` as in the
-  monolithic heads.
+  monolithic heads;
+- a flat-mode actor or critic (``graph_mode`` false) is its ``MLP_0``
+  alone, which becomes the port's ``mlp``.
 
 It raises on a leaf it does not use and on a leaf the port needs that the
 tree lacks.  ``learner_state_from_jax`` carries a whole DDPG learner state
@@ -169,7 +171,7 @@ def learner_state_from_jax(tree: Mapping, state) -> None:
         step = float(np.asarray(adam["count"]))
         for name, p in net.named_parameters():
             opt.state[p] = {
-                "step": torch.tensor(step),
+                "step": torch.tensor(step, device=p.device),
                 "exp_avg": mu[name].to(p.device).clone(),
                 "exp_avg_sq": nu[name].to(p.device).clone()}
 

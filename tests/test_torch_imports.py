@@ -51,6 +51,46 @@ def test_every_module_imports_with_jax_and_gsc_tpu_blocked():
     assert res.stdout.startswith("ok")
 
 
+# the modules that flat mode and the sync-free single env added or
+# changed; each is imported first, with no module of the package loaded
+FLAT_SLICE_MODULES = (
+    "gsc_tpu_torch.agents.adam", "gsc_tpu_torch.agents.buffer",
+    "gsc_tpu_torch.agents.ddpg", "gsc_tpu_torch.agents.trainer",
+    "gsc_tpu_torch.cli", "gsc_tpu_torch.config.loader",
+    "gsc_tpu_torch.config.schema", "gsc_tpu_torch.device",
+    "gsc_tpu_torch.env.env", "gsc_tpu_torch.env.observations",
+    "gsc_tpu_torch.env.permutation", "gsc_tpu_torch.models.nets",
+    "gsc_tpu_torch.obs.learning", "gsc_tpu_torch.ops.substep",
+    "gsc_tpu_torch.parallel.dp", "gsc_tpu_torch.serve.policy",
+    "gsc_tpu_torch.serve.run", "gsc_tpu_torch.serve.server",
+    "gsc_tpu_torch.sim.engine", "gsc_tpu_torch.utils.checkpoint")
+
+
+def test_flat_slice_modules_import_first_with_jax_blocked():
+    for module in FLAT_SLICE_MODULES:
+        assert (PKG / (module.split(".", 1)[1].replace(".", "/") + ".py")
+                ).is_file(), module
+    code = "\n".join([
+        "import importlib, sys",
+        f"for name in {BLOCKED!r}:",
+        "    sys.modules[name] = None",
+        f"for mod in {FLAT_SLICE_MODULES!r}:",
+        "    for m in [m for m in sys.modules",
+        "              if m.split('.')[0] == 'gsc_tpu_torch']:",
+        "        del sys.modules[m]",
+        "    importlib.import_module(mod)",
+        "leaked = [m for m in sys.modules if sys.modules[m] is not None and "
+        f"m.split('.')[0] in {BLOCKED!r}]",
+        "assert not leaked, leaked",
+        "print('ok')",
+    ])
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert res.stdout.startswith("ok")
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
 def test_no_jax_or_gsc_tpu_import_statement(path):
     tree = ast.parse(path.read_text(), filename=str(path))
