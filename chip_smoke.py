@@ -71,8 +71,11 @@ Phases (any failure exits non-zero and prints no result line):
    admission sums no double holds exactly, and Abilene under heavy
    traffic at 1024 and at 200 flow slots.  Every leaf of state and metrics
    must be bit-equal to the plain version on CPU copies of the inputs,
-   and within the tolerance below of the plain version on the card (each
-   side's distance is printed); two launches on the same inputs must be
+   and, on the cases of PLAIN_ON_CARD_CASES (the plain version on the card
+   costs seconds per case; the other cases compare on CPU
+   copies only, for the time limit), within the tolerance below of the
+   plain version on the card (each side's distance is printed); two
+   launches on the same inputs must be
    bit-identical, and a single-substep launch must agree as well; the
    kernel's count of admission rounds that took its sequential scan must
    be above 0 on the wide-range case and 0 on every other;
@@ -157,7 +160,8 @@ Phases (any failure exits non-zero and prints no result line):
    flagship widths: ``cli.init_configs`` writes the yaml set and the
    GraphML networks with the port's writer (bteurope-in2 must read back
    as 24 nodes, 37 edges and caps in 1-2); ``cli.run_train --scheduler
-   --replicas 1`` trains one env for 3 episodes on a schedule of
+   --replicas 1`` trains one env for GEN_EPISODES episodes (2, for the
+   time limit) on a schedule of
    abilene-in4 and claranet-in4-cap1 switching every episode, each
    episode ending in a 200-step learn burst, and evaluates greedily on
    compuserve-in4-cap1, which no episode trained on.  With every count 0
@@ -166,8 +170,9 @@ Phases (any failure exits non-zero and prints no result line):
    15 times per gradient step at B=100, its backward 6 times per gradient
    step, no bf16 kernel; returns and losses finite, every parameter
    moved, the replay's ``topo_idx`` naming each episode's network, the
-   checkpoint's sidecar its episode count.  Then 2 episodes, a
-   checkpoint and ``--resume`` to 3 must give the straight run's tensors
+   checkpoint's sidecar its episode count.  Then GEN_EPISODES - 1
+   episodes, a checkpoint and ``--resume`` to GEN_EPISODES must give the
+   straight run's tensors
    (networks, targets, Adam states, replay leaves, pos/size, the Draws
    generator state) under ``torch.equal``, bit for bit; ``cli.run_infer``
    on the straight run's checkpoint must reproduce its evaluation
@@ -197,7 +202,7 @@ Phases (any failure exits non-zero and prints no result line):
    bit-identical, its shared memory, device time and bound; (c)
    ``cli.run_train`` on Interoute (128 nodes / 192 edges, abc chain,
    1024 slots, 200-step episodes, ``mem_limit`` 2048, the factored heads)
-   at 8 replicas for 2 f32 episodes with a checkpoint and (d) 1 bf16
+   at 8 replicas for one f32 episode with a checkpoint and (d) one bf16
    episode, with phase 8's checks (launch counts per step, every
    parameter moved, replay fill, gradients through the kernels against
    the dense path or the plain versions); (e) ``run_serve`` of 16
@@ -206,9 +211,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``cli.run_train`` on rung 5 (``random_network(200, num_ingress=8,
    seed=11)`` through GraphML, padded to 256 / 384, the mixed catalog,
    ``mem_limit`` 1024) at 2 replicas for one 20-step episode and burst;
-   (g) (f)'s run again with ``--no-perf`` and ``--perf``
-   (``rung5_ledger_memory``): the peak allocated device bytes of each,
-   and the cost ledger's held inputs settled mid-call.
+   (g) (f)'s run again with ``--perf`` (``rung5_ledger_memory``; its
+   ``--no-perf`` twin gave way to the time limit): the peak
+   allocated device bytes, the cost ledger's held inputs settled
+   mid-call, every entry whole.
    Prints each part's seconds, every run's env-steps/s and burst seconds
    and the serving numbers beside the card's name and power limit; the
    kernels line's launch counts include this phase's;
@@ -312,33 +318,40 @@ Phases (any failure exits non-zero and prints no result line):
    interval's times, beside the card's name and power limit; the kernels
    line lists the per-flow mode as ``substep_megakernel_perflow`` with
    its launches from (c);
-19. resource-function plugins (``plugin_slice``): (a) the build of
-   kernel #2 with the generated header of ``cases.PLUGINS`` (a
-   quadratic, a capped ``where``, a square root with a division; built
-   in phase 2 beside the other kernels), its
-   nvcc seconds and ptxas registers beside the build without plugins
-   (and the parent's); (b) that build over the battery
-   (``cases.all_cases`` with Abilene at B = PLUGIN_ABILENE_BATCH) and
-   over the per-flow cases (cut to PLUGIN_PERFLOW_SUBSTEPS substeps:
-   the kPerFlow instantiation) under
-   the plugins, every leaf bit for bit against the plain version on CPU
-   copies; (c) a plugin with ``exp`` refused on the card, naming it, and
-   never called on a tensor; (d) device time per interval at B=64 with
-   and without plugins in 10 alternating pairs, the plain engine and the
-   bound; (e)
-   where ``_parent/substep_megakernel.cu`` exists, the build without
-   plugins against it in 10 alternating pairs at B = 1, 64, 256 (device
-   medians, the same interval bit for bit); (f) ``cli simulate -d
-   PLUGIN_SIM_MS`` and ``cli train`` (PLUGIN_TRAIN_ARGS, episodes of
-   PLUGIN_EPISODE_STEPS) with ``--resource-functions-path`` and a service yaml
-   naming the plugins, on the card (one plugin launch per interval and
+19. resource-function plugins (``plugin_slice``), under two sets:
+   ``cases.PLUGINS`` (a quadratic, a capped ``where``, a square root
+   with a division) and ``cases.MATH_PLUGINS`` (a saturating tanh, a
+   log1p overhead, ``** 1.5`` behind a where: the double forms of
+   ``csrc/rf_math.cuh``): (a) both builds of kernel #2 with their
+   generated headers (built in phase 2 beside the other kernels), their
+   nvcc seconds and ptxas registers and spills beside the build without
+   plugins (and the parent's), and the header's functions on the card
+   (the probe kernel ``csrc/rf_math_probe.cu``) bit for bit against
+   ``ops/rf_math.py`` over a grid of f32 loads; (b) each build over the
+   battery (``cases.all_cases`` with Abilene at B =
+   PLUGIN_ABILENE_BATCH) and over the per-flow cases (cut to
+   PLUGIN_PERFLOW_SUBSTEPS substeps: the kPerFlow instantiation), every
+   leaf bit for bit against the plain version on CPU copies; (c) a
+   plugin that does not trace refused on the card, saying so, and never
+   called on a tensor; (d) device time per interval at B=64 in 10
+   alternating pairs without plugins against ``PLUGINS`` and
+   ``PLUGINS`` against ``MATH_PLUGINS``, the plain engine and the
+   bounds; (e) where ``_parent/substep_megakernel.cu`` exists, the build
+   without plugins against it in 10 alternating pairs at B = 1, 64, 256
+   (device medians, the same interval bit for bit); (f) ``cli simulate
+   -d PLUGIN_SIM_MS`` and ``cli train`` (PLUGIN_TRAIN_ARGS, episodes of
+   PLUGIN_EPISODE_STEPS) with ``--resource-functions-path`` and a
+   service yaml naming each set's files (PLUGIN_FILES,
+   MATH_PLUGIN_FILES), on the card (one plugin launch per interval and
    env step, none of the build without plugins) and on the CPU:
    simulate's integers equal and its mean delay within SUB_RTOL; the
    training runs' episodes, replay sizes and cursors equal (their random
-   draws differ between the devices).  The kernels line lists the plugin
-   build as ``substep_megakernel_plugin`` with its launches from (f);
+   draws differ between the devices).  The kernels line lists the two
+   plugin builds as ``substep_megakernel_plugin`` and
+   ``substep_megakernel_plugin_math`` with their launches from (f);
 20. decoupled actor/learner training (``async_slice``) at B=64 over
-   ASYNC_ARGS (3 episodes of 200 steps): (a) ``cli train`` (the
+   ASYNC_ARGS (3 episodes of ASYNC_STEPS steps, the first all warm-up;
+   the init-configs agent otherwise): (a) ``cli train`` (the
    synchronous ``train_parallel``) and ``cli train --async`` with 1 and
    2 actor threads (each on its own CUDA stream; ``--max-staleness``
    ASYNC_STALENESS), each with phase 8's launch counts per env step and
@@ -353,23 +366,24 @@ Phases (any failure exits non-zero and prints no result line):
    and a quarantined block, nothing lost, a finite final state;
 21. the mesh on the card (``mesh_slice``): ``train --replicas 64 --mesh
    DPxMP`` at the flagship widths on Abilene, 50-step episodes
-   (``MESH_AGENT_YAML``), the ``sharded`` book unless named.  (a) 2
-   episodes with ``--mesh 1x1`` (NCCL, world 1), MESH_ONE_RUNS times in
-   one rank process (the first run cold, the later ones warm), and twice
+   (``MESH_AGENT_YAML``), the ``sharded`` book unless named.  (a) one
+   episode with ``--mesh 1x1`` (NCCL, world 1), MESH_ONE_RUNS times in
+   one rank process (the first run cold, the later ones warm), and once
    without a mesh: learner state and replay ``torch.equal``, the
-   env-steps/s of each run printed; (b) 2 and 4 ranks sharing
-   the card (``devices=["cuda:0"] * n``, gloo), 2 episodes within the 200
-   warm-up steps: 2x1, 1x2 (sharded and replicated), 4x1, 2x2, each
+   env-steps/s of each run printed; (b) 4 ranks, then 2, sharing the
+   card (``devices=["cuda:0"] * n``, gloo), one episode within the 200
+   warm-up steps: 2x2, then 2x1, 1x2 (sharded and replicated), each
    final learner state ``torch.equal`` to (a)'s run without a mesh, the
    leaves split by each mp > 1 leg printed (> 0); (c) warm-up 50 steps,
-   3 episodes: 2x1 equals 1x2 and 4x1 equals 2x2, the largest
-   difference to the run without a mesh printed, beside a witness of
-   its cause (``acting_rows_witness``: the actor on the 64 acting rows
-   of one step against the same rows in 2 slices of 32 and 4 of 16,
-   the row counts the ranks act on); (d) elastic resume:
-   (b)'s 2x2 leg checkpoints every episode, ``--resume auto`` continues
-   it under 2x1 and, from the same checkpoint, with no mesh: episodes 2
-   and 3 in both, ``run_start`` recording the new mesh; (e) with two or
+   2 episodes (the warm-up episode and one more, each ending in a learn
+   burst): 4x1 equals 2x2 and 2x1 equals 1x2, the largest difference to
+   the run without a mesh printed, beside a witness of its cause
+   (``acting_rows_witness``: the actor on the 64 acting rows of one step
+   against the same rows in 2 slices of 32 and 4 of 16, the row counts
+   the ranks act on); (d) elastic resume: (b)'s 2x2 leg checkpoints
+   every episode, ``--resume auto`` continues it under 2x1 and, from the
+   same checkpoint, with no mesh: episodes 1 and 2 in both,
+   ``run_start`` recording the new mesh; (e) with two or
    more cards 2x1 and 1x2 again on NCCL, one card per rank (4x1 and 2x2
    with four), ``torch.equal`` to (b), else one line saying it did not
    run; (f) a rank raising through the launcher's hook fails the launch
@@ -384,22 +398,24 @@ Phases (any failure exits non-zero and prints no result line):
    name and power limit; the kernels line's launch counts include this
    phase's, summed over ranks;
 22. the device-cost ledger and the runtime sentinels (``perf_slice``):
-   ``cli train`` on the flagship single env with ``--perf`` and
-   ``--no-perf`` (checkpoints byte-equal; the second run under
-   ``assert_no_retrace``, which a forced load trips), ``--replicas 64``,
+   ``cli train`` on the flagship single env with ``--perf`` (its
+   ``--no-perf`` twin gave way to the time limit),
+   ``--replicas 64`` under ``assert_no_retrace``, which a forced load
+   trips,
    and the server in phase 4's bursts (the mesh's ledger: phase 21
-   (g)): every ``perf.json`` entry available, its hand kernels'
-   launches from the profiler equal to their wrappers' posts wherever
-   the profiler kept its device records (an entry whose records it
-   dropped says so, with ``launches`` None, and is counted and printed;
-   at least one entry kept them), every timed entry 0 < mfu <= 1.05;
+   (g)): every ``perf.json`` entry available and whole (``launches``
+   and ``device_s`` recorded: every kernel launch call matched to its
+   device record, the hand kernels' launches from the profiler equal to
+   their wrappers' posts), every timed entry 0 < mfu <= 1.05;
    host syncs, device seconds, launches and capture seconds per entry
    printed; a ``compile`` event of every library phase 2 built and
    loaded; the kernels' bounds from ``ops.cost`` equal to the formulas
    this script held before (the earlier phases run with ``--no-perf``,
    so their numbers stay comparable); how many of PROFILE_ROUNDS short
-   profiles of 9 fixed launches lost device records; the kernels line's
-   launch counts include this phase's;
+   profiles of 9 fixed launches lost device records, opened bare (the
+   profiler started right before the work, no primer) and through the
+   ledger's ``DeviceProfile`` (none may); the kernels line's launch
+   counts include this phase's;
 23. flat observations and the MLP actor and critic (``flat_slice``):
    ``init-configs``' agent with ``graph_mode: false`` (observation 24 x 3
    = 72 floats, action 1,728, actor hidden 256, critic hidden 64): (a)
@@ -421,8 +437,18 @@ Phases (any failure exits non-zero and prints no result line):
    recording every synchronizing CUDA operation and every value read
    into Python (none allowed), one under ``analysis.no_host_sync`` and
    one under ``torch.cuda.set_sync_debug_mode("error")``, the stats
-   drained after the region; the kernels line's launch counts include
-   this phase's;
+   drained after the region; under ``controller: per_flow``
+   (init-configs' simulator plus that key): (e) ``cli train --replicas
+   64`` of one FLAT_PERFLOW_STEPS-step episode with its burst and
+   evaluation (kernel #2's idle-instance expiry, its ``gc`` switch, in
+   every launch; one B=64 launch bit for bit against its plain version
+   on CPU copies), (f) a single-env episode and ``infer`` equal to its
+   evaluation; (g) a flat ``cli train --replicas 64 --hot-swap-dir``
+   of FLAT_TWS[0] episodes publishing every episode beside a
+   two-worker fleet serving (a)'s checkpoint: every version adopted once
+   by each worker, ``swap_ms``, p50/p99 before and while training, every
+   answer bit-identical to a single-shot call under its stamped version;
+   the kernels line's launch counts include this phase's;
 24. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Tolerances (stated here, used below): the attention kernel against its
@@ -580,7 +606,7 @@ DEFAULT_RUN_RECOVERIES = [("dispatch", "retry", 2),
 LEDGER_PROFILE_STEPS = 5
 # phase 13: single-env episodes over the schedule (switching every
 # GEN_PERIOD episodes)
-GEN_EPISODES = 3
+GEN_EPISODES = 2
 GEN_PERIOD = 1
 # profiled rollout steps of its split of a single-env step
 GEN_PROFILE_STEPS = 20
@@ -601,7 +627,7 @@ BUCKETS = (1, 4, 8)
 # overloaded fleet's requests and clients
 SPR_REQUESTS, FLEET_REQUESTS, TRACE_REQUESTS, D2H_REQUESTS = 64, 256, 64, 64
 SERVE_CONCURRENCY = 8
-TWS_EPISODES, TWS_STEPS, TWS_POLL_S, TWS_WARM = 3, 50, 0.05, 200
+TWS_EPISODES, TWS_STEPS, TWS_POLL_S, TWS_WARM = 2, 50, 0.05, 200
 # train-while-serve's clients: fewer than the fleets' SERVE_CONCURRENCY,
 # since every client thread takes the interpreter from the trainer
 TWS_CONCURRENCY = 4
@@ -619,6 +645,9 @@ WIDE_CASE = "wide_range_dr"
 # processes that run the plain versions on CPU copies beside the card
 # (phases 5, 18 and 19)
 PLAIN_WORKERS = 4
+# phase 5's cases that also run the plain version on the card
+PLAIN_ON_CARD_CASES = ("node_cap", "wide_range_dr", "abilene_b64",
+                       "abilene_b4_m1024")
 # phase 19: reference-style plugin files (the plugins of
 # gsc_tpu_torch.sim.cases.PLUGINS), the abc chain naming one per SF,
 # cli simulate's -d, the short replica training run and its agent
@@ -632,10 +661,27 @@ PLUGIN_FILES = {
                          "    return torch.sqrt(torch.relu(load)) "
                          "+ load / 3.0\n"),
 }
-PLUGIN_SERVICE_YAML = "sfc_list:\n  sfc_1: [a, b, c]\nsf_list:\n" + "".join(
-    f"  {n}:\n    processing_delay_mean: 5.0\n"
-    f"    processing_delay_stdev: 0.0\n    resource_function_id: {rf}\n"
-    for n, rf in zip("abc", ("rf_quadratic", "rf_capped", "rf_sqrt_ratio")))
+# the second set (gsc_tpu_torch.sim.cases.MATH_PLUGINS): functions kernel
+# #2 evaluates in double (csrc/rf_math.cuh)
+MATH_PLUGIN_FILES = {
+    "rf_tanh.py": ("import torch\n\n\ndef resource_function(load):\n"
+                   "    return 2.0 * torch.tanh(load / 2.0)\n"),
+    "rf_log1p.py": ("import torch\n\n\ndef resource_function(load):\n"
+                    "    return torch.where(load > 0.0, torch.log1p(load) "
+                    "+ 0.1 * load, torch.zeros_like(load))\n"),
+    "rf_pow15.py": ("import torch\n\n\ndef resource_function(load):\n"
+                    "    return torch.where(load > 1.0, load ** 1.5, load)\n"),
+}
+
+
+def plugin_service_yaml(files) -> str:
+    """The abc chain naming one plugin file's stem per SF."""
+    return "sfc_list:\n  sfc_1: [a, b, c]\nsf_list:\n" + "".join(
+        f"  {n}:\n    processing_delay_mean: 5.0\n"
+        f"    processing_delay_stdev: 0.0\n    resource_function_id: "
+        f"{rf[:-3]}\n" for n, rf in zip("abc", files))
+
+
 PLUGIN_SIM_MS = 500
 PLUGIN_EPISODE_STEPS = 10
 PLUGIN_TRAIN_ARGS = ["--replicas", "4", "--chunk", str(PLUGIN_EPISODE_STEPS),
@@ -652,7 +698,10 @@ PLUGIN_PERFLOW_SUBSTEPS = 50
 # frozen-publish runs and the fault plan
 ASYNC_ARGS = ["--replicas", "64", "--chunk", "50", "--episodes", "3",
               "--seed", "0"]
-ASYNC_STALENESS = 64 * 200
+# the init-configs agent with episodes (and warm-up) of ASYNC_STEPS steps
+# (halved from the agent's 200 for the time limit)
+ASYNC_STEPS = 100
+ASYNC_STALENESS = 64 * ASYNC_STEPS
 ASYNC_FROZEN_EPISODES = 2
 ASYNC_FAULT_PLAN = "actor_die@a1:1;ring_poison@2"
 
@@ -670,8 +719,8 @@ MESH_AGENT_YAML = (
 MESH_ARGS = ["--replicas", "64", "--chunk", "50", "--seed", "0",
              "--no-perf"]
 MESH_DEADLINE_S = 600.0
-# a cold run and two warm ones
-MESH_ONE_RUNS = 3
+# a cold run and a warm one
+MESH_ONE_RUNS = 2
 # phase 22 and phase 21 (g): the cost ledger on MESH_AGENT_YAML's
 # flagship agent with a 50-step warm-up (every episode ends in a learn
 # burst), 2 episodes of 50 steps: the observed one, left out of the
@@ -699,6 +748,11 @@ FLAT_STEPS = 200
 FLAT_SINGLE_STEPS = 50
 FLAT_SERVE = (300, 8, 5.0)
 SYNC_STEPS = 50
+# phase 23 (e)-(g): the per-flow episodes' length and the flat
+# train-while-serve: episodes, client threads, the watchers' poll, the
+# requests answered before and after training
+FLAT_PERFLOW_STEPS = 50
+FLAT_TWS = (1, 4, 0.05, 100)
 
 
 class SmokeFailure(RuntimeError):
@@ -1662,20 +1716,22 @@ def substep_battery(torch, dev):
         else:
             check(serial == 0, f"{case.name}: {serial} admission rounds "
                   "took the sequential scan")
-        on_card = cases.run_case(case, dev, plain=True)
+        on_card = (cases.run_case(case, dev, plain=True)
+                   if case.name in PLAIN_ON_CARD_CASES else None)
         on_cpu = cpu_run.result()
         e_card = e_cpu = e_plain = 0.0
         for i in range(case.intervals):
             what = f"{case.name} interval {i}"
-            e_card = max(e_card, cases.compare_states(
-                got[i], on_card[i], SUB_RTOL, SUB_ATOL,
-                f"{what}, kernel vs plain on card: "))
             e_cpu = max(e_cpu, cases.compare_states(
                 got[i], on_cpu[i], SUB_RTOL, SUB_ATOL,
                 f"{what}, kernel vs plain on CPU: "))
-            e_plain = max(e_plain, cases.compare_states(
-                on_card[i], on_cpu[i], SUB_RTOL, SUB_ATOL,
-                f"{what}, plain on card vs CPU: "))
+            if on_card is not None:
+                e_card = max(e_card, cases.compare_states(
+                    got[i], on_card[i], SUB_RTOL, SUB_ATOL,
+                    f"{what}, kernel vs plain on card: "))
+                e_plain = max(e_plain, cases.compare_states(
+                    on_card[i], on_cpu[i], SUB_RTOL, SUB_ATOL,
+                    f"{what}, plain on card vs CPU: "))
             check(cases.bit_equal(got[i].to("cpu"), on_cpu[i]),
                   f"{what}: the kernel is not bit-equal to the plain "
                   "version on CPU copies")
@@ -1687,10 +1743,12 @@ def substep_battery(torch, dev):
         e_one = single_substep_check(case, start, torch, dev)
         m = got[-1].metrics
         worst = max(worst, e_card, e_cpu, e_one)
+        card = ("not run" if on_card is None else
+                f"{e_card:.2e}, plain card-CPU {e_plain:.2e}")
         print(f"  {case.name:18s} M={case.engine.M:4d} B={case.batch:3d} "
               f"x{case.intervals} intervals: max float diff "
-              f"kernel-plain(card) {e_card:.2e}, kernel-plain(CPU) "
-              f"{e_cpu:.2e} (bit-equal), plain card-CPU {e_plain:.2e}, "
+              f"kernel-plain(CPU) {e_cpu:.2e} (bit-equal), "
+              f"kernel-plain(card) {card}, "
               f"single substep {e_one:.2e}; serial rounds {serial}; "
               f"bit-identical relaunch; generated "
               f"{int(m.generated.sum())}, dropped {int(m.dropped.sum())} "
@@ -1859,12 +1917,12 @@ class plain_attention:
 
 def rung5_ledger_memory(torch, smi, args):
     """Phase 14 (g): ``cli.run_train`` of ``args`` (rung 5) with
-    ``--no-perf`` and with ``--perf``: both runs' peak allocated device
-    bytes printed ((f)'s run adds its checks' own tensors to its peak),
-    and how often the ledger's capture let go of more than
+    ``--perf``: its peak allocated device bytes printed, and how often
+    the ledger's capture let go of more than
     ``analysis.launches.HOLD_BYTES`` of held inputs mid-call (a learn
-    burst builds an adjacency of 100 x 256 x 256 per forward); the
-    ledger's entries available, its ``perf.json`` on the card."""
+    burst builds an adjacency of 100 x 256 x 256 per forward; each
+    settle starts a new profile segment); the ledger's entries available
+    and whole, its ``perf.json`` on the card."""
     from gsc_tpu_torch import cli
     from gsc_tpu_torch.analysis.launches import HOLD_BYTES
     from gsc_tpu_torch.obs import perf as perf_mod
@@ -1876,31 +1934,29 @@ def rung5_ledger_memory(torch, smi, args):
         settles.append(self.counter.held_bytes)
         return settle(self)
 
-    peaks = {}
     with tempfile.TemporaryDirectory() as d:
-        for flag, extra in (("--no-perf", []), ("--perf", ["--obs-dir", d])):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            perf_mod._Capture._settle = counted
-            try:
-                cli.run_train(args + [flag] + extra)
-            finally:
-                perf_mod._Capture._settle = settle
-            torch.cuda.synchronize()
-            peaks[flag] = torch.cuda.max_memory_allocated()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        perf_mod._Capture._settle = counted
+        try:
+            cli.run_train(args + ["--perf", "--obs-dir", d])
+        finally:
+            perf_mod._Capture._settle = settle
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
         with open(os.path.join(d, "perf.json")) as f:
             doc = json.load(f)
     entries = doc["entries"]
     check(doc["backend"] == "gpu" and set(entries) == {"chunk_step",
                                                        "learn_burst"}
-          and all(e["available"] for e in entries.values()),
+          and all(e["available"] and e["launches"] is not None
+                  and e["device_s"] is not None for e in entries.values()),
           f"rung 5 --perf: entries "
-          f"{ {k: e.get('error', 'ok') for k, e in entries.items()} }")
+          f"{ {k: e.get('error') or e.get('no_profile', 'ok') for k, e in entries.items()} }")
     check(len(settles) > 0, "rung 5 --perf: the capture never let go of "
           f"its held inputs (HOLD_BYTES {HOLD_BYTES})")
-    print(f"phase 14 (g) rung5 peak allocated device bytes: --no-perf "
-          f"{peaks['--no-perf']}, --perf {peaks['--perf']} (difference "
-          f"{peaks['--perf'] - peaks['--no-perf']}); the capture let go "
+    print(f"phase 14 (g) rung5 peak allocated device bytes with --perf "
+          f"{peak}; every entry whole; the capture let go "
           f"of its held inputs {len(settles)} times mid-call at "
           f"{max(settles)} bytes held (HOLD_BYTES {HOLD_BYTES}); "
           f"learn_burst {entries['learn_burst']['flops']:.6g} FLOP, "
@@ -2459,7 +2515,7 @@ def generalization_slice(torch, dev, smi):
               f"evaluation on the inference network: {ev}")
         laps.lap("b")
 
-        # (c) two episodes, a checkpoint, a resumed third: bit for bit
+        # (c) one episode less, a checkpoint, a resumed last: bit for bit
         res_c = cli.run_train(base + ["--no-perf", "--episodes",
                                       str(GEN_EPISODES - 1), "--result-dir",
                                       os.path.join(root, "c")])
@@ -2898,7 +2954,7 @@ def large_network_slice(torch, dev, smi, parent=None):
         counts, runs["interroute f32"] = train_slice(
             torch, dev, smi, "f32", checkpoint=ck, label=" interroute",
             args=interroute + ["--replicas", "8", "--chunk", "50",
-                               "--episodes", "2"])
+                               "--episodes", "1"])
         add(counts)
         laps.lap("(c) interroute f32")
         counts, runs["interroute bf16"] = train_slice(
@@ -3534,11 +3590,15 @@ def attention_inputs_of(fn, torch):
 
 
 def batch_of(pool, ks, torch, dev):
-    """A [len(ks)]-stack of pool observations on ``dev``."""
+    """A [len(ks)]-stack of pool observations on ``dev`` (graph or flat
+    ones)."""
     import numpy as np
 
     from gsc_tpu_torch.env.observations import GraphObs
 
+    if not isinstance(pool[0], GraphObs):
+        return torch.from_numpy(np.stack([np.asarray(pool[k])
+                                          for k in ks])).to(dev)
     return GraphObs(**{f: torch.from_numpy(np.stack(
         [np.asarray(getattr(pool[k], f)) for k in ks])).to(dev)
         for f in vars(pool[0])})
@@ -4285,13 +4345,14 @@ def perflow_slice(torch, dev, smi):
 
 class PluginBuild:
     """``build_kernels``' handle on kernel #2's build with the generated
-    header of ``cases.PLUGINS``."""
+    header of ``cases.PLUGINS`` (or of the plugins named in ``ids``)."""
 
-    def __init__(self, dev):
+    def __init__(self, dev, ids=None):
         from gsc_tpu_torch.ops.substep import resource_plan
         from gsc_tpu_torch.sim import cases
 
-        case = cases.with_plugins(cases.abilene_case(batch=1, intervals=1))
+        case = cases.with_plugins(cases.abilene_case(batch=1, intervals=1),
+                                  tuple(ids or cases.PLUGINS))
         self.header = resource_plan(case.engine, dev)["rf_header"]
 
     def library(self):
@@ -4306,109 +4367,236 @@ class PluginBuild:
         return substep_megakernel.plugin_build_log.get(self.header, "")
 
 
+class ProbeBuild:
+    """``build_kernels``' handle on the probe of ``csrc/rf_math.cuh``."""
+
+    def library(self):
+        from gsc_tpu_torch.ops.rf_math_probe import probe_library
+
+        return probe_library()[0]
+
+    @property
+    def build_log(self):
+        from gsc_tpu_torch.ops.rf_math_probe import probe_library
+
+        return probe_library()[1]
+
+
+def rf_grid(n, seed):
+    """f32 loads for the math header's check: zeros, subnormals,
+    negatives, 1e-30 to 1e30, infinities, NaN and the ranges where the
+    functions bend."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    special = np.array([0.0, -0.0, 1.0, -1.0, 2.0, 0.5, 1e-40, -1e-40,
+                        1e-45, -1e-45, 1e-30, -1e-30, 1e30, -1e30, np.inf,
+                        -np.inf, np.nan, 88.7, 89.0, -103.0, -104.0, -0.25,
+                        0.375, -0.999, 20.0, -20.0], np.float32)
+    mag = 10.0 ** rng.uniform(-30, 30, n)
+    return np.concatenate([
+        special, (rng.standard_normal(n) * 10).astype(np.float32),
+        (rng.random(n) * 4).astype(np.float32), mag.astype(np.float32),
+        (-mag).astype(np.float32),
+        rng.uniform(-110, 95, n).astype(np.float32)])
+
+
+def plugin_cli_on_cpu(sim_argv, train_argv):
+    """Phase 19 (f)'s CPU runs, in a process aside: ``cli simulate`` and
+    ``cli train`` with ``--device cpu``; returns simulate's JSON, the
+    training run's (episodes, replay sizes, cursors) and its returns."""
+    from gsc_tpu_torch import cli
+
+    sim = cli.run_simulate(sim_argv + ["--device", "cpu"])
+    res = cli.run_train(train_argv + ["--device", "cpu"])
+    history = res["trainer"].history
+    return (sim, (len(history), res["buffers"].size.tolist(),
+                  res["buffers"].pos.tolist()),
+            [h["episodic_return"] for h in history])
+
+
 def plugin_slice(torch, dev, smi, parent):
-    """Phase 19: resource-function plugins compiled into kernel #2.  (a)
-    the plugin build; (b) the kernel under ``cases.PLUGINS`` bit for bit
+    """Phase 19: resource-function plugins compiled into kernel #2, under
+    two sets: ``cases.PLUGINS`` and ``cases.MATH_PLUGINS`` (tanh, log1p,
+    ``** 1.5``: the double forms of ``csrc/rf_math.cuh``).  (a) both
+    plugin builds (nvcc seconds, ptxas registers and spills of every
+    instantiation) and the header's functions on the card (the probe
+    kernel) bit for bit against their plain version ``ops.rf_math`` over
+    a grid of f32 loads; (b) the kernel under each set bit for bit
     against its plain version on CPU copies over the battery
     (``cases.all_cases``) and over the per-flow cases (the kPerFlow
-    instantiation); (c) an out-of-set plugin raising on the card without
-    running anywhere; (d) device time per interval at B=64 with and
-    without plugins in alternating pairs, the bound and the plain
+    instantiation); (c) a plugin that does not trace raising on the card
+    without running anywhere; (d) device time per interval at B=64 in
+    alternating pairs, without plugins against ``PLUGINS`` and
+    ``PLUGINS`` against ``MATH_PLUGINS``, the bounds and the plain
     engine; (e) the build without plugins against the parent's source in
     alternating pairs at B = 1, 64, 256 (where ``_parent/`` holds it) and
-    both builds' registers; (f) ``cli simulate`` and ``cli train --replicas
-    4`` under ``--resource-functions-path`` on the card and on the CPU.
-    Returns (launches on the main path by kernel, the plugin build's
-    numbers for the kernels line)."""
+    both builds' registers; (f) ``cli simulate`` and ``cli train
+    --replicas 4`` under ``--resource-functions-path`` with each set's
+    files, on the card and on the CPU.  Returns (launches on the main
+    path by kernel, each plugin build's numbers for the kernels line)."""
+    import numpy as np
+
     from gsc_tpu_torch import cli
     from gsc_tpu_torch.config.registry import register_resource_function
+    from gsc_tpu_torch.ops import rf_math
     from gsc_tpu_torch.ops.gat_attention import (gat_attention,
                                                  gat_attention_backward)
     from gsc_tpu_torch.ops.resource_codegen import \
         UnsupportedResourceFunction
+    from gsc_tpu_torch.ops.rf_math_probe import card_values
     from gsc_tpu_torch.ops.substep import (resource_plan, substep_megakernel,
                                            substep_plain)
     from gsc_tpu_torch.sim import cases
+    from gsc_tpu_torch.topology.synthetic import abilene, write_graphml
 
     laps = Laps()
     sub = substep_megakernel
-    # (a) the plugin build (phase 2 built it beside the other kernels)
-    probe = cases.with_plugins(cases.abilene_case(batch=64, intervals=2,
-                                                  seed=7))
-    header = resource_plan(probe.engine, dev)["rf_header"]
-    check(header is not None, "the plugin case has no plugin header")
-    t0 = time.perf_counter()
-    sub.library(header)
-    print(f"  plugin build: {sub.plugin_build_s.get(header, 0.0):.2f} s of "
-          f"nvcc ({time.perf_counter() - t0:.2f} s now; {len(header)} bytes "
-          "of generated header)", flush=True)
+    sets = {"plugins": tuple(cases.PLUGINS),
+            "math": tuple(cases.MATH_PLUGINS)}
+    # the CPU's plain runs of (b) and (f), started first in the processes
+    # aside so that they run beside the card's work
+    batteries, flows, aside, flows_aside = {}, {}, {}, {}
+    for label, ids in sets.items():
+        batteries[label] = [cases.with_plugins(case, ids) for case in
+                            cases.all_cases(abilene_batch=PLUGIN_ABILENE_BATCH)]
+        flows[label] = [cases.with_plugins(dataclasses.replace(
+            case, substeps=min(case.substeps, PLUGIN_PERFLOW_SUBSTEPS)), ids)
+            for case in cases.perflow_cases()]
+        aside[label] = [on_cpu_aside(cases.run_case, case, "cpu", plain=True)
+                        for case in batteries[label]]
+        flows_aside[label] = [on_cpu_aside(cases.run_perflow_case, case,
+                                           "cpu", plain=True)
+                              for case in flows[label]]
+    root = tempfile.mkdtemp(prefix="gsc_plugins_")
+    cli_argv = {}
+    cfg = os.path.join(root, "cfg")
+    cli.init_configs(cfg)
+    net = os.path.join(root, "abilene.graphml")
+    write_graphml(abilene(), net)
+    agent = os.path.join(root, "agent.yaml")
+    with open(agent, "w") as f:
+        f.write(PLUGIN_AGENT_YAML)
+    for label, files in (("plugins", PLUGIN_FILES),
+                         ("math", MATH_PLUGIN_FILES)):
+        plug_dir = os.path.join(root, f"plugins_{label}")
+        os.makedirs(plug_dir)
+        for name, text in files.items():
+            with open(os.path.join(plug_dir, name), "w") as f:
+                f.write(text)
+        svc = os.path.join(root, f"service_{label}.yaml")
+        with open(svc, "w") as f:
+            f.write(plugin_service_yaml(files))
+        sim_argv = ["-d", str(PLUGIN_SIM_MS), "-n", net, "-sf", svc, "-c",
+                    os.path.join(cfg, "simulator.yaml"),
+                    "--resource-functions-path", plug_dir]
+        train_argv = PLUGIN_TRAIN_ARGS + [
+            "--agent-config", agent, "--service", svc,
+            "--resource-functions-path", plug_dir, "--no-obs"]
+        cli_argv[label] = (sorted(files), sim_argv, train_argv,
+                           on_cpu_aside(plugin_cli_on_cpu, sim_argv,
+                                        train_argv))
+
+    # (a) the plugin builds (phase 2 built them beside the other kernels)
+    probes, headers = {}, {}
+    for label, ids in sets.items():
+        probes[label] = cases.with_plugins(
+            cases.abilene_case(batch=64, intervals=2, seed=7), ids)
+        headers[label] = resource_plan(probes[label].engine,
+                                       dev)["rf_header"]
+        check(headers[label] is not None, f"the {label} case has no plugin "
+              "header")
+        t0 = time.perf_counter()
+        sub.library(headers[label])
+        print(f"  {label} build ({list(ids)}): "
+              f"{sub.plugin_build_s.get(headers[label], 0.0):.2f} s of nvcc "
+              f"({time.perf_counter() - t0:.2f} s now; "
+              f"{len(headers[label])} bytes of generated header)",
+              flush=True)
     regs = {}
     for what, log in (("no plugins", sub.build_log),
-                      ("plugins", sub.plugin_build_log.get(header, "")),
+                      ("plugins", sub.plugin_build_log.get(
+                          headers["plugins"], "")),
+                      ("math plugins", sub.plugin_build_log.get(
+                          headers["math"], "")),
                       ("parent", parent.build_log if parent else "")):
-        lines = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        lines = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
         regs[what] = lines
         for ln in lines:
             print(f"  ptxas ({what}): {ln}", flush=True)
-    laps.lap("a build")
+    x = rf_grid(20000, 5)
+    rng = np.random.default_rng(6)
+    y = np.where(rng.random(x.size) < 0.5, rng.choice(np.array(
+        [0.0, -0.0, 1.5, -1.5, 2.0, 3.0, -3.0, np.inf, -np.inf, np.nan, 0.3,
+         1e10], np.float32), x.size), rng.permutation(x)).astype(np.float32)
+    got = card_values(torch.from_numpy(x).to(dev),
+                              torch.from_numpy(y).to(dev)).cpu().numpy()
+    want = rf_math.plain_values(x, y)
+    same = (np.isnan(got) & np.isnan(want)) | (
+        got.view(np.uint32) == want.view(np.uint32))
+    bad = {name: int((~same[:, j]).sum())
+           for j, name in enumerate(rf_math.PROBE_ORDER)}
+    check(not any(bad.values()), f"rf_math.cuh on the card differs from "
+          f"ops.rf_math: {bad}")
+    print(f"  rf_math.cuh on the card (probe kernel): "
+          f"{list(rf_math.PROBE_ORDER)} on {x.size} f32 loads (0, "
+          f"subnormals, 1e-30..1e30, +-inf, NaN; pow against {y.size} "
+          f"exponents) bit-equal to ops.rf_math", flush=True)
+    laps.lap("a builds")
 
-    # (b) the battery under plugins, both instantiations
-    worst = 0.0
+    # (b) the battery under each set, both instantiations
+    worst = {label: 0.0 for label in sets}
     n0 = sub.plugin_launches
-    battery = [cases.with_plugins(case) for case in
-               cases.all_cases(abilene_batch=PLUGIN_ABILENE_BATCH)]
-    flows = [cases.with_plugins(dataclasses.replace(
-        case, substeps=min(case.substeps, PLUGIN_PERFLOW_SUBSTEPS)))
-        for case in cases.perflow_cases()]
-    aside = [on_cpu_aside(cases.run_case, case, "cpu", plain=True)
-             for case in battery]
-    flows_aside = [on_cpu_aside(cases.run_perflow_case, case, "cpu",
-                                plain=True) for case in flows]
-    for case, cpu_run in zip(battery, aside):
-        got = cases.run_case(case, dev)
-        want = cpu_run.result()
-        for i, (g, w) in enumerate(zip(got, want)):
-            worst = max(worst, cases.compare_states(
-                g, w, SUB_RTOL, SUB_ATOL, f"{case.name} interval {i}: "))
-            check(cases.bit_equal(g.to("cpu"), w),
-                  f"{case.name} interval {i}: the plugin build is not "
-                  "bit-equal to the plain version on CPU copies")
-    for case, cpu_run in zip(flows, flows_aside):
-        got = cases.run_perflow_case(case, dev)
-        want = cpu_run.result()
-        for i, (g, w) in enumerate(zip(got, want)):
-            check(cases.bit_equal(g.to("cpu"), w),
-                  f"{case.name} record {i}: the per-flow plugin build is "
-                  "not bit-equal to the plain version on CPU copies")
+    for label, ids in sets.items():
+        for case, cpu_run in zip(batteries[label], aside[label]):
+            got = cases.run_case(case, dev)
+            want = cpu_run.result()
+            for i, (g, w) in enumerate(zip(got, want)):
+                worst[label] = max(worst[label], cases.compare_states(
+                    g, w, SUB_RTOL, SUB_ATOL, f"{case.name} interval {i}: "))
+                check(cases.bit_equal(g.to("cpu"), w),
+                      f"{case.name} interval {i}: the plugin build is not "
+                      "bit-equal to the plain version on CPU copies")
+        for case, cpu_run in zip(flows[label], flows_aside[label]):
+            got = cases.run_perflow_case(case, dev)
+            want = cpu_run.result()
+            for i, (g, w) in enumerate(zip(got, want)):
+                check(cases.bit_equal(g.to("cpu"), w),
+                      f"{case.name} record {i}: the per-flow plugin build "
+                      "is not bit-equal to the plain version on CPU copies")
+        print(f"  battery under {list(ids)}: {len(batteries[label])} cases "
+              f"and {len(flows[label])} per-flow cases bit-equal to the "
+              "plain version on CPU copies", flush=True)
     check(sub.plugin_launches > n0, "no plugin launch in the battery")
-    print(f"  battery under {list(cases.PLUGINS)}: {len(battery)} "
-          f"cases and {len(flows)} per-flow cases bit-equal "
-          f"to the plain version on CPU copies ({sub.plugin_launches - n0} "
-          "plugin launches)", flush=True)
+    print(f"  battery: {sub.plugin_launches - n0} plugin launches",
+          flush=True)
     laps.lap("b battery")
 
-    # (c) an operation outside the compiled set: refused on the card, and
-    # the plugin never runs on a tensor in its place
+    # (c) a plugin that does not trace: refused on the card, and the
+    # plugin never runs on a tensor in its place
     calls = []
 
-    def exp_plugin(load):
+    def branching(load):
         if isinstance(load, torch.Tensor):
             calls.append(load.device.type)
-        return torch.exp(load) - 1.0
+        return load if load.sum() > 0 else -load
 
-    register_resource_function("case_exp")(exp_plugin)
+    register_resource_function("case_branching")(branching)
     bad = cases.with_plugins(cases.abilene_case(batch=1, intervals=1),
-                             ("case_exp",))
+                             ("case_branching",))
     try:
         cases.run_case(bad, dev)
-        check(False, "a plugin with exp ran on the card")
+        check(False, "a plugin that does not trace ran on the card")
     except UnsupportedResourceFunction as e:
-        check("exp" in str(e), f"the refusal does not name exp: {e}")
+        check("does not trace" in str(e), f"the refusal does not say it "
+              f"does not trace: {e}")
         print(f"  refused on the card: {e}", flush=True)
     check(not calls, f"the refused plugin ran on {calls}")
     laps.lap("c refusal")
 
-    # (d) one interval at B=64, without and with plugins, in turns
+    # (d) one interval at B=64 without plugins and under each set, in
+    # turns
     base = cases.abilene_case(batch=64, intervals=2, seed=7)
     b = base.batch
 
@@ -4422,28 +4610,43 @@ def plugin_slice(torch, dev, smi, parent):
                                      case.placement.to(dev))
         return eng, st, topo, traffic, cap
 
-    runs = {"none": interval(base), "plugins": interval(probe)}
+    runs = {"none": interval(base), **{label: interval(probes[label])
+                                       for label in sets}}
     launch = lambda k: sub.launch(*runs[k])
-    pairs = alternating_pairs(lambda: launch("none"),
-                              lambda: launch("plugins"),
-                              "substep_megakernel_kernel", torch)
-    eng, st, topo, traffic, cap = runs["plugins"]
-    after = launch("plugins")
-    ms = cuda_time_ms(lambda: launch("plugins"), torch, reps=20, warmup=3)
-    plain_ms = cuda_time_ms(
-        lambda: substep_plain(eng, st, topo, traffic, cap), torch, reps=1,
-        warmup=0)
-    bound_ms, bound_by, nbytes, _ = substep_bound(eng, st, after, b)
-    plug_ms = pairs[1] if pairs else ms
-    turns = ("not measured" if pairs is None else
-             f"medians without {pairs[0]:.4f} ms, with {pairs[1]:.4f} ms "
-             f"({100 * (pairs[1] / pairs[0] - 1):+.2f}%), with plugins "
-             f"faster in {pairs[2]} of {pairs[3]}")
-    print(f"  B={b} per interval, device time in {PARENT_PAIRS} alternating "
-          f"pairs without and with plugins: {turns}; plugins {ms:.4f} ms "
-          f"per interval (events, wrapper included), plain engine "
-          f"{plain_ms:.2f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
-          f"{nbytes} bytes) on {smi}", flush=True)
+    numbers = {}
+    turn_pairs = (("none", "plugins"), ("plugins", "math"))
+    pairs = {}
+    for first, second in turn_pairs:
+        pairs[second] = alternating_pairs(lambda: launch(first),
+                                          lambda: launch(second),
+                                          "substep_megakernel_kernel", torch)
+    for label in sets:
+        eng, st, topo, traffic, cap = runs[label]
+        after = launch(label)
+        ms = cuda_time_ms(lambda: launch(label), torch, reps=20, warmup=3)
+        plain_ms = cuda_time_ms(
+            lambda: substep_plain(eng, st, topo, traffic, cap), torch,
+            reps=1, warmup=0)
+        bound_ms, bound_by, nbytes, _ = substep_bound(eng, st, after, b)
+        p = pairs[label]
+        numbers[label] = {
+            "ms": p[1] if p else ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": worst[label],
+            "build_s": sub.plugin_build_s.get(headers[label])}
+        print(f"  B={b} per interval under {label}: {ms:.4f} ms (events, "
+              f"wrapper included), plain engine {plain_ms:.2f} ms, bound "
+              f"{bound_ms:.6f} ms ({bound_by}: {nbytes} bytes) on {smi}",
+              flush=True)
+    for first, second in turn_pairs:
+        p = pairs[second]
+        turns = ("not measured" if p is None else
+                 f"medians {first} {p[0]:.4f} ms, {second} {p[1]:.4f} ms "
+                 f"({100 * (p[1] / p[0] - 1):+.2f}%), {second} faster in "
+                 f"{p[2]} of {p[3]}")
+        print(f"  B={b} device time per interval in {PARENT_PAIRS} "
+              f"alternating pairs, {first} against {second}: {turns} on "
+              f"{smi}", flush=True)
     laps.lap("d times")
 
     # (e) the build without plugins against the parent's source
@@ -4461,12 +4664,12 @@ def plugin_slice(torch, dev, smi, parent):
             run_c = lambda: sub.launch(e2, st2, topo2, traffic2, cap2)
             check(cases.bit_equal(run_p(), run_c()),
                   f"B={bb}: the parent's interval differs")
-            pairs = alternating_pairs(run_p, run_c,
-                                      "substep_megakernel_kernel", torch)
-            if pairs is None:
+            pp = alternating_pairs(run_p, run_c,
+                                   "substep_megakernel_kernel", torch)
+            if pp is None:
                 print(f"  B={bb}: alternating pairs not measured", flush=True)
                 continue
-            pm, cm, won, measured = pairs
+            pm, cm, won, measured = pp
             print(f"  B={bb:3d} no-plugin build vs the parent, device time "
                   f"in {measured} alternating pairs: medians parent "
                   f"{pm:.4f} ms, this {cm:.4f} ms ({100 * (cm / pm - 1):+.2f}"
@@ -4474,101 +4677,80 @@ def plugin_slice(torch, dev, smi, parent):
                   f"on {smi}", flush=True)
     laps.lap("e parent")
 
-    # (f) the CLI under --resource-functions-path, card and CPU
+    # (f) the CLI under --resource-functions-path, card and CPU, with each
+    # set's files
     total = {"gat_attention": 0, "gat_attention_backward": 0,
-             "substep_megakernel": 0, "substep_megakernel_plugin": 0}
-    root = tempfile.mkdtemp(prefix="gsc_plugins_")
+             "substep_megakernel": 0, "substep_megakernel_plugin": 0,
+             "substep_megakernel_plugin_math": 0}
     try:
-        from gsc_tpu_torch.topology.synthetic import abilene, write_graphml
-
-        cfg = os.path.join(root, "cfg")
-        cli.init_configs(cfg)
-        plug_dir = os.path.join(root, "plugins")
-        os.makedirs(plug_dir)
-        for name, text in PLUGIN_FILES.items():
-            with open(os.path.join(plug_dir, name), "w") as f:
-                f.write(text)
-        svc = os.path.join(root, "service_plugins.yaml")
-        with open(svc, "w") as f:
-            f.write(PLUGIN_SERVICE_YAML)
-        net = os.path.join(root, "abilene.graphml")
-        write_graphml(abilene(), net)
-        argv = ["-d", str(PLUGIN_SIM_MS), "-n", net, "-sf", svc, "-c",
-                os.path.join(cfg, "simulator.yaml"),
-                "--resource-functions-path", plug_dir]
-        torch.cuda.synchronize()
-        sub.launches = sub.plugin_launches = 0
-        t0 = time.perf_counter()
-        on_card = cli.run_simulate(argv)
-        torch.cuda.synchronize()
-        sim_wall = time.perf_counter() - t0
-        n_sim = sub.plugin_launches
-        total["substep_megakernel_plugin"] += n_sim
-        check(n_sim == math.ceil(PLUGIN_SIM_MS / 100) and sub.launches == 0,
-              f"simulate under plugins: {n_sim} plugin launches, "
-              f"{sub.launches} others (want one plugin launch per interval)")
-        on_cpu = cli.run_simulate(argv + ["--device", "cpu"])
-        for k in ("total_flows", "successful_flows", "dropped_flows",
-                  "drop_reasons"):
-            check(on_card[k] == on_cpu[k], f"simulate {k}: card "
-                  f"{on_card[k]} vs CPU {on_cpu[k]}")
-        check(abs(on_card["avg_end2end_delay"] - on_cpu["avg_end2end_delay"])
-              <= SUB_RTOL * abs(on_cpu["avg_end2end_delay"]) + SUB_ATOL,
-              "simulate's mean delay differs between card and CPU")
-        default = cli.run_simulate(argv[:5] + [os.path.join(
-            cfg, "service_abc.yaml")] + argv[6:8] + ["--device", "cpu"])
-        print(f"  simulate -d {PLUGIN_SIM_MS} under plugins: card "
-              f"{json.dumps(on_card)} ({n_sim} plugin launches, "
-              f"{sim_wall:.3f} s wall); the CPU's integers equal; the "
-              f"default functions give {json.dumps(default)}", flush=True)
-        agent = os.path.join(root, "agent.yaml")
-        with open(agent, "w") as f:
-            f.write(PLUGIN_AGENT_YAML)
-        targv = PLUGIN_TRAIN_ARGS + [
-            "--agent-config", agent, "--service", svc,
-            "--resource-functions-path", plug_dir, "--no-obs"]
-        for op in (gat_attention, gat_attention_backward):
-            op.launches = 0
-        sub.launches = sub.plugin_launches = 0
-        t0 = time.perf_counter()
-        res = cli.run_train(targv)
-        train_wall = time.perf_counter() - t0
-        ev = PLUGIN_EPISODE_STEPS
-        steps = ev * int(PLUGIN_TRAIN_ARGS[PLUGIN_TRAIN_ARGS.index(
-            "--episodes") + 1])
-        n_train = sub.plugin_launches
-        check(n_train == steps + ev and sub.launches == 0,
-              f"train under plugins: {n_train} plugin launches for {steps} "
-              f"env steps and {ev} evaluation steps, {sub.launches} others")
-        total["substep_megakernel_plugin"] += n_train
-        total["gat_attention"] += gat_attention.launches
-        total["gat_attention_backward"] += gat_attention_backward.launches
-        res_cpu = cli.run_train(targv + ["--device", "cpu"])
-        for what, r in (("card", res), ("CPU", res_cpu)):
-            check(all(math.isfinite(h["episodic_return"])
-                      for h in r["trainer"].history),
-                  f"train under plugins on the {what}: non-finite return")
-        ints = lambda r: (len(r["trainer"].history),
-                          r["buffers"].size.tolist(),
-                          r["buffers"].pos.tolist())
-        check(ints(res) == ints(res_cpu),
-              f"train under plugins: episodes, replay sizes and cursors "
-              f"{ints(res)} on the card, {ints(res_cpu)} on the CPU")
-        print(f"  train --replicas 4 under plugins: {n_train} plugin "
-              f"launches, {train_wall:.2f} s wall on the card; episodes, "
-              "replay sizes and cursors equal to the CPU run's (the two "
-              "devices draw other random numbers, so their returns differ: "
-              f"{res['trainer'].history[-1]['episodic_return']:.3f} card, "
-              f"{res_cpu['trainer'].history[-1]['episodic_return']:.3f} CPU)",
-              flush=True)
+        for label, (files, sim_argv, train_argv, cpu_run) in \
+                cli_argv.items():
+            key = ("substep_megakernel_plugin" if label == "plugins"
+                   else "substep_megakernel_plugin_math")
+            torch.cuda.synchronize()
+            sub.launches = sub.plugin_launches = 0
+            t0 = time.perf_counter()
+            on_card = cli.run_simulate(sim_argv)
+            torch.cuda.synchronize()
+            sim_wall = time.perf_counter() - t0
+            n_sim = sub.plugin_launches
+            total[key] += n_sim
+            check(n_sim == math.ceil(PLUGIN_SIM_MS / 100)
+                  and sub.launches == 0,
+                  f"simulate under {label}: {n_sim} plugin launches, "
+                  f"{sub.launches} others (want one plugin launch per "
+                  "interval)")
+            for op in (gat_attention, gat_attention_backward):
+                op.launches = 0
+            sub.launches = sub.plugin_launches = 0
+            t0 = time.perf_counter()
+            res = cli.run_train(train_argv)
+            train_wall = time.perf_counter() - t0
+            ev = PLUGIN_EPISODE_STEPS
+            steps = ev * int(PLUGIN_TRAIN_ARGS[PLUGIN_TRAIN_ARGS.index(
+                "--episodes") + 1])
+            n_train = sub.plugin_launches
+            check(n_train == steps + ev and sub.launches == 0,
+                  f"train under {label}: {n_train} plugin launches for "
+                  f"{steps} env steps and {ev} evaluation steps, "
+                  f"{sub.launches} others")
+            total[key] += n_train
+            total["gat_attention"] += gat_attention.launches
+            total["gat_attention_backward"] += gat_attention_backward.launches
+            on_cpu, cpu_ints, cpu_returns = cpu_run.result()
+            for k in ("total_flows", "successful_flows", "dropped_flows",
+                      "drop_reasons"):
+                check(on_card[k] == on_cpu[k], f"simulate {label} {k}: card "
+                      f"{on_card[k]} vs CPU {on_cpu[k]}")
+            check(abs(on_card["avg_end2end_delay"]
+                      - on_cpu["avg_end2end_delay"])
+                  <= SUB_RTOL * abs(on_cpu["avg_end2end_delay"]) + SUB_ATOL,
+                  f"simulate {label}: the mean delay differs between card "
+                  "and CPU")
+            print(f"  simulate -d {PLUGIN_SIM_MS} under {label} ({files}): "
+                  f"card {json.dumps(on_card)} ({n_sim} plugin launches, "
+                  f"{sim_wall:.3f} s wall); the CPU's integers equal",
+                  flush=True)
+            returns = [h["episodic_return"] for h in res["trainer"].history]
+            check(all(math.isfinite(r) for r in returns + cpu_returns),
+                  f"train under {label}: returns {returns} on the card, "
+                  f"{cpu_returns} on the CPU")
+            ints = (len(res["trainer"].history), res["buffers"].size.tolist(),
+                    res["buffers"].pos.tolist())
+            check(ints == cpu_ints,
+                  f"train under {label}: episodes, replay sizes and cursors "
+                  f"{ints} on the card, {cpu_ints} on the CPU")
+            print(f"  train --replicas 4 under {label}: {n_train} plugin "
+                  f"launches, {train_wall:.2f} s wall on the card; "
+                  "episodes, replay sizes and cursors equal to the CPU "
+                  "run's (the two devices draw other random numbers, so "
+                  f"their returns differ: {returns[-1]:.3f} card, "
+                  f"{cpu_returns[-1]:.3f} CPU)", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     laps.lap("f cli")
     print("phase 19 parts, s: " + ", ".join(
         f"{k} {v:.3f}" for k, v in laps.seconds.items()), flush=True)
-    numbers = {"ms": plug_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "max_abs_err": worst,
-               "build_s": sub.plugin_build_s.get(header)}
     return total, numbers
 
 
@@ -4591,13 +4773,25 @@ def async_slice(torch, dev, smi):
            "substep_megakernel": substep_megakernel}
     total = {k: 0 for k in ops}
     laps = Laps()
+    root = tempfile.mkdtemp(prefix="gsc_async_")
+    cli.init_configs(os.path.join(root, "cfg"))
+    agent_yaml = os.path.join(root, "agent.yaml")
+    with open(os.path.join(root, "cfg", "agent.yaml")) as f:
+        text = f.read()
+    with open(agent_yaml, "w") as f:
+        f.write(text.replace("episode_steps: 200",
+                             f"episode_steps: {ASYNC_STEPS}")
+                .replace("nb_steps_warmup_critic: 200",
+                         f"nb_steps_warmup_critic: {ASYNC_STEPS}")
+                + "gnn_impl: pallas\n")
 
     def counted(argv):
         for op in ops.values():
             op.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = cli.run_train(argv + ["--no-obs"])
+        res = cli.run_train(argv + ["--no-obs", "--agent-config",
+                                    agent_yaml])
         torch.cuda.synchronize()
         res["wall"] = time.perf_counter() - t0
         counts = {k: op.launches for k, op in ops.items()}
@@ -4629,7 +4823,10 @@ def async_slice(torch, dev, smi):
     sync, counts = counted(ASYNC_ARGS)
     check_counts(sync, counts, "train_parallel")
     eps = len(sync["trainer"].history)
-    steps = eps * 200 * 64
+    check(sync["trainer"].agent_cfg.episode_steps == ASYNC_STEPS,
+          f"phase 20 ran {sync['trainer'].agent_cfg.episode_steps}-step "
+          "episodes")
+    steps = eps * ASYNC_STEPS * 64
     rows["sync"] = {"env_steps_s": steps / sync["summary"]["train_s"],
                     "bursts_s": eps / sync["summary"]["train_s"],
                     "curve": curve(sync)}
@@ -4711,6 +4908,7 @@ def async_slice(torch, dev, smi):
     laps.lap("c faults")
     print("phase 20 parts, s: " + ", ".join(
         f"{k} {v:.3f}" for k, v in laps.seconds.items()), flush=True)
+    shutil.rmtree(root, ignore_errors=True)
     return total
 
 
@@ -4822,16 +5020,15 @@ def mesh_slice(torch, dev, smi):
             out["ranks"] = [rank[i]["rank"] for rank in per_rank]
         return outs, wall
 
-    # (a) one rank on NCCL, and no mesh: the rank runs 1x1 three times
+    # (a) one rank on NCCL, and no mesh: the rank runs 1x1 several times
     # in its process, the first run in a process that has just started
     # (its CUDA context, cuBLAS handles and allocator warm up inside the
     # run), the later ones warm, as this process is for the runs without
     # a mesh
-    warm = argv(200, 2, "--no-obs")
+    warm = argv(200, 1, "--no-obs")
     ref_state, ref_replay, ref = no_mesh(warm)
     ones, wall = legs(1, [warm + ["--mesh", "1x1", "--partition-rules",
                                   "sharded"]] * MESH_ONE_RUNS, None)
-    again = no_mesh(warm)[2]
     for i, one in enumerate(ones):
         check(one["ranks"][0]["backend"] == "nccl",
               "1x1 did not run on NCCL")
@@ -4841,21 +5038,19 @@ def mesh_slice(torch, dev, smi):
         report(f"(a) 1x1 run {i + 1} of its process", one)
     print(f"  (a) 1x1 (NCCL) == no mesh, learner state and replay, "
           f"{MESH_ONE_RUNS} runs in one process ({wall:.1f} s); no mesh "
-          f"{ref['summary']['sps']:.1f} and {again['summary']['sps']:.1f} "
-          f"env-steps/s, 1x1 "
+          f"{ref['summary']['sps']:.1f} env-steps/s, 1x1 "
           f"{[round(o['summary']['sps'], 1) for o in ones]} on {smi}",
           flush=True)
     laps.lap("a")
 
     # (b), (c) and (d)'s first run on 4 ranks sharing the card, then (b),
-    # (c) and (d)'s resume on 2
+    # (c) and (d)'s resume on 2; past the warm-up, the warm-up episode and
+    # one more (each ends in a learn burst)
     res = os.path.join(root, "res")
     ckpt_args = ["--result-dir", res, "--experiment-id", "mesh",
                  "--ckpt-interval", "1"]
-    past = argv(50, 3, "--no-obs")
-    four = [("(b) 4x1", warm + ["--mesh", "4x1", "--partition-rules",
-                                "sharded"]),
-            ("(b) 2x2", argv(200, 2, *ckpt_args) + [
+    past = argv(50, 2, "--no-obs")
+    four = [("(b) 2x2", argv(200, 1, *ckpt_args) + [
                 "--mesh", "2x2", "--partition-rules", "sharded"]),
             ("(c) 4x1", past + ["--mesh", "4x1", "--partition-rules",
                                 "sharded"]),
@@ -4877,7 +5072,7 @@ def mesh_slice(torch, dev, smi):
                                "sharded"]),
            ("(c) 1x2", past + ["--mesh", "1x2", "--partition-rules",
                                "sharded"]),
-           ("(d) 2x1 resumed", argv(200, 4, "--result-dir", res,
+           ("(d) 2x1 resumed", argv(200, 3, "--result-dir", res,
                                     "--experiment-id", "mesh",
                                     "--resume", "auto") + [
                "--mesh", "2x1", "--partition-rules", "sharded"])]
@@ -4889,8 +5084,7 @@ def mesh_slice(torch, dev, smi):
         for (label, _), out in zip(group, outs):
             runs[label] = out
             report(label, out)
-    for label in ("(b) 4x1", "(b) 2x2", "(b) 2x1", "(b) 1x2",
-                  "(b) 1x2 replicated"):
+    for label in ("(b) 2x2", "(b) 2x1", "(b) 1x2", "(b) 1x2 replicated"):
         check(equal_states(ref_state, runs[label]["state"]),
               f"{label}: the learner state differs from the run without a "
               "mesh within the warm-up")
@@ -4915,13 +5109,13 @@ def mesh_slice(torch, dev, smi):
 
     # (d) elastic resume: 2x2 -> 2x1 (above) and -> no mesh
     first, resumed = runs["(b) 2x2"], runs["(d) 2x1 resumed"]
-    check([h["episode"] for h in resumed["history"]] == [2, 3],
+    check([h["episode"] for h in resumed["history"]] == [1, 2],
           f"(d) 2x1 resumed ran episodes "
           f"{[h['episode'] for h in resumed['history']]}")
-    _, _, plain = no_mesh(argv(200, 4, "--no-obs", "--resume",
+    _, _, plain = no_mesh(argv(200, 3, "--no-obs", "--resume",
                                first["summary"]["checkpoint"]))
     eps = [h["episode"] for h in plain["trainer"].history]
-    check(eps == [2, 3], f"(d) no mesh resumed ran episodes {eps}")
+    check(eps == [1, 2], f"(d) no mesh resumed ran episodes {eps}")
     starts = {}
     for d, _, files in os.walk(res):
         if "events.jsonl" in files:
@@ -4935,7 +5129,7 @@ def mesh_slice(torch, dev, smi):
                   for e in starts.values()),
           f"(d) run_start meshes {sorted(map(str, starts))}")
     print(f"  (d) 2x2 checkpoint -> --resume auto under 2x1 and with no "
-          f"mesh: episodes [2, 3] in both; run_start meshes "
+          f"mesh: episodes [1, 2] in both; run_start meshes "
           f"{sorted(starts)}", flush=True)
     laps.lap("d")
 
@@ -4945,20 +5139,21 @@ def mesh_slice(torch, dev, smi):
     check(set(doc["entries"]) == {"chunk_step", "chunk_step_sharded",
                                   "learn_burst"},
           f"(g) entries {sorted(doc['entries'])}")
-    lost = []
     check_perf_doc(torch, smi, "(g) --mesh 2x1", doc,
-                   {"chunk_step", "chunk_step_sharded"}, lost=lost)
-    print(f"  (g) profiles that lost device records: {lost}", flush=True)
+                   {"chunk_step", "chunk_step_sharded"})
     check(doc["entries"]["chunk_step_sharded"]["collectives"]["count"] > 0,
           "(g) the mesh's chunk_step_sharded recorded no collective")
 
     # (e) one card per rank on NCCL, where the machine has the cards
     cards = torch.cuda.device_count()
     if cards >= 2:
-        group = [("(e) 2x1", two[1][1]), ("(e) 1x2", two[2][1])]
+        group = [("(e) 2x1", two[1][1]),
+                 ("(e) 1x2", warm + ["--mesh", "1x2", "--partition-rules",
+                                     "sharded"])]
         outs, _ = legs(2, [a for _, a in group], None)
         if cards >= 4:
-            more = [("(e) 4x1", four[0][1]),
+            more = [("(e) 4x1", warm + ["--mesh", "4x1",
+                                        "--partition-rules", "sharded"]),
                     ("(e) 2x2", warm + ["--mesh", "2x2",
                                         "--partition-rules", "sharded"])]
             outs += legs(4, [a for _, a in more], None)[0]
@@ -5091,16 +5286,26 @@ def profiler_losses(torch, dev, smi, rounds=PROFILE_ROUNDS):
     """Phase 22 (e): how often the card's profiler drops device records
     in this process: ``rounds`` profiles, each of the same 9 launches
     (kernel #1, a matmul and an add, three times) between two
-    synchronizations, and the number whose records fell short, by
-    kind, printed (no bound: the profiler's behaviour, not the port's)."""
-    from torch.autograd import DeviceType
+    synchronizations, opened bare (``torch.profiler.profile`` right
+    before the launches, without a primer: printed, no bound) and
+    through ``analysis.launches.DeviceProfile`` (the
+    ledger's, with its primer: no record of the work may be lost and
+    every kernel launch call must have its device record).  Prints both
+    counts, by kind, the primer's lost records, and the time each
+    profile lost (``blind_s``) with, through ``DeviceProfile``, the
+    primer's margin over it.  Returns the losses through
+    ``DeviceProfile``."""
+    import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
-    from gsc_tpu_torch.analysis.launches import launch_kind
+    from gsc_tpu_torch.analysis.launches import (PROFILE_PRIMER,
+                                                 DeviceProfile,
+                                                 profile_counts)
     from gsc_tpu_torch.ops.gat_attention import gat_attention
 
     xl, xr, att, bias, adj = gat_inputs(8, 24, 22, 0, torch, dev)
     m = torch.randn(64, 64, device=dev)
+    want = {"gat_attention": 3, "gemm": 3, "other": 3}
 
     def work():
         for _ in range(3):
@@ -5108,42 +5313,67 @@ def profiler_losses(torch, dev, smi, rounds=PROFILE_ROUNDS):
             m @ m
             m.add_(0.0)
 
+    def short(counts):
+        return any(counts.by_kind[k] < n for k, n in want.items())
+
+    def ms(values, q):
+        return f"{np.quantile(values, q) * 1e3:.3f}" if values else "none"
+
     work()
-    short, lost = [], {}
-    for r in range(rounds):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as p:
-            work()
-            torch.cuda.synchronize()
-        kinds = [launch_kind(e.name())
-                 for e in p.profiler.kineto_results.events()
-                 if e.device_type() == DeviceType.CUDA]
-        want = {"gat_attention": 3, "gemm": 3, "other": 3}
-        seen = {k: kinds.count(k) for k in want}
-        if any(seen[k] < want[k] for k in want):
-            short.append(r)
-            for k in want:
-                lost[k] = lost.get(k, 0) + max(want[k] - seen[k], 0)
-    print(f"  (e) the profiler kept fewer than the 9 device records of "
-          f"{len(short)} of {rounds} profiles (rounds {short[:10]}), "
-          f"records lost by kind {lost}, on {smi}", flush=True)
-    return len(short)
+    out = {}
+    for how in ("bare", "DeviceProfile"):
+        lost, by_kind, unmatched, primer = [], {}, 0, []
+        blind, margin = [], []
+        for r in range(rounds):
+            if how == "bare":
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as p:
+                    work()
+                    torch.cuda.synchronize()
+                counts = profile_counts(p)
+            else:
+                with DeviceProfile(dev) as dp:
+                    work()
+                counts = dp.counts
+            unmatched += counts.unmatched
+            primer.append(counts.primer_lost)
+            if counts.blind_s is not None:
+                blind.append(counts.blind_s)
+            if counts.guard_s is not None and counts.blind_s is not None:
+                margin.append(counts.guard_s - counts.blind_s)
+            if short(counts) or counts.unmatched:
+                lost.append(r)
+                for k, n in want.items():
+                    by_kind[k] = by_kind.get(k, 0) + max(
+                        n - counts.by_kind[k], 0)
+        print(f"  (e) {how}: {len(lost)} of {rounds} profiles kept fewer "
+              f"than the 9 device records (rounds {lost[:10]}), records "
+              f"lost by kind {by_kind}, kernel launch calls without a "
+              f"device record {unmatched}; primer records lost per "
+              f"profile: min {min(primer)}, max {max(primer)}, the whole "
+              f"primer in {sum(p == PROFILE_PRIMER for p in primer)}; "
+              f"blind ms (first launch call to first kept device record) "
+              f"p50 {ms(blind, 0.5)}, p90 {ms(blind, 0.9)}, p99 "
+              f"{ms(blind, 0.99)}, max {ms(blind, 1.0)}; primer margin ms "
+              f"(its cover less the blind time) min {ms(margin, 0.0)}, "
+              f"p1 {ms(margin, 0.01)}, p50 {ms(margin, 0.5)}; on {smi}",
+              flush=True)
+        out[how] = (len(lost), unmatched)
+    check(out["DeviceProfile"] == (0, 0),
+          f"(e) DeviceProfile (primer {PROFILE_PRIMER}) lost device "
+          f"records in {out['DeviceProfile'][0]} of {rounds} profiles")
+    return out["DeviceProfile"][0]
 
 
-def check_perf_doc(torch, smi, label, doc, timed, timed_buckets=None,
-                   lost=None):
+def check_perf_doc(torch, smi, label, doc, timed, timed_buckets=None):
     """One ``perf.json`` of phases 21 (g) and 22: schema 1 on the card,
-    its name and power limit, the H100 SXM peaks; every entry available,
-    its hand kernels' launches from the profiler equal to what their
-    wrappers posted, and every entry of ``timed`` (and every served
-    bucket that was dispatched) 0 < mfu <= PERF_MFU_MAX; prints each
-    entry's counts, host syncs, device and capture seconds and MFU.
-    Served buckets with an MFU join ``timed_buckets``.  The card's
-    profiler drops a profile's device records now and then (all of
-    them, or some): an entry whose hand kernels' records fall short of
-    the posts has ``launches`` None and says so (``no_profile``), and
-    joins ``lost``; returns the entries whose profile was complete."""
-    complete = 0
+    its name and power limit, the H100 SXM peaks; every entry available
+    and whole (``launches`` and ``device_s`` recorded: each kernel launch
+    call matched to its device record and the hand kernels' records
+    equal to their wrappers' posts), and every entry of ``timed`` (and
+    every served bucket that was dispatched) 0 < mfu <= PERF_MFU_MAX;
+    prints each entry's counts, host syncs, device and capture seconds
+    and MFU.  Served buckets with an MFU join ``timed_buckets``."""
     check(doc["schema_version"] == 1 and doc["backend"] == "gpu",
           f"{label}: perf.json schema/backend {doc['schema_version']} "
           f"{doc['backend']}")
@@ -5157,17 +5387,12 @@ def check_perf_doc(torch, smi, label, doc, timed, timed_buckets=None,
         check(e["fusions"] is None and e["kernels"],
               f"{label} {name}: fusions {e['fusions']}, hand kernels "
               f"{e['kernels']}")
-        if e["launches"] is None:
-            check("the profiler lost device records"
-                  in (e.get("no_profile") or ""),
-                  f"{label} {name}: launches None ({e.get('no_profile')})")
-            if lost is not None:
-                lost.append(f"{label} {name}")
-        else:
-            complete += 1
-        kinds = (e["launches"] or {}).get("by_kind") or {}
+        check(e["launches"] is not None and e["device_s"] is not None,
+              f"{label} {name}: launches {e['launches']}, device_s "
+              f"{e['device_s']} ({e.get('no_profile')})")
+        kinds = e["launches"]["by_kind"]
         for k, rec in e["kernels"].items():
-            check(e["launches"] is None or kinds.get(k, 0) == rec["launches"],
+            check(kinds.get(k, 0) == rec["launches"],
                   f"{label} {name}: the profiler saw {kinds.get(k, 0)} "
                   f"{k} launches, the wrappers posted {rec['launches']}")
         mfu = e.get("mfu")
@@ -5180,31 +5405,31 @@ def check_perf_doc(torch, smi, label, doc, timed, timed_buckets=None,
             timed_buckets.add(name)
         print(f"  {label} {name}: {e['flops']:.6g} FLOP, "
               f"{e['bytes_accessed']:.6g} bytes, "
-              f"{(e['launches'] or {}).get('count')} launches {kinds}, "
+              f"{e['launches']['count']} launches {kinds}, "
               "hand kernels "
               f"{ {k: r['launches'] for k, r in e['kernels'].items()} }, "
               f"host_syncs {e['host_syncs']}, device_s {e['device_s']}, "
               f"capture_s {e['capture_s']}, collectives "
               f"{e['collectives']['count']} ({e['collectives']['bytes']} "
               f"bytes); {e.get('dispatches')} timed dispatches, wall "
-              f"{e.get('wall_s_mean')} s each, mfu {mfu} on {smi}",
-              flush=True)
-    return complete
+              f"{e.get('wall_s_mean')} s each, mfu {mfu}, primer margin "
+              f"{e.get('profile_margin_s')} s on {smi}", flush=True)
 
 
 def perf_slice(torch, dev, smi, monitor):
     """Phase 22: the device-cost ledger and the runtime sentinels.  (a)
     the flagship single env (``MESH_AGENT_YAML``, warm-up PERF_WARMUP,
     PERF_EPISODES episodes of 50 steps, f32) through ``cli.run_train``
-    with ``--perf`` and again with ``--no-perf`` under
-    ``assert_no_retrace`` (the second run in this process builds and
-    loads nothing; a forced load inside the guard trips it): checkpoints
-    byte-equal, both walls printed; (b) ``--replicas 64 --chunk 50``
-    (the mesh's ledger is phase 21 (g)'s, in its rank processes); (c)
+    with ``--perf`` (its ``--no-perf`` twin gave way to the time limit;
+    tests/test_torch_perf_obs.py holds the checkpoints byte-equal
+    with and without the ledger on the CPU); (b) ``--replicas 64 --chunk
+    50`` under ``assert_no_retrace`` (a run after (a) builds and loads
+    nothing; a forced load inside the guard trips it) (the mesh's ledger
+    is phase 21 (g)'s, in its rank processes); (c)
     the seeded-actor server in phase 4's bursts, one observer each.
     Every ``perf.json`` passes ``check_perf_doc`` (every fused training
-    entry timed; every bucket in at least one burst; at least one entry
-    whose profile kept its device records).  ``monitor``, started before
+    entry timed; every bucket in at least one burst; every entry
+    whole).  ``monitor``, started before
     phase 2's builds, holds a ``compile`` event of every library.  (d)
     ``bounds_as_before``; (e) ``profiler_losses``.  Returns the path's
     kernel launches."""
@@ -5245,33 +5470,14 @@ def perf_slice(torch, dev, smi, monitor):
             return json.load(f)
 
     timed_buckets = set()
-    lost, complete = [], [0]
+    entries = [0]
 
     def check_doc(label, doc, timed):
-        complete[0] += check_perf_doc(torch, smi, label, doc, timed,
-                                      timed_buckets, lost)
+        check_perf_doc(torch, smi, label, doc, timed, timed_buckets)
+        entries[0] += len(doc["entries"])
 
-    # (a) the single env, ledger on and off
+    # (a) the single env with the ledger
     on, wall_on = run("single", base)
-    with assert_no_retrace():
-        off, wall_off = run("single_noperf", base + ["--no-perf"])
-    tripped = False
-    try:
-        with assert_no_retrace("gat_attention"):
-            build_library(GAT_SOURCE)
-    except RetraceError:
-        tripped = True
-    check(tripped, "assert_no_retrace did not trip on a forced load")
-    ck_on, ck_off = (os.path.join(root, d, "checkpoint")
-                     for d in ("single", "single_noperf"))
-    for fname in sorted(os.listdir(ck_on)):
-        with open(os.path.join(ck_on, fname), "rb") as a, \
-                open(os.path.join(ck_off, fname), "rb") as b:
-            check(a.read() == b.read(),
-                  f"{fname} differs between --perf and --no-perf")
-    check(not os.path.exists(os.path.join(root, "single_noperf",
-                                          "perf.json")),
-          "--no-perf wrote perf.json")
     with open(os.path.join(root, "single", "events.jsonl")) as f:
         events = [json.loads(line) for line in f]
     costs = [ev["fn"] for ev in events if ev["event"] == "compile_cost"]
@@ -5289,17 +5495,24 @@ def perf_slice(torch, dev, smi, monitor):
     print(f"  (a) single-env episode_step: host_syncs {syncs} in one "
           f"observed episode with its burst (0 per env step) on {smi}",
           flush=True)
-    print(f"  (a) checkpoints byte-equal with --perf and --no-perf; train_s "
-          f"{on['summary']['train_s']:.3f} and "
-          f"{off['summary']['train_s']:.3f}, wall {wall_on:.3f} and "
-          f"{wall_off:.3f} s; the second run under assert_no_retrace, a "
-          "forced load tripped it", flush=True)
+    print(f"  (a) train_s {on['summary']['train_s']:.3f}, wall "
+          f"{wall_on:.3f} s", flush=True)
     laps.lap("a")
 
-    # (b) 64 replicas
-    rep, wall_rep = run("replicas", base + ["--replicas", "64", "--chunk",
-                                            "50"])
+    # (b) 64 replicas: this process builds and loads nothing more
+    with assert_no_retrace():
+        rep, wall_rep = run("replicas", base + ["--replicas", "64",
+                                                "--chunk", "50"])
+    tripped = False
+    try:
+        with assert_no_retrace("gat_attention"):
+            build_library(GAT_SOURCE)
+    except RetraceError:
+        tripped = True
+    check(tripped, "assert_no_retrace did not trip on a forced load")
     check_doc("(b) --replicas 64", perf_doc("replicas"), {"chunk_step"})
+    print(f"  (b) the run under assert_no_retrace, a forced load tripped it",
+          flush=True)
     laps.lap("b")
 
     # (c) serving, phase 4's bursts
@@ -5327,10 +5540,9 @@ def perf_slice(torch, dev, smi, monitor):
     for want in ("gat_attention", "gat_attention_backward",
                  "substep_megakernel", "resource_plugins"):
         check(want in sources, f"no compile event of {want}: {seen}")
-    check(complete[0] > 0, "no profile of phase 22 kept its device records")
     print(f"  compile events (builds, loads) per library: {seen}; "
-          f"profiles that lost device records: {len(lost)} of "
-          f"{len(lost) + complete[0]} entries {lost}", flush=True)
+          f"{entries[0]} ledger entries, every one whole (launches and "
+          "device_s)", flush=True)
 
     # (d) the bounds, before and after the move into the package
     bounds_as_before(torch, dev, smi)
@@ -5468,6 +5680,201 @@ def sync_region(torch, dev, smi, graph):
           "step); no_host_sync and set_sync_debug_mode('error') held; the "
           f"recorded episode took {wall:.3f} s on {smi}", flush=True)
     return wall
+
+
+def flat_perflow(torch, dev, smi, root, yaml_of, counted, ck_a):
+    """Phase 23 (e)-(g) (see the module docstring): a flat agent under
+    per-flow control at B=64 and on one env, and a flat trainer
+    publishing into a two-worker fleet serving ``ck_a``."""
+    import threading
+
+    from gsc_tpu_torch import cli
+    from gsc_tpu_torch.config.loader import load_agent
+    from gsc_tpu_torch.obs import RunObserver
+    from gsc_tpu_torch.ops.substep import substep_megakernel, substep_plain
+    from gsc_tpu_torch.serve import (GreedyServePolicy, load_version,
+                                     read_latest, run_serve)
+    from gsc_tpu_torch.sim import cases
+
+    steps = FLAT_PERFLOW_STEPS
+    y_pf = yaml_of(steps)
+    cfg = os.path.join(root, "cfg")
+    cli.init_configs(cfg)
+    sim_pf = os.path.join(root, "simulator_per_flow.yaml")
+    with open(os.path.join(cfg, "simulator.yaml")) as f:
+        text = f.read()
+    with open(sim_pf, "w") as f:
+        f.write(text + "controller: per_flow\n")
+
+    # (e) 64 replicas under per-flow control
+    kept = {}
+    launch = substep_megakernel.launch
+
+    def keep(engine, state, *a):
+        out = launch(engine, state, *a)
+        if state.batch == FLAT_REPLICAS:
+            kept["args"], kept["out"] = (engine, state, *a), out
+        return out
+
+    substep_megakernel.launch = keep
+    cli.zero_kernel_launches()
+    t0 = time.perf_counter()
+    try:
+        res = cli.run_train(["--agent-config", y_pf, "--simulator-config",
+                             sim_pf, "--replicas", str(FLAT_REPLICAS),
+                             "--chunk", str(steps), "--episodes", "1",
+                             "--seed", "0", "--no-perf", "--result-dir",
+                             os.path.join(root, "e")])
+    finally:
+        del substep_megakernel.launch
+    wall = time.perf_counter() - t0
+    counts = counted()
+    trainer = res["trainer"]
+    check(trainer.env.sim_cfg.controller == "per_flow"
+          and not trainer.agent_cfg.graph_mode,
+          "(e) not a flat agent under per-flow control")
+    row = trainer.history[-1]
+    check(all(math.isfinite(row[k]) for k in ("episodic_return",
+                                              "critic_loss")),
+          f"(e) {row}")
+    check(counts["substep_megakernel"] == 2 * steps,
+          f"(e) {counts['substep_megakernel']} kernel #2 launches for "
+          f"{steps} env steps and {steps} evaluation steps")
+    engine, *args = kept["args"]
+    check(engine.cfg.controller == "per_flow", "(e) the kept launch ran "
+          "without the idle-instance expiry")
+    on_cpu = [a.to("cpu") if hasattr(a, "to") else a for a in args]
+    check(cases.bit_equal(kept["out"].to("cpu"),
+                          substep_plain(engine, *on_cpu)),
+          "(e) a B=64 per-flow launch of the flat run is not bit-equal to "
+          "the plain version on CPU copies")
+    print(f"  (e) flat train --replicas {FLAT_REPLICAS} under per-flow "
+          f"control, 1 episode of {steps} steps: return "
+          f"{row['episodic_return']:.4f}, critic loss {row['critic_loss']}, "
+          f"evaluation {res['summary']['mean_return']:.4f}; "
+          f"{row['sps']:.1f} env-steps/s, wall {wall:.1f} s on {smi}; "
+          f"kernel #2 launches {counts['substep_megakernel']} (the gc "
+          f"switch on), one B={FLAT_REPLICAS} launch bit-equal to the plain "
+          "version on CPU copies", flush=True)
+
+    # (f) one env under per-flow control, then infer
+    cli.zero_kernel_launches()
+    res_f = cli.run_train(["--agent-config", y_pf, "--simulator-config",
+                           sim_pf, "--episodes", "1", "--seed", "0",
+                           "--no-perf", "--result-dir",
+                           os.path.join(root, "f")])
+    res_i = cli.run_infer(["--agent-config", y_pf, "--simulator-config",
+                           sim_pf, "--seed", "0", "--checkpoint",
+                           res_f["summary"]["checkpoint"], "--episodes",
+                           "1"])
+    counts_f = counted()
+    ev = {k: res_f["summary"][k] for k in ("mean_return",
+                                           "final_succ_ratio")}
+    check(all(res_i["eval"][k] == v for k, v in ev.items()),
+          f"(f) infer {res_i['eval']} differs from the run's own "
+          f"evaluation {ev}")
+    check(counts_f["substep_megakernel"] == 3 * steps,
+          f"(f) {counts_f['substep_megakernel']} kernel #2 launches for "
+          f"{steps} training, evaluation and infer steps each")
+    row_f = res_f["trainer"].history[-1]
+    print(f"  (f) flat single env under per-flow control, 1 episode of "
+          f"{steps} steps: return {row_f['episodic_return']:.4f}, "
+          f"{row_f['sps']:.1f} env-steps/s on {smi}; infer "
+          f"{json.dumps(res_i['eval'])} equal to the run's own "
+          f"evaluation; kernel #2 launches {counts_f['substep_megakernel']}",
+          flush=True)
+
+    # (g) a flat trainer publishing into a two-worker fleet
+    episodes, conc, poll, warm = FLAT_TWS
+    pub = os.path.join(root, "publish")
+    obs = RunObserver(None)
+    stop = threading.Event()
+    out = {}
+
+    def fleet():
+        try:
+            out["report"] = run_serve(
+                load_agent(yaml_of(FLAT_STEPS)), device=dev,
+                checkpoint=ck_a, workers=2, continuous=True, requests=conc,
+                concurrency=conc, buckets=BUCKETS, deadline_ms=5.0,
+                pool_steps=POOL_STEPS, seed=0, hot_swap_dir=pub,
+                swap_poll_s=poll, observer=obs, until=stop)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            out["error"] = e
+
+    cli.zero_kernel_launches()
+    server = threading.Thread(target=fleet, name="phase23-fleet")
+    server.start()
+    t_wait = time.perf_counter() + 120.0
+    while obs.hub.get_counter("serve_requests_total") < warm \
+            and server.is_alive() and time.perf_counter() < t_wait:
+        time.sleep(0.01)
+    check(server.is_alive(), f"(g) the fleet stopped: {out.get('error')}")
+    t_train = time.perf_counter()
+    trained = cli.run_train([
+        "--agent-config", y_pf, "--replicas", str(FLAT_REPLICAS),
+        "--chunk", str(steps), "--episodes", str(episodes), "--seed", "0",
+        "--no-perf", "--hot-swap-dir", pub, "--publish-interval", "1"])
+    t_trained = time.perf_counter()
+    t_wait = time.perf_counter() + 30.0
+    while min(obs.hub.get_gauge("serve_policy_version", worker=w) or 0
+              for w in ("w0", "w1")) < episodes \
+            and time.perf_counter() < t_wait:
+        time.sleep(0.01)
+    n0 = obs.hub.get_counter("serve_requests_total")
+    while obs.hub.get_counter("serve_requests_total") < n0 + warm \
+            and time.perf_counter() < t_wait:
+        time.sleep(0.01)
+    stop.set()
+    server.join(300.0)
+    check(not server.is_alive() and "error" not in out,
+          f"(g) the flat fleet failed: {out.get('error')}")
+    counts_g = counted()
+    rep = out["report"]
+    summ = rep.summary()
+    check(not rep.errors and rep.rejected == 0,
+          f"(g) {len(rep.errors)} errors ({rep.errors[:3]}), "
+          f"{rep.rejected} rejections")
+    swaps = obs.events.of_kind("weight_swap")
+    adopted = {(s["worker"], s["version"]) for s in swaps}
+    want = {(w, v) for w in ("w0", "w1") for v in range(1, episodes + 1)}
+    check(adopted == want and len(swaps) == len(want),
+          f"(g) adopted (worker, version) {sorted(adopted)}, want every "
+          "published version once by each worker")
+    latest = read_latest(pub)
+    check(latest["version"] == episodes
+          and latest["meta"] == {"episode": episodes},
+          f"(g) the trainer published {latest}")
+    check(not trained["trainer"].agent_cfg.graph_mode,
+          "(g) the trainer is not flat")
+    versions = {}
+    for v in range(1, episodes + 1):
+        with open(os.path.join(pub, f"v{v:05d}.json")) as f:
+            leaves = load_version(pub, json.load(f))
+        versions[v] = GreedyServePolicy(rep.ddpg, rep.pool[0]).stage(leaves,
+                                                                     v)
+    versions[0] = rep.ddpg.actor
+    check({v for v, *_ in rep.stamps} == set(versions),
+          f"(g) answers came under versions "
+          f"{sorted({v for v, *_ in rep.stamps})}, want all of "
+          f"{sorted(versions)}")
+    singles = served_at_bucket(rep, versions.__getitem__, torch, dev)
+    before = [lat for _, _, t, lat in rep.stamps if t < t_train]
+    during = [lat for _, _, t, lat in rep.stamps if t_train <= t < t_trained]
+    pb, pd = percentiles(before), percentiles(during)
+    swap_ms = [s["swap_ms"] for s in swaps]
+    check(counts_g["substep_megakernel"] > 0, f"(g) launched {counts_g}")
+    print(f"  (g) flat train --replicas {FLAT_REPLICAS} --hot-swap-dir, "
+          f"{episodes} episodes of {steps} steps, one publish per episode, "
+          f"{t_trained - t_train:.3f} s, beside 2 continuous workers at "
+          f"concurrency {conc}: {summ['completed']} requests, "
+          f"{summ['rps']:.1f} req/s, 0 errors, 0 rejections on {smi}; "
+          f"p50/p99 before training {pb[0]:.3f}/{pb[1]:.3f} ms over "
+          f"{len(before)} requests, while training {pd[0]:.3f}/{pd[1]:.3f} "
+          f"ms over {len(during)}; each version adopted once by each "
+          f"worker, swap_ms {[round(x, 3) for x in swap_ms]}; every answer "
+          "bit-identical to a single-shot call under its stamped version "
+          f"({singles} calls)", flush=True)
 
 
 def flat_slice(torch, dev, smi):
@@ -5671,6 +6078,10 @@ def flat_slice(torch, dev, smi):
         sync_region(torch, dev, smi, graph)
     counted()
     laps.lap("d")
+
+    # (e)-(g) under per-flow control and beside the hot-swap fleet
+    flat_perflow(torch, dev, smi, root, yaml_of, counted, ck_a)
+    laps.lap("e-g")
     print(f"  phase 23 kernel launches: {total}; parts: " + ", ".join(
         f"({k}) {v:.1f} s" for k, v in laps.seconds.items()), flush=True)
     shutil.rmtree(root, ignore_errors=True)
@@ -5694,12 +6105,14 @@ def main() -> int:
                                                  gat_attention_backward_bf16,
                                                  gat_attention_bf16)
     from gsc_tpu_torch.ops.build import MAX_SMEM_BYTES
+    from gsc_tpu_torch.ops.build import PKG
     from gsc_tpu_torch.ops.substep import SOURCE as SUB_SOURCE
     from gsc_tpu_torch.ops.substep import (SubstepMegakernel,
                                            substep_megakernel)
     from gsc_tpu_torch.serve import run_serve
     from gsc_tpu_torch.sim import cases
 
+    RF_MATH_SOURCE = PKG / "csrc" / "rf_math.cuh"
     dev = resolve_device()
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -5727,8 +6140,12 @@ def main() -> int:
            "gat_attention_backward (stage clocks)": clocked_bwd}
     if parent is not None:
         ops["substep_megakernel (parent)"] = parent
-    # phase 19's plugin build of kernel #2, beside the others
+    # phase 19's plugin builds of kernel #2 and the math header's probe,
+    # beside the others
     ops["substep_megakernel (plugins)"] = PluginBuild(dev)
+    ops["substep_megakernel (math plugins)"] = PluginBuild(
+        dev, cases.MATH_PLUGINS)
+    ops["rf_math_probe"] = ProbeBuild()
     if parent_att is not None:
         ops["gat_attention (parent)"] = parent_att[0]
         if parent_att[1] is not None:
@@ -5950,7 +6367,8 @@ def main() -> int:
     rf_launches, rf_numbers = plugin_slice(torch, dev, smi, parent)
     phases.lap("19")
     for kernel in ("gat_attention", "gat_attention_backward",
-                   "substep_megakernel_plugin"):
+                   "substep_megakernel_plugin",
+                   "substep_megakernel_plugin_math"):
         check(rf_launches.get(kernel, 0) > 0,
               f"{kernel} was not launched on the plugin path")
     # ---- 20. decoupled actor/learner training -------------------------
@@ -5996,7 +6414,8 @@ def main() -> int:
                                "gat_attention_backward_bf16",
                                "substep_megakernel",
                                "substep_megakernel_perflow",
-                               "substep_megakernel_plugin")}
+                               "substep_megakernel_plugin",
+                               "substep_megakernel_plugin_math")}
     max_err = max(max_err, large_errs["gat_attention"])
     bwd_err = max(bwd_err, large_errs["gat_attention_backward"])
     h_err = max(h_err, large_errs["gat_attention_bf16"])
@@ -6091,11 +6510,23 @@ def main() -> int:
         "source": rel(SUB_SOURCE),
         "replaces": "gsc_tpu/ops/pallas_substep.py:110",
         "launches": path_launches["substep_megakernel_plugin"],
-        "max_abs_err": rf_numbers["max_abs_err"],
-        "ms": rf_numbers["ms"],
-        "plain_ms": rf_numbers["plain_ms"],
-        "bound_ms": rf_numbers["bound_ms"],
-        "bound_by": rf_numbers["bound_by"],
+        "max_abs_err": rf_numbers["plugins"]["max_abs_err"],
+        "ms": rf_numbers["plugins"]["ms"],
+        "plain_ms": rf_numbers["plugins"]["plain_ms"],
+        "bound_ms": rf_numbers["plugins"]["bound_ms"],
+        "bound_by": rf_numbers["plugins"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "substep_megakernel_plugin_math",
+        "route": "cuda",
+        "source": rel(RF_MATH_SOURCE),
+        "replaces": "gsc_tpu/ops/pallas_substep.py:110",
+        "launches": path_launches["substep_megakernel_plugin_math"],
+        "max_abs_err": rf_numbers["math"]["max_abs_err"],
+        "ms": rf_numbers["math"]["ms"],
+        "plain_ms": rf_numbers["math"]["plain_ms"],
+        "bound_ms": rf_numbers["math"]["bound_ms"],
+        "bound_by": rf_numbers["math"]["bound_by"],
         "library_ms": None,
     }]}
     stop_cpu_aside()

@@ -287,11 +287,6 @@ class Trainer:
             return
         ckpt_manager.save(state, buffer, episode=ep + 1, draws=self.draws)
 
-    def _refuse_flat_publish(self, publisher):
-        if publisher is not None and not self.agent_cfg.graph_mode:
-            raise ValueError("hot-swap publishing of a flat agent "
-                             "(graph_mode: false) is not ported yet")
-
     def _publish(self, publisher, publish_interval: int, ep: int,
                  start_episode: int, actor, verified: bool):
         """The hot-swap publish after episode ``ep``: ``actor`` (a module
@@ -495,7 +490,6 @@ class Trainer:
         drained episode every N episodes (the live actor without
         rollback)."""
         refuse_async_sites(self.fault_plan)
-        self._refuse_flat_publish(publisher)
         if self.driver.topo_mix:
             # the mixture fills a replica axis the single env lacks
             raise ValueError(
@@ -860,7 +854,6 @@ class Trainer:
                     preempt, False, verbose, device_traffic, curriculum,
                     publisher, publish_interval, plan)
         refuse_async_sites(self.fault_plan)
-        self._refuse_flat_publish(publisher)
         steps = self.agent_cfg.episode_steps
         if steps % chunk != 0:
             raise ValueError(f"chunk ({chunk}) must divide episode_steps "

@@ -14,13 +14,15 @@ reads the JAX package's source:
   ``assert_no_retrace`` and ``no_host_sync``.
 """
 from .launches import (HAND_KERNELS, LAUNCH_KINDS, OP_KEYS, CostCounter,
-                       Frame, SyncWatch, launch_kind, profile_counts)
+                       DeviceProfile, Frame, ProfileCounts, SyncWatch,
+                       launch_kind, profile_counts)
 from .sentinels import (DEFAULT_WATCH, CompileMonitor, HostSyncError,
                         RetraceError, assert_no_retrace, no_host_sync)
 
 __all__ = [
-    "HAND_KERNELS", "LAUNCH_KINDS", "OP_KEYS", "CostCounter", "Frame",
-    "SyncWatch", "launch_kind", "profile_counts",
+    "HAND_KERNELS", "LAUNCH_KINDS", "OP_KEYS", "CostCounter",
+    "DeviceProfile", "Frame", "ProfileCounts", "SyncWatch", "launch_kind",
+    "profile_counts",
     "DEFAULT_WATCH", "CompileMonitor", "HostSyncError", "RetraceError",
     "assert_no_retrace", "no_host_sync",
 ]

@@ -19,10 +19,26 @@ compiled program, so it counts what one observed call dispatches:
   ``.item()``, ``float()``, ``bool()``), the calls that synchronise a
   CUDA stream.  Calls inside a hand kernel's wrapper or its plain version
   are left out: the kernel counts as its work, once;
-- ``profile_counts``: device launches per call and a histogram by kind
-  (``gemm``, each hand kernel by name, ``copy`` for memory copies and
-  sets, ``collective``, ``other``) and the device seconds, from one
-  ``torch.profiler`` capture of the card's activity;
+- ``DeviceProfile``: one ``torch.profiler`` capture of the card's
+  activity, and ``profile_counts``: its device launches per call and a
+  histogram by kind (``gemm``, each hand kernel by name, ``copy`` for
+  memory copies and sets, ``collective``, ``other``), the device
+  seconds, and the kernel launch calls whose device record is missing.
+  On the card the profiler loses the first device records of a capture,
+  a count that grows with the process's work on the card, and now and
+  then every record of its first milliseconds; the host-side launch
+  calls are never lost (PERF.md §6 has the measurements).  So a
+  ``DeviceProfile`` opens with a primer, ``PROFILE_PRIMER`` launches of
+  ``torch.cuda._sleep(0)`` (``spin_kernel``, reserved for it) spread in
+  ``PRIMER_ROUNDS`` rounds over ``PROFILE_PAD_S`` of wait, whose records
+  take the losses and are left out of every count; and every kernel
+  launch call (the runtime's ``cudaLaunchKernel*`` / the driver's
+  ``cuLaunchKernel*`` record) is matched to its device record by
+  correlation id, so a record lost all the same is seen, whatever kernel
+  it was.  Each profile also dates its loss: ``blind_s``, from its first
+  launch call to its first kept device record, against ``guard_s``, from
+  its first launch call to the observed work's first (the primer's
+  cover), so the primer's margin is read, not assumed;
 - ``SyncWatch``: the card's synchronizing operations of chosen threads,
   through ``torch.cuda.set_sync_debug_mode("warn")`` (process-wide: the
   watch claims the warnings of its threads, passes on or drops the
@@ -33,8 +49,9 @@ from __future__ import annotations
 import math
 import re
 import threading
+import time
 import warnings
-from typing import Callable, Dict, List, Optional, Set, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Set, Tuple
 
 import torch
 from torch.utils.flop_counter import flop_registry
@@ -107,6 +124,18 @@ _EXTRA_FLOPS = {
 HAND_KERNELS = ("gat_attention_backward", "gat_attention",
                 "substep_megakernel")
 LAUNCH_KINDS = ("gemm",) + HAND_KERNELS + ("copy", "collective", "other")
+# a device profile's primer: launches whose device records take the
+# profiler's losses at the start of a capture, in rounds spread over
+# seconds of wait before the observed work (the same wait comes before
+# the capture stops); a round's records date the end of a loss to
+# within PROFILE_PAD_S / PRIMER_ROUNDS
+PROFILE_PRIMER = 1024
+PRIMER_ROUNDS = 32
+PROFILE_PAD_S = 0.02
+# the primer's kernel (torch.cuda._sleep), left out of every count
+PRIMER_KERNEL = "spin_kernel"
+# host-side records of a kernel launch (the runtime's and the driver's)
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
 # the most bytes of the deferred counts' inputs (adjacencies, the
 # substep's times and cursors) one capture holds before it settles them
 # (``Frame.settle``): a learn burst builds an adjacency per forward
@@ -189,15 +218,23 @@ class Frame:
         self.launches: Optional[int] = 0
         self.by_kind: Dict[str, int] = {k: 0 for k in LAUNCH_KINDS}
         self.device_s: Optional[float] = 0.0
+        # kernel launch calls whose device record the profiler lost
+        self.unmatched = 0
+        # the smallest primer margin of its profiles, guard_s - blind_s
+        self.margin_s: Optional[float] = None
         self.no_profile: Optional[str] = None
         self.closed_at: Optional[float] = None
 
-    def add_profile(self, counts: Tuple[int, Dict[str, int], float]):
-        n, kinds, seconds = counts
-        self.launches += n
-        self.device_s += seconds
-        for k, v in kinds.items():
+    def add_profile(self, counts: "ProfileCounts"):
+        self.launches += counts.launches
+        self.device_s += counts.device_s
+        self.unmatched += counts.unmatched
+        for k, v in counts.by_kind.items():
             self.by_kind[k] += v
+        if counts.guard_s is not None and counts.blind_s is not None:
+            m = counts.guard_s - counts.blind_s
+            self.margin_s = m if self.margin_s is None \
+                else min(self.margin_s, m)
 
     def settle(self, memo: Dict[tuple, Work]) -> None:
         """Run the held posts' deferred counts (device reductions, no
@@ -336,21 +373,122 @@ def launch_kind(name: str) -> str:
     return "other"
 
 
-def profile_counts(prof) -> Tuple[int, Dict[str, int], float]:
-    """(device activities, their histogram by kind, device seconds) of a
-    stopped ``torch.profiler.profile``, read from its raw records (the
-    profiler's own event tree costs seconds on a training step's tens of
-    thousands of records)."""
+class ProfileCounts(NamedTuple):
+    """What one device profile recorded, the primer left out: device
+    activities, their histogram by kind, device seconds, the kernel
+    launch calls without a device record, and the primer's records the
+    profiler lost.  ``blind_s``: seconds from the first kernel launch
+    call to the first kept device record (how long the capture lost
+    records; a few microseconds when it lost none); ``guard_s``: seconds
+    from the first launch call to the first one after the primer's (the
+    time the primer covers).  Either is None where its records are
+    missing."""
+
+    launches: int
+    by_kind: Dict[str, int]
+    device_s: float
+    unmatched: int
+    primer_lost: int = 0
+    blind_s: Optional[float] = None
+    guard_s: Optional[float] = None
+
+
+def profile_counts(prof, primer: int = 0) -> ProfileCounts:
+    """The counts of a stopped ``torch.profiler.profile``, read from its
+    raw records (the profiler's own event tree costs seconds on a
+    training step's tens of thousands of records); ``primer``: the
+    ``PRIMER_KERNEL`` launches the capture opened with."""
     from torch.autograd import DeviceType
 
-    n, kinds, ns = 0, {k: 0 for k in LAUNCH_KINDS}, 0
+    n, kinds, ns, kept = 0, {k: 0 for k in LAUNCH_KINDS}, 0, 0
+    device, calls, first_kept, starts = set(), set(), None, []
     for evt in prof.profiler.kineto_results.events():
-        if evt.device_type() != DeviceType.CUDA:
-            continue
-        n += 1
-        kinds[launch_kind(evt.name())] += 1
-        ns += evt.end_ns() - evt.start_ns()
-    return n, kinds, ns / 1e9
+        if evt.device_type() == DeviceType.CUDA:
+            device.add(evt.correlation_id())
+            if first_kept is None or evt.start_ns() < first_kept:
+                first_kept = evt.start_ns()
+            if primer and PRIMER_KERNEL in evt.name():
+                kept += 1
+                continue
+            n += 1
+            kinds[launch_kind(evt.name())] += 1
+            ns += evt.end_ns() - evt.start_ns()
+        elif evt.name().startswith(_LAUNCH_CALLS):
+            calls.add(evt.correlation_id())
+            starts.append(evt.start_ns())
+    # every primer launch has its call; the calls left unmatched past the
+    # primer's lost records are the observed work's
+    lost = len(calls - device)
+    # the primer's calls come first: the capture opens with them
+    starts.sort()
+    blind = (first_kept - starts[0]) / 1e9 \
+        if starts and first_kept is not None else None
+    guard = (starts[primer] - starts[0]) / 1e9 \
+        if primer and len(starts) > primer else None
+    return ProfileCounts(n, kinds, ns / 1e9, lost - (primer - kept),
+                         primer - kept, blind, guard)
+
+
+class DeviceProfile:
+    """One capture of the card's activity: ``with DeviceProfile(device)
+    as p:`` profiles the body; ``p.counts`` is its ``ProfileCounts``
+    afterwards.  It starts with the card synchronized and the primer
+    (PROFILE_PRIMER launches of ``PRIMER_KERNEL`` in PRIMER_ROUNDS rounds
+    over PROFILE_PAD_S of wait, synchronized), and stops after a
+    synchronization and PROFILE_PAD_S more.  A primer that raises stops
+    the profiler before the error leaves.  ``sync`` replaces
+    ``torch.cuda.synchronize(device)`` (the ledger's pauses the sync
+    watch)."""
+
+    def __init__(self, device=None,
+                 sync: Optional[Callable[[], None]] = None):
+        self.device = device
+        self.sync = sync or (lambda: torch.cuda.synchronize(self.device))
+        self.prof = None
+        self.counts: Optional[ProfileCounts] = None
+
+    def start(self) -> "DeviceProfile":
+        from torch.profiler import ProfilerActivity, profile
+
+        self.sync()
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.__enter__()
+        try:
+            with torch.cuda.device(self.device):
+                for _ in range(PRIMER_ROUNDS):
+                    for _ in range(PROFILE_PRIMER // PRIMER_ROUNDS):
+                        torch.cuda._sleep(0)
+                    time.sleep(PROFILE_PAD_S / PRIMER_ROUNDS)
+            self.sync()
+        except BaseException:
+            prof.__exit__(None, None, None)
+            raise
+        self.prof = prof
+        return self
+
+    def stop(self) -> ProfileCounts:
+        prof, self.prof = self.prof, None
+        self.sync()
+        time.sleep(PROFILE_PAD_S)
+        prof.__exit__(None, None, None)
+        self.counts = profile_counts(prof, PROFILE_PRIMER)
+        return self.counts
+
+    def abandon(self) -> None:
+        """Stop without reading (after a failure)."""
+        prof, self.prof = self.prof, None
+        if prof is not None:
+            prof.__exit__(None, None, None)
+
+    def __enter__(self) -> "DeviceProfile":
+        return self.start()
+
+    def __exit__(self, *exc):
+        if exc[0] is not None:
+            self.abandon()
+            return False
+        self.stop()
+        return False
 
 
 # -------------------------------------------------------------- host syncs

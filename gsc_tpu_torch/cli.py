@@ -400,8 +400,7 @@ def _refuse_flat(args, agent, resume) -> None:
             raise SystemExit(f"--resume: {e}")
     if agent.graph_mode:
         return
-    for flag, on in (("--async", args.async_mode), ("--mesh", args.mesh),
-                     ("--hot-swap-dir", args.hot_swap_dir)):
+    for flag, on in (("--async", args.async_mode), ("--mesh", args.mesh)):
         if on:
             raise SystemExit(
                 f"{flag} with a flat agent (graph_mode: false) is not "

@@ -124,11 +124,13 @@
 // serial.
 //
 // Resource-function plugins: a build with SUBSTEP_RF_PLUGINS includes
+// "rf_math.cuh" (exp, log, tanh, pow and their kin as fixed IEEE double
+// sequences rounded once to f32, bit-equal to ops/rf_math.py) and
 // "resource_plugins.cuh", which ops/resource_codegen.py generates from the
 // plugins' traced graphs (``float rf_plugin(int id, float load)`` over ids
-// 2 and up, every float operation rounded as the CPU's torch op rounds it).
-// The wrapper builds one library per plugin set; without plugins the
-// header is not included and the build is the kernel above.
+// 2 and up, every float operation rounded as the plain engine rounds it).
+// The wrapper builds one library per plugin set; without plugins neither
+// header is included and the build is the kernel above.
 //
 // SUBSTEP_STAGE_CLOCKS builds (timing only, never the main path): thread 0
 // adds clock64() deltas per stage into ``stage_clocks`` [B, N_STAGES]; a
@@ -314,6 +316,7 @@ __host__ __device__ inline Layout layout_for(long long M, long long N,
 }
 
 #ifdef SUBSTEP_RF_PLUGINS
+#include "rf_math.cuh"
 #include "resource_plugins.cuh"
 #endif
 

@@ -7,7 +7,10 @@ observations show the upcoming interval's ingress traffic
 (``sim.predictor.predict_ingress_traffic``) in place of the last one's;
 ``engine`` replaces the simulator (``sim.dummy.DummyEngine``).  The
 observation is a ``GraphObs`` in graph mode and the flat [B, N*F] vector
-(``obs_dim``) with ``AgentConfig.graph_mode`` false.
+(``obs_dim``) with ``AgentConfig.graph_mode`` false, under either
+controller: with ``controller: per_flow`` the engine's intervals expire
+idle instances (kernel #2's ``gc`` switch) in both modes, as the JAX
+engine does.
 """
 from __future__ import annotations
 
@@ -45,9 +48,6 @@ class ServiceCoordEnv:
     def __init__(self, service: ServiceConfig, sim_cfg: SimConfig,
                  agent: AgentConfig, limits: EnvLimits,
                  engine: Optional[SimEngine] = None):
-        if not agent.graph_mode and sim_cfg.controller == "per_flow":
-            raise ValueError("a flat agent (graph_mode: false) under "
-                             "per-flow control is not ported yet")
         self.service = service
         self.sim_cfg = sim_cfg
         self.agent = agent

@@ -18,16 +18,24 @@ ledger on and off):
   its plain version ran, once (the aten calls of a plain version are not
   counted again), and what its count reads from the data is read after
   the observed call;
-- on the card, ``torch.profiler`` (device launches per call by kind and
-  the kernels' device seconds, ``device_s``) and the sync-debug mode
+- on the card, ``torch.profiler`` through ``analysis.launches.
+  DeviceProfile`` (device launches per call by kind and the kernels'
+  device seconds, ``device_s``; each segment opens with a primer whose
+  records take the profiler's losses at the start of a capture) and
+  the sync-debug mode
   (``host_syncs``: the synchronizing operations of the capturing thread
   and of the autograd threads that ran its backward); on the CPU
   ``host_syncs`` counts value reads (``.item()``, ``float()``,
   ``bool()``) and ``launches``/``device_s`` are None with the reason in
   ``no_profile``, as they are where a profiler was already running.
-  The wrappers' posts check the profile: one that lost records (the
-  card's profiler drops some now and then) leaves ``launches`` and
-  ``device_s`` None, with the counts in ``no_profile``.
+  Two checks hold the profile whole: every kernel launch call has its
+  device record (matched by correlation id), and the hand kernels'
+  records equal the wrappers' posts; a profile that fails either leaves
+  ``launches`` and ``device_s`` None, with the counts in
+  ``no_profile``.  ``profile_margin_s`` is the smallest primer margin of
+  the entry's profiles (the primer's cover less the time the capture
+  lost records, ``ProfileCounts``): above 0, the losses ended inside the
+  primer.
 
 ``flops`` is the matmul FLOPs plus the hand kernels' operation counts,
 ``bytes_accessed`` the aten bytes plus the kernels' own; ``fusions`` is
@@ -61,8 +69,8 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from ..analysis.launches import (CostCounter, Frame, SyncWatch,
-                                 profile_counts)
+from ..analysis.launches import (CostCounter, DeviceProfile, Frame,
+                                 SyncWatch)
 from ..ops.cost import BF16_FLOP_PER_S, F32_FLOP_PER_S, HBM_BYTES_PER_S
 
 log = logging.getLogger("gsc_tpu_torch.obs.perf")
@@ -139,12 +147,8 @@ class _Capture:
     def _start_segment(self):
         if self.no_profile is not None:
             return
-        from torch.profiler import ProfilerActivity, profile
-        self._sync()
         try:
-            prof = profile(activities=[ProfilerActivity.CUDA])
-            prof.__enter__()
-            self.prof = prof
+            self.prof = DeviceProfile(self.device, sync=self._sync).start()
         except Exception as e:  # noqa: BLE001 - a machine that refuses it
             self._drop_profile(f"the profiler did not start: "
                                f"{type(e).__name__}: {e}")
@@ -153,10 +157,8 @@ class _Capture:
         prof, self.prof = self.prof, None
         if prof is None:
             return
-        self._sync()
         try:
-            prof.__exit__(None, None, None)
-            counts = profile_counts(prof)
+            counts = prof.stop()
         except Exception as e:  # noqa: BLE001
             self._drop_profile(f"the profiler failed: {type(e).__name__}: "
                                f"{e}")
@@ -254,7 +256,7 @@ class _Capture:
         prof, self.prof = self.prof, None
         if prof is not None:
             try:
-                prof.__exit__(None, None, None)
+                prof.abandon()
             except Exception:  # noqa: BLE001
                 pass
         if self.watch is not None:
@@ -415,6 +417,11 @@ class CostLedger:
                 f.no_profile = (f"the profiler lost device records: the "
                                 f"hand kernels posted {posted}, it "
                                 f"recorded {seen}")
+            elif f.unmatched:
+                f.launches = f.device_s = None
+                f.no_profile = (f"the profiler lost device records: "
+                                f"{f.unmatched} kernel launch calls have "
+                                "no device record")
         flops = float(f.flops + work.flops)
         nbytes = float(f.bytes + work.bytes)
         col = {op: {"count": c, "bytes": b}
@@ -440,6 +447,8 @@ class CostLedger:
         }
         if f.no_profile is not None:
             entry["no_profile"] = f.no_profile
+        if f.margin_s is not None:
+            entry["profile_margin_s"] = round(f.margin_s, 6)
         if flops and nbytes:
             entry["arithmetic_intensity"] = round(flops / nbytes, 4)
         with self._lock:

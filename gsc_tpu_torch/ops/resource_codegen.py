@@ -36,14 +36,25 @@ CPU ``sqrt`` is not correctly rounded on f32 (one load in ~150 lies an
 ulp off, tests/test_torch_resource_plugins.py), so a plugin with one of
 these runs, in the plain engine too, through its traced graph
 (``ResourceProgram.__call__``), whose square root is numpy's IEEE one
-(``ResourceProgram.uses_graph``; ``plain_form``).  A plugin without them
-is called as it is, and its traced graph equals it bit for bit.
+(``ResourceProgram.uses_graph``; ``plain_form``).
 
-Every other operation (``exp``, ``log``, ``tanh``, ``pow`` with another
-exponent, Python control flow on a tensor, ...) is refused with its name
-(``UnsupportedResourceFunction``) when kernel #2 is asked to run the
-plugin on the card; on the CPU the plain engine still calls it.  There is
-no fallback from the kernel to the plain engine.
+``exp``, ``expm1``, ``exp2``, ``log``, ``log1p``, ``log2``, ``log10``,
+``tanh``, ``sigmoid`` and ``pow`` with any other exponent (a constant, or
+a tensor: ``2 ** load``, ``load ** load``) are the hand-written device
+functions of ``csrc/rf_math.cuh``: the same IEEE double operations as
+their plain version ``ops.rf_math`` (float64 numpy), rounded once to f32,
+so kernel and plain engine agree bit for bit; they are graph ops too
+(``GRAPH_OPS``).  ``floor``, ``ceil``, ``trunc`` and ``round`` (half to
+even) are exact in f32 on both sides.  A plugin without graph ops is
+called as it is, and its traced graph equals it bit for bit.
+
+What is refused, with its name (``UnsupportedResourceFunction``), is
+what the JAX package's jitted engine refuses too: code that does not
+trace (Python control flow on a tensor's value, ``math`` functions on
+it), a second argument, a result that is not a float tensor.  The
+refusal comes when kernel #2 is asked to run the plugin on the card; on
+the CPU the plain engine still calls it.  There is no fallback from the
+kernel to the plain engine.
 """
 from __future__ import annotations
 
@@ -57,6 +68,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from . import rf_math
 from .build import notify_build
 
 # the kernel's first plugin id (RF_PLUGIN_BASE in the CUDA source)
@@ -71,8 +83,13 @@ _LOGIC = {"and": "&&", "or": "||"}
 # pow exponents in torch's CPU special cases (Pow.cpp, PowKernel.cpp)
 _POW_EXACT = (0.0, 1.0, 2.0, 3.0, -1.0, -2.0)
 _POW_SQRT = {0.5: "sqrt", -0.5: "rsqrt"}
-# ops whose emitted form is the IEEE result, not torch's CPU result
-GRAPH_OPS = ("sqrt", "rsqrt")
+# exact f32 rounding functions, the same bits in torch and CUDA
+_ROUNDING = {"floor": "floorf", "ceil": "ceilf", "trunc": "truncf",
+             "round": "rintf"}
+# ops whose emitted form is the IEEE (or rf_math) result, not torch's CPU
+# result: a plugin with one runs its traced graph in the plain engine;
+# "powg" is pow with an exponent outside the exact forms
+GRAPH_OPS = ("sqrt", "rsqrt", "powg") + tuple(rf_math.UNARY)
 
 
 class UnsupportedResourceFunction(ValueError):
@@ -83,6 +100,11 @@ class UnsupportedResourceFunction(ValueError):
 def _f32(value) -> float:
     """A Python number rounded to f32 (to nearest, ties to even)."""
     return float(np.float32(value))
+
+
+def _tensor(values: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A numpy result as a tensor on ``like``'s device."""
+    return torch.from_numpy(np.ascontiguousarray(values)).to(like.device)
 
 
 def _f32_literal(value: float) -> str:
@@ -183,6 +205,15 @@ class ResourceProgram:
                 if op == "rsqrt":
                     s = np.float32(1.0) / s
                 r = torch.from_numpy(np.ascontiguousarray(s)).to(x.device)
+            elif op in rf_math.UNARY:
+                x = get(args[0])
+                r = _tensor(rf_math.UNARY[op](x.detach().cpu().numpy()), x)
+            elif op == "powg":
+                x, y = get(args[0]), get(args[1])
+                r = _tensor(rf_math.pow_(x.detach().cpu().numpy(),
+                                         y.detach().cpu().numpy()), x)
+            elif op in _ROUNDING:
+                r = getattr(torch, op)(get(args[0]))
             else:   # trace() emits no other op
                 raise AssertionError(op)
             vals.append(r)
@@ -241,6 +272,12 @@ class ResourceProgram:
                 e = f"__fsqrt_rn({r[0]})"
             elif op == "rsqrt":
                 e = f"__fdiv_rn(1.0f, __fsqrt_rn({r[0]}))"
+            elif op in rf_math.UNARY:
+                e = f"rf_{op}({r[0]})"
+            elif op == "powg":
+                e = f"rf_pow({r[0]}, {r[1]})"
+            elif op in _ROUNDING:
+                e = f"{_ROUNDING[op]}({r[0]})"
             else:
                 raise AssertionError(op)
             ctype = "bool" if node.dtype == "b" else "float"
@@ -282,6 +319,14 @@ _FUNCTIONS = {
     torch.reciprocal: "reciprocal", torch.sqrt: "sqrt", torch.rsqrt: "rsqrt",
     torch.zeros_like: "zeros_like", torch.ones_like: "ones_like",
     torch.full_like: "full_like",
+    torch.exp: "exp", torch.expm1: "expm1", torch.special.expm1: "expm1",
+    torch.exp2: "exp2", torch.special.exp2: "exp2", torch.log: "log",
+    torch.log1p: "log1p", torch.special.log1p: "log1p", torch.log2: "log2",
+    torch.log10: "log10", torch.tanh: "tanh",
+    torch.nn.functional.tanh: "tanh", torch.sigmoid: "sigmoid",
+    torch.special.expit: "sigmoid", torch.nn.functional.sigmoid: "sigmoid",
+    torch.floor: "floor", torch.ceil: "ceil", torch.trunc: "trunc",
+    torch.fix: "trunc", torch.round: "round", torch.special.round: "round",
 }
 _METHODS = {"add": "add", "sub": "sub", "subtract": "sub", "mul": "mul",
             "multiply": "mul", "div": "div", "divide": "div",
@@ -293,7 +338,11 @@ _METHODS = {"add": "add", "sub": "sub", "subtract": "sub", "mul": "mul",
             "clip": "clamp", "clamp_min": "clamp_min",
             "clamp_max": "clamp_max", "relu": "relu", "pow": "pow",
             "square": "square", "reciprocal": "reciprocal", "sqrt": "sqrt",
-            "rsqrt": "rsqrt", "float": "float"}
+            "rsqrt": "rsqrt", "float": "float",
+            **{op: op for op in ("exp", "expm1", "exp2", "log", "log1p",
+                                 "log2", "log10", "tanh", "sigmoid",
+                                 "floor", "ceil", "trunc", "round")},
+            "fix": "trunc"}
 
 
 # keyword arguments that carry values (the others are options)
@@ -414,20 +463,23 @@ def _lower(b: _Builder, op: str, args: List[Operand], kwargs: Dict,
     if op in ("pow", "square", "reciprocal"):
         x = b.number(args[0])
         if op == "square":
-            e = 2.0
+            y = ("c", 2.0)
         elif op == "reciprocal":
-            e = -1.0
+            y = ("c", -1.0)
         else:
             if len(args) < 2:
                 args = [args[0], kwargs.get("exponent")]
-            if args[1] is None or args[1][0] != "c" \
-                    or (operator_form and x[0] != "n"):
-                b.refuse("pow with a tensor exponent")
-            e = float(args[1][1])
+            if args[1] is None:
+                b.refuse("pow without an exponent")
+            y = b.number(args[1])
+        if x[0] != "n" or y[0] != "c":
+            # a constant base or a tensor exponent (2 ** load, load ** load)
+            return b.add("powg", [x, y], "f")
+        e = float(y[1])
         if e in _POW_SQRT:
             return b.add(_POW_SQRT[e], [x], "f")
         if e not in _POW_EXACT:
-            b.refuse(f"pow with exponent {e:g}")
+            return b.add("powg", [x, y], "f")
         if e == 0.0:
             return ("c", 1.0)
         if e == 1.0:
@@ -436,7 +488,11 @@ def _lower(b: _Builder, op: str, args: List[Operand], kwargs: Dict,
         if abs(e) == 3.0:
             sq = b.add("mul", [sq, x], "f")
         return b.add("div", [("c", 1.0), sq], "f") if e < 0 else sq
-    if op in ("sqrt", "rsqrt"):
+    if op in ("sqrt", "rsqrt") or op in rf_math.UNARY:
+        return b.add(op, [b.number(args[0])], "f")
+    if op in _ROUNDING:
+        if op == "round" and kwargs.get("decimals", 0) != 0:
+            b.refuse("round with decimals")
         return b.add(op, [b.number(args[0])], "f")
     if op in ("zeros_like", "ones_like", "full_like"):
         dtype = kwargs.get("dtype")
@@ -481,6 +537,10 @@ def trace(fn: Callable, name: Optional[str] = None) -> ResourceProgram:
                 op = table.get(node.target)
             except TypeError:      # an unhashable target
                 op = None
+            if op is None and getattr(node.target, "__module__",
+                                      None) == "math":
+                b.refuse(f"math.{_target_name(node)} on a tensor (a Python "
+                         "math function, refused by JAX's tracer too)")
             if op is None:
                 b.refuse(_target_name(node))
             args = [_operand(b, env, a, op) for a in node.args]

@@ -34,9 +34,11 @@ Resource-function plugins (``config.registry``) run inside the kernel:
 header of CUDA device functions (ids from 2 up), and the wrapper builds
 one library per distinct header, cached in ``_build/`` by its digest, at
 the first launch that needs it (``plugin_build_s`` keeps each build's
-seconds); a plugin with an operation outside the compiled set raises,
-naming it, and never runs in the plain engine instead.  Without plugins
-the library is the kernel's own build.
+seconds); ``exp``, ``log``, ``tanh``, ``pow`` and their kin are the
+double forms of ``csrc/rf_math.cuh``, which only a plugin build
+includes.  A plugin that does not trace raises, naming why, and never
+runs in the plain engine instead.  Without plugins the library is the
+kernel's own build.
 ``substep_megakernel.launches`` counts the launches without external
 decisions and without plugins, ``substep_megakernel.perflow_launches``
 those with external decisions, ``substep_megakernel.plugin_launches``

@@ -130,17 +130,20 @@ class GreedyServePolicy:
         that differs from the served weights raises and leaves them
         untouched."""
         served = self.actor.state_dict()
+        # an actor of the other observation mode differs in its leaves
+        actor = (f"served actor (graph_mode "
+                 f"{str(self.template.graph).lower()})")
         if len(leaves) != len(served):
             raise ValueError(
                 f"hot-swap version {version} has {len(leaves)} leaves, the "
-                f"served actor has {len(served)}")
+                f"{actor} has {len(served)}")
         for i, (new, (name, cur)) in enumerate(zip(leaves, served.items())):
             new = np.asarray(new)
             want = str(cur.dtype).removeprefix("torch.")
             if tuple(new.shape) != tuple(cur.shape) or str(new.dtype) != want:
                 raise ValueError(
                     f"hot-swap version {version} leaf {i} ({name}) is "
-                    f"{new.shape}/{new.dtype}, the served actor wants "
+                    f"{new.shape}/{new.dtype}, the {actor} wants "
                     f"{tuple(cur.shape)}/{want}")
         with self._on_stream():
             spare = self._spare if self._spare is not None \

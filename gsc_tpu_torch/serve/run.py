@@ -181,10 +181,6 @@ def run_serve(agent: Optional[AgentConfig] = None,
         agent = replace(agent, precision=recorded)
     if checkpoint is not None:
         check_graph_mode(checkpoint, agent.graph_mode)
-    if hot_swap_dir and not agent.graph_mode:
-        raise ValueError("hot-swap serving of a flat agent (graph_mode: "
-                         "false) is not ported yet: serve it without "
-                         "hot_swap_dir")
     sim_cfg = sim_cfg if sim_cfg is not None else init_configs_sim()
     refuse_force_caps(sim_cfg, "the served network")
     service = service if service is not None else abc_service()

@@ -15,8 +15,9 @@ same cases as the CPU tests.  Per-flow control has its own cases
 by ``run_perflow_case``; ``chained_launches`` runs an interval as one
 launch and as one launch per substep.  ``with_plugins`` re-runs any case
 with resource-function plugins (``PLUGINS``: a quadratic, a capped
-``where`` and a square root with a division) in its SF columns, which
-the kernel then runs compiled in.
+``where`` and a square root with a division; ``MATH_PLUGINS``: a
+saturating ``tanh``, a ``log1p`` overhead and ``load ** 1.5`` behind a
+``where``) in its SF columns, which the kernel then runs compiled in.
 
 ``run_case(case, device)`` drives ``SimEngine.apply`` over the case's
 intervals on ``device`` and returns every state after an interval;
@@ -540,16 +541,33 @@ def _rf_sqrt_ratio(load):
     return torch.sqrt(torch.relu(load)) + load / 3.0
 
 
+def _rf_saturating(load):
+    return 2.0 * torch.tanh(load / 2.0)
+
+
+def _rf_log_overhead(load):
+    return torch.where(load > 0.0, torch.log1p(load) + 0.1 * load,
+                       torch.zeros_like(load))
+
+
+def _rf_pow_where(load):
+    return torch.where(load > 1.0, load ** 1.5, load)
+
+
 # the plugins of the plugin cases, registered under these names
 PLUGINS = {"case_quadratic": _rf_quadratic, "case_capped": _rf_capped,
            "case_sqrt_ratio": _rf_sqrt_ratio}
+# the second set: functions kernel #2 evaluates in double (csrc/rf_math.cuh)
+MATH_PLUGINS = {"case_tanh": _rf_saturating, "case_log1p": _rf_log_overhead,
+                "case_pow15": _rf_pow_where}
 
 
 def register_plugins() -> Tuple[str, ...]:
-    """Register ``PLUGINS`` (again, harmlessly); returns their names."""
+    """Register ``PLUGINS`` and ``MATH_PLUGINS`` (again, harmlessly);
+    returns the names of ``PLUGINS``."""
     from ..config.registry import register_resource_function
 
-    for name, fn in PLUGINS.items():
+    for name, fn in {**PLUGINS, **MATH_PLUGINS}.items():
         register_resource_function(name)(fn)
     return tuple(PLUGINS)
 
@@ -567,8 +585,11 @@ def _plugin_engine(engine: SimEngine, ids) -> SimEngine:
 
 def with_plugins(case, ids=tuple(PLUGINS)):
     """A ``SubstepCase`` or ``PerFlowCase`` whose engine runs the plugins
-    named in ``ids`` in its SF columns (in column order, cycled)."""
-    return dataclasses.replace(case, name=f"{case.name}+plugins",
+    named in ``ids`` in its SF columns (in column order, cycled);
+    ``ids`` may be ``MATH_PLUGINS`` (any mapping of names) too."""
+    ids = tuple(ids)
+    label = "math_plugins" if ids == tuple(MATH_PLUGINS) else "plugins"
+    return dataclasses.replace(case, name=f"{case.name}+{label}",
                                engine=_plugin_engine(case.engine, ids))
 
 

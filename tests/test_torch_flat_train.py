@@ -413,31 +413,35 @@ def test_checkpoint_of_the_other_mode_is_refused(tmp_path):
     (["--replicas", "2", "--chunk", "3", "--async"], "--async with a flat"),
     (["--replicas", "2", "--chunk", "3", "--mesh", "2x1"],
      "--mesh with a flat"),
-    (["--hot-swap-dir", "HOT"], "--hot-swap-dir with a flat")],
-    ids=["async", "mesh", "hot_swap"])
+    (["--replicas", "2", "--chunk", "3", "--async", "--hot-swap-dir",
+      "HOT"], "--async with a flat")],
+    ids=["async", "mesh", "async_hot_swap"])
 def test_paths_not_ported_for_flat_agents_are_refused(tmp_path, flags,
                                                       message):
+    """``--async`` and ``--mesh`` stay refused by name for a flat agent
+    (``--hot-swap-dir`` alone runs since flat hot-swap was ported:
+    tests/test_torch_flat_perflow_swap.py)."""
     flags = [str(tmp_path / f) if f == "HOT" else f for f in flags]
     with pytest.raises(SystemExit, match=message):
         cli.run_train(_cli_files(tmp_path) + ["--episodes", "1", *flags])
 
 
 def test_library_refusals_name_the_path():
-    from gsc_tpu_torch.serve import run_serve
+    """The library's own refusals of the paths still not ported for a
+    flat agent: decoupled training and a mesh (per-flow control and the
+    hot-swap fleet were ported since: tests/test_torch_flat_perflow_swap.py)."""
+    from types import SimpleNamespace
+
+    from gsc_tpu_torch.parallel.dp import ParallelDDPG
 
     trainer = _port_stack()
     with pytest.raises(ValueError, match=r"--async\) of a flat agent"):
         trainer.train_async(1, 2, chunk=2)
-    with pytest.raises(ValueError, match="hot-swap publishing of a flat"):
-        trainer.train(1, publisher=object(), publish_interval=1)
-    with pytest.raises(ValueError, match="per-flow control"):
-        ServiceCoordEnv(abc_service(), SimConfig(**SIM_KW,
-                                                 controller="per_flow"),
-                        AgentConfig(**FLAT_KW), EnvLimits.for_service(
-                            abc_service(), max_nodes=N, max_edges=E))
-    with pytest.raises(ValueError, match="hot-swap serving of a flat"):
-        run_serve(AgentConfig(**FLAT_KW), device="cpu", hot_swap_dir="x",
-                  requests=1)
+    plan = SimpleNamespace(n_devices=1, describe=lambda: "1x1",
+                           resident_sharded=False)
+    with pytest.raises(ValueError, match="a mesh of a flat agent"):
+        ParallelDDPG(trainer.env, trainer.agent_cfg, 2, device="cpu",
+                     plan=plan)
 
 
 def test_policy_server_answers_equal_greedy_action():

@@ -8,7 +8,8 @@ CPU at small sizes:
   program);
 - a capture failure is recorded and never raised: the dispatch runs; a
   profile that lost device records leaves ``launches`` None with the
-  counts in ``no_profile``;
+  counts in ``no_profile``; each profile dates its loss against the
+  primer's cover, and a primer that raises stops the profiler;
 - the ledger adds nothing to a later dispatch: no mode, no tap, no sync;
 - a tiny pipelined ``Trainer.train`` writes ``perf.json`` with
   ``episode_step`` (the observed dispatch left out of ``dispatches``)
@@ -33,6 +34,7 @@ CPU at small sizes:
 - a served learned tier lists ``serve_policy_b<B>`` per bucket (one
   ledger for a fleet); the SPR tier captures nothing.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -206,6 +208,150 @@ def test_a_profile_that_lost_records_leaves_launches_null(seen):
             "the profiler lost device records: the hand kernels posted "
             f"{{'gat_attention': 3}}, it recorded {{'gat_attention': "
             f"{seen}}}")
+
+
+def test_an_entry_with_unmatched_launches_cannot_pass_as_whole():
+    """The ledger repair: a profile in which some kernel launch call has
+    no device record (matched by correlation id) leaves ``launches`` and
+    ``device_s`` None even where the hand kernels' records equal their
+    posts, so an entry whose records are incomplete never passes as
+    whole."""
+    from gsc_tpu_torch.analysis.launches import Frame, ProfileCounts
+
+    kinds = lambda **kw: {**{k: 0 for k in
+                             ("gemm", "gat_attention_backward",
+                              "gat_attention", "substep_megakernel", "copy",
+                              "collective", "other")}, **kw}
+    per = {"gat_attention": {"launches": 3, "flops": 1.0, "bytes": 1.0}}
+    for unmatched in (0, 1, 5):
+        f = Frame()
+        f.add_profile(ProfileCounts(10, kinds(gemm=4, gat_attention=3,
+                                              other=3), 0.25, unmatched))
+        led = CostLedger()
+        led._record(("step",), f, cost.Work(), per, 0.1, True)
+        e = led.entry("step")
+        if unmatched:
+            assert e["launches"] is None and e["device_s"] is None
+            assert e["no_profile"] == (
+                f"the profiler lost device records: {unmatched} kernel "
+                "launch calls have no device record")
+        else:
+            assert e["launches"]["count"] == 10 and e["device_s"] == 0.25
+
+
+class _Evt:
+    def __init__(self, dev, name, corr, start, end=None):
+        from torch.autograd import DeviceType
+
+        self._dev = DeviceType.CUDA if dev else DeviceType.CPU
+        self._name, self._corr = name, corr
+        self._start, self._end = start, end if end is not None else start
+
+    def device_type(self):
+        return self._dev
+
+    def name(self):
+        return self._name
+
+    def correlation_id(self):
+        return self._corr
+
+    def start_ns(self):
+        return self._start
+
+    def end_ns(self):
+        return self._end
+
+
+def test_profile_counts_match_launch_calls_to_device_records():
+    """``profile_counts`` counts the device records by kind and their
+    seconds, and matches every kernel launch call (runtime or driver) to
+    its device record: a call whose record is missing is counted in
+    ``unmatched`` whatever kernel it launched; the primer's records are
+    left out and their losses counted apart."""
+    from types import SimpleNamespace
+
+    from gsc_tpu_torch.analysis.launches import profile_counts
+
+    events = [
+        _Evt(False, "cudaLaunchKernel", 1, 1_000),
+        _Evt(True, "void gat_attention_kernel<float>", 1, 1_500, 2_500),
+        _Evt(False, "cudaLaunchKernelExC", 2, 2_000),
+        _Evt(True, "sm90_xmma_gemm_f32", 2, 1_800, 4_800),
+        _Evt(False, "cuLaunchKernel", 3, 3_000),    # its record was lost
+        _Evt(False, "cudaMemcpyAsync", 4, 3_500),
+        _Evt(True, "Memcpy HtoD (Pinned -> Device)", 4, 4_000, 4_100),
+        _Evt(False, "cudaDeviceSynchronize", 0, 5_000),
+    ]
+    prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: events)))
+    c = profile_counts(prof)
+    assert c.launches == 3 and c.unmatched == 1
+    assert c.by_kind["gat_attention"] == 1 and c.by_kind["gemm"] == 1 \
+        and c.by_kind["copy"] == 1
+    assert c.device_s == pytest.approx((1_000 + 3_000 + 100) / 1e9)
+    # a primer of 3 spin kernels ahead of the work, one of whose records
+    # was lost: left out of every count, and its lost record is not the
+    # work's
+    spin = "at::cuda::(anonymous namespace)::spin_kernel(long)"
+    primed = [_Evt(False, "cudaLaunchKernel", 10 + i, 100 + i)
+              for i in range(3)] + [_Evt(True, spin, 11, 150, 160),
+                                    _Evt(True, spin, 12, 170, 180)] + events
+    prof.profiler.kineto_results.events = lambda: primed
+    c = profile_counts(prof, primer=3)
+    assert c.launches == 3 and c.unmatched == 1 and c.primer_lost == 1
+    assert c.device_s == pytest.approx((1_000 + 3_000 + 100) / 1e9)
+    # the capture lost records from the first launch call (100 ns) to the
+    # first kept record (150 ns); the primer covered up to the work's
+    # first call (1,000 ns)
+    assert c.blind_s == pytest.approx(50 / 1e9)
+    assert c.guard_s == pytest.approx(900 / 1e9)
+    # every work record kept, the primer's first lost: whole
+    whole = [e for e in primed if e.correlation_id() != 3]
+    prof.profiler.kineto_results.events = lambda: whole
+    c = profile_counts(prof, primer=3)
+    assert c.unmatched == 0 and c.primer_lost == 1
+    # the whole primer lost: the first kept record is the work's, past
+    # the primer's cover (a margin below 0), though the work is whole
+    exhausted = [e for e in whole
+                 if e.name() != spin or e.correlation_id() not in (11, 12)]
+    prof.profiler.kineto_results.events = lambda: exhausted
+    c = profile_counts(prof, primer=3)
+    assert c.unmatched == 0 and c.primer_lost == 3
+    assert c.guard_s - c.blind_s == pytest.approx((900 - 1_400) / 1e9)
+    # a bare profile has no primer and so no cover
+    assert profile_counts(prof).guard_s is None
+
+
+def test_a_primer_that_raises_stops_the_profiler(monkeypatch):
+    """``DeviceProfile.start`` stops the profiler it started when the
+    primer fails, so no later capture finds one already running."""
+    from gsc_tpu_torch.analysis.launches import DeviceProfile
+
+    log = []
+
+    class Profile:
+        def __init__(self, **_):
+            pass
+
+        def __enter__(self):
+            log.append("enter")
+            return self
+
+        def __exit__(self, *exc):
+            log.append("exit")
+
+    def no_card(*_):
+        raise RuntimeError("no card")
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "_sleep", no_card)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda _: contextlib.nullcontext())
+    dp = DeviceProfile(None, sync=lambda: None)
+    with pytest.raises(RuntimeError, match="no card"):
+        dp.start()
+    assert log == ["enter", "exit"] and dp.prof is None
 
 
 def _attention_burst(steps: int):

@@ -18,8 +18,11 @@
   f32, which the test counts);
 - the generated CUDA text and the library digest the same twice, and no
   header without plugins;
-- an operation outside the set refused with its name, on the card's
-  path only (the plain engine still runs it on the CPU);
+- ``exp``, ``log``, ``tanh``, ``** 4`` and ``2 ** load``, once refused,
+  traced, planned and run (tests/test_torch_resource_math.py holds their
+  values); what the JAX package's jitted engine refuses too (code that
+  does not trace, a second argument, a non-float result) refused with
+  its name on the card's path;
 - ``--resource-functions-path`` on ``train``, ``infer``, ``serve`` and
   ``simulate``, ``simulate``'s JSON equal to the JAX CLI's.
 
@@ -297,21 +300,43 @@ def test_generated_header_and_digest_stable():
 
 @pytest.mark.parametrize("fn,op", [
     (lambda l: torch.exp(l), "exp"), (lambda l: torch.log(l + 1), "log"),
-    (lambda l: torch.tanh(l) * 2, "tanh"), (lambda l: l ** 4, "exponent 4"),
+    (lambda l: torch.tanh(l) * 2, "tanh"), (lambda l: l ** 4, "powg"),
+    (lambda l: 2 ** l, "powg")])
+def test_transcendental_plugins_traced_and_run(fn, op):
+    """The ops kernel #2 once refused: now traced, given a kernel plan,
+    and run by the plain engine through their traced graph."""
+    prog = rc.trace(fn, "now_traced")
+    assert op in [n.op for n in prog.nodes] and prog.uses_graph
+    registry.register_resource_function("tp_now_traced")(fn)
+    case = cases.with_plugins(cases.battery_case("node_cap"),
+                              ("tp_now_traced",))
+    assert isinstance(case.engine.tables.resource_fns[0], rc.ResourceProgram)
+    assert resource_plan(case.engine, "cpu")["rf_header"] is not None
+    assert cases.run_case(dataclasses.replace(case, intervals=1),
+                          "cpu")[-1].t.item() > 0
+
+
+def _second_argument(load, scale):
+    return load * scale
+
+
+@pytest.mark.parametrize("fn,op", [
     (lambda l: l if l.sum() > 0 else -l, "does not trace"),
-    (lambda l: 2 ** l, "tensor exponent")])
+    (lambda l: __import__("math").exp(l), "math.exp on a tensor"),
+    (_second_argument, "a second argument"),
+    (lambda l: l > 1.0, "not a float tensor")])
 def test_out_of_set_operation_refused_with_its_name(fn, op):
+    """What the JAX package's jitted engine refuses too: control flow on
+    a tensor's value, a math function on a tensor, a second argument, a
+    result that is not a float."""
     with pytest.raises(rc.UnsupportedResourceFunction, match=op):
         rc.trace(fn, "bad")
     registry.register_resource_function("tp_refused")(fn)
     case = cases.with_plugins(cases.battery_case("node_cap"),
                               ("tp_refused",))
-    # the card's path refuses it; the plain engine still runs it
+    # the card's path refuses it
     with pytest.raises(rc.UnsupportedResourceFunction, match=op):
         resource_plan(case.engine, "cpu")
-    if op != "does not trace":
-        assert cases.run_case(dataclasses.replace(case, intervals=1),
-                              "cpu")[-1].t.item() > 0
 
 
 # ----------------------------------------------------------------- the CLI
@@ -411,14 +436,15 @@ def test_out_of_set_plugin_refused_on_the_card():
     dev = _card()
     calls = []
 
-    def exp_plugin(load):
+    def branching(load):
         if isinstance(load, torch.Tensor):
             calls.append(load.device.type)
-        return torch.exp(load)
+        return load if load.sum() > 0 else -load
 
-    registry.register_resource_function("tp_card_exp")(exp_plugin)
+    registry.register_resource_function("tp_card_branch")(branching)
     case = cases.with_plugins(cases.battery_case("node_cap"),
-                              ("tp_card_exp",))
-    with pytest.raises(rc.UnsupportedResourceFunction, match="exp"):
+                              ("tp_card_branch",))
+    with pytest.raises(rc.UnsupportedResourceFunction,
+                       match="does not trace"):
         cases.run_case(case, dev)
     assert calls == []

@@ -202,21 +202,24 @@ def test_megakernel_refuses_cpu_pointers():
 @pytest.mark.cuda
 def test_megakernel_refuses_unknown_resource_function():
     dev = _card()
-    # a plugin with an operation outside the set the kernel compiles
-    # (ops/resource_codegen.py; ``x * x`` would run compiled in)
-    register_resource_function("card_test_exp")(lambda x: torch.exp(x))
+    # a plugin the kernel cannot compile: it does not trace (Python
+    # control flow on a tensor's value; ``torch.exp(x)`` runs compiled in
+    # since the double forms of csrc/rf_math.cuh)
+    register_resource_function("card_test_branch")(
+        lambda x: x if x.sum() > 0 else -x)
     sf = lambda n, rf="default": ServiceFunction(
         name=n, processing_delay_mean=5.0, processing_delay_stdev=0.0,
         resource_function_id=rf)
     svc = ServiceConfig(sfc_list={"sfc_1": ("a", "b")},
                         sf_list={"a": sf("a"), "b": sf("b",
-                                                       "card_test_exp")})
+                                                       "card_test_branch")})
     lim = EnvLimits(max_nodes=8, max_edges=8, num_sfcs=1, max_sfs=2)
     engine = SimEngine(svc, SimConfig(), lim)
     case = cases.battery_case("node_cap")
     state = engine.init(1, dev)
     with pytest.raises(ValueError,
-                       match="resource function 'card_test_exp': exp"):
+                       match="resource function 'card_test_branch': code "
+                             "that does not trace"):
         substep_megakernel.launch(engine, state, case.topo.to(dev),
                                   case.traffic.to(dev),
                                   torch.ones(1, 8, device=dev))
