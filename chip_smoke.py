@@ -449,7 +449,32 @@ Phases (any failure exits non-zero and prints no result line):
    by each worker, ``swap_ms``, p50/p99 before and while training, every
    answer bit-identical to a single-shot call under its stamped version;
    the kernels line's launch counts include this phase's;
-24. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+24. the linkcap oracle, the native traffic sampler and the linter
+   (``oracle_traffic_slice``): (a) the one coordsim oracle whose inputs
+   are all in the repo (tests/assets/line3-linkcap2.graphml and
+   linkcap_config.yaml, 50 uniform intervals at seed 1234, the frozen
+   numbers of tests/test_reference_parity.py:106-123) through
+   ``sim.oracle.uniform_engine_run`` on the card, one kernel #2 launch
+   per interval: the constants within their bounds (generated exact,
+   processed, dropped and LINK_CAP within 30 flows, the other reasons
+   zero, the mean end-to-end delay within 5%), and every interval's
+   counters against the plain engine's run on the CPU (integers exact,
+   the end-to-end sum within the phase 5 tolerance); (b) one 200-interval
+   episode of bench.py's Abilene stack under random traffic from the
+   native sampler (exponential arrivals, Pareto sizes, noisy data rates;
+   ``cases.stochastic_abilene_case``) through kernel #2, every interval
+   against the plain version on CPU copies (phase 5's tolerance, and bit
+   for bit); (c) host seconds per episode of traffic for 64 Abilene
+   replicas (``EpisodeDriver.replica_traffic``) with the native sampler
+   and with the numpy path, median of 5 each, in a process aside, printed
+   beside the host's name and CPU count and the card's ``nvidia-smi``
+   line: host numbers; (d) ``python -m gsc_tpu_torch.analysis.lint`` over
+   ``gsc_tpu_torch/`` and ``chip_smoke.py`` exits 0 under this machine's
+   Python; the CPU references of (a) and (b) start after phase 5 in the
+   processes aside, (c) and (d) before phase 23 (``host_checks``), so
+   all of them run beside other phases; the kernels line's launch counts
+   include (a) and (b);
+25. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Tolerances (stated here, used below): the attention kernel against its
 plain version rtol 1e-5 / atol 1e-5 (f32 in another summation order: the
@@ -509,6 +534,7 @@ a last-bit difference of an f32 sum moves a bf16 activation by one ulp
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import math
@@ -635,7 +661,8 @@ BROWNOUT_REQUESTS, BROWNOUT_CONCURRENCY = 128, 32
 # copies of the parent commit's megakernel source and attention kernel
 # source and wrapper, present only in a run that compares them (never
 # committed)
-PARENT_DIR = Path(__file__).resolve().parent / "_parent"
+ROOT = Path(__file__).resolve().parent
+PARENT_DIR = ROOT / "_parent"
 PARENT_SOURCE = PARENT_DIR / "substep_megakernel.cu"
 PARENT_GAT_SOURCE = PARENT_DIR / "gat_attention.cu"
 PARENT_GAT_WRAPPER = PARENT_DIR / "gat_attention.py"
@@ -730,6 +757,20 @@ PERF_EPISODES = 2
 PERF_MFU_MAX = 1.05
 # phase 22 (e): short profiles of a fixed sequence of launches
 PROFILE_ROUNDS = 200
+# phase 24: the linkcap oracle's inputs, intervals and seed and its
+# frozen numbers (tests/test_reference_parity.py:106-123, the reference
+# coordsim's), one episode of bench.py's Abilene stack under random
+# traffic, and the replicas and repeats of the host traffic timing
+LINKCAP_NETWORK = ROOT / "tests" / "assets" / "line3-linkcap2.graphml"
+LINKCAP_CONFIG = ROOT / "tests" / "assets" / "linkcap_config.yaml"
+LINKCAP_STEPS, LINKCAP_SEED = 50, 1234
+LINKCAP_ORACLE = {
+    "generated": 2500, "processed": 151, "dropped": 2348,
+    "drop_reasons": {"TTL": 0, "DECISION": 0, "LINK_CAP": 2348,
+                     "NODE_CAP": 0},
+    "avg_e2e": 22.94701986754967, "atol_flows": 30, "e2e_rel": 0.05}
+STOCHASTIC_INTERVALS = 200
+TRAFFIC_REPLICAS, TRAFFIC_REPEATS = 64, 5
 # phase 23: init-configs' agent in flat mode ({steps}-step episodes and
 # as long a warm-up, so each episode ends in a learn burst); (a)'s run,
 # (b)'s episode length, (c)'s requests, concurrency and deadline, (d)'s
@@ -3827,7 +3868,8 @@ def serving_slice(torch, dev, smi, ck_f32, ck_bf16):
 
         for op in ops.values():
             op.launches = 0
-        server = threading.Thread(target=fleet, name="phase17-fleet")
+        server = threading.Thread(target=fleet, name="phase17-fleet",
+                              daemon=True)
         server.start()
         t_wait = time.perf_counter() + 120.0
         while obs.hub.get_counter("serve_requests_total") < TWS_WARM \
@@ -5803,7 +5845,8 @@ def flat_perflow(torch, dev, smi, root, yaml_of, counted, ck_a):
             out["error"] = e
 
     cli.zero_kernel_launches()
-    server = threading.Thread(target=fleet, name="phase23-fleet")
+    server = threading.Thread(target=fleet, name="phase23-fleet",
+                              daemon=True)
     server.start()
     t_wait = time.perf_counter() + 120.0
     while obs.hub.get_counter("serve_requests_total") < warm \
@@ -6088,6 +6131,214 @@ def flat_slice(torch, dev, smi):
     return total, err
 
 
+def linkcap_run(device):
+    """Phase 24 (a): the oracle's harness on ``device``: (the oracle's
+    numbers, real nodes, every interval's cumulative counters)."""
+    from gsc_tpu_torch.sim.oracle import oracle_numbers, uniform_engine_run
+
+    metrics, n_real, rows = uniform_engine_run(
+        str(LINKCAP_NETWORK), LINKCAP_STEPS, LINKCAP_SEED,
+        str(LINKCAP_CONFIG), device=device, per_step=True)
+    return oracle_numbers(metrics), n_real, rows
+
+
+def oracle_references():
+    """Phase 24's CPU references, started in the processes aside: the
+    oracle's run on the plain engine, and the stochastic Abilene episode
+    (its case built here, its plain run on CPU copies)."""
+    from gsc_tpu_torch.sim import cases
+
+    case = cases.stochastic_abilene_case(STOCHASTIC_INTERVALS)
+    return (on_cpu_aside(linkcap_run, "cpu"), case,
+            on_cpu_aside(cases.run_case, case, "cpu", plain=True))
+
+
+def traffic_host_seconds(replicas: int, repeats: int) -> dict:
+    """Phase 24 (c), in a process aside: seconds per episode of traffic
+    for ``replicas`` Abilene replicas (``EpisodeDriver.replica_traffic``
+    under ``cases.stochastic_abilene_case``'s random traffic) with the
+    native sampler and with the numpy path (``GSC_TPU_NO_NATIVE=1``),
+    ``repeats`` episodes each; host seconds."""
+    from gsc_tpu_torch.config import abc_service
+    from gsc_tpu_torch.env.driver import EpisodeDriver
+    from gsc_tpu_torch.native import SWITCH
+    from gsc_tpu_torch.sim import cases
+
+    case = cases.stochastic_abilene_case(1)
+    out = {}
+    try:
+        for path in ("native", "numpy"):
+            if path == "numpy":
+                os.environ[SWITCH] = "1"
+            driver = EpisodeDriver.single(case.topo, case.engine.cfg,
+                                          abc_service(),
+                                          STOCHASTIC_INTERVALS, "abilene")
+            driver.replica_traffic(0, 1)      # loads the library
+            times = []
+            for ep in range(repeats):
+                t0 = time.perf_counter()
+                tr = driver.replica_traffic(ep, replicas)
+                times.append(time.perf_counter() - t0)
+            flows = int(tr.arr_time.isfinite().sum())
+            out[path] = {"seconds": times, "flows": flows}
+    finally:
+        os.environ.pop(SWITCH, None)
+    return out
+
+
+def check_linkcap(got: dict, want: dict):
+    """tests/test_reference_parity.py:160-184's rules for an oracle with
+    ``atol_flows``."""
+    atol = want["atol_flows"]
+    check(got["generated"] == want["generated"],
+          f"linkcap generated {got['generated']} != {want['generated']}")
+    for key in ("processed", "dropped"):
+        check(abs(got[key] - want[key]) <= atol,
+              f"linkcap {key} {got[key]} beyond {want[key]} +- {atol}")
+    check(abs(got["avg_e2e"] - want["avg_e2e"])
+          <= want["e2e_rel"] * want["avg_e2e"],
+          f"linkcap avg e2e {got['avg_e2e']} beyond {want['avg_e2e']} "
+          f"+- {want['e2e_rel']:.0%}")
+    for reason, n in want["drop_reasons"].items():
+        g = got["drop_reasons"][reason]
+        check(abs(g - n) <= atol and (n != 0 or g == 0),
+              f"linkcap {reason} drops {g} against {n}")
+
+
+def host_checks():
+    """Phase 24 (c) and (d), started before phase 23 so that they run
+    beside it: the host traffic timing in a process aside (the processes
+    aside are idle by then) and the linter in a process of its own."""
+    host = on_cpu_aside(traffic_host_seconds, TRAFFIC_REPLICAS,
+                        TRAFFIC_REPEATS)
+    lint = subprocess.Popen(
+        [sys.executable, "-m", "gsc_tpu_torch.analysis.lint"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # a phase that fails before phase 24 leaves no linter behind
+    atexit.register(lambda: lint.poll() is None and lint.kill())
+    return host, lint
+
+
+def oracle_traffic_slice(torch, dev, smi, refs, checks):
+    """Phase 24 (see the module docstring); ``refs``: what
+    ``oracle_references`` started, ``checks``: what ``host_checks``
+    started.  Returns (kernel #2's launches on the main path, the largest
+    float difference to the plain engine)."""
+    import platform
+
+    import numpy as np
+
+    from gsc_tpu_torch.ops.substep import substep_megakernel
+    from gsc_tpu_torch.sim import cases
+
+    linkcap_ref, case, case_ref = refs
+    host, lint = checks
+    t_phase = time.perf_counter()
+    try:
+        # (a) the linkcap oracle through kernel #2
+        substep_megakernel.launches = 0
+        t0 = time.perf_counter()
+        got, n_real, rows = linkcap_run(dev)
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        launches_a = substep_megakernel.launches
+        check(launches_a == LINKCAP_STEPS,
+              f"the oracle run launched kernel #2 {launches_a} times (want "
+              f"one per interval, {LINKCAP_STEPS})")
+        check(n_real == 3, f"linkcap: {n_real} real nodes")
+        check_linkcap(got, LINKCAP_ORACLE)
+        want, _, want_rows = linkcap_ref.result()
+        worst_a = 0.0
+        for i, (g, w) in enumerate(zip(rows, want_rows)):
+            for key in ("generated", "processed", "dropped",
+                        "drop_reasons"):
+                check(g[key] == w[key], f"linkcap interval {i} {key}: "
+                      f"kernel {g[key]} vs plain {w[key]}")
+            diff = abs(g["e2e_sum"] - w["e2e_sum"])
+            worst_a = max(worst_a, diff)
+            check(diff <= SUB_ATOL + SUB_RTOL * abs(w["e2e_sum"]),
+                  f"linkcap interval {i} e2e sum {g['e2e_sum']} vs plain "
+                  f"{w['e2e_sum']}")
+        check(len(rows) == len(want_rows) == LINKCAP_STEPS,
+              "linkcap: intervals missing")
+        print(f"  (a) linkcap oracle through kernel #2 ({launches_a} "
+              f"launches, {wall_a:.2f} s): {json.dumps(got)} against the "
+              f"frozen {LINKCAP_ORACLE['processed']}/"
+              f"{LINKCAP_ORACLE['dropped']} (avg e2e "
+              f"{LINKCAP_ORACLE['avg_e2e']:.3f}, +-"
+              f"{LINKCAP_ORACLE['atol_flows']} flows, "
+              f"{LINKCAP_ORACLE['e2e_rel']:.0%}): held; every interval's "
+              f"counters equal to the plain engine's on the CPU, e2e sum "
+              f"within {worst_a:.2e}", flush=True)
+        # (b) an episode of random traffic through kernel #2
+        substep_megakernel.launches = 0
+        t0 = time.perf_counter()
+        states = cases.run_case(case, dev)
+        torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t0
+        launches_b = substep_megakernel.launches
+        check(launches_b == case.intervals,
+              f"the stochastic episode launched kernel #2 {launches_b} "
+              f"times (want {case.intervals})")
+        on_cpu = case_ref.result()
+        worst_b = 0.0
+        for i in range(case.intervals):
+            what = f"stochastic Abilene interval {i}"
+            worst_b = max(worst_b, cases.compare_states(
+                states[i], on_cpu[i], SUB_RTOL, SUB_ATOL,
+                f"{what}, kernel vs plain on CPU: "))
+            check(cases.bit_equal(states[i].to("cpu"), on_cpu[i]),
+                  f"{what}: the kernel is not bit-equal to the plain "
+                  "version on CPU copies")
+        m = states[-1].metrics
+        dr = case.traffic.arr_dr.numpy()
+        dr = dr[np.isfinite(case.traffic.arr_time.numpy())]
+        check(len(np.unique(dr)) > 100, "the episode's data rates are not "
+              "random")
+        print(f"  (b) one {case.intervals}-interval episode of Abilene "
+              f"(exponential arrivals, Pareto sizes, N(1, 0.2) rates, native "
+              f"traffic: {len(dr)} flows) through kernel #2 "
+              f"({launches_b} launches, {wall_b:.2f} s): generated "
+              f"{int(m.generated.sum())}, processed "
+              f"{int(m.processed.sum())}, dropped {int(m.dropped.sum())} "
+              f"{m.drop_reasons.sum(0).tolist()}; every interval bit-equal "
+              f"to the plain version on CPU copies (max float diff "
+              f"{worst_b:.2e})", flush=True)
+        # (c) host seconds per episode of traffic
+        secs = host.result()
+        med = {k: float(np.median(v["seconds"])) for k, v in secs.items()}
+        check(med["native"] < med["numpy"],
+              f"the native sampler took {med['native']:.3f} s, numpy "
+              f"{med['numpy']:.3f} s")
+        print(f"  (c) host seconds per episode of traffic, "
+              f"{TRAFFIC_REPLICAS} Abilene replicas x "
+              f"{STOCHASTIC_INTERVALS} intervals, median of "
+              f"{TRAFFIC_REPEATS} (host {platform.node()}, "
+              f"{platform.machine()}, {os.cpu_count()} CPUs; card {smi}): "
+              f"native "
+              f"{med['native']:.4f} s ({secs['native']['flows']} flows in "
+              f"the last), numpy {med['numpy']:.4f} s "
+              f"({secs['numpy']['flows']} flows); every repeat native "
+              f"{[round(t, 4) for t in secs['native']['seconds']]}, numpy "
+              f"{[round(t, 4) for t in secs['numpy']['seconds']]}",
+              flush=True)
+        # (d) the linter under this machine's Python
+        out, _ = lint.communicate(timeout=600)
+        check(lint.returncode == 0, f"the linter exited {lint.returncode}:"
+              f"\n{out[-3000:]}")
+        summary = out.strip().splitlines()[-1] if out.strip() else ""
+        print(f"  (d) python -m gsc_tpu_torch.analysis.lint (Python "
+              f"{platform.python_version()}): exit 0, {summary}",
+              flush=True)
+    finally:
+        if lint.poll() is None:
+            lint.kill()
+            lint.wait()
+    print(f"  phase 24: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ({"substep_megakernel": launches_a + launches_b},
+            max(worst_a, worst_b))
+
+
 def main() -> int:
     import torch
 
@@ -6261,6 +6512,8 @@ def main() -> int:
     sub_err = substep_battery(torch, dev)
 
     phases.lap("5")
+    # phase 24's CPU references run aside from here on
+    oracle_refs = oracle_references()
     # ---- 6. golden trajectory on the kernel path -------------------------
     before = substep_megakernel.launches
     golden = cases.check_golden(cases.run_case(cases.golden_case(), dev)[-1])
@@ -6395,14 +6648,23 @@ def main() -> int:
                    "substep_megakernel"):
         check(perf_launches.get(kernel, 0) > 0,
               f"{kernel} was not launched on the --perf path")
+    # phase 24's host timing and linter run beside phase 23
+    checks = host_checks()
     # ---- 23. flat observations and the MLP actor and critic -------------
     print("phase 23, flat observations (graph_mode: false):", flush=True)
     flat_launches, flat_err = flat_slice(torch, dev, smi)
     phases.lap("23")
     check(flat_launches.get("substep_megakernel", 0) > 0,
           "substep_megakernel was not launched on the flat path")
+    # ---- 24. the linkcap oracle, native traffic and the linter ----------
+    print("phase 24, the linkcap oracle, the native traffic sampler and "
+          "the linter:", flush=True)
+    oracle_launches, oracle_err = oracle_traffic_slice(torch, dev, smi,
+                                                       oracle_refs, checks)
+    phases.lap("24")
     path_launches = {k: mesh_launches.get(k, 0) + perf_launches.get(k, 0)
                      + flat_launches.get(k, 0)
+                     + oracle_launches.get(k, 0)
                      + train_launches.get(k, 0)
                      + bf16_launches.get(k, 0)
                      + gen_launches.get(k, 0) + large_launches.get(k, 0)
@@ -6420,7 +6682,7 @@ def main() -> int:
     bwd_err = max(bwd_err, large_errs["gat_attention_backward"])
     h_err = max(h_err, large_errs["gat_attention_bf16"])
     hb_err = max(hb_err, large_errs["gat_attention_backward_bf16"])
-    sub_err = max(sub_err, large_sub_err, mix_sub_err, flat_err)
+    sub_err = max(sub_err, large_sub_err, mix_sub_err, flat_err, oracle_err)
     max_err = max(max_err, mix_err, serving_errs["gat_attention"])
     bwd_err = max(bwd_err, mix_bwd_err)
     h_err = max(h_err, serving_errs["gat_attention_bf16"])

@@ -6,7 +6,8 @@ nothing while it runs but its kernel libraries, so its sentinels watch
 those:
 
 - :class:`CompileMonitor` hooks ``ops.build`` (every library built with
-  ``nvcc`` or loaded with ``ctypes``) and ``ops.resource_codegen`` (every
+  ``nvcc`` or loaded with ``ctypes``; the native traffic sampler's g++
+  build and load report there too) and ``ops.resource_codegen`` (every
   plugin header generated for kernel #2) and, wired into a
   :class:`~gsc_tpu_torch.obs.MetricsHub`, emits one ``compile`` event per
   occurrence into the run's ``events.jsonl`` (``fn``: the library, as its
@@ -37,10 +38,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from ..ops.build import add_build_hook, remove_build_hook
 from .launches import SyncWatch
 
-# the port's kernel libraries (by source) and the plugin headers kernel
-# #2's builds include: a run builds or loads each of them once
+# the port's kernel libraries (by source), the plugin headers kernel #2's
+# builds include and the native traffic sampler (``native``, built with
+# g++): a run builds or loads each of them once
 DEFAULT_WATCH = ("gat_attention", "gat_attention_backward",
-                 "substep_megakernel", "resource_plugins")
+                 "substep_megakernel", "resource_plugins", "traffic_gen")
 
 
 class RetraceError(AssertionError):

@@ -118,7 +118,7 @@ class _Channel:
     def outstanding(self) -> int:
         # writers hold the cond; monitoring reads tolerate one block of
         # staleness (ints)
-        return self.produced_steps - self.ingested_steps
+        return self.produced_steps - self.ingested_steps  # gsc-lint: disable=R7 -- put() holds the cond; monitor reads tolerate staleness
 
     def put(self, block, steps: int, version: int, ready=None, timer=None,
             on_wait: Optional[Callable[[float], None]] = None) -> int:

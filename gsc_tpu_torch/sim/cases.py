@@ -275,6 +275,23 @@ def abilene_case(batch: int = 64, intervals: int = 3, seed: int = 0,
                         seed)
 
 
+def stochastic_abilene_case(intervals: int = 200) -> SubstepCase:
+    """One replica of bench.py's Abilene stack (the abc chain, 11 nodes
+    padded to 24, 14 edges to 37, 128 slots, 100 ms intervals, a node's
+    arrivals every 10 ms on average) under random traffic from the native
+    sampler: exponential inter-arrivals, Pareto sizes (shape 2, plus 1),
+    N(1, 0.2) data rates and two TTLs; a seeded schedule and placement
+    (``_seeded_tables``)."""
+    service = abc_service()
+    limits = EnvLimits.for_service(service)
+    cfg = SimConfig(ttl_choices=(50.0, 100.0), deterministic_arrival=False,
+                    deterministic_size=False, flow_size_shape=2.0,
+                    flow_dr_stdev=0.2)
+    topo = compile_topology(synthetic.abilene())
+    return _seeded_case("abilene_stochastic", service, cfg, limits, topo, 1,
+                        intervals, 0)
+
+
 def slot_sums_case(batch: int = 2, intervals: int = 2) -> SubstepCase:
     """Abilene under heavy traffic with stochastic processing delays (5 +-
     1 ms) and the "overhead" resource function: three or more fractional

@@ -1,12 +1,20 @@
 """Host-side traffic pre-generation -> TrafficSchedule tensors.
 
-The port's own copy of the numpy path of ``gsc_tpu.sim.traffic``: the
-whole episode's traffic (arrival times, rates, sizes, TTLs, SFC and
-egress choices, per-interval ingress activity and node capacity, and for
-link faults the per-interval edge capacity) is sampled on the host with
-numpy into one dense sorted schedule that the engine consumes.  The
-random draws come in the same order as the JAX package's numpy path, so
-one seed gives byte-equal schedules.
+The port's own copy of ``gsc_tpu.sim.traffic``: the whole episode's
+traffic (arrival times, rates, sizes, TTLs, SFC and egress choices,
+per-interval ingress activity and node capacity, and for link faults the
+per-interval edge capacity) is sampled on the host into one dense sorted
+schedule that the engine consumes.
+
+The flows come from the native sampler (``gsc_tpu_torch.native``, C++
+built with g++ at first use), as in the JAX package; its build failing
+raises.  ``GSC_TPU_NO_NATIVE=1`` picks the numpy loop below instead, the
+plain path, as it does in the JAX package.  Either way the per-interval
+means (the MMPP chain) are drawn first from numpy's generator, and one
+seed gives byte-equal schedules to the JAX package's same path.  The two
+paths draw in different orders, so they agree with each other only where
+nothing is random (deterministic arrivals and sizes, one TTL, one SFC,
+one egress).
 
 - deterministic vs Poisson arrivals: inter-arrival = mean or Exp(mean);
   first flow at t=0;
@@ -35,6 +43,7 @@ import numpy as np
 import torch
 
 from ..config.schema import ServiceConfig, SimConfig
+from ..native import generate_flows_native, native_disabled
 from ..topology.compiler import Topology
 from .state import TrafficSchedule, attach_edge_cap
 
@@ -143,6 +152,18 @@ def generate_traffic(cfg: SimConfig, service: ServiceConfig, topo: Topology,
     cap_f = capacity if capacity is not None else traffic_capacity(
         cfg, len(ing_idx), episode_steps)
 
+    if not native_disabled():
+        flows = generate_flows_native(
+            seed=seed, means=means, run_duration=cfg.run_duration,
+            dr_mean=cfg.flow_dr_mean, dr_stdev=cfg.flow_dr_stdev,
+            size_shape=cfg.flow_size_shape,
+            det_arrival=cfg.deterministic_arrival,
+            det_size=cfg.deterministic_size,
+            ttl_choices=np.asarray(cfg.ttl_choices), n_sfcs=len(sfc_ids),
+            egress_nodes=eg_idx, capacity=cap_f)
+        return _schedule(flows, np.arange(len(flows[0])), cap_f, active,
+                         caps, edge_cap_t)
+
     times: List[float] = []
     ingress: List[int] = []
     drs: List[float] = []
@@ -190,10 +211,17 @@ def generate_traffic(cfg: SimConfig, service: ServiceConfig, topo: Topology,
                 t += rng.exponential(mean)
 
     order = np.argsort(np.asarray(times, np.float64), kind="stable")
-    f = len(order)
-    if f > cap_f:
+    if len(order) > cap_f:
         order = order[:cap_f]
-        f = cap_f
+    return _schedule((times, ingress, drs, durs, ttls, sfcs, egs), order,
+                     cap_f, active, caps, edge_cap_t)
+
+
+def _schedule(flows, order: np.ndarray, cap_f: int, active: np.ndarray,
+              caps: np.ndarray, edge_cap_t) -> TrafficSchedule:
+    """Pad the flow records (times, ingress, drs, durs, ttls, sfcs, egs),
+    taken in ``order``, to ``cap_f`` slots as float32 / int32."""
+    f = len(order)
 
     def pad_f(vals, fill, dtype):
         out = np.full(cap_f, fill, dtype)
@@ -201,6 +229,7 @@ def generate_traffic(cfg: SimConfig, service: ServiceConfig, topo: Topology,
             out[:f] = np.asarray(vals, dtype)[order]
         return torch.from_numpy(out)
 
+    times, ingress, drs, durs, ttls, sfcs, egs = flows
     return attach_edge_cap(TrafficSchedule(
         arr_time=pad_f(times, np.inf, np.float32),
         arr_ingress=pad_f(ingress, 0, np.int32),

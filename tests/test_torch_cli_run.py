@@ -7,7 +7,8 @@ tests/test_torch_single_env.py.
   ``series.json``, ``curves.json``, ``perf.json``, ``result.yaml`` and
   ``run.log``; its event kinds are the JAX ``cli train`` run's set minus
   ``compile`` (the port's compile monitor reports kernel-library builds
-  and loads, of which a CPU run has none); ``run_start`` records the
+  and loads, of which a CPU run has none but the native traffic
+  sampler's); ``run_start`` records the
   ledger and the monitor on; ``tools/obs_report.py`` exits 0 on it and
   ``tools/bench_diff.py ingest`` finds its ``curves_<run>`` and
   ``perf_<run>`` rows; the last ``series.json`` point
@@ -16,9 +17,8 @@ tests/test_torch_single_env.py.
   handlers;
 - ``--runs 2`` reports the run ``select_best_agent`` picks;
 - ``simulate`` on Abilene equals the JAX ``cli simulate``: the integer
-  fields exactly, ``avg_end2end_delay`` to rel 1e-6 (a simulator config
-  without ``flow_dr_stdev``: the JAX package's native sampler draws in
-  another order, ROADMAP Queue 3), also under ``controller: per_flow``
+  fields exactly, ``avg_end2end_delay`` to rel 1e-6 (both packages'
+  native traffic sampler), also under ``controller: per_flow``
   (the local per-flow algorithm, the default ``--per-flow-algo``);
 - one bf16 single-env episode (2 warm-up steps, 2 acting steps, the
   4-step learn burst) against the JAX package's ``DDPG.episode_step`` on
@@ -106,8 +106,12 @@ def test_default_run_writes_what_the_tools_read(configs, tmp_path, capsys):
                  "rewards.csv"):
         assert (run / name).is_file(), name
     events = _events(run / "events.jsonl")
-    kinds = {e["event"] for e in events}
+    # the port's only compile source on the CPU: the native traffic
+    # sampler's build and load, when this is the process's first run
+    kinds = {e["event"] for e in events} - {"compile"}
     assert kinds == jkinds - NOT_PORTED_EVENTS
+    assert {e["fn"].rsplit("_", 1)[0] for e in events
+            if e["event"] == "compile"} <= {"traffic_gen"}
     start = events[0]
     assert start["event"] == "run_start" and start["pipeline"] is True
     assert start["perf"] is True and start["compile_events"] is True

@@ -496,6 +496,10 @@ def test_the_cost_ledger_and_sentinels_run_with_jax_blocked(tmp_path):
         "topo = compile_topology(synthetic.triangle(), max_nodes=8,",
         "    max_edges=8)",
         "driver = EpisodeDriver.single(topo, sim, abc_service(), 3, 'tri')",
+        # the native traffic sampler loads once, before the regions, as
+        # the kernel libraries do on the card
+        "from gsc_tpu_torch.native import load_library",
+        "load_library()",
         "for name in ('p', 'r'):",
         f"    d = {str(tmp_path)!r} + '/' + name",
         "    obs = RunObserver(d, perf=True).start()",

@@ -22,7 +22,6 @@ import numpy as np
 import pytest
 import torch
 
-import gsc_tpu.native
 from gsc_tpu.config.catalog import abc_service as j_abc
 from gsc_tpu.config.schema import EnvLimits as JLimits
 from gsc_tpu.config.schema import SimConfig as JSim
@@ -56,6 +55,7 @@ from gsc_tpu_torch.topology.scenarios import (DEFAULT_REGISTRY,
                                               shape_trace, validate_mix)
 from gsc_tpu_torch.topology.synthetic import line, triangle
 from test_torch_env import _compare
+import torch_port_helpers
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
 N = E = 8
@@ -69,10 +69,9 @@ AGENT = dict(episode_steps=2, gnn_features=4, gnn_num_layers=1,
 
 @pytest.fixture(autouse=True)
 def numpy_traffic_path(monkeypatch):
-    """The JAX package's numpy traffic path (its native sampler draws in
-    another order where rates are random; ROADMAP Queue 3)."""
-    monkeypatch.setattr(gsc_tpu.native, "generate_flows_native",
-                        lambda **kw: None)
+    """Both packages' numpy traffic path (the plain path, byte-equal
+    between them as the native one is)."""
+    torch_port_helpers.numpy_traffic_path(monkeypatch)
 
 
 def _bytes_equal(a, b, name):

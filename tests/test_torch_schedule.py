@@ -17,8 +17,7 @@ service, controller and capacity-override options.
 - ``load_scheduler`` resolves the same paths; the driver's
   ``topology_for`` picks the same networks over 7 episodes (period 2,
   three networks, and test mode) and ``traffic_for`` samples byte-equal
-  traffic (``flow_dr_stdev`` 0, so the JAX package's native sampler stays
-  out of it).
+  traffic (both packages' native sampler).
 
 Tolerance: none, every comparison is exact.
 """

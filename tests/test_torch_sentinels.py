@@ -80,7 +80,12 @@ def test_no_host_sync_guards_its_own_thread_only():
 @pytest.fixture
 def fake_toolchain(tmp_path, monkeypatch):
     """``ops.build`` with a stand-in nvcc (writes the library file) and
-    loader (returns the path): builds and loads happen, nothing runs."""
+    loader (returns the path): builds and loads happen, nothing runs.
+    The native traffic sampler loads for real first: the stand-ins
+    replace ``subprocess.run`` and ``ctypes.CDLL`` process-wide."""
+    from gsc_tpu_torch.native import load_library
+
+    load_library()
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
     monkeypatch.setattr(build, "nvcc", lambda: "nvcc")
 

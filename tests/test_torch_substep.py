@@ -93,15 +93,13 @@ def _run_both(case, jtopo=None, jcfg_override=None):
     steps = int(case.traffic.node_cap.shape[1])
     jtraf = [j_traffic(jcfg, jsvc, jtopo, steps, seed=s) for s in case.seeds]
     ttraf = [_to_port_traffic(j) for j in jtraf]
-    if jcfg.flow_dr_stdev == 0.0:
-        # the port's own traffic of this case is byte-equal to the JAX
-        # one (with random data rates the JAX package's native sampler
-        # draws in another order than the numpy path the port copies)
-        for r, t in enumerate(ttraf):
-            for f in dataclasses.fields(t):
-                np.testing.assert_array_equal(
-                    getattr(case.traffic, f.name)[r].numpy(),
-                    getattr(t, f.name).numpy(), err_msg=f.name)
+    # the port's own traffic of this case is byte-equal to the JAX one
+    # (both packages sample with the same native sampler)
+    for r, t in enumerate(ttraf):
+        for f in dataclasses.fields(t):
+            np.testing.assert_array_equal(
+                getattr(case.traffic, f.name)[r].numpy(),
+                getattr(t, f.name).numpy(), err_msg=f.name)
     ttraf = TrafficSchedule(**{
         f: torch.stack([getattr(t, f) for t in ttraf])
         for f in TrafficSchedule._RANKS})

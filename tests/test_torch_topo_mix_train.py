@@ -16,7 +16,6 @@ import numpy as np
 import pytest
 import torch
 
-import gsc_tpu.native
 from gsc_tpu.config.catalog import abc_service as j_abc
 from gsc_tpu.config.schema import AgentConfig as JAgent
 from gsc_tpu.config.schema import EnvLimits as JLimits
@@ -40,6 +39,7 @@ from gsc_tpu_torch.topology.scenarios import (DEFAULT_REGISTRY,
                                               mix_traffic_host, plan_mix)
 from gsc_tpu_torch.utils.convert import learner_state_from_jax
 from test_torch_train import _state_tree
+from torch_port_helpers import numpy_traffic_path
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
 REGISTRY_MIX = "schedule,abilene+bursty,star12~link@1.0,random12:7"
@@ -180,8 +180,7 @@ def test_mixed_rollout_matches_jax(monkeypatch):
     ``ParallelDDPG`` and the JAX package's, on the same host mix traffic
     and converted parameters, past the warm-up with no exploration noise:
     per-replica rewards and every replay row agree."""
-    monkeypatch.setattr(gsc_tpu.native, "generate_flows_native",
-                        lambda **kw: None)
+    numpy_traffic_path(monkeypatch)
     mix, b, steps, n = "triangle,line3~link@1.0,ring5", 4, 3, 8
     kw = dict(episode_steps=steps, gnn_features=8, gnn_num_layers=2,
               gnn_num_iter=1, actor_hidden_layer_nodes=(32,),

@@ -6,7 +6,6 @@ import dataclasses
 import numpy as np
 import pytest
 
-import gsc_tpu.native
 from gsc_tpu.config.schema import SimConfig as JSimConfig
 from gsc_tpu.config.catalog import abc_service as j_abc_service
 from gsc_tpu.sim.traffic import generate_traffic as j_generate_traffic
@@ -18,6 +17,7 @@ from gsc_tpu_torch.config.schema import SimConfig
 from gsc_tpu_torch.sim.traffic import generate_traffic
 from gsc_tpu_torch.topology import synthetic
 from gsc_tpu_torch.topology.compiler import Topology, compile_topology
+from torch_port_helpers import numpy_traffic_path
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
 SPECS = {
@@ -81,11 +81,10 @@ def test_traffic_byte_equal_init_configs(topo_name):
 
 
 def test_traffic_byte_equal_stochastic_numpy_path(monkeypatch):
-    """Poisson arrivals, Pareto sizes, noisy rates and two TTLs against the
-    JAX package's numpy path (its native sampler switched off): the port
-    draws in the same order, so the bytes agree."""
-    monkeypatch.setattr(gsc_tpu.native, "generate_flows_native",
-                        lambda **kw: None)
+    """Poisson arrivals, Pareto sizes, noisy rates and two TTLs on both
+    packages' numpy path (``GSC_TPU_NO_NATIVE=1``): the port draws in the
+    same order, so the bytes agree."""
+    numpy_traffic_path(monkeypatch)
     kw = dict(inter_arrival_mean=7.0, deterministic_arrival=False,
               flow_dr_mean=1.0, flow_dr_stdev=0.3, flow_size_shape=2.0,
               deterministic_size=False, run_duration=100.0,

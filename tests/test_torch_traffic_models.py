@@ -1,16 +1,16 @@
 """The port's MMPP and trace traffic against the JAX package's host
-generator (its numpy path), mirroring tests/test_traffic.py:44-86: the
-same configs and seeds give byte-equal schedules.  With deterministic
-arrivals and sizes the JAX package's native sampler gives the same bytes
-as its numpy path, and both are checked; with random ones the native
-sampler draws in another order (ROADMAP Queue 3), so those cases switch
-it off.  Tolerance: none — every comparison is exact."""
+generator, mirroring tests/test_traffic.py:44-86: the same configs and
+seeds give byte-equal schedules, on the native sampler (both packages'
+default) and on the numpy path (``GSC_TPU_NO_NATIVE=1`` in both).  With
+deterministic arrivals and sizes both paths give the same bytes; with
+random ones they draw in different orders, so each is compared with its
+own counterpart (tests/test_torch_native_traffic.py has the native
+stochastic cases).  Tolerance: none — every comparison is exact."""
 import dataclasses
 
 import numpy as np
 import pytest
 
-import gsc_tpu.native
 from gsc_tpu.config.schema import MMPPState as JMMPP
 from gsc_tpu.config.schema import ServiceConfig as JService
 from gsc_tpu.config.schema import ServiceFunction as JSF
@@ -26,6 +26,7 @@ from gsc_tpu_torch.config.schema import (MMPPState, ServiceConfig,
 from gsc_tpu_torch.sim.state import TrafficSchedule
 from gsc_tpu_torch.sim.traffic import TraceEvents, generate_traffic
 from gsc_tpu_torch.topology.compiler import NetworkSpec, compile_topology
+from torch_port_helpers import numpy_traffic_path
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
 N, E = 8, 8
@@ -79,8 +80,7 @@ def test_mmpp_traffic_byte_equal(name, native, monkeypatch):
     44-60), deterministic arrivals: byte-equal over 40 intervals, with
     both dense and sparse intervals."""
     if not native:
-        monkeypatch.setattr(gsc_tpu.native, "generate_flows_native",
-                            lambda **kw: None)
+        numpy_traffic_path(monkeypatch)
     jcfg, tcfg = _cfgs(**MMPP_CASES[name])
     jsvc, tsvc = _services()
     jt, tt = _topos(2)
@@ -94,11 +94,10 @@ def test_mmpp_traffic_byte_equal(name, native, monkeypatch):
 
 
 def test_mmpp_poisson_traffic_byte_equal_numpy_path(monkeypatch):
-    """MMPP under Poisson arrivals, Pareto sizes and noisy rates, against
-    the JAX package's numpy path: the chain and the flows draw from one
-    generator in the same order."""
-    monkeypatch.setattr(gsc_tpu.native, "generate_flows_native",
-                        lambda **kw: None)
+    """MMPP under Poisson arrivals, Pareto sizes and noisy rates, on both
+    packages' numpy path: the chain and the flows draw from one generator
+    in the same order."""
+    numpy_traffic_path(monkeypatch)
     jcfg, tcfg = _cfgs(ttl_choices=(50.0, 100.0), use_states=True,
                        init_state="s1", rand_init_state=True,
                        states=STATES, deterministic_arrival=False,
@@ -127,8 +126,7 @@ def test_trace_traffic_byte_equal(name, native, monkeypatch):
     """Trace rows deactivate, reactivate and re-mean ingresses and raise
     node capacities from their interval on: byte-equal schedules."""
     if not native:
-        monkeypatch.setattr(gsc_tpu.native, "generate_flows_native",
-                            lambda **kw: None)
+        numpy_traffic_path(monkeypatch)
     jcfg, tcfg = _cfgs(ttl_choices=(100.0,))
     jsvc, tsvc = _services()
     jt, tt = _topos(2)

@@ -16,6 +16,18 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+def numpy_traffic_path(monkeypatch):
+    """Both packages' numpy traffic path (the plain path) for the rest of a
+    test: the port's by ``GSC_TPU_NO_NATIVE=1``, which it reads at every
+    call, and the JAX package's by stubbing its native entry, because its
+    loader reads the variable only once per process."""
+    import gsc_tpu.native
+
+    monkeypatch.setenv("GSC_TPU_NO_NATIVE", "1")
+    monkeypatch.setattr(gsc_tpu.native, "generate_flows_native",
+                        lambda **kw: None)
+
+
 class ArrayTemplate:
     """The batcher's template contract for requests that are one numpy
     array each: stub backends of the serving tests need no ``GraphObs``."""
