@@ -152,9 +152,9 @@ Phases (any failure exits non-zero and prints no result line):
    call within ANSWER_BF16_RTOL / ANSWER_BF16_ATOL outside rows with a
    value within THRESH_BF16_TOL of the threshold; prints requests/s and
    p50/p99;
-12. (printed after phase 20) a JSON line
+12. (printed after phase 25) a JSON line
    of the kernels (name, route, source, the TPU kernel it replaces,
-   launches summed over the runs of phases 8, 10, 13-20, max abs
+   launches summed over the runs of phases 8, 10, 13-25, max abs
    error, ms, plain ms, bound ms and what bounds it, library ms);
 13. the generalization slice, the reference's own training path at the
    flagship widths: ``cli.init_configs`` writes the yaml set and the
@@ -252,15 +252,17 @@ Phases (any failure exits non-zero and prints no result line):
    card bit-equal to the host generator on the init-configs traffic over
    Abilene (200 intervals), and one ``sample_batch`` and one factory
    draw at B=64: wall ms and kernel launches; (d) ``cli.run_train`` at
-   B=64 for 2 episodes under ``GEN_REGISTRY_MIX`` and (e) under
+   B=64 for 2 episodes of GEN_MIX_STEPS steps (the first all warm-up)
+   under ``GEN_REGISTRY_MIX`` and (e) under
    ``GEN_FACTORY_MIX`` with the TD curriculum, each with phase 8's checks
    (15 forward and 6 backward attention launches per gradient step, one
    megakernel launch per env step, every parameter moved, finite losses,
    gradients through the kernels against the dense path), the replay's
    per-replica ``topo_idx`` (the replica's mix entry; factory families),
    per-entry returns, curriculum weights summing to 1 with every family
-   at or above floor/K; (f) one B=64 and one single-env episode with
-   ``shuffle_nodes: true`` (launch counts checked).  Prints each part's
+   at or above floor/K; (f) one B=64 and one single-env episode of
+   GEN_MIX_STEPS steps with ``shuffle_nodes: true`` (launch counts
+   checked).  Prints each part's
    seconds, (d) and (e)'s env-steps/s and burst seconds beside the card's
    name and power limit; the kernels line's launch counts include this
    phase's;
@@ -276,7 +278,8 @@ Phases (any failure exits non-zero and prints no result line):
    on the served batches against its plain version within phase 3's
    (f32) and phase 9's (bf16) tolerances; (c) train-while-serve:
    ``cli train --replicas 64 --hot-swap-dir`` for TWS_EPISODES episodes
-   of TWS_STEPS steps, publishing every episode, while a two-worker fleet
+   of TWS_STEPS steps (warm-up TWS_WARMUP), publishing every episode,
+   while a two-worker fleet
    watching that directory serves closed-loop load: zero errors and
    rejections, every version adopted once by each worker, every answer
    bit-identical to a single-shot call at its bucket under the weights of
@@ -352,18 +355,20 @@ Phases (any failure exits non-zero and prints no result line):
 20. decoupled actor/learner training (``async_slice``) at B=64 over
    ASYNC_ARGS (3 episodes of ASYNC_STEPS steps, the first all warm-up;
    the init-configs agent otherwise): (a) ``cli train`` (the
-   synchronous ``train_parallel``) and ``cli train --async`` with 1 and
-   2 actor threads (each on its own CUDA stream; ``--max-staleness``
+   synchronous ``train_parallel``) and ``cli train --async`` with 2
+   actor threads (each on its own CUDA stream; ``--max-staleness``
    ASYNC_STALENESS), each with phase 8's launch counts per env step and
    gradient step; under ``--async`` produced == ingested steps, no
    transition lost, one burst per episode, at least one publish adopted
    by an actor; prints env-steps/s, bursts/s, the idle fractions, the
    largest policy lag and the final-window return and mean return of
    each run beside the card's name and power limit; (b) one actor with
-   publishing frozen (``--publish-bursts 1000000``), twice: both replays
+   publishing frozen (``--publish-bursts 1000000``), exploration noise
+   on, ASYNC_FROZEN_EPISODES episodes, twice: both replays
    bit-identical (``--learn-ratio 0.5``: one burst, which the replay
-   does not depend on); (c) ``--fault-plan ASYNC_FAULT_PLAN``: an actor restart
-   and a quarantined block, nothing lost, a finite final state;
+   does not depend on); phase 25 (a) reruns it on two ranks; (c)
+   ``--fault-plan ASYNC_FAULT_PLAN``: an actor restart and a quarantined
+   block, nothing lost, a finite final state;
 21. the mesh on the card (``mesh_slice``): ``train --replicas 64 --mesh
    DPxMP`` at the flagship widths on Abilene, 50-step episodes
    (``MESH_AGENT_YAML``), the ``sharded`` book unless named.  (a) one
@@ -376,7 +381,7 @@ Phases (any failure exits non-zero and prints no result line):
    final learner state ``torch.equal`` to (a)'s run without a mesh, the
    leaves split by each mp > 1 leg printed (> 0); (c) warm-up 50 steps,
    2 episodes (the warm-up episode and one more, each ending in a learn
-   burst): 4x1 equals 2x2 and 2x1 equals 1x2, the largest difference to
+   burst): 4x1 equals 2x2, the largest difference to
    the run without a mesh printed, beside a witness of its cause
    (``acting_rows_witness``: the actor on the 64 acting rows of one step
    against the same rows in 2 slices of 32 and 4 of 16, the row counts
@@ -474,7 +479,31 @@ Phases (any failure exits non-zero and prints no result line):
    processes aside, (c) and (d) before phase 23 (``host_checks``), so
    all of them run beside other phases; the kernels line's launch counts
    include (a) and (b);
-25. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+25. ``train --async --mesh`` (``async_mesh_slice``): one launch of 2
+   ranks sharing the card (gloo) runs, as legs of ``cli.mesh_legs``:
+   (a) phase 20 (b)'s frozen-publish run, exploration noise on, on
+   ``--mesh 2x1`` (one actor per rank, its rows ``plan.rows(64)``, its
+   noise the rows of the 64 the one process draws): the gathered replay
+   bit-identical to phase 20 (b)'s one-process replay; (b) 2 actors per
+   rank, publishing, ASYNC_MESH_EPISODES 50-step episodes after a
+   50-step warm-up: every episode drained on both ranks, at least one
+   publish, equal burst counts; prints env-steps/s summed over ranks,
+   bursts/s, the policy lag, the learner's and actors' idle fractions
+   and the batch gather's ms per gradient step beside phase 20's
+   one-process numbers of this call; (c) a flat agent (the same widths,
+   ``graph_mode: false``) under ``--async --mesh 2x1 --partition-rules
+   sharded``, one 50-step episode whose second half is past the
+   warm-up, drained on both ranks; (d) in (c)'s run a ``watcher_stall``
+   fault holds actor 0 in its adoption for ASYNC_MESH_STALL[0] s against
+   a watchdog budget of ASYNC_MESH_STALL[1] s: rank 0's observer
+   (``events.jsonl``) and rank 1's own hub each record a ``stall``
+   naming ``actor0`` in phase ``adopt``.  Every leg: both ranks' learner
+   states bit-equal (``state_sha256``), 0 collectives from actor threads
+   and from ingests, produced == ingested steps, kernel #2 launched on
+   every rank (kernel #1 too, but for the flat agent); prints each leg's
+   seconds; the kernels line's launch counts include this phase's,
+   summed over ranks;
+26. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Tolerances (stated here, used below): the attention kernel against its
 plain version rtol 1e-5 / atol 1e-5 (f32 in another summation order: the
@@ -614,8 +643,11 @@ TRAIN_ARGS = ["--replicas", "64", "--chunk", "50", "--episodes", "2",
 # a star with a dead link from interval 3, a seeded random network) and
 # the factory mix; the flagship agent with node shuffling
 GEN_REGISTRY_MIX = "schedule,abilene+bursty,star12~link@3.0,random12:7"
+# the mixes' and the shuffled runs' episodes (and the mixes' warm-up),
+# cut from the agent's 200 steps for the time limit
+GEN_MIX_STEPS = 50
 GEN_FACTORY_MIX = "factory:all+shapes~faults"
-SHUFFLE_AGENT_YAML = ("episode_steps: 200\nobjective: prio-flow\n"
+SHUFFLE_AGENT_YAML = (f"episode_steps: {GEN_MIX_STEPS}\nobjective: prio-flow\n"
                       "gnn_impl: pallas\nshuffle_nodes: true\n")
 # phase 15: the default train run on phase 13's schedule, its episodes
 # cut from 200 to DEFAULT_RUN_STEPS steps (warm-up as long, so every
@@ -653,7 +685,11 @@ BUCKETS = (1, 4, 8)
 # overloaded fleet's requests and clients
 SPR_REQUESTS, FLEET_REQUESTS, TRACE_REQUESTS, D2H_REQUESTS = 64, 256, 64, 64
 SERVE_CONCURRENCY = 8
-TWS_EPISODES, TWS_STEPS, TWS_POLL_S, TWS_WARM = 2, 50, 0.05, 200
+TWS_EPISODES, TWS_STEPS, TWS_POLL_S, TWS_WARM = 1, 50, 0.05, 200
+# train-while-serve's warm-up: half its one episode, which then ends in a
+# learn burst and a publish (one episode of two gave way to the time
+# limit)
+TWS_WARMUP = TWS_STEPS // 2
 # train-while-serve's clients: fewer than the fleets' SERVE_CONCURRENCY,
 # since every client thread takes the interpreter from the trainer
 TWS_CONCURRENCY = 4
@@ -719,18 +755,28 @@ PLUGIN_AGENT_YAML = (f"episode_steps: {PLUGIN_EPISODE_STEPS}\n"
 # plugins
 PLUGIN_ABILENE_BATCH = 16
 PLUGIN_PERFLOW_SUBSTEPS = 50
-# phase 20: decoupled training at B=64 (episodes of 200 steps, the first
-# all warm-up), the staleness bound (one episode's steps at B=64, so that
-# the actors wait for the learner's first publish and adopt it), the
-# frozen-publish runs and the fault plan
-ASYNC_ARGS = ["--replicas", "64", "--chunk", "50", "--episodes", "3",
+# phase 20: decoupled training at B=64 (episodes of ASYNC_STEPS steps,
+# the first all warm-up), the staleness bound (one episode's steps at
+# B=64, so that the actors wait for the learner's first publish and adopt
+# it), the frozen-publish runs and the fault plan
+ASYNC_ARGS = ["--replicas", "64", "--chunk", "25", "--episodes", "3",
               "--seed", "0"]
 # the init-configs agent with episodes (and warm-up) of ASYNC_STEPS steps
-# (halved from the agent's 200 for the time limit)
-ASYNC_STEPS = 100
+# (cut from the agent's 200 for the time limit; two chunks of 25, so that
+# an actor adopts a publish within an episode)
+ASYNC_STEPS = 50
 ASYNC_STALENESS = 64 * ASYNC_STEPS
-ASYNC_FROZEN_EPISODES = 2
 ASYNC_FAULT_PLAN = "actor_die@a1:1;ring_poison@2"
+# phase 20 (b), which phase 25 (a) reruns on two ranks: the same agent,
+# one actor, publishing frozen, exploration noise on (the second episode
+# acts through the actor)
+ASYNC_FROZEN_EPISODES = 2
+# phase 25: (b)'s episodes (the first all warm-up), (c)'s warm-up within
+# its one flat episode, (d)'s hold of actor 0 in its adoption and the
+# watchdog's budget, seconds
+ASYNC_MESH_EPISODES = 2
+ASYNC_MESH_FLAT_WARMUP = 25
+ASYNC_MESH_STALL = (3.0, 1.0)
 
 
 # phase 21: the flagship agent with 50-step episodes (warm-up 200 steps:
@@ -746,8 +792,9 @@ MESH_AGENT_YAML = (
 MESH_ARGS = ["--replicas", "64", "--chunk", "50", "--seed", "0",
              "--no-perf"]
 MESH_DEADLINE_S = 600.0
-# a cold run and a warm one
-MESH_ONE_RUNS = 2
+# 1x1 runs in one rank process (the warm second gave way to the time
+# limit)
+MESH_ONE_RUNS = 1
 # phase 22 and phase 21 (g): the cost ledger on MESH_AGENT_YAML's
 # flagship agent with a 50-step warm-up (every episode ends in a learn
 # burst), 2 episodes of 50 steps: the observed one, left out of the
@@ -3248,7 +3295,9 @@ def _generalization_parts(torch, dev, smi, gen_cases, refs, laps, fmt):
         for k, v in c.items():
             counts[k] = counts.get(k, 0) + v
 
-    c, reg = train_slice(torch, dev, smi, args=TRAIN_ARGS + [
+    mix_root = tempfile.mkdtemp(prefix="gsc_mix_")
+    mix_agent = ["--agent-config", short_agent_yaml(mix_root, GEN_MIX_STEPS)]
+    c, reg = train_slice(torch, dev, smi, args=TRAIN_ARGS + mix_agent + [
         "--topo-mix", GEN_REGISTRY_MIX], label=" registry mix",
         result_dir=False)
     add(c)
@@ -3269,8 +3318,9 @@ def _generalization_parts(torch, dev, smi, gen_cases, refs, laps, fmt):
           f"; replay topo_idx per replica = its entry", flush=True)
     laps.lap("d")
 
-    c, fac = train_slice(torch, dev, smi, args=TRAIN_ARGS + [
+    c, fac = train_slice(torch, dev, smi, args=TRAIN_ARGS + mix_agent + [
         "--topo-mix", GEN_FACTORY_MIX], label=" factory", result_dir=False)
+    shutil.rmtree(mix_root, ignore_errors=True)
     add(c)
     trainer = fac["result"]["trainer"]
     cur = trainer.obs.events.of_kind("curriculum")
@@ -3849,7 +3899,7 @@ def serving_slice(torch, dev, smi, ck_f32, ck_bf16):
             f.write(text.replace("episode_steps: 200",
                                  f"episode_steps: {TWS_STEPS}")
                     .replace("nb_steps_warmup_critic: 200",
-                             f"nb_steps_warmup_critic: {TWS_STEPS}")
+                             f"nb_steps_warmup_critic: {TWS_WARMUP}")
                     + "gnn_impl: pallas\n")
         obs = RunObserver(None)
         stop = threading.Event()
@@ -4796,14 +4846,49 @@ def plugin_slice(torch, dev, smi, parent):
     return total, numbers
 
 
+def short_agent_yaml(root: str, steps: int) -> str:
+    """The init-configs agent (``gnn_impl: pallas``) with episodes and
+    warm-up of ``steps`` steps, written under ``root``."""
+    from gsc_tpu_torch import cli
+
+    cli.init_configs(os.path.join(root, "cfg"))
+    path = os.path.join(root, f"agent{steps}.yaml")
+    with open(os.path.join(root, "cfg", "agent.yaml")) as f:
+        text = f.read()
+    with open(path, "w") as f:
+        f.write(text.replace("episode_steps: 200", f"episode_steps: {steps}")
+                .replace("nb_steps_warmup_critic: 200",
+                         f"nb_steps_warmup_critic: {steps}")
+                + "gnn_impl: pallas\n")
+    return path
+
+
+def async_agent_yaml(root: str) -> str:
+    """Phase 20's and phase 25 (a)'s agent file under ``root``: the
+    init-configs agent with episodes (and warm-up) of ASYNC_STEPS
+    steps."""
+    return short_agent_yaml(root, ASYNC_STEPS)
+
+
+def frozen_argv(agent_yaml: str) -> list:
+    """Phase 20 (b)'s run: one actor, publishing frozen (one burst at
+    ``--learn-ratio 0.5``, which the replay does not depend on),
+    exploration noise on."""
+    return ["--agent-config", agent_yaml, *ASYNC_ARGS[:-4], "--episodes",
+            str(ASYNC_FROZEN_EPISODES), "--seed", "0", "--async",
+            "--async-actors", "1", "--publish-bursts", "1000000",
+            "--learn-ratio", "0.5", "--no-obs"]
+
+
 def async_slice(torch, dev, smi):
     """Phase 20: decoupled actor/learner training (``cli train --async``)
-    at B=64.  (a) ``train_parallel`` and ``--async`` with 1 and 2 actor
+    at B=64.  (a) ``train_parallel`` and ``--async`` with 2 actor
     threads over the same episodes, each with phase 8's launch counts,
     the drain accounting and an adopted publish; (b) a single-actor run
-    with publishing frozen, twice: the replay bit-identical; (c) a fault
-    plan with an actor death and a poisoned block, both recovered.
-    Returns the launches on the main path by kernel."""
+    with publishing frozen, twice: the replay bit-identical; (c) a fault plan with an actor death and a poisoned
+    block, both recovered.  Returns the launches on the main path by
+    kernel, and what phase 25 compares with: (a)'s rows and (b)'s replay
+    on the CPU."""
     from gsc_tpu_torch import cli
     from gsc_tpu_torch.ops.gat_attention import (gat_attention,
                                                  gat_attention_backward)
@@ -4816,24 +4901,16 @@ def async_slice(torch, dev, smi):
     total = {k: 0 for k in ops}
     laps = Laps()
     root = tempfile.mkdtemp(prefix="gsc_async_")
-    cli.init_configs(os.path.join(root, "cfg"))
-    agent_yaml = os.path.join(root, "agent.yaml")
-    with open(os.path.join(root, "cfg", "agent.yaml")) as f:
-        text = f.read()
-    with open(agent_yaml, "w") as f:
-        f.write(text.replace("episode_steps: 200",
-                             f"episode_steps: {ASYNC_STEPS}")
-                .replace("nb_steps_warmup_critic: 200",
-                         f"nb_steps_warmup_critic: {ASYNC_STEPS}")
-                + "gnn_impl: pallas\n")
+    agent_yaml = async_agent_yaml(root)
 
     def counted(argv):
         for op in ops.values():
             op.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = cli.run_train(argv + ["--no-obs", "--agent-config",
-                                    agent_yaml])
+        own = ([] if "--agent-config" in argv
+               else ["--no-obs", "--agent-config", agent_yaml])
+        res = cli.run_train(argv + own)
         torch.cuda.synchronize()
         res["wall"] = time.perf_counter() - t0
         counts = {k: op.launches for k, op in ops.items()}
@@ -4860,7 +4937,7 @@ def async_slice(torch, dev, smi):
             res["trainer"].history, key=lambda h: h["episode"])]
         return r[-1], sum(r) / len(r)
 
-    # (a) the synchronous loop and 1 and 2 actor threads
+    # (a) the synchronous loop and 2 actor threads
     rows = {}
     sync, counts = counted(ASYNC_ARGS)
     check_counts(sync, counts, "train_parallel")
@@ -4872,7 +4949,9 @@ def async_slice(torch, dev, smi):
     rows["sync"] = {"env_steps_s": steps / sync["summary"]["train_s"],
                     "bursts_s": eps / sync["summary"]["train_s"],
                     "curve": curve(sync)}
-    for n in (1, 2):
+    # one actor thread is (b)'s and phase 25 (a)'s (a run with 1 actor
+    # here gave way to phase 25 for the time limit)
+    for n in (2,):
         res, counts = counted(ASYNC_ARGS + [
             "--async", "--async-actors", str(n), "--max-staleness",
             str(ASYNC_STALENESS)])
@@ -4908,10 +4987,8 @@ def async_slice(torch, dev, smi):
     laps.lap("a runs")
 
     # (b) one actor, publishing frozen: the replay bit for bit, twice
-    frozen_args = ASYNC_ARGS[:-4] + [
-        "--episodes", str(ASYNC_FROZEN_EPISODES), "--seed", "0", "--async",
-        "--async-actors", "1", "--publish-bursts", "1000000",
-        "--learn-ratio", "0.5"]
+    # (phase 25 (a) holds two ranks' gathered replay against it)
+    frozen_args = frozen_argv(agent_yaml)
     rings = []
     for _ in range(2):
         res, counts = counted(frozen_args)
@@ -4951,7 +5028,7 @@ def async_slice(torch, dev, smi):
     print("phase 20 parts, s: " + ", ".join(
         f"{k} {v:.3f}" for k, v in laps.seconds.items()), flush=True)
     shutil.rmtree(root, ignore_errors=True)
-    return total
+    return total, {"rows": rows, "frozen_ring": rings[0].to("cpu")}
 
 
 def acting_rows_witness(torch, out, same, smi):
@@ -5110,10 +5187,6 @@ def mesh_slice(torch, dev, smi):
            ("(b) 1x2 replicated", warm + ["--mesh", "1x2",
                                           "--partition-rules",
                                           "replicated"]),
-           ("(c) 2x1", past + ["--mesh", "2x1", "--partition-rules",
-                               "sharded"]),
-           ("(c) 1x2", past + ["--mesh", "1x2", "--partition-rules",
-                               "sharded"]),
            ("(d) 2x1 resumed", argv(200, 3, "--result-dir", res,
                                     "--experiment-id", "mesh",
                                     "--resume", "auto") + [
@@ -5139,7 +5212,8 @@ def mesh_slice(torch, dev, smi):
     laps.lap("b")
     past_state, _, past_ref = no_mesh(past)
     acting_rows_witness(torch, past_ref, same, smi)
-    for a, b in (("(c) 2x1", "(c) 1x2"), ("(c) 4x1", "(c) 2x2")):
+    # (the 2-rank pair 2x1 == 1x2 gave way to the time limit)
+    for a, b in (("(c) 4x1", "(c) 2x2"),):
         check(equal_states(runs[a]["state"], runs[b]["state"]),
               f"{a} and {b} end with different learner states")
         diff = max((runs[a]["state"][k].double()
@@ -6339,6 +6413,165 @@ def oracle_traffic_slice(torch, dev, smi, refs, checks):
             max(worst_a, worst_b))
 
 
+def async_mesh_slice(torch, dev, smi, ref):
+    """Phase 25: ``train --async --mesh 2x1`` on two ranks sharing the
+    card (gloo), one launch running (a)-(d) (the module docstring) as
+    legs of ``cli.mesh_legs``.  ``ref``: phase 20's rows and (b)'s
+    replay.  Returns the launches on the main path by kernel, summed over
+    ranks."""
+    from gsc_tpu_torch import cli
+    from gsc_tpu_torch.parallel.mesh import launch
+
+    laps = Laps()
+    root = tempfile.mkdtemp(prefix="gsc_async_mesh_")
+    total = {}
+    same = lambda a, b: torch.equal(a.reshape(-1).view(torch.uint8),
+                                    b.reshape(-1).view(torch.uint8))
+
+    def agent(name, text):
+        path = os.path.join(root, name)
+        with open(path, "w") as f:
+            f.write(text)
+        return path
+
+    fleet_yaml = agent("fleet.yaml", MESH_AGENT_YAML.format(warmup=50))
+    flat_yaml = agent("flat.yaml", MESH_AGENT_YAML.format(
+        warmup=ASYNC_MESH_FLAT_WARMUP).replace("graph_mode: true",
+                                               "graph_mode: false"))
+    flat_dir = os.path.join(root, "flat")
+    hold, budget = ASYNC_MESH_STALL
+    two = ["--mesh", "2x1", "--partition-rules", "replicated"]
+    legs = [
+        ("(a) 2x1, 1 actor per rank, frozen",
+         frozen_argv(async_agent_yaml(root)) + two),
+        ("(b) 2x1, 2 actors per rank", [
+            "--agent-config", fleet_yaml, *MESH_ARGS, "--episodes",
+            str(ASYNC_MESH_EPISODES), "--async", "--async-actors", "2",
+            "--no-obs", *two]),
+        ("(c, d) flat 2x1, sharded", [
+            "--agent-config", flat_yaml, *MESH_ARGS, "--episodes", "1",
+            "--async", "--async-actors", "1", "--mesh", "2x1",
+            "--partition-rules", "sharded", "--result-dir", flat_dir,
+            "--fault-plan", f"watcher_stall@a0:0:{hold}",
+            "--watchdog-budget", str(budget), "--watchdog-escalate", "0"])]
+    t0 = time.perf_counter()
+    per_rank = launch(cli.mesh_legs, 2, 1, devices=["cuda:0"] * 2,
+                      deadline_s=MESH_DEADLINE_S,
+                      args=([a for _, a in legs],))
+    wall = time.perf_counter() - t0
+    outs = per_rank[0]
+    for i, out in enumerate(outs):
+        out["ranks"] = [rank[i]["rank"] for rank in per_rank]
+    for (label, _), out in zip(legs, outs):
+        ranks = out["ranks"]
+        for r in ranks:
+            info = r["async"]
+            check(r["backend"] == "gloo", f"{label}: backend {r['backend']}")
+            check(info["ring_shards"] == 2 and info["mesh"] == "2x1",
+                  f"{label}: ring shards {info['ring_shards']}, mesh "
+                  f"{info['mesh']}")
+            check(info["actor_collectives"] == 0
+                  and info["ingest_collectives"] == 0,
+                  f"{label}: rank {r['rank']} issued "
+                  f"{info['actor_collectives']} collectives from actor "
+                  f"threads, {info['ingest_collectives']} in ingests")
+            check(info["transitions_lost"] == 0
+                  and info["produced_steps"] == info["ingested_steps"],
+                  f"{label}: rank {r['rank']} drain {info}")
+            check(r["launches"]["substep_megakernel"] > 0,
+                  f"{label}: rank {r['rank']} launched no "
+                  "substep_megakernel")
+            for k, n in r["launches"].items():
+                total[k] = total.get(k, 0) + n
+        check(len({r["state_sha256"] for r in ranks}) == 1,
+              f"{label}: the ranks end with different learner states")
+        check(len({r["async"]["bursts"] for r in ranks}) == 1,
+              f"{label}: burst counts {[r['async']['bursts'] for r in ranks]}")
+        print(f"  {label}: {out['summary']['wall_s']:.1f} s of rank 0's "
+              f"run; launches per rank {[r['launches'] for r in ranks]}",
+              flush=True)
+    print(f"  one launch of 2 ranks for the {len(legs)} legs: {wall:.1f} s "
+          f"(start-up {[round(r['startup_s'], 2) for r in outs[0]['ranks']]}"
+          " s)", flush=True)
+    laps.lap("launch")
+
+    # (a) the gathered replay against phase 20 (b)'s one-process run
+    got, want = outs[0]["buffers"], ref["frozen_ring"]
+    check(set(got.data) == set(want.data)
+          and all(same(got.data[k], want.data[k]) for k in want.data)
+          and torch.equal(got.pos, want.pos)
+          and torch.equal(got.size, want.size),
+          "(a) the 2x1 gathered replay differs from the one-process "
+          "--async replay")
+    print(f"  (a) 2x1 gathered replay == phase 20 (b)'s one-process "
+          f"replay, bit for bit ({sum(d.numel() for d in want.data.values())}"
+          f" elements); ranks' learner states equal", flush=True)
+
+    # (b) the fleet: every episode drained on both ranks, numbers beside
+    # phase 20's one-process runs of this call
+    fleet = outs[1]
+    infos = [r["async"] for r in fleet["ranks"]]
+    for info in infos:
+        check(info["episodes_drained"] == ASYNC_MESH_EPISODES
+              and info["publishes"] >= 1,
+              f"(b) drained {info['episodes_drained']} of "
+              f"{ASYNC_MESH_EPISODES}, {info['publishes']} publishes")
+    for r in fleet["ranks"]:
+        for k in ("gat_attention", "gat_attention_backward"):
+            check(r["launches"][k] > 0, f"(b) rank {r['rank']} launched "
+                  f"no {k}")
+    eps = sorted(h["episode"] for h in fleet["history"])
+    check(eps == list(range(ASYNC_MESH_EPISODES)), f"(b) episodes {eps}")
+    env_steps = sum(i["produced_steps"] / i["wall_s"] for i in infos)
+    bursts_s = infos[0]["bursts"] / max(i["wall_s"] for i in infos)
+    gather = [r["plan"]["gather_ms_per_step"] for r in fleet["ranks"]]
+    print(f"  (b) 2x1, 2 actors per rank, B=64, {ASYNC_MESH_EPISODES} "
+          f"episodes: {env_steps:.1f} env-steps/s summed over ranks, "
+          f"{bursts_s:.3f} bursts/s, policy lag max "
+          f"{[i['policy_lag_max'] for i in infos]} mean "
+          f"{[i['policy_lag_mean'] for i in infos]}, learner idle "
+          f"{[i['learner_idle_frac'] for i in infos]}, actor idle "
+          f"{[i['actor_idle_frac'] for i in infos]}, batch gather "
+          f"{[round(g, 4) for g in gather]} ms per gradient step, "
+          f"{infos[0]['bursts']} bursts, {infos[0]['publishes']} publishes "
+          f"on {smi}", flush=True)
+    for label, row in ref["rows"].items():
+        print(f"  beside phase 20 (one process, B=64, {ASYNC_STEPS}-step "
+              f"episodes) {label}: {row['env_steps_s']:.1f} env-steps/s, "
+              f"{row['bursts_s']:.3f} bursts/s", flush=True)
+    laps.lap("b")
+
+    # (c) the flat agent, (d) its actor 0 held in an adoption
+    flat = outs[2]
+    for r in flat["ranks"]:
+        check(r["async"]["episodes_drained"] == 1,
+              f"(c) rank {r['rank']} drained {r['async']['episodes_drained']}")
+        check(r["launches"]["gat_attention"] == 0,
+              f"(c) the flat agent launched attention on rank {r['rank']}")
+    stalls = {1: flat["ranks"][1]["stalls"], 0: []}
+    with open(os.path.join(flat_dir, "events.jsonl")) as f:
+        for line in f:
+            ev = json.loads(line)
+            if ev["event"] == "stall":
+                stalls[0].append(ev)
+    for rank, evs in stalls.items():
+        named = [e for e in evs if e.get("thread") == "actor0"
+                 and e.get("last_phase") == "adopt"]
+        check(named, f"(d) rank {rank}: no stall naming actor0 in adopt "
+              f"({[(e.get('thread'), e.get('last_phase')) for e in evs]})")
+        print(f"  (d) rank {rank}: stall of actor0 in adopt after "
+              f"{named[0]['age_s']} s (budget {budget} s, held {hold} s); "
+              f"{len(evs)} stall events in all", flush=True)
+    print(f"  (c) flat 2x1 (sharded): 1 episode (warm-up "
+          f"{ASYNC_MESH_FLAT_WARMUP} of 50 steps) drained on both ranks, "
+          "learner states equal", flush=True)
+    laps.lap("c, d")
+    shutil.rmtree(root, ignore_errors=True)
+    print("phase 25 parts, s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in laps.seconds.items()), flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -6626,7 +6859,7 @@ def main() -> int:
               f"{kernel} was not launched on the plugin path")
     # ---- 20. decoupled actor/learner training -------------------------
     print("phase 20, train --async:", flush=True)
-    async_launches = async_slice(torch, dev, smi)
+    async_launches, async_ref = async_slice(torch, dev, smi)
     phases.lap("20")
     for kernel, n in async_launches.items():
         check(n > 0, f"{kernel} was not launched on the --async path")
@@ -6662,7 +6895,13 @@ def main() -> int:
     oracle_launches, oracle_err = oracle_traffic_slice(torch, dev, smi,
                                                        oracle_refs, checks)
     phases.lap("24")
+    # ---- 25. train --async --mesh ---------------------------------------
+    print("phase 25, train --async --mesh:", flush=True)
+    am_launches = async_mesh_slice(torch, dev, smi, async_ref)
+    del async_ref
+    phases.lap("25")
     path_launches = {k: mesh_launches.get(k, 0) + perf_launches.get(k, 0)
+                     + am_launches.get(k, 0)
                      + flat_launches.get(k, 0)
                      + oracle_launches.get(k, 0)
                      + train_launches.get(k, 0)

@@ -30,7 +30,9 @@ The port of ``gsc_tpu.agents.trainer.Trainer``:
 - ``train_async`` is ``train_parallel``'s decoupled form (``cli train
   --async``): actor threads, each on its own CUDA stream, roll out into
   the learner's replay ring while this thread learns and publishes
-  (``parallel.async_rl``);
+  (``parallel.async_rl``); ``train_async(plan=...)`` is one rank of a
+  mesh over the dp axis (``train --async --mesh``), its actors rolling
+  out the rank's rows into the rank's ring shard;
 - ``evaluate`` runs greedy episodes (no noise, no learning) on the
   inference network, optionally writing the reference's test-mode CSV
   suite to ``<result_dir>/test``.
@@ -210,8 +212,10 @@ class Trainer:
         self.curriculum = None
         # the decoupled run's accounting (train_async)
         self.async_info: Optional[Dict] = None
-        # a mesh rank's accounting (train_parallel with a plan)
+        # a mesh rank's accounting (train_parallel or train_async with a
+        # plan), and the stall events of a rank's own fleet watchdog
         self.mesh_info: Optional[Dict] = None
+        self.rank_stalls: List[Dict] = []
         self.tb = None
         if tensorboard and result_dir:
             try:
@@ -772,9 +776,12 @@ class Trainer:
             from ..env.curriculum import Curriculum, CurriculumConfig
             curr = Curriculum(factory.family_names,
                               curriculum or CurriculumConfig())
-            return (lambda ep: factory.sample_batch(
+            # ``weights``: a snapshot of the curriculum's (decoupled
+            # training over ranks), else the weights as they stand
+            return (lambda ep, weights=None: factory.sample_batch(
                 self._episode_generator(ep),
-                torch.as_tensor(curr.weights(), dtype=torch.float32),
+                torch.as_tensor(curr.weights() if weights is None
+                                else weights, dtype=torch.float32),
                 num_replicas), None, factory, curr)
         samplers = {}
         if plan is not None:
@@ -1079,7 +1086,8 @@ class Trainer:
                     publish_bursts: int = 1, curriculum=None,
                     max_staleness: int = 0, learn_ratio: float = 1.0,
                     throttle_s: float = 0.0,
-                    on_row: Optional[Callable[[Dict], None]] = None):
+                    on_row: Optional[Callable[[Dict], None]] = None,
+                    watchdog_budget_s: float = 0.0):
         """Decoupled actor/learner training (``cli train --async``):
         ``actor_threads`` threads roll ``num_replicas`` replicas out
         continuously, each on its own CUDA stream, and ship transition
@@ -1093,27 +1101,41 @@ class Trainer:
         schedule with device traffic, a registry mix, or the factory
         under the TD curriculum, whose weights each burst's learning
         signal moves), keyed by the global episode index.  Episodes drain
-        in completion order: each one appends a ``history`` row and a
+        as the learner finds them finished (in index order within a
+        pass): each one appends a ``history`` row and a
         ``rewards.csv`` row and reports an ``episode`` event with the
         acting actor and policy version; the ``policy_lag``,
         ``replay_lag``, ``learner_idle_frac``, ``actor_idle_frac`` and
         ``replay_fill_frac`` gauges and the ``actor_dispatch``,
         ``replay_ingest``, ``learn_dispatch``, ``actor_idle`` and
-        ``learner_idle`` phases go to the observer.  A preemption stops
+        ``learner_idle`` phases go to the observer, and its watchdog
+        watches every actor thread (``actor{a}``) and the learner for the
+        run's duration.  A preemption stops
         the actors at their next boundary after the learner has drained
         everything produced; periodic checkpoints are saved from this
         thread at the contiguous drained prefix; ``publisher`` (the
         hot-swap directory's) is the bus the actors subscribe to.  Under
         a fault plan the async sites fire and, with ``rollback``, blocks
-        are quarantined and bursts rolled back.  ``plan`` (a mesh) does
-        not exist in the port and must be None.  Returns (state,
-        buffers); the run's accounting is ``self.async_info``."""
-        if plan is not None:
-            raise ValueError("the port has no device mesh: plan must be "
-                             "None")
-        if not self.agent_cfg.graph_mode:
-            raise ValueError("decoupled training (--async) of a flat agent "
-                             "(graph_mode: false) is not ported yet")
+        are quarantined and bursts rolled back.
+
+        ``plan`` (a ``parallel.partition.ShardingPlan`` over the dp axis)
+        makes this one rank of ``train --async --mesh``: its
+        ``actor_threads`` actors roll out the rank's replica rows of
+        each episode (the scenario source's [B] draw, sliced) into the
+        rank's ring shard, and its learner agrees every pass with the
+        other ranks' (``parallel.async_rl``).  An episode drains once it
+        has drained on every rank, in the same order on every rank; rank
+        0 alone owns the observer, the CSVs, checkpoints (of the gathered
+        ring) and the hot-swap directory, and every rank publishes to its
+        own actors.  Under a factory curriculum each episode is drawn
+        under the weights every rank's learner hands out at one agreed
+        pass (``run_async``'s ``scenario_snapshot``), so the ranks' rows of
+        an episode are rows of one [B] draw.
+        A rank without an observer watches its fleet on a hub of its own
+        when ``watchdog_budget_s`` > 0, its stall events kept in
+        ``rank_stalls``.  The returned state and replay are whole on
+        every rank.  Returns (state, buffers); the run's accounting is
+        ``self.async_info`` (and ``self.mesh_info`` under a plan)."""
         if profile and self.result_dir:
             from ..utils.debug import Profiler
             with Profiler(os.path.join(self.result_dir, "profile")):
@@ -1124,14 +1146,17 @@ class Trainer:
                     init_state=init_state, init_buffers=init_buffers,
                     start_episode=start_episode,
                     ckpt_manager=ckpt_manager, ckpt_interval=ckpt_interval,
-                    preempt=preempt, publisher=publisher,
+                    preempt=preempt, plan=plan, publisher=publisher,
                     publish_bursts=publish_bursts, curriculum=curriculum,
                     max_staleness=max_staleness, learn_ratio=learn_ratio,
-                    throttle_s=throttle_s, on_row=on_row)
+                    throttle_s=throttle_s, on_row=on_row,
+                    watchdog_budget_s=watchdog_budget_s)
         import threading
 
         from ..parallel.async_rl import AsyncConfig, run_async
 
+        if plan is not None:
+            plan.assert_async_capable()
         steps = self.agent_cfg.episode_steps
         if steps % chunk != 0:
             raise ValueError(f"chunk ({chunk}) must divide episode_steps "
@@ -1140,7 +1165,23 @@ class Trainer:
             num_replicas, device_traffic, curriculum)
         self.pddpg = pddpg = ParallelDDPG(
             self.env, self.agent_cfg, num_replicas, device=self.device,
-            seed=self.seed, learn_ledger=self.ddpg.learn_ledger)
+            seed=self.seed, learn_ledger=self.ddpg.learn_ledger, plan=plan)
+        mesh = plan.mesh if plan is not None else None
+        # the curriculum's weights are read by actor threads (scenarios)
+        # and moved by this one (bursts)
+        curr_lock = threading.Lock()
+        snapshot = None
+        if plan is not None:
+            whole = inputs
+            inputs = lambda ep, *snap: tuple(x.rows(pddpg.lo, pddpg.hi)
+                                             for x in whole(ep, *snap))
+            if curr is not None:
+                # every rank draws an episode's [B] scenarios under the
+                # weights the learners hand out at one agreed pass, and
+                # keeps its rows
+                def snapshot():
+                    with curr_lock:
+                        return curr.weights().copy()
         # the learner's random source (replay indices); each actor draws
         # from its own
         pddpg.draws = self.draws
@@ -1150,22 +1191,36 @@ class Trainer:
             pddpg.init(torch.Generator().manual_seed(self.seed))
         buffers = init_buffers if init_buffers is not None else \
             pddpg.init_buffers(_first(one_obs))
+        # what rank 0 alone knows, agreed once: whether checkpoints happen
+        # (every rank joins their gathers)
+        saves = ckpt_manager is not None
+        if mesh is not None:
+            saves = mesh.agree_any(saves)
         self.phase_timer = timer = PhaseTimer()
         hub = self.obs.hub if self.obs else None
+        watchdog = self.obs.watchdog if self.obs else None
+        rank_sink = None
+        if self.obs is None and plan is not None and watchdog_budget_s > 0:
+            # a rank without the observer watches its own fleet
+            from ..obs.hub import MetricsHub
+            from ..obs.sinks import ListSink
+            from ..obs.watchdog import PipelineWatchdog
+            hub = MetricsHub(tags={"rank": mesh.rank})
+            rank_sink = ListSink()
+            hub.add_sink(rank_sink)
+            watchdog = PipelineWatchdog(hub, watchdog_budget_s).start()
+        self.rank_stalls = []
         self.preempted = False
         self._last_drained = start_episode - 1
         writer = self._rewards()
-        # the curriculum's weights are read by actor threads (scenarios)
-        # and moved by this one (bursts)
-        curr_lock = threading.Lock()
 
-        def scenario_fn(ep):
+        def scenario_fn(ep, *snap):
             with phase_span("scenario_regen", timer, hub), curr_lock:
-                return inputs(ep)
+                return inputs(ep, *snap)
 
         start = time.perf_counter()
         drained_n = [0]
-        # episodes drain in completion order: the resume counter advances
+        # episodes drain out of index order: the resume counter advances
         # only through the contiguous drained prefix
         drained_set: set = set()
         prefix = [start_episode - 1]
@@ -1208,6 +1263,8 @@ class Trainer:
                                           "policy_version")},
                     sps=sps, phases=timer.summary(),
                     replay_bytes=buffer_nbytes(ring), extra=extra)
+            elif hub is not None:
+                hub.beat("episode")
             if hub is not None:
                 hub.gauge("replay_fill_frac",
                           float(ring.size.sum()) / (ring.size.numel()
@@ -1229,7 +1286,10 @@ class Trainer:
 
         def checkpoint_fn(st, ring, n_drained):
             # the contiguous drained prefix tags it, so a resume never
-            # skips an undrained episode
+            # skips an undrained episode; under a plan every rank gathered
+            # the ring and rank 0 writes it
+            if ckpt_manager is None:
+                return
             if state_is_finite(st):
                 ckpt_manager.save(st, ring, episode=self._last_drained + 1,
                                   draws=self.draws)
@@ -1244,8 +1304,16 @@ class Trainer:
                           publish_bursts=publish_bursts,
                           max_staleness=max_staleness,
                           learn_ratio=learn_ratio, throttle_s=throttle_s)
+        # fleet coverage: each actor thread and the learner beat their own
+        # heartbeat (run_async), so a stall names the thread and its phase
+        fleet = [f"actor{a}" for a in range(max(1, actor_threads))] + [
+            "learner"]
         if self.obs:
             self.obs.resume_watchdog()
+            self.obs.watch_fleet(fleet)
+        elif watchdog is not None:
+            for name in fleet:
+                watchdog.watch_thread(name)
         try:
             res = run_async(
                 pddpg, scenario_fn, state, buffers, episodes, steps, chunk,
@@ -1254,16 +1322,24 @@ class Trainer:
                 should_stop=((lambda: preempt.triggered)
                              if preempt is not None else None),
                 start_episode=start_episode,
-                checkpoint_every=(ckpt_interval if ckpt_manager is not None
-                                  else 0),
-                checkpoint_fn=(checkpoint_fn if ckpt_manager is not None
-                               else None),
+                checkpoint_every=ckpt_interval if saves else 0,
+                checkpoint_fn=checkpoint_fn if saves else None,
                 fault_plan=self.fault_plan,
                 rollback=(self.rollback and self.fault_plan is not None),
-                on_recovery=self._recover, retry_policy=self.retry_policy)
+                on_recovery=self._recover, retry_policy=self.retry_policy,
+                scenario_snapshot=snapshot)
         finally:
             if self.obs:
+                # the watches go before the pause: a paused watchdog keeps
+                # its registry, and a later loop must not inherit threads
+                # nobody beats any more
+                self.obs.unwatch_fleet()
                 self.obs.pause_watchdog()
+            elif watchdog is not None:
+                watchdog.unwatch_all_threads()
+                watchdog.stop()
+            if rank_sink is not None:
+                self.rank_stalls = rank_sink.of_kind("stall")
             writer.close()
             self._tb_close()
         if preempt is not None and preempt.triggered:
@@ -1280,7 +1356,22 @@ class Trainer:
             self.fault_plan.warn_unfired(hub)
         if hub is not None:
             hub.event("async_train", **res.info)
-        return res.state, res.buffers
+        buffers = res.buffers
+        if plan is not None:
+            self.mesh_info = {
+                "mesh": plan.describe(), "rank": mesh.rank,
+                "rules": plan.rules_name,
+                "split_leaves": len(plan.split_leaves()),
+                "entry_gathers": plan.entry_gathers,
+                "resident_bytes": plan.resident_bytes,
+                "full_bytes": plan.full_bytes,
+                "batch_gathers": plan.gathers,
+                "gather_ms_per_step": (1e3 * plan.gather_s / plan.gathers
+                                       if plan.gathers else None),
+                "burst_s": list(pddpg.burst_s)}
+            # the whole replay on every rank (the state is whole already)
+            buffers = plan.gather_buffers(buffers, num_replicas)
+        return res.state, buffers
 
     def _entry_returns(self, names, returns) -> Dict:
         """A mixed batch's returns per mix entry (the mean over its

@@ -50,9 +50,13 @@ a mesh of ranks, one process each (``parallel.mesh``): spawned on the
 card one card per rank (NCCL), on the CPU under ``--device cpu`` (gloo),
 or joined from a ``torchrun`` environment; ``--partition-rules
 replicated|sharded`` picks the learner state's residency
-(``parallel.partition``); ``tp`` and ``--async`` are refused with it.
-Rank 0 prints, writes and evaluates; the last JSON line carries ``mesh``
-and ``partition_rules``.
+(``parallel.partition``); ``tp`` is refused.  ``--async --mesh DPxMP``
+composes the two over the dp axis (a tp-only carving, dp = 1 with more
+than one rank, is refused with the recarve instructions): each rank runs
+``--async-actors`` actor threads on its own replica rows and ring shard,
+and only its learner thread talks to the process group.  Flat agents
+(``graph_mode: false``) train on both.  Rank 0 prints, writes and
+evaluates; the last JSON line carries ``mesh`` and ``partition_rules``.
 ``--resource-functions-path`` (``train``, ``infer``, ``serve``,
 ``simulate``) loads resource-function plugins before the service yaml is
 parsed; on the card they run compiled into the substep kernel.
@@ -128,7 +132,8 @@ ASYNC_DEFAULTS = (2, 0, 1, 1.0)
 DRAIN_KEYS = ("produced_steps", "ingested_steps", "transitions_lost",
               "episodes_drained", "bursts", "publishes", "policy_lag_max",
               "learner_idle_frac", "actor_idle_frac", "actor_restarts",
-              "actors_degraded", "blocks_quarantined", "rollbacks")
+              "actors_degraded", "blocks_quarantined", "rollbacks",
+              "ring_shards", "actor_collectives", "ingest_collectives")
 
 
 def _agent(args, precision):
@@ -388,24 +393,15 @@ def _check_train_args(args):
     args.curriculum = _curriculum(args)
 
 
-def _refuse_flat(args, agent, resume) -> None:
-    """A flat agent (``graph_mode: false``) on a path not ported for it
-    yet, or a resume across observation modes, refused by name before
-    anything starts."""
+def _refuse_mode_change(resume, agent) -> None:
+    """A resume across observation modes (``graph_mode``), refused by
+    name before anything starts."""
     if resume:
         from .utils.checkpoint import check_graph_mode
         try:
             check_graph_mode(resume, agent.graph_mode)
         except ValueError as e:
             raise SystemExit(f"--resume: {e}")
-    if agent.graph_mode:
-        return
-    for flag, on in (("--async", args.async_mode), ("--mesh", args.mesh)):
-        if on:
-            raise SystemExit(
-                f"{flag} with a flat agent (graph_mode: false) is not "
-                "ported yet: train it with a graph-mode agent, or drop "
-                f"{flag}")
 
 
 def _check_mesh_args(args):
@@ -433,9 +429,13 @@ def _check_mesh_args(args):
             f"device count ({dp * mp} = {dp}x{mp}) for an even replica "
             "sharding")
     if args.async_mode:
-        raise SystemExit(
-            "--async with --mesh (a replay ring sharded over the ranks) is "
-            "the next slice of the port: drop one of the flags")
+        # over the dp axis only: a tp-only carving has no axis to carve
+        # the replay ring along
+        from .parallel.partition import ShardingPlan
+        try:
+            ShardingPlan.from_spec(args.mesh).assert_async_capable()
+        except ValueError as e:
+            raise SystemExit(str(e))
     if args.partition_rules == "tp":
         raise SystemExit(
             "--partition-rules tp (tensor-parallel layers, collectives "
@@ -628,7 +628,10 @@ def _train_run(args, run: int, dev, precision, resume, mesh=None) -> dict:
                     publish_bursts=args.publish_bursts,
                     curriculum=args.curriculum,
                     max_staleness=args.max_staleness,
-                    learn_ratio=args.learn_ratio, on_row=on_row)
+                    learn_ratio=args.learn_ratio, on_row=on_row, plan=plan,
+                    # a rank without the observer watches its own fleet
+                    watchdog_budget_s=(args.watchdog_budget
+                                       if args.obs and not rank0 else 0.0))
             elif args.replicas > 1:
                 state, buffer = trainer.train_parallel(
                     args.episodes, args.replicas, chunk=args.chunk,
@@ -774,9 +777,11 @@ def _mesh_rank(mesh, args, precision, resume) -> List[dict]:
     behind in a form that crosses processes: rank 0's summary, its whole
     learner state (leaf name -> CPU tensor), its replay on the CPU and
     its evaluation, and every rank's accounting (``rank``: start-up
-    seconds, kernel launches, the plan's counters)."""
+    seconds, kernel launches, the plan's counters, an ``--async`` run's
+    ``async_info`` and its fleet's stall events on a rank without the
+    observer, and the digest of the rank's learner state)."""
     from .device import resolve_device
-    from .parallel.partition import state_leaves
+    from .parallel.partition import state_digest, state_leaves
 
     dev = resolve_device(mesh.device)
     outs = []
@@ -800,6 +805,9 @@ def _mesh_rank(mesh, args, precision, resume) -> List[dict]:
                      "backend": mesh.backend, "startup_s": mesh.startup_s,
                      "launches": launches,
                      "plan": trainer.mesh_info,
+                     "async": trainer.async_info,
+                     "stalls": trainer.rank_stalls,
+                     "state_sha256": state_digest(out["state"]),
                      "completed_episodes": trainer.completed_episodes}})
         if out["preempted"]:
             break
@@ -833,7 +841,7 @@ def _train(args, devices=None, deadline_s=None) -> dict:
             precision = checkpoint_precision(resume, precision)
         except ValueError as e:
             raise SystemExit(str(e))
-    _refuse_flat(args, _agent(args, precision), resume)
+    _refuse_mode_change(resume, _agent(args, precision))
     if args.mesh:
         outputs = _mesh_runs(args, dev, precision, resume, devices,
                              deadline_s)
@@ -1279,7 +1287,8 @@ def _parser() -> argparse.ArgumentParser:
                    "the ranks on the CPU (gloo); under torchrun each "
                    "process joins as its rank.  Checkpoints hold the whole "
                    "state and replay, so --resume may use another mesh or "
-                   "none (elastic resume)")
+                   "none (elastic resume).  With --async over the dp axis "
+                   "only (a DPx1 or DPxMP carving with DP > 1)")
     t.add_argument("--partition-rules", default="replicated",
                    choices=PARTITION_RULEBOOKS,
                    help="rule book of the learner state under --mesh: "
@@ -1425,7 +1434,8 @@ def _parser() -> argparse.ArgumentParser:
                    "line carries the drain proof")
     t.add_argument("--async-actors", type=int, default=ASYNC_DEFAULTS[0],
                    help="actor threads of --async (episodes go round-robin "
-                   "by global index)")
+                   "by global index); under --mesh, actor threads per "
+                   "rank, each rolling out its rank's replica rows")
     t.add_argument("--max-staleness", type=int, default=ASYNC_DEFAULTS[1],
                    help="--async backpressure: produced but not ingested "
                    "env steps the actors may run ahead (0 = two episodes' "

@@ -238,6 +238,18 @@ class RunObserver:
         if self.watchdog is not None:
             self.watchdog.pause()
 
+    def watch_fleet(self, names, budget_s: Optional[float] = None):
+        """Register the per-thread heartbeats of a decoupled run (the
+        actor threads and the learner) with the watchdog for the run's
+        duration: a quiet thread's stall event names it and its phase."""
+        if self.watchdog is not None:
+            for name in names:
+                self.watchdog.watch_thread(name, budget_s=budget_s)
+
+    def unwatch_fleet(self):
+        if self.watchdog is not None:
+            self.watchdog.unwatch_all_threads()
+
     def write_blackbox(self, reason: str,
                        extra: Optional[Dict] = None) -> Optional[str]:
         """Flush the post-mortem: last ``blackbox_window_s`` seconds of

@@ -15,13 +15,24 @@ beats), and :meth:`poll` runs one pass of the monitor, so a test drives
 the watchdog through an injected clock and explicit polls, without wall
 sleeps against a budget; :meth:`start` runs the same pass on a daemon
 thread every ``poll_s``.
+
+Fleet coverage (the decoupled trainer, ``train --async``): each actor
+thread and the learner beat their own heartbeat, registered with
+:meth:`PipelineWatchdog.watch_thread`; a thread quiet past its budget
+gives one ``stall`` event naming it and the phase
+``MetricsHub.note_thread_phase`` last recorded for it, and the
+``thread_stalls{thread=}`` counter.  It re-arms on the thread's next
+beat.
 """
 from __future__ import annotations
 
+import logging
 import threading
 from typing import Callable, Dict, Optional
 
 from .hub import MetricsHub
+
+log = logging.getLogger("gsc_tpu_torch.obs.watchdog")
 
 
 class PipelineWatchdog:
@@ -65,6 +76,10 @@ class PipelineWatchdog:
         self.poll_s = poll_s if poll_s is not None else max(
             min(self.budget_s / 4.0, 1.0), 0.25)
         self._probes: Dict[str, Callable[[], object]] = {}
+        # per-thread heartbeats (fleet coverage): name -> budget and the
+        # stall state of that thread
+        self._watched_lock = threading.Lock()
+        self._watched: Dict[str, Dict] = {}   # guarded-by: self._watched_lock
         self._stop = threading.Event()
         self._paused = threading.Event()
         if start_paused:
@@ -82,6 +97,32 @@ class PipelineWatchdog:
         events (e.g. prefetch queue depth)."""
         self._probes[name] = fn
 
+    def watch_thread(self, name: str, budget_s: Optional[float] = None):
+        """Watch one more per-thread heartbeat (an actor thread, the
+        learner): the thread beats ``hub.beat(name)`` at its own cadence;
+        quiet past ``budget_s`` (default: the main budget) it gives one
+        ``stall`` event naming it and its last phase.  Armed from
+        registration."""
+        self.hub.beat(name)
+        with self._watched_lock:
+            self._watched[name] = {
+                "budget_s": float(budget_s) if budget_s else self.budget_s,
+                "stalled": False, "stalled_at_beat": None,
+                "escalated": False}
+
+    def unwatch_thread(self, name: str):
+        with self._watched_lock:
+            self._watched.pop(name, None)
+
+    def unwatch_all_threads(self):
+        with self._watched_lock:
+            self._watched.clear()
+
+    def watched_threads(self):
+        """The names of the watched threads."""
+        with self._watched_lock:
+            return sorted(self._watched)
+
     def start(self):
         self.hub.beat(self.beat_name)   # arm: age measured from start
         self._thread.start()
@@ -94,6 +135,12 @@ class PipelineWatchdog:
         self._stalled = False
         self._escalated = False
         self._stalled_at_beat = None
+        with self._watched_lock:
+            for name, st in self._watched.items():
+                # paused time never counts toward a thread's budget
+                self.hub.beat(name)
+                st.update(stalled=False, escalated=False,
+                          stalled_at_beat=None)
         self._paused.clear()
 
     def pause(self):
@@ -116,9 +163,13 @@ class PipelineWatchdog:
 
     def poll(self):
         """One pass of the monitor: the stall, re-arm and escalation
-        checks of the heartbeat."""
+        checks of the heartbeat, then of every watched thread's."""
         if self._paused.is_set():
             return
+        self._poll_main()
+        self._poll_watched()
+
+    def _poll_main(self):
         age = self._age(self.beat_name)
         if age is None:
             return
@@ -139,6 +190,51 @@ class PipelineWatchdog:
                 and age > self.budget_s * (1 + self.escalate_after)):
             self._escalated = True
             self._escalate(age)
+
+    def _poll_watched(self):
+        """One pass over the per-thread heartbeats: a quiet thread's
+        stall event, its re-arm, and past the escalation horizon
+        (``budget * (1 + max(escalate_after, 1))``) one black-box dump per
+        stall of that thread."""
+        with self._watched_lock:
+            watched = list(self._watched.items())
+        for name, st in watched:
+            age = self._age(name)
+            if age is None:
+                continue
+            beat = self.hub.beat_time(name)
+            if st["stalled"] and beat != st["stalled_at_beat"]:
+                st.update(stalled=False, escalated=False)
+            if age > st["budget_s"] and not st["stalled"]:
+                st.update(stalled=True, stalled_at_beat=beat)
+                self.stall_count += 1
+                self._emit_thread_stall(name, age, st["budget_s"])
+            if (st["stalled"] and not st["escalated"]
+                    and age > st["budget_s"] * (1 + max(
+                        self.escalate_after, 1))):
+                st["escalated"] = True
+                self._blackbox(name, age)
+
+    def _emit_thread_stall(self, name: str, age: float, budget_s: float):
+        fields: Dict[str, object] = {
+            "thread": name,
+            "age_s": round(age, 3),
+            "budget_s": budget_s,
+            "last_phase": self.hub.thread_phase(name),
+            "heartbeats": self.hub.beat_ages(),
+            "thread_phases": self.hub.thread_phases(),
+        }
+        for pname, fn in self._probes.items():
+            try:
+                fields[pname] = fn()
+            except Exception as e:   # a dead probe is itself a diagnostic
+                fields[pname] = f"probe-error: {e!r}"
+        log.warning("stall: thread %s quiet for %.2f s (budget %.2f s), "
+                    "last phase %s", name, age, budget_s,
+                    fields["last_phase"])
+        self.hub.counter("stalls")
+        self.hub.counter("thread_stalls", thread=name)
+        self.hub.event("stall", **fields)
 
     def _blackbox(self, thread: str, age: float):
         cb = self.on_blackbox

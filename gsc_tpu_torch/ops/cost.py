@@ -44,10 +44,13 @@ attention's gradient is autograd's through the plain version:
 ``watch_plain_backward`` posts the backward kernel's work when autograd
 reaches that subgraph and marks its nodes, whose aten calls the tap then
 leaves out as well.  ``post_collective`` records one collective's payload
-bytes (``parallel.mesh``).
+bytes (``parallel.mesh``) under a capture, and counts every collective by
+the name of the thread that issued it (``collective_counts``), capture or
+not.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -331,8 +334,23 @@ def watch_plain_backward(t: Optional[KernelTap], out: torch.Tensor,
     out.grad_fn.register_prehook(lambda grads: t.post(name, parts))
 
 
+# collectives issued in this process, by thread name
+_COLLECTIVES: Dict[str, int] = {}   # guarded-by: _COLLECTIVES_LOCK
+_COLLECTIVES_LOCK = threading.Lock()
+
+
+def collective_counts() -> Dict[str, int]:
+    """Collectives issued in this process so far, by thread name."""
+    with _COLLECTIVES_LOCK:
+        return dict(_COLLECTIVES)
+
+
 def post_collective(op: str, nbytes: int) -> None:
-    """Record one collective of ``nbytes`` payload under a capture."""
+    """Count one collective for the calling thread, and record it with
+    its ``nbytes`` of payload under a capture."""
+    name = threading.current_thread().name
+    with _COLLECTIVES_LOCK:
+        _COLLECTIVES[name] = _COLLECTIVES.get(name, 0) + 1
     t = tap()
     if t is not None:
         t.post_collective(op, int(nbytes))

@@ -1,6 +1,6 @@
-"""Decoupled actor/learner training on one device, the Sebulba shape.
+"""Decoupled actor/learner training, the Sebulba shape.
 
-The port of ``gsc_tpu.parallel.async_rl`` without its mesh branch.
+The port of ``gsc_tpu.parallel.async_rl``.
 ``Trainer.train_parallel`` interleaves acting and learning on one thread;
 here they run apart:
 
@@ -11,7 +11,9 @@ here they run apart:
   by (seed, 1000 + actor)).  Every chunk is written into a fresh scratch
   ring of one chunk, whose leaves (the block) go to the learner through
   a bounded channel together with an event recorded on the actor's
-  stream after the chunk.  Between chunks an actor adopts newly
+  stream after the chunk, and the chunk's per-replica rewards, success
+  ratios and delays, unmeaned (``rollout_episodes(local=True)``, which
+  issues no collective).  Between chunks an actor adopts newly
   published weights through an in-process ``VersionWatcher`` on the
   ``WeightPublisher`` (``serve.fleet``), so no chunk mixes two policy
   versions.
@@ -41,6 +43,40 @@ A, ...), and each episode's scenario comes from ``scenario_fn(ep)``
 under one lock, so what an episode trains on does not depend on the
 number of actor threads.
 
+**Over the ranks of a mesh** (``train --async --mesh``: the
+``ParallelDDPG`` carries a ``ShardingPlan`` over the dp axis; a tp-only
+carving is refused, ``ShardingPlan.assert_async_capable``).  Every rank
+is one process with its own actor threads (``cfg.actor_threads`` per
+rank), which roll out only the rank's replica rows ``plan.rows(B)``, and
+its own learner, whose ring is the rank's shard ``[rows, cap]``: an
+ingest is a local write.  The process group matches collectives by the
+order each rank issues them, so only the learner thread talks to it
+(``parallel.mesh`` raises on a collective from any other thread), and it
+issues them in a sequence every rank derives from the same numbers.
+Each pass of the learner loop begins with one agreement (an all_reduce
+MIN of one integer vector, ``Mesh.agree_min``) that settles the pass:
+the fewest steps any rank has ingested (which paces the bursts), whether
+any rank was asked to stop, whether every rank's fleet has finished, and
+which episodes have drained on every rank.  Then, in this order: the
+episodes newly drained on every rank (in global episode order) with
+their per-replica numbers gathered into global replica order and meaned
+as a run without a mesh means them, a checkpoint (the rings gathered,
+``ShardingPlan.gather_buffers``), at most one learn burst
+(``ParallelDDPG.learn_burst``: every rank samples the same global batch
+and gathers its rows as bytes, so every rank ends the burst with the
+same learner state and no gradient is reduced), and a publish after a
+burst (the state gathered from the plan's residency; each rank's actors
+adopt from the rank's own publisher).  Each of these holds
+``ParallelDDPG.dispatch_lock``: the lock orders the threads of a rank,
+the agreement orders the ranks.  ``info`` reports the ring shards and
+the collectives the actor threads and the ingests issued (both 0).
+Without a plan the loop is the same, its agreement this process's own
+numbers.  A scenario source that the learner moves (the factory's
+curriculum) is read by the actors from a snapshot per episode, which
+the learner hands out at the same pass on every rank
+(``scenario_snapshot``), so every rank's rows of an episode come from
+one draw.
+
 Self-healing, as in the JAX package: an ``ActorSupervisor`` restarts a
 dead actor thread (an exception or the ``actor_die`` fault) from its
 episode counter within ``restart_budget``, then degrades the fleet and
@@ -68,11 +104,13 @@ import numpy as np
 import torch
 
 from ..agents.buffer import ReplayBuffer, buffer_nbytes
+from ..env.observations import obs_map
+from ..ops.cost import collective_counts
 from ..resilience.faults import FaultInjected
 from ..resilience.guard import RollbackGuard, all_finite, poison_tree
 from ..resilience.retry import (RetryPolicy, TransientDispatchError,
                                 call_with_retry)
-from .dp import make_replay_ingest
+from .dp import make_replay_ingest, replica_stats
 
 log = logging.getLogger("gsc_tpu_torch.parallel.async_rl")
 
@@ -273,9 +311,11 @@ class _FlightLedger:
     Rows: actor episode ``{ep, actor, shard, chunks: [[t0, t1, ver]],
     puts: [[t_enq, wait_s, steps, ver, seq]], adopts: [[ts, ver]]}``;
     ingest ``[t0, t1, steps, ver, lag, seq, shard]``; burst ``[t0, t1,
-    n]``; publish ``[ts, ver]`` (shard is always 0 on one device)."""
+    n]``; publish ``[ts, ver]``.  ``shard`` is the ring shard the blocks
+    land in: the rank's under a mesh, else 0."""
 
-    def __init__(self):
+    def __init__(self, shard: int = 0):
+        self.shard = int(shard)
         self._lock = threading.Lock()
         self.actor_eps: List[Dict] = []   # guarded-by: self._lock
         self.ingests: List[List] = []     # guarded-by: self._lock
@@ -289,7 +329,8 @@ class _FlightLedger:
     def note_ingest(self, t0, t1, steps, version, lag, seq):
         with self._lock:
             self.ingests.append([round(t0, 6), round(t1, 6), int(steps),
-                                 int(version), int(lag), int(seq), 0])
+                                 int(version), int(lag), int(seq),
+                                 self.shard])
 
     def note_burst(self, t0, t1, n):
         with self._lock:
@@ -333,6 +374,11 @@ def _poisoned(block: Dict) -> Dict:
             for k, v in block.items()}
 
 
+# the agreement vector's window: at most this many not yet agreed
+# episodes are asked about per pass (the rest in later passes)
+AGREE_WINDOW = 1024
+
+
 def run_async(pddpg, scenario_fn: Callable, state, buffers: ReplayBuffer,
               episodes: int, episode_steps: int, chunk: int, seed: int,
               cfg: AsyncConfig, publisher=None, hub=None, timer=None,
@@ -343,27 +389,49 @@ def run_async(pddpg, scenario_fn: Callable, state, buffers: ReplayBuffer,
               checkpoint_fn: Optional[Callable] = None,
               fault_plan=None, rollback: bool = False,
               on_recovery: Optional[Callable] = None,
-              retry_policy=None) -> AsyncResult:
+              retry_policy=None,
+              scenario_snapshot: Optional[Callable] = None) -> AsyncResult:
     """Drive episodes ``start_episode`` to ``episodes - 1`` through
     ``cfg.actor_threads`` actor threads feeding the learner (this
-    thread).  ``scenario_fn(ep) -> (topology, [B] traffic)`` on the
-    device supplies episode ``ep``'s scenario (called from actor threads
-    under one lock).  ``on_episode(record, ring)`` runs on this thread as
-    each episode drains (``episode``, ``actor``, ``policy_version``,
-    ``episodic_return``, ``mean_succ_ratio``, ``final_succ_ratio``,
-    ``per_replica_return``); ``on_burst(n, state, metrics)`` after each
-    learn burst; ``should_stop()`` is polled at every progress point
-    (preemption: the actors stop at their next boundary, the learner
-    drains what they produced); ``checkpoint_fn(state, ring, drained)``
-    every ``checkpoint_every`` drained episodes, on this thread.
+    thread).  ``scenario_fn(ep) -> (topology, traffic)`` on the device
+    supplies episode ``ep``'s scenario, the rank's replica rows under a
+    plan (called from actor threads under one lock).  ``on_episode(record,
+    ring)`` runs on this thread as each episode drains (``episode``,
+    ``actor``, ``policy_version``, ``episodic_return``,
+    ``mean_succ_ratio``, ``final_succ_ratio``, ``per_replica_return``);
+    ``on_burst(n, state, metrics)`` after each learn burst;
+    ``should_stop()`` is polled at every progress point (preemption: the
+    actors stop at their next boundary, the learner drains what they
+    produced); ``checkpoint_fn(state, ring, drained)`` every
+    ``checkpoint_every`` drained episodes, on this thread.
+    ``scenario_snapshot()`` (the curriculum's weights, say), when given,
+    is taken on this thread for each episode at a pass every rank agrees
+    on, once the episodes before it, but for ``2 x cfg.actor_threads``,
+    have drained; the actors wait for their episode's and call
+    ``scenario_fn(ep, snapshot)``, so that every rank's rows of an
+    episode come from one draw.
 
     The ring and ``state`` are updated in place and returned.  ``info``
     carries the drain-proved accounting: produced == ingested steps,
     bursts, publishes, policy and replay lags, idle fractions and the
-    self-healing ledger."""
+    self-healing ledger.
+
+    Under a plan (``pddpg.plan``; the module docstring) every rank calls
+    this with its ring shard; an episode drains once it has drained on
+    every rank, in the same order on every rank; ``checkpoint_fn`` gets
+    the whole state and the gathered ring on every rank; ``state`` is
+    returned whole and the ring as the rank's shard.  ``info`` adds ``ring_shards``, ``mesh``,
+    ``actor_collectives`` and ``ingest_collectives``.  A tp-only carving
+    is refused before anything starts."""
+    plan = pddpg.plan
+    if plan is not None:
+        plan.assert_async_capable()
     from ..serve.fleet import VersionWatcher, WeightPublisher
 
+    mesh = plan.mesh if plan is not None else None
     b_n = pddpg.B
+    # this rank's replica rows: a block's and the ring shard's leading dim
+    rows_n = pddpg.rows_n
     dev = pddpg.device
     on_card = dev.type == "cuda"
     if episode_steps % chunk != 0:
@@ -378,14 +446,19 @@ def run_async(pddpg, scenario_fn: Callable, state, buffers: ReplayBuffer,
     if episodes - start_episode <= 0:
         return AsyncResult(state=state, buffers=buffers)
     max_stale = (int(cfg.max_staleness) if cfg.max_staleness > 0
-                 else 2 * n_actors * b_n * episode_steps)
+                 else 2 * n_actors * rows_n * episode_steps)
     channel = _Channel(max_stale)
     results: deque = deque()
     results_lock = threading.Lock()
     stop_event = threading.Event()
     scenario_lock = threading.Lock()
     guarded = rollback or fault_plan is not None
-    replay_ingest = make_replay_ingest(b_n, cap)
+    replay_ingest = make_replay_ingest(rows_n, cap)
+    n_shards = plan.n_devices if plan is not None else 1
+    shard = mesh.rank if plan is not None else 0
+    counts0 = collective_counts()
+    ingest_collectives = 0
+    learner_name = threading.current_thread().name
 
     def recover(episode, site, action, fault=None, attempt=None,
                 detail=None):
@@ -411,7 +484,7 @@ def run_async(pddpg, scenario_fn: Callable, state, buffers: ReplayBuffer,
     # the last publish (version, host leaves): a restarted actor adopts it
     latest_pub: List = [None]
     policy_lags: List[int] = []
-    ledger = (_FlightLedger() if hub is not None
+    ledger = (_FlightLedger(shard) if hub is not None
               and getattr(hub, "series_store", None) is not None else None)
     # per-actor backpressure seconds, each slot written by its actor only
     actor_wait_s = [0.0] * n_actors
@@ -420,6 +493,29 @@ def run_async(pddpg, scenario_fn: Callable, state, buffers: ReplayBuffer,
     # the live modules (a restarted actor starts here or at the last
     # publish, never at unpublished learner weights)
     template = pddpg.actor_copy(state.actor)
+    if plan is not None:
+        # between dispatches the state lives in the plan's residency
+        plan.place_state(state)
+    # episode -> the learner's scenario snapshot; handed out up to
+    # ``snap_next`` (the first episode not drained + snap_lead)
+    snaps: Dict[int, Any] = {}
+    snap_cond = threading.Condition()
+    snap_next = [start_episode]
+    snap_lead = 2 * n_actors
+
+    def await_snapshot(ep: int, tname: str) -> bool:
+        """Wait until episode ``ep``'s snapshot is handed out; False when
+        the run stops first."""
+        with snap_cond:
+            while ep not in snaps:
+                if stop_event.is_set():
+                    return False
+                if hub is not None:
+                    hub.note_thread_phase(tname, "scenario_wait")
+                    hub.beat(tname)
+                snap_cond.wait(0.05)
+        return True
+
     learner_stream = torch.cuda.current_stream(dev) if on_card else None
     if on_card:
         from ..ops.substep import resource_plan
@@ -465,14 +561,19 @@ def run_async(pddpg, scenario_fn: Callable, state, buffers: ReplayBuffer,
                             "actor_die", ep, actor=aid) is not None:
                         raise FaultInjected(
                             f"injected actor death: actor_die@a{aid}:{ep}")
+                    snap = ()
+                    if scenario_snapshot is not None:
+                        if not await_snapshot(ep, tname):
+                            return
+                        snap = (snaps[ep],)
                     with scenario_lock:
-                        topo, traffic = scenario_fn(ep)
+                        topo, traffic = scenario_fn(ep, *snap)
                         if on_card:
                             # samplers made here are read by the next
                             # actor from its own stream
                             stream.synchronize()
                     env_states, obs = pddpg.reset_all(topo, traffic)
-                    one_obs = obs.map(lambda x: x[0])
+                    one_obs = obs_map(obs, lambda x: x[0])
                     chunk_stats, chunks, puts, adopts = [], [], [], []
                     for c in range(n_chunks):
                         if hub is not None:
@@ -505,11 +606,14 @@ def run_async(pddpg, scenario_fn: Callable, state, buffers: ReplayBuffer,
                         scratch = pddpg.init_buffers(one_obs, capacity=chunk)
                         with (timer.phase("actor_dispatch") if timer
                               else contextlib.nullcontext()):
+                            # the local form issues no collective, so the
+                            # actors never take dispatch_lock: taking it
+                            # would serialise them with the learner
                             _, scratch, env_states, obs, stats = \
-                                pddpg.rollout_episodes(
+                                pddpg.rollout_episodes(  # gsc-lint: disable=R8 -- the local form issues no collective
                                     None, scratch, env_states, obs, topo,
                                     traffic, start, chunk, actor=actor,
-                                    draws=draws)
+                                    draws=draws, local=True)
                         if ledger is not None:
                             chunks.append([round(t_roll, 6),
                                            round(time.time(), 6),
@@ -526,7 +630,7 @@ def run_async(pddpg, scenario_fn: Callable, state, buffers: ReplayBuffer,
                             ready = torch.cuda.Event()
                             ready.record(stream)
                         wait0 = actor_wait_s[aid]
-                        seq = channel.put(block, b_n * chunk,
+                        seq = channel.put(block, rows_n * chunk,
                                           policy.policy_version, ready,
                                           timer=timer, on_wait=on_wait)
                         del block, scratch
@@ -535,8 +639,8 @@ def run_async(pddpg, scenario_fn: Callable, state, buffers: ReplayBuffer,
                         if ledger is not None:
                             puts.append([round(time.time(), 6),
                                          round(actor_wait_s[aid] - wait0, 6),
-                                         b_n * chunk, policy.policy_version,
-                                         seq])
+                                         rows_n * chunk,
+                                         policy.policy_version, seq])
                         if hub is not None:
                             hub.beat(tname)
                     done = None
@@ -545,7 +649,7 @@ def run_async(pddpg, scenario_fn: Callable, state, buffers: ReplayBuffer,
                         done.record(stream)
                     if ledger is not None:
                         ledger.note_actor_episode({
-                            "ep": ep, "actor": aid, "shard": 0,
+                            "ep": ep, "actor": aid, "shard": shard,
                             "chunks": chunks, "puts": puts,
                             "adopts": adopts})
                     with results_lock:
@@ -565,10 +669,17 @@ def run_async(pddpg, scenario_fn: Callable, state, buffers: ReplayBuffer,
     threads = [threading.Thread(target=actor_loop, args=(a,),
                                 name=f"gsc-actor-{a}", daemon=True)
                for a in range(n_actors)]
-    steps_per_burst = b_n * episode_steps
+    # one burst per B x episode_steps ingested steps, counted on this
+    # rank's rows (every rank's share of each step)
+    steps_per_burst = rows_n * episode_steps
     bursts = publishes = last_ckpt = 0
     blocks_quarantined = steps_quarantined = 0
     drained: List[Dict] = []
+    # collected on this rank, not yet reported: episode -> record
+    collected: Dict[int, Dict] = {}
+    # episodes not yet reported, in global order (under a plan)
+    unagreed = list(range(start_episode, episodes))
+    stop_asked = [False]
     guard = None
     pending_verify = None   # (burst index, device flag) awaiting its read
     if rollback:
@@ -588,14 +699,27 @@ def run_async(pddpg, scenario_fn: Callable, state, buffers: ReplayBuffer,
                            _idle_probe(a, actor_wait_s), actor=a)
         hub.live_gauge("learner_idle_frac",
                        _idle_probe(0, learner_idle_acc))
+        hub.gauge("replay_ring_shards", n_shards)
 
     def wait_ready(ev):
         if ev is not None:
             learner_stream.wait_event(ev)
 
-    def allowance() -> int:
-        return int(channel.ingested_steps * cfg.learn_ratio
-                   // steps_per_burst)
+    def allowance(ingested: int) -> int:
+        return int(ingested * cfg.learn_ratio // steps_per_burst)
+
+    @contextlib.contextmanager
+    def whole_state():
+        """The full learner state for the block's duration (gathered from
+        the plan's residency, a collective of the mp group, and sliced
+        back after)."""
+        if plan is not None:
+            plan.gather_state(state)
+        try:
+            yield
+        finally:
+            if plan is not None:
+                plan.place_state(state)
 
     def maybe_publish():
         nonlocal publishes
@@ -605,7 +729,9 @@ def run_async(pddpg, scenario_fn: Callable, state, buffers: ReplayBuffer,
 
         # copies: on the CPU ``host_leaves`` shares the live parameters'
         # memory, which the next bursts update in place
-        leaves = [np.array(l, copy=True) for l in host_leaves(state.actor)]
+        with pddpg.dispatch_lock, whole_state():
+            leaves = [np.array(l, copy=True)
+                      for l in host_leaves(state.actor)]
         if leaves_finite(leaves):
             publisher.publish(leaves, meta={"burst": bursts,
                                             "episodes": len(drained)},
@@ -648,11 +774,13 @@ def run_async(pddpg, scenario_fn: Callable, state, buffers: ReplayBuffer,
                         f"learn-burst {b_idx} landed non-finite")
 
     def check_stop():
-        if should_stop is not None and not stop_event.is_set() \
-                and should_stop():
+        if should_stop is not None and not stop_asked[0] and should_stop():
+            stop_asked[0] = True
             stop_event.set()
 
-    def drain_results():
+    def collect():
+        """Move every finished episode's record off the actors' queue
+        (the learner's stream waits for its last chunk)."""
         while True:
             check_stop()
             with results_lock:
@@ -660,7 +788,40 @@ def run_async(pddpg, scenario_fn: Callable, state, buffers: ReplayBuffer,
                     return
                 rec = results.popleft()
             wait_ready(rec.pop("ready"))
-            stats = rec.pop("chunk_stats")
+            collected[rec["episode"]] = rec
+
+    def chunk_records(eps: List[int]) -> Dict[int, List[Dict]]:
+        """Each episode's per-chunk stats (``replica_stats`` of the
+        chunk's [T, B] numbers): the process's own without a plan, every
+        rank's gathered into global replica order under one (one gather
+        for all of ``eps``, under ``dispatch_lock``)."""
+        got = {k: torch.cat([c[k] for ep in eps
+                             for c in collected[ep]["chunk_stats"]]).t()
+               for k in "rse"}                    # [rows, eps x steps]
+        if plan is not None:
+            with pddpg.dispatch_lock:
+                got = plan.gather_replica_rows(got, b_n)
+        out = {}
+        for i, ep in enumerate(eps):
+            out[ep] = []
+            for c in range(episode_steps // chunk):
+                lo = i * episode_steps + c * chunk
+                r, s_, e = (got[k][:, lo:lo + chunk].t().contiguous()
+                            for k in "rse")
+                out[ep].append(replica_stats(r, s_, e))
+        return out
+
+    def report(eps: List[int]):
+        """Drain ``eps`` (collected on this rank; on every rank under a
+        plan), in this order."""
+        if not eps:
+            return
+        stats_of = chunk_records(eps)
+        for ep in eps:
+            snaps.pop(ep, None)
+            rec = collected.pop(ep)
+            rec.pop("chunk_stats")
+            stats = stats_of[ep]
             rec["episodic_return"] = sum(float(s["episodic_return"])
                                          for s in stats)
             rec["mean_succ_ratio"] = (sum(float(s["mean_succ_ratio"])
@@ -671,6 +832,17 @@ def run_async(pddpg, scenario_fn: Callable, state, buffers: ReplayBuffer,
             drained.append(rec)
             if on_episode is not None:
                 on_episode(rec, buffers)
+
+    def maybe_checkpoint():
+        nonlocal last_ckpt
+        if not (checkpoint_every and checkpoint_fn is not None
+                and len(drained) - last_ckpt >= checkpoint_every):
+            return
+        last_ckpt = len(drained)
+        with pddpg.dispatch_lock, whole_state():
+            ring = (plan.gather_buffers(buffers, b_n) if plan is not None
+                    else buffers)
+            checkpoint_fn(state, ring, len(drained))
 
     actors_alive = lambda: any(t.is_alive() for t in threads)  # noqa: E731
 
@@ -705,7 +877,7 @@ def run_async(pddpg, scenario_fn: Callable, state, buffers: ReplayBuffer,
                           f"({supervisor.restart_budget}); fleet "
                           f"degrades to {alive} actor(s)")
                 if cfg.max_staleness <= 0 and alive > 0:
-                    new_cap = 2 * alive * b_n * episode_steps
+                    new_cap = 2 * alive * rows_n * episode_steps
                     channel.set_max_outstanding(new_cap)
                     detail += f"; staleness cap re-derived to {new_cap}"
                 recover(at_ep, site="actor", action="degrade",
@@ -713,155 +885,231 @@ def run_async(pddpg, scenario_fn: Callable, state, buffers: ReplayBuffer,
                 if hub is not None:
                     hub.counter("actor_degraded_total")
 
+    def fleet_done() -> bool:
+        """True once every actor has exited with nothing produced left
+        queued and no episode left unrun (or the run is stopping); an
+        actor is respawned for orphaned episodes, and a fleet past its
+        restart budget raises."""
+        if actors_alive() or channel.outstanding():
+            return False
+        supervise()   # a failure queued just now may restart
+        if actors_alive() or channel.outstanding():
+            return False
+        if supervisor.unrun() and not stop_event.is_set():
+            cand = [a for a in range(n_actors) if a not in supervisor.dead]
+            if cand:
+                recover(len(drained), site="actor", action="restart",
+                        fault=None,
+                        detail=f"actor {cand[0]} respawned to drain "
+                               f"{supervisor.unrun()} orphaned episode(s)")
+                spawn_actor(cand[0], suffix="-orphans")
+                return False
+            raise RuntimeError(
+                f"async fleet exhausted: every actor is past its restart "
+                f"budget ({supervisor.restart_budget}) with "
+                f"{supervisor.unrun()} episode(s) unrun"
+            ) from supervisor.errors[-1]
+        with results_lock:
+            return not results
+
+    def ingest_queued() -> bool:
+        """Fold every queued block into the ring; True when any was
+        popped."""
+        nonlocal blocks_quarantined, steps_quarantined, ingest_collectives
+        # pop everything queued first: popping releases the actors'
+        # backpressure
+        items = []
+        item = channel.get_nowait()
+        while item is not None:
+            items.append(item)
+            item = channel.get_nowait()
+        for block, steps, version, seq, ready in items:
+            wait_ready(ready)
+            if on_card:
+                for leaf in block.values():
+                    leaf.record_stream(learner_stream)
+            if guarded and float(all_finite(list(block.values()))) <= 0.0:
+                # quarantine: the ring never holds a NaN; the pop
+                # already counted the steps as ingested
+                blocks_quarantined += 1
+                steps_quarantined += int(steps)
+                recover(len(drained), site="replay",
+                        action="quarantine", fault="non_finite_block",
+                        detail=f"seq={seq} shard={shard} steps={steps} "
+                               f"version={version}")
+                if hub is not None:
+                    hub.counter("replay_quarantined_total")
+                    hub.event("replay_quarantine", seq=int(seq),
+                              shard=shard, steps=int(steps),
+                              policy_version=int(version))
+                check_stop()
+                continue
+            if hub is not None:
+                hub.note_thread_phase("learner", "ingest")
+            t_ing = time.time()
+            before = collective_counts().get(learner_name, 0)
+            with (timer.phase("replay_ingest") if timer
+                  else contextlib.nullcontext()), pddpg.dispatch_lock:
+                replay_ingest(buffers, block)
+            ingest_collectives += (collective_counts().get(learner_name, 0)
+                                   - before)
+            lag = publisher.version - version
+            policy_lags.append(lag)
+            outstanding = channel.outstanding()
+            if ledger is not None:
+                ledger.note_ingest(t_ing, time.time(), steps, version,
+                                   lag, seq)
+            if hub is not None:
+                hub.gauge("policy_lag", lag)
+                hub.gauge("replay_lag", outstanding)
+                hub.observe("policy_lag", lag)
+                hub.observe("replay_lag", outstanding)
+                hub.series("policy_lag", lag)
+                hub.series("replay_lag", outstanding)
+                if n_shards > 1:
+                    # per-shard ingest heartbeat: a cold shard names its
+                    # rank
+                    hub.counter("replay_shard_ingest_total", shard=shard)
+                    hub.gauge("replay_shard_ingest_seq", seq, shard=shard)
+                    hub.beat(f"replay_shard{shard}")
+                hub.beat("learner")
+            check_stop()
+        return bool(items)
+
+    def learn() -> None:
+        """One learn burst (its rollback bookkeeping, retry and
+        hooks)."""
+        nonlocal bursts, pending_verify
+        verify_pending()
+        b_idx = bursts
+        if fault_plan is not None and fault_plan.fire(
+                "nan_grads", b_idx) is not None:
+            # burst-keyed: the state entering this burst; the deferred
+            # flag catches it one burst later
+            poison_tree(state.actor)
+        if hub is not None:
+            hub.note_thread_phase("learner", "learn_burst")
+        t_burst = time.time()
+
+        def dispatch_burst(b_idx=b_idx):
+            if fault_plan is not None and fault_plan.fire(
+                    "learner_transient", b_idx) is not None:
+                raise TransientDispatchError(
+                    f"injected transient at learn-burst {b_idx}")
+            with (timer.phase("learn_dispatch") if timer
+                  else contextlib.nullcontext()), pddpg.dispatch_lock, \
+                    whole_state():
+                return pddpg.learn_burst(state, buffers)
+
+        if guarded:
+            _, last_metrics = call_with_retry(
+                dispatch_burst, retry_policy or RetryPolicy(),
+                on_retry=lambda attempt, exc, delay: recover(
+                    len(drained), site="learner", action="retry",
+                    fault=type(exc).__name__, attempt=attempt,
+                    detail=f"learn-burst {b_idx}: {exc} "
+                           f"(backoff {delay:.2f}s)"))
+        else:
+            _, last_metrics = dispatch_burst()
+        bursts += 1
+        if guard is not None:
+            flag = last_metrics.get("state_finite")
+            if flag is not None:
+                pending_verify = (b_idx, flag)
+        if ledger is not None:
+            ledger.note_burst(t_burst, time.time(), bursts)
+        if hub is not None:
+            hub.beat("learner")
+        if cfg.throttle_s:
+            time.sleep(cfg.throttle_s)
+        if on_burst is not None:
+            on_burst(bursts, state, last_metrics)
+
+    def agree():
+        """The pass's agreement across ranks: (the fewest steps any rank
+        has ingested, whether any rank asked to stop, whether every
+        rank's fleet is done, the episodes drained on every rank in
+        global order); without a plan, this process's own."""
+        done = fleet_done()
+        window = unagreed[:AGREE_WINDOW]
+        got = ([channel.ingested_steps, 0 if stop_asked[0] else 1,
+                1 if done else 0]
+               + [1 if ep in collected else 0 for ep in window])
+        if mesh is not None:
+            if hub is not None:
+                # a learner waiting here waits for another rank
+                hub.note_thread_phase("learner", "agree")
+            got = mesh.agree_min(got)
+        return (got[0], got[1] == 0, got[2] == 1,
+                [ep for ep, ok in zip(window, got[3:]) if ok])
+
+    def hand_out_snapshots():
+        """Episodes up to the first one not drained + ``snap_lead`` get
+        the scenario snapshot as it stands (every rank makes this call
+        at the same point of the same pass, on equal numbers)."""
+        first = unagreed[0] if unagreed else episodes
+        upto = min(episodes, first + snap_lead)
+        if scenario_snapshot is None or snap_next[0] >= upto:
+            return
+        snap = scenario_snapshot()
+        with snap_cond:
+            for ep in range(snap_next[0], upto):
+                snaps[ep] = snap
+            snap_next[0] = upto
+            snap_cond.notify_all()
+
+    def idle_wait():
+        if hub is not None:
+            hub.note_thread_phase("learner", "idle")
+            hub.beat("learner")
+        t0 = time.perf_counter()
+        channel.wait_for_data(cfg.idle_wait_s)
+        waited = time.perf_counter() - t0
+        learner_idle_acc[0] += waited
+        if timer is not None:
+            timer.add("learner_idle", waited)
+
+    # the first episodes' snapshots (the actors wait for theirs)
+    hand_out_snapshots()
     try:
         while True:
             supervise()
             check_stop()
-            progressed = False
-            # pop everything queued first: popping releases the actors'
-            # backpressure
-            items = []
-            item = channel.get_nowait()
-            while item is not None:
-                items.append(item)
-                item = channel.get_nowait()
-            for block, steps, version, seq, ready in items:
-                wait_ready(ready)
-                if on_card:
-                    for leaf in block.values():
-                        leaf.record_stream(learner_stream)
-                if guarded and float(all_finite(list(block.values()))) \
-                        <= 0.0:
-                    # quarantine: the ring never holds a NaN; the pop
-                    # already counted the steps as ingested
-                    blocks_quarantined += 1
-                    steps_quarantined += int(steps)
-                    recover(len(drained), site="replay",
-                            action="quarantine", fault="non_finite_block",
-                            detail=f"seq={seq} steps={steps} "
-                                   f"version={version}")
-                    if hub is not None:
-                        hub.counter("replay_quarantined_total")
-                        hub.event("replay_quarantine", seq=int(seq),
-                                  shard=0, steps=int(steps),
-                                  policy_version=int(version))
-                    progressed = True
-                    check_stop()
-                    continue
-                if hub is not None:
-                    hub.note_thread_phase("learner", "ingest")
-                t_ing = time.time()
-                with (timer.phase("replay_ingest") if timer
-                      else contextlib.nullcontext()):
-                    replay_ingest(buffers, block)
-                lag = publisher.version - version
-                policy_lags.append(lag)
-                outstanding = channel.outstanding()
-                if ledger is not None:
-                    ledger.note_ingest(t_ing, time.time(), steps, version,
-                                       lag, seq)
-                if hub is not None:
-                    hub.gauge("policy_lag", lag)
-                    hub.gauge("replay_lag", outstanding)
-                    hub.observe("policy_lag", lag)
-                    hub.observe("replay_lag", outstanding)
-                    hub.series("policy_lag", lag)
-                    hub.series("replay_lag", outstanding)
-                    hub.beat("learner")
-                progressed = True
-                check_stop()
-            del items
-            drain_results()
-            if (checkpoint_every and checkpoint_fn is not None
-                    and len(drained) - last_ckpt >= checkpoint_every):
-                last_ckpt = len(drained)
-                checkpoint_fn(state, buffers, len(drained))
-            if bursts < allowance():
-                verify_pending()
-                b_idx = bursts
-                if fault_plan is not None and fault_plan.fire(
-                        "nan_grads", b_idx) is not None:
-                    # burst-keyed: the state entering this burst; the
-                    # deferred flag catches it one burst later
-                    poison_tree(state.actor)
-                if hub is not None:
-                    hub.note_thread_phase("learner", "learn_burst")
-                t_burst = time.time()
-
-                def dispatch_burst(b_idx=b_idx):
-                    if fault_plan is not None and fault_plan.fire(
-                            "learner_transient", b_idx) is not None:
-                        raise TransientDispatchError(
-                            f"injected transient at learn-burst {b_idx}")
-                    with (timer.phase("learn_dispatch") if timer
-                          else contextlib.nullcontext()):
-                        return pddpg.learn_burst(state, buffers)
-
-                if guarded:
-                    _, last_metrics = call_with_retry(
-                        dispatch_burst, retry_policy or RetryPolicy(),
-                        on_retry=lambda attempt, exc, delay: recover(
-                            len(drained), site="learner", action="retry",
-                            fault=type(exc).__name__, attempt=attempt,
-                            detail=f"learn-burst {b_idx}: {exc} "
-                                   f"(backoff {delay:.2f}s)"))
-                else:
-                    _, last_metrics = dispatch_burst()
-                bursts += 1
-                if guard is not None:
-                    flag = last_metrics.get("state_finite")
-                    if flag is not None:
-                        pending_verify = (b_idx, flag)
-                if ledger is not None:
-                    ledger.note_burst(t_burst, time.time(), bursts)
-                if hub is not None:
-                    hub.beat("learner")
-                if cfg.throttle_s:
-                    time.sleep(cfg.throttle_s)
-                if on_burst is not None:
-                    on_burst(bursts, state, last_metrics)
+            progressed = ingest_queued()
+            collect()
+            # one agreement, then the pass's collectives in the order
+            # every rank derives from it
+            ingested, stop, all_done, agreed = agree()
+            if stop:
+                stop_event.set()
+            if agreed:
+                report(agreed)
+                done_set = set(agreed)
+                unagreed[:] = [ep for ep in unagreed if ep not in done_set]
+                maybe_checkpoint()
+            learned = bursts < allowance(ingested)
+            if learned:
+                learn()
                 maybe_publish()
-                progressed = True
-            if not progressed:
-                if not actors_alive() and channel.outstanding() == 0:
-                    supervise()   # a failure queued just now may restart
-                    if actors_alive() or channel.outstanding():
-                        continue
-                    if supervisor.unrun() and not stop_event.is_set():
-                        cand = [a for a in range(n_actors)
-                                if a not in supervisor.dead]
-                        if cand:
-                            recover(len(drained), site="actor",
-                                    action="restart", fault=None,
-                                    detail=f"actor {cand[0]} respawned to "
-                                           f"drain {supervisor.unrun()} "
-                                           f"orphaned episode(s)")
-                            spawn_actor(cand[0], suffix="-orphans")
-                            continue
-                        raise RuntimeError(
-                            f"async fleet exhausted: every actor is past "
-                            f"its restart budget "
-                            f"({supervisor.restart_budget}) with "
-                            f"{supervisor.unrun()} episode(s) unrun"
-                        ) from supervisor.errors[-1]
-                    break
-                if hub is not None:
-                    hub.note_thread_phase("learner", "idle")
-                    hub.beat("learner")
-                t0 = time.perf_counter()
-                channel.wait_for_data(cfg.idle_wait_s)
-                waited = time.perf_counter() - t0
-                learner_idle_acc[0] += waited
-                if timer is not None:
-                    timer.add("learner_idle", waited)
+            hand_out_snapshots()
+            # the exit reads agreed values only, so every rank leaves in
+            # the same pass
+            if all_done and not learned and not agreed:
+                break
+            if not (progressed or learned or agreed):
+                idle_wait()
     finally:
         stop_event.set()
+        with snap_cond:
+            snap_cond.notify_all()
         channel.stop()
         for t in threads:
             t.join(timeout=30.0)
-    drain_results()
     # with rollback on, the returned state is always verified
     verify_pending()
+    if plan is not None:
+        # the whole learner state on every rank, as it entered
+        plan.gather_state(state)
     if on_card:
         learner_stream.synchronize()
     wall = time.perf_counter() - t_start
@@ -901,6 +1149,14 @@ def run_async(pddpg, scenario_fn: Callable, state, buffers: ReplayBuffer,
         "blocks_quarantined": blocks_quarantined,
         "steps_quarantined": steps_quarantined,
         "rollbacks": guard.rollbacks if guard is not None else 0,
+        "ring_shards": n_shards,
+        "mesh": plan.describe() if plan is not None else None,
+        # collectives issued from the actor threads and by the ingests:
+        # 0 by design (parallel.mesh raises on the first from an actor)
+        "actor_collectives": sum(
+            n - counts0.get(k, 0) for k, n in collective_counts().items()
+            if k.startswith("gsc-actor-")),
+        "ingest_collectives": ingest_collectives,
     }
     if hub is not None:
         hub.drop_live_gauge("learner_idle_frac")

@@ -21,12 +21,18 @@ gradient step, and the simulator's processing-delay noise.
 
 One instance serves the decoupled actor/learner loop
 (``parallel.async_rl``) from several threads: an actor thread rolls out
-with ``rollout_episodes(..., actor=, draws=)`` on its own copy of the
-actor network (``actor_copy``) and its own random source
+with ``rollout_episodes(..., actor=, draws=, local=True)`` on its own
+copy of the actor network (``actor_copy``) and its own random source
 (``actor_draws``) into a scratch ring of one chunk, never touching the
 learner's modules, whose parameters and Adam moments ``learn_burst``
 updates in place on the learner's thread; ``make_replay_ingest`` folds
-each shipped block into the learner's shared ring.
+each shipped block into the learner's shared ring.  The ``local`` form
+issues no collective under a plan: it returns its rows' per-replica
+rewards, success ratios and delays unmeaned, and the learner gathers
+and means them (``replica_stats``).  ``dispatch_lock`` is held around
+every dispatch that issues a collective (the learner's, and the
+gather of the other form's stats), so the threads of one rank never
+issue collectives beside each other.
 
 Under a sharding plan (``plan``, a ``parallel.partition.ShardingPlan``
 over a ``parallel.mesh.Mesh``) the instance is one rank of a mesh: it
@@ -48,6 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import threading
 import time
 from types import SimpleNamespace
 from typing import Callable, Dict, Optional, Tuple
@@ -97,6 +104,18 @@ def make_replay_ingest(num_replicas: int, capacity: int
     return replay_ingest
 
 
+def replica_stats(r: torch.Tensor, s: torch.Tensor,
+                  e: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """A chunk's stats from its per-replica rewards, success ratios and
+    delays ([T, B] each, global replica order): what a run without a
+    mesh reports, still on the device."""
+    return {"episodic_return": r.sum(0).mean(),
+            "mean_succ_ratio": s.mean(),
+            "mean_e2e_delay": e.mean(),
+            "final_succ_ratio": s[-1].mean(),
+            "per_replica_return": r.sum(0)}
+
+
 class ParallelDDPG:
     """B-replica data-parallel wrapper around the DDPG agent."""
 
@@ -110,9 +129,6 @@ class ParallelDDPG:
                 f"num_replicas ({num_replicas}) must be divisible by the "
                 f"mesh device count ({plan.n_devices}, mesh "
                 f"{plan.describe()}) for an even replica sharding")
-        if plan is not None and not agent.graph_mode:
-            raise ValueError("a mesh of a flat agent (graph_mode: false) "
-                             "is not ported yet: train it without a mesh")
         if plan is not None and plan.resident_sharded:
             raise ValueError(
                 "the tp rule book's tensor-parallel dispatch is not ported "
@@ -131,6 +147,10 @@ class ParallelDDPG:
         self.device = self.ddpg.device
         self.shuffle = ShuffleOps(agent, env.limits)
         self.draws = Draws(seed, self.device, rows=self.draw_rows)
+        # held around every dispatch that issues a collective: the
+        # threads of one rank never issue collectives beside each other
+        # (the ranks' agreement orders the ranks)
+        self.dispatch_lock = threading.Lock()
         # under a plan (synchronized): seconds of each learn burst, and
         # the rollouts' seconds and env steps on this rank's rows
         self.burst_s = []
@@ -169,8 +189,10 @@ class ParallelDDPG:
 
     def actor_draws(self, seed: int, actor: int) -> Draws:
         """Actor ``actor``'s random source: a generator on the device
-        seeded by (``seed``, 1000 + actor)."""
-        draws = Draws(0, self.device)
+        seeded by (``seed``, 1000 + actor); under a plan it draws every
+        replica's numbers and keeps this rank's rows (``Draws.rows``), so
+        actor ``actor`` of every rank draws what it draws without one."""
+        draws = Draws(0, self.device, rows=self.draw_rows)
         draws.generator.manual_seed(((seed & 0xFFFFFFFF) << 32)
                                     | (1000 + actor))
         return draws
@@ -187,7 +209,7 @@ class ParallelDDPG:
                          env_states: EnvState, obs, topo: Topology,
                          traffic: TrafficSchedule, episode_start_step: int,
                          num_steps: int, actor: Optional[Actor] = None,
-                         draws: Optional[Draws] = None
+                         draws: Optional[Draws] = None, local: bool = False
                          ) -> Tuple[DDPGState, ReplayBuffer, EnvState,
                                     object, Dict[str, torch.Tensor]]:
         """``num_steps`` steps of every replica: action, env step, replay
@@ -195,7 +217,11 @@ class ParallelDDPG:
         is the global step of the first one (the warm-up gate reads it).
         ``actor`` and ``draws`` (default: ``state.actor``, this
         instance's source) are what an actor thread acts with.  Returns
-        the chunk's stats, still on the device."""
+        the chunk's stats, still on the device: under a plan, every
+        rank's replicas gathered (under ``dispatch_lock``) and meaned as
+        ``replica_stats`` means them; with ``local`` this rank's rows'
+        ``r``, ``s``, ``e`` ([T, rows] each) unmeaned, with no collective
+        and no replay stats."""
         actor = actor if actor is not None else state.actor
         draws = draws if draws is not None else self.draws
         n = self.rows_n
@@ -227,21 +253,20 @@ class ParallelDDPG:
         r = torch.stack(rewards)            # [T, B]
         s = torch.stack(succ)
         e = torch.stack(e2e)
+        if local:
+            return state, buffers, env_states, obs, {"r": r, "s": s, "e": e}
         ring = buffers
         if self.plan is not None:
             # every replica's numbers in global replica order, laid out
             # as a run without a mesh lays them out, before any mean
-            got = self.plan.gather_replica_rows(
-                {"r": r.t(), "s": s.t(), "e": e.t(), "size": buffers.size},
-                self.B)
+            with self.dispatch_lock:
+                got = self.plan.gather_replica_rows(
+                    {"r": r.t(), "s": s.t(), "e": e.t(),
+                     "size": buffers.size}, self.B)
             r, s, e = (got[k].t().contiguous() for k in "rse")
             ring = SimpleNamespace(size=got["size"],
                                    capacity=buffers.capacity)
-        stats = {"episodic_return": r.sum(0).mean(),
-                 "mean_succ_ratio": s.mean(),
-                 "mean_e2e_delay": e.mean(),
-                 "final_succ_ratio": s[-1].mean(),
-                 "per_replica_return": r.sum(0)}
+        stats = replica_stats(r, s, e)
         if self.ddpg.learn_ledger is not None:
             stats["replay"] = replay_stats(ring)
         return state, buffers, env_states, obs, stats

@@ -31,6 +31,15 @@ threads; ranks on CUDA with one card each use NCCL.  More ranks than
 cards only comes from an explicit ``devices=[...]`` list (ranks sharing
 a card, over gloo); the CLI never asks for it.
 
+One thread of each rank may use the process group: the thread that
+carved its mesh (:func:`carve`, which calls :func:`collective_thread`:
+the rank's main thread, under ``train --async --mesh`` the learner).
+Every collective checks that first and raises
+:class:`CollectiveThreadError` naming the calling thread otherwise: gloo
+and NCCL match collectives by the order each rank issues them, and two
+threads issuing them beside each other would order them differently on
+two ranks (a hang, or buffers of equal size swapped without an error).
+
 Collectives are ``broadcast`` and ``all_reduce`` only, on tensors of the
 rank's device: the two operations gloo implements for CUDA tensors, so
 one code path runs on NCCL, on gloo with CPU tensors and on gloo with
@@ -48,6 +57,7 @@ import multiprocessing
 import os
 import shutil
 import tempfile
+import threading
 import time
 import traceback
 from dataclasses import dataclass
@@ -64,6 +74,38 @@ TIMEOUT_S = 600.0
 #: the launcher's test hook from the environment: this rank raises once
 #: it has joined (as ``launch(fail_rank=)``)
 FAIL_RANK_ENV = "GSC_MESH_FAIL_RANK"
+
+# the one thread of this process that may issue collectives (None: any)
+_OWNER: List[Optional[threading.Thread]] = [None]
+
+
+class CollectiveThreadError(RuntimeError):
+    """A collective issued from a thread that does not own the process
+    group."""
+
+
+def collective_thread() -> None:
+    """Make the calling thread the only thread of this process that may
+    issue collectives."""
+    _OWNER[0] = threading.current_thread()
+
+
+def check_collective_thread() -> None:
+    """Raise :class:`CollectiveThreadError` unless the calling thread owns
+    the process group."""
+    owner, me = _OWNER[0], threading.current_thread()
+    if owner is not None and me is not owner:
+        raise CollectiveThreadError(
+            f"a collective issued from thread {me.name!r}: only "
+            f"{owner.name!r} may use this rank's process group (ranks "
+            "match collectives by the order each issues them)")
+
+
+def _collective(op: str, nbytes: int) -> None:
+    """Before every collective: count it (``ops.cost.post_collective``,
+    per thread and under a capture), then the thread check."""
+    post_collective(op, nbytes)
+    check_collective_thread()
 
 
 @dataclass
@@ -127,9 +169,21 @@ class Mesh:
             return float(value)
         t = torch.tensor([float(value)], dtype=torch.float32,
                          device=self.device)
-        post_collective("all-reduce", t.numel() * t.element_size())
+        _collective("all-reduce", t.numel() * t.element_size())
         dist.all_reduce(t, op=op)
         return float(t.item())
+
+    def agree_min(self, values: Sequence[int]) -> List[int]:
+        """The element-wise minimum over ranks of an integer vector (one
+        all_reduce MIN of int64; exact for any step count).  Every rank
+        passes a vector of the same length."""
+        if self.world == 1 or not self.distributed:
+            return [int(v) for v in values]
+        t = torch.tensor([int(v) for v in values], dtype=torch.int64,
+                         device=self.device)
+        _collective("all-reduce", t.numel() * t.element_size())
+        dist.all_reduce(t, op=dist.ReduceOp.MIN)
+        return [int(v) for v in t.tolist()]
 
     def agree_any(self, flag: bool) -> bool:
         """True on every rank when it is true on any (all_reduce MAX)."""
@@ -144,7 +198,9 @@ def carve(dp: int, mp: int, rank: int, device, backend: Optional[str],
           startup_s: Optional[float] = None) -> Mesh:
     """The :class:`Mesh` of ``rank`` in an initialised process group of
     ``dp * mp`` ranks, with its mp group (every rank creates every group,
-    in the same order)."""
+    in the same order).  The calling thread becomes the one that may
+    issue collectives (:func:`collective_thread`)."""
+    collective_thread()
     mesh = Mesh(dp=dp, mp=mp, rank=rank, device=torch.device(device),
                 backend=backend, startup_s=startup_s)
     if backend is None or mp == 1:
@@ -198,7 +254,9 @@ def broadcast_rows(leaves: Sequence[torch.Tensor], src: int,
         buf = torch.empty((rows, sum(row_bytes(like))), dtype=torch.uint8,
                           device=device)
     if post:
-        post_collective("broadcast", buf.numel())
+        _collective("broadcast", buf.numel())
+    else:
+        check_collective_thread()
     dist.broadcast(buf, src=src, group=group)
     if dist.get_rank() == src:
         return list(leaves)
@@ -216,7 +274,7 @@ def gather_rows(mesh: Mesh, local: Dict[str, torch.Tensor],
         return dict(local)
     names = list(local)
     like = [local[k] for k in names]
-    post_collective("all-gather", sum(counts) * sum(row_bytes(like)))
+    _collective("all-gather", sum(counts) * sum(row_bytes(like)))
     parts: List[List[torch.Tensor]] = []
     for r, n in enumerate(counts):
         if n == 0:

@@ -45,6 +45,7 @@ port compiles no such programs and has no counterpart.
 """
 from __future__ import annotations
 
+import hashlib
 import logging
 import math
 import re
@@ -121,6 +122,18 @@ def state_leaves(state) -> Dict[str, torch.Tensor]:
                 if torch.is_tensor(st.get(k)):
                     out[f"{opt_name}/{k}/{name}"] = st[k]
     return out
+
+
+def state_digest(state) -> str:
+    """sha256 over every leaf's name and bytes in ``state_leaves`` order:
+    two ranks' learner states are bit-identical iff their digests are
+    equal (what crosses processes in place of the state)."""
+    h = hashlib.sha256()
+    for name, t in state_leaves(state).items():
+        h.update(name.encode())
+        h.update(t.detach().reshape(-1).contiguous().cpu()
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
 
 def learner_state_shapes(actor: torch.nn.Module, critic: torch.nn.Module
@@ -358,8 +371,24 @@ class ShardingPlan:
         return self.rules_name == "tp"
 
     def rows(self, num_replicas: int) -> Tuple[int, int]:
-        """This rank's replica rows ``[lo, hi)``."""
+        """This rank's replica rows ``[lo, hi)``: its shard of the replay
+        ring under ``train --async --mesh`` too."""
         return ring_shard_rows(num_replicas, self.n_devices)[self.mesh.rank]
+
+    def assert_async_capable(self):
+        """Refuse meshes the decoupled actor/learner cannot shard replay
+        over: a tp-only grid (``dp == 1`` with more than one rank) has no
+        data-parallel axis to carve the ``[B, cap]`` ring along.  Raises
+        with the recarve instructions (the JAX package's message)."""
+        if self.dp == 1 and self.n_devices > 1:
+            raise ValueError(
+                f"--async composes with --mesh over the dp axis only: "
+                f"mesh {self.describe()} is tensor-parallel-only (dp=1), "
+                f"so the replay ring has no dp axis to shard over. "
+                f"Recarve the same {self.n_devices} devices as "
+                f"{self.n_devices}x1 (pure dp) or {max(2, self.dp)}x"
+                f"{self.n_devices // max(2, self.dp)}, or drop --async "
+                f"to run tensor-parallel synchronously.")
 
     # -------------------------------------------------------- state specs
     def specs(self, leaves: Dict[str, Any]) -> Dict[str, Spec]:

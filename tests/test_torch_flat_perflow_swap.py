@@ -23,8 +23,10 @@ Sizes are tests/test_torch_flat_train.py's (a triangle padded to 8 nodes
 - a flat server swapping a version mid-serve answers as a fresh server on
   those weights, bit for bit; a graph-mode version is refused by a flat
   server (by its leaves) and the reverse;
-- ``--async`` and ``--mesh`` with a flat agent stay refused by name
-  (tests/test_torch_flat_train.py holds those refusals too).
+- a flat agent under per-flow control trains under ``--async`` and on a
+  ``--mesh 2x1`` with ``--hot-swap-dir``, and each run publishes (under
+  the mesh, rank 0 alone writes the directory); resuming a graph-mode
+  checkpoint stays refused on both paths.
 """
 import logging
 
@@ -316,13 +318,37 @@ def test_run_serve_flat_fleet_fires_swaps(tmp_path):
     assert "fired_at" in read_latest(str(tmp_path))["meta"]
 
 
-@pytest.mark.parametrize("flags,message", [
-    (["--replicas", "2", "--chunk", "3", "--async"], "--async with a flat"),
-    (["--replicas", "2", "--chunk", "3", "--mesh", "2x1"],
-     "--mesh with a flat")], ids=["async", "mesh"])
-def test_async_and_mesh_stay_refused_for_flat_agents(tmp_path, flags,
-                                                     message):
-    with pytest.raises(SystemExit, match=message):
-        cli.run_train(_cli_files(tmp_path) + ["--episodes", "1", *flags,
-                                              "--hot-swap-dir",
-                                              str(tmp_path / "hot")])
+@pytest.mark.parametrize("flags", [
+    ["--replicas", "2", "--chunk", "3", "--async"],
+    ["--replicas", "2", "--chunk", "3", "--mesh", "2x1"]],
+    ids=["async", "mesh"])
+def test_async_and_mesh_stay_refused_for_flat_agents(tmp_path, flags):
+    """What stays refused for a flat agent on ``--async`` and ``--mesh``:
+    resuming a checkpoint of the other observation mode (its sidecar says
+    graph_mode true), by name, before anything is built or spawned."""
+    ck = tmp_path / "graph_ckpt"
+    ck.mkdir()
+    (tmp_path / "graph_ckpt.meta.json").write_text(
+        '{"precision": "f32", "graph_mode": true}')
+    with pytest.raises(SystemExit, match="holds a graph_mode true agent"):
+        cli.run_train(_cli_files(tmp_path) + [
+            "--episodes", "2", *flags, "--resume", str(ck),
+            "--hot-swap-dir", str(tmp_path / "hot")])
+
+
+@pytest.mark.parametrize("flags,summary_key", [
+    (["--replicas", "2", "--chunk", "3", "--async"], "drain"),
+    (["--replicas", "2", "--chunk", "3", "--mesh", "2x1"], "mesh")],
+    ids=["async", "mesh"])
+def test_flat_agent_trains_under_async_and_mesh_and_publishes(
+        tmp_path, flags, summary_key):
+    """A flat agent under per-flow control trains under ``--async`` and
+    on ``--mesh 2x1``, publishing to the hot-swap directory (under the
+    mesh, rank 0 alone writes it)."""
+    out = cli.run_train(_cli_files(tmp_path) + ["--episodes", "1", *flags,
+                                                "--hot-swap-dir",
+                                                str(tmp_path / "hot")])
+    assert summary_key in out["summary"]
+    assert len(out["trainer"].history if "trainer" in out
+               else out["runs"][0]["history"]) == 1
+    assert read_latest(str(tmp_path / "hot"))["version"] >= 1

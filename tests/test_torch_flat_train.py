@@ -410,38 +410,75 @@ def test_checkpoint_of_the_other_mode_is_refused(tmp_path):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--replicas", "2", "--chunk", "3", "--async"], "--async with a flat"),
-    (["--replicas", "2", "--chunk", "3", "--mesh", "2x1"],
-     "--mesh with a flat"),
+    (["--replicas", "2", "--chunk", "3", "--async", "--mesh", "2x1",
+      "--partition-rules", "tp"], "tp"),
+    (["--replicas", "2", "--chunk", "3", "--mesh", "2x1",
+      "--partition-rules", "tp"], "tp"),
     (["--replicas", "2", "--chunk", "3", "--async", "--hot-swap-dir",
-      "HOT"], "--async with a flat")],
+      "HOT", "--mesh", "1x2"], "Recarve")],
     ids=["async", "mesh", "async_hot_swap"])
 def test_paths_not_ported_for_flat_agents_are_refused(tmp_path, flags,
                                                       message):
-    """``--async`` and ``--mesh`` stay refused by name for a flat agent
-    (``--hot-swap-dir`` alone runs since flat hot-swap was ported:
-    tests/test_torch_flat_perflow_swap.py)."""
+    """The paths still not ported are refused by name for a flat agent as
+    for any: the tp rule book under ``--mesh`` and ``--async --mesh``,
+    and a tp-only carving under ``--async``, before anything is built."""
     flags = [str(tmp_path / f) if f == "HOT" else f for f in flags]
     with pytest.raises(SystemExit, match=message):
         cli.run_train(_cli_files(tmp_path) + ["--episodes", "1", *flags])
 
 
-def test_library_refusals_name_the_path():
-    """The library's own refusals of the paths still not ported for a
-    flat agent: decoupled training and a mesh (per-flow control and the
-    hot-swap fleet were ported since: tests/test_torch_flat_perflow_swap.py)."""
-    from types import SimpleNamespace
+@pytest.mark.parametrize("flags,path", [
+    (["--replicas", "2", "--chunk", "3", "--async"], "async"),
+    (["--replicas", "2", "--chunk", "3", "--mesh", "2x1"], "mesh"),
+    (["--replicas", "2", "--chunk", "3", "--async", "--hot-swap-dir",
+      "HOT"], "async")],
+    ids=["async", "mesh", "async_hot_swap"])
+def test_flat_agent_takes_the_async_and_mesh_paths(tmp_path, monkeypatch,
+                                                   flags, path):
+    """``--async`` trains a flat agent (and publishes under
+    ``--hot-swap-dir``), and ``--mesh`` sends it to the mesh's ranks
+    (whose flat runs tests/test_torch_async_mesh.py holds against the run
+    without a mesh); a resume across observation modes stays refused
+    (above)."""
+    flags = [str(tmp_path / f) if f == "HOT" else f for f in flags]
+    argv = _cli_files(tmp_path) + ["--episodes", "1", *flags]
+    if path == "mesh":
+        seen = []
+        monkeypatch.setattr(cli, "_mesh_runs",
+                            lambda args, *rest: seen.append(args))
+        assert cli.run_train(argv) == {}
+        assert seen[0].mesh == "2x1"
+        return
+    out = cli.run_train(argv)
+    assert not out["trainer"].agent_cfg.graph_mode
+    assert out["summary"]["drain"]["episodes_drained"] == 1
+    assert out["summary"]["drain"]["transitions_lost"] == 0
+    if "--hot-swap-dir" in flags:
+        from gsc_tpu_torch.serve.fleet import read_latest
+        assert read_latest(flags[-1])["version"] >= 1
 
+
+def test_library_refusals_name_the_path():
+    """The library takes a flat agent on every path (decoupled training
+    and a mesh were the last refused); what it still refuses names the
+    path: the tp rule book's dispatch, and a tp-only carving under
+    decoupled training."""
     from gsc_tpu_torch.parallel.dp import ParallelDDPG
+    from gsc_tpu_torch.parallel.partition import ShardingPlan
 
     trainer = _port_stack()
-    with pytest.raises(ValueError, match=r"--async\) of a flat agent"):
-        trainer.train_async(1, 2, chunk=2)
-    plan = SimpleNamespace(n_devices=1, describe=lambda: "1x1",
-                           resident_sharded=False)
-    with pytest.raises(ValueError, match="a mesh of a flat agent"):
+    trainer.train_async(1, 2, chunk=2, actor_threads=1)
+    assert trainer.async_info["episodes_drained"] == 1
+    assert len(trainer.history) == 1
+    pddpg = ParallelDDPG(trainer.env, trainer.agent_cfg, 2, device="cpu",
+                         plan=ShardingPlan.from_spec("2x1"))
+    assert pddpg.rows_n == 1
+    with pytest.raises(ValueError, match="tp rule book"):
         ParallelDDPG(trainer.env, trainer.agent_cfg, 2, device="cpu",
-                     plan=plan)
+                     plan=ShardingPlan.from_spec("2x1", "tp"))
+    with pytest.raises(ValueError, match="Recarve"):
+        trainer.train_async(1, 2, chunk=2,
+                            plan=ShardingPlan.from_spec("1x2"))
 
 
 def test_policy_server_answers_equal_greedy_action():

@@ -247,10 +247,16 @@ def test_committed_baseline_has_a_reason_per_entry():
     for e in entries:
         assert e["reason"] and not e["reason"].startswith("TODO"), e
         assert e["rule"] in RULE_IDS
+    # the async fleet's dispatches hold dispatch_lock (train --async
+    # --mesh runs them): no baseline entry, and the actors' rollout, whose
+    # local form issues no collective, carries its reason inline
     r8 = [e for e in entries if e["rule"] == "R8"
           and e["path"] == "gsc_tpu_torch/parallel/async_rl.py"]
-    assert len(r8) == 3
-    assert all("cli.py:437" in e["reason"] for e in r8)
+    assert r8 == []
+    with open(os.path.join(REPO, "gsc_tpu_torch", "parallel",
+                           "async_rl.py")) as f:
+        inline = [line for line in f if "gsc-lint: disable=R8" in line]
+    assert len(inline) == 1 and "rollout_episodes(" in inline[0]
 
 
 # --------------------------------------------------------------- runner

@@ -8,8 +8,9 @@ port's CLI on CPU ranks (gloo).
   no mesh at all.
 - The refusals of the JAX CLI (gsc_tpu/cli.py:583-621) and the port's
   own: ``--mesh`` without replicas, grammar errors, indivisible replica
-  counts, ``--partition-rules`` without ``--mesh``, ``--async`` and
-  ``tp`` with ``--mesh`` (the next slice's), and a card run on fewer
+  counts, ``--partition-rules`` without ``--mesh``, ``tp`` with
+  ``--mesh``, under ``--async`` too (the next slice's), a tp-only carving
+  under ``--async`` (the recarve instructions), and a card run on fewer
   cards than ranks, which names the count and ``--device cpu``.
 - A rank that fails (the launcher's test hook) makes the launch raise
   with its traceback and the CLI exit non-zero, within the deadline, with
@@ -101,8 +102,9 @@ REFUSALS = [
     (["--mesh", "0x2"], "axes must be positive"),
     (["--mesh", "3x1"], "must be divisible by the mesh device count (3 = 3x1)"),
     (["--partition-rules", "sharded"], "has no effect without --mesh"),
-    (["--mesh", "2x1", "--async"], "next slice"),
+    (["--mesh", "2x2", "--async", "--partition-rules", "tp"], "next slice"),
     (["--mesh", "2x2", "--partition-rules", "tp"], "next slice"),
+    (["--mesh", "1x2", "--async"], "Recarve the same 2 devices as 2x1"),
 ]
 
 
